@@ -17,7 +17,13 @@ Phases, all run every time, each of which fails the run when it fails:
            GenerationEngine.generate at batch 32, prompt 128, 129 new
            tokens, and a ContinuousBatchingEngine answering 12 requests;
            between them a teacher-forced comparison of the kernel path
-           with the plain path, and one decode step's time and breakdown.
+           with the plain path, and one decode step's time and breakdown;
+  serving  the same model under the SLO serving frontend (ServingEngine,
+           chunked prefill of 256 through the paged-prefill kernel,
+           prefix cache): 16 requests, 8 of them sharing a 512-token
+           system prompt, with its own launch counts; and one
+           1500-token prompt prefilled chunk by chunk on the kernel path
+           and on the plain path, whose last logits must agree.
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -45,6 +51,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: the serving path's shapes (bench.py run_decode_bench's flagship rung)
 VOCAB, D_MODEL, N_LAYERS, N_HEADS, HEAD_DIM = 51200, 2048, 24, 16, 128
 DFF, BATCH, PROMPT, NEW_TOKENS, PAGE = 8192, 32, 128, 129, 16
+#: the serving frontend's shapes: table span and prefill chunk
+SERVE_MAX_LENGTH, SERVE_CHUNK = 2048, 256
 
 _LINES: list = []
 
@@ -460,15 +468,137 @@ def kernel_stream_layer_tail(gen) -> dict:
     return row
 
 
+def _prefill_case(dtype, gen, starts, c, g=1, d=HEAD_DIM, shared=0, L=1):
+    """Kernel-4 inputs at the serving path's shapes: per row a full
+    table of 128 distinct pages (a 2048-token span, page 16; the first
+    ``shared`` pages common to every row), 16 kv heads (x g query heads),
+    a chunk of ``c`` queries at ``starts``; an ``L``-layer folded pool
+    (tables of layer l are offset by l * P) so timed calls rotate past
+    the L2."""
+    b, n_kv, pp = len(starts), N_HEADS, SERVE_MAX_LENGTH // PAGE
+    P = b * pp + 1                             # + scratch page 0
+    rng = np.random.RandomState(11)
+    perm = list(rng.permutation(np.arange(1, P)))
+    common = [perm.pop() for _ in range(shared)]
+    tables = np.asarray([common + [perm.pop() for _ in range(pp - shared)]
+                         for _ in range(b)], np.int32)
+    dev = "cuda"
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=dev).to(dtype)
+    return dict(q=rnd(b, c, n_kv * g, d), kp=rnd(L * P, n_kv, PAGE, d),
+                vp=rnd(L * P, n_kv, PAGE, d), tables=tables,
+                start=torch.tensor(starts, dtype=torch.int32, device=dev),
+                n_kv=n_kv, P=P, L=L, pp=pp)
+
+
+def kernel_paged_prefill(gen) -> dict:
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+
+    res = {}
+    # (name, starts, chunk, valid rows, g, d, shared pages, table id
+    # past the pool at (row, page))
+    cases = [
+        ("start0", (0,), 256, 256, 1, HEAD_DIM, 0, None),
+        ("start512", (512,), 256, 256, 1, HEAD_DIM, 0, None),
+        ("start1792", (1792,), 256, 256, 1, HEAD_DIM, 0, None),
+        ("unaligned_padded_tail", (37,), 208, 200, 1, HEAD_DIM, 0, None),
+        ("shared_prefix_two_rows", (300, 1000), 256, 256, 1, HEAD_DIM, 20,
+         None),
+        ("table_id_past_pool", (700,), 256, 256, 1, HEAD_DIM, 0, (0, 10)),
+        ("g2_d64", (512,), 256, 256, 2, 64, 0, None),
+        ("g4_d256", (512,), 256, 256, 4, 256, 0, None)]
+    # tolerances, scaled by the output's largest magnitude m: both sides
+    # accumulate in fp32 in another order (float32: 2e-5 * max(m, 1));
+    # bf16 outputs round the same fp32 value, one rounding may flip: one
+    # bf16 ulp at m, 2^(floor(log2 m) - 7)
+    for name, starts, c, valid, g, d, shared, bad in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = _prefill_case(dtype, gen, starts, c, g=g, d=d, shared=shared)
+            if bad is not None:
+                a["tables"][bad] = a["P"]           # names no page
+            tables = torch.from_numpy(a["tables"]).cuda()
+            out = fv.paged_prefill_attention(a["q"], a["kp"], a["vp"],
+                                             tables, a["start"],
+                                             n_kv=a["n_kv"])
+            ref = fv._paged_prefill_plain(a["q"], a["kp"], a["vp"], tables,
+                                          a["start"], n_kv=a["n_kv"])
+            torch.cuda.synchronize()
+            out, ref = out[:, :valid], ref[:, :valid]
+            m = float(ref.float().abs().max())
+            tol = (2e-5 * max(m, 1.0) if dtype == torch.float32
+                   else 2.0 ** (np.floor(np.log2(m)) - 7))
+            err = max_err(out, ref)
+            emit({"check": "paged_prefill_attention", "case": name,
+                  "starts": list(starts), "c": c, "valid_rows": valid,
+                  "g": g, "d": d, "dtype": str(dtype), "max_abs_err": err,
+                  "tol": tol, "max_abs_ref": m})
+            check(err <= tol, f"paged prefill {name} {dtype}: {err} > "
+                              f"{tol}")
+            if name == "start1792":
+                res[str(dtype)] = err
+            del a, out, ref
+    # timing, bf16, the last chunk of a 2048-token context, rotating
+    # over 4 layers of the pool (16.8 MB of K/V each, past the L2)
+    start, c = SERVE_MAX_LENGTH - SERVE_CHUNK, SERVE_CHUNK
+    a = _prefill_case(torch.bfloat16, gen, (start,), c, L=4)
+    P, n_kv, d = a["P"], a["n_kv"], HEAD_DIM
+    tables = [torch.from_numpy(a["tables"] + l * P).cuda()
+              for l in range(a["L"])]
+    nxt = cycler(a["L"])
+
+    def kern():
+        fv.paged_prefill_attention(a["q"], a["kp"], a["vp"], tables[nxt()],
+                                   a["start"], n_kv=n_kv)
+
+    def plain():
+        fv._paged_prefill_plain(a["q"], a["kp"], a["vp"], tables[nxt()],
+                                a["start"], n_kv=n_kv)
+    # library yardstick: SDPA over the K/V already gathered dense, masked
+    # by position (key <= query)
+    S = a["pp"] * PAGE
+    dense = [(a["kp"][t.long()[0]].transpose(0, 1).reshape(1, n_kv, S, d),
+              a["vp"][t.long()[0]].transpose(0, 1).reshape(1, n_kv, S, d))
+             for t in tables]
+    qd = a["q"].transpose(1, 2).contiguous()            # [1, n_q, c, d]
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= start + torch.arange(c, device="cuda")[:, None])
+
+    def library():
+        kd, vd = dense[nxt()]
+        F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+    # what these inputs need: every K/V row below the last query's
+    # position once, q and the output once; q.k and p.v over the causal
+    # span of each query
+    isz = 2
+    n_q = a["q"].shape[2]
+    keys = min(S, start + c)
+    nbytes = (2 * keys * n_kv * d * isz + 2 * c * n_q * d * isz
+              + a["pp"] * 4 + 4)
+    flops = 4.0 * n_q * d * sum(start + t + 1 for t in range(c))
+    bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+           "flops": flops, "start": start, "c": c,
+           "max_abs_err": res[str(torch.bfloat16)]}
+    emit({"time": "paged_prefill_attention", **row})
+    return row
+
+
 # ---------------------------------------------------------------- slice
 
 def _counters():
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
     return {"paged_decode_attention_inplace": pa.launches,
             "stream_linear": sl.launches,
-            "stream_layer_tail": sl.tail_launches}
+            "stream_layer_tail": sl.tail_launches,
+            "paged_prefill_attention": fv.launches}
 
 
 #: CUDA launches of one stream_layer_tail call with the next layer's
@@ -476,40 +606,48 @@ def _counters():
 TAIL_LAUNCHES_PER_CALL = 6
 
 
-def _expected_launches(decode_steps: int, prefills: int) -> dict:
+def _expected_launches(decode_steps: int, prefills: int,
+                       prefill_chunks: int = 0) -> dict:
     """Launches of the grouped, prefetching decode path: per step one
     attention and one tail call per layer, the layer-0 QKV and the LM
-    head; per prefill one LM head."""
+    head; per one-shot prefill one LM head; per chunk of the chunked
+    prefill one paged-prefill attention per layer and one LM head."""
     return {"paged_decode_attention_inplace": N_LAYERS * decode_steps,
-            "stream_linear": 2 * decode_steps + prefills,
+            "stream_linear": 2 * decode_steps + prefills + prefill_chunks,
             "stream_layer_tail":
-                TAIL_LAUNCHES_PER_CALL * N_LAYERS * decode_steps}
+                TAIL_LAUNCHES_PER_CALL * N_LAYERS * decode_steps,
+            "paged_prefill_attention": N_LAYERS * prefill_chunks}
 
 
 def _check_launches(path: str, counts: dict, expect: dict) -> None:
+    """Exact counts; every kernel the path runs launched at least once."""
     for name, n in counts.items():
-        check(n > 0, f"{path} did not launch {name}")
+        check(n > 0 or expect[name] == 0, f"{path} did not launch {name}")
         check(n == expect[name], f"{path} launched {name} {n} times, "
                                  f"expected {expect[name]}")
 
 
 def _reset_counters():
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
     pa.launches = 0
     sl.launches = 0
     sl.tail_launches = 0
+    fv.launches = 0
 
 
 @contextlib.contextmanager
 def plain_path():
-    """The decode step with every kernel call replaced by its plain
-    PyTorch version (the reference for the teacher-forced check)."""
+    """The decode step and the chunked prefill with every kernel call
+    replaced by its plain PyTorch version (the reference for the
+    teacher-forced and chunked-prefill checks)."""
     from unittest import mock
 
     from paddle_tpu_torch.incubate.nn import fused_transformer as ft
     from paddle_tpu_torch.inference import engine as eng
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
@@ -524,6 +662,8 @@ def plain_path():
     with mock.patch.object(ft, "paged_decode_attention_inplace", attn), \
             mock.patch.object(ft, "stream_linear", lin), \
             mock.patch.object(ft, "stream_layer_tail", _plain_tail), \
+            mock.patch.object(ft, "paged_prefill_attention",
+                              fv._paged_prefill_plain), \
             mock.patch.object(eng, "stream_linear", lin):
         yield
 
@@ -536,7 +676,7 @@ def _build_model():
     model = FusedCausalLM(
         vocab_size=VOCAB, embed_dim=D_MODEL, num_heads=N_HEADS,
         dim_feedforward=DFF, num_layers=N_LAYERS,
-        max_position=PROMPT + NEW_TOKENS + 1)
+        max_position=SERVE_MAX_LENGTH + SERVE_CHUNK)
     st = model.stack
     # bench.py's serving recipe: bf16 matmul stacks and biases, fp32 LNs
     for n in ("qkv_weight", "qkv_bias", "out_weight", "out_bias",
@@ -754,6 +894,164 @@ def slice_continuous(model) -> dict:
     return counts
 
 
+def slice_serving(model) -> dict:
+    """The SLO serving frontend at full width: ServingEngine with 8 slots,
+    page 16, max_length 2048, decode chunk 16 and prefill chunks of 256.
+    A 512-token system prompt S; the first request, S + 64 tokens, is
+    stepped into decode so its prefix is registered; then 7 more of S +
+    16..240 tokens and 8 independent prompts of 40..1500 tokens, all
+    with 64 new tokens, are served to the end step by step."""
+    from paddle_tpu_torch.profiler import stats
+    from paddle_tpu_torch.serving import ServingEngine, SLOConfig
+
+    new = 64
+    slo = SLOConfig(prefill_chunk=SERVE_CHUNK)
+    eng = ServingEngine(model, max_batch=8, page_size=PAGE,
+                        max_length=SERVE_MAX_LENGTH, decode_chunk=16,
+                        slo=slo)
+    free0 = eng._mgr.free_pages
+    rng = np.random.RandomState(4)
+    sys_prompt = rng.randint(0, VOCAB, 512)
+    first = np.concatenate([sys_prompt, rng.randint(0, VOCAB, 64)])
+    shared = [np.concatenate([sys_prompt, rng.randint(0, VOCAB, int(n))])
+              for n in rng.randint(16, 241, 7)]
+    indep = [rng.randint(0, VOCAB, int(n))
+             for n in np.linspace(40, 1500, 8).astype(int)]
+    trace = []                        # (action, decoding before the step)
+
+    def step():
+        decoding, n = eng.num_active > 0, len(eng.action_log)
+        eng.step()
+        trace.append((eng.action_log[n] if len(eng.action_log) > n
+                      else None, decoding))
+    stats.reset()
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    rids = [eng.submit(first, max_new_tokens=new)]
+    while not eng.num_active:
+        step()
+    rids += [eng.submit(p, max_new_tokens=new) for p in shared + indep]
+    while eng.has_work:
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counters()
+    chunks = stats.counter("serve.prefill_chunks").value
+    dsteps = stats.counter("serving.decode_steps").value
+    expect = _expected_launches(dsteps, 0, chunks)
+    done = {r.id: r for r in eng.finished}
+    # the stall bound: consecutive prefill chunks while a request decodes
+    streak = longest = 0
+    for action, decoding in trace:
+        streak = streak + 1 if action == "prefill" and decoding else 0
+        longest = max(longest, streak)
+    hit = stats.counter("serving.prefix_hit").value
+    saved = stats.counter("serving.prefix_pages_saved").value
+    free_end = eng._mgr.free_pages
+    cleared = eng.prefix_cache.clear()
+    ttft = stats.histogram("serve.ttft_ms").summary()
+    tpot = stats.histogram("serve.tpot_ms").summary()
+    # where the serve's wall went, by scheduler phase (each chunk ends in
+    # its token fetch, so a chunk's wall holds its device time)
+    phase_ms = {p: stats.histogram(f"serve.step.{p}_ms").total
+                for p in ("admit", "prefill_chunk", "decode_chunk",
+                          "host_overhead")}
+    emit({"phase": "serving", "requests": len(done),
+          "prompt_lens": [len(first)] + [len(p) for p in shared + indep],
+          "seconds": dt, "tokens_per_s": len(rids) * new / dt,
+          "ttft_ms_p50": ttft["p50"], "ttft_ms_p99": ttft["p99"],
+          "tpot_ms_p50": tpot["p50"], "tpot_ms_p99": tpot["p99"],
+          "step_ms_by_phase": phase_ms,
+          "prefill_chunks": chunks, "decode_steps": dsteps,
+          "prefill_tokens": stats.counter("serve.prefill_tokens").value,
+          "prefix_hit": hit, "prefix_pages_saved": saved,
+          "steps": len(trace), "actions": {
+              a: eng.action_log.count(a) for a in ("prefill", "decode")},
+          "longest_prefill_streak_while_decoding": longest,
+          "prefill_burst": slo.prefill_burst,
+          "launches": counts, "expected_launches": expect,
+          "free_pages_start": free0, "free_pages_end": free_end,
+          "prefix_pages_cleared": cleared,
+          "free_pages_after_clear": eng._mgr.free_pages})
+    check(sorted(done) == sorted(rids),
+          f"{len(done)} of {len(rids)} requests finished")
+    check(all(done[r].state == "ok" and len(done[r].generated) == new
+              for r in rids), f"a request ended other than ok with {new} "
+                              "tokens")
+    check(all(0 <= t < VOCAB for r in rids for t in done[r].generated),
+          "serving: token ids outside the vocabulary")
+    check(hit >= 7 and saved >= 7 * 32,
+          f"prefix cache: {hit} hits saving {saved} pages, expected >= 7 "
+          "and >= 224")
+    check(eng.action_log.count("prefill") > 0
+          and eng.action_log.count("decode") > 0,
+          "serving: prefill and decode did not both run")
+    check(longest <= slo.prefill_burst,
+          f"{longest} consecutive prefill chunks while a request decoded "
+          f"(bound {slo.prefill_burst})")
+    check(eng._mgr.free_pages == free0,
+          "the pool's free pages did not return to their start value "
+          "after the prefix cache was cleared")
+    _check_launches("serving", counts, expect)
+    return counts
+
+
+def slice_chunked_prefill(model) -> None:
+    """One 1500-token prompt prefilled in chunks of 256 (the tail chunk
+    bucket-padded to 224), as the serving frontend does, on the kernel
+    path and on the plain path, each into its own pool; the logits of
+    the last prompt position must agree."""
+    from paddle_tpu_torch.inference import (BlockKVCacheManager,
+                                            GenerationEngine)
+
+    n, c, bucket = 1500, SERVE_CHUNK, 16
+    st = model.stack
+    eng = GenerationEngine(model, page_size=PAGE,
+                           max_length=SERVE_MAX_LENGTH)
+    pp = SERVE_MAX_LENGTH // PAGE
+    ids = torch.from_numpy(np.random.RandomState(5).randint(
+        0, VOCAB, n)).cuda()
+    w, emb, head = eng._weights(), eng._embed(), eng._head_t
+    lnf_s, lnf_b = eng._lnf()
+
+    def prefill():
+        mgr = BlockKVCacheManager(st.num_layers, st.num_kv_heads,
+                                  st.head_dim, PAGE, num_pages=pp + 1,
+                                  dtype=torch.bfloat16,
+                                  reserve_scratch=True, device=model.device)
+        mgr.allocate(0, n)
+        tables = mgr.block_tables([0], pp)
+        cache = mgr.fresh_cache()
+        for s0 in range(0, n, c):
+            m = min(c, n - s0)
+            cp = -(-m // bucket) * bucket
+            chunk = torch.zeros(1, cp, dtype=torch.long, device="cuda")
+            chunk[0, :m] = ids[s0:s0 + m]
+            h, cache = st.prefill_chunk_raw(
+                w, emb[chunk].to(torch.bfloat16), cache, tables,
+                torch.tensor([s0], dtype=torch.int32, device="cuda"),
+                torch.tensor([m], dtype=torch.int32, device="cuda"),
+                eng._cos, eng._sin)
+        return eng._logits(h[:, m - 1], head, lnf_s, lnf_b)
+    lk = prefill()
+    with plain_path():
+        lp = prefill()
+    torch.cuda.synchronize()
+    # tolerance: as for the teacher-forced decode — logits of std ~0.9;
+    # the two attention paths sum in fp32 in another order and round to
+    # bf16, a flipped rounding (2^-8 relative) then passes through 24
+    # layers of bf16 products
+    tol = 0.1
+    err = max_err(lk, lp)
+    agree = bool((eng._argmax(lk) == eng._argmax(lp)).all())
+    emit({"phase": "chunked_prefill", "prompt": n, "chunk": c,
+          "chunks": -(-n // c), "logits_max_abs_err": err, "tol": tol,
+          "first_token_agrees": agree})
+    check(bool(torch.isfinite(lk).all()), "chunked prefill: logits finite")
+    check(err <= tol, f"chunked prefill logits differ by {err} > {tol}")
+
+
 # ---------------------------------------------------------------- main
 
 _SOURCES = {
@@ -766,6 +1064,9 @@ _SOURCES = {
     "stream_layer_tail": (
         "paddle_tpu_torch/csrc/stream_linear.cu",
         "paddle_tpu/nn/functional/stream_linear.py:482"),
+    "paged_prefill_attention": (
+        "paddle_tpu_torch/csrc/flash_varlen.cu",
+        "paddle_tpu/nn/functional/flash_varlen.py:906"),
 }
 
 
@@ -790,12 +1091,15 @@ def main() -> None:
     gen.manual_seed(0)
     rows = {"paged_decode_attention_inplace": kernel_paged_attention(gen),
             "stream_linear": kernel_stream_linear(gen),
-            "stream_layer_tail": kernel_stream_layer_tail(gen)}
+            "stream_layer_tail": kernel_stream_layer_tail(gen),
+            "paged_prefill_attention": kernel_paged_prefill(gen)}
     model = _build_model()
     by_path = {"generate": slice_generate(model)}
     slice_teacher_forced(model)
     slice_decode_step(model, args.out)
     by_path["continuous_batching"] = slice_continuous(model)
+    by_path["serving"] = slice_serving(model)
+    slice_chunked_prefill(model)
     kernels = []
     for name, row in rows.items():
         src, replaces = _SOURCES[name]

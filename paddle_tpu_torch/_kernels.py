@@ -31,7 +31,7 @@ __all__ = ["build", "lib", "check", "dtype_code", "ptr", "stream_ptr",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_attention", "stream_linear")
+SOURCES = ("paged_attention", "stream_linear", "flash_varlen")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -54,6 +54,11 @@ _SIGNATURES = {
         # eps, stream
         "ptt_layer_norm":
             [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _F, _P],
+    },
+    "flash_varlen": {
+        # q, k_pool, v_pool, block_tables, start, out, dtype, b, c, n_q,
+        # n_kv, d, page_size, pages_per_seq, num_pages, scale, stream
+        "ptt_paged_prefill_attention": [_P] * 6 + [_I] * 9 + [_F, _P],
     },
 }
 

@@ -1,12 +1,12 @@
-"""Flags registry (the decode-path subset).
+"""Flags registry (the serving subset).
 
-A copy of ``paddle_tpu/core/flags.py``'s surface for the two flags the
-serving slice reads: ``define_flag`` with a default and a doc,
+A copy of ``paddle_tpu/core/flags.py``'s surface for the flags the
+serving slices read: ``define_flag`` with a default and a doc,
 ``FLAGS_<name>`` (or ``PADDLE_TPU_<NAME>``) in the environment
 overrides the default at definition, and ``set_flags`` / ``get_flags``
-change and read values at run time. The names and values match the
-JAX package's, so one deployment setting selects the same decode loop
-in both.
+change and read values at run time. The names and default values match
+the JAX package's, so one deployment setting selects the same decode
+loop and the same serving policy in both.
 """
 from __future__ import annotations
 
@@ -78,3 +78,85 @@ define_flag("decode_prefetch", True,
             "with grouped decode, compute layer l+1's LN1 + QKV "
             "projection inside layer l's tail call (one tail call per "
             "layer); off = a separate stream_linear QKV call per layer")
+define_flag("prefill_attention_backend", "auto",
+            "chunked-prefill attention over the paged pool "
+            "(nn/functional/flash_varlen.py paged_prefill_attention): "
+            "auto | varlen (the block-table kernel of "
+            "csrc/flash_varlen.cu on the card reading pages in place, "
+            "its plain version on the CPU) | gather (the dense "
+            "per-chunk gather of the pages; on the CPU only — the card "
+            "takes it with the int8 pool of the quantized-serving "
+            "slice)")
+define_flag("serve_journal", True,
+            "request-lifecycle flight recorder for the serving "
+            "frontend (serving/journal.py): every lifecycle "
+            "transition (submit/queued/admitted/prefill_chunk/"
+            "first_token/decode/preempt/requeue/stall/evict_trigger/"
+            "finish/error) lands in a bounded in-memory ring, dumped "
+            "as a JSONL artifact on any run() exception; off = the "
+            "scheduler holds no recorder and every hook is a single "
+            "attribute test (zero journal allocations)")
+define_flag("serve_journal_events", 4096,
+            "flight-recorder ring capacity in events; older events "
+            "are overwritten once the ring wraps (the journal.dropped "
+            "gauge counts them)")
+define_flag("serve_journal_dir", "",
+            "directory for serving crash-dump artifacts "
+            "(serve_crash_rank<r>_pid<pid>.jsonl, written by "
+            "ServingEngine.run() on any raise); empty = the system "
+            "temp dir")
+define_flag("serve_step_retries", 2,
+            "crash-isolated stepping (serving/scheduler.py): retries "
+            "granted to one request's prefill chunk / one decode "
+            "chunk after an exception, each with capped exponential "
+            "backoff, before the OFFENDING request alone errors out "
+            "(state='error') while the serve loop keeps going")
+define_flag("serve_retry_backoff_ms", 5.0,
+            "base backoff between crash-isolated step retries; "
+            "attempt k sleeps min(base * 2^(k-1), "
+            "serve_retry_backoff_cap_ms) through the injectable "
+            "serving clock (serving/faults.py — a ManualClock makes "
+            "backoff a pure time-warp in tests)")
+define_flag("serve_retry_backoff_cap_ms", 500.0,
+            "cap on the exponential step-retry backoff")
+define_flag("serve_watchdog_steps", 256,
+            "progress watchdog: a request whose token progress "
+            "(prefill position / generated count) hasn't moved for "
+            "this many scheduler steps is preempted/requeued once, "
+            "then failed on a second trip — the serve loop never "
+            "hangs behind a wedged slot; 0 disables")
+define_flag("serve_inbox_limit", 4096,
+            "hard bound on the ServingEngine submit inbox; a full "
+            "inbox rejects submit() with the typed ServerOverloaded "
+            "(backpressure to the producer thread); 0 = unbounded")
+define_flag("serve_shed_queue_depth", 0,
+            "overload shedding: queue depth (inbox + waiting) at "
+            "which admission rejects with ServerOverloaded and "
+            "_drain_inbox sheds the sorted queue's overflow tail "
+            "(lowest priority, newest first) into the 'shed' "
+            "terminal state; 0 disables")
+define_flag("serve_shed_burn_rate", 0.0,
+            "overload shedding on service health: reject submits "
+            "with ServerOverloaded while the rolling SLO burn-rate "
+            "gauge (serving/slo.py) exceeds this; 0 disables")
+define_flag("kv_host_tier_bytes", 0,
+            "host-DRAM KV tier capacity per engine in bytes; the tier "
+            "comes with the fleet slice of the port, so any value "
+            "leaves it off here (eviction releases pages outright)")
+define_flag("usage_ledger", False,
+            "per-request -> per-tenant usage metering "
+            "(serving/accounting.py UsageLedger): partitions every "
+            "serve.step work phase across the requests it served and "
+            "integrates KV page-seconds per request; off = the "
+            "engine holds usage=None and every hook is one attribute "
+            "test (zero per-step allocations)")
+define_flag("usage_tenants_max", 64,
+            "cardinality bound on per-tenant SLO goodput windows "
+            "(serving/slo.py): tenants past this roll into the "
+            "__other__ window instead of growing state unboundedly")
+define_flag("serve_chunk_shrink", True,
+            "graceful degradation under pool pressure: before a "
+            "prefill chunk stalls/requeues for pages, shrink it "
+            "(halving, page/bucket-aligned) until its tail pages fit "
+            "the squeezed pool — tokens keep flowing at reduced "
+            "chunk size instead of the request parking")

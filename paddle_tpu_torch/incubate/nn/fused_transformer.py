@@ -8,8 +8,11 @@ place by the decode step.
 The decode step (``decode_raw``) runs the port's kernels: the fused
 KV-append + paged attention (``paged_decode_attention_inplace``), the
 QKV projection (``stream_linear``) and the grouped layer tail
-(``stream_layer_tail``). Prefill (``prefill_raw``) is plain PyTorch,
-as the JAX package leaves it to XLA. Tensor parallelism, MoE, LoRA,
+(``stream_layer_tail``). The chunked prefill of the serving frontend
+(``prefill_chunk_raw``) attends over the pool in place through the
+paged-prefill kernel (``paged_prefill_attention``); its projections,
+like the one-shot prefill (``prefill_raw``), are plain PyTorch, as the
+JAX package leaves them to XLA. Tensor parallelism, MoE, LoRA,
 A8W8, int8 weights and the int8 KV pool come with later slices of the
 port and raise ``NotImplementedError``.
 """
@@ -24,6 +27,8 @@ import torch.nn.functional as F
 from ...core.device import resolve_device
 from ...core.flags import flag
 from ...core.generator import default_generator
+from ...nn.functional.flash_varlen import (_paged_prefill_plain,
+                                           paged_prefill_attention)
 from ...nn.functional.paged_attention import (
     paged_decode_attention_inplace, write_prefill_kv_pages)
 from ...nn.functional.stream_linear import stream_layer_tail, stream_linear
@@ -60,7 +65,9 @@ def _split_rope(proj, positions, num_heads, num_kv_heads, head_dim,
     q, k, v = torch.split(
         proj.reshape(*lead, nq + 2 * nkv, head_dim), [nq, nkv, nkv],
         dim=-2)
-    pos = positions.long()
+    # positions past the table clamp to its last row, as the JAX
+    # package's gather does (a chunk's padded tail rows can reach them)
+    pos = positions.long().clamp(0, cos_table.shape[0] - 1)
     cos = cos_table[pos][..., None, :]   # [.., 1, hd/2]
     sin = sin_table[pos][..., None, :]
     return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
@@ -269,6 +276,71 @@ class FusedMultiTransformer(nn.Module):
             h, ck, cv = self._layer_body(
                 self._weights_layer(weights, l), h, positions,
                 lambda k, v: write_prefill_kv_pages(ck, cv, k, v, tbl),
+                attend, cos_t, sin_t)
+        return h, PagedKV(ck, cv)
+
+    def prefill_chunk_raw(self, weights, x, cache, block_tables, start,
+                          chunk_lens, cos_t, sin_t, a8w8=False, tp=None,
+                          adapters=None):
+        """CHUNKED prompt pass: x [b, c, d] embeds tokens at positions
+        ``start[b] .. start[b]+c-1`` of sequences whose earlier tokens
+        (previous chunks, or a shared prefix mapped by the prefix cache)
+        are ALREADY in the paged pool. Per layer the chunk's K/V is
+        written into its pages first, then its queries attend the cached
+        pages plus the in-chunk causal triangle through
+        ``paged_prefill_attention`` (the pool read in place).
+
+        ``start``/``chunk_lens``: [b] int32 tensors on x's device —
+        position offset and VALID row count (rows ``>= chunk_lens[b]``
+        are right-padding; their KV writes go to the scratch page and
+        their hidden rows are garbage the caller discards), so the layer
+        loop never syncs with the host. ``FLAGS_prefill_attention_backend
+        =gather`` takes the dense per-chunk gather instead, on the CPU
+        only. Returns (hidden [b, c, d], cache)."""
+        self._check_serving_args(a8w8, tp, adapters)
+        if isinstance(weights, (list, tuple)):
+            raise ValueError("prefill_chunk_raw takes the stacked weight "
+                             "dict")
+        if isinstance(cache.k, tuple):
+            raise _later_slice("the int8 KV pool", "quantized-serving")
+        backend = flag("prefill_attention_backend")
+        if backend not in ("auto", "varlen", "gather"):
+            raise ValueError(f"FLAGS_prefill_attention_backend={backend!r}:"
+                             " valid values are 'auto', 'varlen', "
+                             "'gather'")
+        if backend == "gather" and x.device.type == "cuda":
+            raise _later_slice(
+                "the dense-gather prefill attention on the card "
+                "(FLAGS_prefill_attention_backend=gather)",
+                "quantized-serving")
+        b, c, _ = x.shape
+        start = start.to(torch.int32)
+        positions = start.long()[:, None] \
+            + torch.arange(c, device=x.device)[None, :]        # [b, c]
+        n_kv = self.num_kv_heads
+        scale = self.head_dim ** -0.5
+        npages = self._pages_per_layer(cache)
+        attend_fn = _paged_prefill_plain if backend == "gather" \
+            else paged_prefill_attention
+        ck, cv = cache.k, cache.v
+        h = x
+        for l in range(self.num_layers):
+            tbl = block_tables + l * npages
+
+            def kv_write(k, v, tbl=tbl):
+                return write_prefill_kv_pages(ck, cv, k, v, tbl,
+                                              start=start,
+                                              valid_lens=chunk_lens)
+
+            def attend(q, k, v, nck, ncv, tbl=tbl):
+                # the chunk's own K/V was just written: key position <=
+                # query position covers the prefix pages and the
+                # in-chunk triangle
+                return attend_fn(q.contiguous(), nck, ncv, tbl, start,
+                                 n_kv=n_kv, scale=scale)
+
+            h, ck, cv = self._layer_body(
+                self._weights_layer(weights, l), h, positions, kv_write,
                 attend, cos_t, sin_t)
         return h, PagedKV(ck, cv)
 

@@ -156,3 +156,107 @@ def test_rope_and_split_match_jax():
 def test_later_slices_raise():
     with pytest.raises(NotImplementedError):
         TStack(D, H, DFF, L, moe_num_experts=4, device="cpu")
+
+
+@pytest.fixture
+def prefill_backend(request):
+    saved = (jflags.get_flags(["prefill_attention_backend"]),
+             tflags.get_flags(["prefill_attention_backend"]))
+    new = {"prefill_attention_backend": request.param}
+    jflags.set_flags(new)
+    tflags.set_flags(new)
+    yield request.param
+    jflags.set_flags(saved[0])
+    tflags.set_flags(saved[1])
+
+
+@pytest.mark.parametrize("prefill_backend", ["auto", "gather"],
+                         indirect=True)
+def test_prefill_chunk_matches_jax(stacks, prefill_backend):
+    """A chunk over cached prefixes (row 0 page-aligned, row 1 not, its
+    last 2 rows padding): hidden states of the valid rows and every
+    pool page but the scratch page 0, which takes the padding writes."""
+    js, ts = stacks
+    (jc, jsn), (tc, tsn) = _ropes()
+    rng = np.random.RandomState(5)
+    b, c, P = 2, 6, 12
+    x = rng.randn(b, c, D).astype(np.float32)
+    start = np.array([8, 5], np.int32)
+    clens = np.array([6, 4], np.int32)
+    tables = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    kp, vp = _pool(rng, P, True), _pool(rng, P, True)
+    hj, cj = js.prefill_chunk_raw(
+        js._stack(), jnp.asarray(x),
+        JPagedKV(jnp.asarray(kp), jnp.asarray(vp)), jnp.asarray(tables),
+        jnp.asarray(start), jnp.asarray(clens), jc, jsn)
+    ht, ct = ts.prefill_chunk_raw(
+        ts._stack(), torch.from_numpy(x),
+        TPagedKV(torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())),
+        torch.from_numpy(tables), torch.from_numpy(start),
+        torch.from_numpy(clens), tc, tsn)
+    for r in range(b):
+        n = clens[r]
+        np.testing.assert_allclose(ht.numpy()[r, :n], np.asarray(hj)[r, :n],
+                                   atol=TOL)
+    np.testing.assert_allclose(ct.k.numpy()[1:], np.asarray(cj.k)[1:],
+                               atol=TOL)
+    np.testing.assert_allclose(ct.v.numpy()[1:], np.asarray(cj.v)[1:],
+                               atol=TOL)
+
+
+def test_chunked_prefill_matches_one_shot(stacks):
+    """A 13-token prompt prefilled in chunks of 5 (the last one padded)
+    gives the one-shot prefill's hidden states and pool (f32, 1e-4:
+    attention over the pool sums in another order)."""
+    _, ts = stacks
+    _, (tc, tsn) = _ropes()
+    rng = np.random.RandomState(6)
+    s, c, P = 13, 5, 8
+    x = rng.randn(1, s, D).astype(np.float32)
+    tables = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
+    one = TPagedKV(torch.zeros(L * P, H, PS, D // H),
+                   torch.zeros(L * P, H, PS, D // H))
+    h_one, one = ts.prefill_raw(ts._stack(), torch.from_numpy(x), one,
+                                tables, tc, tsn)
+    pool = TPagedKV(torch.zeros(L * P, H, PS, D // H),
+                    torch.zeros(L * P, H, PS, D // H))
+    rows = []
+    for st in range(0, s, c):
+        n = min(c, s - st)
+        xc = np.zeros((1, c, D), np.float32)
+        xc[0, :n] = x[0, st:st + n]
+        h, pool = ts.prefill_chunk_raw(
+            ts._stack(), torch.from_numpy(xc), pool, tables,
+            torch.tensor([st], dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32), tc, tsn)
+        rows.append(h[0, :n])
+    np.testing.assert_allclose(torch.cat(rows).numpy(), h_one[0].numpy(),
+                               atol=1e-4)
+    for a, b in ((pool.k, one.k), (pool.v, one.v)):
+        np.testing.assert_allclose(a[1:].numpy(), b[1:].numpy(), atol=1e-4)
+
+
+def test_rope_positions_past_the_table_clamp_as_in_jax():
+    """max_position 16 and a 12-token prompt decoding 8 tokens: decode
+    positions 16..19 are past the rope table. The JAX gather clamps
+    them to its last row; the port does the same and returns the JAX
+    package's 20 tokens (it used to raise IndexError)."""
+    import paddle_tpu as paddle
+    from paddle_tpu.inference import (FusedCausalLM as JLM,
+                                      GenerationEngine as JGE)
+    from paddle_tpu_torch.inference import (FusedCausalLM as TLM,
+                                            GenerationEngine as TGE)
+
+    cfg = dict(vocab_size=64, embed_dim=32, num_heads=4,
+               dim_feedforward=64, num_layers=2, max_position=16)
+    paddle.seed(7)
+    jm = JLM(**cfg)
+    tm = TLM(**cfg, device="cpu")
+    load_jax_params(tm, {k: np.asarray(v._data)
+                         for k, v in jm.state_dict().items()})
+    prompt = [np.random.RandomState(8).randint(0, 64, 12)]
+    kw = dict(page_size=4, max_length=40)
+    oj = JGE(jm, **kw).generate(prompt, max_new_tokens=8)
+    ot = TGE(tm, **kw).generate(prompt, max_new_tokens=8)
+    assert oj.shape == (1, 20)
+    np.testing.assert_array_equal(ot, oj)

@@ -30,6 +30,8 @@ def test_import_leaves_jax_out():
         "paddle_tpu_torch.convert, paddle_tpu_torch._kernels\n"
         "import paddle_tpu_torch.nn.functional.paged_attention\n"
         "import paddle_tpu_torch.nn.functional.stream_linear\n"
+        "import paddle_tpu_torch.nn.functional.flash_varlen\n"
+        "import paddle_tpu_torch.serving\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
@@ -79,29 +81,41 @@ def test_cpu_path_builds_nothing(monkeypatch):
         raise AssertionError("a CUDA kernel was requested on the CPU path")
     monkeypatch.setattr(_kernels, "lib", refuse)
     monkeypatch.setattr(_kernels, "build", refuse)
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
+    from paddle_tpu_torch.serving import ServingEngine, SLOConfig
 
-    before = (pa.launches, sl.launches, sl.tail_launches)
+    before = (pa.launches, sl.launches, sl.tail_launches, fv.launches)
     model = FusedCausalLM(32, 16, 2, 32, 1, max_position=32, device="cpu")
     out = GenerationEngine(model, page_size=4, max_length=16).generate(
         [[1, 2, 3]], max_new_tokens=3)
     assert out.shape == (1, 6)
+    # the serving frontend's chunked prefill takes the plain version too
+    eng = ServingEngine(model, max_batch=2, page_size=4, max_length=24,
+                        slo=SLOConfig(prefill_chunk=4))
+    eng.submit(list(range(10)), max_new_tokens=3)
+    assert [len(r.generated) for r in eng.run()] == [3]
     # the launch counters count CUDA launches only
-    assert (pa.launches, sl.launches, sl.tail_launches) == before
+    assert (pa.launches, sl.launches, sl.tail_launches,
+            fv.launches) == before
 
 
 def test_kernel_sources_and_wrappers_present():
     """Each ported kernel has its CUDA source, its C entry point and a
     launch counter on its wrapper."""
     from paddle_tpu_torch import _kernels
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
+    assert set(_kernels._SIGNATURES) == set(_kernels.SOURCES) == {
+        "paged_attention", "stream_linear", "flash_varlen"}
     for lib, fns in _kernels._SIGNATURES.items():
         src = (PKG / "csrc" / f"{lib}.cu").read_text()
         for fn in fns:
             assert f'extern "C" int {fn}(' in src
         assert "sm_90a" in " ".join(_kernels._FLAGS)
-    for counter in (pa.launches, sl.launches, sl.tail_launches):
+    for counter in (pa.launches, sl.launches, sl.tail_launches,
+                    fv.launches):
         assert isinstance(counter, int)
