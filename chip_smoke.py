@@ -23,7 +23,16 @@ Phases, all run every time, each of which fails the run when it fails:
            prefix cache): 16 requests, 8 of them sharing a 512-token
            system prompt, with its own launch counts; and one
            1500-token prompt prefilled chunk by chunk on the kernel path
-           and on the plain path, whose last logits must agree.
+           and on the plain path, whose last logits must agree;
+  quantized the quantized kernels (the int8-weight GEMM and tail, the
+           A8W8 GEMM, the int8-KV decode attention) checked and timed
+           with the others; then the same model's stack quantized to
+           int8 in place and driven through bench.py's quantized decode
+           rungs — generate_int8 (b32), generate_a8w8 (b32),
+           generate_int8kv (int8 weights and KV pool, b64), each with a
+           teacher-forced check against the plain path and a timed,
+           profiled decode step — and serving_int8kv, the serving
+           workload above over int8 weights and an int8 pool.
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -46,7 +55,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 #: the serving path's shapes (bench.py run_decode_bench's flagship rung)
 VOCAB, D_MODEL, N_LAYERS, N_HEADS, HEAD_DIM = 51200, 2048, 24, 16, 128
@@ -139,31 +149,41 @@ def phase_build(out_dir):
 
 # ---------------------------------------------------------------- kernels
 
-def _decode_case(dtype, gen, g=1, d=HEAD_DIM, L=4):
-    """Kernel-1 inputs at the path's shapes: batch 32, 16 kv heads
-    (x g query heads) of d = 128, page 16, context 0..272 with page
-    edges, one idle slot (length 0, all-zero table), one full table,
-    two rows sharing a prefix page and one table id past the layer
-    region; a 4-layer folded pool so timed calls rotate past the L2."""
-    b, n_kv, ps = BATCH, N_HEADS, PAGE
-    pp = 17                                    # 272 slots per row
-    lens = [0, 1, 15, 16, 17, 31, 32, 33, 47, 48, 63, 64, 65, 100, 127,
-            128, 129, 143, 144, 160, 175, 176, 200, 223, 224, 240, 255,
-            256, 257, 260, 271, pp * ps]        # last row: full table
+#: contexts of the decode-kernel checks (page 16, 17 pages a row): page
+#: edges up to 272, an idle slot (0) and a full table (the last)
+DECODE_LENS = [0, 1, 15, 16, 17, 31, 32, 33, 47, 48, 63, 64, 65, 100, 127,
+               128, 129, 143, 144, 160, 175, 176, 200, 223, 224, 240, 255,
+               256, 257, 260, 271, 17 * PAGE]
+
+
+def _decode_tables(lens, pp: int, seed: int):
+    """Block tables for rows of ``lens`` tokens: distinct random pages
+    (never the scratch page 0) covering lens + 1 tokens, row 0 idle (an
+    all-zero table), rows 7 and 8 (lengths 33 and 47) sharing their
+    first, full page, and row 30 (length 271) mapping its last page
+    outside the layer region (its last 15 tokens are not attended and
+    its append is skipped). Returns (tables, pages per layer)."""
+    b = len(lens)
     P = b * pp + 1                             # + scratch page 0
-    rng = np.random.RandomState(7)
+    rng = np.random.RandomState(seed)
     perm = list(rng.permutation(np.arange(1, P)))
     tables = np.zeros((b, pp), np.int32)
     for r, n in enumerate(lens):
         if r == 0:
-            continue                           # idle slot: zero table
-        need = min(-(-(n + 1) // ps), pp)
+            continue
+        need = min(-(-(n + 1) // PAGE), pp)
         tables[r, :need] = [perm.pop() for _ in range(need)]
-    # rows 7 and 8 (lengths 33 and 47) share their first, full page
     tables[8, 0] = tables[7, 0]
-    # row 30 (length 271) maps its last page outside the layer region:
-    # those 15 tokens are not attended and its append is skipped
     tables[30, pp - 1] = P
+    return tables, P
+
+
+def _decode_case(dtype, gen, g=1, d=HEAD_DIM, L=4):
+    """Kernel-1 inputs at the path's shapes: batch 32 of DECODE_LENS
+    (_decode_tables), 16 kv heads (x g query heads) of d = 128, page 16;
+    a 4-layer folded pool so timed calls rotate past the L2."""
+    b, n_kv, ps, pp = BATCH, N_HEADS, PAGE, 17
+    tables, P = _decode_tables(DECODE_LENS, pp, 7)
     dev = "cuda"
 
     def rnd(*s):
@@ -171,7 +191,7 @@ def _decode_case(dtype, gen, g=1, d=HEAD_DIM, L=4):
     return dict(
         q=rnd(b, n_kv * g, d), nk=rnd(b, n_kv, d), nv=rnd(b, n_kv, d),
         kp=rnd(L * P, n_kv, ps, d), vp=rnd(L * P, n_kv, ps, d),
-        lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+        lens=torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev),
         tables=torch.from_numpy(tables).to(dev), P=P, L=L, pp=pp)
 
 
@@ -361,7 +381,9 @@ def kernel_stream_linear(gen) -> dict:
     return row
 
 
-def _tail_weights(dtype, gen, L):
+def _tail_weights(dtype, gen, L, int8=False):
+    """A tail's stacked weights; ``int8``: wo/w1/w2/wq quantized to int8
+    with their scales so/s1/s2/sq (the rest as drawn)."""
     dev = "cuda"
 
     def nrm(*s):
@@ -369,7 +391,7 @@ def _tail_weights(dtype, gen, L):
 
     def small(*s):
         return (torch.randn(s, generator=gen, device=dev) * 0.1).to(dtype)
-    return dict(
+    p = dict(
         wo=nrm(L, D_MODEL, D_MODEL), w1=nrm(L, D_MODEL, DFF),
         w2=nrm(L, DFF, D_MODEL), wq=nrm(L, D_MODEL, 3 * D_MODEL),
         bo=small(L, D_MODEL), b1=small(L, DFF), b2=small(L, D_MODEL),
@@ -378,32 +400,50 @@ def _tail_weights(dtype, gen, L):
         l2b=torch.randn(L, D_MODEL, generator=gen, device=dev) * 0.1,
         l1s=1 + torch.randn(L, D_MODEL, generator=gen, device=dev) * 0.1,
         l1b=torch.randn(L, D_MODEL, generator=gen, device=dev) * 0.1)
+    if int8:
+        for w, sc in (("wo", "so"), ("w1", "s1"), ("w2", "s2"),
+                      ("wq", "sq")):
+            p[w], p[sc] = _quantized(p[w].float())
+    return p
 
 
-def _call_tail(fn, att, h, p, l, L):
-    nq = dict(w=p["wq"], b=p["bq"], ln_s=p["l1s"], ln_b=p["l1b"],
-              layer=min(l + 1, L - 1))
+def _call_tail(fn, att, h, p, l, L, with_q=True):
+    nq = dict(w=p["wq"], b=p["bq"], s=p.get("sq"), ln_s=p["l1s"],
+              ln_b=p["l1b"], layer=min(l + 1, L - 1)) if with_q else None
     return fn(att, h, p["wo"], p["w1"], p["w2"], layer=l, bo=p["bo"],
               b1=p["b1"], b2=p["b2"], ln2_scale=p["l2s"],
               ln2_bias=p["l2b"], epsilon=1e-5, activation="gelu",
+              so=p.get("so"), s1=p.get("s1"), s2=p.get("s2"),
               next_qkv=nq, out_dtype=h.dtype)
 
 
 def _plain_tail(att, h, wo, w1, w2, layer=None, *, bo, b1, b2, ln2_scale,
-                ln2_bias, epsilon, activation=None, next_qkv=None,
-                out_dtype=None, **_):
-    """stream_layer_tail's signature over the plain version."""
+                ln2_bias, epsilon, activation=None, so=None, s1=None,
+                s2=None, next_qkv=None, out_dtype=None):
+    """stream_layer_tail's signature over the plain version, int8
+    scales (so/s1/s2, next_qkv["s"]) included."""
     from paddle_tpu_torch.nn.functional.stream_linear import _tail_fallback
 
     stacked = wo.dim() == 3
-    return _tail_fallback(att, h, wo, w1, w2, layer, bo, b1, b2, ln2_scale,
-                          ln2_bias, epsilon, activation, next_qkv,
+    l = (0 if layer is None else int(layer)) if stacked else None
+    qg = None
+    if next_qkv is not None:
+        qg = dict(next_qkv)
+        if stacked:
+            qg["layer"] = int(qg.get("layer") or 0)
+    return _tail_fallback(att, h, wo, w1, w2, l, so, s1, s2, bo, b1, b2,
+                          ln2_scale, ln2_bias, epsilon, activation, qg,
                           out_dtype or h.dtype, stacked)
 
 
-def kernel_stream_layer_tail(gen) -> dict:
+def kernel_stream_layer_tail(gen, int8=False) -> dict:
+    """The grouped tail (B3) against its plain version, with the next
+    layer's QKV and without, at batch 32 (and 64 over int8 stacks);
+    timed at batch 32 with the next QKV, rotating over 4 layers (a
+    layer's weights are past the L2)."""
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
+    name = "stream_layer_tail_w8" if int8 else "stream_layer_tail"
     L = 4
     res = {}
     # tolerances, scaled by the output's largest magnitude m: fp32 —
@@ -411,42 +451,41 @@ def kernel_stream_layer_tail(gen) -> dict:
     # bf16 — the plain version rounds h + att.Wo, + bo, h2 + ff.W2 and
     # + b2 to bf16 one by one (half an ulp at the hidden stream's
     # magnitude each) where the kernel keeps h2 in fp32 and rounds once:
-    # allow 4 bf16 ulps at m, 4 * 2^-7 * m
-    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2 ** -5)):
-        p = _tail_weights(dtype, gen, L)
-        att = torch.randn(BATCH, D_MODEL, generator=gen,
-                          device="cuda").to(dtype)
-        h = torch.randn(BATCH, D_MODEL, generator=gen,
-                        device="cuda").to(dtype)
-        ho, qkv = _call_tail(sl.stream_layer_tail, att, h, p, 1, L)
-        rho, rqkv = _call_tail(_plain_tail, att, h, p, 1, L)
-        ho2 = sl.stream_layer_tail(
-            att, h, p["wo"], p["w1"], p["w2"], layer=2, bo=p["bo"],
-            b1=p["b1"], b2=p["b2"], ln2_scale=p["l2s"], ln2_bias=p["l2b"],
-            epsilon=1e-5, activation="gelu")
-        rho2 = _plain_tail(
-            att, h, p["wo"], p["w1"], p["w2"], layer=2, bo=p["bo"],
-            b1=p["b1"], b2=p["b2"], ln2_scale=p["l2s"], ln2_bias=p["l2b"],
-            epsilon=1e-5, activation="gelu")
-        torch.cuda.synchronize()
-        ok, err, tols = True, 0.0, {}
-        for name, a, b in (("h_out", ho, rho), ("qkv_next", qkv, rqkv),
-                           ("h_out_no_next", ho2, rho2)):
-            m = float(b.float().abs().max())
-            tol = rel * (max(m, 1.0) if dtype == torch.float32 else m)
-            e = max_err(a, b)
-            tols[name] = {"max_abs_err": e, "tol": tol, "max_abs_ref": m}
-            ok = ok and e <= tol
-            err = max(err, e)
-        emit({"check": "stream_layer_tail", "dtype": str(dtype),
-              "max_abs_err": err, **tols})
-        check(ok, f"stream_layer_tail {dtype}: outside tolerance {tols}")
-        res[str(dtype)] = err
+    # allow 4 bf16 ulps at m, 4 * 2^-7 * m; over int8 stacks the plain
+    # version also rounds each product to bf16 BEFORE its bf16-rounded
+    # scale, where the kernel scales the fp32 accumulator: 6 ulps
+    bf16_rel = (6 if int8 else 4) * 2 ** -7
+    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, bf16_rel)):
+        p = _tail_weights(dtype, gen, L, int8)
+        for m_rows in (BATCH, 64) if int8 else (BATCH,):
+            att = torch.randn(m_rows, D_MODEL, generator=gen,
+                              device="cuda").to(dtype)
+            h = torch.randn(m_rows, D_MODEL, generator=gen,
+                            device="cuda").to(dtype)
+            ho, qkv = _call_tail(sl.stream_layer_tail, att, h, p, 1, L)
+            rho, rqkv = _call_tail(_plain_tail, att, h, p, 1, L)
+            ho2 = _call_tail(sl.stream_layer_tail, att, h, p, 2, L,
+                             with_q=False)
+            rho2 = _call_tail(_plain_tail, att, h, p, 2, L, with_q=False)
+            torch.cuda.synchronize()
+            ok, err, tols = True, 0.0, {}
+            for part, a, b in (("h_out", ho, rho), ("qkv_next", qkv, rqkv),
+                               ("h_out_no_next", ho2, rho2)):
+                m = float(b.float().abs().max())
+                tol = rel * (max(m, 1.0) if dtype == torch.float32 else m)
+                e = max_err(a, b)
+                tols[part] = {"max_abs_err": e, "tol": tol, "max_abs_ref": m}
+                ok = ok and e <= tol
+                err = max(err, e)
+            emit({"check": name, "dtype": str(dtype), "M": m_rows,
+                  "max_abs_err": err, **tols})
+            check(ok, f"{name} {dtype} M={m_rows}: outside tolerance "
+                      f"{tols}")
+            if m_rows == BATCH:
+                res[str(dtype)] = err
         del p
-    # timing, bf16: one tail call with the next layer's QKV, rotating
-    # over 4 layers (each layer's 100.7 MB of weights is past the L2)
     dt = torch.bfloat16
-    p = _tail_weights(dt, gen, L)
+    p = _tail_weights(dt, gen, L, int8)
     att = torch.randn(BATCH, D_MODEL, generator=gen, device="cuda").to(dt)
     h = torch.randn(BATCH, D_MODEL, generator=gen, device="cuda").to(dt)
     nxt = cycler(L)
@@ -454,17 +493,17 @@ def kernel_stream_layer_tail(gen) -> dict:
                                     nxt(), L))
     plain_ms = time_ms(lambda: _call_tail(_plain_tail, att, h, p, nxt(),
                                           L))
-    wbytes = 2 * (D_MODEL * D_MODEL + 2 * D_MODEL * DFF
-                  + D_MODEL * 3 * D_MODEL)
+    welems = D_MODEL * D_MODEL + 2 * D_MODEL * DFF + D_MODEL * 3 * D_MODEL
     vbytes = 2 * (3 * D_MODEL + DFF + 3 * D_MODEL) + 4 * 4 * D_MODEL
+    if int8:                                   # the f32 scales
+        vbytes += 4 * (2 * D_MODEL + DFF + 3 * D_MODEL)
     iobytes = 2 * BATCH * (2 * D_MODEL + D_MODEL + 3 * D_MODEL)
-    nbytes = wbytes + vbytes + iobytes
-    flops = 2.0 * BATCH * wbytes / 2
-    bms, by = bound_ms(nbytes, flops, dt)
+    nbytes = welems * (1 if int8 else 2) + vbytes + iobytes
+    bms, by = bound_ms(nbytes, 2.0 * BATCH * welems, dt)
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
            "max_abs_err": res[str(dt)]}
-    emit({"time": "stream_layer_tail", **row})
+    emit({"time": name, **row})
     return row
 
 
@@ -588,6 +627,301 @@ def kernel_paged_prefill(gen) -> dict:
     return row
 
 
+# ------------------------------------------------- quantized kernels
+
+def _quantized(w):
+    """Weight-only int8 of float weights [.., K, N], per output column
+    over K (quantize_weight_only_int8's rule): (int8 w, f32 scale)."""
+    from paddle_tpu_torch.quantization.dynamic import absmax_scale
+
+    s = absmax_scale(w.float().abs().amax(dim=-2, keepdim=True))
+    q = torch.clamp(torch.round(w.float() / s), -127, 127).to(torch.int8)
+    return q.contiguous(), s.squeeze(-2).contiguous()
+
+
+def _ulp_tol(m: float) -> float:
+    """One bf16 ulp at magnitude m."""
+    return 2.0 ** (np.floor(np.log2(max(m, 2.0 ** -20))) - 7)
+
+
+def kernel_stream_linear_w8(gen) -> dict:
+    """The int8-weight GEMM of stream_linear (B2 with scale=): the QKV
+    projection of the int8 stack at batch 32, other row counts and
+    ragged tiles; timed on the QKV shape rotating over 24 layers."""
+    from paddle_tpu_torch.nn.functional import stream_linear as sl
+
+    dev, L, qkv_n = "cuda", N_LAYERS, 3 * D_MODEL
+    res = {}
+    # tolerances: the int8 weights are exact in fp32 on both sides, so
+    # only the fp32 summation order differs (float32: 1e-4 at outputs of
+    # magnitude ~1); bf16 outputs may round one ulp apart (2^-6 below 4)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2 ** -6)):
+        wq, s = _quantized(torch.randn(2, D_MODEL, qkv_n, generator=gen,
+                                       device=dev) * 0.02)
+        bias = torch.randn(2, qkv_n, generator=gen, device=dev) * 0.02
+        for m, act in ((BATCH, None), (BATCH, "gelu"), (1, None),
+                       (64, "relu")):
+            x = torch.randn(m, D_MODEL, generator=gen, device=dev).to(dtype)
+            out = sl.stream_linear(x, wq, layer=1, bias=bias, scale=s,
+                                   activation=act)
+            ref = sl._stream_linear_plain(x, wq, 1, bias, act, scale=s)
+            torch.cuda.synchronize()
+            e = max_err(out, ref)
+            emit({"check": "stream_linear_w8", "dtype": str(dtype), "M": m,
+                  "K": D_MODEL, "N": qkv_n, "activation": act,
+                  "max_abs_err": e, "tol": tol})
+            check(e <= tol, f"stream_linear_w8 M={m} {dtype}: {e} > {tol}")
+            if m == BATCH and act is None:
+                res[str(dtype)] = e
+        wq, s = _quantized(torch.randn(136, 208, generator=gen, device=dev))
+        bias = torch.randn(208, generator=gen, device=dev).to(dtype)
+        for m in (7, 100):
+            x = torch.randn(m, 136, generator=gen, device=dev).to(dtype)
+            e = max_err(sl.stream_linear(x, wq, bias=bias, scale=s),
+                        sl._stream_linear_plain(x, wq, None, bias,
+                                                scale=s))
+            tol2 = tol * 16                    # outputs of magnitude ~12
+            emit({"check": "stream_linear_w8", "dtype": str(dtype), "M": m,
+                  "K": 136, "N": 208, "max_abs_err": e, "tol": tol2})
+            check(e <= tol2, f"stream_linear_w8 M={m} K=136 {dtype}: "
+                             f"{e} > {tol2}")
+    dt = torch.bfloat16
+    x = torch.randn(BATCH, D_MODEL, generator=gen, device=dev).to(dt)
+    wq, s = _quantized(torch.randn(L, D_MODEL, qkv_n, generator=gen,
+                                   device=dev) * 0.02)
+    bias = (torch.randn(L, qkv_n, generator=gen, device=dev) * 0.02).to(dt)
+    nxt = cycler(L)
+    ms = time_ms(lambda: sl.stream_linear(x, wq, layer=nxt(), bias=bias,
+                                          scale=s))
+    plain_ms = time_ms(lambda: (lambda l: sl._stream_linear_plain(
+        x, wq, l, bias, scale=s))(nxt()))
+    nbytes = (D_MODEL * qkv_n + BATCH * D_MODEL * 2 + BATCH * qkv_n * 2
+              + qkv_n * (4 + 2))
+    bms, by = bound_ms(nbytes, 2.0 * BATCH * D_MODEL * qkv_n, dt)
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+           "max_abs_err": res[str(dt)]}
+    emit({"time": "stream_linear_w8[qkv]", **row})
+    return row
+
+
+#: the A8W8 decode step's four projections of the d2048 model: name,
+#: K, N, activation
+A8W8_SHAPES = (("qkv", D_MODEL, 3 * D_MODEL, None),
+               ("out", D_MODEL, D_MODEL, None),
+               ("ffn1", D_MODEL, DFF, "gelu"),
+               ("ffn2", DFF, D_MODEL, None))
+
+
+def kernel_stream_linear_a8w8(gen) -> dict:
+    """Kernel B5 (stream_linear act_quant=True): the four projections
+    at batch 32, plus batch 1 and 64, against the plain version; then
+    timed per projection at batch 32 beside torch._int_mm."""
+    from paddle_tpu_torch.nn.functional import stream_linear as sl
+    from paddle_tpu_torch.quantization.dynamic import dynamic_act_quant
+
+    dev = "cuda"
+    res = {}
+    # the int32 accumulators agree exactly and the dequant rounds in the
+    # same order, so float32 outputs without activation are bitwise
+    # equal; GELU's tanh may differ by an ulp or two (2e-6 relative);
+    # bf16 outputs round the same fp32 value (one bf16 ulp at most)
+    for name, K, N, act in A8W8_SHAPES:
+        wq, s = _quantized(torch.randn(2, K, N, generator=gen,
+                                       device=dev) * 0.02)
+        bias = torch.randn(2, N, generator=gen, device=dev) * 0.02
+        for dtype in (torch.float32, torch.bfloat16):
+            for m in (BATCH, 1, 64):
+                x = torch.randn(m, K, generator=gen, device=dev).to(dtype)
+                out = sl.stream_linear(x, wq, layer=1, bias=bias, scale=s,
+                                       activation=act, act_quant=True)
+                xq, xs = dynamic_act_quant(x)
+                ref = sl._stream_linear_a8w8_plain(xq, xs, wq, s, 1, bias,
+                                                   act, dtype)
+                torch.cuda.synchronize()
+                mref = float(ref.float().abs().max())
+                tol = ((0.0 if act is None else 2e-6 * max(mref, 1.0))
+                       if dtype == torch.float32 else _ulp_tol(mref))
+                e = max_err(out, ref)
+                emit({"check": "stream_linear_a8w8", "proj": name,
+                      "dtype": str(dtype), "M": m, "K": K, "N": N,
+                      "activation": act, "max_abs_err": e, "tol": tol})
+                check(e <= tol, f"stream_linear_a8w8 {name} M={m} "
+                                f"{dtype}: {e} > {tol}")
+                if m == BATCH:
+                    res[str(dtype)] = max(res.get(str(dtype), 0.0), e)
+        del wq
+    # timing: bf16 activations at batch 32, each projection rotating over
+    # 24 layers of its int8 weights (past the L2); the plain version and
+    # torch._int_mm take the same pre-quantized x
+    L, dt = N_LAYERS, torch.bfloat16
+    rows = {}
+    for name, K, N, act in A8W8_SHAPES:
+        wq, s = _quantized(torch.randn(L, K, N, generator=gen,
+                                       device=dev) * 0.02)
+        bias = (torch.randn(L, N, generator=gen, device=dev) * 0.02).to(dt)
+        x = torch.randn(BATCH, K, generator=gen, device=dev).to(dt)
+        xq, xs = dynamic_act_quant(x)
+        nxt = cycler(L)
+
+        def kern():
+            l = nxt()
+            sl._stream_linear_a8w8(xq, xs, wq[l], s[l], bias[l], act, dt)
+
+        def plain():
+            sl._stream_linear_a8w8_plain(xq, xs, wq, s, nxt(), bias, act,
+                                         dt)
+
+        def library():
+            torch._int_mm(xq, wq[nxt()])
+        nbytes = K * N + BATCH * K + BATCH * 4 + N * (4 + 2) + BATCH * N * 2
+        bms, by = bound_ms(nbytes, 2.0 * BATCH * K * N, torch.int8)
+        rows[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                      "library_ms": time_ms(library), "bound_ms": bms,
+                      "bound_by": by, "bytes": nbytes}
+        emit({"time": f"stream_linear_a8w8[{name}]", **rows[name]})
+        del wq
+    # one decode step runs each projection once per layer: report the
+    # sum of the four
+    row = {k: sum(r[k] for r in rows.values())
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    row["bound_by"] = "bytes" if all(
+        r["bound_by"] == "bytes" for r in rows.values()) else "operations"
+    row["max_abs_err"] = res[str(dt)]
+    return row
+
+
+def _decode_q_case(dtype, gen, g=1, d=HEAD_DIM, L=2):
+    """Kernel-6 inputs at the int8-KV rung's shapes: batch 64 (the 32
+    rows of DECODE_LENS — idle slot, page edges, a shared page, a table
+    id past the region, a full table — and 32 more at contexts
+    128..257), 16 kv heads of d, page 16, 17 pages a row; an L-layer
+    int8 pool with its scale planes, quantized from random rows."""
+    from paddle_tpu_torch.nn.functional.paged_attention import (
+        quantize_kv_rows)
+
+    b, n_kv, ps, pp = 2 * BATCH, N_HEADS, PAGE, 17
+    lens = DECODE_LENS + [int(n) for n in np.linspace(128, 257, BATCH)]
+    tables, P = _decode_tables(lens, pp, 8)
+    dev = "cuda"
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=dev).to(dtype)
+
+    def pool():
+        rows, sc = quantize_kv_rows(torch.randn(
+            L * P, n_kv, ps, d, generator=gen, device=dev))
+        plane = sc.permute(1, 0, 2).reshape(n_kv, L * P * ps).contiguous()
+        return rows.contiguous(), plane
+    kq, ks = pool()
+    vq, vs = pool()
+    return dict(q=rnd(b, n_kv * g, d), nk=rnd(b, n_kv, d),
+                nv=rnd(b, n_kv, d), kq=kq, ks=ks, vq=vq, vs=vs,
+                lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+                tables=torch.from_numpy(tables).to(dev), P=P, L=L, pp=pp)
+
+
+def kernel_paged_attention_q(gen) -> dict:
+    """Kernel B6 (int8-KV decode attention with its quantized append):
+    batch 64 at contexts 0..272 against the plain version, the pool rows
+    and planes after the append compared exactly; g 4 / d 64 and d 96
+    besides; timed beside SDPA over the pre-dequantized gathered K/V."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.nn.functional import paged_attention as pa
+
+    res = {}
+    # tolerances: the logits of cached tokens are the same fp32 products
+    # on both sides (an exact integer dot); the softmax and the weighted
+    # sums differ only in summation order (float32: 2e-5 at outputs of
+    # magnitude ~1; bf16 outputs one ulp, 2^-7 below 2)
+    for (g, d), dtype, tol in [
+            (gd, dt, tl) for gd in ((1, HEAD_DIM), (4, 64), (2, 96))
+            for dt, tl in ((torch.float32, 2e-5),
+                           (torch.bfloat16, 2 ** -7))]:
+        c = _decode_q_case(dtype, gen, g=g, d=d)
+        ref_pool = [c[k].clone() for k in ("kq", "ks", "vq", "vs")]
+        base = c["P"]
+        out = pa.paged_decode_attention_inplace_q(
+            c["q"], c["nk"], c["nv"], c["kq"], c["ks"], c["vq"], c["vs"],
+            c["lens"], c["tables"], pool_base=base, pool_pages=c["P"])[0]
+        ref = pa._paged_decode_q_plain(c["q"], c["nk"], c["nv"], *ref_pool,
+                                       c["lens"], c["tables"], base, c["P"])
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        pools_equal = all(torch.equal(c[k], r) for k, r in
+                          zip(("kq", "ks", "vq", "vs"), ref_pool))
+        emit({"check": "paged_decode_attention_inplace_q", "g": g, "d": d,
+              "dtype": str(dtype), "batch": int(c["q"].shape[0]),
+              "max_abs_err": err, "tol": tol,
+              "pool_and_planes_after_append_equal": pools_equal})
+        check(err <= tol, f"paged attention q g={g} d={d} {dtype}: "
+                          f"{err} > {tol}")
+        check(pools_equal, f"paged attention q g={g} d={d} {dtype}: int8 "
+                           "rows or scale planes after the append differ "
+                           "from the plain write")
+        if (g, d) == (1, HEAD_DIM):
+            res[str(dtype)] = err
+        del c, ref_pool
+    # timing, bf16, alternating over the pool's 2 layers
+    c = _decode_q_case(torch.bfloat16, gen)
+    nxt = cycler(c["L"])
+    args = [c[k] for k in ("q", "nk", "nv", "kq", "ks", "vq", "vs", "lens",
+                           "tables")]
+
+    def kern():
+        pa.paged_decode_attention_inplace_q(
+            *args, pool_base=nxt() * c["P"], pool_pages=c["P"])
+
+    def plain():
+        pa._paged_decode_q_plain(*args, nxt() * c["P"], c["P"])
+    # library yardstick: SDPA over the K/V gathered and dequantized
+    # beforehand (pool tokens + the current one), masked by length and
+    # region
+    b, n_kv, d = c["q"].shape
+    cap, ps = c["pp"] * PAGE, PAGE
+    tl = torch.where(c["tables"] < c["P"], c["tables"], 0).long()
+    cols = (tl[:, :, None] * ps + torch.arange(ps, device="cuda")) \
+        .reshape(b, cap)
+
+    def deq(rows, plane):
+        g_ = rows[tl].float().permute(0, 2, 1, 3, 4).reshape(b, n_kv, cap, d)
+        return (g_ * plane[:, cols].permute(1, 0, 2)[..., None]) \
+            .to(torch.bfloat16)
+    kd = torch.cat([deq(c["kq"], c["ks"]), c["nk"][:, :, None]], dim=2)
+    vd = torch.cat([deq(c["vq"], c["vs"]), c["nv"][:, :, None]], dim=2)
+    pos = torch.arange(cap + 1, device="cuda")
+    lens_c = torch.clamp(c["lens"].long(), max=cap)
+    in_region = (c["tables"] < c["P"]).repeat_interleave(PAGE, dim=1)
+    attended = (pos[None, :cap] < lens_c[:, None]) & in_region
+    mask = torch.cat([attended, torch.ones_like(attended[:, :1])],
+                     dim=1)[:, None, None, :]
+    qd = c["q"][:, :, None, :]
+
+    def library():
+        F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+    # bytes this run's data needs: each attended int8 K/V row and its two
+    # f32 scales once, q, the operands, the output, the appended rows and
+    # scales, the tables and lengths
+    tok = int(attended.sum())
+    wpage = torch.clamp(c["lens"].long() // PAGE, max=c["pp"] - 1)
+    n_write = int(((c["lens"] < cap)
+                   & (c["tables"].gather(1, wpage[:, None])[:, 0] < c["P"]))
+                  .sum())
+    isz = 2
+    nbytes = (2 * tok * n_kv * (d + 4) + 4 * b * n_kv * d * isz
+              + 2 * n_write * n_kv * (d + 4) + c["tables"].numel() * 4
+              + b * 4)
+    flops = 4.0 * (tok + b) * n_kv * d
+    bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+           "attended_tokens": tok, "max_abs_err": res[str(torch.bfloat16)]}
+    emit({"time": "paged_decode_attention_inplace_q", **row})
+    return row
+
+
 # ---------------------------------------------------------------- slice
 
 def _counters():
@@ -598,7 +932,11 @@ def _counters():
     return {"paged_decode_attention_inplace": pa.launches,
             "stream_linear": sl.launches,
             "stream_layer_tail": sl.tail_launches,
-            "paged_prefill_attention": fv.launches}
+            "paged_prefill_attention": fv.launches,
+            "stream_linear_w8": sl.w8_launches,
+            "stream_layer_tail_w8": sl.tail_w8_launches,
+            "stream_linear_a8w8": sl.a8w8_launches,
+            "paged_decode_attention_inplace_q": pa.q_launches}
 
 
 #: CUDA launches of one stream_layer_tail call with the next layer's
@@ -607,16 +945,32 @@ TAIL_LAUNCHES_PER_CALL = 6
 
 
 def _expected_launches(decode_steps: int, prefills: int,
-                       prefill_chunks: int = 0) -> dict:
-    """Launches of the grouped, prefetching decode path: per step one
-    attention and one tail call per layer, the layer-0 QKV and the LM
-    head; per one-shot prefill one LM head; per chunk of the chunked
-    prefill one paged-prefill attention per layer and one LM head."""
-    return {"paged_decode_attention_inplace": N_LAYERS * decode_steps,
-            "stream_linear": 2 * decode_steps + prefills + prefill_chunks,
-            "stream_layer_tail":
-                TAIL_LAUNCHES_PER_CALL * N_LAYERS * decode_steps,
-            "paged_prefill_attention": N_LAYERS * prefill_chunks}
+                       prefill_chunks: int = 0, quant=None,
+                       kv_dtype=None) -> dict:
+    """Launches of a path. Per decode step: one attention per layer
+    (B6 over an int8 pool, else B1) and the LM head; the grouped,
+    prefetching loop adds the layer-0 QKV and one tail call per layer
+    (their int8-weight kernels under quant="int8"); A8W8 runs the
+    ungrouped loop instead, four B5 GEMMs per layer. Per one-shot
+    prefill one LM head; per chunk of the chunked prefill one LM head
+    and, over a float pool, one paged-prefill attention per layer (an
+    int8 pool takes the gather path, PyTorch ops)."""
+    L, steps = N_LAYERS, decode_steps
+    e = dict.fromkeys(_SOURCES, 0)
+    e["paged_decode_attention_inplace_q" if kv_dtype == "int8"
+      else "paged_decode_attention_inplace"] = L * steps
+    e["stream_linear"] = steps + prefills + prefill_chunks
+    if quant == "a8w8":
+        e["stream_linear_a8w8"] = 4 * L * steps
+    elif quant == "int8":
+        e["stream_linear_w8"] = steps
+        e["stream_layer_tail_w8"] = TAIL_LAUNCHES_PER_CALL * L * steps
+    else:
+        e["stream_linear"] += steps
+        e["stream_layer_tail"] = TAIL_LAUNCHES_PER_CALL * L * steps
+    if kv_dtype != "int8":
+        e["paged_prefill_attention"] = L * prefill_chunks
+    return e
 
 
 def _check_launches(path: str, counts: dict, expect: dict) -> None:
@@ -632,17 +986,30 @@ def _reset_counters():
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
-    pa.launches = 0
-    sl.launches = 0
-    sl.tail_launches = 0
+    pa.launches = pa.q_launches = 0
+    sl.launches = sl.tail_launches = 0
+    sl.w8_launches = sl.tail_w8_launches = sl.a8w8_launches = 0
     fv.launches = 0
 
 
+def _ulp_nudge(x, gen):
+    """x with a random half of its elements one ulp further from zero."""
+    it = torch.int32 if x.dtype == torch.float32 else torch.int16
+    flip = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+    return (x.contiguous().view(it) + flip.to(it)).view(x.dtype)
+
+
 @contextlib.contextmanager
-def plain_path():
+def plain_path(act_quant_ulp=None, drop_k_tile=False):
     """The decode step and the chunked prefill with every kernel call
     replaced by its plain PyTorch version (the reference for the
-    teacher-forced and chunked-prefill checks)."""
+    teacher-forced and chunked-prefill checks).
+
+    Two variants serve the A8W8 check. ``act_quant_ulp`` (a generator)
+    nudges a random half of every act-quant input by one ulp before it
+    is quantized: the witness of how far rounding noise of that size
+    moves the logits. ``drop_k_tile`` makes every A8W8 product skip its
+    last 32 K lanes, a tile-edge fault that the check must catch."""
     from unittest import mock
 
     from paddle_tpu_torch.incubate.nn import fused_transformer as ft
@@ -650,16 +1017,35 @@ def plain_path():
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
+    from paddle_tpu_torch.quantization.dynamic import dynamic_act_quant
 
     def attn(q, k, v, ck, cv, lens, tbl, pool_base=None, pool_pages=None):
         return (pa._paged_decode_plain(q, k, v, ck, cv, lens, tbl,
                                        pool_base or 0, pool_pages), ck, cv)
 
-    def lin(x, w, layer=None, bias=None, activation=None, out_dtype=None,
-            **_):
+    def attn_q(q, k, v, kq, ks, vq, vs, lens, tbl, pool_base=None,
+               pool_pages=None):
+        return (pa._paged_decode_q_plain(q, k, v, kq, ks, vq, vs, lens, tbl,
+                                         pool_base or 0, pool_pages),
+                kq, ks, vq, vs)
+
+    def lin(x, w, layer=None, bias=None, scale=None, activation=None,
+            out_dtype=None, act_quant=False):
+        if act_quant:
+            if act_quant_ulp is not None:
+                x = _ulp_nudge(x, act_quant_ulp)
+            xq, xs = dynamic_act_quant(x)
+            if drop_k_tile:
+                xq = xq.clone()
+                xq[..., -32:] = 0
+            return sl._stream_linear_a8w8_plain(xq, xs, w, scale, layer,
+                                                bias, activation,
+                                                out_dtype or x.dtype)
         return sl._stream_linear_plain(x, w, layer, bias, activation,
-                                       out_dtype)
+                                       out_dtype, scale=scale)
     with mock.patch.object(ft, "paged_decode_attention_inplace", attn), \
+            mock.patch.object(ft, "paged_decode_attention_inplace_q",
+                              attn_q), \
             mock.patch.object(ft, "stream_linear", lin), \
             mock.patch.object(ft, "stream_layer_tail", _plain_tail), \
             mock.patch.object(ft, "paged_prefill_attention",
@@ -686,47 +1072,64 @@ def _build_model():
     return model
 
 
-def slice_generate(model) -> dict:
+def slice_generate(model, name="generate", quant=None, kv_dtype=None,
+                   batch=BATCH) -> dict:
+    """GenerationEngine.generate at ``batch``, prompt 128, 129 new
+    tokens (bench.py's decode rungs; ``quant``/``kv_dtype`` select the
+    quantized ones), its launch counts reset before and checked after."""
     from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.profiler import stats
 
     eng = GenerationEngine(model, page_size=PAGE,
-                           max_length=PROMPT + NEW_TOKENS)
-    ids = np.random.RandomState(0).randint(0, VOCAB, (BATCH, PROMPT))
+                           max_length=PROMPT + NEW_TOKENS, quant=quant,
+                           kv_dtype=kv_dtype)
+    ids = np.random.RandomState(0).randint(0, VOCAB, (batch, PROMPT))
     eng.generate(ids[:, :16], max_new_tokens=4)          # warm-up
     torch.cuda.synchronize()
+    mm0 = stats.counter("quant.a8w8_matmuls").value
     _reset_counters()
     t0 = time.perf_counter()
     out = eng.generate(ids, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _counters()
-    expect = _expected_launches(NEW_TOKENS - 1, 1)   # first token: prefill
+    # first token: prefill
+    expect = _expected_launches(NEW_TOKENS - 1, 1, quant=quant,
+                                kv_dtype=kv_dtype)
+    a8w8_matmuls = stats.counter("quant.a8w8_matmuls").value - mm0
     # seconds and tokens/s cover the whole call, the prefill included
-    emit({"phase": "generate", "batch": BATCH, "prompt": PROMPT,
-          "new_tokens": NEW_TOKENS, "seconds": dt,
-          "tokens_per_s": BATCH * NEW_TOKENS / dt,
+    emit({"phase": name, "batch": batch, "prompt": PROMPT,
+          "new_tokens": NEW_TOKENS, "quant": quant,
+          "kv_dtype": kv_dtype, "seconds": dt,
+          "tokens_per_s": batch * NEW_TOKENS / dt,
+          "quant_a8w8_matmuls": a8w8_matmuls,
           "launches": counts, "expected_launches": expect})
-    check(out.shape == (BATCH, PROMPT + NEW_TOKENS), "generate shape")
+    check(out.shape == (batch, PROMPT + NEW_TOKENS), f"{name} shape")
     check(bool((out >= 0).all() and (out < VOCAB).all()),
-          "generate: token ids outside the vocabulary")
-    check(bool((out[:, :PROMPT] == ids).all()), "generate: prompt lost")
-    _check_launches("generate", counts, expect)
+          f"{name}: token ids outside the vocabulary")
+    check(bool((out[:, :PROMPT] == ids).all()), f"{name}: prompt lost")
+    check(a8w8_matmuls == (4 * N_LAYERS * NEW_TOKENS if quant == "a8w8"
+                           else 0),
+          f"{name}: quant.a8w8_matmuls counted {a8w8_matmuls}")
+    _check_launches(name, counts, expect)
     return counts
 
 
-def _prefilled(model, b: int, steps: int, seed: int) -> dict:
+def _prefilled(model, b: int, steps: int, seed: int, quant=None,
+               kv_dtype=None) -> dict:
     """A prefilled batch of ``b`` random prompts of PROMPT tokens with
     pages for ``steps`` more, and what a decode step needs."""
     from paddle_tpu_torch.inference import (BlockKVCacheManager,
                                             GenerationEngine)
 
     eng = GenerationEngine(model, page_size=PAGE,
-                           max_length=PROMPT + steps + 1)
+                           max_length=PROMPT + steps + 1, quant=quant,
+                           kv_dtype=kv_dtype)
     st = model.stack
     pages_per_seq = -(-(PROMPT + steps + 1) // PAGE)
     mgr = BlockKVCacheManager(st.num_layers, st.num_kv_heads, st.head_dim,
                               PAGE, num_pages=b * pages_per_seq + 1,
-                              dtype=torch.bfloat16, reserve_scratch=True)
+                              dtype=eng._kv_dtype, reserve_scratch=True)
     for i in range(b):
         mgr.allocate(i, PROMPT + steps + 1)
     tables = mgr.block_tables(range(b), pages_per_seq)
@@ -743,56 +1146,98 @@ def _prefilled(model, b: int, steps: int, seed: int) -> dict:
                 lnf_s=lnf_s, lnf_b=lnf_b)
 
 
-def slice_teacher_forced(model, steps: int = 16) -> None:
+def _clone(side):
+    return tuple(t.clone() for t in side) if isinstance(side, tuple) \
+        else side.clone()
+
+
+def slice_teacher_forced(model, steps: int = 16, quant=None,
+                         kv_dtype=None, name="teacher_forced") -> None:
     """Kernel path and plain path decode the same tokens from the same
     prefilled pool; their logits must agree within the bf16 tolerance."""
     from paddle_tpu_torch.incubate.nn.fused_transformer import PagedKV
 
     b = 8
-    s = _prefilled(model, b, steps, seed=1)
+    s = _prefilled(model, b, steps, seed=1, quant=quant, kv_dtype=kv_dtype)
     eng, st, tables, ck, cv = (s[k] for k in ("eng", "st", "tables", "ck",
                                                "cv"))
     w, emb, head, lnf_s, lnf_b = (s[k] for k in ("w", "emb", "head",
                                                   "lnf_s", "lnf_b"))
     tok, lens = s["tok"], s["lens"]
-    ck2, cv2 = ck.clone(), cv.clone()
     # tolerance: logits have std ~0.9 (LN output x 0.02 embedding over
     # 2048 lanes); the paths round bf16 intermediates at different
-    # points (h2, hn, ff), a few 2^-9 relative each per layer
-    tol = 0.1
-    errs, agree = [], 0
+    # points (h2, hn, ff; an int8 product before its scale), a few 2^-9
+    # relative each per layer. A8W8's per-token act quant steps by
+    # absmax/127 (two bf16 ulps at the row's largest element, more for
+    # the smaller ones), so a one-ulp difference upstream can move an
+    # element by a whole step: its limit is set from sound runs on an
+    # H100 (0.1234 in each of four), and two more plain runs go beside
+    # it — a witness nudging one ulp before each act quant (0.193 on
+    # that card), and a control with a faulty A8W8 product (1.27),
+    # which must fail the limit
+    a8w8 = quant == "a8w8"
+    tol = 0.15 if a8w8 else 0.1
+    variants = {"plain": {}}
+    if a8w8:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        variants.update(witness={"act_quant_ulp": gen},
+                        control={"drop_k_tile": True})
+    pools = {v: (_clone(ck), _clone(cv)) for v in variants}
+    errs = {v: [] for v in variants}
+    agree = 0
     pos = lens.clone()
+    t0 = time.perf_counter()
     for _ in range(steps):
         x = emb[tok.long()].to(torch.bfloat16)
         h, _ = st.decode_raw(w, x, PagedKV(ck, cv), tables, pos,
-                             eng._cos, eng._sin)
+                             eng._cos, eng._sin, a8w8=eng._a8w8)
         lk = eng._logits(h, head, lnf_s, lnf_b)
-        with plain_path():
-            h2, _ = st.decode_raw(w, x, PagedKV(ck2, cv2), tables, pos,
-                                  eng._cos, eng._sin)
-            lp = eng._logits(h2, head, lnf_s, lnf_b)
-        check(bool(torch.isfinite(lk).all()), "kernel-path logits finite")
-        errs.append(max_err(lk, lp))
+        check(bool(torch.isfinite(lk).all()), f"{name}: logits finite")
         tk = eng._argmax(lk)
-        agree += int((tk == eng._argmax(lp)).sum())
+        for v, kw in variants.items():
+            with plain_path(**kw):
+                h2, _ = st.decode_raw(w, x, PagedKV(*pools[v]), tables,
+                                      pos, eng._cos, eng._sin,
+                                      a8w8=eng._a8w8)
+                lp = eng._logits(h2, head, lnf_s, lnf_b)
+            # the witness is held against the plain path, the rest
+            # against the kernel path ("plain" runs first)
+            errs[v].append(max_err(lp, lp_plain) if v == "witness"
+                           else max_err(lk, lp))
+            if v == "plain":
+                lp_plain = lp
+                agree += int((tk == eng._argmax(lp)).sum())
         tok = tk
         pos = pos + 1
-    emit({"phase": "teacher_forced", "steps": steps, "batch": b,
-          "logits_max_abs_err": max(errs), "per_step": errs, "tol": tol,
-          "argmax_agreement": agree / (steps * b)})
-    check(max(errs) <= tol, f"teacher-forced logits differ by "
-                            f"{max(errs)} > {tol}")
+    emit({"phase": name, "quant": quant, "kv_dtype": kv_dtype,
+          "steps": steps, "batch": b,
+          "logits_max_abs_err": max(errs["plain"]),
+          "per_step": errs["plain"], "tol": tol,
+          **{f"{v}_logits_max_abs_err": max(errs[v])
+             for v in variants if v != "plain"},
+          "argmax_agreement": agree / (steps * b),
+          "wall_s": time.perf_counter() - t0})
+    err = max(errs["plain"])
+    check(err <= tol, f"{name}: logits differ by {err} > {tol}")
+    if a8w8:
+        err = max(errs["control"])
+        check(err > tol, f"{name}: the faulty A8W8 product passes the "
+              f"limit ({err} <= {tol})")
 
 
-def slice_decode_step(model, out_dir, steps: int = 16) -> None:
-    """One decode step at batch 32 after a 128-token prompt: a chunk of
+def slice_decode_step(model, out_dir, steps: int = 16, quant=None,
+                      kv_dtype=None, batch=BATCH,
+                      name="decode_step") -> None:
+    """One decode step at ``batch`` after a 128-token prompt: a chunk of
     ``steps`` steps (one host sync) timed bare, three times, for the
     wall per step; then once more under torch.profiler for the device
     time by kernel. The idle share is 1 - device busy / bare wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    s = _prefilled(model, BATCH, steps, seed=3)
+    s = _prefilled(model, batch, steps, seed=3, quant=quant,
+                   kv_dtype=kv_dtype)
     eng = s["eng"]
 
     def chunk():
@@ -813,8 +1258,10 @@ def slice_decode_step(model, out_dir, steps: int = 16) -> None:
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed()
     groups = {"paged_decode_kernel": "paged_decode_attention_inplace",
+              "paged_decode_q_kernel": "paged_decode_attention_inplace_q",
               "stream_linear_kernel": "stream_linear GEMM (QKV, head, "
                                       "tail projections)",
+              "a8w8_kernel": "stream_linear_a8w8 GEMM",
               "layer_norm_kernel": "tail LayerNorm"}
     by_group, kernels = {}, []
     for ev in prof.key_averages():
@@ -827,7 +1274,8 @@ def slice_decode_step(model, out_dir, steps: int = 16) -> None:
         by_group[g] = by_group.get(g, 0.0) + us / steps / 1e3
     busy = sum(by_group.values())
     kernels.sort(key=lambda r: -r[1])
-    emit({"phase": "decode_step", "batch": BATCH, "context": PROMPT,
+    emit({"phase": name, "batch": batch, "context": PROMPT,
+          "quant": quant, "kv_dtype": kv_dtype,
           "steps": steps, "wall_ms_per_step": wall_ms,
           "wall_ms_per_step_runs": walls,
           "profiled_wall_ms_per_step": profiled_ms,
@@ -838,7 +1286,7 @@ def slice_decode_step(model, out_dir, steps: int = 16) -> None:
                            "launches_per_step": n}
                           for k, ms, n in kernels[:6]]})
     if out_dir:
-        with open(os.path.join(out_dir, "profile.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=40))
 
@@ -894,13 +1342,15 @@ def slice_continuous(model) -> dict:
     return counts
 
 
-def slice_serving(model) -> dict:
+def slice_serving(model, name="serving", quant=None,
+                  kv_dtype=None) -> dict:
     """The SLO serving frontend at full width: ServingEngine with 8 slots,
     page 16, max_length 2048, decode chunk 16 and prefill chunks of 256.
     A 512-token system prompt S; the first request, S + 64 tokens, is
     stepped into decode so its prefix is registered; then 7 more of S +
     16..240 tokens and 8 independent prompts of 40..1500 tokens, all
-    with 64 new tokens, are served to the end step by step."""
+    with 64 new tokens, are served to the end step by step.
+    ``quant``/``kv_dtype`` serve the same workload quantized."""
     from paddle_tpu_torch.profiler import stats
     from paddle_tpu_torch.serving import ServingEngine, SLOConfig
 
@@ -908,7 +1358,7 @@ def slice_serving(model) -> dict:
     slo = SLOConfig(prefill_chunk=SERVE_CHUNK)
     eng = ServingEngine(model, max_batch=8, page_size=PAGE,
                         max_length=SERVE_MAX_LENGTH, decode_chunk=16,
-                        slo=slo)
+                        slo=slo, quant=quant, kv_dtype=kv_dtype)
     free0 = eng._mgr.free_pages
     rng = np.random.RandomState(4)
     sys_prompt = rng.randint(0, VOCAB, 512)
@@ -939,7 +1389,8 @@ def slice_serving(model) -> dict:
     counts = _counters()
     chunks = stats.counter("serve.prefill_chunks").value
     dsteps = stats.counter("serving.decode_steps").value
-    expect = _expected_launches(dsteps, 0, chunks)
+    expect = _expected_launches(dsteps, 0, chunks, quant=quant,
+                                kv_dtype=kv_dtype)
     done = {r.id: r for r in eng.finished}
     # the stall bound: consecutive prefill chunks while a request decodes
     streak = longest = 0
@@ -957,7 +1408,8 @@ def slice_serving(model) -> dict:
     phase_ms = {p: stats.histogram(f"serve.step.{p}_ms").total
                 for p in ("admit", "prefill_chunk", "decode_chunk",
                           "host_overhead")}
-    emit({"phase": "serving", "requests": len(done),
+    emit({"phase": name, "quant": quant, "kv_dtype": kv_dtype,
+          "requests": len(done),
           "prompt_lens": [len(first)] + [len(p) for p in shared + indep],
           "seconds": dt, "tokens_per_s": len(rids) * new / dt,
           "ttft_ms_p50": ttft["p50"], "ttft_ms_p99": ttft["p99"],
@@ -993,7 +1445,7 @@ def slice_serving(model) -> dict:
     check(eng._mgr.free_pages == free0,
           "the pool's free pages did not return to their start value "
           "after the prefix cache was cleared")
-    _check_launches("serving", counts, expect)
+    _check_launches(name, counts, expect)
     return counts
 
 
@@ -1067,7 +1519,25 @@ _SOURCES = {
     "paged_prefill_attention": (
         "paddle_tpu_torch/csrc/flash_varlen.cu",
         "paddle_tpu/nn/functional/flash_varlen.py:906"),
+    "stream_linear_w8": (
+        "paddle_tpu_torch/csrc/stream_linear.cu",
+        "paddle_tpu/nn/functional/stream_linear.py:289"),
+    "stream_layer_tail_w8": (
+        "paddle_tpu_torch/csrc/stream_linear.cu",
+        "paddle_tpu/nn/functional/stream_linear.py:482"),
+    "stream_linear_a8w8": (
+        "paddle_tpu_torch/csrc/stream_linear_a8w8.cu",
+        "paddle_tpu/nn/functional/stream_linear.py:144"),
+    "paged_decode_attention_inplace_q": (
+        "paddle_tpu_torch/csrc/paged_attention_q.cu",
+        "paddle_tpu/nn/functional/paged_attention.py:957"),
 }
+
+#: the quantized decode rungs of bench.py (--decode-int8, --decode-a8w8,
+#: --decode-int8kv): path name, quant, kv_dtype, batch
+QUANT_PATHS = (("generate_int8", "int8", None, BATCH),
+               ("generate_a8w8", "a8w8", None, BATCH),
+               ("generate_int8kv", "int8", "int8", 2 * BATCH))
 
 
 def main() -> None:
@@ -1093,6 +1563,13 @@ def main() -> None:
             "stream_linear": kernel_stream_linear(gen),
             "stream_layer_tail": kernel_stream_layer_tail(gen),
             "paged_prefill_attention": kernel_paged_prefill(gen)}
+    t0 = time.perf_counter()
+    rows.update({
+        "stream_linear_w8": kernel_stream_linear_w8(gen),
+        "stream_layer_tail_w8": kernel_stream_layer_tail(gen, int8=True),
+        "stream_linear_a8w8": kernel_stream_linear_a8w8(gen),
+        "paged_decode_attention_inplace_q": kernel_paged_attention_q(gen)})
+    emit({"phase": "quantized_kernels", "wall_s": time.perf_counter() - t0})
     model = _build_model()
     by_path = {"generate": slice_generate(model)}
     slice_teacher_forced(model)
@@ -1100,6 +1577,19 @@ def main() -> None:
     by_path["continuous_batching"] = slice_continuous(model)
     by_path["serving"] = slice_serving(model)
     slice_chunked_prefill(model)
+    # quantized serving on the same model: the first quantized engine
+    # turns its bf16 stack into int8 in place
+    t0 = time.perf_counter()
+    for name, quant, kv_dtype, batch in QUANT_PATHS:
+        by_path[name] = slice_generate(model, name, quant, kv_dtype, batch)
+        tag = name[len("generate_"):]
+        slice_teacher_forced(model, quant=quant, kv_dtype=kv_dtype,
+                             name=f"teacher_forced_{tag}")
+        slice_decode_step(model, args.out, quant=quant, kv_dtype=kv_dtype,
+                          batch=batch, name=f"decode_step_{tag}")
+    by_path["serving_int8kv"] = slice_serving(
+        model, "serving_int8kv", quant="int8", kv_dtype="int8")
+    emit({"phase": "quantized_paths", "wall_s": time.perf_counter() - t0})
     kernels = []
     for name, row in rows.items():
         src, replaces = _SOURCES[name]

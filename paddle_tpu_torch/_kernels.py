@@ -26,12 +26,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "lib", "check", "dtype_code", "ptr", "stream_ptr",
-           "SOURCES", "BUILD_DIR"]
+__all__ = ["build", "lib", "check", "dtype_code", "weight_code", "ptr",
+           "stream_ptr", "SOURCES", "BUILD_DIR"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_attention", "stream_linear", "flash_varlen")
+SOURCES = ("paged_attention", "stream_linear", "flash_varlen",
+           "paged_attention_q", "stream_linear_a8w8")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,10 +47,10 @@ _SIGNATURES = {
             [_P] * 8 + [_I] * 9 + [_F, _P],
     },
     "stream_linear": {
-        # x, w, bias, bias_dt, residual, residual_dt, out, out_dt,
-        # dtype, M, K, N, activation, stream
+        # x, w, w_dt, scale, scale_dt, bias, bias_dt, residual,
+        # residual_dt, out, out_dt, dtype, M, K, N, activation, stream
         "ptt_stream_linear":
-            [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+            [_P, _P, _I] + [_P, _I] * 4 + [_I] * 5 + [_P],
         # x, x_dt, scale, scale_dt, bias, bias_dt, out, out_dt, M, D,
         # eps, stream
         "ptt_layer_norm":
@@ -59,6 +60,18 @@ _SIGNATURES = {
         # q, k_pool, v_pool, block_tables, start, out, dtype, b, c, n_q,
         # n_kv, d, page_size, pages_per_seq, num_pages, scale, stream
         "ptt_paged_prefill_attention": [_P] * 6 + [_I] * 9 + [_F, _P],
+    },
+    "paged_attention_q": {
+        # q, new_k, new_v, kq_pool, ks_plane, vq_pool, vs_plane,
+        # seq_lens, block_tables, out, dtype, b, n_q, n_kv, d,
+        # page_size, pages_per_seq, pool_base, pool_pages, plane_cols,
+        # scale, stream
+        "ptt_paged_decode_attention_q": [_P] * 10 + [_I] * 10 + [_F, _P],
+    },
+    "stream_linear_a8w8": {
+        # x_q, x_scale, w, w_scale, bias, bias_dt, out, out_dt, M, K, N,
+        # activation, stream
+        "ptt_stream_linear_a8w8": [_P] * 5 + [_I, _P] + [_I] * 5 + [_P],
     },
 }
 
@@ -142,14 +155,22 @@ def check(code: int, what: str) -> None:
 
 #: kernel dtype codes shared with csrc/common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the code of int8 weights (csrc/common.cuh kI8)
+INT8_CODE = 2
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:
+    """Code of a float operand (float32 or bfloat16)."""
     code = _DTYPE_CODES.get(t.dtype)
     if code is None:
         raise TypeError(f"{what}: dtype {t.dtype} is not supported by the "
                         "CUDA kernel (float32 or bfloat16)")
     return code
+
+
+def weight_code(t: torch.Tensor, what: str) -> int:
+    """Code of a weight operand: a float dtype, or int8."""
+    return INT8_CODE if t.dtype == torch.int8 else dtype_code(t, what)
 
 
 def ptr(t) -> int | None:

@@ -5,7 +5,10 @@
 copies each into the port's parameter of the same name. The port's
 ``nn.Module``s keep the JAX package's parameter names and shapes
 (``embed``, ``stack.qkv_weight``, ``lnf_scale``, ...), so the two
-packages then compute the same function from the same numbers.
+packages then compute the same function from the same numbers. A stack
+quantized by the JAX package (``quantize_weight_only_int8``) carries
+int8 weights and ``stack.{qkv,out,ffn1,ffn2}_scale_woq`` [L, N] f32
+scales; the port's stack creates those parameters when it meets them.
 """
 from __future__ import annotations
 
@@ -32,6 +35,11 @@ def load_jax_params(model: torch.nn.Module,
     same name, on the parameter's device, keeping the array's dtype.
     Raises on a name the model lacks, a shape mismatch, or a model
     parameter that ``params`` leaves unset."""
+    quantized = {n.rpartition(".")[0] for n in params
+                 if n.endswith("_scale_woq")}
+    for prefix, mod in model.named_modules():
+        if prefix in quantized and hasattr(mod, "add_woq_scales"):
+            mod.add_woq_scales()
     own = dict(model.named_parameters())
     missing = sorted(set(own) - set(params))
     unknown = sorted(set(params) - set(own))

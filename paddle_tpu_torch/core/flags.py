@@ -78,15 +78,20 @@ define_flag("decode_prefetch", True,
             "with grouped decode, compute layer l+1's LN1 + QKV "
             "projection inside layer l's tail call (one tail call per "
             "layer); off = a separate stream_linear QKV call per layer")
+define_flag("decode_linear", "auto",
+            "UNGROUPED decode matmul path (used when decode_grouped "
+            "is off): auto (stream for int8 weights, plain products "
+            "over the layer's weights for bf16/f32) | xla (plain "
+            "products) | stream (the weight-streaming GEMM, "
+            "nn/functional/stream_linear.py); A8W8 always streams")
 define_flag("prefill_attention_backend", "auto",
             "chunked-prefill attention over the paged pool "
             "(nn/functional/flash_varlen.py paged_prefill_attention): "
             "auto | varlen (the block-table kernel of "
             "csrc/flash_varlen.cu on the card reading pages in place, "
             "its plain version on the CPU) | gather (the dense "
-            "per-chunk gather of the pages; on the CPU only — the card "
-            "takes it with the int8 pool of the quantized-serving "
-            "slice)")
+            "per-chunk gather of the pages, PyTorch ops on either "
+            "device — also the forced path of the int8 KV pool)")
 define_flag("serve_journal", True,
             "request-lifecycle flight recorder for the serving "
             "frontend (serving/journal.py): every lifecycle "

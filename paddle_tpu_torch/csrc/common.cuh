@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, conversions,
 // warp reductions, cp.async. Dtype codes match _kernels.py: 0 = float32,
-// 1 = bfloat16.
+// 1 = bfloat16, 2 = int8 (weights only).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,9 +10,12 @@
 
 namespace ptt {
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);  // exact
+}
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -43,10 +46,47 @@ __device__ __forceinline__ void store_dt(void* p, int64_t i, int dt,
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
 }
 
+// Epilogue activations: none, tanh-GELU (the JAX package's gelu), ReLU.
+enum Act { kActNone = 0, kGelu = 1, kRelu = 2 };
+
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == kGelu) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * v * (1.f + tanhf(c * (v + 0.044715f * v * v * v)));
+  }
+  if (act == kRelu) return fmaxf(v, 0.f);
+  return v;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Symmetric int8 quantization of one value by a row scale, as the
+// PyTorch side's clip(round(x / s), -127, 127): a true division and
+// round half to even.
+__device__ __forceinline__ int quantize_i8(float x, float s) {
+  return static_cast<int>(fminf(fmaxf(rintf(x / s), -127.f), 127.f));
+}
+
+// The row scale max(absmax / 127, 1e-8), by a true division.
+__device__ __forceinline__ float row_scale(float absmax) {
+  return fmaxf(absmax / 127.f, 1e-8f);
 }
 
 // 16-byte global -> shared copy, asynchronous (sm_80+). src_bytes 0

@@ -2,13 +2,17 @@
 //
 // ptt_stream_linear replaces the TPU kernel stream_linear
 // (paddle_tpu/nn/functional/stream_linear.py:289, pallas_call at :437):
-//     out[M, N] = act(x[M, K] @ w[K, N] + bias) + residual
+//     out[M, N] = act(x[M, K] @ w[K, N] * scale + bias) + residual
 // with fp32 accumulation, for decode-shaped M (a batch of tokens, <= 64
 // rows per block; grid.y covers more). w may be one layer of a contiguous
 // [L, K, N] stack: the caller passes the layer's pointer, nothing is
-// copied. bias, residual and out each carry their own dtype (float32 or
-// bfloat16); the activation is none, tanh-GELU (the JAX package's gelu)
-// or ReLU.
+// copied. w is in x's dtype, or int8 (weight-only quantization): each
+// int8 weight converts exactly to fp32 in the inner loop and the
+// per-column scale[N] multiplies the fp32 accumulator before bias,
+// activation and residual, in the order of the TPU kernel body
+// (stream_linear.py:410-414). scale, bias, residual and out each carry
+// their own dtype (float32 or bfloat16); the activation is none,
+// tanh-GELU (the JAX package's gelu) or ReLU.
 //
 // The same GEMM with ptt_layer_norm also makes up the grouped layer tail
 // that replaces _stream_layer_tail_kernel (stream_linear.py:482,
@@ -21,16 +25,17 @@
 // sync between the phases, so h2 never leaves the SMs.
 //
 // Design. A block owns a strip of 32 output columns and walks all of K in
-// tiles of 8 KB of W, brought in by cp.async (16-byte coalesced copies)
-// through a 4-stage shared-memory ring, with the matching [rows, BK]
-// slice of x. Its 256 threads split the strip into 4x4 register tiles and
+// tiles of BK rows (8 KB of W in x's dtype: 128 rows for bf16, 64 for
+// f32; an int8 W tile of the same BK is half or a quarter of that),
+// brought in by cp.async (16-byte coalesced copies) through a 4-stage
+// shared-memory ring, with the matching [rows, BK] slice of x. Its 256 threads split the strip into 4x4 register tiles and
 // split each K tile among k-groups (the fewer the rows, the more
 // k-groups), and the k-groups' partial sums meet in shared memory before
 // the epilogue. The products run on the CUDA cores in fp32.
 //
 // Bound: bytes — the W stream (x, bias and residual are tiny beside it).
-// QKV of the d2048 model is 25.2 MB of bf16, 7.5 us at 3.35 TB/s; the LM
-// head 209.7 MB, 62.6 us. At M = 32 the fp32 FMAs on the CUDA cores
+// QKV of the d2048 model is 25.2 MB of bf16, 7.5 us at 3.35 TB/s (int8:
+// 12.6 MB, 3.8 us); the LM head 209.7 MB, 62.6 us. At M = 32 the fp32 FMAs on the CUDA cores
 // (about 33.5 TFMA/s on an H100 SXM) take 1.6x the byte time, so this
 // kernel cannot reach the byte bound; tensor-core tiles (mma/wgmma),
 // TMA and split-K for the narrow N = 2048 projections are later work.
@@ -38,6 +43,7 @@
 
 namespace {
 
+using ptt::activate;
 using ptt::load_dt;
 using ptt::store_dt;
 using ptt::to_f32;
@@ -52,39 +58,36 @@ constexpr int kStages = 4;
 constexpr int kTileBytes = 8192;  // W bytes per pipeline stage
 constexpr int kXPadBytes = 16;    // x row padding in shared memory
 
-enum Act { kNone = 0, kGelu = 1, kRelu = 2 };
+// the k-group partials' meeting place: [kgroups][rows_pad][kBN] floats,
+// kgroups * rows_pad = 128 at every row count
+constexpr int kRedBytes = kThreads / kColGroups * kTM * kBN * 4;
 
 struct GemmParams {
   const void* x;
   const void* w;
+  const void* scale;
   const void* bias;
   const void* res;
   void* out;
-  int bias_dt, res_dt, out_dt;
+  int scale_dt, bias_dt, res_dt, out_dt;
   int M, K, N, act;
   int rg_log2;  // log2 of the 4-row groups a block covers
 };
 
-template <typename T>
+// x of type TX, w of type TW (TX, or int8)
+template <typename TX, typename TW>
 struct Tile {
-  static constexpr int kVec = 16 / sizeof(T);  // elements per 16 bytes
-  static constexpr int kBK = kTileBytes / (kBN * sizeof(T));
-  static constexpr int kXPitch = kBK + kXPadBytes / sizeof(T);
+  static constexpr int kXVec = 16 / sizeof(TX);  // elements per 16 bytes
+  static constexpr int kWVec = 16 / sizeof(TW);
+  static constexpr int kBK = kTileBytes / (kBN * sizeof(TX));
+  static constexpr int kWStageBytes = kBK * kBN * sizeof(TW);
+  static constexpr int kXPitch = kBK + kXPadBytes / sizeof(TX);
 };
 
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == kGelu) {
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * v * (1.f + tanhf(c * (v + 0.044715f * v * v * v)));
-  }
-  if (act == kRelu) return fmaxf(v, 0.f);
-  return v;
-}
-
-template <typename T>
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
     stream_linear_kernel(const GemmParams p) {
-  using C = Tile<T>;
+  using C = Tile<TX, TW>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rgs = 1 << p.rg_log2;
   const int rows_pad = rgs * kTM;
@@ -99,25 +102,26 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(kMaxRows, p.M - m0);
   const int w_stage = kBN * C::kBK;
   const int x_stage = rows_pad * C::kXPitch;
-  T* sw = reinterpret_cast<T*>(smem);  // [kStages][kBK][kBN]
-  T* sx = sw + kStages * w_stage;      // [kStages][rows_pad][kXPitch]
-  const T* w = static_cast<const T*>(p.w);
-  const T* x = static_cast<const T*>(p.x);
+  TW* sw = reinterpret_cast<TW*>(smem);  // [kStages][kBK][kBN]
+  // [kStages][rows_pad][kXPitch]; 16-byte aligned (kWStageBytes is)
+  TX* sx = reinterpret_cast<TX*>(smem + kStages * C::kWStageBytes);
+  const TW* w = static_cast<const TW*>(p.w);
+  const TX* x = static_cast<const TX*>(p.x);
 
   auto load_tile = [&](int t, int s) {
     const int k0 = t * C::kBK;
-    constexpr int wc = kBN / C::kVec;  // 16-byte chunks per W tile row
+    constexpr int wc = kBN / C::kWVec;  // 16-byte chunks per W tile row
     for (int c = tid; c < C::kBK * wc; c += kThreads) {
-      const int r = c / wc, cc = (c % wc) * C::kVec;
+      const int r = c / wc, cc = (c % wc) * C::kWVec;
       const int k = k0 + r, n = n0 + cc;
       const bool ok = k < p.K && n < p.N;
       ptt::cp_async16(sw + s * w_stage + r * kBN + cc,
                       ok ? w + static_cast<int64_t>(k) * p.N + n : w,
                       ok ? 16 : 0);
     }
-    constexpr int xc = C::kBK / C::kVec;  // 16-byte chunks per x row
+    constexpr int xc = C::kBK / C::kXVec;  // 16-byte chunks per x row
     for (int c = tid; c < rows_pad * xc; c += kThreads) {
-      const int r = c / xc, kk = (c % xc) * C::kVec;
+      const int r = c / xc, kk = (c % xc) * C::kXVec;
       const int k = k0 + kk;
       const bool ok = r < rows && k < p.K;
       ptt::cp_async16(sx + s * x_stage + r * C::kXPitch + kk,
@@ -145,8 +149,8 @@ __global__ void __launch_bounds__(kThreads)
     const int nt = t + kStages - 1;
     if (nt < ntiles) load_tile(nt, nt % kStages);
     ptt::cp_async_commit();
-    const T* tw = sw + (t % kStages) * w_stage + cg * kTN;
-    const T* tx = sx + (t % kStages) * x_stage + rg * kTM * C::kXPitch;
+    const TW* tw = sw + (t % kStages) * w_stage + cg * kTN;
+    const TX* tx = sx + (t % kStages) * x_stage + rg * kTM * C::kXPitch;
     const int kb = kg * kpg;
 #pragma unroll 4
     for (int kk = 0; kk < kpg; ++kk) {
@@ -165,7 +169,8 @@ __global__ void __launch_bounds__(kThreads)
   ptt::cp_async_wait<0>();
   __syncthreads();
 
-  // k-group partials meet in shared memory (16 KB, over the stage ring)
+  // k-group partials meet in shared memory (kRedBytes, over the stage
+  // ring)
   float* red = reinterpret_cast<float*>(smem);  // [kgroups][rows_pad][kBN]
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
@@ -179,6 +184,7 @@ __global__ void __launch_bounds__(kThreads)
     if (r >= rows || n >= p.N) continue;
     float v = 0.f;
     for (int s = 0; s < kgroups; ++s) v += red[(s * rows_pad + r) * kBN + c];
+    if (p.scale) v *= load_dt(p.scale, n, p.scale_dt);
     if (p.bias) v += load_dt(p.bias, n, p.bias_dt);
     v = activate(v, p.act);
     const int64_t idx = static_cast<int64_t>(m0 + r) * p.N + n;
@@ -187,26 +193,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename TX, typename TW>
+size_t gemm_smem(int rows_pad) {
+  using C = Tile<TX, TW>;
+  const size_t ring =
+      kStages * (C::kWStageBytes +
+                 static_cast<size_t>(rows_pad) * C::kXPitch * sizeof(TX));
+  return ring > kRedBytes ? ring : kRedBytes;
+}
+
+template <typename TX, typename TW>
 int launch_gemm(GemmParams p, cudaStream_t stream) {
-  using C = Tile<T>;
   const int rows = p.M < kMaxRows ? p.M : kMaxRows;
   int rg_log2 = 0;
   while ((1 << rg_log2) * kTM < rows) ++rg_log2;
   p.rg_log2 = rg_log2;
   const int rows_pad = (1 << rg_log2) * kTM;
-  const size_t smem =
-      kStages * (kTileBytes + static_cast<size_t>(rows_pad) * C::kXPitch *
-                                  sizeof(T));
-  const size_t smem_max =
-      kStages *
-      (kTileBytes + static_cast<size_t>(kMaxRows) * C::kXPitch * sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      stream_linear_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_max));
+      stream_linear_kernel<TX, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(gemm_smem<TX, TW>(kMaxRows)));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kMaxRows - 1) / kMaxRows);
-  stream_linear_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  stream_linear_kernel<TX, TW>
+      <<<grid, kThreads, gemm_smem<TX, TW>(rows_pad), stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -248,22 +258,30 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-// Returns the cudaError_t of the launch. x [M, K] and w [K, N] share
-// `dtype` and are contiguous and 16-byte aligned, with K and N multiples
-// of 8 (bf16) or 4 (float32). bias [N], residual [M, N] and out [M, N]
-// may be null (bias, residual) and carry their own dtype codes.
-extern "C" int ptt_stream_linear(const void* x, const void* w,
+// Returns the cudaError_t of the launch. x [M, K] (of `dtype`) and w
+// [K, N] (of `w_dt`: `dtype`, or int8) are contiguous and 16-byte
+// aligned, with K a multiple of 8 (bf16 x) or 4 (float32 x) and N a
+// multiple of 16 bytes of w. scale [N], bias [N], residual [M, N] may be
+// null and, like out [M, N], carry their own dtype codes.
+extern "C" int ptt_stream_linear(const void* x, const void* w, int w_dt,
+                                 const void* scale, int scale_dt,
                                  const void* bias, int bias_dt,
                                  const void* residual, int residual_dt,
                                  void* out, int out_dt, int dtype, int M,
                                  int K, int N, int activation, void* stream) {
   if (M == 0 || N == 0) return 0;
-  const GemmParams p{x,      w,           bias, residual, out, bias_dt,
-                     residual_dt, out_dt, M,    K,        N,   activation,
-                     0};
+  const GemmParams p{x,        w,      scale,   bias,        residual,
+                     out,      scale_dt, bias_dt, residual_dt, out_dt,
+                     M,        K,      N,       activation,  0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kF32) return launch_gemm<float>(p, st);
-  if (dtype == ptt::kBF16) return launch_gemm<__nv_bfloat16>(p, st);
+  const bool w8 = w_dt == ptt::kI8;
+  if (!w8 && w_dt != dtype) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == ptt::kF32)
+    return w8 ? launch_gemm<float, int8_t>(p, st)
+              : launch_gemm<float, float>(p, st);
+  if (dtype == ptt::kBF16)
+    return w8 ? launch_gemm<__nv_bfloat16, int8_t>(p, st)
+              : launch_gemm<__nv_bfloat16, __nv_bfloat16>(p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

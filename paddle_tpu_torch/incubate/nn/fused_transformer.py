@@ -6,15 +6,23 @@ pre-LN GPT stack whose weights are stacked along a leading layer axis
 place by the decode step.
 
 The decode step (``decode_raw``) runs the port's kernels: the fused
-KV-append + paged attention (``paged_decode_attention_inplace``), the
-QKV projection (``stream_linear``) and the grouped layer tail
-(``stream_layer_tail``). The chunked prefill of the serving frontend
-(``prefill_chunk_raw``) attends over the pool in place through the
-paged-prefill kernel (``paged_prefill_attention``); its projections,
-like the one-shot prefill (``prefill_raw``), are plain PyTorch, as the
-JAX package leaves them to XLA. Tensor parallelism, MoE, LoRA,
-A8W8, int8 weights and the int8 KV pool come with later slices of the
-port and raise ``NotImplementedError``.
+KV-append + paged attention (``paged_decode_attention_inplace``, or
+``paged_decode_attention_inplace_q`` over an int8 pool), the QKV
+projection (``stream_linear``) and the grouped layer tail
+(``stream_layer_tail``); A8W8 runs the ungrouped loop through
+``stream_linear(act_quant=True)``. The chunked prefill of the serving
+frontend (``prefill_chunk_raw``) attends over the pool in place through
+the paged-prefill kernel (``paged_prefill_attention``), or through the
+dequantizing dense gather over an int8 pool; its projections, like the
+one-shot prefill (``prefill_raw``), are plain PyTorch (``torch._int_mm``
+for A8W8 on the card), as the JAX package leaves them to XLA.
+
+Quantization: ``quantize_weight_only_int8`` turns the four matmul
+stacks into int8 with per-output-channel scales (``{kind}_scale_woq``
+parameters, ``{kind}_scale`` in ``_stack()``); an int8 KV pool keeps
+each side as ``(int8 rows, f32 scale plane)``. Tensor parallelism, MoE
+and LoRA come with later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,8 +38,11 @@ from ...core.generator import default_generator
 from ...nn.functional.flash_varlen import (_paged_prefill_plain,
                                            paged_prefill_attention)
 from ...nn.functional.paged_attention import (
-    paged_decode_attention_inplace, write_prefill_kv_pages)
+    paged_decode_attention_inplace, paged_decode_attention_inplace_q,
+    write_prefill_kv_pages)
 from ...nn.functional.stream_linear import stream_layer_tail, stream_linear
+from ...quantization.dynamic import (absmax_scale, dynamic_act_quant,
+                                     int8_dot_dequant)
 
 __all__ = ["qkv_split_rope_fused", "rope_table", "FusedMultiTransformer",
            "PagedKV"]
@@ -90,14 +101,17 @@ class PagedKV(NamedTuple):
     """Layer-folded PAGE-MAJOR paged KV pool: layer ``l``'s logical page
     ``p`` lives at physical page ``l * num_pages + p``; each page is one
     contiguous [n_kv, page_size, head_dim] block. The decode step
-    updates the tensors in place."""
-    k: torch.Tensor   # [num_layers * num_pages, n_kv, page_size, head_dim]
-    v: torch.Tensor
+    updates the tensors in place. An int8 pool's sides are pairs
+    ``(int8 rows, f32 scale plane [n_kv, pages * page_size])``."""
+    k: object   # [num_layers * num_pages, n_kv, page_size, head_dim]
+    v: object
 
 
 _STACK_NAMES = ("ln1_scale", "ln1_bias", "qkv_weight", "qkv_bias",
                 "out_weight", "out_bias", "ln2_scale", "ln2_bias",
                 "ffn1_weight", "ffn1_bias", "ffn2_weight", "ffn2_bias")
+#: the matmul stacks that weight-only int8 quantization turns to int8
+QUANT_KINDS = ("qkv", "out", "ffn1", "ffn2")
 
 
 def _later_slice(what: str, slice_name: str):
@@ -164,7 +178,41 @@ class FusedMultiTransformer(nn.Module):
     # ---------- functional core (raw tensors) ----------
 
     def _stack(self):
-        return {n: getattr(self, n) for n in _STACK_NAMES}
+        out = {n: getattr(self, n) for n in _STACK_NAMES}
+        for n in QUANT_KINDS:
+            s = getattr(self, f"{n}_scale_woq", None)
+            if s is not None:
+                out[f"{n}_scale"] = s
+        return out
+
+    def add_woq_scales(self):
+        """Register the ``{kind}_scale_woq`` [L, N] parameters of an int8
+        stack (ones; ``quantize_weight_only_int8`` or a loaded quantized
+        state fills them)."""
+        for n in QUANT_KINDS:
+            if getattr(self, f"{n}_scale_woq", None) is None:
+                w = getattr(self, f"{n}_weight")
+                self.register_parameter(f"{n}_scale_woq", nn.Parameter(
+                    torch.ones(w.shape[0], w.shape[2], device=w.device),
+                    requires_grad=False))
+        return self
+
+    def quantize_weight_only_int8(self):
+        """In-place weight-only int8 quantization of the four matmul
+        stacks: symmetric per-output-channel scales ``max(absmax / 127,
+        1e-8)`` over K, ``q = clip(round(w / scale), -127, 127)``;
+        biases and LNs stay full precision. The products apply the
+        scales on their OUTPUTS (``_mm``), so the weight stream halves
+        against bf16."""
+        self.add_woq_scales()
+        for n in QUANT_KINDS:
+            p = getattr(self, f"{n}_weight")
+            w = p.data.float()
+            scale = absmax_scale(w.abs().amax(dim=1, keepdim=True))
+            p.data = torch.clamp(torch.round(w / scale), -127, 127) \
+                .to(torch.int8)                             # [L, K, N]
+            getattr(self, f"{n}_scale_woq").data = scale[:, 0, :]
+        return self
 
     def _act(self, x):
         return (F.gelu(x, approximate="tanh") if self.activation == "gelu"
@@ -183,21 +231,37 @@ class FusedMultiTransformer(nn.Module):
 
     @staticmethod
     def _mm(x, w, scale=None):
-        if w.dtype == torch.int8 or scale is not None:
-            raise _later_slice("int8 weight-only matmul",
-                               "quantized-serving")
+        """x @ w; int8 weights dequantize on the OUTPUT by their
+        per-output-channel scales, in the compute dtype."""
+        if w.dtype == torch.int8:
+            return (x @ w.to(x.dtype)) * scale.to(x.dtype)
         return x @ w
 
+    @staticmethod
+    def _mm_a8w8(x, w_q, scale):
+        """A8W8 product: per-token dynamic int8 activations against the
+        int8 weights, int32 accumulation, one dequant by ``act_scale (x)
+        scale``. Returns f32 (the caller casts back)."""
+        xq, xs = dynamic_act_quant(x)
+        return int8_dot_dequant(xq, xs, w_q, scale)
+
     def _layer_body(self, w, h, positions, kv_write, attend, cos_t, sin_t,
-                    linear=None):
+                    linear=None, a8w8=False):
         """One pre-LN transformer layer over hidden ``h`` (any leading
         dims). Compute dtype follows h. ``attend`` may return
         (att, ck, cv) — the fused append+attend path, where kv_write is
-        None. ``linear(x, kind)`` computes x @ W_kind + bias."""
+        None. ``linear(x, kind)`` computes x @ W_kind (* scale) + bias;
+        by default through ``_mm``, or ``_mm_a8w8`` with ``a8w8``."""
         eps = self.epsilon
         if linear is None:
             def linear(x, kind):
-                return self._mm(x, w[f"{kind}_weight"]) + w[f"{kind}_bias"]
+                if a8w8:
+                    y = self._mm_a8w8(x, w[f"{kind}_weight"],
+                                      w[f"{kind}_scale"])
+                else:
+                    y = self._mm(x, w[f"{kind}_weight"],
+                                 w.get(f"{kind}_scale"))
+                return y + w[f"{kind}_bias"]
         hn = self._ln(h, w["ln1_scale"], w["ln1_bias"], eps).to(h.dtype)
         proj = linear(hn, "qkv")
         q, k, v = _split_rope(proj.to(h.dtype), positions, self.num_heads,
@@ -216,13 +280,20 @@ class FusedMultiTransformer(nn.Module):
         h = (h + linear(ff, "ffn2")).to(h.dtype)
         return h, ck, cv
 
+    @staticmethod
+    def _pool_data(side):
+        """Page rows of a cache side (an int8 side is a (rows, scale
+        plane) pair)."""
+        return side[0] if isinstance(side, tuple) else side
+
     def _pages_per_layer(self, cache: PagedKV) -> int:
-        return cache.k.shape[0] // self.num_layers
+        return self._pool_data(cache.k).shape[0] // self.num_layers
 
     @staticmethod
-    def _check_serving_args(a8w8, tp, adapters=None):
-        if a8w8:
-            raise _later_slice("A8W8 serving", "quantized-serving")
+    def _check_serving_args(weights, a8w8, tp, adapters=None):
+        if a8w8 and weights["qkv_weight"].dtype != torch.int8:
+            raise ValueError("a8w8 needs an int8 weight stack "
+                             "(quantize_weight_only_int8 first)")
         if tp is not None:
             raise _later_slice("tensor-parallel serving", "TP serving")
         if adapters is not None:
@@ -239,10 +310,12 @@ class FusedMultiTransformer(nn.Module):
         layer-offset pages of the folded pool (in place). ``cache=None``
         runs the pure dense forward with no KV writes. Ragged batches
         are not masked here — prompts are right-padded to a common
-        length (causal attention keeps the real tokens exact)."""
-        self._check_serving_args(a8w8, tp)
+        length (causal attention keeps the real tokens exact).
+        ``a8w8``: the four products take per-token dynamic int8
+        activations against the int8 stack (``_mm_a8w8``)."""
         if isinstance(weights, (list, tuple)):
             raise ValueError("prefill_raw takes the stacked weight dict")
+        self._check_serving_args(weights, a8w8, tp)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         group = self.num_heads // self.num_kv_heads
@@ -266,7 +339,8 @@ class FusedMultiTransformer(nn.Module):
             for l in range(self.num_layers):
                 h, _, _ = self._layer_body(
                     self._weights_layer(weights, l), h, positions,
-                    lambda k, v: (None, None), attend, cos_t, sin_t)
+                    lambda k, v: (None, None), attend, cos_t, sin_t,
+                    a8w8=a8w8)
             return h, None
 
         npages = self._pages_per_layer(cache)
@@ -276,7 +350,7 @@ class FusedMultiTransformer(nn.Module):
             h, ck, cv = self._layer_body(
                 self._weights_layer(weights, l), h, positions,
                 lambda k, v: write_prefill_kv_pages(ck, cv, k, v, tbl),
-                attend, cos_t, sin_t)
+                attend, cos_t, sin_t, a8w8=a8w8)
         return h, PagedKV(ck, cv)
 
     def prefill_chunk_raw(self, weights, x, cache, block_tables, start,
@@ -294,25 +368,29 @@ class FusedMultiTransformer(nn.Module):
         position offset and VALID row count (rows ``>= chunk_lens[b]``
         are right-padding; their KV writes go to the scratch page and
         their hidden rows are garbage the caller discards), so the layer
-        loop never syncs with the host. ``FLAGS_prefill_attention_backend
-        =gather`` takes the dense per-chunk gather instead, on the CPU
-        only. Returns (hidden [b, c, d], cache)."""
-        self._check_serving_args(a8w8, tp, adapters)
+        loop never syncs with the host. An int8 pool takes the dense
+        per-chunk gather of the pages instead, dequantized (PyTorch ops,
+        XLA in the JAX package), on the card too.
+        ``FLAGS_prefill_attention_backend=gather`` takes it for a float
+        pool, on the CPU only. Returns (hidden [b, c, d], cache)."""
         if isinstance(weights, (list, tuple)):
             raise ValueError("prefill_chunk_raw takes the stacked weight "
                              "dict")
-        if isinstance(cache.k, tuple):
-            raise _later_slice("the int8 KV pool", "quantized-serving")
+        self._check_serving_args(weights, a8w8, tp, adapters)
         backend = flag("prefill_attention_backend")
         if backend not in ("auto", "varlen", "gather"):
             raise ValueError(f"FLAGS_prefill_attention_backend={backend!r}:"
                              " valid values are 'auto', 'varlen', "
                              "'gather'")
-        if backend == "gather" and x.device.type == "cuda":
-            raise _later_slice(
-                "the dense-gather prefill attention on the card "
-                "(FLAGS_prefill_attention_backend=gather)",
-                "quantized-serving")
+        quant_pool = isinstance(cache.k, tuple)
+        if backend == "gather" and not quant_pool \
+                and x.device.type == "cuda":
+            raise ValueError(
+                "FLAGS_prefill_attention_backend=gather names the plain "
+                "dense gather, which runs on the CPU only; on the card a "
+                "bf16/f32 pool goes through paged_prefill_attention")
+        attend_fn = _paged_prefill_plain if quant_pool or backend == "gather" \
+            else paged_prefill_attention
         b, c, _ = x.shape
         start = start.to(torch.int32)
         positions = start.long()[:, None] \
@@ -320,8 +398,6 @@ class FusedMultiTransformer(nn.Module):
         n_kv = self.num_kv_heads
         scale = self.head_dim ** -0.5
         npages = self._pages_per_layer(cache)
-        attend_fn = _paged_prefill_plain if backend == "gather" \
-            else paged_prefill_attention
         ck, cv = cache.k, cache.v
         h = x
         for l in range(self.num_layers):
@@ -341,7 +417,7 @@ class FusedMultiTransformer(nn.Module):
 
             h, ck, cv = self._layer_body(
                 self._weights_layer(weights, l), h, positions, kv_write,
-                attend, cos_t, sin_t)
+                attend, cos_t, sin_t, a8w8=a8w8)
         return h, PagedKV(ck, cv)
 
     def decode_raw(self, weights, x, cache: PagedKV, block_tables,
@@ -349,33 +425,43 @@ class FusedMultiTransformer(nn.Module):
                    adapters=None):
         """One decode step: x [b, d] token embeddings, seq_lens [b] int32
         = tokens already cached (the new token's position). Returns
-        (hidden [b, d], cache) with the pool updated in place.
+        (hidden [b, d], cache) with the pool updated in place; an int8
+        pool goes through ``paged_decode_attention_inplace_q``.
 
-        GROUPED (``FLAGS_decode_grouped`` auto/on): per layer one
-        attention call and one ``stream_layer_tail`` call; with
-        ``FLAGS_decode_prefetch`` the tail also computes layer l+1's
-        LN1 + QKV, otherwise a separate ``stream_linear`` QKV call
-        follows it. ``off``: the per-projection layer body with plain
-        products, the attention still through the fused kernel."""
-        self._check_serving_args(a8w8, tp, adapters)
+        GROUPED (``FLAGS_decode_grouped`` auto — except under A8W8 — or
+        on): per layer one attention call and one ``stream_layer_tail``
+        call; with ``FLAGS_decode_prefetch`` the tail also computes layer
+        l+1's LN1 + QKV, otherwise a separate ``stream_linear`` QKV call
+        follows it. Int8 stacks stream int8 weights through both.
+        UNGROUPED (``off``, and auto under A8W8): the per-projection
+        layer body, its products through ``stream_linear`` (A8W8:
+        ``act_quant=True``) when A8W8 holds or when the batch is a
+        multiple of 8 and ``FLAGS_decode_linear`` is ``stream`` (or
+        ``auto`` with int8 weights), plain products otherwise."""
         if isinstance(weights, (list, tuple)):
             raise ValueError(
                 "decode_raw takes the stacked weight dict (the JAX "
                 "package's unstacked per-layer form is experimental and "
                 "not ported)")
-        if isinstance(cache.k, tuple):
-            raise _later_slice("the int8 KV pool", "quantized-serving")
+        self._check_serving_args(weights, a8w8, tp, adapters)
         npages = self._pages_per_layer(cache)
         L = self.num_layers
         d_att = self.num_heads * self.head_dim
         ck, cv = cache.k, cache.v
+        quantized_kv = isinstance(ck, tuple)
 
         def attend_fn(q, k, v, ck, cv, base):
-            # v is a strided view of the projection; the kernel takes
+            # v is a strided view of the projection; the kernels take
             # contiguous rows
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            if quantized_kv:
+                att, kq, ks, vq, vs = paged_decode_attention_inplace_q(
+                    q, k, v, ck[0], ck[1], cv[0], cv[1], seq_lens,
+                    block_tables, pool_base=base, pool_pages=npages)
+                return att, (kq, ks), (vq, vs)
             return paged_decode_attention_inplace(
-                q.contiguous(), k.contiguous(), v.contiguous(), ck, cv,
-                seq_lens, block_tables, pool_base=base, pool_pages=npages)
+                q, k, v, ck, cv, seq_lens, block_tables, pool_base=base,
+                pool_pages=npages)
 
         def split_rope(qkv, h):
             return _split_rope(qkv.to(h.dtype), seq_lens, self.num_heads,
@@ -383,7 +469,10 @@ class FusedMultiTransformer(nn.Module):
                                sin_t)
 
         g_flag = flag("decode_grouped")
-        if g_flag in ("auto", "on"):
+        if g_flag not in ("auto", "on", "off"):
+            raise ValueError(f"FLAGS_decode_grouped={g_flag!r}: valid "
+                             "values are 'auto', 'on', 'off'")
+        if g_flag == "on" or (g_flag == "auto" and not a8w8):
             prefetch = bool(flag("decode_prefetch"))
 
             def qkv_at(l, hh):
@@ -392,6 +481,7 @@ class FusedMultiTransformer(nn.Module):
                               self.epsilon).to(hh.dtype)
                 return stream_linear(hn, weights["qkv_weight"], layer=l,
                                      bias=weights["qkv_bias"],
+                                     scale=weights.get("qkv_scale"),
                                      out_dtype=hh.dtype)
 
             def tail(att, h, l):
@@ -399,6 +489,7 @@ class FusedMultiTransformer(nn.Module):
                 if prefetch:
                     nq = dict(w=weights["qkv_weight"],
                               b=weights["qkv_bias"],
+                              s=weights.get("qkv_scale"),
                               ln_s=weights["ln1_scale"],
                               ln_b=weights["ln1_bias"],
                               layer=min(l + 1, L - 1))
@@ -409,7 +500,10 @@ class FusedMultiTransformer(nn.Module):
                     b2=weights["ffn2_bias"],
                     ln2_scale=weights["ln2_scale"],
                     ln2_bias=weights["ln2_bias"], epsilon=self.epsilon,
-                    activation=self.activation, next_qkv=nq,
+                    activation=self.activation,
+                    so=weights.get("out_scale"),
+                    s1=weights.get("ffn1_scale"),
+                    s2=weights.get("ffn2_scale"), next_qkv=nq,
                     out_dtype=h.dtype)
 
             h = x
@@ -426,10 +520,14 @@ class FusedMultiTransformer(nn.Module):
                     h = tail(att, h, l)
                     qkv = qkv_at(min(l + 1, L - 1), h)
             return h, PagedKV(ck, cv)
-        if g_flag != "off":
-            raise ValueError(f"FLAGS_decode_grouped={g_flag!r}: valid "
-                             "values are 'auto', 'on', 'off'")
 
+        lin_flag = flag("decode_linear")
+        if lin_flag not in ("auto", "xla", "stream"):
+            raise ValueError(f"FLAGS_decode_linear={lin_flag!r}: valid "
+                             "values are 'auto', 'xla', 'stream'")
+        is_int8 = weights["qkv_weight"].dtype == torch.int8
+        use_stream_lin = a8w8 or (x.shape[0] % 8 == 0 and (
+            lin_flag == "stream" or (lin_flag == "auto" and is_int8)))
         h = x
         for l in range(L):
             base = l * npages
@@ -437,9 +535,17 @@ class FusedMultiTransformer(nn.Module):
             def attend(q, k, v, _ck, _cv, base=base):
                 return attend_fn(q, k, v, ck, cv, base)
 
+            linear = None
+            if use_stream_lin:
+                def linear(xx, kind, l=l):
+                    return stream_linear(
+                        xx, weights[f"{kind}_weight"], layer=l,
+                        bias=weights[f"{kind}_bias"],
+                        scale=weights.get(f"{kind}_scale"),
+                        act_quant=a8w8, out_dtype=xx.dtype)
             h, ck, cv = self._layer_body(
                 self._weights_layer(weights, l), h, seq_lens, None, attend,
-                cos_t, sin_t)
+                cos_t, sin_t, linear=linear)
         return h, PagedKV(ck, cv)
 
     # ---------- eager module API ----------

@@ -8,7 +8,10 @@ picked token feeds the next step on the device). The
 shared paged KV pool and admits waiting requests as slots free up.
 
 The device is the model's: the CUDA card unless the model was built
-with ``device="cpu"``. Sampling, speculative decoding, KV migration and
+with ``device="cpu"``. ``quant="int8"`` (weight-only) and ``"a8w8"``
+(int8 activations too) quantize the model's stack in place; the
+compute dtype is then bf16. ``kv_dtype="int8"`` keeps the KV pool in
+int8 with f32 scales. Sampling, speculative decoding, KV migration and
 host-tier spill come with later slices of the port and raise.
 """
 from __future__ import annotations
@@ -131,18 +134,29 @@ class GenerationEngine:
     def _init_serving_state(self, kv_dtype, quant=None, mesh=None,
                             mp_degree=None, ep_degree=None):
         """Serving dtype discipline (shared with the continuous engine):
-        the compute dtype follows the stack weights, the KV pool follows
-        ``kv_dtype`` (default: the compute dtype), and the LM head is a
-        pre-transposed [d, vocab] copy in the compute dtype, multiplied
-        with fp32 accumulation into fp32 logits."""
-        if quant is not None:
-            raise _later_slice(f"quant={quant!r}", "quantized-serving")
+        the compute dtype follows the stack weights (bf16 for an int8
+        stack), the KV pool follows ``kv_dtype`` (default: the compute
+        dtype; ``"int8"`` = the quantized cache-KV pool), and the LM
+        head is a pre-transposed [d, vocab] copy in the compute dtype,
+        multiplied with fp32 accumulation into fp32 logits.
+
+        ``quant``: None | "int8" (weight-only) | "a8w8" (weight-only
+        int8 plus per-token dynamic int8 activations into int8 x int8
+        products). Both quantize the model's stack IN PLACE when it is
+        not int8 yet."""
+        if quant not in (None, "int8", "a8w8"):
+            raise ValueError(
+                f"quant={quant!r}: expected None, 'int8' or 'a8w8'")
         if mesh is not None or (mp_degree or 1) > 1 or (ep_degree or 1) > 1:
             raise _later_slice("tensor/expert-parallel serving",
                                "TP serving")
         st = self.model.stack
         self._device = self.model.device
-        self._cdtype = st.qkv_weight.dtype
+        if quant is not None and st.qkv_weight.dtype != torch.int8:
+            st.quantize_weight_only_int8()
+        self._a8w8 = quant == "a8w8"
+        wd = st.qkv_weight.dtype
+        self._cdtype = torch.bfloat16 if wd == torch.int8 else wd
         if isinstance(kv_dtype, str):
             kv_dtype = getattr(torch, kv_dtype)
         self._kv_dtype = kv_dtype or self._cdtype
@@ -156,6 +170,15 @@ class GenerationEngine:
 
     def _lnf(self):
         return self.model.lnf_scale, self.model.lnf_bias
+
+    def _count_a8w8(self, steps: int):
+        """``quant.*`` accounting of executed A8W8 work: 4 products per
+        layer per step (a prefill or prefill chunk counts as one), each
+        preceded by one dynamic act-quant."""
+        if self._a8w8:
+            n = 4 * self.model.stack.num_layers * steps
+            _stats.inc("quant.act_quant_calls", n)
+            _stats.inc("quant.a8w8_matmuls", n)
 
     # ---------- programs ----------
 
@@ -173,7 +196,8 @@ class GenerationEngine:
         st = self.model.stack
         x = embed[ids.long()].to(self._cdtype)
         h, cache = st.prefill_raw(weights, x, PagedKV(cache_k, cache_v),
-                                  tables, self._cos, self._sin)
+                                  tables, self._cos, self._sin,
+                                  a8w8=self._a8w8)
         hl = h[torch.arange(h.shape[0], device=h.device),
                seq_lens.long() - 1]
         logits = self._logits(hl, head_t, lnf_s, lnf_b)
@@ -211,7 +235,8 @@ class GenerationEngine:
         for _ in range(k):
             x = embed[tok.long()].to(self._cdtype)
             h, cache = st.decode_raw(weights, x, PagedKV(ck, cv), tables,
-                                     lens, self._cos, self._sin)
+                                     lens, self._cos, self._sin,
+                                     a8w8=self._a8w8)
             ck, cv = cache.k, cache.v
             tok = self._pick_token(self._logits(h, head_t, lnf_s, lnf_b))
             toks.append(tok)
@@ -299,6 +324,7 @@ class GenerationEngine:
         lnf_s, lnf_b = self._lnf()
 
         _stats.inc("inference.prefills")
+        self._count_a8w8(1)
         logits, ck, cv = self._prefill_fn(
             weights, embed, self._head_t, lnf_s, lnf_b,
             torch.as_tensor(ids, device=dev),
@@ -325,6 +351,7 @@ class GenerationEngine:
             tables = self._grow_tables(range(b), lens + emitted, k,
                                        pages_per_seq)
             _stats.inc("inference.decode_steps", k)
+            self._count_a8w8(k)
             _stats.set_gauge("inference.kv_pages_in_use",
                              self._mgr.num_pages - self._mgr.free_pages)
             toks, ck, cv = self._decode_k_fn(
@@ -497,6 +524,7 @@ class ContinuousBatchingEngine:
             [("slot", i) for i in range(self.max_batch)],
             self._pages_per_seq, allow_missing=True)
         _stats.inc("serving.decode_steps", k)
+        self._gen._count_a8w8(k)
         _stats.set_gauge("serving.kv_pages_in_use",
                          self._mgr.num_pages - self._mgr.free_pages)
         _stats.set_gauge("serving.active_slots", len(active))
@@ -646,6 +674,7 @@ class ContinuousBatchingEngine:
         ``i`` (prompt padded to a multiple of ``prompt_bucket``)."""
         self._slots[i] = req
         _stats.inc("serving.admitted")
+        self._gen._count_a8w8(1)
         L = len(req.prompt)
         self._mgr.allocate(("slot", i), L)
         tables = self._mgr.block_tables([("slot", i)],

@@ -2,7 +2,9 @@
 
 Counterpart of ``paddle_tpu/inference/kv_cache.py``. Pages are rows of
 a preallocated PAGE-MAJOR pool [num_layers * num_pages, n_kv_heads,
-page_size, head_dim] on the engine's device; the manager hands out
+page_size, head_dim] on the engine's device (``dtype="int8"``: int8
+rows plus f32 per-token-per-head scale planes, the quantized cache-KV
+mode); the manager hands out
 LOGICAL page ids from a free list so sequences of different lengths
 share one pool with no copies. The host accounting (free list order,
 refcounts, ownership) is the JAX package's, line for line, so both
@@ -42,10 +44,6 @@ class BlockKVCacheManager:
                 "serving slice of the port")
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
-        if dtype == torch.int8:
-            raise NotImplementedError(
-                "the int8 KV pool comes with the quantized-serving slice "
-                "of the port")
         self.num_layers = num_layers
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
@@ -63,15 +61,36 @@ class BlockKVCacheManager:
         self._faults = None
 
     def fresh_cache(self) -> PagedKV:
-        """A zeroed layer-folded page-major pool on the device."""
+        """A zeroed layer-folded page-major pool on the device. An int8
+        pool's sides are ``(int8 rows, f32 scale plane [n_kv, num_layers
+        * num_pages * page_size])``: the scale of physical page p's slot
+        s in column ``p * page_size + s``."""
         shape = (self.num_layers * self.num_pages, self.num_kv_heads,
                  self.page_size, self.head_dim)
-        return PagedKV(
-            torch.zeros(shape, dtype=self.dtype, device=self.device),
-            torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        if self.dtype == torch.int8:
+            plane = (self.num_kv_heads,
+                     self.num_layers * self.num_pages * self.page_size)
+            return PagedKV(
+                (zeros(shape, torch.int8), zeros(plane, torch.float32)),
+                (zeros(shape, torch.int8), zeros(plane, torch.float32)))
+        return PagedKV(zeros(shape, self.dtype), zeros(shape, self.dtype))
 
     def pages_needed(self, length: int) -> int:
         return -(-length // self.page_size)
+
+    def page_hbm_bytes(self) -> int:
+        """Bytes ONE logical page occupies on the device across both K
+        and V pools (all layers, all kv heads); an int8 page counts its
+        rows plus their f32 scale-plane columns."""
+        elems = (self.num_layers * self.num_kv_heads * self.page_size
+                 * self.head_dim)
+        if self.dtype == torch.int8:
+            scale = self.num_kv_heads * self.num_layers * self.page_size * 4
+            return 2 * (elems + scale)
+        return 2 * elems * self.dtype.itemsize
 
     def phys_rows(self, pages: Sequence[int]) -> np.ndarray:
         """Physical pool-row indices of logical ``pages``, layer-major:

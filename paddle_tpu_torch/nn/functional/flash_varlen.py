@@ -15,8 +15,11 @@ layouts:
 
 ``paged_prefill_attention`` launches ``csrc/flash_varlen.cu`` on a CUDA
 tensor and runs its plain version ``_paged_prefill_plain`` on a CPU
-tensor. The packed varlen flash forward/backward of the JAX module
-comes with the training slice of the port.
+tensor. An int8 pool (each side ``(int8 rows, f32 scale plane)``) has
+no kernel, as in the JAX package, where it is XLA's dense gather: the
+plain version dequantizes it, on the card too. The packed varlen flash
+forward/backward of the JAX module comes with the training slice of
+the port.
 """
 from __future__ import annotations
 
@@ -27,15 +30,33 @@ from ... import _kernels
 __all__ = ["paged_prefill_attention"]
 
 
+def _dense_side(side, ids, n_kv: int, d: int):
+    """One pool side's pages at ``ids`` [b, pp] as fp32 [b, n_kv, S, d];
+    an int8 side ``(rows, plane)`` comes out dequantized."""
+    b, pp = ids.shape
+    rows = side[0] if isinstance(side, tuple) else side
+    ps = rows.shape[2]
+    # [b, pp, n_kv, ps, d] -> [b, n_kv, S, d]
+    g = rows[ids].transpose(1, 2).reshape(b, n_kv, pp * ps, d).float()
+    if isinstance(side, tuple):
+        cols = (ids[:, :, None] * ps
+                + torch.arange(ps, device=ids.device)).reshape(b, -1)
+        g = g * side[1][:, cols].transpose(0, 1)[..., None]
+    return g
+
+
 def _paged_prefill_plain(q, key_cache, value_cache, block_tables, start, *,
                          n_kv: int, scale=None):
     """Plain version of the kernel (the JAX package's ``_paged_fwd_xla``
     semantics, as one dense gather): query ``t`` of row ``b`` attends
     every key at position ``<= start[b] + t`` below the table's span, in
     fp32; a table id outside the pool names no page and is not attended;
-    a query with nothing to attend returns zeros."""
+    a query with nothing to attend returns zeros. Also the attention of
+    an int8 pool, whose sides are ``(int8 rows, f32 scale plane)``: the
+    gathered rows are dequantized first."""
     b, c, n_q, d = q.shape
-    P, _, ps, _ = key_cache.shape
+    rows = key_cache[0] if isinstance(key_cache, tuple) else key_cache
+    P, _, ps, _ = rows.shape
     pp = block_tables.shape[1]
     S = pp * ps
     g = n_q // n_kv
@@ -43,9 +64,8 @@ def _paged_prefill_plain(q, key_cache, value_cache, block_tables, start, *,
     ids = block_tables.long()
     in_pool = (ids >= 0) & (ids < P)                          # [b, pp]
     ids = torch.where(in_pool, ids, 0)
-    # [b, pp, n_kv, ps, d] -> [b, n_kv, S, d]
-    kg = key_cache[ids].transpose(1, 2).reshape(b, n_kv, S, d).float()
-    vg = value_cache[ids].transpose(1, 2).reshape(b, n_kv, S, d).float()
+    kg = _dense_side(key_cache, ids, n_kv, d)
+    vg = _dense_side(value_cache, ids, n_kv, d)
     qh = q.reshape(b, c, n_kv, g, d).float() * scale
     lg = torch.einsum("btngd,bnsd->bngts", qh, kg)
     pos_q = start.long().to(q.device)[:, None] \
@@ -85,6 +105,10 @@ def paged_prefill_attention(q, key_cache, value_cache, block_tables, start,
     if q.device.type != "cuda":
         return _paged_prefill_plain(q, key_cache, value_cache, block_tables,
                                     start, n_kv=n_kv, scale=scale)
+    if isinstance(key_cache, tuple) or isinstance(value_cache, tuple):
+        raise TypeError(f"{what}: the kernel reads a bf16/f32 pool; an "
+                        "int8 pool takes the dense gather "
+                        "(_paged_prefill_plain)")
     b, c, n_q, d = q.shape
     P, n_kv_pool, ps, d_pool = key_cache.shape
     pp = block_tables.shape[1]

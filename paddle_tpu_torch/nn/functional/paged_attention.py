@@ -20,15 +20,26 @@ it launches ``csrc/paged_attention.cu``, on a CPU tensor it runs its
 plain version ``_paged_decode_plain``. The semantics are those of the
 block tables (``paged_attention_plain``, the JAX package's
 ``_xla_paged``): a page shared by two rows is read by both.
+
+The int8 KV pool (``kv_dtype="int8"``) keeps each side as a pair
+``(int8 rows [pages, n_kv, page_size, d], f32 scale plane [n_kv,
+pages * page_size])``: token rows quantized per (token, head) by
+``quantize_kv_rows``, the scale of page ``p``'s slot ``s`` in plane
+column ``p * page_size + s``. ``paged_decode_attention_inplace_q`` is
+its decode kernel (``csrc/paged_attention_q.cu``; plain version
+``_paged_decode_q_plain``); ``write_prefill_kv_pages`` and
+``gather_kv_pages`` take either pool form.
 """
 from __future__ import annotations
 
 import torch
 
 from ... import _kernels
+from ...quantization.dynamic import dynamic_act_quant
 
 __all__ = ["paged_attention_plain", "paged_decode_attention_inplace",
-           "write_kv_pages", "write_prefill_kv_pages",
+           "paged_decode_attention_inplace_q", "quantize_kv_rows",
+           "write_kv_pages", "write_prefill_kv_pages", "gather_kv_pages",
            "STREAM_CHUNK_TOKENS", "stream_chunk_pages"]
 
 # target token count per stream chunk of the JAX decode kernel; the
@@ -88,16 +99,41 @@ def write_kv_pages(key_cache, value_cache, new_k, new_v, positions,
     return key_cache, value_cache
 
 
+def quantize_kv_rows(x):
+    """Per-(row..., head) symmetric int8 quantization of K/V token rows
+    x [..., n_kv, d] -> (q int8 [..., n_kv, d], scale f32 [..., n_kv]):
+    ``scale = max(absmax / 127, 1e-8)``, ``q = clip(round(x / scale),
+    -127, 127)``."""
+    return dynamic_act_quant(x, 1e-8)
+
+
+def _write_q_rows(side, x, page_ids, slots):
+    """Quantize rows x [..., n_kv, d] and store them IN PLACE in an int8
+    pool side ``(rows, plane)`` at pages ``page_ids`` / slots ``slots``
+    (same leading shape as x; absolute page ids): int8 rows into the
+    pages, scales into plane columns ``page * page_size + slot``."""
+    pool, plane = side
+    n_kv = x.shape[-2]
+    xq, xs = quantize_kv_rows(x)
+    pool[page_ids, :, slots] = xq
+    cols = (page_ids * pool.shape[2] + slots).reshape(-1)
+    plane[:, cols] = xs.reshape(-1, n_kv).t()
+    return side
+
+
 def write_prefill_kv_pages(key_cache, value_cache, k, v, block_tables,
                            start=None, valid_lens=None):
     """Write a prompt chunk's K/V ([batch, seq, n_kv, d]) into pages,
     IN PLACE. ``start`` ([batch]): per-sequence position offset (default
     0). ``valid_lens`` ([batch]): rows ``>= valid_lens[b]`` are padding,
-    routed to the scratch page 0. Returns the (same) caches."""
+    routed to the scratch page 0. An int8 pool (``(rows, plane)``
+    sides) takes the rows quantized per (token, head). Returns the
+    (same) caches."""
     b, s, n_kv, d = k.shape
-    page_size = key_cache.shape[2]
+    quant = isinstance(key_cache, tuple)
+    page_size = (key_cache[0] if quant else key_cache).shape[2]
     tables = block_tables.long()
-    dev = key_cache.device
+    dev = k.device
     if start is None:
         pos = torch.arange(s, device=dev)
         page_ids = tables[:, pos // page_size]                 # [b, s]
@@ -113,9 +149,55 @@ def write_prefill_kv_pages(key_cache, value_cache, k, v, block_tables,
             < valid_lens.long().to(dev)[:, None]
         page_ids = torch.where(valid, page_ids, 0)
         slots = torch.where(valid, slots, 0)
+    if quant:
+        return (_write_q_rows(key_cache, k, page_ids, slots),
+                _write_q_rows(value_cache, v, page_ids, slots))
     key_cache[page_ids, :, slots] = k.to(key_cache.dtype)
     value_cache[page_ids, :, slots] = v.to(value_cache.dtype)
     return key_cache, value_cache
+
+
+def gather_kv_pages(cache_side, block_tables):
+    """One cache side's pages gathered token-major, [b, S, n_kv, d] with
+    S = table width * page size (token t = page t // ps, slot t % ps);
+    an int8 side comes out dequantized in fp32. The dense K/V view of
+    the chunked prefill's ``gather`` backend and of the int8 pool.
+    ``block_tables`` hold ABSOLUTE page ids."""
+    quant = isinstance(cache_side, tuple)
+    pool = cache_side[0] if quant else cache_side
+    b, P = block_tables.shape
+    _, n_kv, ps, d = pool.shape
+    tables = block_tables.long()
+    g = pool[tables].transpose(2, 3).reshape(b, P * ps, n_kv, d)
+    if quant:
+        cols = (tables[:, :, None] * ps
+                + torch.arange(ps, device=tables.device)).reshape(b, -1)
+        scales = cache_side[1][:, cols].permute(1, 2, 0)   # [b, S, n_kv]
+        g = g.float() * scales[..., None]
+    return g
+
+
+def _layer_region(what, n_pages, pool_base, pool_pages):
+    """(base, size) of the layer region ``[pool_base, pool_base +
+    pool_pages)`` (defaults: 0, the rest of the pool); raises unless it
+    lies inside the pool of ``n_pages`` pages."""
+    base = 0 if pool_base is None else int(pool_base)
+    region = n_pages - base if pool_pages is None else int(pool_pages)
+    if base < 0 or region <= 0 or base + region > n_pages:
+        raise ValueError(f"{what}: layer region [{base}, {base + region}) "
+                         f"is not inside the pool of {n_pages} pages")
+    return base, region
+
+
+def _region_tables(block_tables, pool_base, pool_pages, n_pages):
+    """Absolute page ids of layer-local tables, and the in-region mask:
+    a table id outside ``[0, pool_pages)`` (default: the rest of the
+    pool) names no page — it maps to the region's page 0, masked."""
+    base = int(pool_base)
+    region = n_pages - base if pool_pages is None else int(pool_pages)
+    local = block_tables.long()
+    in_region = (local >= 0) & (local < region)
+    return torch.where(in_region, local, 0) + base, in_region
 
 
 def _paged_decode_plain(q, new_k, new_v, key_cache, value_cache, seq_lens,
@@ -135,12 +217,8 @@ def _paged_decode_plain(q, new_k, new_v, key_cache, value_cache, seq_lens,
     _, n_kv, ps, _ = key_cache.shape
     pp = block_tables.shape[1]
     cap = pp * ps
-    base = int(pool_base)
-    region = key_cache.shape[0] - base if pool_pages is None \
-        else int(pool_pages)
-    local = block_tables.long()
-    in_region = (local >= 0) & (local < region)            # [b, pp]
-    tables = torch.where(in_region, local, 0) + base
+    tables, in_region = _region_tables(block_tables, pool_base, pool_pages,
+                                       key_cache.shape[0])
     lens = seq_lens.long()
     write_page = torch.clamp(lens // ps, max=pp - 1)[:, None]
     room = (lens < cap) & in_region.gather(1, write_page)[:, 0]
@@ -197,11 +275,7 @@ def paged_decode_attention_inplace(q, new_k, new_v, key_cache,
     """
     what = "paged_decode_attention_inplace"
     P = key_cache.shape[0]
-    base = 0 if pool_base is None else int(pool_base)
-    region = P - base if pool_pages is None else int(pool_pages)
-    if base < 0 or region <= 0 or base + region > P:
-        raise ValueError(f"{what}: layer region [{base}, {base + region}) "
-                         f"is not inside the pool of {P} pages")
+    base, region = _layer_region(what, P, pool_base, pool_pages)
     if q.device.type != "cuda":
         out = _paged_decode_plain(q, new_k, new_v, key_cache, value_cache,
                                   seq_lens, block_tables, base, region)
@@ -251,3 +325,146 @@ def paged_decode_attention_inplace(q, new_k, new_v, key_cache,
     global launches
     launches += 1
     return out, key_cache, value_cache
+
+
+def _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane, vq_pool,
+                          vs_plane, seq_lens, block_tables, pool_base=0,
+                          pool_pages=None):
+    """Plain version of the int8-KV decode kernel (the port's contract;
+    ``paged_decode_attention_inplace_q``):
+
+    - the guarded append: new_k/new_v quantized per (row, kv head) into
+      slot ``seq_lens % ps`` of page ``table[seq_lens // ps]`` and their
+      scales into the planes; skipped for a full table or a page outside
+      the layer region;
+    - q quantized per (row, q head); cached token t (through the row's
+      table, ``t < seq_lens``, in the region) has logit
+      ``int32(qq . kq[t]) * (qs * d^-0.5) * k_scale[t]`` (an exact
+      integer dot: |sum| < 2^24 is exact in fp32 too);
+    - the current token joins from the operands: logit
+      ``(qq * qs) . new_k * d^-0.5``, value ``new_v``;
+    - fp32 softmax over both; output ``sum_t w_t * v_scale[t] * vq[t]
+      + w_cur * new_v``, cast to q's dtype.
+    """
+    b, n_q, d = q.shape
+    _, n_kv, ps, _ = kq_pool.shape
+    pp = block_tables.shape[1]
+    cap = pp * ps
+    tables, in_region = _region_tables(block_tables, pool_base, pool_pages,
+                                       kq_pool.shape[0])
+    lens = seq_lens.long()
+    write_page = torch.clamp(lens // ps, max=pp - 1)[:, None]
+    room = (lens < cap) & in_region.gather(1, write_page)[:, 0]
+    if bool(room.any()):
+        rows = room.nonzero().flatten()
+        pages = tables[rows].gather(1, write_page[rows])[:, 0]
+        slots = lens[rows] % ps
+        _write_q_rows((kq_pool, ks_plane), new_k[rows], pages, slots)
+        _write_q_rows((vq_pool, vs_plane), new_v[rows], pages, slots)
+    g = n_q // n_kv
+    scale = d ** -0.5
+    qq, qs = quantize_kv_rows(q)                     # [b, n_q, d], [b, n_q]
+    qq = qq.reshape(b, n_kv, g, d).float()
+    qss = (qs * scale).reshape(b, n_kv, g)
+    cols = (tables[:, :, None] * ps
+            + torch.arange(ps, device=q.device)).reshape(b, cap)
+    ks = ks_plane[:, cols].permute(1, 0, 2)          # [b, n_kv, cap]
+    vs = vs_plane[:, cols].permute(1, 0, 2)
+    kg = kq_pool[tables].float()                     # [b, pp, n_kv, ps, d]
+    vg = vq_pool[tables].float()
+    dots = torch.einsum("bngd,bpnsd->bngps", qq, kg).reshape(b, n_kv, g,
+                                                              cap)
+    logits = dots * qss[..., None] * ks[:, :, None, :]
+    pos = torch.arange(cap, device=q.device)
+    mask = (pos[None, :] < torch.clamp(lens, max=cap)[:, None]) \
+        & in_region.repeat_interleave(ps, dim=1)
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.finfo(torch.float32).min)
+    qd = qq * qs.reshape(b, n_kv, g)[..., None]
+    nk, nv = new_k.float(), new_v.float()
+    cur = torch.einsum("bngd,bnd->bng", qd, nk)[..., None] * scale
+    w = torch.softmax(torch.cat([logits, cur], dim=-1), dim=-1)
+    wv = (w[..., :cap] * vs[:, :, None, :]).reshape(b, n_kv, g, pp, ps)
+    out = torch.einsum("bngps,bpnsd->bngd", wv, vg)
+    out = out + w[..., cap:] * nv[:, :, None, :]
+    return out.reshape(b, n_q, d).to(q.dtype)
+
+
+#: launches of the int8-KV CUDA kernel (plain CPU calls do not count)
+q_launches = 0
+
+
+def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
+                                     vq_pool, vs_plane, seq_lens,
+                                     block_tables, pool_base=None,
+                                     pool_pages=None):
+    """int8-KV variant of ``paged_decode_attention_inplace``: append the
+    current token (quantized) and attend, IN PLACE on the int8 pool.
+
+    kq_pool/vq_pool [pages, n_kv, page_size, d] int8; ks_plane/vs_plane
+    [n_kv, pages * page_size] f32. q [b, n_q, d], new_k/new_v [b, n_kv,
+    d] in one float dtype. Returns ``(out [b, n_q, d], kq_pool,
+    ks_plane, vq_pool, vs_plane)`` with the pool updated in place. The
+    function is ``_paged_decode_q_plain``'s; ``pool_base``/
+    ``pool_pages`` and the guards are those of
+    ``paged_decode_attention_inplace``. Masking follows each row's
+    block table, so a page shared by two rows is read by both.
+    """
+    what = "paged_decode_attention_inplace_q"
+    P = kq_pool.shape[0]
+    base, region = _layer_region(what, P, pool_base, pool_pages)
+    if q.device.type != "cuda":
+        out = _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane,
+                                    vq_pool, vs_plane, seq_lens,
+                                    block_tables, base, region)
+        return out, kq_pool, ks_plane, vq_pool, vs_plane
+    b, n_q, d = q.shape
+    _, n_kv, ps, d_pool = kq_pool.shape
+    pp = block_tables.shape[1]
+    if (n_kv == 0 or n_q % n_kv or n_q // n_kv > 8 or d > 256
+            or d_pool != d):
+        raise ValueError(
+            f"{what}: needs n_q a multiple of n_kv with a group of at "
+            f"most 8 and head_dim <= 256 matching the pool; got q "
+            f"{tuple(q.shape)}, pool {tuple(kq_pool.shape)}")
+    plane = (n_kv, P * ps)
+    if (tuple(new_k.shape) != (b, n_kv, d) or new_v.shape != new_k.shape
+            or vq_pool.shape != kq_pool.shape
+            or tuple(ks_plane.shape) != plane
+            or tuple(vs_plane.shape) != plane):
+        raise ValueError(f"{what}: new_k/new_v must be [b, n_kv, d] = "
+                         f"{(b, n_kv, d)}, the pools alike and the scale "
+                         f"planes {plane}")
+    if tuple(seq_lens.shape) != (b,) or block_tables.dim() != 2 \
+            or block_tables.shape[0] != b:
+        raise ValueError(f"{what}: seq_lens must be [b] and block_tables "
+                         "[b, pages_per_seq]")
+    for name, t, dt in (("new_k", new_k, q.dtype), ("new_v", new_v, q.dtype),
+                        ("kq_pool", kq_pool, torch.int8),
+                        ("vq_pool", vq_pool, torch.int8),
+                        ("ks_plane", ks_plane, torch.float32),
+                        ("vs_plane", vs_plane, torch.float32),
+                        ("seq_lens", seq_lens, torch.int32),
+                        ("block_tables", block_tables, torch.int32)):
+        if t.dtype != dt:
+            raise TypeError(f"{what}: {name} is {t.dtype}, the kernel "
+                            f"takes {dt}")
+    for t in (q, new_k, new_v, kq_pool, ks_plane, vq_pool, vs_plane,
+              seq_lens, block_tables):
+        if t.device != q.device:
+            raise ValueError(f"{what}: all operands must be on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must be contiguous and "
+                             "16-byte aligned")
+    out = torch.empty_like(q)
+    fn = _kernels.lib("paged_attention_q").ptt_paged_decode_attention_q
+    _kernels.check(fn(
+        q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+        kq_pool.data_ptr(), ks_plane.data_ptr(), vq_pool.data_ptr(),
+        vs_plane.data_ptr(), seq_lens.data_ptr(), block_tables.data_ptr(),
+        out.data_ptr(), _kernels.dtype_code(q, what), b, n_q, n_kv, d, ps,
+        pp, base, region, P * ps, d ** -0.5,
+        _kernels.stream_ptr(q.device)), what)
+    global q_launches
+    q_launches += 1
+    return out, kq_pool, ks_plane, vq_pool, vs_plane

@@ -5,23 +5,33 @@ serving decode step multiplies a few token rows [M <= 64, K] against
 large weights [K, N], so every step must read the whole weight stack
 from device memory: the weight stream is the bound.
 
-- ``stream_linear`` — one GEMM ``act(x @ w[layer] + bias)`` with fp32
-  accumulation; ``w`` may be a stacked [L, K, N] tensor with a layer
-  index (the layer's view is passed to the kernel, never copied).
+- ``stream_linear`` — one GEMM ``act(x @ w[layer] * scale + bias)``
+  with fp32 accumulation; ``w`` may be a stacked [L, K, N] tensor with
+  a layer index (the layer's view is passed to the kernel, never
+  copied). With int8 ``w`` and per-output-channel ``scale`` (weight-only
+  int8) the kernel converts each weight to fp32 in its inner loop and
+  scales the fp32 accumulator. With ``act_quant=True`` (A8W8) x is
+  quantized per token (``quantization.dynamic``) and the product runs
+  int8 x int8 with int32 accumulation, dequantized once by
+  ``act_scale (x) scale`` (``csrc/stream_linear_a8w8.cu``).
 - ``stream_layer_tail`` — the grouped layer tail: O-projection +
   residual + LN2 + FFN + residual, and optionally the next layer's
   LN1 + QKV projection (the cross-layer prefetch of the grouped decode
-  loop).
+  loop); int8 stacks with ``so/s1/s2`` (and ``next_qkv["s"]``) run the
+  int8-weight GEMM.
 
 On a CUDA tensor each wrapper launches the kernels of
-``csrc/stream_linear.cu``; on a CPU tensor it runs the plain version
-beside it (``_stream_linear_plain``, ``_tail_fallback``).
+``csrc/stream_linear.cu`` (and ``csrc/stream_linear_a8w8.cu``); on a
+CPU tensor it runs the plain version beside it
+(``_stream_linear_plain``, ``_stream_linear_a8w8_plain``,
+``_tail_fallback``).
 
 Precision of the tail: the kernel path keeps ``h2`` (the hidden state
-after the O-projection residual) in fp32 through LN2, as the TPU
-kernel's VMEM scratch does; the plain version follows the JAX
-package's ``_tail_fallback`` and rounds ``h2`` to ``h``'s dtype. The
-two agree exactly in float32 and within bf16 rounding in bfloat16.
+after the O-projection residual) in fp32 through LN2, and applies int8
+scales to the fp32 accumulator, as the TPU kernel does; the plain
+version follows the JAX package's ``_tail_fallback`` and rounds ``h2``
+(and an int8 product before its scale) to ``h``'s dtype. The two agree
+exactly in float32 and within bf16 rounding in bfloat16.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import _kernels
+from ...quantization.dynamic import dynamic_act_quant, int8_dot_dequant
 
 __all__ = ["stream_linear", "stream_layer_tail"]
 
@@ -54,32 +65,58 @@ def _ln_f32(h, scale, bias, eps):
 
 
 def _stream_linear_plain(x, w, layer=None, bias=None, activation=None,
-                         out_dtype=None):
+                         out_dtype=None, scale=None):
     """The JAX package's fallback branch: an fp32-accumulated product
-    (bf16 products are exact in fp32), bias and activation on the fp32
-    result, then the output dtype."""
+    (bf16 and int8 weights are exact in fp32), the per-output-channel
+    ``scale`` of int8 weights, bias and activation on the fp32 result,
+    then the output dtype."""
     out_dtype = out_dtype or x.dtype
     stacked = w.dim() == 3
     wl = w[layer] if stacked else w
     out = x.float() @ wl.float()
+    if scale is not None:
+        out = out * (scale[layer] if stacked else scale).float()
     if bias is not None:
         out = out + (bias[layer] if stacked else bias).float()
     return _apply_activation(out, activation).to(out_dtype)
 
 
-#: CUDA launches issued without error on behalf of ``stream_linear``
-#: (one GEMM per call) and of ``stream_layer_tail`` (its GEMM and
-#: LayerNorm launches); plain CPU calls do not count
+def _stream_linear_a8w8_plain(x_q, x_scale, w, scale, layer=None,
+                              bias=None, activation=None,
+                              out_dtype=torch.float32):
+    """Plain version of the A8W8 kernel: x_q [M, K] int8 with per-token
+    scales [M] against int8 w [(L,) K, N] with scales [(L,) N]: the
+    exact int32 product, ``acc * x_scale * scale + bias``, activation,
+    output dtype."""
+    stacked = w.dim() == 3
+
+    def at(a):
+        return a[layer] if (stacked and a is not None) else a
+    out = int8_dot_dequant(x_q, x_scale, at(w), at(scale), bias=at(bias))
+    return _apply_activation(out, activation).to(out_dtype)
+
+
+#: CUDA launches issued without error, by kernel; plain CPU calls do
+#: not count. ``launches``: the GEMM of ``stream_linear`` (bf16/f32
+#: weights); ``w8_launches``: its int8-weight GEMM; ``tail_launches`` /
+#: ``tail_w8_launches``: the GEMM and LayerNorm launches of
+#: ``stream_layer_tail`` over float / int8 stacks; ``a8w8_launches``:
+#: the int8 x int8 GEMM of ``stream_linear(act_quant=True)``
 launches = 0
+w8_launches = 0
 tail_launches = 0
+tail_w8_launches = 0
+a8w8_launches = 0
+
+_COUNTERS = {"stream_linear": "launches", "stream_linear_w8": "w8_launches",
+             "stream_layer_tail": "tail_launches",
+             "stream_layer_tail_w8": "tail_w8_launches",
+             "stream_linear_a8w8": "a8w8_launches"}
 
 
 def _count_launch(what):
-    global launches, tail_launches
-    if what == "stream_linear":
-        launches += 1
-    else:
-        tail_launches += 1
+    name = _COUNTERS[what]
+    globals()[name] += 1
 
 
 def _check_cuda(what, x, *tensors, aligned=()):
@@ -97,24 +134,35 @@ def _check_cuda(what, x, *tensors, aligned=()):
             raise ValueError(f"{what}: x and w must be 16-byte aligned")
 
 
+def _check_vector(what, name, v, N):
+    if v is not None and tuple(v.shape) != (N,):
+        raise ValueError(f"{what}: {name} must be [{N}]")
+
+
 def _gemm(what, x, w, bias=None, residual=None, activation=None,
-          out_dtype=None, out=None):
-    """One launch of the CUDA GEMM: out = act(x @ w + bias) + residual.
-    ``w`` is 2-D [K, N] (a layer view of a stack is fine)."""
+          out_dtype=None, out=None, scale=None):
+    """One launch of the CUDA GEMM: out = act(x @ w * scale + bias) +
+    residual. ``w`` is 2-D [K, N] (a layer view of a stack is fine), of
+    x's dtype or int8 with a per-column ``scale``."""
     M, K = x.shape
     N = w.shape[-1]
     if w.dim() != 2 or w.shape[0] != K:
         raise ValueError(f"{what}: x {tuple(x.shape)} does not match w "
                          f"{tuple(w.shape)}")
-    if w.dtype != x.dtype:
+    if w.dtype == torch.int8:
+        if scale is None:
+            raise ValueError(f"{what}: int8 weights need their "
+                             "per-output-channel scale")
+    elif w.dtype != x.dtype:
         raise TypeError(f"{what}: x is {x.dtype} and w {w.dtype}; the "
-                        "kernel takes one dtype for both")
-    vec = 16 // x.element_size()
-    if K % vec or N % vec:
-        raise ValueError(f"{what}: K ({K}) and N ({N}) must be multiples "
-                         f"of {vec} for {x.dtype}")
-    if bias is not None and tuple(bias.shape) != (N,):
-        raise ValueError(f"{what}: bias must be [{N}]")
+                        "kernel takes w in x's dtype or int8")
+    xvec, wvec = 16 // x.element_size(), 16 // w.element_size()
+    if K % xvec or N % wvec:
+        raise ValueError(f"{what}: K ({K}) must be a multiple of {xvec} "
+                         f"for {x.dtype} and N ({N}) of {wvec} for "
+                         f"{w.dtype} weights")
+    _check_vector(what, "bias", bias, N)
+    _check_vector(what, "scale", scale, N)
     if residual is not None and tuple(residual.shape) != (M, N):
         raise ValueError(f"{what}: residual must be [{M}, {N}]")
     if activation not in _ACTIVATIONS:
@@ -123,15 +171,16 @@ def _gemm(what, x, w, bias=None, residual=None, activation=None,
     if out is None:
         out = torch.empty((M, N), dtype=out_dtype or x.dtype,
                           device=x.device)
-    _check_cuda(what, x, bias, residual, out, aligned=(x, w))
+    _check_cuda(what, x, bias, residual, out, scale, aligned=(x, w))
+
+    def code(t):
+        return 0 if t is None else _kernels.dtype_code(t, what)
     fn = _kernels.lib("stream_linear").ptt_stream_linear
     _kernels.check(fn(
-        x.data_ptr(), w.data_ptr(), _kernels.ptr(bias),
-        0 if bias is None else _kernels.dtype_code(bias, what),
-        _kernels.ptr(residual),
-        0 if residual is None else _kernels.dtype_code(residual, what),
-        out.data_ptr(), _kernels.dtype_code(out, what),
-        _kernels.dtype_code(x, what), M, K, N, _ACTIVATIONS[activation],
+        x.data_ptr(), w.data_ptr(), _kernels.weight_code(w, what),
+        _kernels.ptr(scale), code(scale), _kernels.ptr(bias), code(bias),
+        _kernels.ptr(residual), code(residual), out.data_ptr(), code(out),
+        code(x), M, K, N, _ACTIVATIONS[activation],
         _kernels.stream_ptr(x.device)), what)
     _count_launch(what)
     return out
@@ -155,59 +204,126 @@ def _layer_norm(what, x, scale, bias, eps, out_dtype):
     return out
 
 
+def _stream_linear_a8w8(x_q, x_scale, w, scale, bias=None, activation=None,
+                        out_dtype=torch.float32):
+    """One launch of the CUDA int8 x int8 GEMM (kernel B5): x_q [M, K]
+    int8 and x_scale [M] f32 against int8 w [K, N] (a layer view is
+    fine) with scale [N] f32; out = act(float(x_q @ w) * x_scale *
+    scale + bias) in ``out_dtype``."""
+    what = "stream_linear_a8w8"
+    M, K = x_q.shape
+    N = w.shape[-1]
+    if w.dim() != 2 or w.shape[0] != K:
+        raise ValueError(f"{what}: x_q {tuple(x_q.shape)} does not match "
+                         f"w {tuple(w.shape)}")
+    for name, t, dt in (("x_q", x_q, torch.int8), ("w", w, torch.int8),
+                        ("x_scale", x_scale, torch.float32),
+                        ("scale", scale, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"{what}: {name} is {t.dtype}, the kernel "
+                            f"takes {dt}")
+    if K % 16 or N % 16:
+        raise ValueError(f"{what}: K ({K}) and N ({N}) must be multiples "
+                         "of 16")
+    if tuple(x_scale.shape) != (M,):
+        raise ValueError(f"{what}: x_scale must be [{M}]")
+    _check_vector(what, "scale", scale, N)
+    _check_vector(what, "bias", bias, N)
+    if activation not in _ACTIVATIONS:
+        raise ValueError(f"{what}: activation {activation!r} is not one "
+                         "of None, 'gelu', 'relu'")
+    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    _check_cuda(what, x_q, x_scale, scale, bias, out, aligned=(x_q, w))
+    fn = _kernels.lib("stream_linear_a8w8").ptt_stream_linear_a8w8
+    _kernels.check(fn(
+        x_q.data_ptr(), x_scale.data_ptr(), w.data_ptr(), scale.data_ptr(),
+        _kernels.ptr(bias),
+        0 if bias is None else _kernels.dtype_code(bias, what),
+        out.data_ptr(), _kernels.dtype_code(out, what), M, K, N,
+        _ACTIVATIONS[activation], _kernels.stream_ptr(x_q.device)), what)
+    _count_launch(what)
+    return out
+
+
 def stream_linear(x, w, layer=None, bias=None, scale=None,
                   activation=None, out_dtype=None, act_quant=False,
                   reduce_axis=None):
     """x [M, K] @ w[(L,) K, N] (+ bias) with streamed weights.
 
-    layer: index when w/bias are layer-stacked. activation: None |
-    'gelu' | 'relu', fused on the fp32 accumulator. Returns [M, N] in
-    out_dtype (default: x.dtype). ``scale`` (int8 weight-only),
-    ``act_quant`` (A8W8) and ``reduce_axis`` (tensor parallelism)
-    belong to later slices of the port and raise.
+    layer: index when w/bias/scale are layer-stacked. scale: int8
+    weight-only per-output-channel dequant scales [(L,) N]. activation:
+    None | 'gelu' | 'relu', fused on the fp32 accumulator. act_quant:
+    A8W8 — quantize x per token (absmax int8 + f32 scale) and run the
+    GEMM int8 x int8 with int32 accumulation; needs int8 ``w`` with its
+    ``scale``. Returns [M, N] in out_dtype (default: x.dtype).
+    ``reduce_axis`` (tensor parallelism) belongs to a later slice of
+    the port and raises.
     """
-    if scale is not None or act_quant:
-        raise NotImplementedError(
-            "stream_linear: int8 weights (scale=) and A8W8 (act_quant=) "
-            "come with the quantized-serving slice of the port")
     if reduce_axis is not None:
         raise NotImplementedError(
             "stream_linear: reduce_axis= comes with the tensor-parallel "
             "serving slice of the port")
-    if x.device.type != "cuda":
-        return _stream_linear_plain(x, w, layer, bias, activation,
-                                    out_dtype)
+    out_dtype = out_dtype or x.dtype
     stacked = w.dim() == 3
-    if stacked:
-        if layer is None:
-            raise ValueError("stream_linear: a stacked w needs layer=")
-        w = w[int(layer)]
-        bias = None if bias is None else bias[int(layer)]
-    return _gemm("stream_linear", x, w, bias=bias, activation=activation,
-                 out_dtype=out_dtype or x.dtype)
+    if stacked and x.device.type == "cuda" and layer is None:
+        raise ValueError("stream_linear: a stacked w needs layer=")
+    l = (0 if layer is None else int(layer)) if stacked else None
+
+    def at(a):
+        return a[l] if (stacked and a is not None) else a
+    if act_quant:
+        if w.dtype != torch.int8 or scale is None:
+            raise ValueError(
+                "stream_linear(act_quant=True) needs int8 weights with "
+                "per-output-channel scales (quantize_weight_only_int8)")
+        x_q, x_s = dynamic_act_quant(x)
+        if x.device.type != "cuda":
+            return _stream_linear_a8w8_plain(x_q, x_s, w, scale, l, bias,
+                                             activation, out_dtype)
+        return _stream_linear_a8w8(x_q, x_s, at(w), at(scale), at(bias),
+                                   activation, out_dtype)
+    if x.device.type != "cuda":
+        return _stream_linear_plain(x, w, l, bias, activation, out_dtype,
+                                    scale=scale)
+    return _gemm("stream_linear_w8" if w.dtype == torch.int8
+                 else "stream_linear", x, at(w), bias=at(bias),
+                 activation=activation, out_dtype=out_dtype,
+                 scale=at(scale))
 
 
-def _tail_fallback(att, h, wo, w1, w2, layer, bo, b1, b2, ln2_scale,
-                   ln2_bias, eps, activation, qg, out_dtype, stacked):
+def _mm_like(x, w, scale):
+    """The matmul of FusedMultiTransformer._mm: a plain product in the
+    compute dtype; int8 weights dequantize on the OUTPUT by their
+    per-output-channel scales (in the compute dtype)."""
+    if w.dtype == torch.int8:
+        return (x @ w.to(x.dtype)) * scale.to(x.dtype)
+    return x @ w
+
+
+def _tail_fallback(att, h, wo, w1, w2, layer, so, s1, s2, bo, b1, b2,
+                   ln2_scale, ln2_bias, eps, activation, qg, out_dtype,
+                   stacked):
     """Plain version of the tail, op for op the ungrouped decode path
     (the JAX package's ``_tail_fallback``): products in the compute
-    dtype, each partial sum rounded to h's dtype."""
+    dtype (``_mm_like``), each partial sum rounded to h's dtype."""
     def at(a):
-        return a[layer] if stacked else a
+        return a[layer] if (stacked and a is not None) else a
 
-    h2 = (h + att @ at(wo) + at(bo)).to(h.dtype)
+    h2 = (h + _mm_like(att, at(wo), at(so)) + at(bo)).to(h.dtype)
     hn = _ln_f32(h2, at(ln2_scale), at(ln2_bias), eps).to(h.dtype)
-    ff = _apply_activation((hn @ at(w1) + at(b1)).to(h.dtype), activation)
-    h_out = (h2 + ff @ at(w2) + at(b2)).to(h.dtype)
+    ff = _apply_activation(
+        (_mm_like(hn, at(w1), at(s1)) + at(b1)).to(h.dtype), activation)
+    h_out = (h2 + _mm_like(ff, at(w2), at(s2)) + at(b2)).to(h.dtype)
     if qg is None:
         return h_out.to(out_dtype)
     lq = qg.get("layer")
 
     def atq(a):
-        return a[lq] if (stacked and lq is not None) else a
+        return a[lq] if (stacked and a is not None and lq is not None) \
+            else a
 
     hn1 = _ln_f32(h_out, atq(qg["ln_s"]), atq(qg["ln_b"]), eps).to(h.dtype)
-    qkv = hn1 @ atq(qg["w"]) + atq(qg["b"])
+    qkv = _mm_like(hn1, atq(qg["w"]), atq(qg.get("s"))) + atq(qg["b"])
     return h_out.to(out_dtype), qkv.to(out_dtype)
 
 
@@ -221,16 +337,17 @@ def stream_layer_tail(att, h, wo, w1, w2, layer=None, *, bo, b1, b2,
 
     att [M, Ka], h [M, d]. Weights stacked [L, K, N] with ``layer``, or
     2-D. ``next_qkv``: dict with ``w``, ``b``, ``ln_s``, ``ln_b`` (and
-    ``layer`` for the stacked form). Returns ``h_out`` (and ``qkv``
-    when ``next_qkv``), in ``out_dtype`` (default: h.dtype). ``so/s1/
-    s2`` (int8 weights) and ``reduce_axis`` (tensor parallelism) belong
-    to later slices and raise.
+    ``layer`` for the stacked form, and ``s`` for an int8 ``w``).
+    ``so/s1/s2``: per-output-channel scales [(L,) N] of int8 wo/w1/w2 —
+    all three or none. Returns ``h_out`` (and ``qkv`` when
+    ``next_qkv``), in ``out_dtype`` (default: h.dtype). ``reduce_axis``
+    (tensor parallelism) belongs to a later slice and raises.
     """
-    if so is not None or s1 is not None or s2 is not None or (
-            next_qkv is not None and next_qkv.get("s") is not None):
-        raise NotImplementedError(
-            "stream_layer_tail: int8 weight scales come with the "
-            "quantized-serving slice of the port")
+    scales = (so, s1, s2)
+    if any(s is not None for s in scales) and \
+            not all(s is not None for s in scales):
+        raise ValueError("stream_layer_tail: pass all of so/s1/s2 or "
+                         "none (the engine quantizes all four stacks)")
     if reduce_axis is not None:
         raise NotImplementedError(
             "stream_layer_tail: reduce_axis= comes with the "
@@ -248,33 +365,34 @@ def stream_layer_tail(att, h, wo, w1, w2, layer=None, *, bo, b1, b2,
             qg = dict(next_qkv)
             if stacked:
                 qg["layer"] = int(qg.get("layer") or 0)
-        return _tail_fallback(att, h, wo, w1, w2, l, bo, b1, b2,
-                              ln2_scale, ln2_bias, epsilon, activation,
+        return _tail_fallback(att, h, wo, w1, w2, l, so, s1, s2, bo, b1,
+                              b2, ln2_scale, ln2_bias, epsilon, activation,
                               qg, out_dtype, stacked)
 
     def at(a, idx):
-        return a[idx] if stacked else a
+        return a[idx] if (stacked and a is not None) else a
 
-    what = "stream_layer_tail"
+    what = "stream_layer_tail_w8" if so is not None else "stream_layer_tail"
     cdtype = att.dtype
-    # 1. O-proj + bo + h -> h2, kept in fp32 through LN2
+    # 1. O-proj (* so) + bo + h -> h2, kept in fp32 through LN2
     h2 = _gemm(what, att, at(wo, l), bias=at(bo, l), residual=h,
-               out_dtype=torch.float32)
+               out_dtype=torch.float32, scale=at(so, l))
     # 2. LN2
     hn = _layer_norm(what, h2, at(ln2_scale, l), at(ln2_bias, l),
                      epsilon, cdtype)
-    # 3. FFN1 + b1 + activation
+    # 3. FFN1 (* s1) + b1 + activation
     ff = _gemm(what, hn, at(w1, l), bias=at(b1, l), activation=activation,
-               out_dtype=cdtype)
-    # 4. FFN2 + b2 + h2
+               out_dtype=cdtype, scale=at(s1, l))
+    # 4. FFN2 (* s2) + b2 + h2
     h_out = _gemm(what, ff, at(w2, l), bias=at(b2, l), residual=h2,
-                  out_dtype=out_dtype)
+                  out_dtype=out_dtype, scale=at(s2, l))
     if next_qkv is None:
         return h_out
-    # 5. the next layer's LN1' + QKV' + bq'
+    # 5. the next layer's LN1' + QKV' (* s') + bq'
     lq = (int(next_qkv.get("layer") or 0)) if stacked else None
     hn1 = _layer_norm(what, h_out, at(next_qkv["ln_s"], lq),
                       at(next_qkv["ln_b"], lq), epsilon, cdtype)
     qkv = _gemm(what, hn1, at(next_qkv["w"], lq),
-                bias=at(next_qkv["b"], lq), out_dtype=out_dtype)
+                bias=at(next_qkv["b"], lq), out_dtype=out_dtype,
+                scale=at(next_qkv.get("s"), lq))
     return h_out, qkv

@@ -1102,7 +1102,7 @@ class ServingEngine(ContinuousBatchingEngine):
         x = embed[ids.long()].to(g._cdtype)
         h, cache = st.prefill_chunk_raw(
             weights, x, PagedKV(ck, cv), tables, start, chunk_len,
-            g._cos, g._sin)
+            g._cos, g._sin, a8w8=g._a8w8)
         hl = h[torch.arange(h.shape[0], device=h.device),
                chunk_len.long() - 1]
         logits = g._logits(hl, head_t, lnf_s, lnf_b)
@@ -1180,6 +1180,7 @@ class ServingEngine(ContinuousBatchingEngine):
         tables = self._mgr.block_tables([key], self._pages_per_seq)
         ids = np.zeros((1, c), np.int32)
         ids[0, :n] = toks[stt.pos: stt.pos + n]
+        self._gen._count_a8w8(1)
         lnf_s, lnf_b = self._gen._lnf()
         dev = self._gen._device
         logits, self._ck, self._cv = self._chunk_prefill_fn(

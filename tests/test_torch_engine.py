@@ -180,8 +180,11 @@ def test_argmax_min_index_and_nan():
 
 def test_later_slices_raise(models):
     _, tm = models
+    with pytest.raises(NotImplementedError):          # quantized TP
+        TGE(tm, quant="a8w8", mp_degree=2)
+    assert tm.stack.qkv_weight.dtype == torch.float32  # not quantized
     with pytest.raises(NotImplementedError):
-        TGE(tm, quant="int8")
+        TCBE(tm, quant="int8", kv_dtype="int8", mp_degree=2)
     with pytest.raises(NotImplementedError):
         TGE(tm, page_size=4, max_length=40).generate(
             _prompts(), max_new_tokens=2, do_sample=True)

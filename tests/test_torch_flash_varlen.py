@@ -135,3 +135,37 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     before = fv.launches
     _port(_case(6, (0,), 8))
     assert fv.launches == before
+
+
+def _int8_side(rng, pool_shape):
+    """(int8 rows, f32 plane [n_kv, P * ps]) from the JAX quantizer, and
+    the pool it dequantizes to."""
+    from paddle_tpu.nn.functional.paged_attention import quantize_kv_rows
+    rows, s = (np.array(t) for t in quantize_kv_rows(
+        jnp.asarray(rng.randn(*pool_shape).astype(np.float32))))
+    Pn, n_kv, ps, _ = pool_shape
+    plane = np.ascontiguousarray(s.transpose(1, 0, 2).reshape(n_kv, Pn * ps))
+    return (rows, plane), rows.astype(np.float32) * s[..., None]
+
+
+@pytest.mark.parametrize("bad_id", [None, P + 3, -1])
+def test_int8_pool_is_the_dequantized_pool(bad_id):
+    """An int8 pool ``(rows, plane)`` attends as its dequantized pool
+    does, the JAX XLA walk over that pool being the reference (1e-5, as
+    for f32); a table id outside the pool is masked, not read."""
+    rng = np.random.RandomState(8)
+    a = _case(8, (4, 13), 8, g=2, shared=2)
+    (kq, ks), kd = _int8_side(rng, a["kp"].shape)
+    (vq, vs), vd = _int8_side(rng, a["vp"].shape)
+    tables = a["tables"].copy()
+    if bad_id is not None:
+        tables[1, 2] = bad_id
+    t = torch.from_numpy
+    out = fv.paged_prefill_attention(
+        t(a["q"]), (t(kq), t(ks)), (t(vq), t(vs)), t(tables), t(a["start"]),
+        n_kv=a["n_kv"]).numpy()
+    deq = _port(dict(a, kp=kd, vp=vd), tables=tables)
+    np.testing.assert_array_equal(out, deq)
+    if bad_id is None:
+        ref = _jax(dict(a, kp=kd, vp=vd), "xla")
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)

@@ -31,6 +31,7 @@ def test_import_leaves_jax_out():
         "import paddle_tpu_torch.nn.functional.paged_attention\n"
         "import paddle_tpu_torch.nn.functional.stream_linear\n"
         "import paddle_tpu_torch.nn.functional.flash_varlen\n"
+        "import paddle_tpu_torch.quantization\n"
         "import paddle_tpu_torch.serving\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
@@ -110,12 +111,14 @@ def test_kernel_sources_and_wrappers_present():
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
     assert set(_kernels._SIGNATURES) == set(_kernels.SOURCES) == {
-        "paged_attention", "stream_linear", "flash_varlen"}
+        "paged_attention", "stream_linear", "flash_varlen",
+        "paged_attention_q", "stream_linear_a8w8"}
     for lib, fns in _kernels._SIGNATURES.items():
         src = (PKG / "csrc" / f"{lib}.cu").read_text()
         for fn in fns:
             assert f'extern "C" int {fn}(' in src
         assert "sm_90a" in " ".join(_kernels._FLAGS)
-    for counter in (pa.launches, sl.launches, sl.tail_launches,
-                    fv.launches):
+    for counter in (pa.launches, pa.q_launches, sl.launches,
+                    sl.w8_launches, sl.tail_launches, sl.tail_w8_launches,
+                    sl.a8w8_launches, fv.launches):
         assert isinstance(counter, int)

@@ -66,8 +66,7 @@ COUNTERS = ("serving.prefix_hit", "serving.prefix_miss",
             "serving.prefill_requeues", "serving.admitted")
 
 
-@pytest.fixture(scope="module")
-def models():
+def _pair():
     paddle.seed(7)
     jm = JLM(**CFG)
     rng = np.random.RandomState(0)
@@ -84,6 +83,11 @@ def models():
     tm = TLM(**CFG, device="cpu")
     load_jax_params(tm, params)
     return jm, tm
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _pair()
 
 
 # ---------------------------------------------------------------------
@@ -138,7 +142,7 @@ def _eos_of(tm, prompt):
     return int(out[1])
 
 
-def _plain_workload(eos):
+def _plain_workload(eos, **engine_kw):
     rng = np.random.RandomState(2)
     first = np.concatenate([SYS, rng.randint(0, 64, 5)])
     later = [(np.concatenate([SYS, rng.randint(0, 64, 9)]), {}),
@@ -149,7 +153,7 @@ def _plain_workload(eos):
     def run(pkg, model, submit):
         eng = pkg["Engine"](model, max_batch=3, page_size=4,
                             max_length=64, decode_chunk=2,
-                            slo=pkg["SLO"](prefill_chunk=8))
+                            slo=pkg["SLO"](prefill_chunk=8), **engine_kw)
         submit(eng, first, max_new_tokens=6)
         while not eng.num_active:          # the prefix is registered
             eng.step()
@@ -259,6 +263,70 @@ def test_cpu_serving_builds_and_launches_nothing(models, monkeypatch):
     eng.submit(np.arange(20) % 64, max_new_tokens=3)
     assert [len(r.generated) for r in eng.run()] == [3]
     assert fv.launches == before
+
+
+# ---------------------------------------------------------------------
+# quantized serving: A8W8 on the plain workload (prefix hits included),
+# int8 weights + the int8 KV pool on a workload without shared prefixes
+# (the JAX int8 decode kernel masks one owner per page, which is wrong
+# for a page two decoding rows share). Quantized engines compute in
+# bf16, which XLA and PyTorch round at other points on the CPU: tokens
+# agree on at least 90% (measured 96% under A8W8, 24 of 25, and 100%
+# with the int8 pool); everything that is a function
+# of the schedule — the action log, journal, counters, free pages — is
+# identical, since no request stops at an EOS.
+# ---------------------------------------------------------------------
+
+def _noshare_workload(pkg, model, submit):
+    eng = pkg["Engine"](model, max_batch=3, page_size=4, max_length=64,
+                        decode_chunk=2, slo=pkg["SLO"](prefill_chunk=8),
+                        quant="int8", kv_dtype="int8")
+    rng = np.random.RandomState(12)
+    submit(eng, rng.randint(0, 64, 11), max_new_tokens=6)
+    while not eng.num_active:
+        eng.step()
+    for n, new in ((30, 5), (1, 1), (7, 6), (18, 4)):
+        submit(eng, rng.randint(0, 64, n), max_new_tokens=new)
+    return eng
+
+
+@pytest.fixture(scope="module")
+def quant_runs():
+    """One JAX and one port run of each quantized workload, on a fresh
+    pair of models (the engines quantize the stacks in place)."""
+    jm, tm = _pair()
+    a8w8 = _plain_workload(None, quant="a8w8")
+    return {"a8w8": (_serve(J, jm, a8w8), _serve(T, tm, a8w8)),
+            "int8_kv_int8": (_serve(J, jm, _noshare_workload),
+                             _serve(T, tm, _noshare_workload))}
+
+
+def _token_agreement(j, t):
+    pairs = [(a, b) for gj, gt in zip(j["tokens"], t["tokens"])
+             for a, b in zip(gj, gt)]
+    return sum(a == b for a, b in pairs) / len(pairs)
+
+
+@pytest.mark.parametrize("mode", ["a8w8", "int8_kv_int8"])
+@pytest.mark.parametrize("what", ["states", "action_log", "counters",
+                                  "free_end", "cleared", "free_cleared",
+                                  "events"])
+def test_quantized_serving_matches_jax(quant_runs, mode, what):
+    j, t = quant_runs[mode]
+    assert t[what] == j[what]
+
+
+@pytest.mark.parametrize("mode", ["a8w8", "int8_kv_int8"])
+def test_quantized_serving_tokens(quant_runs, mode):
+    j, t = quant_runs[mode]
+    assert [len(g) for g in t["tokens"]] == [len(g) for g in j["tokens"]]
+    assert _token_agreement(j, t) >= 0.9
+    c = t["counters"]
+    assert c["serve.prefill_chunks"] > 4 and set(t["states"]) == {"ok"}
+    if mode == "a8w8":
+        assert c["serving.prefix_hit"] >= 1
+    else:
+        assert c["serving.prefix_hit"] == 0
 
 
 def test_later_slices_raise(models):

@@ -75,13 +75,20 @@ def test_stream_linear_f32_out(x_dtype):
 
 
 def test_stream_linear_later_slices_raise():
+    """Tensor parallelism (``reduce_axis=``) is a later slice, in every
+    weight form."""
     x, w = torch.zeros(2, 8), torch.zeros(8, 8)
+    wq, s = torch.zeros(8, 8, dtype=torch.int8), torch.ones(8)
     with pytest.raises(NotImplementedError):
-        sl.stream_linear(x, w, scale=torch.ones(8))
+        sl.stream_linear(x, wq, scale=s, reduce_axis="mp")
     with pytest.raises(NotImplementedError):
-        sl.stream_linear(x, w, act_quant=True)
+        sl.stream_linear(x, wq, scale=s, act_quant=True, reduce_axis="mp")
     with pytest.raises(NotImplementedError):
         sl.stream_linear(x, w, reduce_axis="mp")
+    with pytest.raises(NotImplementedError):
+        sl.stream_layer_tail(x, x, wq, wq, wq, bo=s, b1=s, b2=s,
+                             ln2_scale=s, ln2_bias=s, epsilon=EPS, so=s,
+                             s1=s, s2=s, reduce_axis="mp")
 
 
 @pytest.mark.parametrize("knob", ["overlap", "interpret"])
@@ -185,3 +192,118 @@ def test_ln_and_activation_match_jax():
     np.testing.assert_allclose(
         sl._apply_activation(_t(x), "gelu").numpy(),
         np.asarray(jax.nn.gelu(_j(x))), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------
+# int8 weights (weight-only quantization): scale= and so/s1/s2
+# ---------------------------------------------------------------------
+
+def _int8(w):
+    """Weight-only int8 of w [.., K, N] per output column: (q, scale)."""
+    s = np.maximum(np.abs(w).max(axis=-2) / np.float32(127.0),
+                   np.float32(1e-8)).astype(np.float32)
+    q = np.clip(np.round(w / s[..., None, :]), -127, 127).astype(np.int8)
+    return q, s
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("activation", [None, "gelu"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_stream_linear_int8_matches_jax_fallback(stacked, activation,
+                                                 x_dtype):
+    """``scale=``: int8 weights exact in fp32 on both sides, the scale on
+    the fp32 accumulator, then bias and activation (f32: 1e-5; bf16
+    outputs round the same fp32 value, one ulp at most)."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(M, D).astype(np.float32)
+    wq, s = _int8((rng.randn(L, D, 384) * 0.05).astype(np.float32))
+    b = (rng.randn(L, 384) * 0.1).astype(np.float32)
+    jd = jnp.bfloat16 if x_dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if x_dtype == "bfloat16" else torch.float32
+    if stacked:
+        aj, at = (wq, s, b), (wq, s, b)
+        kj, kt = dict(layer=1), dict(layer=1)
+    else:
+        aj = at = (wq[1], s[1], b[1])
+        kj = kt = {}
+    ref = jax_stream_linear(_j(x, jd), jnp.asarray(aj[0]), bias=_j(aj[2]),
+                            scale=_j(aj[1]), activation=activation, **kj)
+    out = sl.stream_linear(_t(x, td), torch.from_numpy(at[0]),
+                           bias=_t(at[2]), scale=_t(at[1]),
+                           activation=activation, **kt)
+    assert out.dtype == td
+    r = _np(ref)
+    tol = 1e-5 if x_dtype == "float32" else 2.0 ** (
+        np.floor(np.log2(np.abs(r).max())) - 7)
+    np.testing.assert_allclose(out.float().numpy(), r, rtol=0,
+                               atol=max(tol, 1e-5))
+
+
+def _int8_tail_params(seed):
+    p = _tail_params(seed)
+    for w, sc in (("wo", "so"), ("w1", "s1"), ("w2", "s2"), ("wq", "sq")):
+        p[w], p[sc] = _int8(p[w])
+    return p
+
+
+def _run_tail_int8(fn, conv, wconv, p, layer, with_q, **kw):
+    """The tail over int8 stacks: ``conv`` converts the float operands,
+    ``wconv`` the int8 weights."""
+    nq = None
+    if with_q:
+        nq = dict(w=wconv(p["wq"]), b=conv(p["bq"]), s=conv(p["sq"]),
+                  ln_s=conv(p["l1s"]), ln_b=conv(p["l1b"]),
+                  layer=min(layer + 1, L - 1))
+    return fn(conv(p["att"]), conv(p["h"]), wconv(p["wo"]), wconv(p["w1"]),
+              wconv(p["w2"]), layer=layer, bo=conv(p["bo"]),
+              b1=conv(p["b1"]), b2=conv(p["b2"]), ln2_scale=conv(p["l2s"]),
+              ln2_bias=conv(p["l2b"]), epsilon=EPS, activation="gelu",
+              so=conv(p["so"]), s1=conv(p["s1"]), s2=conv(p["s2"]),
+              next_qkv=nq, **kw)
+
+
+@pytest.mark.parametrize("with_q", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("jax_form", ["interpret", "fallback"])
+def test_tail_int8_matches_jax(with_q, dtype, jax_form):
+    """int8 stacks with so/s1/s2 (and the next QKV's s): the port's
+    plain tail against the JAX tail kernel in interpret mode and the
+    JAX ``_tail_fallback``. float32: 1e-5 (int8 weights exact, fp32
+    sums in another order). bfloat16: the plain tail rounds each int8
+    product to bf16 before its bf16-rounded scale, and h2 and each
+    partial sum of the residual stream (as ``_tail_fallback`` does);
+    the JAX kernel scales the fp32 accumulator by the f32 scale and
+    keeps h2 in fp32; the JAX fallback rounds at the plain tail's
+    points, its products summed in another order. Both: 4 bf16 ulps at
+    the output's largest magnitude, as the float tail (measured at most
+    1.04 against the kernel and 1.56 against the fallback, layers
+    0-2)."""
+    layer = 1
+    p = _int8_tail_params(layer + 7)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    kw = dict(interpret=True) if jax_form == "interpret" else {}
+    ref = _run_tail_int8(jax_tail, lambda a: _j(a, jd), jnp.asarray, p,
+                         layer, with_q, **kw)
+    out = _run_tail_int8(sl.stream_layer_tail, lambda a: _t(a, td),
+                         torch.from_numpy, p, layer, with_q)
+    refs = ref if with_q else (ref,)
+    outs = out if with_q else (out,)
+    assert len(outs) == len(refs)
+    for o, r in zip(outs, refs):
+        assert o.dtype == td
+        r = _np(r)
+        m = float(np.abs(r).max())
+        if dtype == "float32":
+            np.testing.assert_allclose(o.numpy(), r, rtol=1e-5, atol=1e-5)
+        else:
+            assert float(np.abs(o.float().numpy() - r).max()) \
+                <= 4 * 2 ** -7 * m
+
+
+def test_tail_scales_all_or_none():
+    z, w = torch.zeros(8), torch.zeros(8, 8, dtype=torch.int8)
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="so/s1/s2"):
+        sl.stream_layer_tail(x, x, w, w, w, bo=z, b1=z, b2=z, ln2_scale=z,
+                             ln2_bias=z, epsilon=EPS, so=z)
