@@ -32,7 +32,20 @@ Phases, all run every time, each of which fails the run when it fails:
            generate_int8kv (int8 weights and KV pool, b64), each with a
            teacher-forced check against the plain path and a timed,
            profiled decode step — and serving_int8kv, the serving
-           workload above over int8 weights and an int8 pool.
+           workload above over int8 weights and an int8 pool;
+  moe/lora the ragged grouped GEMM (B14) and the LoRA delta (B16) checked
+           against their plain versions at the MoE rung's and the
+           d2048 projections' shapes, and timed; serving_lora, the
+           serving workload above (on the bf16 stack, before it is
+           quantized) under a 4-slot AdapterBank with requests stamped
+           round-robin over four adapters and the base model and a hot
+           swap between its halves, every step's launches checked, and
+           a teacher-forced adaptered decode against the plain path;
+           then bench.py's MoE decode rung (d1024, 12 layers, 8 experts,
+           top-2) at batch 32 through GenerationEngine (generate_moe),
+           its teacher-forced check (route agreement and logits on the
+           rows whose routes agree, with a faulty-FFN2 control) and a
+           profiled decode step (decode_step_moe).
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -96,6 +109,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device time per call of ``fn`` spent in the CUDA kernels whose
+    name holds ``kernel``, by torch.profiler: the kernel alone, where
+    ``time_ms`` also counts the gaps a host-bound caller leaves."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and kernel in ev.key)
+    return us / iters / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -922,10 +953,289 @@ def kernel_paged_attention_q(gen) -> dict:
     return row
 
 
+# ------------------------------------------------- MoE and LoRA kernels
+
+#: the MoE rung's shapes (bench.py run_moe_decode_bench): d1024, 12
+#: layers, 16 heads of 64, dff 4096, 8 experts, top-2; batch 32,
+#: prompt 128, 65 new tokens
+MOE_D, MOE_LAYERS, MOE_HEADS, MOE_E, MOE_TOPK = 1024, 12, 16, 8, 2
+MOE_DFF, MOE_NEW = 4 * MOE_D, 65
+#: the LoRA serve's bank: 4 slots of rank 8 (padded to 16 in bf16)
+LORA_SLOTS, LORA_RANK = 4, 8
+
+
+def _moe_offsets(case: str, T: int, E: int = MOE_E):
+    """int32 [E+1] offsets of T rows over E experts: uniform, one expert
+    owning every row, two empty experts, or a total short of T (the rows
+    past it must come out 0)."""
+    if case == "uniform":
+        counts = [T // E] * E
+    elif case == "one_expert":
+        counts = [0] * E
+        counts[3] = T
+    elif case == "two_empty":
+        counts = [T // (E - 2)] * E
+        counts[1] = counts[5] = 0
+    else:                                     # "short"
+        counts = [T // (E + 1)] * E
+    if case != "short":
+        counts[-1] += T - sum(counts)
+    return torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32, device="cuda")
+
+
+def _zero_bits(t) -> bool:
+    """All elements +0.0, bit for bit."""
+    it = torch.int32 if t.dtype == torch.float32 else torch.int16
+    return bool((t.contiguous().view(it) == 0).all())
+
+
+def kernel_grouped_gemm(gen) -> dict:
+    """Kernel B14 (grouped_gemm) against grouped_gemm_plain at the MoE
+    rung's FFN shapes — FFN1 [T, 1024] x [8, 1024, 4096] + bias + GELU
+    in x's dtype, FFN2 [T, 4096] x [8, 4096, 1024] + bias in f32 — at
+    T = 64 (decode, batch 32 top-2) and 8192 (prefill, 32 x 128 x 2), in
+    float32 and bf16, over four offset layouts; and a ragged K 136 / N
+    200. Then timed in bf16 with the weights rotating over 12 layers."""
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+
+    dev, E, d, dff = "cuda", MOE_E, MOE_D, MOE_DFF
+    res = {}
+    # tolerances: both sides accumulate in fp32 (the bf16 products are
+    # exact there), so they differ by the summation order (~1e-6 of the
+    # outputs' magnitude ~1, float32 and the f32 FFN2: 1e-4); a bf16
+    # output may then round one ulp apart (_ulp_tol of its largest value)
+    for dtype in (torch.float32, torch.bfloat16):
+        w1 = (torch.randn(E, d, dff, generator=gen, device=dev)
+              * 0.02).to(dtype)
+        b1 = torch.randn(E, dff, generator=gen, device=dev) * 0.02
+        w2 = (torch.randn(E, dff, d, generator=gen, device=dev)
+              * 0.02).to(dtype)
+        b2 = torch.randn(E, d, generator=gen, device=dev) * 0.02
+        for T in (64, 8192):
+            x = torch.randn(T, d, generator=gen, device=dev).to(dtype)
+            for case in ("uniform", "one_expert", "two_empty", "short"):
+                off = _moe_offsets(case, T)
+                total = int(off[-1])
+                h = gg.grouped_gemm(x, w1, off, bias=b1, activation="gelu")
+                h_ref = gg.grouped_gemm_plain(x, w1, off, bias=b1,
+                                              activation="gelu")
+                # FFN2 takes the same input on both sides
+                y = gg.grouped_gemm(h_ref, w2, off, bias=b2,
+                                    out_dtype=torch.float32)
+                y_ref = gg.grouped_gemm_plain(h_ref, w2, off, bias=b2,
+                                              out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                e1, e2 = max_err(h, h_ref), max_err(y, y_ref)
+                tol1 = 1e-4 if dtype == torch.float32 else _ulp_tol(
+                    float(h_ref.float().abs().max()))
+                tol2 = 1e-4
+                zeros = _zero_bits(h[total:]) and _zero_bits(y[total:])
+                # the units the kernel decoded, against grouped_work_map
+                bm = gg.DEFAULT_BLOCK_ROWS
+                same_map = all(torch.equal(a, b) for a, b in zip(
+                    gg.kernel_work_map(off, T),
+                    gg.grouped_work_map(off, -(-T // bm) * bm, bm)))
+                emit({"check": "grouped_gemm", "dtype": str(dtype), "T": T,
+                      "offsets": case, "rows_past_offsets_E": T - total,
+                      "ffn1_max_abs_err": e1, "ffn1_tol": tol1,
+                      "ffn2_f32_max_abs_err": e2, "ffn2_tol": tol2,
+                      "rows_past_offsets_E_bitwise_zero": zeros,
+                      "kernel_units_equal_grouped_work_map": same_map})
+                check(same_map, f"grouped_gemm T={T} {case}: the kernel's "
+                                "units differ from grouped_work_map")
+                check(e1 <= tol1 and e2 <= tol2,
+                      f"grouped_gemm {dtype} T={T} {case}: {e1}/{e2} > "
+                      f"{tol1}/{tol2}")
+                check(zeros, f"grouped_gemm {dtype} T={T} {case}: rows "
+                             "past offsets[E] are not +0.0")
+                if T == 64 and case == "uniform":
+                    res[str(dtype)] = max(e1, e2)
+            del x
+        del w1, w2
+        # K and N that are not multiples of 128 (nor of the kernel's
+        # 64-column tile): the kernel masks its ragged edges itself
+        x = torch.randn(50, 136, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(3, 136, 200, generator=gen, device=dev)
+             * 0.1).to(dtype)
+        b = torch.randn(3, 200, generator=gen, device=dev)
+        off = torch.tensor([0, 20, 20, 45], dtype=torch.int32, device=dev)
+        out = gg.grouped_gemm(x, w, off, bias=b, activation="relu")
+        ref = gg.grouped_gemm_plain(x, w, off, bias=b, activation="relu")
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else _ulp_tol(
+            float(ref.float().abs().max()))
+        e = max_err(out, ref)
+        emit({"check": "grouped_gemm", "dtype": str(dtype), "T": 50,
+              "K": 136, "N": 200, "max_abs_err": e, "tol": tol,
+              "rows_past_offsets_E_bitwise_zero": _zero_bits(out[45:])})
+        check(e <= tol and _zero_bits(out[45:]),
+              f"grouped_gemm K=136 N=200 {dtype}: {e} > {tol}")
+    # timing, bf16, uniform routing, weights rotating over 12 layers:
+    # decode (T 64) and prefill (T 8192), FFN1 + FFN2 of one layer
+    dt, L = torch.bfloat16, MOE_LAYERS
+    w1 = (torch.randn(L, E, d, dff, generator=gen, device=dev)
+          * 0.02).to(dt)
+    w2 = (torch.randn(L, E, dff, d, generator=gen, device=dev)
+          * 0.02).to(dt)
+    b1 = torch.randn(L, E, dff, generator=gen, device=dev) * 0.02
+    b2 = torch.randn(L, E, d, generator=gen, device=dev) * 0.02
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    rows = {}
+    for phase, T in (("decode", 64), ("prefill", 8192)):
+        x = torch.randn(T, d, generator=gen, device=dev).to(dt)
+        off = _moe_offsets("uniform", T)
+        h = gg.grouped_gemm(x, w1[0], off, bias=b1[0], activation="gelu")
+        nxt = cycler(L)
+
+        def kern():
+            l = nxt()
+            gg.grouped_gemm(x, w1[l], off, bias=b1[l], activation="gelu")
+            gg.grouped_gemm(h, w2[l], off, bias=b2[l],
+                            out_dtype=torch.float32)
+
+        def plain():
+            l = nxt()
+            gg.grouped_gemm_plain(x, w1[l], off, bias=b1[l],
+                                  activation="gelu")
+            gg.grouped_gemm_plain(h, w2[l], off, bias=b2[l],
+                                  out_dtype=torch.float32)
+        bounds = off.tolist()
+
+        def loop():
+            l = nxt()
+            for e in range(E):
+                torch.matmul(x[bounds[e]:bounds[e + 1]], w1[l, e])
+                torch.matmul(h[bounds[e]:bounds[e + 1]], w2[l, e])
+        lib_ms, lib_note = None, "none (no single call)"
+        if grouped_mm is not None:
+            ends = off[1:].contiguous()
+            try:
+                grouped_mm(x, w1[0], offs=ends)
+                torch.cuda.synchronize()
+
+                def library():
+                    # bf16 out (the call takes no other), no bias or GELU
+                    l = nxt()
+                    grouped_mm(x, w1[l], offs=ends)
+                    grouped_mm(h, w2[l], offs=ends)
+                lib_ms, lib_note = time_ms(library), "torch._grouped_mm"
+            except (RuntimeError, TypeError, ValueError) as err:
+                lib_note = f"torch._grouped_mm refused: {str(err)[:120]}"
+        active = int((off[1:] > off[:-1]).sum())   # experts with rows
+        nbytes = (active * 2 * d * dff * 2 + T * d * 2 + 2 * T * dff * 2
+                  + T * d * 4 + active * (dff + d) * 4)
+        flops = 2.0 * T * d * dff * 2
+        bms, by = bound_ms(nbytes, flops, dt)
+        rows[phase] = {"ms": time_ms(kern),
+                       "device_ms": device_ms(kern, "grouped_gemm_kernel"),
+                       "plain_ms": time_ms(plain),
+                       "library_ms": lib_ms, "library": lib_note,
+                       "per_expert_matmul_loop_ms": time_ms(loop),
+                       "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                       "flops": flops, "T": T}
+        emit({"time": f"grouped_gemm[{phase}]", **rows[phase]})
+        del x, h
+    del w1, w2
+    # the kernels line holds the decode step's pair (the main path runs
+    # it 12 times a step); the prefill pair is in its own line
+    row = dict(rows["decode"])
+    row["max_abs_err"] = res[str(dt)]
+    return row
+
+
+def _lora_rows(T: int, S: int, gen):
+    """Slot ids of T rows: base rows (-1) and slots 0, 1, 3 (slot 2
+    empty), shuffled."""
+    pattern = torch.tensor([0, 1, -1, 3, 0, 1, 3, -1], device="cuda")
+    ids = pattern.repeat(-(-T // 8))[:T]
+    perm = torch.randperm(T, generator=gen, device="cuda")
+    return ids[perm].to(torch.int32)
+
+
+def kernel_lora_delta(gen) -> dict:
+    """Kernel B16 (lora_delta) against lora_delta_plain on the four
+    d2048 projections (QKV 2048 -> 6144, O 2048 -> 2048, FFN1 2048 ->
+    8192, FFN2 8192 -> 2048), 4 slots of rank 16, T 8 / 32 / 256 rows
+    mixing base rows and slots with one slot empty, in float32 and bf16;
+    then timed at T 8 (the serve's decode batch) over 24 layers."""
+    from paddle_tpu_torch.nn.functional import lora as tl
+
+    dev, S, R = "cuda", LORA_SLOTS, 16
+    res = {}
+    # tolerance: fp32 sums on both sides in another order (the bf16
+    # products are exact in fp32); deltas are of magnitude ~0.1
+    tol = 2e-5
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, K, N, _ in A8W8_SHAPES:
+            a = (torch.randn(S, K, R, generator=gen, device=dev)
+                 * 0.02).to(dtype)
+            b = (torch.randn(S, R, N, generator=gen, device=dev)
+                 * 0.02).to(dtype)
+            for T in (8, 32, 256):
+                order, offsets, _ = tl.sort_by_adapter(
+                    _lora_rows(T, S, gen), S)
+                xs = torch.randn(T, K, generator=gen, device=dev) \
+                    .to(dtype)[order.long()]
+                out = tl.lora_delta(xs, a, b, offsets)
+                ref = tl.lora_delta_plain(xs, a, b, offsets)
+                torch.cuda.synchronize()
+                total = int(offsets[-1])
+                e = max_err(out, ref)
+                zeros = _zero_bits(out[total:])
+                emit({"check": "lora_delta", "proj": name,
+                      "dtype": str(dtype), "T": T, "base_rows": T - total,
+                      "max_abs_err": e, "tol": tol,
+                      "base_rows_bitwise_zero": zeros})
+                check(e <= tol and zeros,
+                      f"lora_delta {name} {dtype} T={T}: {e} > {tol} or "
+                      "a base row is not +0.0")
+                if T == 8:
+                    res[str(dtype)] = max(res.get(str(dtype), 0.0), e)
+    dt, L, T = torch.bfloat16, N_LAYERS, 8
+    order, offsets, _ = tl.sort_by_adapter(_lora_rows(T, S, gen), S)
+    active = int((offsets[1:] > offsets[:-1]).sum())
+    rows = {}
+    for name, K, N, _ in A8W8_SHAPES:
+        a = (torch.randn(L, S, K, R, generator=gen, device=dev)
+             * 0.02).to(dt)
+        b = (torch.randn(L, S, R, N, generator=gen, device=dev)
+             * 0.02).to(dt)
+        xs = torch.randn(T, K, generator=gen, device=dev).to(dt)
+        nxt = cycler(L)
+
+        def kern():
+            l = nxt()
+            tl.lora_delta(xs, a[l], b[l], offsets)
+
+        def plain():
+            l = nxt()
+            tl.lora_delta_plain(xs, a[l], b[l], offsets)
+        # bytes this run needs: x, the active slots' A and B, the output
+        nbytes = T * K * 2 + active * (K * R + R * N) * 2 + T * N * 4
+        flops = 2.0 * T * R * (K + N)
+        bms, by = bound_ms(nbytes, flops, dt)
+        rows[name] = {"ms": time_ms(kern),
+                      "device_ms": device_ms(kern, "lora_delta_kernel"),
+                      "plain_ms": time_ms(plain), "library_ms": None,
+                      "bound_ms": bms, "bound_by": by, "bytes": nbytes}
+        emit({"time": f"lora_delta[{name}]", **rows[name]})
+        del a, b
+    row = {k: sum(r[k] for r in rows.values())
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    row["library_ms"] = None
+    row["bound_by"] = "bytes" if all(
+        r["bound_by"] == "bytes" for r in rows.values()) else "operations"
+    row["max_abs_err"] = res[str(dt)]
+    return row
+
+
 # ---------------------------------------------------------------- slice
 
 def _counters():
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+    from paddle_tpu_torch.nn.functional import lora as tl
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
@@ -936,7 +1246,9 @@ def _counters():
             "stream_linear_w8": sl.w8_launches,
             "stream_layer_tail_w8": sl.tail_w8_launches,
             "stream_linear_a8w8": sl.a8w8_launches,
-            "paged_decode_attention_inplace_q": pa.q_launches}
+            "paged_decode_attention_inplace_q": pa.q_launches,
+            "grouped_gemm": gg.launches,
+            "lora_delta": tl.launches}
 
 
 #: CUDA launches of one stream_layer_tail call with the next layer's
@@ -946,21 +1258,26 @@ TAIL_LAUNCHES_PER_CALL = 6
 
 def _expected_launches(decode_steps: int, prefills: int,
                        prefill_chunks: int = 0, quant=None,
-                       kv_dtype=None) -> dict:
+                       kv_dtype=None, moe=False,
+                       layers: int = N_LAYERS) -> dict:
     """Launches of a path. Per decode step: one attention per layer
     (B6 over an int8 pool, else B1) and the LM head; the grouped,
     prefetching loop adds the layer-0 QKV and one tail call per layer
     (their int8-weight kernels under quant="int8"); A8W8 runs the
-    ungrouped loop instead, four B5 GEMMs per layer. Per one-shot
+    ungrouped loop instead, four B5 GEMMs per layer; an MoE stack runs
+    the ungrouped loop with plain QKV/O products and two grouped GEMMs
+    (B14, FFN1 and FFN2) per layer, in its prefill too. Per one-shot
     prefill one LM head; per chunk of the chunked prefill one LM head
     and, over a float pool, one paged-prefill attention per layer (an
     int8 pool takes the gather path, PyTorch ops)."""
-    L, steps = N_LAYERS, decode_steps
+    L, steps = layers, decode_steps
     e = dict.fromkeys(_SOURCES, 0)
     e["paged_decode_attention_inplace_q" if kv_dtype == "int8"
       else "paged_decode_attention_inplace"] = L * steps
     e["stream_linear"] = steps + prefills + prefill_chunks
-    if quant == "a8w8":
+    if moe:
+        e["grouped_gemm"] = 2 * L * (steps + prefills + prefill_chunks)
+    elif quant == "a8w8":
         e["stream_linear_a8w8"] = 4 * L * steps
     elif quant == "int8":
         e["stream_linear_w8"] = steps
@@ -986,10 +1303,13 @@ def _reset_counters():
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+    from paddle_tpu_torch.nn.functional import lora as tl
+
     pa.launches = pa.q_launches = 0
     sl.launches = sl.tail_launches = 0
     sl.w8_launches = sl.tail_w8_launches = sl.a8w8_launches = 0
-    fv.launches = 0
+    fv.launches = gg.launches = tl.launches = 0
 
 
 def _ulp_nudge(x, gen):
@@ -1000,7 +1320,8 @@ def _ulp_nudge(x, gen):
 
 
 @contextlib.contextmanager
-def plain_path(act_quant_ulp=None, drop_k_tile=False):
+def plain_path(act_quant_ulp=None, drop_k_tile=False, drop_ffn2_k=False,
+               ffn1_ulp=None):
     """The decode step and the chunked prefill with every kernel call
     replaced by its plain PyTorch version (the reference for the
     teacher-forced and chunked-prefill checks).
@@ -1009,12 +1330,18 @@ def plain_path(act_quant_ulp=None, drop_k_tile=False):
     nudges a random half of every act-quant input by one ulp before it
     is quantized: the witness of how far rounding noise of that size
     moves the logits. ``drop_k_tile`` makes every A8W8 product skip its
-    last 32 K lanes, a tile-edge fault that the check must catch."""
+    last 32 K lanes, a tile-edge fault that the check must catch.
+    The MoE check has two: ``drop_ffn2_k``, its control, makes every
+    expert's FFN2 (the grouped product without activation) skip its last
+    32 K lanes; ``ffn1_ulp`` (a generator), its witness, nudges a random
+    half of every FFN1 output one ulp."""
     from unittest import mock
 
     from paddle_tpu_torch.incubate.nn import fused_transformer as ft
     from paddle_tpu_torch.inference import engine as eng
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+    from paddle_tpu_torch.nn.functional import lora as tl
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
     from paddle_tpu_torch.quantization.dynamic import dynamic_act_quant
@@ -1043,6 +1370,22 @@ def plain_path(act_quant_ulp=None, drop_k_tile=False):
                                                 out_dtype or x.dtype)
         return sl._stream_linear_plain(x, w, layer, bias, activation,
                                        out_dtype, scale=scale)
+
+    def grouped(x, w, offsets, *, bias=None, activation=None,
+                out_dtype=None, backend="auto"):
+        # backend names a kernel route; the plain version has none
+        if drop_ffn2_k and activation is None:
+            x = x.clone()
+            x[:, -32:] = 0
+        y = gg.grouped_gemm_plain(x, w, offsets, bias=bias,
+                                  activation=activation,
+                                  out_dtype=out_dtype)
+        if ffn1_ulp is not None and activation is not None:
+            y = _ulp_nudge(y, ffn1_ulp)
+        return y
+
+    def delta(x, a, b, offsets, *, out_dtype=None, backend="auto"):
+        return tl.lora_delta_plain(x, a, b, offsets, out_dtype=out_dtype)
     with mock.patch.object(ft, "paged_decode_attention_inplace", attn), \
             mock.patch.object(ft, "paged_decode_attention_inplace_q",
                               attn_q), \
@@ -1050,6 +1393,8 @@ def plain_path(act_quant_ulp=None, drop_k_tile=False):
             mock.patch.object(ft, "stream_layer_tail", _plain_tail), \
             mock.patch.object(ft, "paged_prefill_attention",
                               fv._paged_prefill_plain), \
+            mock.patch.object(gg, "grouped_gemm", grouped), \
+            mock.patch.object(ft, "lora_delta", delta), \
             mock.patch.object(eng, "stream_linear", lin):
         yield
 
@@ -1073,15 +1418,18 @@ def _build_model():
 
 
 def slice_generate(model, name="generate", quant=None, kv_dtype=None,
-                   batch=BATCH) -> dict:
-    """GenerationEngine.generate at ``batch``, prompt 128, 129 new
-    tokens (bench.py's decode rungs; ``quant``/``kv_dtype`` select the
-    quantized ones), its launch counts reset before and checked after."""
+                   batch=BATCH, new_tokens=NEW_TOKENS) -> dict:
+    """GenerationEngine.generate at ``batch``, prompt 128, ``new_tokens``
+    (bench.py's decode rungs; ``quant``/``kv_dtype`` select the
+    quantized ones, an MoE model the MoE rung), its launch counts reset
+    before and checked after."""
     from paddle_tpu_torch.inference import GenerationEngine
     from paddle_tpu_torch.profiler import stats
 
+    st = model.stack
+    moe = bool(st.moe_num_experts)
     eng = GenerationEngine(model, page_size=PAGE,
-                           max_length=PROMPT + NEW_TOKENS, quant=quant,
+                           max_length=PROMPT + new_tokens, quant=quant,
                            kv_dtype=kv_dtype)
     ids = np.random.RandomState(0).randint(0, VOCAB, (batch, PROMPT))
     eng.generate(ids[:, :16], max_new_tokens=4)          # warm-up
@@ -1089,26 +1437,28 @@ def slice_generate(model, name="generate", quant=None, kv_dtype=None,
     mm0 = stats.counter("quant.a8w8_matmuls").value
     _reset_counters()
     t0 = time.perf_counter()
-    out = eng.generate(ids, max_new_tokens=NEW_TOKENS)
+    out = eng.generate(ids, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _counters()
     # first token: prefill
-    expect = _expected_launches(NEW_TOKENS - 1, 1, quant=quant,
-                                kv_dtype=kv_dtype)
+    expect = _expected_launches(new_tokens - 1, 1, quant=quant,
+                                kv_dtype=kv_dtype, moe=moe,
+                                layers=st.num_layers)
     a8w8_matmuls = stats.counter("quant.a8w8_matmuls").value - mm0
     # seconds and tokens/s cover the whole call, the prefill included
     emit({"phase": name, "batch": batch, "prompt": PROMPT,
-          "new_tokens": NEW_TOKENS, "quant": quant,
-          "kv_dtype": kv_dtype, "seconds": dt,
-          "tokens_per_s": batch * NEW_TOKENS / dt,
+          "new_tokens": new_tokens, "quant": quant,
+          "kv_dtype": kv_dtype, "layers": st.num_layers,
+          "d_model": st.embed_dim, "experts": st.moe_num_experts,
+          "seconds": dt, "tokens_per_s": batch * new_tokens / dt,
           "quant_a8w8_matmuls": a8w8_matmuls,
           "launches": counts, "expected_launches": expect})
-    check(out.shape == (batch, PROMPT + NEW_TOKENS), f"{name} shape")
+    check(out.shape == (batch, PROMPT + new_tokens), f"{name} shape")
     check(bool((out >= 0).all() and (out < VOCAB).all()),
           f"{name}: token ids outside the vocabulary")
     check(bool((out[:, :PROMPT] == ids).all()), f"{name}: prompt lost")
-    check(a8w8_matmuls == (4 * N_LAYERS * NEW_TOKENS if quant == "a8w8"
+    check(a8w8_matmuls == (4 * N_LAYERS * new_tokens if quant == "a8w8"
                            else 0),
           f"{name}: quant.a8w8_matmuls counted {a8w8_matmuls}")
     _check_launches(name, counts, expect)
@@ -1152,9 +1502,12 @@ def _clone(side):
 
 
 def slice_teacher_forced(model, steps: int = 16, quant=None,
-                         kv_dtype=None, name="teacher_forced") -> None:
+                         kv_dtype=None, name="teacher_forced",
+                         adapters=None) -> None:
     """Kernel path and plain path decode the same tokens from the same
-    prefilled pool; their logits must agree within the bf16 tolerance."""
+    prefilled pool; their logits must agree within the bf16 tolerance.
+    ``adapters`` (bank operands and per-row slots) runs the adaptered
+    decode step on both paths."""
     from paddle_tpu_torch.incubate.nn.fused_transformer import PagedKV
 
     b = 8
@@ -1191,7 +1544,8 @@ def slice_teacher_forced(model, steps: int = 16, quant=None,
     for _ in range(steps):
         x = emb[tok.long()].to(torch.bfloat16)
         h, _ = st.decode_raw(w, x, PagedKV(ck, cv), tables, pos,
-                             eng._cos, eng._sin, a8w8=eng._a8w8)
+                             eng._cos, eng._sin, a8w8=eng._a8w8,
+                             adapters=adapters)
         lk = eng._logits(h, head, lnf_s, lnf_b)
         check(bool(torch.isfinite(lk).all()), f"{name}: logits finite")
         tk = eng._argmax(lk)
@@ -1199,7 +1553,7 @@ def slice_teacher_forced(model, steps: int = 16, quant=None,
             with plain_path(**kw):
                 h2, _ = st.decode_raw(w, x, PagedKV(*pools[v]), tables,
                                       pos, eng._cos, eng._sin,
-                                      a8w8=eng._a8w8)
+                                      a8w8=eng._a8w8, adapters=adapters)
                 lp = eng._logits(h2, head, lnf_s, lnf_b)
             # the witness is held against the plain path, the rest
             # against the kernel path ("plain" runs first)
@@ -1262,7 +1616,9 @@ def slice_decode_step(model, out_dir, steps: int = 16, quant=None,
               "stream_linear_kernel": "stream_linear GEMM (QKV, head, "
                                       "tail projections)",
               "a8w8_kernel": "stream_linear_a8w8 GEMM",
-              "layer_norm_kernel": "tail LayerNorm"}
+              "layer_norm_kernel": "tail LayerNorm",
+              "grouped_gemm_kernel": "grouped_gemm (MoE FFN1 + FFN2)",
+              "lora_delta_kernel": "lora_delta"}
     by_group, kernels = {}, []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -1504,6 +1860,296 @@ def slice_chunked_prefill(model) -> None:
     check(err <= tol, f"chunked prefill logits differ by {err} > {tol}")
 
 
+# ---------------------------------------------------------------- MoE
+
+def _build_moe_model():
+    """bench.py's --moe-decode rung at full width: FusedCausalLM d1024,
+    12 layers, 16 heads of 64, dff 4096, vocab 51200, 8 experts, top-2;
+    random weights from seed 0, bf16 *_weight / moe_w* / gate_weight,
+    fp32 biases and LNs (run_moe_decode_bench's recipe)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import FusedCausalLM
+
+    ptt.seed(0)
+    model = FusedCausalLM(
+        vocab_size=VOCAB, embed_dim=MOE_D, num_heads=MOE_HEADS,
+        dim_feedforward=MOE_DFF, num_layers=MOE_LAYERS,
+        max_position=PROMPT + MOE_NEW + 1, moe_num_experts=MOE_E,
+        moe_top_k=MOE_TOPK)
+    for n, p in model.stack.named_parameters():
+        if "weight" in n or n.startswith(("moe_w", "gate")):
+            p.data = p.data.to(torch.bfloat16)
+    return model
+
+
+def slice_teacher_forced_moe(model, steps: int = 16) -> None:
+    """The MoE decode step on the kernel path and on the plain path, fed
+    the kernel path's tokens (b 8, 16 steps); each step the plain path
+    starts from a copy of the kernel path's pool, so every step is
+    compared from one state. Routing is discrete: paths a bf16 rounding
+    apart can pick another expert near a tie (and then differ in the
+    later layers of that token), so the check reports the share of
+    (token, layer) top-k sets on which the paths differ — under 1% — and
+    holds the logits to the bf16 limit of 0.1 on the rows whose routes
+    agree in every layer. Two more plain runs go beside it: a witness
+    whose FFN1 outputs are nudged one ulp (its route share against the
+    plain path says how far rounding noise alone moves routes), and a
+    control whose FFN2 skips each expert's last 32 K lanes, which must
+    fail the logits limit on the same rows."""
+    from unittest import mock
+
+    from paddle_tpu_torch.incubate.nn.fused_transformer import PagedKV
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+
+    b, tol = 8, 0.1
+    s = _prefilled(model, b, steps, seed=1)
+    eng, st, tables, ck, cv = (s[k] for k in ("eng", "st", "tables", "ck",
+                                               "cv"))
+    w, emb, head, lnf_s, lnf_b = (s[k] for k in ("w", "emb", "head",
+                                                  "lnf_s", "lnf_b"))
+    tok, pos = s["tok"], s["lens"].clone()
+    routes = []
+    route = gg.moe_route
+
+    def recording(x, gate_w, top_k):
+        out = route(x, gate_w, top_k)
+        routes.append(out[2].sort(dim=-1).values)
+        return out
+
+    def step(kw, pool):
+        routes.clear()
+        ctx = plain_path(**kw) if kw is not None else contextlib.nullcontext()
+        with ctx, mock.patch.object(gg, "moe_route", recording):
+            h, _ = st.decode_raw(w, x, PagedKV(*pool), tables, pos, eng._cos,
+                                 eng._sin)
+            lg = eng._logits(h, head, lnf_s, lnf_b)
+        return lg, torch.stack(routes)                 # [L, b, k]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    variants = {"plain": {}, "witness": {"ffn1_ulp": gen},
+                "control": {"drop_ffn2_k": True}}
+    errs = {v: [] for v in variants}
+    differ = {"plain": 0, "witness": 0}
+    total = agreeing_rows = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        x = emb[tok.long()].to(torch.bfloat16)
+        state = (_clone(ck), _clone(cv))
+        lk, rk = step(None, (ck, cv))
+        check(bool(torch.isfinite(lk).all()), "teacher_forced_moe: logits "
+                                              "finite")
+        for v, kw in variants.items():
+            lp, rp = step(kw, (_clone(state[0]), _clone(state[1])))
+            if v == "plain":
+                same = (rk == rp).all(-1)              # [L, b]
+                differ[v] += int((~same).sum())
+                total += same.numel()
+                rows = same.all(0).nonzero()[:, 0]
+                agreeing_rows += len(rows)
+                lp_plain, rp_plain = lp, rp
+            if v == "witness":
+                differ[v] += int((~(rp == rp_plain).all(-1)).sum())
+            else:
+                errs[v].append(max_err(lk[rows], lp[rows]) if len(rows)
+                               else 0.0)
+        tok = eng._argmax(lk)
+        pos = pos + 1
+    share = differ["plain"] / total
+    emit({"phase": "teacher_forced_moe", "steps": steps, "batch": b,
+          "route_sets": total, "route_sets_differing": differ["plain"],
+          "route_differing_share": share,
+          "witness_route_differing_share": differ["witness"] / total,
+          "rows_compared": agreeing_rows,
+          "logits_max_abs_err": max(errs["plain"]),
+          "per_step": errs["plain"], "tol": tol,
+          "control_logits_max_abs_err": max(errs["control"]),
+          "wall_s": time.perf_counter() - t0})
+    check(share < 0.01, f"teacher_forced_moe: {share:.4f} of the route "
+                        "sets differ (limit 1%)")
+    check(agreeing_rows >= steps * b // 2, "teacher_forced_moe: fewer than "
+          "half the rows kept their routes on both paths")
+    err = max(errs["plain"])
+    check(err <= tol, f"teacher_forced_moe: logits differ by {err} > {tol}")
+    err = max(errs["control"])
+    check(err > tol, f"teacher_forced_moe: the faulty FFN2 passes the "
+                     f"limit ({err} <= {tol})")
+
+
+# ---------------------------------------------------------------- LoRA
+
+def _lora_bank(model, names=("lora0", "lora1", "lora2", "lora3")):
+    """AdapterBank.from_stack of the model (bf16 stack: a bf16 bank, rank
+    8 padded to 16) with 4 slots, holding ``names`` made by
+    random_adapter from seeds 0, 1, ... (the same in every process)."""
+    from paddle_tpu_torch.serving import AdapterBank
+
+    bank = AdapterBank.from_stack(model.stack._stack(), slots=LORA_SLOTS,
+                                  rank=LORA_RANK)
+    for i, n in enumerate(names):
+        bank.load(bank.random_adapter(n, seed=i))
+    return bank
+
+
+def slice_serving_lora(model) -> dict:
+    """The serving workload of ``slice_serving`` under a 4-slot bank:
+    requests stamped round-robin lora0, lora1, lora2, lora3 and the base
+    model, so chunks and decode steps mix adapters with base rows. The
+    first request and the 7 sharing the system prompt run first; then
+    lora3 is unloaded and lora4 loaded into its slot (a version bump:
+    the bank's device tensors stay, refreshed in place), and the 8
+    independent prompts run with lora4 where lora3 was. Every step's
+    launches are checked: a chunk or decode step with an adaptered row
+    adds 4 lora_delta launches per layer and, in decode, runs the
+    four-call per-layer form (4 stream_linear a layer, no tail); a
+    base-only decode step keeps the grouped tail."""
+    from paddle_tpu_torch.profiler import stats
+    from paddle_tpu_torch.serving import ServingEngine, SLOConfig
+
+    L, new = N_LAYERS, 64
+    bank = _lora_bank(model)
+    slo = SLOConfig(prefill_chunk=SERVE_CHUNK)
+    eng = ServingEngine(model, max_batch=8, page_size=PAGE,
+                        max_length=SERVE_MAX_LENGTH, decode_chunk=16,
+                        slo=slo, adapters=bank)
+    free0 = eng._mgr.free_pages
+    rng = np.random.RandomState(4)                # slice_serving's prompts
+    sys_prompt = rng.randint(0, VOCAB, 512)
+    first = np.concatenate([sys_prompt, rng.randint(0, VOCAB, 64)])
+    shared = [np.concatenate([sys_prompt, rng.randint(0, VOCAB, int(n))])
+              for n in rng.randint(16, 241, 7)]
+    indep = [rng.randint(0, VOCAB, int(n))
+             for n in np.linspace(40, 1500, 8).astype(int)]
+    stamps = ("lora0", "lora1", "lora2", "lora3", None)
+    adapter_of = {}
+    tally = {"adaptered_decode_steps": 0, "base_decode_steps": 0,
+             "adaptered_chunks": 0, "base_chunks": 0}
+    attn = "paged_decode_attention_inplace"
+
+    def submit(prompt, i, swap=False):
+        a = stamps[i % len(stamps)]
+        if swap and a == "lora3":
+            a = "lora4"
+        rid = eng.submit(prompt, max_new_tokens=new, adapter_id=a)
+        adapter_of[rid] = a
+        return rid
+
+    def step():
+        c0, d0 = _counters(), stats.counter("serving.decode_steps").value
+        seq0, n = eng.journal.recorded, len(eng.action_log)
+        adaptered = any(getattr(r, "_adapter_slot", None) is not None
+                        for r in eng._slots if r is not None)
+        eng.step()
+        got = {k: v - c0[k] for k, v in _counters().items()}
+        action = eng.action_log[n] if len(eng.action_log) > n else None
+        expect = dict.fromkeys(got, 0)
+        if action == "decode":
+            k = stats.counter("serving.decode_steps").value - d0
+            expect[attn] = L * k
+            if adaptered:
+                expect["lora_delta"] = 4 * L * k
+                expect["stream_linear"] = (4 * L + 1) * k
+            else:
+                expect["stream_layer_tail"] = TAIL_LAUNCHES_PER_CALL * L * k
+                expect["stream_linear"] = 2 * k
+            tally["adaptered_decode_steps" if adaptered
+                  else "base_decode_steps"] += k
+        elif action == "prefill":
+            rids = [e["rid"] for e in eng.journal.events()
+                    if e["seq"] >= seq0 and e["ev"] == "prefill_chunk"]
+            if rids:                              # not a stalled chunk
+                ad = adapter_of[rids[0]] is not None
+                expect["paged_prefill_attention"] = L
+                expect["stream_linear"] = 1
+                expect["lora_delta"] = 4 * L if ad else 0
+                tally["adaptered_chunks" if ad else "base_chunks"] += 1
+        check(got == expect, f"serving_lora step {len(eng.action_log)} "
+                             f"({action}): launches {got}, expected "
+                             f"{expect}")
+    stats.reset()
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    rids = [submit(first, 0)]
+    while not eng.num_active:
+        step()
+    rids += [submit(p, i) for i, p in enumerate(shared, 1)]
+    while eng.has_work:
+        step()
+    ops = bank.operands()
+    ptrs, uploads = {k: v.data_ptr() for k, v in ops.items()}, bank.uploads
+    version = bank.version
+    freed = bank.unload("lora3")
+    slot = bank.load(bank.random_adapter("lora4", seed=4))
+    rids += [submit(p, i, swap=True)
+             for i, p in enumerate(indep, 1 + len(shared))]
+    while eng.has_work:
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counters()
+    done = {r.id: r for r in eng.finished}
+    ops_after = bank.operands()
+    same_tensors = {k: v.data_ptr() for k, v in ops_after.items()} == ptrs
+    grouped = stats.counter("lora.grouped_launches").value
+    ttft = stats.histogram("serve.ttft_ms").summary()
+    tpot = stats.histogram("serve.tpot_ms").summary()
+    phase_ms = {p: stats.histogram(f"serve.step.{p}_ms").total
+                for p in ("admit", "prefill_chunk", "decode_chunk",
+                          "host_overhead")}
+    free_end = eng._mgr.free_pages
+    cleared = eng.prefix_cache.clear()
+    emit({"phase": "serving_lora", "requests": len(done),
+          "adapters": [adapter_of[r] for r in rids], "seconds": dt,
+          "tokens_per_s": len(rids) * new / dt,
+          "ttft_ms_p50": ttft["p50"], "ttft_ms_p99": ttft["p99"],
+          "tpot_ms_p50": tpot["p50"], "tpot_ms_p99": tpot["p99"],
+          "step_ms_by_phase": phase_ms, **tally,
+          "prefill_chunks": stats.counter("serve.prefill_chunks").value,
+          "prefix_hit": stats.counter("serving.prefix_hit").value,
+          "lora_grouped_launches": grouped, "lora_swaps":
+          stats.counter("lora.swaps").value, "swap": {
+              "unloaded_freed": freed, "loaded_slot": slot,
+              "versions": [version, bank.version],
+              "uploads": [uploads, bank.uploads],
+              "same_device_tensors": same_tensors},
+          "launches": counts, "free_pages_start": free0,
+          "free_pages_end": free_end, "prefix_pages_cleared": cleared,
+          "free_pages_after_clear": eng._mgr.free_pages})
+    check(sorted(done) == sorted(rids),
+          f"{len(done)} of {len(rids)} requests finished")
+    check(all(done[r].state == "ok" and len(done[r].generated) == new
+              for r in rids), f"a request ended other than ok with {new} "
+                              "tokens")
+    check(all(0 <= t < VOCAB for r in rids for t in done[r].generated),
+          "serving_lora: token ids outside the vocabulary")
+    check(counts["lora_delta"] == grouped,
+          f"lora_delta launched {counts['lora_delta']} times, the "
+          f"scheduler counted lora.grouped_launches = {grouped}")
+    check(min(tally.values()) > 0, f"serving_lora did not run every kind "
+                                   f"of step: {tally}")
+    check(freed and slot == 3 and same_tensors
+          and bank.uploads == uploads + 1 and bank.version == version + 2,
+          "serving_lora: the swap rebuilt or re-uploaded more than its "
+          "version bump")
+    check(all(bank.refcount(n) == 0 for n in bank.loaded()),
+          "serving_lora: an adapter is still pinned")
+    check(eng._mgr.free_pages == free0,
+          "the pool's free pages did not return to their start value "
+          "after the prefix cache was cleared")
+    return counts
+
+
+def slice_teacher_forced_lora(model) -> None:
+    """The adaptered decode step (b 8, slots 0 1 2 3 base 0 1 base)
+    against the plain path, 16 teacher-forced steps, the bf16 limit."""
+    bank = _lora_bank(model)
+    adapters = dict(bank.operands())
+    adapters["slots"] = torch.tensor([0, 1, 2, 3, -1, 0, 1, -1],
+                                     dtype=torch.int32, device="cuda")
+    slice_teacher_forced(model, name="teacher_forced_lora",
+                         adapters=adapters)
+
+
 # ---------------------------------------------------------------- main
 
 _SOURCES = {
@@ -1531,6 +2177,12 @@ _SOURCES = {
     "paged_decode_attention_inplace_q": (
         "paddle_tpu_torch/csrc/paged_attention_q.cu",
         "paddle_tpu/nn/functional/paged_attention.py:957"),
+    "grouped_gemm": (
+        "paddle_tpu_torch/csrc/grouped_gemm.cu",
+        "paddle_tpu/nn/functional/grouped_gemm.py:170"),
+    "lora_delta": (
+        "paddle_tpu_torch/csrc/grouped_gemm.cu",
+        "paddle_tpu/nn/functional/lora.py:99"),
 }
 
 #: the quantized decode rungs of bench.py (--decode-int8, --decode-a8w8,
@@ -1570,6 +2222,10 @@ def main() -> None:
         "stream_linear_a8w8": kernel_stream_linear_a8w8(gen),
         "paged_decode_attention_inplace_q": kernel_paged_attention_q(gen)})
     emit({"phase": "quantized_kernels", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    rows.update({"grouped_gemm": kernel_grouped_gemm(gen),
+                 "lora_delta": kernel_lora_delta(gen)})
+    emit({"phase": "moe_lora_kernels", "wall_s": time.perf_counter() - t0})
     model = _build_model()
     by_path = {"generate": slice_generate(model)}
     slice_teacher_forced(model)
@@ -1577,6 +2233,11 @@ def main() -> None:
     by_path["continuous_batching"] = slice_continuous(model)
     by_path["serving"] = slice_serving(model)
     slice_chunked_prefill(model)
+    # multi-LoRA serving on the bf16 stack, before it is quantized
+    t0 = time.perf_counter()
+    by_path["serving_lora"] = slice_serving_lora(model)
+    slice_teacher_forced_lora(model)
+    emit({"phase": "lora_paths", "wall_s": time.perf_counter() - t0})
     # quantized serving on the same model: the first quantized engine
     # turns its bf16 stack into int8 in place
     t0 = time.perf_counter()
@@ -1590,6 +2251,16 @@ def main() -> None:
     by_path["serving_int8kv"] = slice_serving(
         model, "serving_int8kv", quant="int8", kv_dtype="int8")
     emit({"phase": "quantized_paths", "wall_s": time.perf_counter() - t0})
+    del model
+    torch.cuda.empty_cache()
+    # the MoE rung on a model of its own
+    t0 = time.perf_counter()
+    moe = _build_moe_model()
+    by_path["generate_moe"] = slice_generate(moe, "generate_moe",
+                                             new_tokens=MOE_NEW)
+    slice_teacher_forced_moe(moe)
+    slice_decode_step(moe, args.out, name="decode_step_moe")
+    emit({"phase": "moe_paths", "wall_s": time.perf_counter() - t0})
     kernels = []
     for name, row in rows.items():
         src, replaces = _SOURCES[name]

@@ -32,7 +32,7 @@ __all__ = ["build", "lib", "check", "dtype_code", "weight_code", "ptr",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention", "stream_linear", "flash_varlen",
-           "paged_attention_q", "stream_linear_a8w8")
+           "paged_attention_q", "stream_linear_a8w8", "grouped_gemm")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -72,6 +72,16 @@ _SIGNATURES = {
         # x_q, x_scale, w, w_scale, bias, bias_dt, out, out_dt, M, K, N,
         # activation, stream
         "ptt_stream_linear_a8w8": [_P] * 5 + [_I, _P] + [_I] * 5 + [_P],
+    },
+    "grouped_gemm": {
+        # x, w, bias, bias_dt, offsets, out, out_dt, dtype, T, K, N, E,
+        # bm, activation, stream
+        "ptt_grouped_gemm": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 8 + [_P],
+        # x, x_dt, a, a_dt, b, b_dt, offsets, out, out_dt, T, K, N, S, R,
+        # bm, stream
+        "ptt_lora_delta": [_P, _I] * 3 + [_P] * 2 + [_I] * 7 + [_P],
+        # offsets, E, nm, bm, gids, tids, lo, hi, stream
+        "ptt_grouped_work_map": [_P] + [_I] * 3 + [_P] * 5,
     },
 }
 

@@ -9,6 +9,12 @@ packages then compute the same function from the same numbers. A stack
 quantized by the JAX package (``quantize_weight_only_int8``) carries
 int8 weights and ``stack.{qkv,out,ffn1,ffn2}_scale_woq`` [L, N] f32
 scales; the port's stack creates those parameters when it meets them.
+An MoE stack carries ``stack.gate_weight`` and ``stack.moe_{w,b}{1,2}``
+by the same names.
+
+``load_jax_adapter(adapter)`` makes a port ``LoRAAdapter`` of a JAX
+``LoRAAdapter``'s numpy arrays (its B already scaled), so a port bank
+serves the same adapters as a JAX bank without regenerating them.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "load_jax_adapter"]
 
 
 def _to_torch(arr) -> torch.Tensor:
@@ -55,3 +61,14 @@ def load_jax_params(model: torch.nn.Module,
                              f"{tuple(p.shape)}")
         p.data = t.to(p.device)
     return model
+
+
+def load_jax_adapter(adapter):
+    """The port's ``LoRAAdapter`` holding the arrays of a JAX
+    ``LoRAAdapter`` (name, rank, and per projection ``(A [L, K, r], B
+    [L, r, N])`` with the alpha scale already folded into B)."""
+    from .serving.adapters import LoRAAdapter
+
+    return LoRAAdapter(adapter.name, adapter.rank,
+                       {p: (np.asarray(a), np.asarray(b))
+                        for p, (a, b) in adapter.weights.items()})

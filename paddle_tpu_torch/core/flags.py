@@ -92,6 +92,18 @@ define_flag("prefill_attention_backend", "auto",
             "its plain version on the CPU) | gather (the dense "
             "per-chunk gather of the pages, PyTorch ops on either "
             "device — also the forced path of the int8 KV pool)")
+define_flag("moe_grouped_backend", "auto",
+            "no-drop MoE ragged grouped-GEMM backend "
+            "(nn/functional/grouped_gemm.py): auto | pallas | interpret "
+            "(the kernel of csrc/grouped_gemm.cu on the card, its plain "
+            "version on the CPU) | xla (the plain walk: the CPU only; "
+            "raises on the card)")
+define_flag("lora_delta_backend", "auto",
+            "batched multi-LoRA ragged delta-GEMM backend "
+            "(nn/functional/lora.py lora_delta): auto | pallas | "
+            "interpret (the kernel of csrc/grouped_gemm.cu on the card, "
+            "its plain version on the CPU) | xla (the plain walk: the "
+            "CPU only; raises on the card)")
 define_flag("serve_journal", True,
             "request-lifecycle flight recorder for the serving "
             "frontend (serving/journal.py): every lifecycle "

@@ -20,9 +20,21 @@ for A8W8 on the card), as the JAX package leaves them to XLA.
 Quantization: ``quantize_weight_only_int8`` turns the four matmul
 stacks into int8 with per-output-channel scales (``{kind}_scale_woq``
 parameters, ``{kind}_scale`` in ``_stack()``); an int8 KV pool keeps
-each side as ``(int8 rows, f32 scale plane)``. Tensor parallelism, MoE
-and LoRA come with later slices of the port and raise
-``NotImplementedError``.
+each side as ``(int8 rows, f32 scale plane)``.
+
+MoE: ``moe_num_experts=E`` replaces the dense FFN with a per-layer
+expert bank (``gate_weight [L, d, E]``, ``moe_w1 [L, E, d, dff]``,
+``moe_b1``, ``moe_w2 [L, E, dff, d]``, ``moe_b2``) served through the
+no-drop ragged grouped GEMM (``nn/functional/grouped_gemm.py``, kernel
+``csrc/grouped_gemm.cu``); its decode runs the ungrouped layer body
+with plain QKV/O products, as the JAX package's does.
+
+Multi-LoRA: ``adapters`` (an ``AdapterBank``'s operands plus the
+per-row ``slots``) add one ragged delta launch per target projection
+(``nn/functional/lora.py``) to the chunked prefill and to the decode
+step, whose adaptered branch runs the four-call per-layer form (the
+grouped tail has no join point for a delta). Tensor parallelism comes
+with a later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,10 +49,14 @@ from ...core.flags import flag
 from ...core.generator import default_generator
 from ...nn.functional.flash_varlen import (_paged_prefill_plain,
                                            paged_prefill_attention)
+from ...nn.functional.grouped_gemm import moe_ffn_nodrop
+from ...nn.functional.lora import (inverse_order, lora_delta,
+                                   sort_by_adapter)
 from ...nn.functional.paged_attention import (
     paged_decode_attention_inplace, paged_decode_attention_inplace_q,
     write_prefill_kv_pages)
-from ...nn.functional.stream_linear import stream_layer_tail, stream_linear
+from ...nn.functional.stream_linear import (_apply_activation,
+                                            stream_layer_tail, stream_linear)
 from ...quantization.dynamic import (absmax_scale, dynamic_act_quant,
                                      int8_dot_dequant)
 
@@ -108,8 +124,9 @@ class PagedKV(NamedTuple):
 
 
 _STACK_NAMES = ("ln1_scale", "ln1_bias", "qkv_weight", "qkv_bias",
-                "out_weight", "out_bias", "ln2_scale", "ln2_bias",
-                "ffn1_weight", "ffn1_bias", "ffn2_weight", "ffn2_bias")
+                "out_weight", "out_bias", "ln2_scale", "ln2_bias")
+_FFN_NAMES = ("ffn1_weight", "ffn1_bias", "ffn2_weight", "ffn2_bias")
+_MOE_NAMES = ("gate_weight", "moe_w1", "moe_b1", "moe_w2", "moe_b2")
 #: the matmul stacks that weight-only int8 quantization turns to int8
 QUANT_KINDS = ("qkv", "out", "ffn1", "ffn2")
 
@@ -130,8 +147,6 @@ class FusedMultiTransformer(nn.Module):
                  rope_theta=10000.0, max_position=32768,
                  moe_num_experts=None, moe_top_k=2, device=None):
         super().__init__()
-        if moe_num_experts:
-            raise _later_slice("the MoE expert-bank stack", "MoE serving")
         device = resolve_device(device)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
@@ -143,7 +158,8 @@ class FusedMultiTransformer(nn.Module):
         self.epsilon = epsilon
         self.rope_theta = rope_theta
         self.max_position = max_position
-        self.moe_num_experts = None
+        self.moe_num_experts = int(moe_num_experts) if moe_num_experts \
+            else None
         self.moe_top_k = moe_top_k
 
         L, d, dff = num_layers, embed_dim, dim_feedforward
@@ -170,15 +186,25 @@ class FusedMultiTransformer(nn.Module):
         self.out_bias = zeros(L, d)
         self.ln2_scale = ones(L, d)
         self.ln2_bias = zeros(L, d)
-        self.ffn1_weight = normal(L, d, dff)
-        self.ffn1_bias = zeros(L, dff)
-        self.ffn2_weight = normal(L, dff, d)
-        self.ffn2_bias = zeros(L, d)
+        if self.moe_num_experts:
+            E = self.moe_num_experts
+            self.gate_weight = normal(L, d, E)
+            self.moe_w1 = normal(L, E, d, dff)
+            self.moe_b1 = zeros(L, E, dff)
+            self.moe_w2 = normal(L, E, dff, d)
+            self.moe_b2 = zeros(L, E, d)
+        else:
+            self.ffn1_weight = normal(L, d, dff)
+            self.ffn1_bias = zeros(L, dff)
+            self.ffn2_weight = normal(L, dff, d)
+            self.ffn2_bias = zeros(L, d)
 
     # ---------- functional core (raw tensors) ----------
 
     def _stack(self):
-        out = {n: getattr(self, n) for n in _STACK_NAMES}
+        names = _STACK_NAMES + (_MOE_NAMES if self.moe_num_experts
+                                else _FFN_NAMES)
+        out = {n: getattr(self, n) for n in names}
         for n in QUANT_KINDS:
             s = getattr(self, f"{n}_scale_woq", None)
             if s is not None:
@@ -204,6 +230,10 @@ class FusedMultiTransformer(nn.Module):
         biases and LNs stay full precision. The products apply the
         scales on their OUTPUTS (``_mm``), so the weight stream halves
         against bf16."""
+        if self.moe_num_experts:
+            raise NotImplementedError(
+                "int8 weight-only quantization of the MoE expert bank "
+                "is not supported yet — serve MoE stacks in bf16/f32")
         self.add_woq_scales()
         for n in QUANT_KINDS:
             p = getattr(self, f"{n}_weight")
@@ -245,15 +275,59 @@ class FusedMultiTransformer(nn.Module):
         xq, xs = dynamic_act_quant(x)
         return int8_dot_dequant(xq, xs, w_q, scale)
 
+    def _moe_ffn(self, w, hn):
+        """The MoE FFN of one layer over normalized hidden ``hn`` (any
+        leading dims): flatten to tokens and route them through the
+        no-drop ragged grouped-GEMM FFN."""
+        lead = hn.shape[:-1]
+        y, _probs, _idx, _cnt = moe_ffn_nodrop(
+            hn.reshape(-1, self.embed_dim), w["gate_weight"], w["moe_w1"],
+            w["moe_b1"], w["moe_w2"], w["moe_b2"], top_k=self.moe_top_k,
+            activation=self.activation,
+            backend=flag("moe_grouped_backend"))
+        return y.reshape(*lead, self.embed_dim)
+
+    @staticmethod
+    def _lora_delta_fn(adapters):
+        """Per-projection LoRA delta over ONE layer's adapter view
+        (``{proj}_a [S, K, R]`` / ``{proj}_b`` banks plus the chunk's
+        ``order``/``inv``/``offsets`` from ``sort_by_adapter``). Returns
+        f32 ``[.., N]``, or None when the projection has no target;
+        base-model tokens (sorted past ``offsets[-1]``) get exact-zero
+        rows."""
+        backend = flag("lora_delta_backend")
+
+        def delta(x, kind):
+            a = adapters.get(f"{kind}_a")
+            if a is None:
+                return None
+            x2 = x.reshape(-1, x.shape[-1])
+            d = lora_delta(x2[adapters["order"].long()], a,
+                           adapters[f"{kind}_b"], adapters["offsets"],
+                           backend=backend)
+            d = d[adapters["inv"].long()]
+            return d.reshape(*x.shape[:-1], d.shape[-1])
+
+        return delta
+
     def _layer_body(self, w, h, positions, kv_write, attend, cos_t, sin_t,
-                    linear=None, a8w8=False):
+                    linear=None, a8w8=False, adapters=None):
         """One pre-LN transformer layer over hidden ``h`` (any leading
         dims). Compute dtype follows h. ``attend`` may return
         (att, ck, cv) — the fused append+attend path, where kv_write is
         None. ``linear(x, kind)`` computes x @ W_kind (* scale) + bias;
-        by default through ``_mm``, or ``_mm_a8w8`` with ``a8w8``."""
+        by default through ``_mm``, or ``_mm_a8w8`` with ``a8w8``, plus
+        the LoRA delta of ``adapters`` (one layer's view) before the
+        bias. An MoE stack's FFN is ``_moe_ffn``."""
         eps = self.epsilon
+        if adapters is not None and linear is not None:
+            raise ValueError(
+                "_layer_body: adapters compose with the default linear "
+                "only (the decode loop has its own adaptered branch)")
         if linear is None:
+            lora = None if adapters is None \
+                else self._lora_delta_fn(adapters)
+
             def linear(x, kind):
                 if a8w8:
                     y = self._mm_a8w8(x, w[f"{kind}_weight"],
@@ -261,6 +335,10 @@ class FusedMultiTransformer(nn.Module):
                 else:
                     y = self._mm(x, w[f"{kind}_weight"],
                                  w.get(f"{kind}_scale"))
+                if lora is not None:
+                    d = lora(x, kind)
+                    if d is not None:
+                        y = y + d
                 return y + w[f"{kind}_bias"]
         hn = self._ln(h, w["ln1_scale"], w["ln1_bias"], eps).to(h.dtype)
         proj = linear(hn, "qkv")
@@ -276,6 +354,9 @@ class FusedMultiTransformer(nn.Module):
                           self.num_heads * self.head_dim).to(h.dtype)
         h = (h + linear(att, "out")).to(h.dtype)
         hn = self._ln(h, w["ln2_scale"], w["ln2_bias"], eps).to(h.dtype)
+        if self.moe_num_experts:
+            h = (h + self._moe_ffn(w, hn)).to(h.dtype)
+            return h, ck, cv
         ff = self._act(linear(hn, "ffn1").to(h.dtype))
         h = (h + linear(ff, "ffn2")).to(h.dtype)
         return h, ck, cv
@@ -290,14 +371,12 @@ class FusedMultiTransformer(nn.Module):
         return self._pool_data(cache.k).shape[0] // self.num_layers
 
     @staticmethod
-    def _check_serving_args(weights, a8w8, tp, adapters=None):
+    def _check_serving_args(weights, a8w8, tp):
         if a8w8 and weights["qkv_weight"].dtype != torch.int8:
             raise ValueError("a8w8 needs an int8 weight stack "
                              "(quantize_weight_only_int8 first)")
         if tp is not None:
             raise _later_slice("tensor-parallel serving", "TP serving")
-        if adapters is not None:
-            raise _later_slice("multi-LoRA decode", "LoRA serving")
 
     def _weights_layer(self, weights, l):
         return {n: a[l] for n, a in weights.items()}
@@ -372,11 +451,15 @@ class FusedMultiTransformer(nn.Module):
         per-chunk gather of the pages instead, dequantized (PyTorch ops,
         XLA in the JAX package), on the card too.
         ``FLAGS_prefill_attention_backend=gather`` takes it for a float
-        pool, on the CPU only. Returns (hidden [b, c, d], cache)."""
+        pool, on the CPU only. ``adapters``: the bank operands
+        (``{proj}_a [L, S, K, R]``, ``{proj}_b``) and ``slots`` [b] (a
+        slot < 0 is the base model); the chunk's tokens are sorted by
+        slot once, and each projection adds its LoRA delta. Returns
+        (hidden [b, c, d], cache)."""
         if isinstance(weights, (list, tuple)):
             raise ValueError("prefill_chunk_raw takes the stacked weight "
                              "dict")
-        self._check_serving_args(weights, a8w8, tp, adapters)
+        self._check_serving_args(weights, a8w8, tp)
         backend = flag("prefill_attention_backend")
         if backend not in ("auto", "varlen", "gather"):
             raise ValueError(f"FLAGS_prefill_attention_backend={backend!r}:"
@@ -398,10 +481,26 @@ class FusedMultiTransformer(nn.Module):
         n_kv = self.num_kv_heads
         scale = self.head_dim ** -0.5
         npages = self._pages_per_layer(cache)
+        ad_base = None
+        if adapters is not None:
+            # per-row slots broadcast to per-token and sorted ONCE for
+            # the chunk; padding rows inherit their row's slot (their
+            # deltas are garbage the caller discards)
+            slots_tok = adapters["slots"].to(torch.int32) \
+                .repeat_interleave(c)
+            order, offsets, _ = sort_by_adapter(
+                slots_tok, adapters["qkv_a"].shape[1])
+            ad_base = {"order": order, "inv": inverse_order(order),
+                       "offsets": offsets}
         ck, cv = cache.k, cache.v
         h = x
         for l in range(self.num_layers):
             tbl = block_tables + l * npages
+            ad = None
+            if ad_base is not None:
+                ad = dict(ad_base)
+                ad.update({n: a[l] for n, a in adapters.items()
+                           if n.endswith(("_a", "_b"))})
 
             def kv_write(k, v, tbl=tbl):
                 return write_prefill_kv_pages(ck, cv, k, v, tbl,
@@ -417,7 +516,7 @@ class FusedMultiTransformer(nn.Module):
 
             h, ck, cv = self._layer_body(
                 self._weights_layer(weights, l), h, positions, kv_write,
-                attend, cos_t, sin_t, a8w8=a8w8)
+                attend, cos_t, sin_t, a8w8=a8w8, adapters=ad)
         return h, PagedKV(ck, cv)
 
     def decode_raw(self, weights, x, cache: PagedKV, block_tables,
@@ -437,13 +536,23 @@ class FusedMultiTransformer(nn.Module):
         layer body, its products through ``stream_linear`` (A8W8:
         ``act_quant=True``) when A8W8 holds or when the batch is a
         multiple of 8 and ``FLAGS_decode_linear`` is ``stream`` (or
-        ``auto`` with int8 weights), plain products otherwise."""
+        ``auto`` with int8 weights), plain products otherwise. An MoE
+        stack always runs the ungrouped body with plain QKV/O products
+        and its expert FFN through the grouped GEMM.
+
+        ADAPTERED (``adapters``: the bank operands ``{proj}_a [L, S, K,
+        R]``, ``{proj}_b`` and the per-row ``slots`` [b], < 0 for the base
+        model): the rows are sorted by slot once per step, and each layer
+        runs the four-call form — per projection ``stream_linear`` with
+        an fp32 result and no bias, + the LoRA delta (one
+        ``lora_delta`` launch), + bias, then the activation."""
         if isinstance(weights, (list, tuple)):
             raise ValueError(
                 "decode_raw takes the stacked weight dict (the JAX "
                 "package's unstacked per-layer form is experimental and "
                 "not ported)")
-        self._check_serving_args(weights, a8w8, tp, adapters)
+        self._check_serving_args(weights, a8w8, tp)
+        is_moe = bool(self.moe_num_experts)
         npages = self._pages_per_layer(cache)
         L = self.num_layers
         d_att = self.num_heads * self.head_dim
@@ -468,11 +577,21 @@ class FusedMultiTransformer(nn.Module):
                                self.num_kv_heads, self.head_dim, cos_t,
                                sin_t)
 
+        if adapters is not None:
+            if is_moe:
+                raise NotImplementedError(
+                    "adaptered decode composes with the dense stack "
+                    "only (no MoE expert-bank form yet)")
+            return self._decode_adaptered(weights, x, ck, cv, adapters,
+                                          attend_fn, split_rope, a8w8,
+                                          npages)
+
         g_flag = flag("decode_grouped")
         if g_flag not in ("auto", "on", "off"):
             raise ValueError(f"FLAGS_decode_grouped={g_flag!r}: valid "
                              "values are 'auto', 'on', 'off'")
-        if g_flag == "on" or (g_flag == "auto" and not a8w8):
+        if not is_moe and (g_flag == "on"
+                           or (g_flag == "auto" and not a8w8)):
             prefetch = bool(flag("decode_prefetch"))
 
             def qkv_at(l, hh):
@@ -526,8 +645,8 @@ class FusedMultiTransformer(nn.Module):
             raise ValueError(f"FLAGS_decode_linear={lin_flag!r}: valid "
                              "values are 'auto', 'xla', 'stream'")
         is_int8 = weights["qkv_weight"].dtype == torch.int8
-        use_stream_lin = a8w8 or (x.shape[0] % 8 == 0 and (
-            lin_flag == "stream" or (lin_flag == "auto" and is_int8)))
+        use_stream_lin = not is_moe and (a8w8 or (x.shape[0] % 8 == 0 and (
+            lin_flag == "stream" or (lin_flag == "auto" and is_int8))))
         h = x
         for l in range(L):
             base = l * npages
@@ -546,6 +665,42 @@ class FusedMultiTransformer(nn.Module):
             h, ck, cv = self._layer_body(
                 self._weights_layer(weights, l), h, seq_lens, None, attend,
                 cos_t, sin_t, linear=linear)
+        return h, PagedKV(ck, cv)
+
+    def _decode_adaptered(self, weights, x, ck, cv, adapters, attend_fn,
+                          split_rope, a8w8, npages):
+        """The adaptered decode step (see ``decode_raw``)."""
+        backend = flag("lora_delta_backend")
+        order, offsets, _ = sort_by_adapter(
+            adapters["slots"].to(torch.int32), adapters["qkv_a"].shape[1])
+        order, inv = order.long(), inverse_order(order).long()
+        d_att = self.num_heads * self.head_dim
+
+        def proj(xx, kind, l, activation=None):
+            # fp32 product; bias and activation wait for the delta
+            y = stream_linear(xx, weights[f"{kind}_weight"], layer=l,
+                              scale=weights.get(f"{kind}_scale"),
+                              act_quant=a8w8, out_dtype=torch.float32)
+            a4 = adapters.get(f"{kind}_a")
+            if a4 is not None:
+                y = y + lora_delta(xx[order], a4[l],
+                                   adapters[f"{kind}_b"][l], offsets,
+                                   backend=backend)[inv]
+            y = y + weights[f"{kind}_bias"][l].float()
+            return _apply_activation(y, activation)
+
+        h = x
+        for l in range(self.num_layers):
+            hn = self._ln(h, weights["ln1_scale"][l], weights["ln1_bias"][l],
+                          self.epsilon).to(h.dtype)
+            q, k, v = split_rope(proj(hn, "qkv", l), h)
+            att, ck, cv = attend_fn(q, k, v, ck, cv, l * npages)
+            att = att.reshape(*h.shape[:-1], d_att).to(h.dtype)
+            h = (h + proj(att, "out", l)).to(h.dtype)
+            hn = self._ln(h, weights["ln2_scale"][l], weights["ln2_bias"][l],
+                          self.epsilon).to(h.dtype)
+            ff = proj(hn, "ffn1", l, self.activation).to(h.dtype)
+            h = (h + proj(ff, "ffn2", l)).to(h.dtype)
         return h, PagedKV(ck, cv)
 
     # ---------- eager module API ----------

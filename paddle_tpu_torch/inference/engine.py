@@ -11,8 +11,12 @@ The device is the model's: the CUDA card unless the model was built
 with ``device="cpu"``. ``quant="int8"`` (weight-only) and ``"a8w8"``
 (int8 activations too) quantize the model's stack in place; the
 compute dtype is then bf16. ``kv_dtype="int8"`` keeps the KV pool in
-int8 with f32 scales. Sampling, speculative decoding, KV migration and
-host-tier spill come with later slices of the port and raise.
+int8 with f32 scales. An MoE model (``moe_num_experts``) decodes
+through the ungrouped layer body with its expert FFN on the grouped
+GEMM. The continuous engine's ``_adapter_operands`` hook (the serving
+frontend's ``AdapterBank``) turns a decode chunk into the adaptered
+decode step. Sampling, speculative decoding, KV migration and host-tier
+spill come with later slices of the port and raise.
 """
 from __future__ import annotations
 
@@ -223,12 +227,18 @@ class GenerationEngine:
         return GenerationEngine._argmax(logits)
 
     def _decode_k_fn(self, weights, embed, head_t, lnf_s, lnf_b, tok,
-                     seq_lens, cache_k, cache_v, tables, *, k):
+                     seq_lens, cache_k, cache_v, tables, adapter_slots=None,
+                     adapter_banks=None, *, k):
         """K greedy decode steps: the picked token feeds the next step on
         the device, so nothing syncs with the host. Returns (tokens
         [b, k] on the device, cache_k, cache_v); the pool is updated in
-        place."""
+        place. ``adapter_slots`` [b] / ``adapter_banks`` (an
+        ``AdapterBank``'s operands) run the adaptered decode step."""
         st = self.model.stack
+        adapters = None
+        if adapter_banks is not None:
+            adapters = dict(adapter_banks)
+            adapters["slots"] = adapter_slots
         lens = seq_lens
         ck, cv = cache_k, cache_v
         toks = []
@@ -236,7 +246,7 @@ class GenerationEngine:
             x = embed[tok.long()].to(self._cdtype)
             h, cache = st.decode_raw(weights, x, PagedKV(ck, cv), tables,
                                      lens, self._cos, self._sin,
-                                     a8w8=self._a8w8)
+                                     a8w8=self._a8w8, adapters=adapters)
             ck, cv = cache.k, cache.v
             tok = self._pick_token(self._logits(h, head_t, lnf_s, lnf_b))
             toks.append(tok)
@@ -533,12 +543,18 @@ class ContinuousBatchingEngine:
                        self._lens - 1, 0).astype(np.int64)
         lnf_s, lnf_b = self._gen._lnf()
         dev = self._gen._device
+        a_slots, a_banks = self._adapter_operands(active)
+        if a_banks is not None:
+            # one ragged delta launch per target projection per layer
+            # per executed decode step
+            _stats.inc("lora.grouped_launches",
+                       4 * self.model.stack.num_layers * k)
         toks, self._ck, self._cv = self._gen._decode_k_fn(
             self._gen._weights(), self._gen._embed(), self._gen._head_t,
             lnf_s, lnf_b,
             torch.as_tensor(self._last_tok.astype(np.int32), device=dev),
             torch.as_tensor(cur.astype(np.int32), device=dev),
-            self._ck, self._cv, tables, k=k)
+            self._ck, self._cv, tables, a_slots, a_banks, k=k)
         toks_np = toks.cpu().numpy()
         # overridable token filter: runs BEFORE any request mutates
         toks_np = self._postprocess_tokens(toks_np, active)
@@ -611,6 +627,13 @@ class ContinuousBatchingEngine:
         """Hook over the decode chunk's fetched token matrix, called
         before the per-slot append loop. Base engine: identity."""
         return toks_np
+
+    def _adapter_operands(self, active):
+        """Multi-LoRA decode operands hook: ``(slot_map, banks)`` when an
+        active slot decodes through a LoRA adapter, else ``(None,
+        None)``. The base engine has no adapter bank; the serving
+        frontend overrides this."""
+        return None, None
 
     def _finish_hook(self, req, slot: int):
         """Called once per finished request, BEFORE its pages release:

@@ -12,12 +12,18 @@ the seeded fault-injection registry with the hardening that survives it
 (``faults.py``: deadlines, crash-isolated retries, watchdog, overload
 shedding), all on one injectable clock.
 
-The fleet router, the host-DRAM KV tier and the multi-LoRA adapter bank
-come with later slices of the port.
+Batched multi-LoRA serving: an ``AdapterBank`` of ``LoRAAdapter``s
+(``adapters.py``) passed as ``ServingEngine(adapters=...)``, one adapter
+per request (``submit(adapter_id=...)``), each delta through the ragged
+LoRA kernel of ``csrc/grouped_gemm.cu`` on the card.
+
+The fleet router and the host-DRAM KV tier come with later slices of
+the port.
 """
 from __future__ import annotations
 
 from .accounting import UsageLedger
+from .adapters import TARGET_PROJECTIONS, AdapterBank, LoRAAdapter
 from .faults import (Clock, DeadlineExceeded, FaultInjector, FaultSpec,
                      FleetOverloaded, InjectedFault, ManualClock,
                      PoolSizingError, ReplicaKilled, ServerOverloaded,
@@ -29,7 +35,8 @@ from .request import Request
 from .scheduler import ServingEngine, SLOConfig
 from .slo import SLOMonitor
 
-__all__ = ["Request", "PrefixCache", "ServingEngine", "SLOConfig",
+__all__ = ["AdapterBank", "LoRAAdapter", "TARGET_PROJECTIONS",
+           "Request", "PrefixCache", "ServingEngine", "SLOConfig",
            "FlightRecorder", "SLOMonitor", "UsageLedger",
            "FaultInjector", "FaultSpec", "Clock", "ManualClock",
            "set_clock", "use_clock", "InjectedFault", "TokenCorruption",

@@ -25,6 +25,13 @@ Correctness rests on two invariants:
   tail pages, and the refcount keeps a shared page alive until its
   LAST user frees (see kv_cache.py).
 
+The KV of a request served through a LoRA adapter depends on the
+adapter's weights too, so its chain starts from a ``salt`` naming them
+(``AdapterBank.cache_salt``): requests share pages only with requests
+of the same adapter (base-model requests: no salt, the keys above).
+The JAX package's cache keys on tokens alone and hands one adapter's
+pages to another.
+
 The cache itself holds one reference per registered page, so prefixes
 outlive their original request; ``evict`` drops LRU entries under pool
 pressure (releasing a mid-chain page strands the chain's tail until
@@ -82,24 +89,25 @@ class PrefixCache:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def _chain(self, prompt, n_pages: int):
+    def _chain(self, prompt, n_pages: int, salt: bytes = b""):
         ps = self.page_size
-        key = b""
+        key = salt
         for p in range(n_pages):
             key = _page_key(key, prompt[p * ps: (p + 1) * ps])
             yield key
 
-    def match(self, prompt) -> List[int]:
+    def match(self, prompt, salt: bytes = b"") -> List[int]:
         """Longest cached chain of pages covering ``prompt``'s leading
         tokens, LRU-touched. Capped at ``(len-1)//page_size`` pages so
         at least the final prompt token always prefills — the first
         emitted token needs its freshly computed hidden state. Pure
         lookup: the scheduler owns the hit/miss counters (a request is
-        one hit, however many times admission probes it)."""
+        one hit, however many times admission probes it). ``salt``
+        names the adapter whose KV the pages hold (b"" = base model)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         max_pages = max(0, (len(prompt) - 1) // self.page_size)
         pages: List[int] = []
-        for key in self._chain(prompt, max_pages):
+        for key in self._chain(prompt, max_pages, salt):
             page = self._entries.get(key)
             if page is None:
                 break
@@ -107,7 +115,7 @@ class PrefixCache:
             pages.append(page)
         return pages
 
-    def insert(self, prompt, pages) -> int:
+    def insert(self, prompt, pages, salt: bytes = b"") -> int:
         """Register a FULLY PREFILLED prompt's full pages (``pages[p]``
         holds tokens ``p*ps..(p+1)*ps-1``; the trailing partial page is
         never registered). Already-cached chain segments dedupe to an
@@ -118,7 +126,7 @@ class PrefixCache:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         n_full = min(len(pages), len(prompt) // self.page_size)
         added = 0
-        for p, key in enumerate(self._chain(prompt, n_full)):
+        for p, key in enumerate(self._chain(prompt, n_full, salt)):
             if key in self._entries:
                 self._entries.move_to_end(key)
                 continue

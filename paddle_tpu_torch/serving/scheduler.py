@@ -44,10 +44,19 @@ queue-depth or burn-rate thresholds — after prefill chunks have
 already shrunk under pool pressure. All of it is drivable
 deterministically by the seeded fault registry in ``serving/faults.py``.
 
+Multi-LoRA (``adapters=``, an ``AdapterBank``): a request's
+``adapter_id`` is pinned in the bank at submit and released on every
+terminal path; chunks and decode steps that carry an adaptered row add
+one ragged LoRA delta launch per target projection
+(``lora.grouped_launches`` counts them). Prefix pages are shared only
+between requests of one adapter (the JAX package shares them across
+adapters).
+
 Left for later slices of the port (each raises ``NotImplementedError``
-naming its slice): multi-LoRA adapters, speculative decoding and the
-host-DRAM KV tier (``can_spill()`` is False, so prefix eviction
-releases pages outright).
+naming its slice): speculative decoding, the fleet hooks (adoption of a
+failed-over request, which re-resolves its adapter) and the host-DRAM
+KV tier (``can_spill()`` is False, so prefix eviction releases pages
+outright).
 """
 from __future__ import annotations
 
@@ -60,7 +69,7 @@ import numpy as np
 import torch
 
 from ..core.flags import flag as _flag
-from ..incubate.nn.fused_transformer import PagedKV, _later_slice
+from ..incubate.nn.fused_transformer import PagedKV
 from ..inference.engine import ContinuousBatchingEngine, FusedCausalLM
 from ..profiler import stats as _stats
 from . import faults as _faults
@@ -174,16 +183,16 @@ class ServingEngine(ContinuousBatchingEngine):
     def __init__(self, model: FusedCausalLM,
                  slo: Optional[SLOConfig] = None, faults=None,
                  adapters=None, **engine_kwargs):
-        if adapters is not None:
-            raise _later_slice("multi-LoRA serving (adapters=)",
-                               "LoRA serving")
         slo = slo or SLOConfig()
         engine_kwargs.setdefault("admit_window", slo.admit_window)
         engine_kwargs.setdefault("starvation_bound",
                                  slo.starvation_bound)
         super().__init__(model, **engine_kwargs)
         self.slo = slo
-        self.adapters = None
+        # multi-LoRA adapter bank: None serves the base model only;
+        # requests pin their adapter at submit and release it at every
+        # terminal path
+        self.adapters = adapters
         # deficit-weighted round-robin state (SLOConfig.tenant_fair):
         # tenant -> accumulated token deficit
         self._fair_deficit: Dict[str, float] = {}
@@ -259,10 +268,14 @@ class ServingEngine(ContinuousBatchingEngine):
         """Thread-safe admission (any thread): queue a request, return
         its id. Tokens stream through ``on_token`` as they decode.
         ``deadline_ms`` bounds the request's whole life from arrival;
-        ``tenant`` stamps the usage ledger's billing identity. Raises
-        :class:`ServerOverloaded` — backpressure to the SUBMITTING
-        thread — when the bounded inbox, the queue depth, or the SLO
-        burn rate is past its shed threshold."""
+        ``tenant`` stamps the usage ledger's billing identity;
+        ``adapter_id`` routes the request through that LoRA adapter of
+        the engine's ``AdapterBank`` (pinned against unload until the
+        request terminates). Raises :class:`ServerOverloaded` —
+        backpressure to the SUBMITTING thread — when the bounded inbox,
+        the queue depth, or the SLO burn rate is past its shed
+        threshold; a ``KeyError`` rejects an unknown or draining adapter
+        and a ``ValueError`` an adapter on a bank-less engine."""
         req = Request(prompt, max_new_tokens, eos_token_id,
                       priority=priority, on_token=on_token,
                       deadline_ms=deadline_ms, tenant=tenant,
@@ -272,8 +285,8 @@ class ServingEngine(ContinuousBatchingEngine):
     def submit_request(self, req: Request) -> int:
         if len(req.prompt) + req.max_new_tokens > self.max_length:
             raise ValueError("request exceeds engine max_length")
-        self._check_adapter(req)
         self._check_overload(req)
+        self._adapter_acquire(req)
         with self._inbox_lock:
             self._inbox.append(req)
         jr = self.journal
@@ -282,16 +295,65 @@ class ServingEngine(ContinuousBatchingEngine):
                      "max_new": int(req.max_new_tokens)}
             if getattr(req, "tenant", None) is not None:
                 extra["tenant"] = req.tenant
+            if getattr(req, "adapter_id", None) is not None:
+                extra["adapter"] = req.adapter_id
             jr.record("submit", req.id, -1, extra)
         _stats.inc("serve.submitted")
         return req.id
 
+    # ---------------- multi-LoRA lifecycle ----------------
+
+    def _adapter_acquire(self, req: Request) -> None:
+        """Pin ``req``'s adapter in the bank and stamp its slot (and its
+        prefix-cache salt) on the request. Raises before the request
+        enters any queue: ``KeyError`` for an unknown or draining
+        adapter, ``ValueError`` on a bank-less engine."""
+        name = getattr(req, "adapter_id", None)
+        if name is None:
+            return
+        if self.adapters is None:
+            raise ValueError(
+                f"request {req.id} names adapter {name!r} but the "
+                "engine has no adapter bank")
+        if self._spec is not None:
+            raise ValueError(
+                "adaptered requests don't compose with speculative "
+                "decoding (the verify pass has no delta path yet)")
+        req._adapter_slot = self.adapters.acquire(name, req.id)
+        req._prefix_salt = self.adapters.cache_salt(name)
+
+    def _adapter_release(self, req) -> None:
+        """Unpin ``req``'s adapter (idempotent; a no-op for base-model
+        requests)."""
+        bank = self.adapters
+        if bank is not None \
+                and getattr(req, "adapter_id", None) is not None:
+            bank.release(req.id)
+
+    def _adapter_operands(self, active):
+        """Serving override of the decode-chunk adapter hook: when an
+        active slot decodes through a bank adapter, the per-slot bank
+        slot map (-1 = base model) on the device and the bank's
+        operands; a pure-base batch returns ``(None, None)`` and keeps
+        the grouped decode."""
+        bank = self.adapters
+        if bank is None:
+            return None, None
+        slots = np.full((self.max_batch,), -1, np.int32)
+        for i in active:
+            req = self._slots[i]
+            s = getattr(req, "_adapter_slot", None) \
+                if req is not None else None
+            if s is not None and s >= 0:
+                slots[i] = s
+        if not (slots >= 0).any():
+            return None, None
+        return (torch.as_tensor(slots, device=self._gen._device),
+                bank.operands())
+
     @staticmethod
-    def _check_adapter(req: Request) -> None:
-        if getattr(req, "adapter_id", None) is not None:
-            raise _later_slice(
-                f"request {req.id}'s adapter {req.adapter_id!r}",
-                "LoRA serving")
+    def _prefix_salt(req) -> bytes:
+        return getattr(req, "_prefix_salt", b"")
 
     def _check_overload(self, req: Request) -> None:
         """Admission-time overload shedding: reject with a typed
@@ -463,6 +525,7 @@ class ServingEngine(ContinuousBatchingEngine):
         if tpot is not None:
             _stats.observe("serve.request_tpot_ms", tpot * 1e3)
         v = self.slo_monitor.observe_finish(req)
+        self._adapter_release(req)
         u = self.usage
         rec = u.finish(req, "ok") if u is not None else None
         jr = self.journal
@@ -473,6 +536,8 @@ class ServingEngine(ContinuousBatchingEngine):
                      "slo_ok": v["slo_ok"]}
             if getattr(req, "tenant", None) is not None:
                 extra["tenant"] = req.tenant
+            if getattr(req, "adapter_id", None) is not None:
+                extra["adapter"] = req.adapter_id
             if rec is not None:
                 extra["usage"] = rec
             jr.record("finish", req.id, slot, extra)
@@ -495,6 +560,7 @@ class ServingEngine(ContinuousBatchingEngine):
         req.error = exc
         req.t_done = _faults.now()
         self.slo_monitor.observe_error(req)
+        self._adapter_release(req)
         u = self.usage
         rec = u.finish(req, state) if u is not None else None
         _stats.inc(self._FAIL_COUNTERS.get(
@@ -849,12 +915,21 @@ class ServingEngine(ContinuousBatchingEngine):
                             f"depth past {cap}"))
 
     def _sort_waiting(self):
-        """Higher priority first, FIFO by arrival within a level (the
-        skip-ahead window scans this order). The JAX package also
-        groups requests of one adapter here; with no adapters its order
-        is exactly this one."""
+        """Higher priority first; within a level, STABLE adapter
+        grouping: requests sharing an adapter sort adjacently, groups
+        ordered by their oldest member's arrival and FIFO inside each
+        group, so same-adapter requests admit together (a decode chunk
+        carries fewer distinct adapters). With no adapters this is the
+        priority-FIFO order. The skip-ahead window scans this order."""
+        first: Dict[Optional[str], int] = {}
+        for r in self.waiting:
+            a = getattr(r, "adapter_id", None)
+            s = getattr(r, "_seq", r.id)
+            if a not in first or s < first[a]:
+                first[a] = s
         self.waiting.sort(
             key=lambda r: (-getattr(r, "priority", 0),
+                           first[getattr(r, "adapter_id", None)],
                            getattr(r, "_seq", r.id)))
 
     @staticmethod
@@ -919,7 +994,7 @@ class ServingEngine(ContinuousBatchingEngine):
     def _first_chunk_pages(self, req) -> int:
         """Pages the FIRST prefill chunk needs beyond any prefix hit."""
         toks = self._admit_tokens(req)
-        shared = self.prefix_cache.match(toks) \
+        shared = self.prefix_cache.match(toks, self._prefix_salt(req)) \
             if self.prefix_cache is not None else []
         covered = len(shared) * self.page_size
         c = self._chunk_size(len(toks) - covered)
@@ -970,7 +1045,7 @@ class ServingEngine(ContinuousBatchingEngine):
         toks = self._admit_tokens(req)
         shared = []
         if self.prefix_cache is not None:
-            shared = self.prefix_cache.match(toks)
+            shared = self.prefix_cache.match(toks, self._prefix_salt(req))
             if shared:
                 _stats.inc("serving.prefix_hit")
                 _stats.inc("serving.prefix_pages_saved", len(shared))
@@ -1090,19 +1165,26 @@ class ServingEngine(ContinuousBatchingEngine):
                    key=lambda i: self._urgency(self._prefilling[i].req))
 
     def _chunk_prefill_fn(self, weights, embed, head_t, lnf_s, lnf_b,
-                          ids, start, chunk_len, ck, cv, tables):
+                          ids, start, chunk_len, ck, cv, tables,
+                          adapter_slots=None, adapter_banks=None):
         """One chunk on the device: prefill ``ids`` at positions
         ``start..`` against the cached prefix + in-chunk causal
         triangle, and return the last VALID position's logits (used
         only by the final chunk; the argmax fetch of every chunk is its
         honest sync). ``start``/``chunk_len`` are [1] int32 device
-        tensors, so the layer loop never syncs with the host."""
+        tensors, so the layer loop never syncs with the host. With
+        adapter operands, every projection adds its LoRA delta (one
+        launch per projection per layer)."""
         g = self._gen
         st = self.model.stack
+        adapters = None
+        if adapter_banks is not None:
+            adapters = dict(adapter_banks)
+            adapters["slots"] = adapter_slots
         x = embed[ids.long()].to(g._cdtype)
         h, cache = st.prefill_chunk_raw(
             weights, x, PagedKV(ck, cv), tables, start, chunk_len,
-            g._cos, g._sin, a8w8=g._a8w8)
+            g._cos, g._sin, a8w8=g._a8w8, adapters=adapters)
         hl = h[torch.arange(h.shape[0], device=h.device),
                chunk_len.long() - 1]
         logits = g._logits(hl, head_t, lnf_s, lnf_b)
@@ -1183,13 +1265,21 @@ class ServingEngine(ContinuousBatchingEngine):
         self._gen._count_a8w8(1)
         lnf_s, lnf_b = self._gen._lnf()
         dev = self._gen._device
+        a_slot = getattr(req, "_adapter_slot", None)
+        extra = ()
+        if self.adapters is not None and a_slot is not None \
+                and a_slot >= 0:
+            extra = (torch.tensor([a_slot], dtype=torch.int32, device=dev),
+                     self.adapters.operands())
+            _stats.inc("lora.grouped_launches",
+                       4 * self.model.stack.num_layers)
         logits, self._ck, self._cv = self._chunk_prefill_fn(
             self._gen._weights(), self._gen._embed(),
             self._gen._head_t, lnf_s, lnf_b,
             torch.as_tensor(ids, device=dev),
             torch.tensor([stt.pos], dtype=torch.int32, device=dev),
             torch.tensor([n], dtype=torch.int32, device=dev),
-            self._ck, self._cv, tables)
+            self._ck, self._cv, tables, *extra)
         tok = int(self._gen._argmax(logits)[0])
         if fi is not None:
             tok = fi.corrupt("prefill.dispatch", tok)
@@ -1218,7 +1308,8 @@ class ServingEngine(ContinuousBatchingEngine):
         if self.prefix_cache is not None:
             try:
                 self.prefix_cache.insert(
-                    toks, self._mgr._owned[("slot", i)])
+                    toks, self._mgr._owned[("slot", i)],
+                    self._prefix_salt(req))
             except Exception:
                 # a registration failure (e.g. an injected
                 # prefix.insert fault) costs future page reuse, never
@@ -1309,7 +1400,8 @@ class ServingEngine(ContinuousBatchingEngine):
         if not pages:
             return
         try:
-            self.prefix_cache.insert(resume_toks, pages)
+            self.prefix_cache.insert(resume_toks, pages,
+                                     self._prefix_salt(self._slots[j]))
         except Exception:
             # registration is an optimization; an injected
             # prefix.insert fault must never break the preemption

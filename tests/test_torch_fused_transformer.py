@@ -153,9 +153,18 @@ def test_rope_and_split_match_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
 
 
-def test_later_slices_raise():
-    with pytest.raises(NotImplementedError):
-        TStack(D, H, DFF, L, moe_num_experts=4, device="cpu")
+def test_later_slices_raise(stacks):
+    _, ts = stacks
+    x = torch.zeros(1, 4, D)
+    with pytest.raises(NotImplementedError, match="TP serving"):
+        ts.prefill_raw(ts._stack(), x, None, None, *t_rope(64, D // H),
+                       tp=object())
+    # the MoE stack is served now; its expert-parallel FFN is not yet
+    moe = TStack(D, H, DFF, L, moe_num_experts=4, device="cpu")
+    assert "moe_w1" in moe._stack()
+    from paddle_tpu_torch.nn.functional.grouped_gemm import moe_ffn_ep
+    with pytest.raises(NotImplementedError, match="expert-parallel"):
+        moe_ffn_ep()
 
 
 @pytest.fixture

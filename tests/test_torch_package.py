@@ -31,6 +31,9 @@ def test_import_leaves_jax_out():
         "import paddle_tpu_torch.nn.functional.paged_attention\n"
         "import paddle_tpu_torch.nn.functional.stream_linear\n"
         "import paddle_tpu_torch.nn.functional.flash_varlen\n"
+        "import paddle_tpu_torch.nn.functional.grouped_gemm\n"
+        "import paddle_tpu_torch.nn.functional.lora\n"
+        "import paddle_tpu_torch.serving.adapters\n"
         "import paddle_tpu_torch.quantization\n"
         "import paddle_tpu_torch.serving\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
@@ -87,7 +90,12 @@ def test_cpu_path_builds_nothing(monkeypatch):
     from paddle_tpu_torch.nn.functional import stream_linear as sl
     from paddle_tpu_torch.serving import ServingEngine, SLOConfig
 
-    before = (pa.launches, sl.launches, sl.tail_launches, fv.launches)
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+    from paddle_tpu_torch.nn.functional import lora as tl
+    from paddle_tpu_torch.serving import AdapterBank
+
+    before = (pa.launches, sl.launches, sl.tail_launches, fv.launches,
+              gg.launches, tl.launches)
     model = FusedCausalLM(32, 16, 2, 32, 1, max_position=32, device="cpu")
     out = GenerationEngine(model, page_size=4, max_length=16).generate(
         [[1, 2, 3]], max_new_tokens=3)
@@ -97,9 +105,21 @@ def test_cpu_path_builds_nothing(monkeypatch):
                         slo=SLOConfig(prefill_chunk=4))
     eng.submit(list(range(10)), max_new_tokens=3)
     assert [len(r.generated) for r in eng.run()] == [3]
+    # an adaptered request and an MoE model take the plain versions too
+    bank = AdapterBank.from_stack(model.stack._stack(), slots=1, rank=4)
+    bank.load(bank.random_adapter("a0"))
+    eng = ServingEngine(model, max_batch=2, page_size=4, max_length=24,
+                        slo=SLOConfig(prefill_chunk=4), adapters=bank)
+    eng.submit(list(range(10)), max_new_tokens=3, adapter_id="a0")
+    assert [len(r.generated) for r in eng.run()] == [3]
+    moe = FusedCausalLM(32, 16, 2, 32, 1, max_position=32,
+                        moe_num_experts=2, moe_top_k=1, device="cpu")
+    out = GenerationEngine(moe, page_size=4, max_length=16).generate(
+        [[1, 2, 3]], max_new_tokens=3)
+    assert out.shape == (1, 6)
     # the launch counters count CUDA launches only
-    assert (pa.launches, sl.launches, sl.tail_launches,
-            fv.launches) == before
+    assert (pa.launches, sl.launches, sl.tail_launches, fv.launches,
+            gg.launches, tl.launches) == before
 
 
 def test_kernel_sources_and_wrappers_present():
@@ -107,18 +127,24 @@ def test_kernel_sources_and_wrappers_present():
     launch counter on its wrapper."""
     from paddle_tpu_torch import _kernels
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+    from paddle_tpu_torch.nn.functional import lora as tl
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
     assert set(_kernels._SIGNATURES) == set(_kernels.SOURCES) == {
         "paged_attention", "stream_linear", "flash_varlen",
-        "paged_attention_q", "stream_linear_a8w8"}
+        "paged_attention_q", "stream_linear_a8w8", "grouped_gemm"}
     for lib, fns in _kernels._SIGNATURES.items():
         src = (PKG / "csrc" / f"{lib}.cu").read_text()
         for fn in fns:
             assert f'extern "C" int {fn}(' in src
         assert "sm_90a" in " ".join(_kernels._FLAGS)
+    assert {"ptt_grouped_gemm", "ptt_lora_delta",
+            "ptt_grouped_work_map"} == set(
+        _kernels._SIGNATURES["grouped_gemm"])
     for counter in (pa.launches, pa.q_launches, sl.launches,
                     sl.w8_launches, sl.tail_launches, sl.tail_w8_launches,
-                    sl.a8w8_launches, fv.launches):
+                    sl.a8w8_launches, fv.launches, gg.launches,
+                    tl.launches):
         assert isinstance(counter, int)

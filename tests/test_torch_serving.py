@@ -331,11 +331,18 @@ def test_quantized_serving_tokens(quant_runs, mode):
 
 def test_later_slices_raise(models):
     _, tm = models
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        TEngine(tm, adapters=object())
-    eng = TEngine(tm, max_batch=1, page_size=4, max_length=32)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        eng.submit([1, 2, 3], max_new_tokens=2, adapter_id="a")
+    # multi-LoRA serving is served now (tests/test_torch_lora_serving.py);
+    # its tensor-parallel bank layouts, KV migration and speculation are
+    # not yet
+    from paddle_tpu_torch.serving import AdapterBank
+
+    bank = AdapterBank.from_stack(tm.stack._stack(), slots=1)
+    with pytest.raises(NotImplementedError, match="TP serving"):
+        bank.operands(tp=object())
+    eng = TEngine(tm, max_batch=1, page_size=4, max_length=32,
+                  adapters=bank)
+    with pytest.raises(NotImplementedError, match="fleet"):
+        eng.export_slot(0)
     with pytest.raises(NotImplementedError, match="speculation"):
         TEngine(tm, speculative=object())
 
