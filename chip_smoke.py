@@ -45,7 +45,20 @@ Phases, all run every time, each of which fails the run when it fails:
            top-2) at batch 32 through GenerationEngine (generate_moe),
            its teacher-forced check (route agreement and logits on the
            rows whose routes agree, with a faulty-FFN2 control) and a
-           profiled decode step (decode_step_moe).
+           profiled decode step (decode_step_moe);
+  train    dense flash attention (B10: the forward and the dq and dk/dv
+           backward kernels) checked against its plain versions at the
+           training rung's shapes (bf16 limits from a one-ulp witness,
+           a faulty-dq control) and timed beside
+           scaled_dot_product_attention; then bench.py's gpt3-1.3b
+           training rung (d2048, 24 layers, seq 1024, batch 4, the _FAST
+           options) through the port's bench.make_train_step: the kernel
+           route against the plain attention route from one initial
+           state (logits, loss, every gradient, 3 steps' losses, each
+           within twice a one-ulp witness, a faulty control outside),
+           5 timed steps (tokens/s, MFU, device busy and idle share,
+           peak memory, 24 launches of each B10 kernel a step) and 2
+           steps with remat="full" (48 forward launches a step).
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -1233,6 +1246,7 @@ def kernel_lora_delta(gen) -> dict:
 # ---------------------------------------------------------------- slice
 
 def _counters():
+    from paddle_tpu_torch.nn.functional import attention as at
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
     from paddle_tpu_torch.nn.functional import grouped_gemm as gg
     from paddle_tpu_torch.nn.functional import lora as tl
@@ -1248,7 +1262,10 @@ def _counters():
             "stream_linear_a8w8": sl.a8w8_launches,
             "paged_decode_attention_inplace_q": pa.q_launches,
             "grouped_gemm": gg.launches,
-            "lora_delta": tl.launches}
+            "lora_delta": tl.launches,
+            "flash_attention_fwd": at.fwd_launches,
+            "flash_attention_bwd_dq": at.dq_launches,
+            "flash_attention_bwd_dkv": at.dkv_launches}
 
 
 #: CUDA launches of one stream_layer_tail call with the next layer's
@@ -1299,6 +1316,7 @@ def _check_launches(path: str, counts: dict, expect: dict) -> None:
 
 
 def _reset_counters():
+    from paddle_tpu_torch.nn.functional import attention as at
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
@@ -1310,6 +1328,7 @@ def _reset_counters():
     sl.launches = sl.tail_launches = 0
     sl.w8_launches = sl.tail_w8_launches = sl.a8w8_launches = 0
     fv.launches = gg.launches = tl.launches = 0
+    at.fwd_launches = at.dq_launches = at.dkv_launches = 0
 
 
 def _ulp_nudge(x, gen):
@@ -2150,6 +2169,489 @@ def slice_teacher_forced_lora(model) -> None:
                          adapters=adapters)
 
 
+# ---------------------------------------------------------------- training
+
+#: the training rung (bench.py's gpt3-1.3b: d2048, 24 layers, 16 heads of
+#: 128, seq 1024, batch 4, vocab 51200, the _FAST options)
+TRAIN_SEQ, TRAIN_BATCH = 1024, 4
+#: the key tile the flash kernels walk
+FLASH_TILE = 64
+
+
+def _flash_pairs(sq: int, sk: int, causal: bool) -> int:
+    """Visible (query, key) pairs of one head: key j from query i iff
+    j <= i under the top-left causal mask."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+def _flash_bounds(b, sq, sk, h, d, causal, dtype) -> dict:
+    """Bytes (each input read once, each output written once) and
+    operations of each B10 kernel's function: the forward QK^T and PV;
+    dq's S, dP and dS K; dk/dv's S, dP, P^T dO and dS^T Q."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    n = b * h * _flash_pairs(sq, sk, causal) * d
+    q_io, k_io, stats = b * sq * h * d * e, b * sk * h * d * e, b * h * sq * 4
+    return {
+        "fwd": (2 * q_io + 2 * k_io + stats, 4.0 * n),
+        "dq": (3 * q_io + 2 * k_io + 2 * stats, 6.0 * n),
+        "dkv": (2 * q_io + 4 * k_io + 2 * stats, 8.0 * n)}
+
+
+def _flash_inputs(gen, b, s, h, d, dtype):
+    """q, k, v as strided views of one [b, s, 3, h, d] tensor (as the
+    GPT block hands them over), and a dout."""
+    qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _flash_kernel_all(q, k, v, do, causal, scale):
+    from paddle_tpu_torch.nn.functional import attention as at
+
+    out, lse = at.flash_attention_fwd(q, k, v, causal, scale)
+    return (out, lse, *at.flash_attention_bwd(q, k, v, out, lse, do,
+                                              causal, scale))
+
+
+def _flash_plain_all(q, k, v, do, causal, scale):
+    from paddle_tpu_torch.nn.functional import attention as at
+
+    out, lse = at.flash_attention_fwd_plain(q, k, v, causal, scale)
+    return (out, lse, *at.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                    causal, scale))
+
+
+def _dq_dropping_key_tile(q, k, v, out, lse, do, causal, scale, tile=0):
+    """The control: dq as a faulty kernel would give it that skipped one
+    key tile of its walk (that tile's dS K term left out)."""
+    from paddle_tpu_torch.nn.functional import attention as at
+
+    s = at._scores_f32(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - at.flash_delta(out, do)[..., None])
+    ds[..., tile * FLASH_TILE:(tile + 1) * FLASH_TILE] = 0
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale) \
+        .to(q.dtype)
+
+
+#: kernel-check cases: (b, s, h, d, dtype, causal): the rung, the s2048
+#: rung, head_dim 64 in f32 both ways and bf16, odd batch x heads
+FLASH_CASES = (
+    (4, 1024, 16, 128, torch.bfloat16, True),
+    (2, 2048, 16, 128, torch.bfloat16, True),
+    (2, 256, 4, 64, torch.float32, True),
+    (2, 256, 4, 64, torch.float32, False),
+    (2, 256, 4, 64, torch.bfloat16, False),
+    (3, 384, 5, 128, torch.bfloat16, True),
+    (3, 256, 5, 128, torch.float32, False),
+)
+
+
+def kernel_flash_attention(gen) -> dict:
+    """Kernel B10 (flash_attention_fwd and the dq and dk/dv backward
+    kernels) against its plain versions on the same inputs, at
+    FLASH_CASES: out, lse, dq, dk, dv. Tolerances: float32 1e-5 (out,
+    lse) and 1e-4 (dq, dk, dv), f32 sums in another order; lse is f32
+    in bf16 runs too, 1e-5. A bf16 output may differ by what one-ulp
+    noise on the inputs moves the plain version (the witness: q, k, v
+    and dout with a random half nudged one ulp) plus one ulp of its
+    largest value; the control, a dq that skips key tile 0, must exceed
+    its limit. Then timed at the rung's shape beside the plain versions
+    and torch's scaled_dot_product_attention."""
+    from paddle_tpu_torch.nn.functional import attention as at
+
+    res = {}
+    for b, s, h, d, dtype, causal in FLASH_CASES:
+        q, k, v, do = _flash_inputs(gen, b, s, h, d, dtype)
+        scale = d ** -0.5
+        got = _flash_kernel_all(q, k, v, do, causal, scale)
+        torch.cuda.synchronize()
+        ref = _flash_plain_all(q, k, v, do, causal, scale)
+        names = ("out", "lse", "dq", "dk", "dv")
+        errs = {n: max_err(g, r) for n, g, r in zip(names, got, ref)}
+        line = {"check": "flash_attention", "shape": [b, s, h, d],
+                "dtype": str(dtype), "causal": causal, "max_abs_err": errs}
+        if dtype == torch.float32:
+            tols = {"out": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4,
+                    "dv": 1e-4}
+        else:
+            wit = _flash_plain_all(*(_ulp_nudge(t, gen)
+                                     for t in (q, k, v, do)), causal, scale)
+            tols = {n: max_err(w, r) + _ulp_tol(float(r.float().abs().max()))
+                    for n, w, r in zip(names, wit, ref)}
+            tols["lse"] = 1e-5
+            ctrl = max_err(_dq_dropping_key_tile(q, k, v, *ref[:2], do,
+                                                 causal, scale), ref[2])
+            line.update({"witness_max_abs_err": {
+                n: max_err(w, r) for n, w, r in zip(names, wit, ref)},
+                "control_dq_max_abs_err": ctrl})
+            check(ctrl > tols["dq"], f"flash_attention {line['shape']}: the "
+                  f"faulty-dq control ({ctrl}) is within the limit "
+                  f"{tols['dq']}")
+        line["tol"] = tols
+        emit(line)
+        for n in names:
+            check(errs[n] <= tols[n], f"flash_attention {line['shape']} "
+                  f"{dtype} causal={causal}: {n} {errs[n]} > {tols[n]}")
+        if (b, s, h, d) == (TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM):
+            res = errs
+        del q, k, v, do, got, ref
+    # timing at the rung's shape, inputs rotating over 4 layers' worth
+    b, s, h, d, dt = TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM, torch.bfloat16
+    scale = d ** -0.5
+    sets = []
+    for _ in range(4):
+        q, k, v, do = _flash_inputs(gen, b, s, h, d, dt)
+        out, lse = at.flash_attention_fwd(q, k, v, True, scale)
+        sets.append((q, k, v, do, out, lse, at.flash_delta(out, do)))
+    nxt = cycler(len(sets))
+
+    def fwd():
+        q, k, v = sets[nxt()][:3]
+        at.flash_attention_fwd(q, k, v, True, scale)
+
+    def dq():
+        q, k, v, do, _, lse, di = sets[nxt()]
+        at._flash_bwd_dq_cuda(q, k, v, do, lse, di, True, scale)
+
+    def dkv():
+        q, k, v, do, _, lse, di = sets[nxt()]
+        at._flash_bwd_dkv_cuda(q, k, v, do, lse, di, True, scale)
+
+    def bwd():
+        q, k, v, do, out, lse, _ = sets[nxt()]
+        at.flash_attention_bwd(q, k, v, out, lse, do, True, scale)
+
+    def plain_fwd():
+        q, k, v = sets[nxt()][:3]
+        at.flash_attention_fwd_plain(q, k, v, True, scale)
+
+    def plain_bwd():
+        q, k, v, do, out, lse, _ = sets[nxt()]
+        at.flash_attention_bwd_plain(q, k, v, out, lse, do, True, scale)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [tuple(t.detach().transpose(1, 2).requires_grad_(True)
+                    for t in st[:3]) + (st[3].transpose(1, 2),)
+              for st in sets]
+
+    def lib_fwd():
+        with torch.no_grad():
+            sdpa(*leaves[nxt()][:3], is_causal=True)
+
+    def lib_fwd_bwd():
+        q, k, v, do = leaves[nxt()]
+        sdpa(q, k, v, is_causal=True).backward(do)
+
+    bounds = _flash_bounds(b, s, s, h, d, True, dt)
+    rows = {}
+    times = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
+    device = {"fwd": device_ms(fwd, "flash_fwd_bf16"),
+              "dq": device_ms(dq, "flash_bwd_dq_bf16"),
+              "dkv": device_ms(dkv, "flash_bwd_dkv_bf16")}
+    plain = {"fwd": time_ms(plain_fwd, iters=5),
+             "bwd": time_ms(plain_bwd, iters=5)}
+    lib = {"fwd": time_ms(lib_fwd), "fwd_bwd": time_ms(lib_fwd_bwd)}
+    whole_bwd = time_ms(bwd)
+    for name in ("fwd", "dq", "dkv"):
+        nbytes, flops = bounds[name]
+        bms, by = bound_ms(nbytes, flops, dt)
+        rows[name] = {"ms": times[name], "device_ms": device[name],
+                      "plain_ms": plain["fwd" if name == "fwd" else "bwd"],
+                      "library_ms": lib["fwd"] if name == "fwd" else None,
+                      "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                      "flops": flops}
+        emit({"time": f"flash_attention_{name}", "shape": [b, s, h, d],
+              "causal": True, **rows[name],
+              "tflops": flops / times[name] / 1e9,
+              "plain_note": None if name == "fwd" else
+              "flash_attention_bwd_plain computes dq, dk and dv"})
+    nb, fl = (sum(bounds[n][i] for n in ("dq", "dkv")) for i in (0, 1))
+    emit({"time": "flash_attention_backward", "shape": [b, s, h, d],
+          "ms": whole_bwd, "note": "di reduction + dq + dk/dv launches",
+          "plain_ms": plain["bwd"], "sdpa_fwd_ms": lib["fwd"],
+          "sdpa_fwd_bwd_ms": lib["fwd_bwd"],
+          "sdpa_bwd_ms": lib["fwd_bwd"] - lib["fwd"],
+          "bound_ms_whole_backward_5_products": bound_ms(
+              7 * b * s * h * d * 2 + 2 * b * h * s * 4,
+              10.0 * b * h * _flash_pairs(s, s, True) * d, dt)[0]})
+    del sets, leaves
+    outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    names = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+             "dkv": "flash_attention_bwd_dkv"}
+    return {names[n]: {**rows[n],
+                       "max_abs_err": max(res[k] for k in outputs[n])}
+            for n in names}
+
+
+@contextlib.contextmanager
+def attention_route(kind: str, gen=None):
+    """The flash route with B10 replaced by its plain versions
+    (``"plain"``); by the plain versions on inputs with a random half
+    nudged one ulp in both passes (``"witness"``); or by a faulty
+    forward that leaves out the division by the softmax sum, before the
+    plain backward (``"control"``). ``"kernel"`` leaves the kernels in
+    place."""
+    from unittest import mock
+
+    from paddle_tpu_torch.nn.functional import attention as at
+
+    if kind == "kernel":
+        yield
+        return
+    fwd, bwd = at.flash_attention_fwd_plain, at.flash_attention_bwd_plain
+    if kind == "witness":
+        def fwd(q, k, v, causal, scale):
+            return at.flash_attention_fwd_plain(
+                _ulp_nudge(q, gen), _ulp_nudge(k, gen), _ulp_nudge(v, gen),
+                causal, scale)
+
+        def bwd(q, k, v, out, lse, do, causal, scale):
+            return at.flash_attention_bwd_plain(
+                _ulp_nudge(q, gen), _ulp_nudge(k, gen), _ulp_nudge(v, gen),
+                out, lse, _ulp_nudge(do, gen), causal, scale)
+    elif kind == "control":
+        def fwd(q, k, v, causal, scale):
+            out, lse = at.flash_attention_fwd_plain(q, k, v, causal, scale)
+            m = at._scores_f32(q, k, causal, scale).amax(-1)
+            l = torch.exp(lse - m).transpose(1, 2)[..., None]
+            return (out.float() * l).to(out.dtype), lse
+    with mock.patch.object(at, "flash_attention_fwd", fwd), \
+            mock.patch.object(at, "flash_attention_bwd", bwd):
+        yield
+
+
+def _train_rung(remat="none"):
+    from paddle_tpu_torch import bench
+
+    opts = dict(bench._FAST, remat=remat)
+    model, step = bench.make_train_step(D_MODEL, N_LAYERS, N_HEADS,
+                                        TRAIN_SEQ, opts)
+    inputs, labels = bench.rung_batch(TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    return model, step, inputs, labels
+
+
+def _train_expected(fwd: int, bwd: int) -> dict:
+    e = dict.fromkeys(_SOURCES, 0)
+    e.update({"flash_attention_fwd": fwd, "flash_attention_bwd_dq": bwd,
+              "flash_attention_bwd_dkv": bwd})
+    return e
+
+
+def slice_train(out_dir, steps: int = 5, warmup: int = 2) -> dict:
+    """bench.py's gpt3-1.3b training rung through the port's entry points
+    (``bench.make_train_step``: build_model, AdamW with bf16 moments and
+    stochastic rounding, AMP O2 decorate, TrainStep), at full width and
+    depth, from seed 0.
+
+    (a) Agreement, each route from the same initial state and the same
+    stochastic-rounding seed: the kernel route against the plain route
+    (B10 replaced by its plain versions) in the step-1 logits (relative
+    L2) and loss, in the gradients of every parameter (relative L2 over
+    all of them, and the worst parameter), and in the losses of 3
+    TrainStep steps. Each limit is twice what the witness route (one-ulp
+    noise on attention's inputs) moves the plain route, the loss-based
+    ones at least 4 f32 ulps; the control route (a forward without the
+    softmax division) must exceed every limit.
+    (b) Timing: ``warmup`` steps, then ``steps`` steps timed on the host
+    clock (ended by reading the loss), then 2 steps under torch.profiler
+    for the device time by kernel, and one step split by CUDA events
+    into forward and loss, backward and optimizer; tokens/s, MFU (6N +
+    12·L·s·d over bench.H100_PEAK_BF16), peak memory, and exactly 24
+    launches of each B10 kernel a step.
+    (c) 2 steps with remat="full": 48 forward launches a step, and the
+    losses of the kernel route in (a) within the trajectory limit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    # ---- (a) agreement
+    ref, agree = None, {}
+    for kind in ("plain", "kernel", "witness", "control"):
+        model, step, inputs, labels = _train_rung()
+        _reset_counters()
+        with attention_route(kind, gen):
+            logits = model(*inputs)
+            loss = step.loss_fn(logits, *labels)
+            loss.backward()
+            grads = [p.grad for p in model.parameters()]
+            _check_launches(f"train_grads[{kind}]", _counters(),
+                            _train_expected(*((N_LAYERS, N_LAYERS)
+                                              if kind == "kernel"
+                                              else (0, 0))))
+            row = {"loss": float(loss.detach())}
+            if ref is None:
+                ref = {"logits": logits.detach(),
+                       "grads": [g.clone() for g in grads]}
+                ref["logits_sq"] = float(logits.float().square().sum())
+                ref["grads_sq"] = sum(float(g.float().square().sum())
+                                      for g in grads)
+            else:
+                row["logits_rel_l2"] = (float(
+                    (logits.float() - ref["logits"].float()).square().sum())
+                    / ref["logits_sq"]) ** 0.5
+                diff_sq, worst = 0.0, (0.0, None)
+                for (name, _), g, r in zip(model.named_parameters(), grads,
+                                           ref["grads"]):
+                    dif = g.float() - r.float()
+                    diff_sq += float(dif.square().sum())
+                    rel = float(dif.abs().max()) / max(
+                        float(r.float().abs().max()), 1e-30)
+                    if rel > worst[0]:
+                        worst = (rel, name)
+                row.update({"grad_rel_l2": (diff_sq / ref["grads_sq"]) ** 0.5,
+                            "worst_param": worst[1],
+                            "worst_param_rel_max_err": worst[0]})
+            del logits, loss, grads
+            step.optimizer.clear_grad()
+            _reset_counters()
+            row["losses"] = [float(step(inputs, labels)) for _ in range(3)]
+            _check_launches(f"train_steps[{kind}]", _counters(),
+                            _train_expected(*((3 * N_LAYERS, 3 * N_LAYERS)
+                                              if kind == "kernel"
+                                              else (0, 0))))
+        agree[kind] = row
+        del model, step
+        torch.cuda.empty_cache()
+    base = agree["plain"]
+    for kind in ("kernel", "witness", "control"):
+        a = agree[kind]
+        a["loss_rel_err"] = abs(a["loss"] - base["loss"]) / abs(base["loss"])
+        a["trajectory_rel_err"] = max(
+            abs(x - y) / abs(y) for x, y in zip(a["losses"], base["losses"]))
+    # twice the witness; the loss-based ones no tighter than 4 f32 ulps
+    floor = 4 * 2.0 ** -23
+    limits = {m: max(2 * agree["witness"][m],
+                     floor if "loss" in m or "trajectory" in m else 0.0)
+              for m in ("loss_rel_err", "logits_rel_l2", "grad_rel_l2",
+                        "trajectory_rel_err")}
+    emit({"check": "train_agreement", "limits": limits,
+          "rule": "2 x the witness route's deviation (loss and trajectory "
+                  "at least 4 f32 ulps)", **agree})
+    for m, lim in limits.items():
+        check(agree["kernel"][m] <= lim, f"train: kernel route {m} "
+              f"{agree['kernel'][m]} > {lim}")
+        check(agree["control"][m] > lim, f"train: the control route's {m} "
+              f"({agree['control'][m]}) is within the limit {lim}")
+    for kind in agree:
+        check(all(np.isfinite(agree[kind]["losses"])),
+              f"train: non-finite loss on the {kind} route")
+    del ref
+    torch.cuda.empty_cache()
+    # ---- (b) timing
+    torch.cuda.reset_peak_memory_stats()
+    model, step, inputs, labels = _train_rung()
+    n_params = sum(p.numel() for p in model.parameters())
+    for _ in range(warmup):
+        first = float(step(inputs, labels))
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(inputs, labels)
+    final = float(loss)
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    _check_launches("train", counts, _train_expected(steps * N_LAYERS,
+                                                     steps * N_LAYERS))
+    peak = torch.cuda.max_memory_allocated()
+    prof_steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(prof_steps):
+            loss = step(inputs, labels)
+        float(loss)
+    groups = {"flash_fwd": "B10 forward", "flash_bwd_dq": "B10 dq",
+              "flash_bwd_dkv": "B10 dk/dv"}
+    by_group, kernels = {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / prof_steps / 1e3
+        kernels.append((ev.key, ms, ev.count / prof_steps))
+        lk = ev.key.lower()
+        g = next((v for k, v in groups.items() if k in ev.key), None)
+        if g is None:
+            g = ("GEMMs (cuBLAS/CUTLASS)" if any(
+                t in lk for t in ("gemm", "cutlass", "xmma", "nvjet"))
+                else "other PyTorch ops (LN, GELU, CE, AdamW, copies)")
+        by_group[g] = by_group.get(g, 0.0) + ms
+    busy = sum(by_group.values())
+    kernels.sort(key=lambda r: -r[1])
+    # one more step, split on the device clock: forward and loss,
+    # backward, optimizer
+    opt = step.optimizer
+    opt.clear_grad()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss = step.loss_fn(model(*inputs), *labels)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+             enumerate(("forward_and_loss", "backward", "optimizer"))}
+    del loss
+    wall_ms = wall / steps * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fpt = bench.flops_per_token(n_params, N_LAYERS, TRAIN_SEQ, D_MODEL)
+    tps = tokens * steps / wall
+    result = {"phase": "train", "rung": "gpt3-1.3b", "n_params": n_params,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+              "warmup": warmup, "tokens_per_s": tps,
+              "mfu": tps * fpt / bench.H100_PEAK_BF16,
+              "flops_per_token": fpt, "wall_ms_per_step": wall_ms,
+              "device_busy_ms_per_step": busy,
+              "device_idle_share": 1 - busy / wall_ms,
+              "device_ms_per_step_by_group": by_group,
+              "ms_by_phase_one_step": split,
+              "max_memory_allocated_gb": peak / 1e9,
+              "first_call_s": step.first_call_seconds,
+              "launches_per_step": {k: v / steps for k, v in counts.items()
+                                    if v},
+              "loss_after_warmup": first, "loss_final": final,
+              "top_kernels": [{"name": k[:60], "ms_per_step": ms,
+                               "launches_per_step": n}
+                              for k, ms, n in kernels[:8]]}
+    emit(result)
+    check(np.isfinite(final), "train: non-finite loss")
+    if out_dir:
+        with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+    del model, step, prof
+    torch.cuda.empty_cache()
+    # ---- (c) recompute
+    model, step, inputs, labels = _train_rung(remat="full")
+    _reset_counters()
+    remat_losses = [float(step(inputs, labels)) for _ in range(2)]
+    _check_launches("train_remat_full", _counters(),
+                    _train_expected(2 * 2 * N_LAYERS, 2 * N_LAYERS))
+    ref = agree["kernel"]["losses"][:2]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(remat_losses, ref))
+    emit({"phase": "train_remat_full", "losses": remat_losses,
+          "remat_none_losses": ref, "rel_err": rel,
+          "step1_loss_bitwise_equal": remat_losses[0] == ref[0],
+          "fwd_launches_per_step": 2 * N_LAYERS})
+    check(rel <= limits["trajectory_rel_err"], "train: remat='full' moved "
+          f"the losses by {rel} > {limits['trajectory_rel_err']}")
+    del model, step
+    torch.cuda.empty_cache()
+    emit({"phase": "train_paths", "wall_s": time.perf_counter() - t_phase})
+    return counts
+
+
 # ---------------------------------------------------------------- main
 
 _SOURCES = {
@@ -2183,6 +2685,15 @@ _SOURCES = {
     "lora_delta": (
         "paddle_tpu_torch/csrc/grouped_gemm.cu",
         "paddle_tpu/nn/functional/lora.py:99"),
+    "flash_attention_fwd": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/nn/functional/attention.py:109"),
+    "flash_attention_bwd_dq": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/nn/functional/attention.py:119"),
+    "flash_attention_bwd_dkv": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/nn/functional/attention.py:119"),
 }
 
 #: the quantized decode rungs of bench.py (--decode-int8, --decode-a8w8,
@@ -2192,11 +2703,8 @@ QUANT_PATHS = (("generate_int8", "int8", None, BATCH),
                ("generate_int8kv", "int8", "int8", 2 * BATCH))
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=None,
-                    help="directory for compiler logs and result lines")
-    args = ap.parse_args()
+def drive(args) -> None:
+    """Every phase, in order; the last line is the ok line."""
     if not torch.cuda.is_available():
         fail("no CUDA device is visible")
     sys.path.insert(0, HERE)
@@ -2226,6 +2734,9 @@ def main() -> None:
     rows.update({"grouped_gemm": kernel_grouped_gemm(gen),
                  "lora_delta": kernel_lora_delta(gen)})
     emit({"phase": "moe_lora_kernels", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    rows.update(kernel_flash_attention(gen))
+    emit({"phase": "flash_kernels", "wall_s": time.perf_counter() - t0})
     model = _build_model()
     by_path = {"generate": slice_generate(model)}
     slice_teacher_forced(model)
@@ -2261,6 +2772,10 @@ def main() -> None:
     slice_teacher_forced_moe(moe)
     slice_decode_step(moe, args.out, name="decode_step_moe")
     emit({"phase": "moe_paths", "wall_s": time.perf_counter() - t0})
+    del moe
+    torch.cuda.empty_cache()
+    # the training rung
+    by_path["train"] = slice_train(args.out)
     kernels = []
     for name, row in rows.items():
         src, replaces = _SOURCES[name]
@@ -2277,9 +2792,20 @@ def main() -> None:
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
-    if args.out:
-        with open(os.path.join(args.out, "chip_smoke.jsonl"), "w") as f:
-            f.write("\n".join(_LINES) + "\n")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="directory for compiler logs and result lines")
+    args = ap.parse_args()
+    try:
+        drive(args)
+    finally:
+        # every result line so far, also when a phase failed
+        if args.out and os.path.isdir(args.out):
+            with open(os.path.join(args.out, "chip_smoke.jsonl"), "w") as f:
+                f.write("\n".join(_LINES) + "\n")
 
 
 if __name__ == "__main__":

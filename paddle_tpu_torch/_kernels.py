@@ -32,11 +32,13 @@ __all__ = ["build", "lib", "check", "dtype_code", "weight_code", "ptr",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention", "stream_linear", "flash_varlen",
-           "paged_attention_q", "stream_linear_a8w8", "grouped_gemm")
+           "paged_attention_q", "stream_linear_a8w8", "grouped_gemm",
+           "flash_attention")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 #: C signatures, by library
 _SIGNATURES = {
     "paged_attention": {
@@ -82,6 +84,19 @@ _SIGNATURES = {
         "ptt_lora_delta": [_P, _I] * 3 + [_P] * 2 + [_I] * 7 + [_P],
         # offsets, E, nm, bm, gids, tids, lo, hi, stream
         "ptt_grouped_work_map": [_P] + [_I] * 3 + [_P] * 5,
+    },
+    "flash_attention": {
+        # q, k, v, out, lse, dtype, b, sq, sk, h, d, the (batch, seq,
+        # head) strides of q, k and v, causal, scale, stream
+        "ptt_flash_fwd": [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I, _F, _P],
+        # q, k, v, dout, lse, di, dq, dtype, b, sq, sk, h, d, strides,
+        # causal, scale, stream
+        "ptt_flash_bwd_dq":
+            [_P] * 7 + [_I] * 6 + [_L] * 9 + [_I, _F, _P],
+        # q, k, v, dout, lse, di, dk, dv, dtype, b, sq, sk, h, d,
+        # strides, causal, scale, stream
+        "ptt_flash_bwd_dkv":
+            [_P] * 8 + [_I] * 6 + [_L] * 9 + [_I, _F, _P],
     },
 }
 

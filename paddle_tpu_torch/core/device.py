@@ -1,8 +1,9 @@
 """Device resolution for the port's entry points.
 
 Every entry point (``FusedCausalLM``, the engines through their model,
-``BlockKVCacheManager``) runs on the CUDA card unless the caller asks
-for the CPU with ``device="cpu"``. Without a card and without that
+``BlockKVCacheManager``, ``bench.build_model`` and ``bench.run_config``,
+and ``TrainStep`` through its model) runs on the CUDA card unless the
+caller asks for the CPU with ``device="cpu"``. Without a card and without that
 request it raises: nothing falls back to the CPU quietly.
 """
 from __future__ import annotations

@@ -69,6 +69,9 @@
 namespace {
 
 using ptt::activate;
+using ptt::ldmatrix_x4;
+using ptt::ldmatrix_x4_trans;
+using ptt::mma_bf16;
 using ptt::load_dt;
 using ptt::store_dt;
 
@@ -99,37 +102,6 @@ struct GroupedParams {
   int bias_dt, out_dt;
   int T, K, N, E, nm, act;
 };
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
-                                            uint32_t& r2, uint32_t& r3,
-                                            const void* p) {
-  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const void* p) {
-  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // Unit u of the work map over offsets[0..E] and nm row tiles, as
 // grouped_work_map computes it: per interval i of E real ones and the

@@ -1,0 +1,4 @@
+"""``jit`` of the port: the training step, ``TrainStep``."""
+from .train_step import TrainStep
+
+__all__ = ["TrainStep"]

@@ -36,6 +36,11 @@ def test_import_leaves_jax_out():
         "import paddle_tpu_torch.serving.adapters\n"
         "import paddle_tpu_torch.quantization\n"
         "import paddle_tpu_torch.serving\n"
+        "import paddle_tpu_torch.nn.functional.attention\n"
+        "import paddle_tpu_torch.nn, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.bench\n"
+        "import paddle_tpu_torch.distributed.fleet.recompute\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
@@ -59,8 +64,9 @@ def test_no_source_names_jax_or_the_jax_package(pattern):
     assert hits == []
 
 
-@pytest.mark.parametrize("entry", ["model", "stack", "manager"])
+@pytest.mark.parametrize("entry", ["model", "stack", "manager", "gpt"])
 def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
+    from paddle_tpu_torch import build_model
     from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
     from paddle_tpu_torch.inference import (BlockKVCacheManager,
                                             FusedCausalLM)
@@ -70,6 +76,7 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
         "model": lambda **kw: FusedCausalLM(32, 16, 2, 32, 1, **kw),
         "stack": lambda **kw: FusedMultiTransformer(16, 2, 32, 1, **kw),
         "manager": lambda **kw: BlockKVCacheManager(1, 2, 8, 4, 8, **kw),
+        "gpt": lambda **kw: build_model(16, 1, 2, 128, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -117,9 +124,20 @@ def test_cpu_path_builds_nothing(monkeypatch):
     out = GenerationEngine(moe, page_size=4, max_length=16).generate(
         [[1, 2, 3]], max_new_tokens=3)
     assert out.shape == (1, 6)
+    # a training step takes the plain flash versions too
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.nn.functional import attention as at
+
+    before_at = (at.fwd_launches, at.dq_launches, at.dkv_launches)
+    _, step = bench.make_train_step(16, 1, 2, 128, dict(bench._FAST),
+                                    device="cpu")
+    inputs, labels = bench.rung_batch(1, 128, "cpu")
+    assert torch.isfinite(step(inputs, labels))
+    assert at.last_attention_backend() == "flash"
     # the launch counters count CUDA launches only
     assert (pa.launches, sl.launches, sl.tail_launches, fv.launches,
             gg.launches, tl.launches) == before
+    assert (at.fwd_launches, at.dq_launches, at.dkv_launches) == before_at
 
 
 def test_kernel_sources_and_wrappers_present():
@@ -132,9 +150,12 @@ def test_kernel_sources_and_wrappers_present():
     from paddle_tpu_torch.nn.functional import paged_attention as pa
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
+    from paddle_tpu_torch.nn.functional import attention as at
+
     assert set(_kernels._SIGNATURES) == set(_kernels.SOURCES) == {
         "paged_attention", "stream_linear", "flash_varlen",
-        "paged_attention_q", "stream_linear_a8w8", "grouped_gemm"}
+        "paged_attention_q", "stream_linear_a8w8", "grouped_gemm",
+        "flash_attention"}
     for lib, fns in _kernels._SIGNATURES.items():
         src = (PKG / "csrc" / f"{lib}.cu").read_text()
         for fn in fns:
@@ -143,8 +164,11 @@ def test_kernel_sources_and_wrappers_present():
     assert {"ptt_grouped_gemm", "ptt_lora_delta",
             "ptt_grouped_work_map"} == set(
         _kernels._SIGNATURES["grouped_gemm"])
+    assert {"ptt_flash_fwd", "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv"} == \
+        set(_kernels._SIGNATURES["flash_attention"])
     for counter in (pa.launches, pa.q_launches, sl.launches,
                     sl.w8_launches, sl.tail_launches, sl.tail_w8_launches,
                     sl.a8w8_launches, fv.launches, gg.launches,
-                    tl.launches):
+                    tl.launches, at.fwd_launches, at.dq_launches,
+                    at.dkv_launches):
         assert isinstance(counter, int)
