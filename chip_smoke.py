@@ -2224,18 +2224,48 @@ def _flash_plain_all(q, k, v, do, causal, scale):
                                                     causal, scale))
 
 
-def _dq_dropping_key_tile(q, k, v, out, lse, do, causal, scale, tile=0):
-    """The control: dq as a faulty kernel would give it that skipped one
-    key tile of its walk (that tile's dS K term left out)."""
-    from paddle_tpu_torch.nn.functional import attention as at
+#: B10's outputs, in the order the kernel and plain helpers return them
+FLASH_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
+#: each kernel's faulty-kernel control: the outputs that must exceed
+#: their limits when that kernel skips _late_tile_drop's pairs
+FLASH_CONTROLS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
 
-    s = at._scores_f32(q, k, causal, scale)
-    p = torch.exp(s - lse[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - at.flash_delta(out, do)[..., None])
-    ds[..., tile * FLASH_TILE:(tile + 1) * FLASH_TILE] = 0
-    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale) \
-        .to(q.dtype)
+
+def _late_tile_drop(sq: int, sk: int):
+    """The (query, key) pairs a faulty kernel would skip, for the
+    controls: key tile ``t = sk / 128`` (the middle one) from every
+    query row past it, rows ``(t + 1) * 64`` on (key tile 8 from row 576
+    at s 1024)."""
+    t = sk // (2 * FLASH_TILE)
+    drop = torch.zeros((sq, sk), dtype=torch.bool, device="cuda")
+    drop[(t + 1) * FLASH_TILE:, t * FLASH_TILE:(t + 1) * FLASH_TILE] = True
+    return drop
+
+
+def _tile_rel_l2(got, ref) -> float:
+    """The largest relative L2 error of any (b, h, 64-row tile) of a
+    ``[b, s, h, d]`` output: ``||got - ref|| / ||ref||`` over the tile's
+    rows and head dim, so a late row's small values weigh as much as an
+    early row's large ones."""
+    b, s, h, d = ref.shape
+    g = got.float().reshape(b, s // FLASH_TILE, FLASH_TILE, h, d)
+    r = ref.float().reshape(b, s // FLASH_TILE, FLASH_TILE, h, d)
+    num = (g - r).pow(2).sum((2, 4))
+    den = r.pow(2).sum((2, 4)).clamp_min(1e-30)
+    return float((num / den).sqrt().max())
+
+
+def _flash_errs(got, ref, bf16: bool) -> dict:
+    """Each output's error under its limit's metric: lse, and every
+    output of a float32 run, by the largest absolute error; a bf16
+    run's out, dq, dk and dv by ``_tile_rel_l2``."""
+    return {n: (_tile_rel_l2 if bf16 and n != "lse" else max_err)(g, r)
+            for n, g, r in zip(FLASH_OUTPUTS, got, ref)}
+
+
+def _over(errs: dict, tols: dict) -> list:
+    """The outputs whose error exceeds its limit."""
+    return [n for n in errs if errs[n] > tols[n]]
 
 
 #: kernel-check cases: (b, s, h, d, dtype, causal): the rung, the s2048
@@ -2255,51 +2285,62 @@ def kernel_flash_attention(gen) -> dict:
     """Kernel B10 (flash_attention_fwd and the dq and dk/dv backward
     kernels) against its plain versions on the same inputs, at
     FLASH_CASES: out, lse, dq, dk, dv. Tolerances: float32 1e-5 (out,
-    lse) and 1e-4 (dq, dk, dv), f32 sums in another order; lse is f32
-    in bf16 runs too, 1e-5. A bf16 output may differ by what one-ulp
-    noise on the inputs moves the plain version (the witness: q, k, v
-    and dout with a random half nudged one ulp) plus one ulp of its
-    largest value; the control, a dq that skips key tile 0, must exceed
-    its limit. Then timed at the rung's shape beside the plain versions
-    and torch's scaled_dot_product_attention."""
+    lse) and 1e-4 (dq, dk, dv) absolute, f32 sums in another order; lse
+    is f32 in bf16 runs too, 1e-5 absolute. A bf16 out, dq, dk or dv is
+    held to its largest relative L2 error over any (b, h, 64-row tile)
+    (``_tile_rel_l2``), limited by what one-ulp noise on the inputs
+    moves the plain version on that metric (the witness: q, k, v and
+    dout with a random half nudged one ulp) plus one relative bf16 ulp
+    (2^-8). One control per kernel, in every case: the plain versions
+    skipping a late key tile for the rows past it (``_late_tile_drop``)
+    must exceed the forward's out limit, the dq limit, and both the dk
+    and dv limits. Then timed at the rung's shape beside the plain
+    versions, torch's scaled_dot_product_attention and the aten flash
+    backward."""
     from paddle_tpu_torch.nn.functional import attention as at
 
     res = {}
     for b, s, h, d, dtype, causal in FLASH_CASES:
         q, k, v, do = _flash_inputs(gen, b, s, h, d, dtype)
         scale = d ** -0.5
+        bf16 = dtype == torch.bfloat16
         got = _flash_kernel_all(q, k, v, do, causal, scale)
         torch.cuda.synchronize()
         ref = _flash_plain_all(q, k, v, do, causal, scale)
-        names = ("out", "lse", "dq", "dk", "dv")
-        errs = {n: max_err(g, r) for n, g, r in zip(names, got, ref)}
+        errs = _flash_errs(got, ref, bf16)
+        max_abs = {n: max_err(g, r)
+                   for n, g, r in zip(FLASH_OUTPUTS, got, ref)}
         line = {"check": "flash_attention", "shape": [b, s, h, d],
-                "dtype": str(dtype), "causal": causal, "max_abs_err": errs}
-        if dtype == torch.float32:
+                "dtype": str(dtype), "causal": causal,
+                "metric": "tile_rel_l2" if bf16 else "max_abs_err",
+                "err": errs, "max_abs_err": max_abs}
+        if bf16:
+            wit = _flash_errs(_flash_plain_all(
+                *(_ulp_nudge(t, gen) for t in (q, k, v, do)), causal,
+                scale), ref, bf16)
+            tols = {n: wit[n] + 2.0 ** -8 for n in FLASH_OUTPUTS}
+            tols["lse"] = 1e-5
+            line["witness_err"] = wit
+        else:
             tols = {"out": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4,
                     "dv": 1e-4}
-        else:
-            wit = _flash_plain_all(*(_ulp_nudge(t, gen)
-                                     for t in (q, k, v, do)), causal, scale)
-            tols = {n: max_err(w, r) + _ulp_tol(float(r.float().abs().max()))
-                    for n, w, r in zip(names, wit, ref)}
-            tols["lse"] = 1e-5
-            ctrl = max_err(_dq_dropping_key_tile(q, k, v, *ref[:2], do,
-                                                 causal, scale), ref[2])
-            line.update({"witness_max_abs_err": {
-                n: max_err(w, r) for n, w, r in zip(names, wit, ref)},
-                "control_dq_max_abs_err": ctrl})
-            check(ctrl > tols["dq"], f"flash_attention {line['shape']}: the "
-                  f"faulty-dq control ({ctrl}) is within the limit "
-                  f"{tols['dq']}")
-        line["tol"] = tols
+        drop = _late_tile_drop(s, s)
+        c_out, c_lse = at.flash_attention_fwd_plain(q, k, v, causal, scale,
+                                                    drop=drop)
+        ctrl = _flash_errs((c_out, c_lse, *at.flash_attention_bwd_plain(
+            q, k, v, *ref[:2], do, causal, scale, drop=drop)), ref, bf16)
+        line.update({"tol": tols, "control_err": ctrl})
         emit(line)
-        for n in names:
-            check(errs[n] <= tols[n], f"flash_attention {line['shape']} "
-                  f"{dtype} causal={causal}: {n} {errs[n]} > {tols[n]}")
+        what = f"flash_attention {line['shape']} {dtype} causal={causal}"
+        bad = _over(errs, tols)
+        check(not bad, f"{what}: {bad} over the limits: {errs} > {tols}")
+        bad = _over(ctrl, tols)
+        for kern, outs in FLASH_CONTROLS.items():
+            check(all(n in bad for n in outs), f"{what}: the faulty-{kern} "
+                  f"control ({ctrl}) is within the limits {tols}")
         if (b, s, h, d) == (TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM):
-            res = errs
-        del q, k, v, do, got, ref
+            res = max_abs
+        del q, k, v, do, got, ref, c_out, c_lse
     # timing at the rung's shape, inputs rotating over 4 layers' worth
     b, s, h, d, dt = TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM, torch.bfloat16
     scale = d ** -0.5
@@ -2347,6 +2388,22 @@ def kernel_flash_attention(gen) -> dict:
         q, k, v, do = leaves[nxt()]
         sdpa(q, k, v, is_causal=True).backward(do)
 
+    # the aten flash backward on its own forward's out and logsumexp: one
+    # call that computes dq, dk and dv
+    aten = torch.ops.aten
+    saved = []
+    for q, k, v, do in leaves:
+        q, k, v = q.detach(), k.detach(), v.detach()
+        o, lse, cq, ck, mq, mk, seed, off, _ = \
+            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True,
+                                                      False, scale=scale)
+        saved.append((do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed,
+                      off))
+
+    def lib_bwd(i=None):
+        return aten._scaled_dot_product_flash_attention_backward(
+            *saved[nxt() if i is None else i], scale=scale)
+
     bounds = _flash_bounds(b, s, s, h, d, True, dt)
     rows = {}
     times = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
@@ -2355,31 +2412,43 @@ def kernel_flash_attention(gen) -> dict:
               "dkv": device_ms(dkv, "flash_bwd_dkv_bf16")}
     plain = {"fwd": time_ms(plain_fwd, iters=5),
              "bwd": time_ms(plain_bwd, iters=5)}
-    lib = {"fwd": time_ms(lib_fwd), "fwd_bwd": time_ms(lib_fwd_bwd)}
+    lib = {"fwd": time_ms(lib_fwd), "fwd_bwd": time_ms(lib_fwd_bwd),
+           "bwd": time_ms(lib_bwd)}
+    # the library backward computes the same function: its dq, dk, dv
+    # against the plain version's, on the metric of the bf16 limits
+    lib_grads = [g.transpose(1, 2) for g in lib_bwd(0)]
+    q, k, v, do, out, lse, _ = sets[0]
+    plain_grads = at.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
+                                               scale)
+    lib_err = {n: _tile_rel_l2(g, r) for n, g, r in
+               zip(("dq", "dk", "dv"), lib_grads, plain_grads)}
     whole_bwd = time_ms(bwd)
     for name in ("fwd", "dq", "dkv"):
         nbytes, flops = bounds[name]
         bms, by = bound_ms(nbytes, flops, dt)
         rows[name] = {"ms": times[name], "device_ms": device[name],
                       "plain_ms": plain["fwd" if name == "fwd" else "bwd"],
-                      "library_ms": lib["fwd"] if name == "fwd" else None,
+                      "library_ms": lib["fwd" if name == "fwd" else "bwd"],
                       "bound_ms": bms, "bound_by": by, "bytes": nbytes,
                       "flops": flops}
         emit({"time": f"flash_attention_{name}", "shape": [b, s, h, d],
               "causal": True, **rows[name],
               "tflops": flops / times[name] / 1e9,
               "plain_note": None if name == "fwd" else
-              "flash_attention_bwd_plain computes dq, dk and dv"})
+              "flash_attention_bwd_plain computes dq, dk and dv",
+              "library_note": "scaled_dot_product_attention, forward"
+              if name == "fwd" else "aten._scaled_dot_product_flash_"
+              "attention_backward computes dq, dk and dv"})
     nb, fl = (sum(bounds[n][i] for n in ("dq", "dkv")) for i in (0, 1))
     emit({"time": "flash_attention_backward", "shape": [b, s, h, d],
           "ms": whole_bwd, "note": "di reduction + dq + dk/dv launches",
           "plain_ms": plain["bwd"], "sdpa_fwd_ms": lib["fwd"],
-          "sdpa_fwd_bwd_ms": lib["fwd_bwd"],
-          "sdpa_bwd_ms": lib["fwd_bwd"] - lib["fwd"],
+          "sdpa_fwd_bwd_ms": lib["fwd_bwd"], "library_ms": lib["bwd"],
+          "library_tile_rel_l2": lib_err,
           "bound_ms_whole_backward_5_products": bound_ms(
               7 * b * s * h * d * 2 + 2 * b * h * s * 4,
               10.0 * b * h * _flash_pairs(s, s, True) * d, dt)[0]})
-    del sets, leaves
+    del sets, leaves, saved, lib_grads, plain_grads
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     names = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
              "dkv": "flash_attention_bwd_dkv"}
@@ -2417,7 +2486,7 @@ def attention_route(kind: str, gen=None):
     elif kind == "control":
         def fwd(q, k, v, causal, scale):
             out, lse = at.flash_attention_fwd_plain(q, k, v, causal, scale)
-            m = at._scores_f32(q, k, causal, scale).amax(-1)
+            m = at._logits(q, k, None, causal, scale).amax(-1)
             l = torch.exp(lse - m).transpose(1, 2)[..., None]
             return (out.float() * l).to(out.dtype), lse
     with mock.patch.object(at, "flash_attention_fwd", fwd), \

@@ -33,10 +33,16 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep(in_sharding=...) comes with the distributed "
                 "training slice of the port")
-        if amp_level is not None:
+        if not donate:
             raise NotImplementedError(
-                "TrainStep(amp_level=...) (autocast around the step) comes "
-                "with the AMP-O1 slice of the port; O2 is amp.decorate")
+                "TrainStep(donate=False) (a step that keeps the old "
+                "parameters) comes with the to_static slice of the port; "
+                "the eager step updates in place")
+        if amp_level is not None or amp_dtype != "bfloat16":
+            raise NotImplementedError(
+                "TrainStep(amp_level=..., amp_dtype=...) (autocast around "
+                "the step) comes with the AMP-O1 slice of the port; O2 is "
+                "amp.decorate")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer

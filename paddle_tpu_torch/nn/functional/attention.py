@@ -75,18 +75,32 @@ def _causal_keep(s_q: int, s_k: int, device, offset: int = 0):
 # Plain versions of kernel B10
 # ---------------------------------------------------------------------
 
-def _scores_f32(q, k, causal: bool, scale: float):
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+def _logits(q, k, bias, causal: bool, scale: float, *,
+            dtype=torch.float32, offset: int = 0, mask_value=MASK_VALUE,
+            drop=None):
+    """``[b, h, sq, sk]`` scaled logits in ``dtype`` plus ``bias``; under
+    ``causal``, keys past query ``i + offset`` take ``mask_value``
+    (``None``: the logits dtype's minimum), as do the (query, key) pairs
+    that the bool ``drop`` ``[sq, sk]`` marks."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(dtype), k.to(dtype)) * scale
+    if bias is not None:
+        s = s + (bias if bias.ndim == 4 else bias[:, None])
+    hide = drop
     if causal:
-        s = s.masked_fill(~_causal_keep(q.shape[1], k.shape[1], q.device),
-                          MASK_VALUE)
+        above = ~_causal_keep(s.shape[-2], s.shape[-1], q.device, offset)
+        hide = above if hide is None else above | hide
+    if hide is not None:
+        s = s.masked_fill(hide, torch.finfo(s.dtype).min
+                          if mask_value is None else mask_value)
     return s
 
 
-def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float):
+def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float, *,
+                              drop=None):
     """``(out [b, sq, h, d] in q's dtype, lse [b, h, sq] f32)`` by an
-    explicit f32 softmax."""
-    s = _scores_f32(q, k, causal, scale)
+    explicit f32 softmax. ``drop`` (bool ``[sq, sk]``) leaves those
+    (query, key) pairs out, as a kernel that skipped them would."""
+    s = _logits(q, k, None, causal, scale, drop=drop)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
@@ -94,11 +108,12 @@ def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float):
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool,
-                              scale: float):
+                              scale: float, *, drop=None):
     """``(dq, dk, dv)`` in q's dtype, in closed form from the f32 ``lse``
     as the kernels compute them: ``P = exp(s - lse)``, ``dV = P^T dO``,
-    ``dS = P (dO V^T - di)``, ``dQ = scale dS K``, ``dK = scale dS^T Q``."""
-    s = _scores_f32(q, k, causal, scale)
+    ``dS = P (dO V^T - di)``, ``dQ = scale dS K``, ``dK = scale dS^T Q``.
+    ``drop`` as in the forward: those pairs' ``P`` and ``dS`` are 0."""
+    s = _logits(q, k, None, causal, scale, drop=drop)
     p = torch.exp(s - lse[..., None])
     do = dout.float()
     di = flash_delta(out, do)                                 # [b, h, sq]
@@ -272,13 +287,8 @@ def _dense_attention(q, k, v, bias, causal: bool, scale: float):
     """Counterpart of the XLA path (``_xla_attention``): f32 logits,
     bias, the finite mask, softmax, probabilities cast to the input's
     dtype, then the value product in that dtype."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if bias is not None:
-        logits = logits + (bias if bias.ndim == 4 else bias[:, None]).float()
-    if causal:
-        logits = logits.masked_fill(
-            ~_causal_keep(q.shape[1], k.shape[1], q.device),
-            0.7 * float(torch.finfo(torch.float32).min))
+    logits = _logits(q, k, None if bias is None else bias.float(), causal,
+                     scale)
     probs = torch.softmax(logits, dim=-1).to(k.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -291,14 +301,8 @@ def _attention_raw(q, k, v, bias=None, *, causal=False, scale=None,
         bias = torch.where(bias, 0.0, torch.finfo(q.dtype).min).to(q.dtype)
     if dropout_p > 0.0:
         # dropout on the attention weights: the explicit softmax path
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-        if bias is not None:
-            logits = logits + (bias if bias.ndim == 4 else bias[:, None])
-        if causal:
-            s_q, s_k = logits.shape[-2], logits.shape[-1]
-            logits = logits.masked_fill(
-                ~_causal_keep(s_q, s_k, q.device, s_k - s_q),
-                torch.finfo(logits.dtype).min)
+        logits = _logits(q, k, bias, causal, scale, dtype=q.dtype,
+                         offset=k.shape[1] - q.shape[1], mask_value=None)
         w = torch.softmax(logits, dim=-1)
         gen = generator if generator is not None \
             else default_generator(q.device)

@@ -22,6 +22,14 @@ class Adam(Optimizer):
         if amsgrad:
             raise NotImplementedError(
                 "amsgrad comes with the optimizers slice of the port")
+        if lazy_mode:
+            raise NotImplementedError(
+                "lazy_mode (updating only the rows a sparse gradient "
+                "touches) comes with the optimizers slice of the port")
+        if use_multi_tensor:
+            raise NotImplementedError(
+                "use_multi_tensor (a fused multi-tensor update) comes with "
+                "the optimizer-kernel slice of the port")
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon

@@ -166,6 +166,47 @@ def test_dropout_path_draws_from_its_generator():
         *t, is_causal=True))
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_dropout_path_without_drops_matches_jax(causal):
+    # keep probability 1 - 1e-9: every draw keeps, so the dropout path's
+    # logits, bias, bottom-right causal mask and softmax meet JAX's
+    q, k, v, _ = _inputs((2, 64, 3, 16), (2, 96, 3, 16), seed=5)
+    bias = np.random.RandomState(6).standard_normal(
+        (2, 3, 64, 96)).astype(np.float32)
+    want = np.asarray(jattn._attention_raw(
+        *(jnp.asarray(a) for a in (q, k, v, bias)), causal=causal,
+        dropout_p=1e-9, dropout_key=jax.random.PRNGKey(0)))
+    got = tattn._attention_raw(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)), causal=causal,
+        dropout_p=1e-9, generator=torch.Generator().manual_seed(0))
+    assert tattn.last_attention_backend() == "dense"
+    _close(got.numpy(), want, TOL["float32"], "dropout path")
+
+
+def test_plain_versions_leave_out_dropped_pairs():
+    # drop keys 32-63 from rows 64 on: those rows see the other 96 keys
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs((1, 128, 2, 16), (1, 128, 2, 16), seed=7))
+    scale = 16 ** -0.5
+    drop = torch.zeros((128, 128), dtype=torch.bool)
+    drop[64:, 32:64] = True
+    out, lse = tattn.flash_attention_fwd_plain(q, k, v, False, scale,
+                                               drop=drop)
+    dq = tattn.flash_attention_bwd_plain(q, k, v, out, lse, do, False,
+                                         scale, drop=drop)[0]
+    keys = torch.cat([torch.arange(32), torch.arange(64, 128)])
+    kr, vr, late = k[:, keys], v[:, keys], slice(64, None)
+    out_r, lse_r = tattn.flash_attention_fwd_plain(q[:, late], kr, vr,
+                                                   False, scale)
+    dq_r = tattn.flash_attention_bwd_plain(q[:, late], kr, vr, out_r, lse_r,
+                                           do[:, late], False, scale)[0]
+    torch.testing.assert_close(out[:, late], out_r, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse[..., late], lse_r, rtol=0, atol=1e-6)
+    torch.testing.assert_close(dq[:, late], dq_r, rtol=0, atol=1e-6)
+    whole = tattn.flash_attention_fwd_plain(q, k, v, False, scale)[0]
+    assert torch.equal(out[:, :64], whole[:, :64])
+
+
 def test_unported_entry_points_name_their_slices():
     with pytest.raises(NotImplementedError, match="B11-B13"):
         tattn.flash_attn_unpadded()

@@ -22,7 +22,7 @@ import torch
 from paddle_tpu.core.tensor import Parameter as JParam
 from paddle_tpu.optimizer import AdamW as JAdamW
 from paddle_tpu.optimizer.optimizer import _stochastic_round_bf16
-from paddle_tpu_torch.optimizer import AdamW, stochastic_round_bf16
+from paddle_tpu_torch.optimizer import Adam, AdamW, stochastic_round_bf16
 
 SHAPES = [(16, 24), (24,), (8, 3, 5)]
 STEPS = 3
@@ -213,5 +213,9 @@ def test_unported_options_name_their_slice():
         AdamW(parameters=[p], grad_clip=object())
     with pytest.raises(NotImplementedError, match="amsgrad"):
         AdamW(parameters=[p], amsgrad=True)
+    with pytest.raises(NotImplementedError, match="sparse"):
+        AdamW(parameters=[p], lazy_mode=True)
+    with pytest.raises(NotImplementedError, match="multi-tensor"):
+        Adam(parameters=[p], use_multi_tensor=True)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         AdamW(parameters=[p]).state_dict()

@@ -269,6 +269,10 @@ def test_unported_options_name_their_slice():
         TTrainStep(model, _port_loss_fn(False), opt, in_sharding=object())
     with pytest.raises(NotImplementedError, match="AMP-O1"):
         TTrainStep(model, _port_loss_fn(False), opt, amp_level="O1")
+    with pytest.raises(NotImplementedError, match="AMP-O1"):
+        TTrainStep(model, _port_loss_fn(False), opt, amp_dtype="float16")
+    with pytest.raises(NotImplementedError, match="to_static"):
+        TTrainStep(model, _port_loss_fn(False), opt, donate=False)
 
 
 def test_run_config_on_the_cpu_reports_the_rung_figures():
