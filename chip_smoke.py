@@ -58,7 +58,24 @@ Phases, all run every time, each of which fails the run when it fails:
            within twice a one-ulp witness, a faulty control outside),
            5 timed steps (tokens/s, MFU, device busy and idle share,
            peak memory, 24 launches of each B10 kernel a step) and 2
-           steps with remat="full" (48 forward launches a step).
+           steps with remat="full" (48 forward launches a step); B10 at
+           head_dim 96 is checked and timed at the gpt-760m rung's shape
+           too;
+  varlen   packed varlen flash attention (B11-B13: the forward, dq and
+           dk/dv kernels over the block map) checked against its plain
+           versions (the JAX XLA tile walks) on seven packs: the
+           --attn-varlen rung (8 causal segments of 4096, 16 heads of
+           128, bf16), a 72-document ragged pack, totals off the tile, an
+           empty key segment (rows exactly 0), non-causal, f32 at
+           head_dim 64 and bf16 at 96 (witness limits as for B10, one
+           faulty-map control per kernel), and timed beside the aten
+           varlen flash forward and backward; then slice_attn_varlen:
+           bench.run_attn_varlen_bench() (21 forward launches; tokens/s,
+           peak memory O(T·d)) and one training-shaped flash_attn_unpadded
+           call on the ragged pack (one launch of each kernel, held to
+           the plain route); and slice_train_760m: bench.py's gpt-760m
+           rung (head_dim 96) for 3 timed steps, 24 launches of each B10
+           kernel a step.
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -1265,7 +1282,10 @@ def _counters():
             "lora_delta": tl.launches,
             "flash_attention_fwd": at.fwd_launches,
             "flash_attention_bwd_dq": at.dq_launches,
-            "flash_attention_bwd_dkv": at.dkv_launches}
+            "flash_attention_bwd_dkv": at.dkv_launches,
+            "flash_varlen_fwd": fv.fwd_varlen_launches,
+            "flash_varlen_bwd_dq": fv.dq_varlen_launches,
+            "flash_varlen_bwd_dkv": fv.dkv_varlen_launches}
 
 
 #: CUDA launches of one stream_layer_tail call with the next layer's
@@ -1329,6 +1349,8 @@ def _reset_counters():
     sl.w8_launches = sl.tail_w8_launches = sl.a8w8_launches = 0
     fv.launches = gg.launches = tl.launches = 0
     at.fwd_launches = at.dq_launches = at.dkv_launches = 0
+    fv.fwd_varlen_launches = fv.dq_varlen_launches = 0
+    fv.dkv_varlen_launches = 0
 
 
 def _ulp_nudge(x, gen):
@@ -2269,7 +2291,8 @@ def _over(errs: dict, tols: dict) -> list:
 
 
 #: kernel-check cases: (b, s, h, d, dtype, causal): the rung, the s2048
-#: rung, head_dim 64 in f32 both ways and bf16, odd batch x heads
+#: rung, head_dim 64 in f32 both ways and bf16, odd batch x heads, and
+#: head_dim 96 at the gpt-760m rung's shape (bf16) and in f32
 FLASH_CASES = (
     (4, 1024, 16, 128, torch.bfloat16, True),
     (2, 2048, 16, 128, torch.bfloat16, True),
@@ -2278,71 +2301,22 @@ FLASH_CASES = (
     (2, 256, 4, 64, torch.bfloat16, False),
     (3, 384, 5, 128, torch.bfloat16, True),
     (3, 256, 5, 128, torch.float32, False),
+    (8, 1024, 16, 96, torch.bfloat16, True),
+    (2, 256, 4, 96, torch.float32, True),
 )
+#: the gpt-760m rung (bench.py LADDER[1]: d1536, 16 heads of 96, seq
+#: 1024, batch 8, the _FAST options)
+R760_D, R760_BATCH = 1536, 8
 
 
-def kernel_flash_attention(gen) -> dict:
-    """Kernel B10 (flash_attention_fwd and the dq and dk/dv backward
-    kernels) against its plain versions on the same inputs, at
-    FLASH_CASES: out, lse, dq, dk, dv. Tolerances: float32 1e-5 (out,
-    lse) and 1e-4 (dq, dk, dv) absolute, f32 sums in another order; lse
-    is f32 in bf16 runs too, 1e-5 absolute. A bf16 out, dq, dk or dv is
-    held to its largest relative L2 error over any (b, h, 64-row tile)
-    (``_tile_rel_l2``), limited by what one-ulp noise on the inputs
-    moves the plain version on that metric (the witness: q, k, v and
-    dout with a random half nudged one ulp) plus one relative bf16 ulp
-    (2^-8). One control per kernel, in every case: the plain versions
-    skipping a late key tile for the rows past it (``_late_tile_drop``)
-    must exceed the forward's out limit, the dq limit, and both the dk
-    and dv limits. Then timed at the rung's shape beside the plain
-    versions, torch's scaled_dot_product_attention and the aten flash
-    backward."""
+def _flash_times(gen, b, s, h, d) -> dict:
+    """B10's three kernels timed at ``[b, s, h, d]`` (bf16, causal),
+    inputs rotating over 4 layers' worth, beside the plain versions,
+    scaled_dot_product_attention and the aten flash backward; one "time"
+    line each. Returns the rows of the kernels line."""
     from paddle_tpu_torch.nn.functional import attention as at
 
-    res = {}
-    for b, s, h, d, dtype, causal in FLASH_CASES:
-        q, k, v, do = _flash_inputs(gen, b, s, h, d, dtype)
-        scale = d ** -0.5
-        bf16 = dtype == torch.bfloat16
-        got = _flash_kernel_all(q, k, v, do, causal, scale)
-        torch.cuda.synchronize()
-        ref = _flash_plain_all(q, k, v, do, causal, scale)
-        errs = _flash_errs(got, ref, bf16)
-        max_abs = {n: max_err(g, r)
-                   for n, g, r in zip(FLASH_OUTPUTS, got, ref)}
-        line = {"check": "flash_attention", "shape": [b, s, h, d],
-                "dtype": str(dtype), "causal": causal,
-                "metric": "tile_rel_l2" if bf16 else "max_abs_err",
-                "err": errs, "max_abs_err": max_abs}
-        if bf16:
-            wit = _flash_errs(_flash_plain_all(
-                *(_ulp_nudge(t, gen) for t in (q, k, v, do)), causal,
-                scale), ref, bf16)
-            tols = {n: wit[n] + 2.0 ** -8 for n in FLASH_OUTPUTS}
-            tols["lse"] = 1e-5
-            line["witness_err"] = wit
-        else:
-            tols = {"out": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4,
-                    "dv": 1e-4}
-        drop = _late_tile_drop(s, s)
-        c_out, c_lse = at.flash_attention_fwd_plain(q, k, v, causal, scale,
-                                                    drop=drop)
-        ctrl = _flash_errs((c_out, c_lse, *at.flash_attention_bwd_plain(
-            q, k, v, *ref[:2], do, causal, scale, drop=drop)), ref, bf16)
-        line.update({"tol": tols, "control_err": ctrl})
-        emit(line)
-        what = f"flash_attention {line['shape']} {dtype} causal={causal}"
-        bad = _over(errs, tols)
-        check(not bad, f"{what}: {bad} over the limits: {errs} > {tols}")
-        bad = _over(ctrl, tols)
-        for kern, outs in FLASH_CONTROLS.items():
-            check(all(n in bad for n in outs), f"{what}: the faulty-{kern} "
-                  f"control ({ctrl}) is within the limits {tols}")
-        if (b, s, h, d) == (TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM):
-            res = max_abs
-        del q, k, v, do, got, ref, c_out, c_lse
-    # timing at the rung's shape, inputs rotating over 4 layers' worth
-    b, s, h, d, dt = TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM, torch.bfloat16
+    dt = torch.bfloat16
     scale = d ** -0.5
     sets = []
     for _ in range(4):
@@ -2449,6 +2423,72 @@ def kernel_flash_attention(gen) -> dict:
               7 * b * s * h * d * 2 + 2 * b * h * s * 4,
               10.0 * b * h * _flash_pairs(s, s, True) * d, dt)[0]})
     del sets, leaves, saved, lib_grads, plain_grads
+    return rows
+
+
+def kernel_flash_attention(gen) -> dict:
+    """Kernel B10 (flash_attention_fwd and the dq and dk/dv backward
+    kernels) against its plain versions on the same inputs, at
+    FLASH_CASES: out, lse, dq, dk, dv. Tolerances: float32 1e-5 (out,
+    lse) and 1e-4 (dq, dk, dv) absolute, f32 sums in another order; lse
+    is f32 in bf16 runs too, 1e-5 absolute. A bf16 out, dq, dk or dv is
+    held to its largest relative L2 error over any (b, h, 64-row tile)
+    (``_tile_rel_l2``), limited by what one-ulp noise on the inputs
+    moves the plain version on that metric (the witness: q, k, v and
+    dout with a random half nudged one ulp) plus one relative bf16 ulp
+    (2^-8). One control per kernel, in every case: the plain versions
+    skipping a late key tile for the rows past it (``_late_tile_drop``)
+    must exceed the forward's out limit, the dq limit, and both the dk
+    and dv limits. Then timed at the rung's shape and at the gpt-760m
+    rung's (head_dim 96) beside the plain versions, torch's
+    scaled_dot_product_attention and the aten flash backward."""
+    from paddle_tpu_torch.nn.functional import attention as at
+
+    res = {}
+    for b, s, h, d, dtype, causal in FLASH_CASES:
+        q, k, v, do = _flash_inputs(gen, b, s, h, d, dtype)
+        scale = d ** -0.5
+        bf16 = dtype == torch.bfloat16
+        got = _flash_kernel_all(q, k, v, do, causal, scale)
+        torch.cuda.synchronize()
+        ref = _flash_plain_all(q, k, v, do, causal, scale)
+        errs = _flash_errs(got, ref, bf16)
+        max_abs = {n: max_err(g, r)
+                   for n, g, r in zip(FLASH_OUTPUTS, got, ref)}
+        line = {"check": "flash_attention", "shape": [b, s, h, d],
+                "dtype": str(dtype), "causal": causal,
+                "metric": "tile_rel_l2" if bf16 else "max_abs_err",
+                "err": errs, "max_abs_err": max_abs}
+        if bf16:
+            wit = _flash_errs(_flash_plain_all(
+                *(_ulp_nudge(t, gen) for t in (q, k, v, do)), causal,
+                scale), ref, bf16)
+            tols = {n: wit[n] + 2.0 ** -8 for n in FLASH_OUTPUTS}
+            tols["lse"] = 1e-5
+            line["witness_err"] = wit
+        else:
+            tols = {"out": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4,
+                    "dv": 1e-4}
+        drop = _late_tile_drop(s, s)
+        c_out, c_lse = at.flash_attention_fwd_plain(q, k, v, causal, scale,
+                                                    drop=drop)
+        ctrl = _flash_errs((c_out, c_lse, *at.flash_attention_bwd_plain(
+            q, k, v, *ref[:2], do, causal, scale, drop=drop)), ref, bf16)
+        line.update({"tol": tols, "control_err": ctrl})
+        emit(line)
+        what = f"flash_attention {line['shape']} {dtype} causal={causal}"
+        bad = _over(errs, tols)
+        check(not bad, f"{what}: {bad} over the limits: {errs} > {tols}")
+        bad = _over(ctrl, tols)
+        for kern, outs in FLASH_CONTROLS.items():
+            check(all(n in bad for n in outs), f"{what}: the faulty-{kern} "
+                  f"control ({ctrl}) is within the limits {tols}")
+        if (b, s, h, d) == (TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM):
+            res = max_abs
+        del q, k, v, do, got, ref, c_out, c_lse
+    # timing at the rung's shape, and at the gpt-760m rung's (head_dim 96)
+    rows = _flash_times(gen, TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM)
+    _flash_times(gen, R760_BATCH, TRAIN_SEQ, N_HEADS, R760_D // N_HEADS)
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     names = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
              "dkv": "flash_attention_bwd_dkv"}
@@ -2721,6 +2761,442 @@ def slice_train(out_dir, steps: int = 5, warmup: int = 2) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- varlen
+
+#: the --attn-varlen rung (bench.py run_attn_varlen_bench): 16 heads of
+#: 128, bf16, 8 causal segments of 4096
+VARLEN_LENS = [4096] * 8
+
+
+def _ragged_lens(total: int, seed: int) -> list:
+    """A pretraining pack: document lengths from a seeded generator,
+    log-uniform between 1 and 4096 (many short documents, a few long
+    ones), the last one cut so that they sum to ``total``."""
+    rng = np.random.RandomState(seed)
+    lens = []
+    while sum(lens) < total:
+        n = int(np.exp(rng.uniform(0.0, np.log(4096.0))))
+        lens.append(min(max(n, 1), total - sum(lens)))
+    return lens
+
+
+#: kernel-check cases: (name, q lengths, k lengths or None, h, d, dtype,
+#: causal): the rung; a ragged pack; totals off the 64-row tile; cross
+#: lengths with an empty k segment; non-causal; f32 at d64; bf16 at d96
+VARLEN_CASES = (
+    ("rung", VARLEN_LENS, None, 16, 128, torch.bfloat16, True),
+    ("ragged", _ragged_lens(32768, 11), None, 16, 128, torch.bfloat16, True),
+    ("off_tile", [1000, 37, 2500, 77], None, 8, 128, torch.bfloat16, True),
+    ("cross_empty", [700, 300, 1000], [500, 0, 1200], 8, 128,
+     torch.bfloat16, True),
+    ("non_causal", [1024, 512, 2048, 512], None, 8, 128, torch.bfloat16,
+     False),
+    ("f32_d64", [300, 700, 24], None, 4, 64, torch.float32, True),
+    ("bf16_d96", [1536, 512, 1000], None, 16, 96, torch.bfloat16, True),
+)
+VARLEN_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
+#: each kernel's faulty-kernel control and the outputs it must push out
+VARLEN_CONTROLS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
+#: the kernels' names in the kernels line and the launch counts
+VARLEN_NAMES = {"fwd": "flash_varlen_fwd", "dq": "flash_varlen_bwd_dq",
+                "dkv": "flash_varlen_bwd_dkv"}
+
+
+def _cu(lens) -> torch.Tensor:
+    return torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                        dtype=torch.int32, device="cuda")
+
+
+def _varlen_pairs(lq, lk, causal: bool) -> int:
+    """Visible (query, key) pairs of one head: within a segment, key j
+    from query i iff j <= i under causal (top left)."""
+    if not causal:
+        return sum(a * b for a, b in zip(lq, lk))
+    return sum(b * (b + 1) // 2 + (a - b) * b if a >= b else a * (a + 1) // 2
+               for a, b in zip(lq, lk))
+
+
+def _varlen_inputs(gen, tq, tk, h, d, dtype):
+    mk = lambda t: torch.randn(t, h, d, generator=gen,  # noqa: E731
+                               device="cuda").to(dtype)
+    return mk(tq), mk(tk), mk(tk), mk(tq)
+
+
+def _drop_first_tile(bm, which: str):
+    """The map a faulty kernel would walk: for the second half of the q
+    tiles (``fwd``, ``dq``) or of the k tiles (``dkv``), the first tile of
+    a walk of two or more is skipped."""
+    import dataclasses
+
+    start, length = ("qstart2", "qlen2") if which == "dkv" else \
+        ("kstart", "klen")
+    s, n = getattr(bm, start), getattr(bm, length)
+    late = torch.arange(n.shape[0], device=n.device) >= n.shape[0] // 2
+    cut = (late & (n >= 2)).to(n.dtype)
+    return dataclasses.replace(bm, **{start: s + cut, length: n - cut})
+
+
+def _varlen_plain_all(q, k, v, do, cq, ck, causal, scale, fault=None):
+    """out, lse and dq, dk, dv by the plain versions (the JAX XLA tile
+    walks at the default 128 tiles), with ``fault`` (a key of
+    VARLEN_CONTROLS) walking ``_drop_first_tile``'s map in that
+    kernel's walk."""
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+
+    tq, tk = q.shape[0], k.shape[0]
+    bq = bk = fv.DEFAULT_BLOCK_Q
+    qt, kt, vt, bm = fv._packed_prepare(q, k, v, cq, ck, causal, bq, bk)
+    bad = bm if fault is None else _drop_first_tile(bm, fault)
+    out, lse = fv._packed_fwd_plain(qt, kt, vt, bad if fault == "fwd"
+                                    else bm, scale, causal, bq, bk)
+    tqp = qt.shape[1]
+    outp = out[:, :tq].transpose(0, 1).to(q.dtype)
+    dq, dk, dv = fv._packed_bwd_plain(
+        qt, kt, vt, fv._pad_rows(do.transpose(0, 1), tqp), lse,
+        fv.packed_delta(outp, do, tqp), bad if fault in ("dq", "dkv")
+        else bm, scale, causal, bq, bk)
+    return (outp, lse[:, :tq], dq[:, :tq].transpose(0, 1).to(q.dtype),
+            dk[:, :tk].transpose(0, 1).to(k.dtype),
+            dv[:, :tk].transpose(0, 1).to(v.dtype))
+
+
+def _varlen_kernel_all(q, k, v, do, cq, ck, causal, scale):
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+
+    out, lse = fv.packed_fwd(q, k, v, cq, ck, scale=scale, causal=causal)
+    return (out, lse[:, :q.shape[0]],
+            *fv.packed_bwd(q, k, v, out, lse, do, cq, ck, scale=scale,
+                           causal=causal))
+
+
+def _packed_tile_rel_l2(got, ref) -> float:
+    """``_tile_rel_l2`` of a packed ``[t, h, d]`` output: 64-row tiles,
+    the last one zero-padded."""
+    pad = -got.shape[0] % FLASH_TILE
+
+    def tiles(t):
+        t = torch.cat([t.float(), t.new_zeros(pad, *t.shape[1:]).float()])
+        return t[None]
+    return _tile_rel_l2(tiles(got), tiles(ref))
+
+
+def _varlen_errs(got, ref, bf16: bool) -> dict:
+    """lse (real rows) and every f32 output by the largest absolute
+    error; a bf16 out, dq, dk, dv by ``_packed_tile_rel_l2``."""
+    return {n: (_packed_tile_rel_l2 if bf16 and n != "lse" else max_err)(
+        g, r) for n, g, r in zip(VARLEN_OUTPUTS, got, ref)}
+
+
+def _varlen_bounds(tq, tk, h, d, pairs, dtype) -> dict:
+    """Bytes (each input read once, each output written once) and
+    operations of each kernel's function over this run's visible pairs:
+    B11 QK^T and PV; B12 S, dP and dS K; B13 S, dP, P^T dO and dS^T Q."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    n = h * pairs * d
+    q_io, k_io, stats = tq * h * d * e, tk * h * d * e, h * tq * 4
+    return {
+        "fwd": (2 * q_io + 2 * k_io + stats, 4.0 * n),
+        "dq": (3 * q_io + 2 * k_io + 2 * stats, 6.0 * n),
+        "dkv": (2 * q_io + 4 * k_io + 2 * stats, 8.0 * n)}
+
+
+def kernel_flash_varlen(gen) -> dict:
+    """Kernels B11-B13 (packed varlen forward, dq, dk/dv) against their
+    plain versions (the JAX XLA tile walks) on the same inputs, at
+    VARLEN_CASES: out, lse, dq, dk, dv. Limits as for B10: a bf16 out,
+    dq, dk or dv by its largest relative L2 error over any (64-row tile,
+    head), limited by the one-ulp witness on that metric plus 2^-8; lse
+    (real rows) 1e-5 absolute; float32 1e-5 (out) and 1e-4 (dq, dk, dv)
+    absolute. Rows that see no key must be exactly 0 with lse -1e30. One
+    control per kernel, in every case: the plain walk over the map with
+    the first tile of the late walks dropped (``_drop_first_tile``) must
+    exceed the out, dq, and dk and dv limits. Then timed at the rung
+    beside the plain versions and the aten varlen flash forward and
+    backward (``_flash_attention_forward``/``_backward`` with cum_seq)."""
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+
+    res = {}
+    for name, lq, lk, h, d, dtype, causal in VARLEN_CASES:
+        lk = lk or lq
+        cq, ck = _cu(lq), _cu(lk)
+        q, k, v, do = _varlen_inputs(gen, sum(lq), sum(lk), h, d, dtype)
+        scale = d ** -0.5
+        bf16 = dtype == torch.bfloat16
+        got = _varlen_kernel_all(q, k, v, do, cq, ck, causal, scale)
+        torch.cuda.synchronize()
+        ref = _varlen_plain_all(q, k, v, do, cq, ck, causal, scale)
+        errs = _varlen_errs(got, ref, bf16)
+        max_abs = {n: max_err(g, r)
+                   for n, g, r in zip(VARLEN_OUTPUTS, got, ref)}
+        line = {"check": "flash_varlen", "case": name, "h": h, "d": d,
+                "tq": sum(lq), "tk": sum(lk), "segments": len(lq),
+                "dtype": str(dtype), "causal": causal,
+                "metric": "tile_rel_l2" if bf16 else "max_abs_err",
+                "err": errs, "max_abs_err": max_abs}
+        if bf16:
+            wit = _varlen_errs(_varlen_plain_all(
+                *(_ulp_nudge(t, gen) for t in (q, k, v, do)), cq, ck,
+                causal, scale), ref, bf16)
+            tols = {n: wit[n] + 2.0 ** -8 for n in VARLEN_OUTPUTS}
+            tols["lse"] = 1e-5
+            line["witness_err"] = wit
+        else:
+            tols = {"out": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4,
+                    "dv": 1e-4}
+        ctrl = {}
+        for kern, outs in VARLEN_CONTROLS.items():
+            bad = _varlen_errs(_varlen_plain_all(
+                q, k, v, do, cq, ck, causal, scale, fault=kern), ref, bf16)
+            ctrl.update({n: bad[n] for n in outs})
+        line.update({"tol": tols, "control_err": ctrl})
+        what = f"flash_varlen {name}"
+        if lk != lq:
+            # q segments whose k segment is empty see no key
+            rows = torch.zeros(sum(lq), dtype=torch.bool, device="cuda")
+            for i, (a, b) in enumerate(zip(lq, lk)):
+                if b == 0:
+                    rows[sum(lq[:i]):sum(lq[:i + 1])] = True
+            empty_ok = bool((got[0][rows] == 0).all()) and bool(
+                (got[1][:, rows] == -1e30).all())
+            line["empty_rows_exact"] = empty_ok
+            check(empty_ok, f"{what}: rows that see no key are not exactly "
+                  "0 with lse -1e30")
+        emit(line)
+        bad = _over(errs, tols)
+        check(not bad, f"{what}: {bad} over the limits: {errs} > {tols}")
+        for kern, outs in VARLEN_CONTROLS.items():
+            check(all(ctrl[n] > tols[n] for n in outs), f"{what}: the "
+                  f"faulty-{kern} control ({ctrl}) is within {tols}")
+        if name == "rung":
+            res = max_abs
+        del q, k, v, do, got, ref
+    torch.cuda.empty_cache()
+    return _varlen_times(gen, res)
+
+
+def _aten_varlen_times(sets, cu, cmax: int, scale: float):
+    """The library yardstick: ``aten._flash_attention_forward`` and
+    ``_backward`` with ``cum_seq_q/k`` (the one PyTorch call computing
+    packed varlen attention; the backward gives dq, dk and dv at once),
+    timed on ``sets`` (causal). Returns ``({"fwd": ms, "bwd": ms}, its
+    out's tile relative L2 error against the first set's out, None)``,
+    or ``({"fwd": None, "bwd": None}, None, reason)`` when this torch
+    build cannot run it."""
+    aten = torch.ops.aten
+    nxt = cycler(len(sets))
+    try:
+        saved = []
+        for q, k, v, do, *_ in sets:
+            o, lse, seed, offset, _ = aten._flash_attention_forward(
+                q, k, v, cu, cu, cmax, cmax, 0.0, True, False, scale=scale)
+            saved.append((do, q, k, v, o, lse, cu, cu, cmax, cmax, 0.0,
+                          True, seed, offset))
+        err = _packed_tile_rel_l2(saved[0][4], sets[0][4])
+
+        def fwd():
+            q, k, v = sets[nxt()][:3]
+            aten._flash_attention_forward(q, k, v, cu, cu, cmax, cmax, 0.0,
+                                          True, False, scale=scale)
+
+        def bwd():
+            aten._flash_attention_backward(*saved[nxt()], scale=scale)
+        return {"fwd": time_ms(fwd), "bwd": time_ms(bwd)}, err, None
+    except Exception as exc:  # noqa: BLE001  (the yardstick is optional)
+        return ({"fwd": None, "bwd": None}, None,
+                f"{type(exc).__name__}: {str(exc)[:300]}")
+
+
+def _varlen_times(gen, res: dict) -> dict:
+    """B11-B13 timed at the rung (CUDA events over 20 calls after 3
+    warm-ups, inputs rotating over 4 sets) and by the profiler, beside the
+    plain versions and the aten varlen flash forward and backward."""
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+
+    lens, h, d, dt = VARLEN_LENS, 16, 128, torch.bfloat16
+    T, scale = sum(lens), d ** -0.5
+    cu = _cu(lens)
+    sets = []
+    for _ in range(4):
+        q, k, v, do = _varlen_inputs(gen, T, T, h, d, dt)
+        out, lse = fv.packed_fwd(q, k, v, cu, cu, scale=scale, causal=True)
+        sets.append((q, k, v, do, out, lse,
+                     fv.packed_delta(out, do, lse.shape[1])))
+    nxt = cycler(len(sets))
+
+    def fwd():
+        q, k, v = sets[nxt()][:3]
+        fv._varlen_fwd_cuda(q, k, v, cu, cu, True, scale)
+
+    def dq():
+        q, k, v, do, _, lse, delta = sets[nxt()]
+        fv._varlen_bwd_dq_cuda(q, k, v, do, lse, delta, cu, cu, True, scale)
+
+    def dkv():
+        q, k, v, do, _, lse, delta = sets[nxt()]
+        fv._varlen_bwd_dkv_cuda(q, k, v, do, lse, delta, cu, cu, True, scale)
+
+    def plain_fwd():
+        q, k, v = sets[nxt()][:3]
+        fv.packed_fwd_plain(q, k, v, cu, cu, scale=scale, causal=True)
+
+    def plain_bwd():
+        q, k, v, do, out, lse, _ = sets[nxt()]
+        fv.packed_bwd_plain(q, k, v, out, lse, do, cu, cu, scale=scale,
+                            causal=True)
+
+    times = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
+    device = {"fwd": device_ms(fwd, "varlen_fwd_bf16"),
+              "dq": device_ms(dq, "varlen_bwd_dq_bf16"),
+              "dkv": device_ms(dkv, "varlen_bwd_dkv_bf16")}
+    plain = {"fwd": time_ms(plain_fwd, iters=3, warmup=1),
+             "bwd": time_ms(plain_bwd, iters=3, warmup=1)}
+    lib, lib_err, why = _aten_varlen_times(sets, cu, max(lens), scale)
+    bounds = _varlen_bounds(T, T, h, d, _varlen_pairs(lens, lens, True), dt)
+    rows = {}
+    for name in ("fwd", "dq", "dkv"):
+        nbytes, flops = bounds[name]
+        bms, by = bound_ms(nbytes, flops, dt)
+        pass_ = "fwd" if name == "fwd" else "bwd"
+        rows[name] = {"ms": times[name], "device_ms": device[name],
+                      "plain_ms": plain[pass_], "library_ms": lib[pass_],
+                      "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                      "flops": flops}
+        note = why if lib[pass_] is None else (
+            "aten._flash_attention_forward (cum_seq)" if name == "fwd" else
+            "aten._flash_attention_backward (cum_seq) computes dq, dk, dv")
+        emit({"time": VARLEN_NAMES[name], "h": h, "d": d, "tq": T,
+              "segments": len(lens), "causal": True, **rows[name],
+              "tflops": flops / times[name] / 1e9,
+              "plain_note": None if name == "fwd" else
+              "packed_bwd_plain computes dq, dk and dv",
+              "library_note": note,
+              "library_out_tile_rel_l2": lib_err})
+    del sets
+    torch.cuda.empty_cache()
+    outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    return {VARLEN_NAMES[n]: {**rows[n], "max_abs_err": max(
+        res[k] for k in outputs[n])} for n in outputs}
+
+
+def _varlen_expected(fwd: int, bwd: int) -> dict:
+    e = dict.fromkeys(_SOURCES, 0)
+    e.update({"flash_varlen_fwd": fwd, "flash_varlen_bwd_dq": bwd,
+              "flash_varlen_bwd_dkv": bwd})
+    return e
+
+
+def slice_attn_varlen(gen) -> dict:
+    """The packed varlen path through the port's entry points, launch
+    counts set to 0 before each run and read after it:
+    (a) bench.run_attn_varlen_bench() at the rung (one warm-up and 20
+    timed forward calls: exactly 21 B11 launches and none of B12/B13),
+    its tokens/s and peak memory, which must stay O(T·d);
+    (b) one training-shaped call of flash_attn_unpadded on the ragged
+    pack (q, k, v requiring grad, then backward(dout)): exactly one launch
+    of each of B11, B12, B13, and out, dq, dk, dv within the witness
+    limits of the plain route (the plain functions on the same inputs)."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.nn.functional import attention as at
+
+    t_phase = time.perf_counter()
+    _reset_counters()
+    tps, peak, total, backend = bench.run_attn_varlen_bench()
+    counts = _counters()
+    _check_launches("attn_varlen_bench", counts, _varlen_expected(21, 0))
+    q_bytes = total * 16 * 128 * 2
+    emit({"phase": "attn_varlen_bench", "tokens_per_s": tps,
+          "peak_bytes": peak, "total_tokens": total, "backend": backend,
+          "peak_over_q_bytes": peak / q_bytes,
+          "dense_logits_bytes": 16 * total * total * 4,
+          "launches": {k: v for k, v in counts.items() if v}})
+    check(backend == "cuda", "attn_varlen_bench: not on the kernel route")
+    check(peak < 8 * q_bytes, f"attn_varlen_bench: peak {peak} bytes is not "
+          f"O(T·d) (q is {q_bytes})")
+    # (b) a training-shaped call on the ragged pack
+    lens = VARLEN_CASES[1][1]
+    h, d, dt = 16, 128, torch.bfloat16
+    cu, scale = _cu(lens), d ** -0.5
+    q, k, v, do = _varlen_inputs(gen, sum(lens), sum(lens), h, d, dt)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    _reset_counters()
+    out, none = at.flash_attn_unpadded(*leaves, cu, cu, max(lens), max(lens),
+                                       scale, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    train_counts = _counters()
+    _check_launches("attn_varlen_train", train_counts, _varlen_expected(1, 1))
+    got = (out.detach(), None, *(t.grad for t in leaves))
+    ref = _varlen_plain_all(q, k, v, do, cu, cu, True, scale)
+    wit = _varlen_plain_all(*(_ulp_nudge(t, gen) for t in (q, k, v, do)), cu,
+                            cu, True, scale)
+    names = ("out", "dq", "dk", "dv")
+    errs = {n: _packed_tile_rel_l2(got[i], ref[i])
+            for n, i in zip(names, (0, 2, 3, 4))}
+    tols = {n: _packed_tile_rel_l2(wit[i], ref[i]) + 2.0 ** -8
+            for n, i in zip(names, (0, 2, 3, 4))}
+    emit({"check": "attn_varlen_train", "segments": len(lens),
+          "tq": sum(lens), "returns_none": none is None, "err": errs,
+          "tol": tols, "launches": {k: v for k, v in train_counts.items()
+                                    if v}})
+    check(none is None, "flash_attn_unpadded: the second result is not None")
+    bad = _over(errs, tols)
+    check(not bad, f"attn_varlen_train: {bad} over the limits {errs} > "
+          f"{tols}")
+    del q, k, v, do, leaves, out, got, ref, wit
+    torch.cuda.empty_cache()
+    emit({"phase": "attn_varlen_paths", "wall_s": time.perf_counter() -
+          t_phase})
+    return {n: counts[n] + train_counts[n] for n in counts}
+
+
+def slice_train_760m(steps: int = 3, warmup: int = 1) -> dict:
+    """bench.py's gpt-760m rung (d1536, 24 layers, 16 heads of 96, seq
+    1024, batch 8, the _FAST options) through the port's
+    bench.make_train_step, from seed 0: ``warmup`` steps, then ``steps``
+    steps timed on the host clock (ended by reading the loss), exactly 24
+    launches of each B10 kernel a step (head_dim 96), tokens/s, MFU, peak
+    memory and a finite final loss. The d96 kernel checks of
+    kernel_flash_attention carry the correctness."""
+    from paddle_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, step = bench.make_train_step(R760_D, N_LAYERS, N_HEADS, TRAIN_SEQ,
+                                        dict(bench._FAST))
+    inputs, labels = bench.rung_batch(R760_BATCH, TRAIN_SEQ, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    for _ in range(warmup):
+        first = float(step(inputs, labels))
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(inputs, labels)
+    final = float(loss)
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    _check_launches("train_760m", counts,
+                    _train_expected(steps * N_LAYERS, steps * N_LAYERS))
+    tokens = R760_BATCH * TRAIN_SEQ
+    tps = tokens * steps / wall
+    fpt = bench.flops_per_token(n_params, N_LAYERS, TRAIN_SEQ, R760_D)
+    emit({"phase": "train_760m", "rung": "gpt-760m", "n_params": n_params,
+          "batch": R760_BATCH, "seq": TRAIN_SEQ, "head_dim":
+          R760_D // N_HEADS, "steps": steps, "warmup": warmup,
+          "tokens_per_s": tps, "mfu": tps * fpt / bench.H100_PEAK_BF16,
+          "flops_per_token": fpt, "wall_ms_per_step": wall / steps * 1e3,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_call_s": step.first_call_seconds,
+          "launches_per_step": {k: v / steps for k, v in counts.items()
+                                if v},
+          "loss_after_warmup": first, "loss_final": final,
+          "wall_s": time.perf_counter() - t_phase})
+    check(np.isfinite(final), "train_760m: non-finite loss")
+    del model, step
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------- main
 
 _SOURCES = {
@@ -2763,6 +3239,15 @@ _SOURCES = {
     "flash_attention_bwd_dkv": (
         "paddle_tpu_torch/csrc/flash_attention.cu",
         "paddle_tpu/nn/functional/attention.py:119"),
+    "flash_varlen_fwd": (
+        "paddle_tpu_torch/csrc/flash_varlen_packed.cu",
+        "paddle_tpu/nn/functional/flash_varlen.py:235"),
+    "flash_varlen_bwd_dq": (
+        "paddle_tpu_torch/csrc/flash_varlen_packed.cu",
+        "paddle_tpu/nn/functional/flash_varlen.py:373"),
+    "flash_varlen_bwd_dkv": (
+        "paddle_tpu_torch/csrc/flash_varlen_packed.cu",
+        "paddle_tpu/nn/functional/flash_varlen.py:500"),
 }
 
 #: the quantized decode rungs of bench.py (--decode-int8, --decode-a8w8,
@@ -2845,6 +3330,13 @@ def drive(args) -> None:
     torch.cuda.empty_cache()
     # the training rung
     by_path["train"] = slice_train(args.out)
+    # packed varlen attention (B11-B13) and the gpt-760m rung (B10 at
+    # head_dim 96)
+    t0 = time.perf_counter()
+    rows.update(kernel_flash_varlen(gen))
+    emit({"phase": "flash_varlen_kernels", "wall_s": time.perf_counter() - t0})
+    by_path["attn_varlen"] = slice_attn_varlen(gen)
+    by_path["train_760m"] = slice_train_760m()
     kernels = []
     for name, row in rows.items():
         src, replaces = _SOURCES[name]

@@ -8,7 +8,8 @@ in ``.gitignore``), named by a hash of their sources and flags, so an
 edited source is rebuilt and an unchanged one is reused. Nothing is
 built at import: the first launch builds what it needs, and
 ``build()`` builds every library at once, one ``nvcc`` per source, all
-started together.
+started together (``--split-compile=0`` lets each one optimize its
+kernels on every core: the two flash sources hold 18 kernels each).
 
 Every C entry point returns the ``cudaGetLastError()`` of its launch;
 ``check`` turns a non-zero code into an exception.
@@ -33,9 +34,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention", "stream_linear", "flash_varlen",
            "paged_attention_q", "stream_linear_a8w8", "grouped_gemm",
-           "flash_attention")
+           "flash_attention", "flash_varlen_packed")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-shared", "-Xcompiler", "-fPIC", "--split-compile=0")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_int64
@@ -97,6 +98,19 @@ _SIGNATURES = {
         # strides, causal, scale, stream
         "ptt_flash_bwd_dkv":
             [_P] * 8 + [_I] * 6 + [_L] * 9 + [_I, _F, _P],
+    },
+    "flash_varlen_packed": {
+        # q, k, v, out, lse, the 11 block-map arrays, dtype, tq, tk,
+        # tq_pad, tk_pad, h, d, the (row, head) strides of q, k and v,
+        # causal, scale, stream
+        "ptt_flash_varlen_fwd":
+            [_P] * 16 + [_I] * 7 + [_L] * 6 + [_I, _F, _P],
+        # q, k, v, dout, lse, delta, dq, map, shape as above
+        "ptt_flash_varlen_bwd_dq":
+            [_P] * 18 + [_I] * 7 + [_L] * 6 + [_I, _F, _P],
+        # q, k, v, dout, lse, delta, dk, dv, map, shape as above
+        "ptt_flash_varlen_bwd_dkv":
+            [_P] * 19 + [_I] * 7 + [_L] * 6 + [_I, _F, _P],
     },
 }
 

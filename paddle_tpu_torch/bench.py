@@ -10,9 +10,16 @@ O2 (bf16 parameters, f32 norms) with AdamW and the rung's options, and
 returns tokens/s, the parameter count, FLOPs per token
 (``6N + 12·L·s·d``) and the step's figures, MFU among them, against
 ``H100_PEAK_BF16``.
+
+``run_attn_varlen_bench`` is the root bench's ``--attn-varlen`` rung: a
+32,768-token causal pack through the packed varlen flash kernel (B11).
+``python -m paddle_tpu_torch.bench --attn-varlen [--device cpu]`` prints
+its JSON line.
 """
 from __future__ import annotations
 
+import argparse
+import json
 import time
 
 import numpy as np
@@ -29,7 +36,7 @@ from .optimizer import AdamW
 
 __all__ = ["VOCAB", "_FAST", "LADDER", "S2048", "H100_PEAK_BF16",
            "build_model", "make_train_step", "rung_batch", "run_config",
-           "flops_per_token"]
+           "flops_per_token", "run_attn_varlen_bench", "main"]
 
 #: the root bench's recipe for the 1.3B rung on one chip: bf16 moments,
 #: master-free stochastic-rounding updates, no recompute, bf16 logits
@@ -186,3 +193,78 @@ def run_config(name, d_model, n_layers, n_heads, seq, batch, steps,
              "step_ms": dt / steps * 1e3,
              "first_call_s": step.first_call_seconds, "loss": final}
     return tokens_per_sec, n_params, fpt, stats
+
+
+def run_attn_varlen_bench(device=None):
+    """The varlen flash-attention rung of the root bench: a long causal
+    pack through ``flash_varlen_packed``'s forward, one warm-up call (the
+    kernels' build included) and ``iters`` timed calls (host clock ended
+    by a synchronise). On the card: 16 heads of 128 in bf16, 8 segments
+    of 4096 (T = 32,768), 20 calls; on the CPU (only when asked for):
+    2 heads of 64 in f32, 4 segments of 512, 3 calls. Returns
+    ``(tokens_per_sec, peak_bytes, total_tokens, backend)``:
+    ``peak_bytes`` is ``torch.cuda.max_memory_allocated()`` over the timed
+    calls, inputs included (O(T·d): a dense path would need a ``[h, T,
+    T]`` f32 logits tensor, 68.7 GB at the rung), None on the CPU;
+    ``backend`` is ``"cuda"`` (kernel B11) or ``"plain"``."""
+    from .nn.functional.flash_varlen import flash_varlen_packed
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        h, d, dtype = 16, 128, torch.bfloat16
+        lens, iters = [4096] * 8, 20
+    else:
+        h, d, dtype = 2, 64, torch.float32
+        lens, iters = [512] * 4, 3
+    total = int(sum(lens))
+    cu = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])
+                          .astype(np.int32)).to(dev)
+    rng = np.random.RandomState(0)
+    q = torch.from_numpy(rng.randn(total, h, d).astype(np.float32)) \
+        .to(dev, dtype)
+
+    def call():
+        return flash_varlen_packed(q, q, q, cu, cu, causal=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    call()
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = call()
+    sync()
+    dt = time.perf_counter() - t0
+    if not torch.isfinite(out[:8].float()).all():
+        raise RuntimeError("attn-varlen bench: non-finite output")
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    return iters * total / dt, peak, total, "cuda" if on_card else "plain"
+
+
+def main(argv=None) -> None:
+    """The port's bench kinds (so far ``--attn-varlen``), one JSON line
+    each; ``--device cpu`` runs the CPU-sized geometry."""
+    ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.bench")
+    ap.add_argument("--attn-varlen", action="store_true",
+                    help="the packed varlen flash-attention rung")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' for the CPU geometry (default: the card)")
+    args = ap.parse_args(argv)
+    if not args.attn_varlen:
+        ap.error("name a kind: --attn-varlen")
+    tps, peak, total, backend = run_attn_varlen_bench(args.device)
+    dev = resolve_device(args.device)
+    print(json.dumps({
+        "attn_varlen_tokens_per_sec": tps, "attn_varlen_peak_bytes": peak,
+        "attn_varlen_total_tokens": total, "attn_varlen_backend": backend,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
+        else "cpu"}))
+
+
+if __name__ == "__main__":
+    main()

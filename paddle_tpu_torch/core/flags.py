@@ -1,7 +1,7 @@
-"""Flags registry (the serving subset).
+"""Flags registry (the subset the ported slices read).
 
 A copy of ``paddle_tpu/core/flags.py``'s surface for the flags the
-serving slices read: ``define_flag`` with a default and a doc,
+serving and training slices read: ``define_flag`` with a default and a doc,
 ``FLAGS_<name>`` (or ``PADDLE_TPU_<NAME>``) in the environment
 overrides the default at definition, and ``set_flags`` / ``get_flags``
 change and read values at run time. The names and default values match
@@ -92,6 +92,14 @@ define_flag("prefill_attention_backend", "auto",
             "its plain version on the CPU) | gather (the dense "
             "per-chunk gather of the pages, PyTorch ops on either "
             "device — also the forced path of the int8 KV pool)")
+define_flag("attn_varlen_backend", "auto",
+            "flash_attn_unpadded packed varlen flash-attention backend "
+            "(nn/functional/flash_varlen.py): auto | pallas (the "
+            "block-skipping kernels of csrc/flash_varlen_packed.cu on "
+            "the card, their plain versions on the CPU) | interpret | "
+            "xla (the plain tile walks: the CPU only; raise on the "
+            "card) | dense (the O(T^2) masked-dense reference: the CPU "
+            "only; raises on the card)")
 define_flag("moe_grouped_backend", "auto",
             "no-drop MoE ragged grouped-GEMM backend "
             "(nn/functional/grouped_gemm.py): auto | pallas | interpret "

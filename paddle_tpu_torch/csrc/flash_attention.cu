@@ -42,7 +42,8 @@
 // next in registers, packed to bf16 as the TPU kernel casts p to v's type
 // before its dot. The softmax runs in base 2 (scores pre-scaled by
 // scale * log2 e) with f32 statistics. float32 runs the same walk on the
-// CUDA cores (32 x 32 tiles, 4 threads a row, exact fp32 products).
+// CUDA cores (32 x 32 tiles, 4 threads a row, exact fp32 products). Built
+// for head_dim 64, 96 and 128; the tile machinery is flash_tiles.cuh.
 //
 // Bounds (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s). At the gpt3-1.3b
 // rung (b 4, s 1024, h 16, d 128, causal) the forward does 17.2 GFLOP
@@ -50,24 +51,19 @@
 // backward does 42.9 GFLOP (43.4 us) against 134.7 MB (40.2 us), so
 // operations do. mma.sync from a cp.async ring reaches a fraction of the
 // wgmma rate; wgmma with TMA loads and warp specialisation are later work.
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
+using namespace ptt::tiles;
 using ptt::cp_async16;
 using ptt::cp_async_commit;
 using ptt::cp_async_wait;
-using ptt::ldmatrix_x4;
-using ptt::ldmatrix_x4_trans;
-using ptt::mma_bf16;
-using bf16 = __nv_bfloat16;
+using ptt::tiles::load_rows;
 
-constexpr int kThreads = 128;
 // the stock TPU kernel's DEFAULT_MASK_VALUE: finite, so exp underflows to
 // 0 and a max over masked scores stays a number
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   int64_t b, s, h;
@@ -97,26 +93,6 @@ __device__ __forceinline__ int64_t dense_at(const FlashParams& p, int s_len,
 
 // ---------------------------------------------------------------- bf16
 
-template <int D>
-struct TileBf16 {
-  static constexpr int kPitch = D + 8;  // elements: rows 16 bytes apart
-};
-
-// rows [r0, r0 + R) of one (batch, head) of a [b, s, h, D] bf16 operand
-// into a shared tile [R][D + 8], 16 bytes a cp.async
-template <int R, int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const void* base,
-                                          int64_t sb, int64_t ss, int64_t sh,
-                                          int bi, int hi, int r0) {
-  constexpr int kChunks = D / 8;
-  constexpr int kPitch = TileBf16<D>::kPitch;
-  const bf16* src = static_cast<const bf16*>(base) + bi * sb + hi * sh;
-  for (int c = threadIdx.x; c < R * kChunks; c += kThreads) {
-    const int r = c / kChunks, e = (c % kChunks) * 8;
-    cp_async16(dst + r * kPitch + e, src + (r0 + r) * ss + e, 16);
-  }
-}
-
 template <int R, int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const void* base,
                                           const Strides& st, int bi, int hi,
@@ -129,74 +105,8 @@ template <int R>
 __device__ __forceinline__ void load_stats(float* dst, const float* plane,
                                            const FlashParams& p, int bi,
                                            int hi, int r0) {
-  const float* src =
-      plane + (static_cast<int64_t>(bi) * p.h + hi) * p.sq + r0;
-  for (int c = threadIdx.x; c < R / 4; c += kThreads)
-    cp_async16(dst + c * 4, src + c * 4, 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// acc[N/8][4] += A (16 rows x D, row-major in shared memory at `a`) times
-// B^T, B (N rows x D, row-major at `b`): S = Q K^T and its kin.
-template <int N, int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
-                                        const bf16* a, const bf16* b) {
-  constexpr int kPitch = TileBf16<D>::kPitch;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a0, a1, a2, a3;
-    ldmatrix_x4(a0, a1, a2, a3,
-                a + (lane & 15) * kPitch + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t b0, b1, b2, b3;
-      ldmatrix_x4(b0, b1, b2, b3,
-                  b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kPitch +
-                      kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * np], a0, a1, a2, a3, b0, b1);
-      mma_bf16(acc[2 * np + 1], a0, a1, a2, a3, b2, b3);
-    }
-  }
-}
-
-// acc[D/8][4] += X (16 x K, in registers as an fp32 accumulator x[K/8][4])
-// times B (K rows x D, row-major at `b`): O += P V and its kin.
-template <int K, int D>
-__device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
-                                       const float (&x)[K / 8][4],
-                                       const bf16* b) {
-  constexpr int kPitch = TileBf16<D>::kPitch;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t a0 = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b0, b1, b2, b3;
-      ldmatrix_x4_trans(b0, b1, b2, b3,
-                        b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                kPitch +
-                            np * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * np], a0, a1, a2, a3, b0, b1);
-      mma_bf16(acc[2 * np + 1], a0, a1, a2, a3, b2, b3);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  load_words(dst, plane + (static_cast<int64_t>(bi) * p.h + hi) * p.sq + r0,
+             R);
 }
 
 // rows g and g + 8 of a warp's 16 x D accumulator, times `mul`, as bf16
@@ -217,16 +127,6 @@ __device__ __forceinline__ void store_rows(const FlashParams& p, void* dst,
           __floats2bfloat162_rn(acc[nt][2 * r] * mul[r],
                                 acc[nt][2 * r + 1] * mul[r]);
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Forward: a block owns 64 query rows (warp w rows 16w..) and walks the
@@ -489,35 +389,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------- f32
 
-// 32-row tiles, thread (r = tid / 4, qd = tid % 4): scores of row r
-// against keys qd*8 .. qd*8+7, and output columns qd, qd+4, ...
-constexpr int kT = 32;
-
-template <int D>
-struct TileF32 {
-  static constexpr int kPitch = D + 1;  // odd: a column walk is conflict-free
-};
-
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, const void* base,
-                                              int64_t sb, int64_t ss,
-                                              int64_t sh, int bi, int hi,
-                                              int r0) {
-  const float* src = static_cast<const float*>(base) + bi * sb + hi * sh;
-  for (int c = threadIdx.x; c < kT * D; c += kThreads) {
-    const int r = c / D, e = c % D;
-    dst[r * TileF32<D>::kPitch + e] = src[(r0 + r) * ss + e];
-  }
-}
-
-template <int D>
-__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 8
-  for (int e = 0; e < D; ++e) acc = fmaf(a[e], b[e], acc);
-  return acc;
-}
-
 template <int D>
 __device__ __forceinline__ void store_cols_f32(const FlashParams& p,
                                                void* dst, int s_len, int bi,
@@ -738,9 +609,10 @@ int dispatch(int which, int dtype, const FlashParams& p,
 }
 
 int run(int which, int dtype, int d, const FlashParams& p, void* stream) {
-  // the wrapper admits head_dim 64 and 128 and sequences in whole tiles
+  // the wrapper admits head_dim 64, 96 and 128 and sequences in whole tiles
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return dispatch<64>(which, dtype, p, s);
+  if (d == 96) return dispatch<96>(which, dtype, p, s);
   if (d == 128) return dispatch<128>(which, dtype, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

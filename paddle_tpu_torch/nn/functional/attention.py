@@ -19,13 +19,23 @@ PyTorch reduction. On a CUDA tensor it launches the kernels, or raises
 (a build or launch failure, a head_dim the kernels lack); on a CPU
 tensor it runs the plain versions ``flash_attention_fwd_plain`` and
 ``flash_attention_bwd_plain`` (explicit softmax in f32).
+
+``flash_attn_unpadded`` is packed varlen attention over ``cu_seqlens``
+segments: ``FLAGS_attn_varlen_backend`` ``auto``/``pallas`` take the
+block-skipping kernels B11-B13 (``flash_varlen.flash_varlen_packed``) on
+a CUDA tensor and their plain versions on a CPU tensor; ``interpret`` and
+``xla`` the plain versions, CPU only; ``dense`` the O(T^2) masked-dense
+reference ``_unpadded_dense_raw``, CPU only. A plain value raises for a
+CUDA tensor.
 """
 from __future__ import annotations
 
 import torch
 
 from ... import _kernels
+from ...core.flags import flag
 from ...core.generator import default_generator
+from . import flash_varlen
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "set_flash_block_sizes",
@@ -36,7 +46,7 @@ __all__ = ["scaled_dot_product_attention", "flash_attention",
 
 #: head dims the CUDA kernels are built for; another one that the route
 #: admits raises on the card
-FLASH_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (64, 96, 128)
 
 #: the stock TPU kernel's finite mask value (-0.7 * float32 max)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -344,11 +354,64 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     return out, None
 
 
-def flash_attn_unpadded(*args, **kwargs):
-    """Packed varlen flash attention comes with kernels B11-B13."""
-    raise NotImplementedError(
-        "flash_attn_unpadded (packed varlen flash attention, kernels "
-        "B11-B13) comes with the varlen training slice of the port")
+def _unpadded_dense_raw(q, k, v, cu_q, cu_k, *, scale, causal):
+    """The JAX package's legacy dense varlen path, as a plain version:
+    the full segment mask and ``[h, total_q, total_k]`` logits in the
+    inputs' dtype, O(T^2) memory (the reference for the block-skipping
+    kernels, and ``FLAGS_attn_varlen_backend=dense``). Masked logits take
+    the dtype's minimum, so a query that sees no key averages every key,
+    as in the reference. The scale and the softmax take the reference's
+    steps (a scale in the inputs' dtype; ``exp(x - max)`` over its sum
+    taken in f32), so bf16 rounds where it does."""
+    total_q, total_k = q.shape[0], k.shape[0]
+    seg_q, off_q = flash_varlen._seg_pos(cu_q.to(torch.int32), total_q)
+    seg_k, off_k = flash_varlen._seg_pos(cu_k.to(torch.int32), total_k)
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        mask = mask & (off_q[:, None] >= off_k[None, :])
+    logits = torch.einsum("qhd,khd->hqk", q, k) * q.new_tensor(scale)
+    logits = torch.where(mask[None], logits, torch.finfo(logits.dtype).min)
+    un = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
+    w = un / un.float().sum(-1, keepdim=True).to(un.dtype)
+    return torch.einsum("hqk,khd->qhd", w, v)
+
+
+def _unpadded_varlen_raw(q, k, v, cu_q, cu_k, *, scale, causal):
+    """Packed varlen attention routed by ``FLAGS_attn_varlen_backend``:
+    ``dense`` is the plain O(T^2) path (the CPU only: it raises for a
+    CUDA tensor); every other value goes to ``flash_varlen_packed``."""
+    backend = flag("attn_varlen_backend")
+    if backend == "dense":
+        if q.device.type == "cuda":
+            raise ValueError(
+                "attn_varlen_backend='dense' names the O(T^2) plain path, "
+                "which runs on the CPU only; on the card the kernels of "
+                "csrc/flash_varlen_packed.cu serve every packing")
+        cu_q, cu_k = (torch.as_tensor(c).to(q.device) for c in (cu_q, cu_k))
+        return _unpadded_dense_raw(q, k, v, cu_q, cu_k, scale=scale,
+                                   causal=causal)
+    return flash_varlen.flash_varlen_packed(q, k, v, cu_q, cu_k, scale=scale,
+                                            causal=causal, backend=backend)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Paddle ``flash_attn_unpadded``: varlen flash attention over a packed
+    batch ``[total_tokens, heads, head_dim]`` whose segments are cut by
+    ``cu_seqlens_q``/``cu_seqlens_k``. Returns ``(out, None)``.
+
+    As in the JAX package, ``dropout``, ``max_seqlen_q``/``max_seqlen_k``,
+    ``training``, ``return_softmax``, ``fixed_seed_offset`` and
+    ``rng_name`` are accepted and ignored: no dropout is applied and no
+    softmax is returned. ``cu_seqlens`` stay on the device: no host read
+    between them and the kernels' launches."""
+    out = _unpadded_varlen_raw(query, key, value, cu_seqlens_q,
+                               cu_seqlens_k, scale=float(scale),
+                               causal=bool(causal))
+    return out, None
 
 
 def set_flash_block_sizes(block_q=None, block_k=None):

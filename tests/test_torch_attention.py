@@ -208,8 +208,6 @@ def test_plain_versions_leave_out_dropped_pairs():
 
 
 def test_unported_entry_points_name_their_slices():
-    with pytest.raises(NotImplementedError, match="B11-B13"):
-        tattn.flash_attn_unpadded()
     with pytest.raises(NotImplementedError, match="tile"):
         tattn.set_flash_block_sizes(256, 256)
 
@@ -257,12 +255,55 @@ def test_cuda_tensor_never_takes_the_plain_version(no_plain_no_kernel,
             tattn.dkv_launches) == before
 
 
-@pytest.mark.parametrize("head_dim", [8, 32, 96])
+@pytest.mark.parametrize("head_dim", [8, 32, 80])
 def test_head_dim_without_a_kernel_raises_on_the_card(no_plain_no_kernel,
                                                       head_dim):
-    """The route admits head_dim % 8 == 0; the kernel has 64 and 128:
+    """The route admits head_dim % 8 == 0; the kernel has 64, 96 and 128:
     any other raises on the card, and never takes the dense path."""
     assert tattn._use_flash(head_dim, 128, 128, False)
     q = _card(torch.randn(1, 128, 2, head_dim))
     with pytest.raises(NotImplementedError, match="head_dim"):
         tattn.scaled_dot_product_attention(q, q, q, is_causal=True)
+
+
+# ---------------------------------------------------------------------
+# head_dim 96 (the gpt-760m rung: d1536, 16 heads)
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_route_head_dim_96_matches_jax(causal, dtype):
+    arrs = _inputs((1, 128, 2, 96), (1, 128, 2, 96), seed=6)
+    backend, got = _port(arrs, dtype, causal)
+    assert backend == "flash"
+    want = _jax(arrs, dtype, causal)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        _close(g, w, TOL[dtype], f"d96 {dtype} causal={causal} {name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_96_takes_the_kernel_on_the_card(no_plain_no_kernel,
+                                                  dtype):
+    """96 is one of the kernels' head dims: a d96 CUDA tensor goes to
+    the kernel library, never to a plain version."""
+    assert tattn.FLASH_HEAD_DIMS == (64, 96, 128)
+    q = _card(torch.randn(1, 128, 2, 96).to(dtype))
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        tattn.scaled_dot_product_attention(q, q, q, is_causal=True)
+
+
+def test_attn_varlen_bench_runs_on_the_cpu(capsys):
+    """The port's --attn-varlen rung at its CPU geometry (4 x 512 tokens,
+    2 heads of 64, f32) and its command line."""
+    import json
+
+    from paddle_tpu_torch import bench
+
+    tps, peak, total, backend = bench.run_attn_varlen_bench(device="cpu")
+    assert tps > 0 and peak is None and total == 2048 and backend == "plain"
+    bench.main(["--attn-varlen", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["attn_varlen_total_tokens"] == 2048
+    assert line["attn_varlen_backend"] == "plain" and line["device"] == "cpu"
+    with pytest.raises(SystemExit):
+        bench.main([])

@@ -134,10 +134,21 @@ def test_cpu_path_builds_nothing(monkeypatch):
     inputs, labels = bench.rung_batch(1, 128, "cpu")
     assert torch.isfinite(step(inputs, labels))
     assert at.last_attention_backend() == "flash"
+    # packed varlen attention takes the plain walks too
+    before_fv = (fv.fwd_varlen_launches, fv.dq_varlen_launches,
+                 fv.dkv_varlen_launches)
+    q = torch.randn(40, 2, 64, requires_grad=True)
+    cu = torch.tensor([0, 15, 40], dtype=torch.int32)
+    out, _ = at.flash_attn_unpadded(q, q, q, cu, cu, 25, 25, 0.125,
+                                    causal=True)
+    out.sum().backward()
+    assert torch.isfinite(q.grad).all()
     # the launch counters count CUDA launches only
     assert (pa.launches, sl.launches, sl.tail_launches, fv.launches,
             gg.launches, tl.launches) == before
     assert (at.fwd_launches, at.dq_launches, at.dkv_launches) == before_at
+    assert (fv.fwd_varlen_launches, fv.dq_varlen_launches,
+            fv.dkv_varlen_launches) == before_fv
 
 
 def test_kernel_sources_and_wrappers_present():
@@ -155,7 +166,7 @@ def test_kernel_sources_and_wrappers_present():
     assert set(_kernels._SIGNATURES) == set(_kernels.SOURCES) == {
         "paged_attention", "stream_linear", "flash_varlen",
         "paged_attention_q", "stream_linear_a8w8", "grouped_gemm",
-        "flash_attention"}
+        "flash_attention", "flash_varlen_packed"}
     for lib, fns in _kernels._SIGNATURES.items():
         src = (PKG / "csrc" / f"{lib}.cu").read_text()
         for fn in fns:
@@ -166,9 +177,13 @@ def test_kernel_sources_and_wrappers_present():
         _kernels._SIGNATURES["grouped_gemm"])
     assert {"ptt_flash_fwd", "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv"} == \
         set(_kernels._SIGNATURES["flash_attention"])
+    assert {"ptt_flash_varlen_fwd", "ptt_flash_varlen_bwd_dq",
+            "ptt_flash_varlen_bwd_dkv"} == \
+        set(_kernels._SIGNATURES["flash_varlen_packed"])
     for counter in (pa.launches, pa.q_launches, sl.launches,
                     sl.w8_launches, sl.tail_launches, sl.tail_w8_launches,
                     sl.a8w8_launches, fv.launches, gg.launches,
                     tl.launches, at.fwd_launches, at.dq_launches,
-                    at.dkv_launches):
+                    at.dkv_launches, fv.fwd_varlen_launches,
+                    fv.dq_varlen_launches, fv.dkv_varlen_launches):
         assert isinstance(counter, int)
