@@ -75,7 +75,23 @@ Phases, all run every time, each of which fails the run when it fails:
            call on the ragged pack (one launch of each kernel, held to
            the plain route); and slice_train_760m: bench.py's gpt-760m
            rung (head_dim 96) for 3 timed steps, 24 launches of each B10
-           kernel a step.
+           kernel a step;
+  moe train the ragged grouped weight gradient (B15) and B14's backward
+           mode (dx over the bank read transposed) checked against their
+           plain versions at the MoE training rung's two banks from 8192
+           rows, bf16 and f32, four offset layouts (witness limits, a
+           faulty control per kernel, empty experts exactly 0), and
+           timed beside torch._grouped_mm; B10 at head_dim 64 is checked
+           and timed at that rung's attention shape with the other B10
+           cases. Then slice_train_moe: bench.py's --moe-train rung
+           (d1024, 12 layers, 8 experts top-2 no-drop, seq 1024, batch
+           4) through the port's bench.make_moe_train_step: one MoE
+           layer's forward and backward held to the plain route, a
+           3-step loss trajectory on the plain, witness and kernel
+           routes with per-layer route agreement, the eager no-drop pin,
+           8 timed steps (tokens/s, MFU by activated FLOPs, device idle
+           share, peak memory; 60 B14, 24 B15, 12/12/12 B10 launches a
+           step).
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -1262,6 +1278,206 @@ def kernel_lora_delta(gen) -> dict:
 
 # ---------------------------------------------------------------- slice
 
+#: the MoE training rung (bench.py --moe-train, run_moe_train_bench): the
+#: MoE serving rung's model trained at seq 1024, batch 4 (T = 4096
+#: tokens, 8192 expert rows a layer), 8 timed steps
+MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 1024, 4, 8
+MOE_ROWS = MOE_TRAIN_SEQ * MOE_TRAIN_BATCH * MOE_TOPK
+
+
+def _expert_rel_l2(got, ref, off, per_row: bool) -> float:
+    """The largest relative L2 error over the experts that own rows: of
+    each expert's block of a dw ``[E, K, N]``, or (``per_row``) of its
+    rows of a ``[T, K]`` dx."""
+    worst = 0.0
+    bounds = off.tolist()
+    for e in range(len(bounds) - 1):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi <= lo:
+            continue
+        g, r = (got[lo:hi], ref[lo:hi]) if per_row else (got[e], ref[e])
+        num = float((g.float() - r.float()).square().sum())
+        den = max(float(r.float().square().sum()), 1e-30)
+        worst = max(worst, (num / den) ** 0.5)
+    return worst
+
+
+def _first_kstep_dropped(off, kstep: int) -> tuple:
+    """(expert, rows) of the controls' fault: the first expert owning
+    at least two k-steps, and its first ``kstep`` rows."""
+    bounds = off.tolist()
+    e = next(i for i in range(len(bounds) - 1)
+             if bounds[i + 1] - bounds[i] >= 2 * kstep)
+    return e, (bounds[e], bounds[e] + kstep)
+
+
+def kernel_grouped_gemm_bwd(gen) -> dict:
+    """Kernel B15 (grouped_dw: dw[e] = x[seg]^T dz[seg]) and B14's
+    backward mode (dx = dz @ w[e]^T, the bank read in place) against
+    their plain versions at the MoE training rung's two banks — FFN1
+    [8, 1024, 4096] and FFN2 [8, 4096, 1024] — from T = 8192 rows, in
+    bf16 and f32, over the four _moe_offsets layouts (rows past
+    offsets[E] hold 1e3, which must change nothing).
+
+    Metric: the largest relative L2 error of any expert's dw block or
+    any expert's dx rows (``_expert_rel_l2``). In bf16 the kernels
+    multiply dz rounded to bf16 (the TPU's DEFAULT precision) where the
+    plain versions keep the f32 dz: the limit is twice what that
+    rounding moves the plain version (the witness: the plain version fed
+    the bf16-rounded dz) plus 1e-5 for B15's f32 output, plus 2^-9 for
+    dx's bf16 output; in f32 it is 1e-5 (f32 sums in another order). One
+    control per kernel and case, a plain version with the first k-step
+    of one expert left out (B15: its first rows; dx: the first columns of
+    its reduction), must exceed ten times the limit. Empty experts' dw
+    and dx rows past offsets[E] must be +0.0 bit for bit. Then both
+    kernels timed in bf16 (bf16 out, as the training step runs them)
+    beside the plain versions, the bound and torch._grouped_mm."""
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+
+    dev, E, T = "cuda", MOE_E, MOE_ROWS
+    banks = {"ffn1": (MOE_D, MOE_DFF), "ffn2": (MOE_DFF, MOE_D)}
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        kstep = 32 if bf16 else 16
+        for bank, (K, N) in banks.items():
+            w = (torch.randn(E, K, N, generator=gen, device=dev)
+                 * 0.02).to(dtype)
+            x = torch.randn(T, K, generator=gen, device=dev).to(dtype)
+            dz = torch.randn(T, N, generator=gen, device=dev) * 0.01
+            for case in ("uniform", "one_expert", "two_empty", "short"):
+                off = _moe_offsets(case, T)
+                total = int(off[-1])
+                xs, dzs = x.clone(), dz.clone()
+                xs[total:], dzs[total:] = 1e3, 1e3
+                dz_k = dzs.to(dtype)
+                # B15 (f32 out) and dx (x's dtype out, as in training)
+                dw = gg._grouped_dw_cuda(xs, dz_k, off, E, torch.float32)
+                dx = gg._grouped_gemm_cuda(dz_k, w, off, None, None, dtype,
+                                           trans_w=True)
+                torch.cuda.synchronize()
+                dw_ref = gg.grouped_dw_plain(xs, dzs, off, E)
+                dx_ref = gg.grouped_gemm_plain(
+                    dzs, w.transpose(1, 2), off, out_dtype=dtype)
+                e_dw = _expert_rel_l2(dw, dw_ref, off, False)
+                e_dx = _expert_rel_l2(dx, dx_ref, off, True)
+                if bf16:
+                    wdz = dzs.to(dtype).float()
+                    wit_dw = _expert_rel_l2(gg.grouped_dw_plain(
+                        xs, wdz, off, E), dw_ref, off, False)
+                    wit_dx = _expert_rel_l2(gg.grouped_gemm_plain(
+                        wdz, w.transpose(1, 2), off, out_dtype=dtype),
+                        dx_ref, off, True)
+                    tol_dw = 2 * wit_dw + 1e-5
+                    tol_dx = 2 * wit_dx + 2.0 ** -9
+                else:
+                    wit_dw = wit_dx = None
+                    tol_dw = tol_dx = 1e-5
+                # controls: one expert's first k-step left out
+                ce, (r0, r1) = _first_kstep_dropped(off, kstep)
+                x_c = xs.clone()
+                x_c[r0:r1] = 0
+                c_dw = _expert_rel_l2(gg.grouped_dw_plain(
+                    x_c, dzs, off, E), dw_ref, off, False)
+                w_c = w.clone()
+                w_c[ce, :, :kstep] = 0
+                c_dx = _expert_rel_l2(gg.grouped_gemm_plain(
+                    dzs, w_c.transpose(1, 2), off, out_dtype=dtype),
+                    dx_ref, off, True)
+                empty = [e for e in range(E)
+                         if int(off[e + 1]) == int(off[e])]
+                zeros = all(_zero_bits(dw[e]) for e in empty) \
+                    and _zero_bits(dx[total:])
+                emit({"check": "grouped_gemm_bwd", "bank": bank,
+                      "dtype": str(dtype), "T": T, "offsets": case,
+                      "metric": "largest per-expert relative L2",
+                      "grouped_dw_err": e_dw, "grouped_dw_tol": tol_dw,
+                      "grouped_dw_witness": wit_dw,
+                      "grouped_dw_control": c_dw,
+                      "dx_err": e_dx, "dx_tol": tol_dx,
+                      "dx_witness": wit_dx, "dx_control": c_dx,
+                      "control_expert": ce,
+                      "empty_experts": empty,
+                      "grouped_dw_max_abs_err": max_err(dw, dw_ref),
+                      "dx_max_abs_err": max_err(dx, dx_ref),
+                      "empty_dw_and_dead_dx_rows_bitwise_zero": zeros})
+                what = f"grouped_gemm_bwd {bank} {dtype} {case}"
+                check(e_dw <= tol_dw, f"{what}: B15 {e_dw} > {tol_dw}")
+                check(e_dx <= tol_dx, f"{what}: dx {e_dx} > {tol_dx}")
+                check(c_dw > 10 * tol_dw, f"{what}: the B15 control "
+                      f"{c_dw} is not over 10x the limit {tol_dw}")
+                check(c_dx > 10 * tol_dx, f"{what}: the dx control "
+                      f"{c_dx} is not over 10x the limit {tol_dx}")
+                check(zeros, f"{what}: an empty expert's dw or a dx row "
+                             "past offsets[E] is not +0.0")
+                if bf16 and bank == "ffn1" and case == "uniform":
+                    errs["grouped_dw"] = max_err(dw, dw_ref)
+                del xs, dzs, dz_k, dw, dx, dw_ref, dx_ref, x_c, w_c
+            del w, x, dz
+    # timing: bf16, uniform routing, bf16 outputs (the training step's)
+    dt = torch.bfloat16
+    off = _moe_offsets("uniform", T)
+    ends = off[1:].contiguous()
+    total = int(off[-1])
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    rows = {}
+    for bank, (K, N) in banks.items():
+        w = (torch.randn(E, K, N, generator=gen, device=dev) * 0.02).to(dt)
+        x = torch.randn(T, K, generator=gen, device=dev).to(dt)
+        dz = torch.randn(T, N, generator=gen, device=dev) * 0.01
+        dz16 = dz.to(dt)
+        calls = {
+            "grouped_dw": (
+                lambda: gg._grouped_dw_cuda(x, dz16, off, E, dt),
+                lambda: gg.grouped_dw_plain(x, dz, off, E).to(dt),
+                lambda: grouped_mm(x.t(), dz16, offs=ends),
+                lambda: gg.grouped_dw_plain(x, dz16, off, E),
+                (T * K * 2 + T * N * 2 + E * K * N * 2)),
+            "grouped_gemm_dx": (
+                lambda: gg._grouped_gemm_cuda(dz16, w, off, None, None, dt,
+                                              trans_w=True),
+                lambda: gg.grouped_gemm_plain(dz, w.transpose(1, 2), off,
+                                              out_dtype=dt),
+                lambda: grouped_mm(dz16, w.transpose(1, 2), offs=ends),
+                lambda: gg.grouped_gemm_plain(dz16, w.transpose(1, 2), off,
+                                              out_dtype=dt),
+                (T * N * 2 + E * K * N * 2 + T * K * 2))}
+        for name, (kern, plain, lib, ref, nbytes) in calls.items():
+            flops = 2.0 * total * K * N
+            lib_ms, lib_note, lib_err = None, "none (no single call)", None
+            if grouped_mm is not None:
+                try:
+                    got = lib()
+                    torch.cuda.synchronize()
+                    lib_err = _expert_rel_l2(
+                        got, ref(), off, name == "grouped_gemm_dx")
+                    lib_ms, lib_note = time_ms(lib), "torch._grouped_mm"
+                except (RuntimeError, TypeError, ValueError) as err:
+                    lib_note = f"torch._grouped_mm refused: {str(err)[:120]}"
+            bms, by = bound_ms(nbytes, flops, dt)
+            row = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+                   "library_ms": lib_ms, "library": lib_note,
+                   "library_rel_l2_vs_plain_bf16_dz": lib_err,
+                   "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                   "flops": flops, "T": T, "bank": [E, K, N]}
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows[(name, bank)] = row
+            emit({"time": f"{name}[{bank}]", **row})
+        del w, x, dz, dz16
+    # the kernels line: B15's pair of one layer (FFN1's and FFN2's dw)
+    pair = [rows[("grouped_dw", b)] for b in banks]
+
+    def total_of(key):
+        vals = [r[key] for r in pair]
+        return None if any(v is None for v in vals) else sum(vals)
+    bms, by = bound_ms(sum(r["bytes"] for r in pair),
+                       sum(r["flops"] for r in pair), dt)
+    return {"max_abs_err": errs["grouped_dw"], "ms": total_of("ms"),
+            "plain_ms": total_of("plain_ms"),
+            "library_ms": total_of("library_ms"), "bound_ms": bms,
+            "bound_by": by, "note": "FFN1 + FFN2 dw of one layer"}
+
+
 def _counters():
     from paddle_tpu_torch.nn.functional import attention as at
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
@@ -1279,6 +1495,7 @@ def _counters():
             "stream_linear_a8w8": sl.a8w8_launches,
             "paged_decode_attention_inplace_q": pa.q_launches,
             "grouped_gemm": gg.launches,
+            "grouped_dw": gg.dw_launches,
             "lora_delta": tl.launches,
             "flash_attention_fwd": at.fwd_launches,
             "flash_attention_bwd_dq": at.dq_launches,
@@ -1347,7 +1564,7 @@ def _reset_counters():
     pa.launches = pa.q_launches = 0
     sl.launches = sl.tail_launches = 0
     sl.w8_launches = sl.tail_w8_launches = sl.a8w8_launches = 0
-    fv.launches = gg.launches = tl.launches = 0
+    fv.launches = gg.launches = gg.dw_launches = tl.launches = 0
     at.fwd_launches = at.dq_launches = at.dkv_launches = 0
     fv.fwd_varlen_launches = fv.dq_varlen_launches = 0
     fv.dkv_varlen_launches = 0
@@ -2291,8 +2508,9 @@ def _over(errs: dict, tols: dict) -> list:
 
 
 #: kernel-check cases: (b, s, h, d, dtype, causal): the rung, the s2048
-#: rung, head_dim 64 in f32 both ways and bf16, odd batch x heads, and
-#: head_dim 96 at the gpt-760m rung's shape (bf16) and in f32
+#: rung, head_dim 64 in f32 both ways and bf16, odd batch x heads,
+#: head_dim 96 at the gpt-760m rung's shape (bf16) and in f32, and
+#: head_dim 64 at the MoE training rung's shape (bf16)
 FLASH_CASES = (
     (4, 1024, 16, 128, torch.bfloat16, True),
     (2, 2048, 16, 128, torch.bfloat16, True),
@@ -2303,6 +2521,7 @@ FLASH_CASES = (
     (3, 256, 5, 128, torch.float32, False),
     (8, 1024, 16, 96, torch.bfloat16, True),
     (2, 256, 4, 96, torch.float32, True),
+    (4, 1024, 16, 64, torch.bfloat16, True),
 )
 #: the gpt-760m rung (bench.py LADDER[1]: d1536, 16 heads of 96, seq
 #: 1024, batch 8, the _FAST options)
@@ -2439,9 +2658,10 @@ def kernel_flash_attention(gen) -> dict:
     (2^-8). One control per kernel, in every case: the plain versions
     skipping a late key tile for the rows past it (``_late_tile_drop``)
     must exceed the forward's out limit, the dq limit, and both the dk
-    and dv limits. Then timed at the rung's shape and at the gpt-760m
-    rung's (head_dim 96) beside the plain versions, torch's
-    scaled_dot_product_attention and the aten flash backward."""
+    and dv limits. Then timed at the rung's shape, at the gpt-760m
+    rung's (head_dim 96) and at the MoE training rung's (head_dim 64)
+    beside the plain versions, torch's scaled_dot_product_attention and
+    the aten flash backward."""
     from paddle_tpu_torch.nn.functional import attention as at
 
     res = {}
@@ -2486,9 +2706,12 @@ def kernel_flash_attention(gen) -> dict:
         if (b, s, h, d) == (TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM):
             res = max_abs
         del q, k, v, do, got, ref, c_out, c_lse
-    # timing at the rung's shape, and at the gpt-760m rung's (head_dim 96)
+    # timing at the rung's shape, at the gpt-760m rung's (head_dim 96)
+    # and at the MoE training rung's (head_dim 64)
     rows = _flash_times(gen, TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM)
     _flash_times(gen, R760_BATCH, TRAIN_SEQ, N_HEADS, R760_D // N_HEADS)
+    _flash_times(gen, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_HEADS,
+                 MOE_D // MOE_HEADS)
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     names = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
              "dkv": "flash_attention_bwd_dkv"}
@@ -3197,6 +3420,277 @@ def slice_train_760m(steps: int = 3, warmup: int = 1) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- moe train
+
+@contextlib.contextmanager
+def moe_train_route(kind: str, gen=None):
+    """The MoE training step with its kernels in place (``"kernel"``);
+    with B14, B15 and B10 replaced by their plain versions
+    (``"plain"``); or by the plain versions fed the bf16-rounded dz that
+    the kernels multiply (the TPU's DEFAULT precision), with one-ulp
+    noise on attention's inputs (``"witness"``, see attention_route)."""
+    from unittest import mock
+
+    from paddle_tpu_torch.nn.functional import grouped_gemm as gg
+
+    if kind == "kernel":
+        yield
+        return
+    dx, dw = gg._dx, gg._dw
+
+    def witness_dx(dz, w, off, dtype, route):
+        return dx(dz.to(w.dtype).to(dz.dtype), w, off, dtype, route)
+
+    def witness_dw(x, dz, off, E, dtype, route):
+        return dw(x, dz.to(x.dtype).to(dz.dtype), off, E, dtype, route)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            gg, "resolve_backend", lambda *a: "plain"))
+        if kind == "witness":
+            stack.enter_context(mock.patch.object(gg, "_dx", witness_dx))
+            stack.enter_context(mock.patch.object(gg, "_dw", witness_dw))
+        stack.enter_context(attention_route(kind, gen))
+        yield
+
+
+@contextlib.contextmanager
+def _record_routes(into: list, layers: int):
+    """Each MoE layer's top-k experts of the next forward (the first
+    ``layers`` calls), kept on the device."""
+    from unittest import mock
+
+    from paddle_tpu_torch.incubate.moe import moe_layer as ml
+
+    real = ml.moe_ffn_nodrop
+
+    def recording(*a, **k):
+        res = real(*a, **k)
+        if len(into) < layers:
+            into.append(res[2].detach())
+        return res
+    with mock.patch.object(ml, "moe_ffn_nodrop", recording):
+        yield
+
+
+def _route_agreement(a, b) -> float:
+    """The share of tokens whose top-k expert sets agree."""
+    return float((a.sort(-1).values == b.sort(-1).values).all(-1)
+                 .float().mean())
+
+
+def _moe_expected(steps: int) -> dict:
+    """Launches of ``steps`` MoE training steps: per layer B14 twice
+    forward (FFN1 with GELU, FFN2), once for FFN1's pre-activation and
+    twice for dx; B15 twice (dw1, dw2); B10 once each."""
+    e = dict.fromkeys(_SOURCES, 0)
+    L = MOE_LAYERS * steps
+    e.update({"grouped_gemm": 5 * L, "grouped_dw": 2 * L,
+              "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+              "flash_attention_bwd_dkv": L})
+    return e
+
+
+def _rel_l2(got, ref) -> float:
+    num = float((got.float() - ref.float()).square().sum())
+    return (num / max(float(ref.float().square().sum()), 1e-30)) ** 0.5
+
+
+def _moe_block_check(gen) -> None:
+    """One full-width MoE layer (d1024, 8 experts, top-2, d_hidden 4096,
+    bf16 as under O2) over T = 4096 tokens, forward and backward, on the
+    kernel route against the plain route from the same weights, input
+    and cotangent: the routes must be identical (the router is plain
+    torch on both), the output, dx and every parameter gradient within
+    twice the witness route's relative L2 deviation plus 2^-8 (one
+    relative bf16 ulp), with exactly 5 B14 and 2 B15 launches."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.amp import decorate
+    from paddle_tpu_torch.incubate.moe import MoELayer
+
+    seed(11)
+    layer = decorate(MoELayer(MOE_D, num_experts=MOE_E, gate="gshard",
+                              top_k=MOE_TOPK, d_hidden=MOE_DFF,
+                              capacity_factor=None, device="cuda"),
+                     level="O2", dtype="bfloat16")
+    shape = (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_D)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    res = {}
+    for kind in ("plain", "kernel", "witness"):
+        routes = []
+        xi = x.clone().requires_grad_()
+        layer.zero_grad(set_to_none=True)
+        _reset_counters()
+        with moe_train_route(kind, gen), _record_routes(routes, 1):
+            y = layer(xi)
+            y.backward(g)
+        torch.cuda.synchronize()
+        counts = _counters()
+        want = dict.fromkeys(_SOURCES, 0)
+        if kind == "kernel":
+            want.update({"grouped_gemm": 5, "grouped_dw": 2})
+        _check_launches(f"moe_block[{kind}]", counts, want)
+        res[kind] = {"y": y.detach(), "dx": xi.grad, "routes": routes[0],
+                     **{n: p.grad for n, p in layer.named_parameters()}}
+    names = [n for n in res["plain"] if n != "routes"]
+    errs = {k: {n: _rel_l2(res[k][n], res["plain"][n]) for n in names}
+            for k in ("kernel", "witness")}
+    tols = {n: 2 * errs["witness"][n] + 2.0 ** -8 for n in names}
+    same = torch.equal(res["kernel"]["routes"], res["plain"]["routes"])
+    emit({"check": "moe_block", "tokens": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ,
+          "experts": MOE_E, "metric": "relative L2 vs the plain route",
+          "routes_identical": same, "err": errs["kernel"],
+          "witness_err": errs["witness"], "tol": tols})
+    check(same, "moe_block: the kernel route routed differently")
+    bad = [n for n in names if errs["kernel"][n] > tols[n]]
+    check(not bad, f"moe_block: {bad} over the limits: {errs['kernel']} "
+                   f"> {tols}")
+    del layer, res, x, g
+    torch.cuda.empty_cache()
+
+
+def slice_train_moe(out_dir, gen, steps: int = MOE_TRAIN_STEPS) -> dict:
+    """bench.py's --moe-train rung (d1024, 12 layers, 16 heads of 64,
+    seq 1024, batch 4, 8 experts top-2 no-drop, AMP O2 with f32 masters,
+    AdamW with bf16 moments) through the port's
+    bench.make_moe_train_step, at full width and depth, from seed 0.
+
+    (a) _moe_block_check: one MoE layer, kernel route against plain.
+    (b) 3 steps on the plain, witness and kernel routes (moe_train_route)
+    from the same initial state: each route's losses, and each layer's
+    route agreement with the plain route at step 1; the kernel route's
+    largest relative loss deviation under a tenth of the smallest
+    relative move the plain route's loss makes in one step (the witness
+    route's deviation beside it), exactly 60 B14, 24 B15 and 12/12/12
+    B10 launches a step.
+    (c) On the kernel route, after bench.moe_nodrop_pin (an eager forward
+    that stamps moe.* and raises on a dropped token) and those 3 steps:
+    ``steps`` steps timed on the host clock (ended by reading the loss),
+    with launches checked, then 2 steps under torch.profiler for the
+    device time by kernel and the idle share; tokens/s, MFU (activated
+    FLOPs over bench.H100_PEAK_BF16), peak memory, final loss."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.profiler import stats
+
+    t_phase = time.perf_counter()
+    _moe_block_check(gen)
+    rung = (MOE_D, MOE_LAYERS, MOE_HEADS, MOE_TRAIN_SEQ, MOE_E, MOE_TOPK)
+    inputs, labels = bench.rung_batch(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, "cuda")
+    traj, routes = {}, {}
+    for kind in ("plain", "witness", "kernel"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, step = bench.make_moe_train_step(*rung)
+        routes[kind] = []
+        with moe_train_route(kind, gen):
+            if kind == "kernel":
+                drop0 = stats.counter("moe.dropped_tokens").value
+                bench.moe_nodrop_pin(model, inputs)
+                stamped = stats.histogram("moe.tokens_per_expert").count
+            _reset_counters()
+            with _record_routes(routes[kind], MOE_LAYERS):
+                losses = [float(step(inputs, labels)) for _ in range(3)]
+            _check_launches(f"train_moe_steps[{kind}]", _counters(),
+                            _moe_expected(3) if kind == "kernel" else
+                            dict.fromkeys(_SOURCES, 0))
+        traj[kind] = losses
+        if kind != "kernel":
+            del model, step
+    base = traj["plain"]
+    dev = {k: max(abs(a - b) / abs(b) for a, b in zip(traj[k], base))
+           for k in ("witness", "kernel")}
+    # a tenth of the smallest step-to-step move of the plain route's loss
+    limit = 0.1 * min(abs(a - b) / abs(b) for a, b in zip(base[1:], base))
+    agree = {k: [_route_agreement(a, b) for a, b in
+                 zip(routes[k], routes["plain"])]
+             for k in ("witness", "kernel")}
+    emit({"check": "train_moe_trajectory", "losses": traj,
+          "rel_dev": dev, "limit": limit,
+          "rule": "0.1 x the smallest relative move of the plain route's "
+                  "loss in one step",
+          "route_agreement_step1_by_layer": agree})
+    check(all(np.isfinite(traj[k]).all() for k in traj),
+          "train_moe: non-finite loss")
+    check(dev["kernel"] <= limit, f"train_moe: kernel route loss deviation "
+          f"{dev['kernel']} > {limit}")
+    # ---- timing on the kernel route, from its state after 3 steps
+    n_params, n_active = bench.moe_param_counts(model, MOE_D, MOE_LAYERS,
+                                                MOE_E, MOE_TOPK)
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(inputs, labels)
+    final = float(loss)
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    _check_launches("train_moe", counts, _moe_expected(steps))
+    prof_steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(prof_steps):
+            loss = step(inputs, labels)
+        float(loss)
+    groups = {"grouped_gemm_kernel": "B14 (forward, recompute, dx)",
+              "grouped_dw_kernel": "B15 (dw)", "flash_fwd": "B10 forward",
+              "flash_bwd_dq": "B10 dq", "flash_bwd_dkv": "B10 dk/dv"}
+    by_group, kernels = {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / prof_steps / 1e3
+        kernels.append((ev.key, ms, ev.count / prof_steps))
+        lk = ev.key.lower()
+        grp = next((v for k, v in groups.items() if k in ev.key), None)
+        if grp is None:
+            grp = ("GEMMs (cuBLAS/CUTLASS)" if any(
+                t in lk for t in ("gemm", "cutlass", "xmma", "nvjet"))
+                else "other PyTorch ops (router, sort, gathers, LN, CE, "
+                     "AdamW, copies)")
+        by_group[grp] = by_group.get(grp, 0.0) + ms
+    busy = sum(by_group.values())
+    kernels.sort(key=lambda r: -r[1])
+    peak = torch.cuda.max_memory_allocated()
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    tps = tokens * steps / wall
+    fpt = bench.moe_flops_per_token(n_active, MOE_LAYERS, MOE_TRAIN_SEQ,
+                                    MOE_D)
+    wall_ms = wall / steps * 1e3
+    emit({"phase": "train_moe", "rung": "moe-train d1024 L12 E8 top-2",
+          "n_params": n_params, "n_active": n_active,
+          "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ, "steps": steps,
+          "warmup": 3, "tokens_per_s": tps,
+          "mfu": tps * fpt / bench.H100_PEAK_BF16,
+          "flops_per_token": fpt, "wall_ms_per_step": wall_ms,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1 - busy / wall_ms,
+          "device_ms_per_step_by_group": by_group,
+          "max_memory_allocated_gb": peak / 1e9,
+          "first_call_s": step.first_call_seconds,
+          "launches_per_step": {k: v / steps for k, v in counts.items()
+                                if v},
+          "nodrop_pin": {"dropped_tokens_moved":
+                         stats.counter("moe.dropped_tokens").value - drop0,
+                         "tokens_per_expert_observed": stamped,
+                         "imbalance": stats.gauge("moe.imbalance").value},
+          "loss_final": final,
+          "top_kernels": [{"name": k[:60], "ms_per_step": ms,
+                           "launches_per_step": n}
+                          for k, ms, n in kernels[:8]],
+          "wall_s": time.perf_counter() - t_phase})
+    check(np.isfinite(final), "train_moe: non-finite loss")
+    if out_dir:
+        with open(os.path.join(out_dir, "profile_train_moe.txt"), "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+    del model, step, prof
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------- main
 
 _SOURCES = {
@@ -3230,6 +3724,9 @@ _SOURCES = {
     "lora_delta": (
         "paddle_tpu_torch/csrc/grouped_gemm.cu",
         "paddle_tpu/nn/functional/lora.py:99"),
+    "grouped_dw": (
+        "paddle_tpu_torch/csrc/grouped_gemm.cu",
+        "paddle_tpu/nn/functional/grouped_gemm.py:270"),
     "flash_attention_fwd": (
         "paddle_tpu_torch/csrc/flash_attention.cu",
         "paddle_tpu/nn/functional/attention.py:109"),
@@ -3337,6 +3834,11 @@ def drive(args) -> None:
     emit({"phase": "flash_varlen_kernels", "wall_s": time.perf_counter() - t0})
     by_path["attn_varlen"] = slice_attn_varlen(gen)
     by_path["train_760m"] = slice_train_760m()
+    # the no-drop MoE training rung: B15, B14's backward mode, B10 at d64
+    t0 = time.perf_counter()
+    rows["grouped_dw"] = kernel_grouped_gemm_bwd(gen)
+    emit({"phase": "moe_train_kernels", "wall_s": time.perf_counter() - t0})
+    by_path["train_moe"] = slice_train_moe(args.out, gen)
     kernels = []
     for name, row in rows.items():
         src, replaces = _SOURCES[name]

@@ -6,9 +6,10 @@ and hand-written CUDA kernels for Hopper (``csrc/``, built with nvcc at
 first use by ``_kernels``) where the JAX package runs Pallas kernels on
 the TPU. Ported so far: the serving path (``FusedCausalLM`` under
 ``GenerationEngine`` / ``ContinuousBatchingEngine`` / ``ServingEngine``,
-quantized, MoE and multi-LoRA) and the GPT training step (``nn``,
+quantized, MoE and multi-LoRA), the GPT training step (``nn``,
 ``optimizer``, ``amp``, ``jit.TrainStep``, ``bench.build_model`` /
-``run_config``). Entry points run on the CUDA card unless the caller
+``run_config``) and the no-drop MoE training step
+(``incubate.moe.MoELayer``, ``bench.run_moe_train_bench``). Entry points run on the CUDA card unless the caller
 passes ``device="cpu"``, where every kernel runs its plain PyTorch
 version.
 """

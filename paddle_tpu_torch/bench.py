@@ -13,8 +13,17 @@ returns tokens/s, the parameter count, FLOPs per token
 
 ``run_attn_varlen_bench`` is the root bench's ``--attn-varlen`` rung: a
 32,768-token causal pack through the packed varlen flash kernel (B11).
-``python -m paddle_tpu_torch.bench --attn-varlen [--device cpu]`` prints
-its JSON line.
+
+``build_moe_model`` / ``run_moe_train_bench`` are the root bench's
+``--moe-train`` rung: the GPT with each block's FFN a no-drop
+``MoELayer`` (GShard gate, top-2, ``capacity_factor=None``), trained in
+AMP O2 with AdamW (bf16 moments, f32 master weights) through the ragged
+grouped GEMM forward (B14) and backward (B14's backward mode, B15) and
+flash attention (B10); MFU charges the activated FLOPs (the dense
+parameters plus ``top_k / E`` of the expert banks).
+
+``python -m paddle_tpu_torch.bench --attn-varlen|--moe-train [--device
+cpu]`` prints a rung's JSON line.
 """
 from __future__ import annotations
 
@@ -33,10 +42,13 @@ from .distributed.fleet.recompute import recompute as _recompute
 from .jit import TrainStep
 from .nn import functional as F
 from .optimizer import AdamW
+from .profiler import stats as _stats
 
 __all__ = ["VOCAB", "_FAST", "LADDER", "S2048", "H100_PEAK_BF16",
            "build_model", "make_train_step", "rung_batch", "run_config",
-           "flops_per_token", "run_attn_varlen_bench", "main"]
+           "flops_per_token", "run_attn_varlen_bench", "build_moe_model",
+           "make_moe_train_step", "moe_nodrop_pin", "run_moe_train_bench",
+           "moe_param_counts", "moe_flops_per_token", "main"]
 
 #: the root bench's recipe for the 1.3B rung on one chip: bf16 moments,
 #: master-free stochastic-rounding updates, no recompute, bf16 logits
@@ -59,17 +71,29 @@ H100_PEAK_BF16 = 989e12
 
 
 class Block(nn.Layer):
-    """Pre-LN transformer block: causal attention, then a GELU MLP."""
+    """Pre-LN transformer block: causal attention, then a GELU MLP, or
+    with ``num_experts`` a no-drop MoE FFN (``moe``, the root bench's
+    MoE block: GShard gate, ``d_hidden = 4 * d_model``)."""
 
-    def __init__(self, d_model, n_heads):
+    def __init__(self, d_model, n_heads, num_experts=None, top_k=2,
+                 device=None):
         super().__init__()
         self.n_heads = n_heads
         self.ln1 = nn.LayerNorm(d_model)
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.proj = nn.Linear(d_model, d_model)
         self.ln2 = nn.LayerNorm(d_model)
-        self.fc1 = nn.Linear(d_model, 4 * d_model)
-        self.fc2 = nn.Linear(4 * d_model, d_model)
+        self.moe = None
+        if num_experts:
+            from .incubate.moe import MoELayer
+
+            self.moe = MoELayer(d_model, num_experts=num_experts,
+                                gate="gshard", top_k=top_k,
+                                d_hidden=4 * d_model, capacity_factor=None,
+                                device=device)
+        else:
+            self.fc1 = nn.Linear(d_model, 4 * d_model)
+            self.fc2 = nn.Linear(4 * d_model, d_model)
 
     def forward(self, x):
         b, s, d = x.shape
@@ -80,16 +104,21 @@ class Block(nn.Layer):
         q, k, v = qkv.unbind(2)
         att = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         x = x + self.proj(att.reshape(b, s, d))
-        return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
+        h = self.ln2(x)
+        if self.moe is not None:
+            return x + self.moe(h)
+        return x + self.fc2(F.gelu(self.fc1(h)))
 
 
 class GPT(nn.Layer):
-    def __init__(self, d_model, n_layers, n_heads, seq, recompute):
+    def __init__(self, d_model, n_layers, n_heads, seq, recompute,
+                 num_experts=None, top_k=2, device=None):
         super().__init__()
         self.recompute = recompute
         self.embed = nn.Embedding(VOCAB, d_model)
         self.pos = nn.Embedding(seq, d_model)
-        self.blocks = nn.LayerList([Block(d_model, n_heads)
+        self.blocks = nn.LayerList([Block(d_model, n_heads, num_experts,
+                                          top_k, device)
                                     for _ in range(n_layers)])
         self.norm = nn.LayerNorm(d_model)
         self.head = nn.Linear(d_model, VOCAB, bias_attr=False)
@@ -246,24 +275,131 @@ def run_attn_varlen_bench(device=None):
     return iters * total / dt, peak, total, "cuda" if on_card else "plain"
 
 
+def build_moe_model(d_model, n_layers, n_heads, seq, num_experts,
+                    top_k=2, device=None):
+    """The root bench's GPT-MoE in f32 on ``device`` (the card unless
+    ``"cpu"``): the GPT with each block's dense FFN a no-drop
+    ``MoELayer`` (``capacity_factor=None``), no recompute."""
+    dev = resolve_device(device)
+    with torch.device(dev):
+        return GPT(d_model, n_layers, n_heads, seq, False, num_experts,
+                   top_k, dev)
+
+
+def moe_param_counts(model, d_model, n_layers, num_experts, top_k=2):
+    """``(n_params, n_active)`` by the root bench's formula: the expert
+    banks (``w1``, ``b1``, ``w2``, ``b2`` of every block) count
+    ``top_k / E`` toward the activated parameters."""
+    n_params = sum(p.numel() for p in model.parameters())
+    dff = 4 * d_model
+    bank = n_layers * num_experts * (2 * d_model * dff + dff + d_model)
+    return n_params, n_params - bank + bank * top_k // num_experts
+
+
+def make_moe_train_step(d_model, n_layers, n_heads, seq, num_experts,
+                        top_k=2, device=None):
+    """``(model, TrainStep)`` of the MoE rung, from seed 0: AdamW (lr
+    1e-4, decay 0.01, bf16 moments), AMP O2 bf16 with f32 master
+    weights, the cross entropy of the bf16 ``[b*s, VOCAB]`` logits."""
+    seed(0)
+    model = build_moe_model(d_model, n_layers, n_heads, seq, num_experts,
+                            top_k, device)
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                moment_dtype="bfloat16")
+    model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, VOCAB), labels.reshape(-1))
+
+    return model, TrainStep(model, loss_fn, opt)
+
+
+def moe_nodrop_pin(model, inputs) -> None:
+    """One eager forward without gradient: it stamps the ``moe.*``
+    routing telemetry, which a ``TrainStep`` skips, and raises if
+    ``moe.dropped_tokens`` moved (the no-drop mode dropped a token)."""
+    drop0 = _stats.counter("moe.dropped_tokens").value
+    with torch.no_grad():
+        model(*inputs)
+    if _stats.counter("moe.dropped_tokens").value != drop0:
+        raise RuntimeError("moe-train rung: no-drop mode dropped tokens "
+                           "(moe.dropped_tokens moved)")
+
+
+def run_moe_train_bench(d_model, n_layers, n_heads, seq, batch,
+                        num_experts, top_k=2, steps=8, device=None):
+    """The no-drop MoE training rung (``make_moe_train_step``): the
+    no-drop pin (``moe_nodrop_pin``), one step (the kernels' build
+    included), then ``steps`` steps timed on the host clock, ended by
+    reading the loss. Returns ``(tokens_per_s, mfu, n_active,
+    n_params)``; MFU charges ``6 * n_active + 12 * L * s * d`` FLOPs a
+    token against ``H100_PEAK_BF16``, and is None on the CPU."""
+    dev = resolve_device(device)
+    model, step = make_moe_train_step(d_model, n_layers, n_heads, seq,
+                                      num_experts, top_k, dev)
+    inputs, labels = rung_batch(batch, seq, dev)
+    moe_nodrop_pin(model, inputs)
+    float(step(inputs, labels))
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(inputs, labels)
+    final = float(loss)
+    dt = time.perf_counter() - t0
+    if not np.isfinite(final):
+        raise RuntimeError("moe-train rung: non-finite loss")
+    n_params, n_active = moe_param_counts(model, d_model, n_layers,
+                                          num_experts, top_k)
+    tps = steps * batch * seq / dt
+    mfu = tps * moe_flops_per_token(n_active, n_layers, seq, d_model) \
+        / H100_PEAK_BF16 if dev.type == "cuda" else None
+    return tps, mfu, n_active, n_params
+
+
+def moe_flops_per_token(n_active: int, n_layers: int, seq: int,
+                        d_model: int) -> int:
+    """The root bench's activated FLOPs a token: ``6 * n_active + 12 *
+    L * s * d``."""
+    return 6 * n_active + 12 * n_layers * seq * d_model
+
+
 def main(argv=None) -> None:
-    """The port's bench kinds (so far ``--attn-varlen``), one JSON line
-    each; ``--device cpu`` runs the CPU-sized geometry."""
+    """The port's bench kinds (so far ``--attn-varlen`` and
+    ``--moe-train``), one JSON line each; ``--device cpu`` runs the
+    CPU-sized geometry."""
     ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.bench")
-    ap.add_argument("--attn-varlen", action="store_true",
-                    help="the packed varlen flash-attention rung")
+    kind = ap.add_mutually_exclusive_group(required=True)
+    kind.add_argument("--attn-varlen", action="store_true",
+                      help="the packed varlen flash-attention rung")
+    kind.add_argument("--moe-train", action="store_true",
+                      help="the no-drop MoE training rung")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the CPU geometry (default: the card)")
     args = ap.parse_args(argv)
-    if not args.attn_varlen:
-        ap.error("name a kind: --attn-varlen")
-    tps, peak, total, backend = run_attn_varlen_bench(args.device)
     dev = resolve_device(args.device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if args.moe_train:
+        # the card: the root rung's ~1B-parameter 8-expert model; the
+        # CPU: the root bench's smoke geometry
+        geo = (dict(d_model=1024, n_layers=12, n_heads=16, seq=1024,
+                    batch=4, num_experts=8) if dev.type == "cuda" else
+               dict(d_model=64, n_layers=2, n_heads=4, seq=64, batch=2,
+                    num_experts=4, steps=2))
+        tps, mfu, n_active, n_params = run_moe_train_bench(**geo,
+                                                           device=dev)
+        snap = _stats.snapshot("moe.")
+        print(json.dumps({
+            "moe_train_tokens_per_sec": tps, "moe_train_mfu": mfu,
+            "moe_train_params": n_params,
+            "moe_train_activated_params": n_active,
+            "moe_train_telemetry": {k: snap[k] for k in
+                                    ("counters", "gauges", "histograms")},
+            "device": name}))
+        return
+    tps, peak, total, backend = run_attn_varlen_bench(dev)
     print(json.dumps({
         "attn_varlen_tokens_per_sec": tps, "attn_varlen_peak_bytes": peak,
         "attn_varlen_total_tokens": total, "attn_varlen_backend": backend,
-        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
-        else "cpu"}))
+        "device": name}))
 
 
 if __name__ == "__main__":

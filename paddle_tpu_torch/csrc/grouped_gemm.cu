@@ -1,8 +1,11 @@
-// Ragged grouped GEMM (MoE expert FFN) and the batched-LoRA delta, two
-// entry points over one unit walk.
+// Ragged grouped GEMM (MoE expert FFN) forward and backward, its weight
+// gradient, and the batched-LoRA delta, over one unit walk.
 //
 // ptt_grouped_gemm replaces the TPU kernel _grouped_fwd_pallas
-// (paddle_tpu/nn/functional/grouped_gemm.py:170, pallas_call at :218);
+// (paddle_tpu/nn/functional/grouped_gemm.py:170, pallas_call at :218),
+// also in its backward mode (the TPU backward runs the same kernel over
+// the transposed bank, grouped_gemm.py:454); ptt_grouped_dw replaces
+// _grouped_dw_pallas (grouped_gemm.py:270, pallas_call at :359);
 // ptt_lora_delta replaces _lora_fwd_pallas
 // (paddle_tpu/nn/functional/lora.py:99, pallas_call at :152).
 // Python wrappers: paddle_tpu_torch/nn/functional/grouped_gemm.py and
@@ -12,11 +15,15 @@
 // or an adapter slot): group e owns rows offsets[e] .. offsets[e+1]-1,
 // and rows from offsets[E] to T belong to no group.
 //   grouped GEMM:  out[r] = act(x[r] @ W[e(r)] + bias[e(r)])   W [E, K, N]
+//     backward mode (trans_w): out[r] = x[r] @ B[e(r)]^T, B [E, N, K]
+//     the same bank read in place, so dx = dz @ W[e]^T needs no copy
+//   weight grad:   dw[e] = sum over e's rows r of x[r]^T dz[r]  [E, K, N]
 //   LoRA delta:    out[r] = (x[r] @ A[s(r)]) @ B[s(r)]         A [S, K, R],
 //                                                              B [S, R, N]
-// with fp32 sums (the grouped GEMM's W is in x's dtype; the delta rounds
-// A to x's dtype and takes B in fp32, as the TPU kernels do); rows past
-// offsets[E] are written as exact zeros. The work map of the TPU kernel
+// with fp32 sums (the grouped GEMM's W and the weight gradient's dz are
+// in x's dtype; the delta rounds A to x's dtype and takes B in fp32, as
+// the TPU kernels do); rows past offsets[E] are written as exact zeros
+// and add nothing to dw. The work map of the TPU kernel
 // (grouped_work_map: unit u is row tile tids[u] of kBM rows against
 // group gids[u], live rows [lo[u], hi[u])) has t_pad/kBM + 2E + 1 units,
 // a number of shapes only, so the grid needs nothing from the host: each
@@ -37,11 +44,23 @@
 // K in steps of 64 bytes through a 4-stage cp.async ring in shared memory
 // (x rows outside the unit's live 16-row groups are not loaded). bf16
 // runs on the tensor cores (mma.sync m16n8k16 with fp32 accumulators,
-// fragments by ldmatrix, W's by ldmatrix.trans from its [K, N] tile);
+// fragments by ldmatrix, W's by ldmatrix.trans from its [K, N] tile; in
+// the backward mode by plain ldmatrix from the [N, K] rows of the bank,
+// which are the k-major columns mma's B operand wants);
 // m16 row groups without a live row are skipped, so a decode unit of 8
 // live rows costs one m16 group. fp32 runs the same tiles on the CUDA
 // cores (a 4 x 8 register tile per thread), exact fp32 products. Then
 // + bias (fp32), tanh-GELU or ReLU, the output dtype.
+//
+// The weight gradient: the TPU kernel keeps an expert's [K, bn] block
+// resident across the expert's consecutive units. Here a block is one
+// (expert, 64 x 64 tile of [K, N]) and walks the expert's rows
+// [offsets[e], offsets[e+1]) itself, 64 bytes of rows a stage through
+// the same 4-stage cp.async ring: each dw element has exactly one
+// writer, the sum runs in one fixed order (deterministic, no atomics),
+// and an expert with no rows writes exact zeros. Both operands are read
+// transposed against the forward: the x rows [r, K] are the k-major
+// side of A (ldmatrix.trans), the dz rows [r, N] B's as in the forward.
 //
 // The LoRA delta: a block of 512 threads is one (unit, 512-column strip).
 // Phase 1, h = x @ A[s] for the unit's live rows, 8 rows at a time: each
@@ -58,9 +77,11 @@
 // active expert's W once: bytes bound it, 8 x 2 x 4 MB = 67 MB per FFN of
 // the d1024 MoE model, 20 us at 3.35 TB/s; at prefill (8192 rows) the
 // bf16 tensor-core operations do (69 GFLOP, 69 us per FFN at 989
-// TFLOP/s). mma.sync from a cp.async ring reaches a fraction of that;
-// wgmma with TMA loads and a persistent schedule are the later work. The
-// LoRA delta is small against the base GEMM: x, A and B are read once
+// TFLOP/s), and so they do for the training step's backward mode and
+// weight gradient (69 GFLOP each per FFN at 8192 rows). mma.sync from a
+// cp.async ring reaches a fraction of that; wgmma with TMA loads and a
+// persistent schedule (and, for dw, split rows for a skewed expert) are
+// the later work. The LoRA delta is small against the base GEMM: x, A and B are read once
 // (bytes), and its phase 1 is latency bound at decode (K up to 8192
 // summed by 32 lanes per row); a delta fused into the base GEMM's
 // epilogue is the later design.
@@ -88,7 +109,10 @@ struct Geo {
   static constexpr int kXPitch = kBK + 16 / sizeof(T);  // 80-byte rows
   static constexpr int kWPitch = kBN + 16 / sizeof(T);  // 144/272 bytes
   static constexpr int kXStage = kBM * kXPitch;         // elements
-  static constexpr int kWStage = kBK * kWPitch;
+  // a W stage: [kBK][kWPitch] of a [K, N] bank, or (trans_w) [kBN]
+  // rows of kXPitch of an [N, K] one
+  static constexpr int kWStage =
+      kBK * kWPitch > kBN * kXPitch ? kBK * kWPitch : kBN * kXPitch;
   static constexpr int kSmemBytes =
       kStages * (kXStage + kWStage) * static_cast<int>(sizeof(T));
 };
@@ -148,7 +172,7 @@ __device__ __forceinline__ void zero_dead_rows(const int* offsets, int E,
   }
 }
 
-template <typename T>
+template <typename T, bool kTrans>
 __device__ __forceinline__ void load_stage(const GroupedParams& p, T* sx,
                                            T* sw, int kt, int t0, int r0,
                                            int r1, int m_lo, int m_hi,
@@ -166,6 +190,18 @@ __device__ __forceinline__ void load_stage(const GroupedParams& p, T* sx,
     ptt::cp_async16(sx + lr * G::kXPitch + kk,
                     ok ? x + static_cast<int64_t>(r) * p.K + k : x,
                     ok ? 16 : 0);
+  }
+  if (kTrans) {
+    // W^T tile: output column n's row of the [N, K] bank, kBK long
+    for (int c = threadIdx.x; c < kBN * xc; c += kThreads) {
+      const int nn = c / xc, kk = (c % xc) * G::kVec;
+      const int k = k0 + kk, n = n0 + nn;
+      const bool ok = k < p.K && n < p.N;
+      ptt::cp_async16(sw + nn * G::kXPitch + kk,
+                      ok ? w + static_cast<int64_t>(n) * p.K + k : w,
+                      ok ? 16 : 0);
+    }
+    return;
   }
   constexpr int wc = kBN / G::kVec;  // 16-byte chunks per W tile row
   for (int c = threadIdx.x; c < G::kBK * wc; c += kThreads) {
@@ -185,8 +221,32 @@ __device__ __forceinline__ float epilogue(const GroupedParams& p, int g,
   return activate(v, p.act);
 }
 
+// B fragments of a k16 x n32 strip (four n8 fragments): from a [k][n]
+// tile by ldmatrix.trans, or from [n][k] rows (trans_w) by ldmatrix.
+template <bool kTrans>
+__device__ __forceinline__ void load_b(const __nv_bfloat16* ws, int ks,
+                                       int n_base, uint32_t (&b)[4][2]) {
+  using G = Geo<__nv_bfloat16>;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    if (kTrans) {
+      const int nrow = n_base + np * 16 + (lane & 7) + (lane >> 4) * 8;
+      const int kcol = ks * 16 + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
+                  b[2 * np + 1][1], ws + nrow * G::kXPitch + kcol);
+    } else {
+      const int krow = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int ncol = n_base + np * 16 + (lane >> 4) * 8;
+      ldmatrix_x4_trans(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
+                        b[2 * np + 1][1], ws + krow * G::kWPitch + ncol);
+    }
+  }
+}
+
 // bf16: tensor-core tiles. Warp (wm, wn) owns rows wm*32.. and columns
 // wn*32.. of the block's 64 x 64 tile.
+template <bool kTrans>
 __device__ __forceinline__ void compute_tile(
     const __nv_bfloat16* xs, const __nv_bfloat16* ws, int m_lo, int m_hi,
     float (&acc)[2][4][4]) {
@@ -197,13 +257,7 @@ __device__ __forceinline__ void compute_tile(
 #pragma unroll
   for (int ks = 0; ks < G::kBK / 16; ++ks) {
     uint32_t b[4][2];
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      const int krow = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int ncol = wn * 32 + np * 16 + (lane >> 4) * 8;
-      ldmatrix_x4_trans(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
-                        b[2 * np + 1][1], ws + krow * G::kWPitch + ncol);
-    }
+    load_b<kTrans>(ws, ks, wn * 32, b);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int mb = wm * 32 + mi * 16;
@@ -246,6 +300,7 @@ __device__ __forceinline__ void store_tile(const GroupedParams& p,
 
 // fp32: the same tiles on the CUDA cores; thread (rg, cg) owns rows
 // rg*4.. and columns cg*8.. of the 64 x 64 tile.
+template <bool kTrans>
 __device__ __forceinline__ void compute_tile(const float* xs,
                                              const float* ws, int m_lo,
                                              int m_hi, float (&acc)[4][8]) {
@@ -254,11 +309,18 @@ __device__ __forceinline__ void compute_tile(const float* xs,
   if (rg * 4 >= m_hi || rg * 4 + 4 <= m_lo) return;
 #pragma unroll
   for (int kk = 0; kk < G::kBK; ++kk) {
-    const float4 b0 =
-        *reinterpret_cast<const float4*>(ws + kk * G::kWPitch + cg * 8);
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(ws + kk * G::kWPitch + cg * 8 + 4);
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float bv[8];
+    if (kTrans) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = ws[(cg * 8 + j) * G::kXPitch + kk];
+    } else {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(ws + kk * G::kWPitch + cg * 8);
+      const float4 b1 = *reinterpret_cast<const float4*>(
+          ws + kk * G::kWPitch + cg * 8 + 4);
+      bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
+      bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float a = xs[(rg * 4 + i) * G::kXPitch + kk];
@@ -297,7 +359,7 @@ struct Acc<float> {
   float v[4][8];
 };
 
-template <typename T>
+template <typename T, bool kTrans>
 __global__ void __launch_bounds__(kThreads)
     grouped_gemm_kernel(const GroupedParams p) {
   using G = Geo<T>;
@@ -322,8 +384,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk)
-      load_stage<T>(p, sx + s * G::kXStage, sw + s * G::kWStage, s, t0, r0,
-                    r1, m_lo, m_hi, n0, g);
+      load_stage<T, kTrans>(p, sx + s * G::kXStage, sw + s * G::kWStage, s,
+                            t0, r0, r1, m_lo, m_hi, n0, g);
     ptt::cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -332,16 +394,172 @@ __global__ void __launch_bounds__(kThreads)
     // the stage computed at kt - 1 is free once every thread is here
     const int nt = kt + kStages - 1;
     if (nt < nk)
-      load_stage<T>(p, sx + (nt % kStages) * G::kXStage,
-                    sw + (nt % kStages) * G::kWStage, nt, t0, r0, r1, m_lo,
-                    m_hi, n0, g);
+      load_stage<T, kTrans>(p, sx + (nt % kStages) * G::kXStage,
+                            sw + (nt % kStages) * G::kWStage, nt, t0, r0,
+                            r1, m_lo, m_hi, n0, g);
     ptt::cp_async_commit();
     const int s = kt % kStages;
-    compute_tile(sx + s * G::kXStage, sw + s * G::kWStage, m_lo, m_hi,
-                 acc.v);
+    compute_tile<kTrans>(sx + s * G::kXStage, sw + s * G::kWStage, m_lo,
+                         m_hi, acc.v);
   }
   ptt::cp_async_wait<0>();
   store_tile(p, acc.v, g, t0, r0, r1, n0);
+}
+
+// ------------------------------------------------------- weight gradient
+
+struct DwParams {
+  const void* x;
+  const void* dz;
+  const int* offsets;
+  void* out;
+  int out_dt;
+  int T, K, N;
+};
+
+// One stage of the walk: kBK rows (from r) of x's [r, m0:m0+64] and of
+// dz's [r, n0:n0+64], rows past r1 zero-filled.
+template <typename T>
+__device__ __forceinline__ void load_dw_stage(const DwParams& p, T* sx,
+                                              T* sd, int r, int r1, int m0,
+                                              int n0) {
+  using G = Geo<T>;
+  const T* x = static_cast<const T*>(p.x);
+  const T* dz = static_cast<const T*>(p.dz);
+  constexpr int rc = kBN / G::kVec;  // 16-byte chunks per tile row
+  for (int c = threadIdx.x; c < G::kBK * rc; c += kThreads) {
+    const int rr = c / rc, cc = (c % rc) * G::kVec;
+    const int row = r + rr, m = m0 + cc, n = n0 + cc;
+    const bool live = row < r1;
+    const bool okx = live && m < p.K, okd = live && n < p.N;
+    ptt::cp_async16(sx + rr * G::kWPitch + cc,
+                    okx ? x + static_cast<int64_t>(row) * p.K + m : x,
+                    okx ? 16 : 0);
+    ptt::cp_async16(sd + rr * G::kWPitch + cc,
+                    okd ? dz + static_cast<int64_t>(row) * p.N + n : dz,
+                    okd ? 16 : 0);
+  }
+}
+
+// bf16: acc[m][n] += sum_r x[r][m] dz[r][n] over a stage's kBK rows; the
+// stage holds x and dz row-major by r, so A (= x^T, m x r) comes by
+// ldmatrix.trans and B (r x n) as the forward's W.
+__device__ __forceinline__ void dw_tile(const __nv_bfloat16* xs,
+                                        const __nv_bfloat16* ds,
+                                        float (&acc)[2][4][4]) {
+  using G = Geo<__nv_bfloat16>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int ks = 0; ks < G::kBK / 16; ++ks) {
+    uint32_t b[4][2];
+    load_b<false>(ds, ks, wn * 32, b);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int rrow = ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
+      const int mcol = wm * 32 + mi * 16 + ((lane >> 3) & 1) * 8;
+      uint32_t a0, a1, a2, a3;
+      ldmatrix_x4_trans(a0, a1, a2, a3, xs + rrow * G::kWPitch + mcol);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        mma_bf16(acc[mi][nj], a0, a1, a2, a3, b[nj][0], b[nj][1]);
+    }
+  }
+}
+
+// fp32 on the CUDA cores: thread (rg, cg) owns m rows rg*4.. and n
+// columns cg*8..
+__device__ __forceinline__ void dw_tile(const float* xs, const float* ds,
+                                        float (&acc)[4][8]) {
+  using G = Geo<float>;
+  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
+#pragma unroll
+  for (int kk = 0; kk < G::kBK; ++kk) {
+    const float4 a = *reinterpret_cast<const float4*>(
+        xs + kk * G::kWPitch + rg * 4);
+    const float4 b0 =
+        *reinterpret_cast<const float4*>(ds + kk * G::kWPitch + cg * 8);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(ds + kk * G::kWPitch + cg * 8 + 4);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void store_dw(const DwParams& p, int64_t base,
+                                         int m, int n, float v) {
+  if (m < p.K && n < p.N)
+    store_dt(p.out, base + static_cast<int64_t>(m) * p.N + n, p.out_dt, v);
+}
+
+__device__ __forceinline__ void store_dw_tile(const DwParams& p,
+                                              int64_t base, int m0, int n0,
+                                              const float (&acc)[2][4][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          store_dw(p, base, m0 + wm * 32 + mi * 16 + gq + h * 8,
+                   n0 + wn * 32 + nj * 8 + tq * 2 + e,
+                   acc[mi][nj][h * 2 + e]);
+}
+
+__device__ __forceinline__ void store_dw_tile(const DwParams& p,
+                                              int64_t base, int m0, int n0,
+                                              const float (&acc)[4][8]) {
+  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      store_dw(p, base, m0 + rg * 4 + i, n0 + cg * 8 + j, acc[i][j]);
+}
+
+// Block (n tile, m tile, expert e): dw[e][m0:m0+64][n0:n0+64] over e's
+// rows, in row order through the 4-stage ring; the only writer of its
+// tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    grouped_dw_kernel(const DwParams p) {
+  using G = Geo<T>;
+  constexpr int kStage = G::kBK * G::kWPitch;
+  __shared__ __align__(16) T sx[kStages][kStage];
+  __shared__ __align__(16) T sd[kStages][kStage];
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * kBN, n0 = blockIdx.x * kBN;
+  const int r1 = min(p.offsets[e + 1], p.T);
+  const int r0 = min(p.offsets[e], r1);
+  const int nk = (r1 - r0 + G::kBK - 1) / G::kBK;
+  Acc<T> acc{};
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk)
+      load_dw_stage<T>(p, sx[s], sd[s], r0 + s * G::kBK, r1, m0, n0);
+    ptt::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    ptt::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nt = kt + kStages - 1;
+    if (nt < nk)
+      load_dw_stage<T>(p, sx[nt % kStages], sd[nt % kStages],
+                       r0 + nt * G::kBK, r1, m0, n0);
+    ptt::cp_async_commit();
+    dw_tile(sx[kt % kStages], sd[kt % kStages], acc.v);
+  }
+  ptt::cp_async_wait<0>();
+  store_dw_tile(p, static_cast<int64_t>(e) * p.K * p.N, m0, n0, acc.v);
 }
 
 // ------------------------------------------------------------ LoRA delta
@@ -474,11 +692,14 @@ extern "C" int ptt_grouped_work_map(const int* offsets, int E, int nm,
   return cudaGetLastError();
 }
 
+// trans_w 0: w is the [E, K, N] bank; 1: w is read as [E, N, K] (the
+// forward bank of a [T, N] -> [T, K] product, for dx = dz @ W[e]^T)
 extern "C" int ptt_grouped_gemm(const void* x, const void* w,
                                 const void* bias, int bias_dt,
                                 const int* offsets, void* out, int out_dt,
                                 int dtype, int T, int K, int N, int E,
-                                int bm, int act, void* stream) {
+                                int bm, int act, int trans_w,
+                                void* stream) {
   const int nm = (T + kBM - 1) / kBM, nwu = nm + 2 * E + 1;
   if (bm != kBM || nwu > 65535 || E < 1 || T < 1)
     return cudaErrorInvalidValue;
@@ -486,10 +707,36 @@ extern "C" int ptt_grouped_gemm(const void* x, const void* w,
                   T, K, N, E, nm, act};
   const dim3 grid((N + kBN - 1) / kBN, nwu);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16)
-    grouped_gemm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
+  using bf16 = __nv_bfloat16;
+  if (dtype == ptt::kBF16 && !trans_w)
+    grouped_gemm_kernel<bf16, false><<<grid, kThreads, 0, s>>>(p);
+  else if (dtype == ptt::kBF16)
+    grouped_gemm_kernel<bf16, true><<<grid, kThreads, 0, s>>>(p);
+  else if (dtype == ptt::kF32 && !trans_w)
+    grouped_gemm_kernel<float, false><<<grid, kThreads, 0, s>>>(p);
   else if (dtype == ptt::kF32)
-    grouped_gemm_kernel<float><<<grid, kThreads, 0, s>>>(p);
+    grouped_gemm_kernel<float, true><<<grid, kThreads, 0, s>>>(p);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// dw [E, K, N] (out_dt) = per expert x[seg]^T @ dz[seg]; x [T, K] and dz
+// [T, N] in dtype
+extern "C" int ptt_grouped_dw(const void* x, const void* dz,
+                              const int* offsets, void* out, int out_dt,
+                              int dtype, int T, int K, int N, int E,
+                              void* stream) {
+  const int mt = (K + kBN - 1) / kBN;
+  if (E < 1 || E > 65535 || mt > 65535 || T < 0)
+    return cudaErrorInvalidValue;
+  DwParams p{x, dz, offsets, out, out_dt, T, K, N};
+  const dim3 grid((N + kBN - 1) / kBN, mt, E);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kBF16)
+    grouped_dw_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
+  else if (dtype == ptt::kF32)
+    grouped_dw_kernel<float><<<grid, kThreads, 0, s>>>(p);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -7,6 +7,10 @@ autograd, ``backward()``, the optimizer's in-place update, and the
 gradients dropped again, so they live only inside the step. The call
 returns the 0-d loss on the device without waiting for it (no host
 sync); reading it (``float(loss)``) is what waits.
+
+While a step runs its forward, loss and backward, ``in_train_step()``
+is true: what the JAX package skips under the step's trace (the MoE
+layer's data-dependent telemetry, a host read) is skipped there too.
 """
 from __future__ import annotations
 
@@ -15,7 +19,16 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "in_train_step"]
+
+#: > 0 while a TrainStep runs its forward, loss and backward
+_step_depth = 0
+
+
+def in_train_step() -> bool:
+    """True inside a ``TrainStep``'s forward, loss and backward (the JAX
+    package's step runs them under a trace)."""
+    return _step_depth > 0
 
 
 class TrainStep:
@@ -63,10 +76,15 @@ class TrainStep:
             else None
         opt = self.optimizer
         opt.clear_grad()
-        out = self.model(*inputs)
-        outs = out if isinstance(out, (list, tuple)) else (out,)
-        loss = self.loss_fn(*outs, *labels)
-        loss.backward()
+        global _step_depth
+        _step_depth += 1
+        try:
+            out = self.model(*inputs)
+            outs = out if isinstance(out, (list, tuple)) else (out,)
+            loss = self.loss_fn(*outs, *labels)
+            loss.backward()
+        finally:
+            _step_depth -= 1
         opt.step()
         opt.clear_grad()
         if t0 is not None:

@@ -1,9 +1,9 @@
-"""Ragged grouped GEMM and the no-drop MoE FFN.
+"""Ragged grouped GEMM and the no-drop MoE FFN, forward and backward.
 
-Counterpart of ``paddle_tpu/nn/functional/grouped_gemm.py`` (the
-serving half: forward only, no autograd). An MoE expert bank is E
-independent GEMMs over CONTIGUOUS row segments of a token matrix sorted
-by expert id: expert ``e`` owns rows ``offsets[e]:offsets[e+1]``.
+Counterpart of ``paddle_tpu/nn/functional/grouped_gemm.py``. An MoE
+expert bank is E independent GEMMs over CONTIGUOUS row segments of a
+token matrix sorted by expert id: expert ``e`` owns rows
+``offsets[e]:offsets[e+1]``.
 
 - ``grouped_work_map`` — the work-unit schedule ``(gids, tids, lo,
   hi)`` of the per-expert ``offsets`` (a device tensor), built with
@@ -15,21 +15,45 @@ by expert id: expert ``e`` owns rows ``offsets[e]:offsets[e+1]``.
   map is built between launches and nothing syncs with the host.
 - ``grouped_gemm`` — ``y[r] = act(x[r] @ w[e(r)] + bias[e(r)])`` in
   fp32, cast to ``out_dtype``; rows past ``offsets[E]`` are exact 0.
-  On a CUDA tensor it launches the kernel of ``csrc/grouped_gemm.cu``
+  On a CUDA tensor it launches kernel B14 of ``csrc/grouped_gemm.cu``
   at the card's row tile ``DEFAULT_BLOCK_ROWS``; on a CPU tensor it
   runs the plain version ``grouped_gemm_plain`` (a per-expert loop of
-  segment products in fp32).
+  segment products in fp32). It is differentiable in x, w and bias
+  (``GroupedGemmFunction``, the JAX package's custom VJP step by step):
+  with an activation, one more B14 call recomputes ``z = x @ w[e] + b``
+  in f32 and ``dz = act'(z) * g`` in f32 (tanh-GELU or ReLU); ``dx`` is
+  B14 in its backward mode, which reads the bank ``[E, K, N]`` as
+  ``w[e]^T`` in place (no transposed copy); ``dw`` is kernel B15;
+  ``db`` is the segment sum of ``dz`` over the live
+  rows, torch ops on the device with nothing read back.
+- the weight gradient ``dw[e] = x[seg_e]^T @ dz[seg_e]`` ``[E, K, N]``:
+  kernel B15 on a CUDA tensor, ``grouped_dw_plain`` (a per-expert loop
+  in f32; rows past ``offsets[E]`` add nothing, an expert with no rows
+  gets exact zeros) on a CPU tensor.
 - ``moe_route`` (fp32 softmax router, top-k with the lower index first
   on ties, as the JAX package's top-k), ``_sort_by_expert`` (stable sort by
   expert) and ``moe_ffn_nodrop`` (route, sort, FFN1 with the activation
   fused, FFN2 in fp32, gate-weighted combine: no capacity, no dropped
-  token).
+  token), differentiable in x, the gate (through the top-k values) and
+  the banks.
+
+Precision of the backward's f32 operand. The JAX kernel multiplies
+``dot_general(dz, w.astype(dz.dtype), precision=DEFAULT)``: on a TPU the
+DEFAULT precision feeds the matrix unit bf16 operands, so a bf16 model's
+f32 ``dz`` is rounded to bf16 there, while the JAX CPU walk multiplies
+in exact f32. The port's kernels do what the TPU does: ``dz`` is rounded
+to x's dtype once (bf16 for a bf16 bank) and both dx and dw run on the
+tensor cores with f32 accumulators; an f32 bank keeps f32 and runs
+exact f32 products on the CUDA cores. The plain versions keep the JAX
+walk's f32 ``dz``; the card's check holds the kernels to them within
+what rounding ``dz`` to bf16 moves the plain version (the witness).
 
 ``FLAGS_moe_grouped_backend`` takes the JAX package's values: on a
-CUDA tensor ``auto``, ``pallas`` and ``interpret`` launch the kernel and
-``xla`` (the plain walk) raises; on a CPU tensor every value runs the
-plain version. The expert-parallel ``moe_ffn_ep`` comes with the
-tensor/expert-parallel serving slice of the port.
+CUDA tensor ``auto``, ``pallas`` and ``interpret`` launch the kernels,
+forward and backward, and ``xla`` (the plain walk) raises; on a CPU
+tensor every value runs the plain versions. The expert-parallel
+``moe_ffn_ep`` comes with the tensor/expert-parallel serving slice of
+the port.
 """
 from __future__ import annotations
 
@@ -39,6 +63,7 @@ import torch.nn.functional as F
 from ... import _kernels
 
 __all__ = ["grouped_work_map", "grouped_gemm", "grouped_gemm_plain",
+           "GroupedGemmFunction", "grouped_dw_plain",
            "moe_route", "moe_ffn_nodrop", "moe_ffn_ep",
            "DEFAULT_BLOCK_ROWS"]
 
@@ -77,8 +102,8 @@ def resolve_backend(what: str, backend: str, device) -> str:
     if backend == "xla":
         raise ValueError(
             f"{what} backend='xla' names the plain walk, which runs on "
-            "the CPU only; on the card the kernel of csrc/grouped_gemm.cu "
-            "serves every shape")
+            "the CPU only; on the card the kernels of csrc/grouped_gemm.cu "
+            "serve every shape")
     return "kernel"
 
 
@@ -169,15 +194,50 @@ def grouped_gemm_plain(x, w, offsets, *, bias=None, activation=None,
     return out.to(out_dtype or x.dtype)
 
 
-#: launches of the CUDA kernel, counted once each has been issued
-#: without an error (plain CPU calls do not count)
-launches = 0
-
-
-def _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype):
-    what = "grouped_gemm"
+def grouped_dw_plain(x, dz, offsets, E: int):
+    """Plain version of B15: for each expert, its segment's ``x^T @ dz``
+    in fp32, ``[E, K, N]``; rows past ``offsets[E]`` add nothing and an
+    expert with no rows gets exact zeros. Reads ``offsets`` on the
+    host."""
     T, K = x.shape
-    E, _, N = w.shape
+    N = dz.shape[1]
+    dw = torch.zeros((E, K, N), dtype=torch.float32, device=x.device)
+    off = [min(int(v), T) for v in offsets.tolist()]
+    for e in range(E):
+        lo, hi = off[e], off[e + 1]
+        if hi > lo:
+            dw[e] = x[lo:hi].float().T @ dz[lo:hi].float()
+    return dw
+
+
+#: launches of B14 (forward, recompute and backward mode) and of B15,
+#: counted once each has been issued without an error (plain CPU calls
+#: do not count)
+launches = 0
+dw_launches = 0
+
+
+def _check_on_card(what, x, tensors):
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"{what}: all operands must be on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+
+
+def _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype,
+                       trans_w=False):
+    """B14. ``trans_w``: the backward mode, ``x [T, N] @ w[e]^T`` over the
+    ``[E, K, N]`` bank read in place, out ``[T, K]``."""
+    what = "grouped_gemm backward (dx)" if trans_w else "grouped_gemm"
+    T = x.shape[0]
+    E, Kw, Nw = w.shape
+    K, N = (Nw, Kw) if trans_w else (Kw, Nw)
+    if x.shape[1] != K:
+        raise ValueError(f"{what}: x is {tuple(x.shape)}, the bank "
+                         f"{tuple(w.shape)}")
     if w.dtype != x.dtype:
         raise TypeError(f"{what}: x is {x.dtype} and w {w.dtype}; the "
                         "kernel takes w in x's dtype")
@@ -193,13 +253,7 @@ def _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype):
             raise ValueError(f"{what}: bias must be [E, N] = [{E}, {N}]")
         bias = bias.reshape(E, N)
     offsets = offsets.to(torch.int32)
-    for t in (x, w, offsets, bias):
-        if t is None:
-            continue
-        if t.device != x.device:
-            raise ValueError(f"{what}: all operands must be on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: operands must be contiguous")
+    _check_on_card(what, x, (x, w, offsets, bias))
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"{what}: x and w must be 16-byte aligned")
     fn = _kernels.lib("grouped_gemm").ptt_grouped_gemm
@@ -211,10 +265,125 @@ def _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype):
         0 if bias is None else _kernels.dtype_code(bias, what),
         offsets.data_ptr(), out.data_ptr(), _kernels.dtype_code(out, what),
         _kernels.dtype_code(x, what), T, K, N, E, DEFAULT_BLOCK_ROWS,
-        _ACTIVATIONS[activation], _kernels.stream_ptr(x.device)), what)
+        _ACTIVATIONS[activation], int(trans_w),
+        _kernels.stream_ptr(x.device)), what)
     global launches
     launches += 1
     return out
+
+
+def _grouped_dw_cuda(x, dz, offsets, E: int, out_dtype):
+    """B15: ``[E, K, N]`` in ``out_dtype`` from x and dz in one dtype."""
+    what = "grouped_dw"
+    T, K = x.shape
+    N = dz.shape[1]
+    if dz.shape[0] != T or dz.dtype != x.dtype:
+        raise TypeError(f"{what}: dz must be [{T}, N] in x's dtype "
+                        f"({x.dtype}), not {tuple(dz.shape)} {dz.dtype}")
+    vec = 16 // x.element_size()
+    if K % vec or N % vec:
+        raise ValueError(f"{what}: K ({K}) and N ({N}) must be multiples "
+                         f"of {vec} for {x.dtype}")
+    offsets = offsets.to(torch.int32)
+    if offsets.shape[0] != E + 1:
+        raise ValueError(f"{what}: offsets needs E+1 = {E + 1} entries")
+    _check_on_card(what, x, (x, dz, offsets))
+    if x.data_ptr() % 16 or dz.data_ptr() % 16:
+        raise ValueError(f"{what}: x and dz must be 16-byte aligned")
+    fn = _kernels.lib("grouped_gemm").ptt_grouped_dw
+    out = torch.empty((E, K, N), dtype=out_dtype, device=x.device)
+    _kernels.check(fn(x.data_ptr(), dz.data_ptr(), offsets.data_ptr(),
+                      out.data_ptr(), _kernels.dtype_code(out, what),
+                      _kernels.dtype_code(x, what), T, K, N, E,
+                      _kernels.stream_ptr(x.device)), what)
+    global dw_launches
+    dw_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# Routes of one call: the kernels, or their plain versions
+# ---------------------------------------------------------------------
+
+def _gemm(x, w, offsets, bias, activation, out_dtype, route):
+    if route == "plain":
+        return grouped_gemm_plain(x, w, offsets, bias=bias,
+                                  activation=activation, out_dtype=out_dtype)
+    return _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype)
+
+
+def _dx(dz, w, offsets, out_dtype, route):
+    """``dz @ w[e]^T`` per segment, ``out_dtype``."""
+    if route == "plain":
+        return grouped_gemm_plain(dz, w.transpose(1, 2), offsets,
+                                  out_dtype=out_dtype)
+    return _grouped_gemm_cuda(dz, w, offsets, None, None, out_dtype,
+                              trans_w=True)
+
+
+def _dw(x, dz, offsets, E, out_dtype, route):
+    if route == "plain":
+        return grouped_dw_plain(x, dz, offsets, E).to(out_dtype)
+    return _grouped_dw_cuda(x, dz, offsets, E, out_dtype)
+
+
+def _act_grad(z, g, activation):
+    """``act'(z) * g`` in f32: the JAX package's vjp of its
+    activation (tanh-GELU; ReLU with gradient 0 at 0)."""
+    if activation == "gelu":
+        return torch.ops.aten.gelu_backward(g, z, approximate="tanh")
+    if activation == "relu":
+        return g * (z > 0)
+    return g
+
+
+def _segment_sum(dz, offsets, E: int):
+    """``db[e] = sum of dz over e's rows`` f32 ``[E, N]``, rows past
+    ``offsets[E]`` left out; torch ops on dz's device, nothing read
+    back."""
+    T, N = dz.shape
+    rows = torch.arange(T, device=dz.device)
+    off = offsets.to(torch.int64)
+    row_e = torch.searchsorted(off[1:].contiguous(), rows, right=True) \
+        .clamp_max(E - 1)
+    live = (rows < off[-1]).unsqueeze(1)
+    return torch.zeros((E, N), dtype=torch.float32, device=dz.device) \
+        .index_add_(0, row_e, torch.where(live, dz, 0.0))
+
+
+class GroupedGemmFunction(torch.autograd.Function):
+    """``grouped_gemm``'s autograd function (the JAX package's
+    ``_grouped_core`` custom VJP). Saves x, w and bias; the backward
+    recomputes the pre-activation, then dx (B14, backward mode), dw
+    (B15) and db (segment sum), each only where an input needs it."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, offsets, activation, out_dtype, route):
+        ctx.save_for_backward(x, w, bias, offsets)
+        ctx.activation, ctx.route = activation, route
+        return _gemm(x, w, offsets, bias, activation, out_dtype, route)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias, offsets = ctx.saved_tensors
+        route = ctx.route
+        E = w.shape[0]
+        dz = g.float()
+        if ctx.activation:
+            z = _gemm(x, w, offsets, bias, None, torch.float32, route)
+            dz = _act_grad(z, dz, ctx.activation)
+            del z
+        # the kernels take the f32 dz rounded to x's dtype (the TPU's
+        # DEFAULT precision); the plain versions the f32 dz itself
+        dz_op = dz.to(x.dtype).contiguous() if route == "kernel" else dz
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = _dx(dz_op, w, offsets, x.dtype, route) if need_x else None
+        dw = _dw(x, dz_op, offsets, E, w.dtype, route) if need_w else None
+        db = None
+        if need_b:
+            db = _segment_sum(dz, offsets, E).to(bias.dtype) \
+                .reshape(bias.shape)
+        return dx, dw, db, None, None, None, None
 
 
 def grouped_gemm(x, w, offsets, *, bias=None, activation=None,
@@ -226,19 +395,16 @@ def grouped_gemm(x, w, offsets, *, bias=None, activation=None,
     (``offsets[E] <= T``; rows past it come out 0); ``bias`` ``[E, N]``
     (or ``[E, 1, N]``). The product accumulates in fp32; bias and the
     activation apply to the fp32 sum; the result is cast to
-    ``out_dtype`` (default x's dtype). ``backend``: see the module
-    docstring. Forward only (serving)."""
+    ``out_dtype`` (default x's dtype). Differentiable in x, w and bias
+    (``GroupedGemmFunction``). ``backend``: see the module docstring."""
     E, _, N = w.shape
     if offsets.shape[0] != E + 1:
         raise ValueError(
             f"grouped_gemm: offsets has {offsets.shape[0]} entries for "
             f"{E} experts (need E+1)")
-    out_dtype = out_dtype or x.dtype
-    if resolve_backend("grouped_gemm", backend, x.device) == "plain":
-        return grouped_gemm_plain(x, w, offsets, bias=bias,
-                                  activation=activation,
-                                  out_dtype=out_dtype)
-    return _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype)
+    route = resolve_backend("grouped_gemm", backend, x.device)
+    return GroupedGemmFunction.apply(x, w, bias, offsets, activation,
+                                     out_dtype or x.dtype, route)
 
 
 # ---------------------------------------------------------------------

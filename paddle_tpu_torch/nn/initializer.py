@@ -1,5 +1,6 @@
 """Parameter initializers (counterpart of ``paddle_tpu/nn/initializer.py``):
-the defaults that ``Linear``, ``Embedding`` and ``LayerNorm`` use.
+the defaults that ``Linear``, ``Embedding``, ``LayerNorm`` and the MoE
+gate and expert bank use.
 
 Each draws in f32 from the device's ``torch.Generator``
 (``core.generator.default_generator``) and casts to the requested
@@ -15,7 +16,7 @@ import torch
 from ..core.generator import default_generator
 
 __all__ = ["Initializer", "Constant", "Normal", "XavierNormal",
-           "to_dtype"]
+           "XavierUniform", "to_dtype"]
 
 
 def to_dtype(dtype) -> torch.dtype:
@@ -69,13 +70,33 @@ class Normal(Initializer):
             .to(to_dtype(dtype))
 
 
-class XavierNormal(Initializer):
+class _Xavier(Initializer):
     def __init__(self, fan_in=None, fan_out=None, gain: float = 1.0):
         self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
 
-    def __call__(self, shape, dtype="float32", device="cpu"):
+    def _fan_sum(self, shape) -> int:
+        """``fan_in + fan_out``, either overridden by the constructor."""
         fi, fo = _fan_in_out(tuple(int(s) for s in shape))
-        fi = self.fan_in if self.fan_in is not None else fi
-        fo = self.fan_out if self.fan_out is not None else fo
-        std = self.gain * math.sqrt(2.0 / (fi + fo))
+        return (self.fan_in if self.fan_in is not None else fi) + \
+            (self.fan_out if self.fan_out is not None else fo)
+
+
+class XavierNormal(_Xavier):
+    def __call__(self, shape, dtype="float32", device="cpu"):
+        std = self.gain * math.sqrt(2.0 / self._fan_sum(shape))
         return (_normal_f32(shape, device) * std).to(to_dtype(dtype))
+
+
+class XavierUniform(_Xavier):
+    """Uniform in ``±gain * sqrt(6 / (fan_in + fan_out))``, the fans by
+    the JAX package's rule (``_fan_in_out``: a 3-D ``[E, d, d_ff]`` bank
+    has fan_in ``d * d_ff`` and fan_out ``E * d_ff``)."""
+
+    def limit(self, shape) -> float:
+        return self.gain * math.sqrt(6.0 / self._fan_sum(shape))
+
+    def __call__(self, shape, dtype="float32", device="cpu"):
+        lim = self.limit(shape)
+        u = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+        u.uniform_(-lim, lim, generator=default_generator(device))
+        return u.to(to_dtype(dtype))

@@ -40,6 +40,7 @@ def test_import_leaves_jax_out():
         "import paddle_tpu_torch.nn, paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.amp, paddle_tpu_torch.jit\n"
         "import paddle_tpu_torch.bench\n"
+        "import paddle_tpu_torch.incubate.moe\n"
         "import paddle_tpu_torch.distributed.fleet.recompute\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
@@ -64,9 +65,12 @@ def test_no_source_names_jax_or_the_jax_package(pattern):
     assert hits == []
 
 
-@pytest.mark.parametrize("entry", ["model", "stack", "manager", "gpt"])
+@pytest.mark.parametrize("entry", ["model", "stack", "manager", "gpt",
+                                   "gpt_moe", "moe_layer"])
 def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
     from paddle_tpu_torch import build_model
+    from paddle_tpu_torch.bench import build_moe_model
+    from paddle_tpu_torch.incubate.moe import MoELayer
     from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
     from paddle_tpu_torch.inference import (BlockKVCacheManager,
                                             FusedCausalLM)
@@ -77,6 +81,8 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
         "stack": lambda **kw: FusedMultiTransformer(16, 2, 32, 1, **kw),
         "manager": lambda **kw: BlockKVCacheManager(1, 2, 8, 4, 8, **kw),
         "gpt": lambda **kw: build_model(16, 1, 2, 128, **kw),
+        "gpt_moe": lambda **kw: build_moe_model(16, 1, 2, 128, 2, **kw),
+        "moe_layer": lambda **kw: MoELayer(16, num_experts=2, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -143,6 +149,12 @@ def test_cpu_path_builds_nothing(monkeypatch):
                                     causal=True)
     out.sum().backward()
     assert torch.isfinite(q.grad).all()
+    # an MoE training step takes the plain grouped GEMM and dw too
+    before_dw = gg.dw_launches
+    _, step = bench.make_moe_train_step(16, 1, 2, 64, 2, device="cpu")
+    inputs, labels = bench.rung_batch(1, 64, "cpu")
+    assert torch.isfinite(step(inputs, labels))
+    assert gg.dw_launches == before_dw
     # the launch counters count CUDA launches only
     assert (pa.launches, sl.launches, sl.tail_launches, fv.launches,
             gg.launches, tl.launches) == before
@@ -172,7 +184,7 @@ def test_kernel_sources_and_wrappers_present():
         for fn in fns:
             assert f'extern "C" int {fn}(' in src
         assert "sm_90a" in " ".join(_kernels._FLAGS)
-    assert {"ptt_grouped_gemm", "ptt_lora_delta",
+    assert {"ptt_grouped_gemm", "ptt_grouped_dw", "ptt_lora_delta",
             "ptt_grouped_work_map"} == set(
         _kernels._SIGNATURES["grouped_gemm"])
     assert {"ptt_flash_fwd", "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv"} == \
@@ -183,7 +195,7 @@ def test_kernel_sources_and_wrappers_present():
     for counter in (pa.launches, pa.q_launches, sl.launches,
                     sl.w8_launches, sl.tail_launches, sl.tail_w8_launches,
                     sl.a8w8_launches, fv.launches, gg.launches,
-                    tl.launches, at.fwd_launches, at.dq_launches,
-                    at.dkv_launches, fv.fwd_varlen_launches,
+                    gg.dw_launches, tl.launches, at.fwd_launches,
+                    at.dq_launches, at.dkv_launches, fv.fwd_varlen_launches,
                     fv.dq_varlen_launches, fv.dkv_varlen_launches):
         assert isinstance(counter, int)
