@@ -92,6 +92,21 @@ Phases, all run every time, each of which fails the run when it fails:
            8 timed steps (tokens/s, MFU by activated FLOPs, device idle
            share, peak memory; 60 B14, 24 B15, 12/12/12 B10 launches a
            step).
+  backends the decode backends of FLAGS_paged_attention_backend: B7
+           (stream_paged, pool streaming), B8 (fused_paged, one program
+           per sequence) and B9 (pallas_paged, the stock kernel's
+           compute blocks) checked against their plain versions on the
+           decode check's inputs (an empty row exactly 0, a shared page,
+           an id past the region; a control per kernel) and timed beside
+           SDPA over gathered K/V; then, on the bf16 d2048·L24 model
+           before it is quantized, generate_fused and generate_pallas
+           (b32, prompt 128, 33 new tokens: 24 launches of B8 or B9 a
+           decode step, none of B1) with their teacher-forced checks,
+           one decode step under stream (B1, not B7), xla raising on the
+           card, and the public paged_attention under auto on a live
+           pool for each layer (stream, 48 launches). B10 is also
+           checked at head_dim 80 and B11-B13 at 40, both zero-padded
+           by their wrappers, with the padding's cost timed.
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -1502,7 +1517,10 @@ def _counters():
             "flash_attention_bwd_dkv": at.dkv_launches,
             "flash_varlen_fwd": fv.fwd_varlen_launches,
             "flash_varlen_bwd_dq": fv.dq_varlen_launches,
-            "flash_varlen_bwd_dkv": fv.dkv_varlen_launches}
+            "flash_varlen_bwd_dkv": fv.dkv_varlen_launches,
+            "paged_attention_stream": pa.stream_launches,
+            "paged_attention_fused": pa.fused_launches,
+            "paged_attention_pallas": pa.pallas_launches}
 
 
 #: CUDA launches of one stream_layer_tail call with the next layer's
@@ -1513,9 +1531,11 @@ TAIL_LAUNCHES_PER_CALL = 6
 def _expected_launches(decode_steps: int, prefills: int,
                        prefill_chunks: int = 0, quant=None,
                        kv_dtype=None, moe=False,
-                       layers: int = N_LAYERS) -> dict:
+                       layers: int = N_LAYERS, attention=None) -> dict:
     """Launches of a path. Per decode step: one attention per layer
-    (B6 over an int8 pool, else B1) and the LM head; the grouped,
+    (B6 over an int8 pool; under FLAGS_paged_attention_backend
+    ``attention`` = fused or pallas B8 or B9; else B1) and the LM head;
+    the grouped,
     prefetching loop adds the layer-0 QKV and one tail call per layer
     (their int8-weight kernels under quant="int8"); A8W8 runs the
     ungrouped loop instead, four B5 GEMMs per layer; an MoE stack runs
@@ -1527,6 +1547,7 @@ def _expected_launches(decode_steps: int, prefills: int,
     L, steps = layers, decode_steps
     e = dict.fromkeys(_SOURCES, 0)
     e["paged_decode_attention_inplace_q" if kv_dtype == "int8"
+      else f"paged_attention_{attention}" if attention
       else "paged_decode_attention_inplace"] = L * steps
     e["stream_linear"] = steps + prefills + prefill_chunks
     if moe:
@@ -1562,6 +1583,7 @@ def _reset_counters():
     from paddle_tpu_torch.nn.functional import lora as tl
 
     pa.launches = pa.q_launches = 0
+    pa.stream_launches = pa.fused_launches = pa.pallas_launches = 0
     sl.launches = sl.tail_launches = 0
     sl.w8_launches = sl.tail_w8_launches = sl.a8w8_launches = 0
     fv.launches = gg.launches = gg.dw_launches = tl.launches = 0
@@ -1644,7 +1666,17 @@ def plain_path(act_quant_ulp=None, drop_k_tile=False, drop_ffn2_k=False,
 
     def delta(x, a, b, offsets, *, out_dtype=None, backend="auto"):
         return tl.lora_delta_plain(x, a, b, offsets, out_dtype=out_dtype)
+
+    def stream(q, kc, vc, lens, tbl, pool_base=None, pool_pages=None,
+               membership=None):
+        base, region = pa._layer_region("stream_paged", kc.shape[0],
+                                        pool_base, pool_pages)
+        return pa._stream_paged_plain(q, kc, vc, lens, tbl, base, region,
+                                      membership)
     with mock.patch.object(ft, "paged_decode_attention_inplace", attn), \
+            mock.patch.object(pa, "stream_paged", stream), \
+            mock.patch.object(pa, "fused_paged", pa._fused_paged_plain), \
+            mock.patch.object(pa, "pallas_paged", pa._pallas_paged_plain), \
             mock.patch.object(ft, "paged_decode_attention_inplace_q",
                               attn_q), \
             mock.patch.object(ft, "stream_linear", lin), \
@@ -1676,11 +1708,13 @@ def _build_model():
 
 
 def slice_generate(model, name="generate", quant=None, kv_dtype=None,
-                   batch=BATCH, new_tokens=NEW_TOKENS) -> dict:
+                   batch=BATCH, new_tokens=NEW_TOKENS,
+                   attention=None) -> dict:
     """GenerationEngine.generate at ``batch``, prompt 128, ``new_tokens``
     (bench.py's decode rungs; ``quant``/``kv_dtype`` select the
-    quantized ones, an MoE model the MoE rung), its launch counts reset
-    before and checked after."""
+    quantized ones, an MoE model the MoE rung; ``attention`` names the
+    FLAGS_paged_attention_backend value the caller set), its launch
+    counts reset before and checked after."""
     from paddle_tpu_torch.inference import GenerationEngine
     from paddle_tpu_torch.profiler import stats
 
@@ -1702,12 +1736,13 @@ def slice_generate(model, name="generate", quant=None, kv_dtype=None,
     # first token: prefill
     expect = _expected_launches(new_tokens - 1, 1, quant=quant,
                                 kv_dtype=kv_dtype, moe=moe,
-                                layers=st.num_layers)
+                                layers=st.num_layers, attention=attention)
     a8w8_matmuls = stats.counter("quant.a8w8_matmuls").value - mm0
     # seconds and tokens/s cover the whole call, the prefill included
     emit({"phase": name, "batch": batch, "prompt": PROMPT,
           "new_tokens": new_tokens, "quant": quant,
-          "kv_dtype": kv_dtype, "layers": st.num_layers,
+          "kv_dtype": kv_dtype, "attention": attention,
+          "layers": st.num_layers,
           "d_model": st.embed_dim, "experts": st.moe_num_experts,
           "seconds": dt, "tokens_per_s": batch * new_tokens / dt,
           "quant_a8w8_matmuls": a8w8_matmuls,
@@ -2509,8 +2544,9 @@ def _over(errs: dict, tols: dict) -> list:
 
 #: kernel-check cases: (b, s, h, d, dtype, causal): the rung, the s2048
 #: rung, head_dim 64 in f32 both ways and bf16, odd batch x heads,
-#: head_dim 96 at the gpt-760m rung's shape (bf16) and in f32, and
-#: head_dim 64 at the MoE training rung's shape (bf16)
+#: head_dim 96 at the gpt-760m rung's shape (bf16) and in f32,
+#: head_dim 64 at the MoE training rung's shape (bf16), and head_dim 80,
+#: which the wrappers run zero-padded to 96 (bf16)
 FLASH_CASES = (
     (4, 1024, 16, 128, torch.bfloat16, True),
     (2, 2048, 16, 128, torch.bfloat16, True),
@@ -2522,6 +2558,7 @@ FLASH_CASES = (
     (8, 1024, 16, 96, torch.bfloat16, True),
     (2, 256, 4, 96, torch.float32, True),
     (4, 1024, 16, 64, torch.bfloat16, True),
+    (2, 512, 8, 80, torch.bfloat16, True),
 )
 #: the gpt-760m rung (bench.py LADDER[1]: d1536, 16 heads of 96, seq
 #: 1024, batch 8, the _FAST options)
@@ -2712,12 +2749,53 @@ def kernel_flash_attention(gen) -> dict:
     _flash_times(gen, R760_BATCH, TRAIN_SEQ, N_HEADS, R760_D // N_HEADS)
     _flash_times(gen, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_HEADS,
                  MOE_D // MOE_HEADS)
+    _flash_pad_times(gen)
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     names = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
              "dkv": "flash_attention_bwd_dkv"}
     return {names[n]: {**rows[n],
                        "max_abs_err": max(res[k] for k in outputs[n])}
             for n in names}
+
+
+def _flash_pad_times(gen) -> None:
+    """The zero-pad route's cost at head_dim 80 (b2 s512 h8, bf16,
+    causal): B10 through its wrappers, which pad to 96 and slice back,
+    beside the same kernels on operands padded beforehand (the
+    difference is the padding copies, PyTorch ops) and the plain
+    versions; the bounds count the true head_dim."""
+    from paddle_tpu_torch.nn.functional import attention as at
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+
+    b, s, h, d, dt = 2, 512, 8, 80, torch.bfloat16
+    scale = d ** -0.5
+    q, k, v, do = _flash_inputs(gen, b, s, h, d, dt)
+    qp, kp, vp, dop = (fv.pad_head(t, 96).contiguous()
+                       for t in (q, k, v, do))
+    out, lse = at.flash_attention_fwd(q, k, v, True, scale)
+    outp = fv.pad_head(out, 96).contiguous()
+    times = {
+        "fwd_ms": time_ms(lambda: at.flash_attention_fwd(q, k, v, True,
+                                                         scale)),
+        "fwd_kernel_ms": time_ms(lambda: at._flash_fwd_cuda(qp, kp, vp, True,
+                                                            scale)),
+        "bwd_ms": time_ms(lambda: at.flash_attention_bwd(
+            q, k, v, out, lse, do, True, scale)),
+        "bwd_kernel_ms": time_ms(lambda: at._flash_bwd_cuda(
+            qp, kp, vp, outp, lse, dop, True, scale)),
+        "plain_fwd_ms": time_ms(lambda: at.flash_attention_fwd_plain(
+            q, k, v, True, scale), iters=5),
+        "plain_bwd_ms": time_ms(lambda: at.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, True, scale), iters=5)}
+    bounds = {n: bound_ms(*_flash_bounds(b, s, s, h, d, True, dt)[n], dt)
+              for n in ("fwd", "dq", "dkv")}
+    emit({"time": "flash_attention_d80", "shape": [b, s, h, d],
+          "padded_to": 96, "causal": True, **times,
+          "pad_ms": times["fwd_ms"] - times["fwd_kernel_ms"]
+          + times["bwd_ms"] - times["bwd_kernel_ms"],
+          "bound_ms": {n: v[0] for n, v in bounds.items()},
+          "bound_by": {n: v[1] for n, v in bounds.items()}})
+    del q, k, v, do, qp, kp, vp, dop, out, outp
 
 
 @contextlib.contextmanager
@@ -3005,7 +3083,8 @@ def _ragged_lens(total: int, seed: int) -> list:
 
 #: kernel-check cases: (name, q lengths, k lengths or None, h, d, dtype,
 #: causal): the rung; a ragged pack; totals off the 64-row tile; cross
-#: lengths with an empty k segment; non-causal; f32 at d64; bf16 at d96
+#: lengths with an empty k segment; non-causal; f32 at d64; bf16 at d96;
+#: bf16 at d40, which the wrappers run zero-padded to 64
 VARLEN_CASES = (
     ("rung", VARLEN_LENS, None, 16, 128, torch.bfloat16, True),
     ("ragged", _ragged_lens(32768, 11), None, 16, 128, torch.bfloat16, True),
@@ -3016,6 +3095,7 @@ VARLEN_CASES = (
      False),
     ("f32_d64", [300, 700, 24], None, 4, 64, torch.float32, True),
     ("bf16_d96", [1536, 512, 1000], None, 16, 96, torch.bfloat16, True),
+    ("bf16_d40", [1536, 512, 1000], None, 16, 40, torch.bfloat16, True),
 )
 VARLEN_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
 #: each kernel's faulty-kernel control and the outputs it must push out
@@ -3194,7 +3274,47 @@ def kernel_flash_varlen(gen) -> dict:
             res = max_abs
         del q, k, v, do, got, ref
     torch.cuda.empty_cache()
+    _varlen_pad_times(gen)
     return _varlen_times(gen, res)
+
+
+def _varlen_pad_times(gen) -> None:
+    """The zero-pad route's cost at head_dim 40 (the bf16_d40 pack):
+    B11-B13 through their wrappers, which pad to 64 and slice back,
+    beside the same kernels on operands padded beforehand and the plain
+    versions; the bounds count the true head_dim."""
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+
+    lens, h, d, dt = [1536, 512, 1000], 16, 40, torch.bfloat16
+    T, scale, cu = sum(lens), d ** -0.5, _cu(lens)
+    q, k, v, do = _varlen_inputs(gen, T, T, h, d, dt)
+    qp, kp, vp, dop = (fv.pad_head(t, 64).contiguous()
+                       for t in (q, k, v, do))
+    out, lse = fv.packed_fwd(q, k, v, cu, cu, scale=scale, causal=True)
+    outp = fv.pad_head(out, 64).contiguous()
+    times = {
+        "fwd_ms": time_ms(lambda: fv.packed_fwd(q, k, v, cu, cu,
+                                                scale=scale, causal=True)),
+        "fwd_kernel_ms": time_ms(lambda: fv._varlen_fwd_cuda(
+            qp, kp, vp, cu, cu, True, scale)),
+        "bwd_ms": time_ms(lambda: fv.packed_bwd(
+            q, k, v, out, lse, do, cu, cu, scale=scale, causal=True)),
+        "bwd_kernel_ms": time_ms(lambda: fv._varlen_bwd_cuda(
+            qp, kp, vp, outp, lse, dop, cu, cu, True, scale)),
+        "plain_fwd_ms": time_ms(lambda: fv.packed_fwd_plain(
+            q, k, v, cu, cu, scale=scale, causal=True), iters=3, warmup=1),
+        "plain_bwd_ms": time_ms(lambda: fv.packed_bwd_plain(
+            q, k, v, out, lse, do, cu, cu, scale=scale, causal=True),
+            iters=3, warmup=1)}
+    bounds = {n: bound_ms(*v, dt) for n, v in _varlen_bounds(
+        T, T, h, d, _varlen_pairs(lens, lens, True), dt).items()}
+    emit({"time": "flash_varlen_d40", "h": h, "d": d, "padded_to": 64,
+          "tq": T, "segments": len(lens), "causal": True, **times,
+          "pad_ms": times["fwd_ms"] - times["fwd_kernel_ms"]
+          + times["bwd_ms"] - times["bwd_kernel_ms"],
+          "bound_ms": {n: v[0] for n, v in bounds.items()},
+          "bound_by": {n: v[1] for n, v in bounds.items()}})
+    del q, k, v, do, qp, kp, vp, dop, out, outp
 
 
 def _aten_varlen_times(sets, cu, cmax: int, scale: float):
@@ -3691,6 +3811,328 @@ def slice_train_moe(out_dir, gen, steps: int = MOE_TRAIN_STEPS) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- decode
+# backends (FLAGS_paged_attention_backend: B7, B8, B9)
+
+#: kernel-check shapes (g, d) of each backend: the decode rung's (g 1,
+#: d 128), grouped queries, the widest head, a masked width (96); the
+#: stream kernel takes head_dim % 128 == 0 only
+BACKEND_SHAPES = {"stream": ((1, HEAD_DIM), (2, HEAD_DIM), (4, 256)),
+                  "fused": ((1, HEAD_DIM), (2, 64), (4, 256), (1, 96)),
+                  "pallas": ((1, HEAD_DIM), (2, 64), (4, 256), (1, 96))}
+#: new tokens of generate_fused / generate_pallas: cut from NEW_TOKENS
+#: (129) to hold the script's time
+BACKEND_NEW_TOKENS = 33
+
+
+def _rel1_err(got, ref) -> float:
+    """The largest ``|got - ref| / max(1, |ref|)``: absolute below 1,
+    relative above, so one bf16 ulp of either output counts at most
+    2^-7 whatever the value's size."""
+    g, r = got.float(), ref.float()
+    return float(((g - r).abs() / r.abs().clamp_min(1.0)).max())
+
+
+def _backend_call(name, c, base, membership=None, plain=False, **kw):
+    """One call of backend ``name`` (kernel or plain version) on a
+    _decode_case over the layer region at ``base``: the stream kernel
+    takes the layer-local tables and the region, the others the
+    absolute tables."""
+    from paddle_tpu_torch.nn.functional import paged_attention as pa
+
+    args = (c["q"], c["kp"], c["vp"], c["lens"])
+    if name == "stream":
+        if plain:
+            return pa._stream_paged_plain(*args, c["tables"], base, c["P"],
+                                          membership, **kw)
+        return pa.stream_paged(*args, c["tables"], pool_base=base,
+                               pool_pages=c["P"], membership=membership)
+    tables = c["tables"] + base
+    if plain:
+        fn = {"fused": pa._fused_paged_plain,
+              "pallas": pa._pallas_paged_plain}[name]
+        return fn(*args, tables, **kw)
+    return {"fused": pa.fused_paged, "pallas": pa.pallas_paged}[name](
+        *args, tables)
+
+
+def _stream_tol(witness: float) -> float:
+    """B7's bf16 limit: 2^-7, or the witness plus 2^-8 where more. B7 and
+    its plain version both round p to bf16, so an f32-order difference
+    in a score can move one p by a bf16 ulp; the witness (the plain
+    version with p kept in f32) measures how far such rounding reaches
+    on these inputs."""
+    return max(2.0 ** -7, witness + 2.0 ** -8)
+
+
+def kernel_paged_backends(gen) -> dict:
+    """Kernels B7 (stream_paged), B8 (fused_paged) and B9 (pallas_paged)
+    against their plain versions on _decode_case's inputs (attending
+    seq_lens tokens: an idle row 0 of length 0, rows 7 and 8 sharing a
+    full page, row 30's last page outside the region) over layer 1's
+    region of a 4-layer folded pool, at BACKEND_SHAPES. Limits: float32
+    2e-5 absolute (f32 sums in another order); bf16 2^-7 on
+    ``_rel1_err`` (both sides keep f32 statistics; B8 and B9 feed P V a
+    bf16 pair, so only f32 order and the output's rounding differ: one
+    bf16 ulp); B7 and its plain version round the probabilities to bf16
+    alike, where an f32-order difference can flip one rounding, so B7's
+    limit is ``_stream_tol`` of a witness. Rows of length 0 must be exactly 0. One control
+    per kernel, which must exceed its limit: B7's plain version masked by
+    build_pool_ownership (the JAX kernel's one-owner map: row 7 or 8
+    loses the shared page); B8's and B9's skipping each row's last live
+    page. Then each is timed at the rung (b32, g1, d128, bf16), rotating
+    over the 4 layers, beside its plain version and SDPA over K/V
+    already gathered; its bound counts the attended K/V rows, q, out,
+    the tables and lengths."""
+    from paddle_tpu_torch.nn.functional import paged_attention as pa
+
+    rows = {}
+    for name, shapes in BACKEND_SHAPES.items():
+        res = {}
+        for (g, d), dtype in [(gd, dt) for gd in shapes
+                              for dt in (torch.float32, torch.bfloat16)]:
+            bf16 = dtype == torch.bfloat16
+            c = _decode_case(dtype, gen, g=g, d=d)
+            base = c["P"]                          # layer 1's region
+            mem = pa.pool_membership(c["tables"], c["lens"], c["P"], PAGE)
+            got = _backend_call(name, c, base, mem)
+            torch.cuda.synchronize()
+            ref = _backend_call(name, c, base, mem, plain=True)
+            if name == "stream":
+                own = pa.build_pool_ownership(c["tables"], c["lens"], c["P"],
+                                              PAGE)
+                ctrl_out = _backend_call(name, c, base, plain=True,
+                                         ownership=own)
+            else:
+                ctrl_out = _backend_call(name, c, base, plain=True,
+                                         skip_last_page=True)
+            metric = _rel1_err if bf16 else max_err
+            tol, witness = (2.0 ** -7 if bf16 else 2e-5), None
+            if bf16 and name == "stream":
+                witness = _rel1_err(_backend_call(
+                    name, c, base, mem, plain=True, round_p=False), ref)
+                tol = _stream_tol(witness)
+            err, ctrl = metric(got, ref), metric(ctrl_out, ref)
+            empty_exact = bool((got[0] == 0).all())
+            line = {"check": f"paged_attention_{name}", "g": g, "d": d,
+                    "dtype": str(dtype),
+                    "metric": "rel1" if bf16 else "max_abs_err",
+                    "err": err, "max_abs_err": max_err(got, ref),
+                    "tol": tol, "witness_err": witness, "control_err": ctrl,
+                    "empty_row_exact_zero": empty_exact}
+            if name == "stream":
+                line["control_err_rows_7_8"] = [
+                    max_err(ctrl_out[r], ref[r]) for r in (7, 8)]
+            emit(line)
+            what = f"paged_attention_{name} g={g} d={d} {dtype}"
+            check(err <= tol, f"{what}: {err} > {tol}")
+            check(ctrl > tol, f"{what}: the control ({ctrl}) is within the "
+                              f"limit {tol}")
+            check(empty_exact, f"{what}: the row of length 0 is not 0")
+            if (g, d) == (1, HEAD_DIM):
+                res[str(dtype)] = line["max_abs_err"]
+            del c, got, ref, ctrl_out
+        rows[f"paged_attention_{name}"] = _backend_times(name, gen, res)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _backend_times(name, gen, res) -> dict:
+    """Backend ``name`` timed at the rung (b32, g1, d128, bf16), inputs
+    rotating over the 4 layers' regions; one "time" line."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.nn.functional import paged_attention as pa
+
+    c = _decode_case(torch.bfloat16, gen)
+    P, pp, L = c["P"], c["pp"], c["L"]
+    args = (c["q"], c["kp"], c["vp"], c["lens"])
+    mem = pa.pool_membership(c["tables"], c["lens"], P, PAGE)
+    # absolute ids of each layer's region; row 30's id past the region
+    # reads its layer's scratch page 0 here, so the last layer's stays in
+    # the pool
+    local = torch.where(c["tables"] < P, c["tables"], 0)
+    absolute = [local + l * P for l in range(L)]
+    nxt = cycler(L)
+    if name == "stream":
+        def kern():
+            pa.stream_paged(*args, c["tables"], pool_base=nxt() * P,
+                            pool_pages=P, membership=mem)
+
+        def plain():
+            pa._stream_paged_plain(*args, c["tables"], nxt() * P, P, mem)
+    else:
+        fn = {"fused": pa.fused_paged, "pallas": pa.pallas_paged}[name]
+        pfn = {"fused": pa._fused_paged_plain,
+               "pallas": pa._pallas_paged_plain}[name]
+
+        def kern():
+            fn(*args, absolute[nxt()])
+
+        def plain():
+            pfn(*args, absolute[nxt()])
+    # what each row attends: its tokens below seq_lens through its table;
+    # the stream kernel drops row 30's id outside the region
+    b, n_kv, d = c["q"].shape
+    cap = pp * PAGE
+    tok = torch.arange(cap, device="cuda")
+    attended = tok[None, :] < c["lens"].long()[:, None]
+    if name == "stream":
+        attended &= (c["tables"] < P).repeat_interleave(PAGE, dim=1)
+    kg = c["kp"][absolute[1].long()].permute(0, 2, 1, 3, 4) \
+        .reshape(b, n_kv, cap, d).contiguous()
+    vg = c["vp"][absolute[1].long()].permute(0, 2, 1, 3, 4) \
+        .reshape(b, n_kv, cap, d).contiguous()
+    mask = attended[:, None, None, :]
+    qd = c["q"][:, :, None, :]
+
+    def library():
+        F.scaled_dot_product_attention(qd, kg, vg, attn_mask=mask)
+    ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
+    lib_ms = time_ms(library)
+    isz, n_tok = 2, int(attended.sum())
+    nbytes = (2 * n_tok * n_kv * d * isz + 2 * b * n_kv * d * isz
+              + b * 4 + (b * P * 4 if name == "stream"
+                         else c["tables"].numel() * 4))
+    flops = 4.0 * n_tok * n_kv * d
+    bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+           "max_abs_err": res[str(torch.bfloat16)]}
+    extra = {}
+    if name == "stream":
+        region = 2 * P * PAGE * n_kv * d * isz
+        nch = -(-P * PAGE // pa.STREAM_KERNEL_CHUNK)
+        extra = {"region_bytes": region,
+                 "region_bound_ms": region / HBM_BYTES_PER_S * 1e3,
+                 "workspace_bytes": n_kv * nch * b * (d + 2) * 4,
+                 "launches_per_call": 2}
+    emit({"time": f"paged_attention_{name}", "batch": b, "g": 1, "d": d,
+          "pages_per_seq": pp, "attended_tokens": n_tok, **row, **extra,
+          "library_note": "scaled_dot_product_attention over K/V already "
+                          "gathered, masked by length"})
+    del c, kg, vg, absolute
+    return row
+
+
+def slice_decode_backends(model) -> dict:
+    """The decode rung's model (bf16 d2048·L24, before it is quantized)
+    under each FLAGS_paged_attention_backend value, launch counts reset
+    before and read after each path:
+    - fused and pallas: GenerationEngine.generate at batch 32, prompt
+      128, BACKEND_NEW_TOKENS new tokens (generate_fused,
+      generate_pallas): 24 launches of B8 (B9) a decode step, none of
+      B1; then the teacher-forced check against the plain path;
+    - stream: one decode step, which takes B1 in place (24 launches) and
+      not B7, as the JAX decode step does on its chip;
+    - xla: decode_raw on the card raises;
+    - the public paged_attention under auto on a prefilled batch's live
+      pool, each of the 24 layers at pool_base = l * pages: it takes
+      stream (48 launches: partials and merge a layer), each layer held
+      to B7's plain version within ``_stream_tol`` of the witness (that
+      plain version's distance to paged_attention_plain, the gather,
+      which keeps p in f32), and to the gather on the absolute tables
+      within that limit plus the witness."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.incubate.nn.fused_transformer import PagedKV
+    from paddle_tpu_torch.nn.functional import paged_attention as pa
+
+    t0 = time.perf_counter()
+    st = model.stack
+    L = st.num_layers
+    by_path = {}
+    try:
+        for value in ("fused", "pallas"):
+            set_flags({"paged_attention_backend": value})
+            by_path[f"generate_{value}"] = slice_generate(
+                model, f"generate_{value}", new_tokens=BACKEND_NEW_TOKENS,
+                attention=value)
+            slice_teacher_forced(model, name=f"teacher_forced_{value}")
+        s = _prefilled(model, BATCH, 1, seed=4)
+        x = s["emb"][s["tok"].long()].to(torch.bfloat16)
+        step = (s["w"], x, PagedKV(s["ck"], s["cv"]), s["tables"],
+                s["lens"], s["eng"]._cos, s["eng"]._sin)
+        set_flags({"paged_attention_backend": "stream"})
+        _reset_counters()
+        h, _ = st.decode_raw(*step)
+        torch.cuda.synchronize()
+        counts = _counters()
+        by_path["decode_step_stream"] = counts
+        emit({"phase": "decode_step_stream", "batch": BATCH,
+              "launches": counts, "hidden_finite":
+              bool(torch.isfinite(h).all())})
+        check(counts["paged_decode_attention_inplace"] == L,
+              f"stream: B1 launched {counts['paged_decode_attention_inplace']}"
+              f" times in a decode step, expected {L}")
+        for k in ("stream", "fused", "pallas"):
+            check(counts[f"paged_attention_{k}"] == 0,
+                  f"stream: a decode step launched paged_attention_{k}")
+        check(bool(torch.isfinite(h).all()), "stream: hidden not finite")
+        set_flags({"paged_attention_backend": "xla"})
+        try:
+            st.decode_raw(*step)
+            raised = None
+        except ValueError as exc:
+            raised = str(exc)
+        emit({"phase": "decode_step_xla", "raised": raised})
+        check(raised is not None and "CPU only" in raised,
+              "xla: decode_raw on the card did not raise")
+    finally:
+        set_flags({"paged_attention_backend": "auto"})
+    del s, step
+    # the public op under auto on a live pool, layer by layer
+    s = _prefilled(model, BATCH, 8, seed=5)
+    npages = st._pages_per_layer(PagedKV(s["ck"], s["cv"]))
+    q = torch.randn(BATCH, st.num_heads, st.head_dim, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5)
+                    ).to(torch.bfloat16)
+    mem = pa.pool_membership(s["tables"], s["lens"], npages, PAGE)
+    _reset_counters()
+    outs, taken = [], set()
+    for l in range(L):
+        outs.append(pa.paged_attention(q, s["ck"], s["cv"], s["lens"],
+                                       s["tables"], pool_base=l * npages,
+                                       pool_pages=npages, ownership=mem))
+        taken.add(pa.last_paged_attention_backend())
+    torch.cuda.synchronize()
+    counts = _counters()
+    # each layer against B7's plain version (the kernel check's limit)
+    # and against the plain gather on the absolute tables: B7 rounds the
+    # probabilities to bf16 where the gather keeps f32, so that limit
+    # adds the witness, B7's plain version's own distance to the gather
+    errs, xla_errs, witness = [], [], []
+    for l, o in enumerate(outs):
+        ref = pa._stream_paged_plain(q, s["ck"], s["cv"], s["lens"],
+                                     s["tables"], l * npages, npages, mem)
+        xla = pa.paged_attention_plain(q, s["ck"], s["cv"], s["lens"],
+                                       s["tables"] + l * npages)
+        errs.append(_rel1_err(o, ref))
+        xla_errs.append(_rel1_err(o, xla))
+        witness.append(_rel1_err(ref, xla))
+    tols = [_stream_tol(w) for w in witness]
+    by_path["paged_attention_auto"] = counts
+    wall = time.perf_counter() - t0
+    emit({"phase": "paged_attention_auto", "batch": BATCH,
+          "context": PROMPT, "layers": L, "backends": sorted(taken),
+          "launches": counts, "metric": "rel1", "err_by_layer": errs,
+          "tol_by_layer": tols, "xla_err_by_layer": xla_errs,
+          "witness_by_layer": witness, "wall_s": wall})
+    check(taken == {"stream"}, f"auto took {sorted(taken)} on the card")
+    expect = dict.fromkeys(_SOURCES, 0)
+    expect["paged_attention_stream"] = 2 * L
+    _check_launches("paged_attention_auto", counts, expect)
+    bad = [l for l in range(L) if errs[l] > tols[l]]
+    check(not bad, f"paged_attention auto: layers {bad} differ from B7's "
+          "plain version by more than their limits")
+    bad = [l for l in range(L) if xla_errs[l] > witness[l] + tols[l]]
+    check(not bad, f"paged_attention auto: layers {bad} differ from the "
+          "plain gather by more than the witness + their limits")
+    del s, outs, q
+    torch.cuda.empty_cache()
+    emit({"phase": "decode_backends", "wall_s": wall})
+    return by_path
+
+
 # ---------------------------------------------------------------- main
 
 _SOURCES = {
@@ -3745,6 +4187,15 @@ _SOURCES = {
     "flash_varlen_bwd_dkv": (
         "paddle_tpu_torch/csrc/flash_varlen_packed.cu",
         "paddle_tpu/nn/functional/flash_varlen.py:500"),
+    "paged_attention_stream": (
+        "paddle_tpu_torch/csrc/paged_backends.cu",
+        "paddle_tpu/nn/functional/paged_attention.py:341"),
+    "paged_attention_fused": (
+        "paddle_tpu_torch/csrc/paged_backends.cu",
+        "paddle_tpu/nn/functional/paged_attention.py:145"),
+    "paged_attention_pallas": (
+        "paddle_tpu_torch/csrc/paged_backends.cu",
+        "paddle_tpu/nn/functional/paged_attention.py:89"),
 }
 
 #: the quantized decode rungs of bench.py (--decode-int8, --decode-a8w8,
@@ -3800,6 +4251,12 @@ def drive(args) -> None:
     by_path["serving_lora"] = slice_serving_lora(model)
     slice_teacher_forced_lora(model)
     emit({"phase": "lora_paths", "wall_s": time.perf_counter() - t0})
+    # the decode backends (B7-B9), on the bf16 stack
+    t0 = time.perf_counter()
+    rows.update(kernel_paged_backends(gen))
+    emit({"phase": "decode_backend_kernels",
+          "wall_s": time.perf_counter() - t0})
+    by_path.update(slice_decode_backends(model))
     # quantized serving on the same model: the first quantized engine
     # turns its bf16 stack into int8 in place
     t0 = time.perf_counter()

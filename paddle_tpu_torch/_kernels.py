@@ -34,7 +34,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention", "stream_linear", "flash_varlen",
            "paged_attention_q", "stream_linear_a8w8", "grouped_gemm",
-           "flash_attention", "flash_varlen_packed")
+           "flash_attention", "flash_varlen_packed", "paged_backends")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "--split-compile=0")
 
@@ -113,6 +113,17 @@ _SIGNATURES = {
         # q, k, v, dout, lse, delta, dk, dv, map, shape as above
         "ptt_flash_varlen_bwd_dkv":
             [_P] * 19 + [_I] * 7 + [_L] * 6 + [_I, _F, _P],
+    },
+    "paged_backends": {
+        # q, k_pool, v_pool, seq_lens, membership, ws_ml, ws_acc, out,
+        # dtype, b, n_q, n_kv, d, page_size, pool_base, pool_pages,
+        # scale, stream
+        "ptt_paged_stream": [_P] * 8 + [_I] * 8 + [_F, _P],
+        # q, k_pool, v_pool, seq_lens, block_tables, out, dtype, b, n_q,
+        # n_kv, d, page_size, pages_per_seq, num_pages, scale, stream
+        "ptt_paged_fused": [_P] * 6 + [_I] * 8 + [_F, _P],
+        # as ptt_paged_fused, with pages_per_compute_block after num_pages
+        "ptt_paged_pallas": [_P] * 6 + [_I] * 9 + [_F, _P],
     },
 }
 

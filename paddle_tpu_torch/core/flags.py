@@ -84,6 +84,19 @@ define_flag("decode_linear", "auto",
             "over the layer's weights for bf16/f32) | xla (plain "
             "products) | stream (the weight-streaming GEMM, "
             "nn/functional/stream_linear.py); A8W8 always streams")
+define_flag("paged_attention_backend", "auto",
+            "decode paged-attention backend "
+            "(nn/functional/paged_attention.py): auto (decode_raw: the "
+            "in-place append + attend kernel of csrc/paged_attention.cu "
+            "at every head_dim; the public paged_attention: stream on "
+            "the card when head_dim % 128 == 0 and a layer region is "
+            "given, else fused; the plain gather on the CPU) | stream "
+            "(the pool-streaming kernel of csrc/paged_backends.cu; "
+            "decode_raw keeps the in-place kernel; head_dim % 128 == 0) "
+            "| fused (the per-sequence paged kernel) | pallas (the "
+            "stock-style paged kernel, compute blocks of pages) | xla "
+            "(the plain gather: the CPU only; raises on the card). On "
+            "the CPU every value runs its kernel's plain version")
 define_flag("prefill_attention_backend", "auto",
             "chunked-prefill attention over the paged pool "
             "(nn/functional/flash_varlen.py paged_prefill_attention): "

@@ -7,7 +7,9 @@ place by the decode step.
 
 The decode step (``decode_raw``) runs the port's kernels: the fused
 KV-append + paged attention (``paged_decode_attention_inplace``, or
-``paged_decode_attention_inplace_q`` over an int8 pool), the QKV
+``paged_decode_attention_inplace_q`` over an int8 pool; under
+``FLAGS_paged_attention_backend`` ``fused``, ``pallas`` or ``xla`` the
+write-then-attend pair ``write_kv_pages`` + ``paged_attention``), the QKV
 projection (``stream_linear``) and the grouped layer tail
 (``stream_layer_tail``); A8W8 runs the ungrouped loop through
 ``stream_linear(act_quant=True)``. The chunked prefill of the serving
@@ -53,8 +55,9 @@ from ...nn.functional.grouped_gemm import moe_ffn_nodrop
 from ...nn.functional.lora import (inverse_order, lora_delta,
                                    sort_by_adapter)
 from ...nn.functional.paged_attention import (
+    backend_flag, check_stream_head_dim, paged_attention,
     paged_decode_attention_inplace, paged_decode_attention_inplace_q,
-    write_prefill_kv_pages)
+    write_kv_pages, write_prefill_kv_pages)
 from ...nn.functional.stream_linear import (_apply_activation,
                                             stream_layer_tail, stream_linear)
 from ...quantization.dynamic import (absmax_scale, dynamic_act_quant,
@@ -527,6 +530,14 @@ class FusedMultiTransformer(nn.Module):
         (hidden [b, d], cache) with the pool updated in place; an int8
         pool goes through ``paged_decode_attention_inplace_q``.
 
+        ATTENTION by ``FLAGS_paged_attention_backend`` (bf16/f32 pool):
+        ``auto`` the in-place append + attend kernel at every head_dim;
+        ``stream`` the same at head_dim % 128 == 0, else it raises;
+        ``fused``, ``pallas`` and ``xla`` ``write_kv_pages`` then
+        ``paged_attention`` over ``seq_lens + 1`` (kernels B8, B9; ``xla``
+        the plain gather, which raises on the card). Every loop below
+        attends through the same route.
+
         GROUPED (``FLAGS_decode_grouped`` auto — except under A8W8 — or
         on): per layer one attention call and one ``stream_layer_tail``
         call; with ``FLAGS_decode_prefetch`` the tail also computes layer
@@ -558,6 +569,18 @@ class FusedMultiTransformer(nn.Module):
         d_att = self.num_heads * self.head_dim
         ck, cv = cache.k, cache.v
         quantized_kv = isinstance(ck, tuple)
+        # FLAGS_paged_attention_backend, as the JAX decode step reads it on
+        # the chip: auto and stream keep the in-place kernel (stream at
+        # head_dim % 128 == 0 only); fused, pallas and xla write the new
+        # token's K/V, then attend through paged_attention. An int8 pool
+        # always takes its own kernel.
+        write_then_attend = False
+        if not quantized_kv:
+            backend = backend_flag()
+            if backend == "stream":
+                check_stream_head_dim(self.head_dim)
+            write_then_attend = backend in ("fused", "pallas", "xla")
+            lens1 = seq_lens + 1
 
         def attend_fn(q, k, v, ck, cv, base):
             # v is a strided view of the projection; the kernels take
@@ -568,6 +591,12 @@ class FusedMultiTransformer(nn.Module):
                     q, k, v, ck[0], ck[1], cv[0], cv[1], seq_lens,
                     block_tables, pool_base=base, pool_pages=npages)
                 return att, (kq, ks), (vq, vs)
+            if write_then_attend:
+                ck, cv = write_kv_pages(ck, cv, k, v, seq_lens,
+                                        block_tables + base)
+                att = paged_attention(q, ck, cv, lens1, block_tables,
+                                      pool_base=base, pool_pages=npages)
+                return att, ck, cv
             return paged_decode_attention_inplace(
                 q, k, v, ck, cv, seq_lens, block_tables, pool_base=base,
                 pool_pages=npages)

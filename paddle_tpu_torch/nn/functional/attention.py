@@ -16,8 +16,9 @@ over kernel B10 (``csrc/flash_attention.cu``): the forward kernel
 writes ``out`` and the f32 ``lse`` ``[b, h, s]``, which the backward's
 two kernels (dq; dk and dv) read back with ``di = sum(out * dout)``, a
 PyTorch reduction. On a CUDA tensor it launches the kernels, or raises
-(a build or launch failure, a head_dim the kernels lack); on a CPU
-tensor it runs the plain versions ``flash_attention_fwd_plain`` and
+(a build or launch failure, a head_dim past 128; a head_dim the
+kernels lack below it runs zero-padded to the next built width, exactly);
+on a CPU tensor it runs the plain versions ``flash_attention_fwd_plain`` and
 ``flash_attention_bwd_plain`` (explicit softmax in f32).
 
 ``flash_attn_unpadded`` is packed varlen attention over ``cu_seqlens``
@@ -44,8 +45,9 @@ __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
            "FLASH_HEAD_DIMS"]
 
-#: head dims the CUDA kernels are built for; another one that the route
-#: admits raises on the card
+#: head dims the CUDA kernels are built for; another multiple of 8 below
+#: 128 runs zero-padded to the next of them, a wider head raises on the
+#: card
 FLASH_HEAD_DIMS = (64, 96, 128)
 
 #: the stock TPU kernel's finite mask value (-0.7 * float32 max)
@@ -147,9 +149,8 @@ def _check_operands(what, q, k, v):
                          "with one b, h and d")
     if d not in FLASH_HEAD_DIMS:
         raise NotImplementedError(
-            f"{what}: head_dim {d} is admitted by the flash route but the "
-            f"CUDA kernel is built for {FLASH_HEAD_DIMS} only (ROADMAP.md "
-            "queue B, B10)")
+            f"{what}: head_dim {d}: the CUDA kernel is built for "
+            f"{FLASH_HEAD_DIMS} (flash_attention_fwd/bwd pad to them)")
     tile = 64 if q.dtype == torch.bfloat16 else 32
     if sq % tile or k.shape[1] % tile:
         raise ValueError(f"{what}: sequence lengths {sq}, {k.shape[1]} "
@@ -248,24 +249,36 @@ def flash_delta(out, dout):
         .contiguous()
 
 
+def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, scale):
+    """``(dq, dk, dv)``: ``di`` by a PyTorch reduction, then B10's dq and
+    dk/dv kernels."""
+    dout = dout.to(q.dtype).contiguous()
+    lse, di = lse.contiguous(), flash_delta(out, dout)
+    dq = _flash_bwd_dq_cuda(q, k, v, dout, lse, di, causal, scale)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, dout, lse, di, causal, scale)
+    return dq, dk, dv
+
+
 def flash_attention_fwd(q, k, v, causal: bool, scale: float):
-    """``(out, lse)``: kernel B10's forward on a CUDA tensor, its plain
+    """``(out, lse)``: kernel B10's forward on a CUDA tensor (zero-padded
+    to a built head width, ``flash_varlen.padded_fwd``), its plain
     version on a CPU tensor."""
     if q.device.type == "cuda":
-        return _flash_fwd_cuda(q, k, v, causal, scale)
+        return flash_varlen.padded_fwd(_flash_fwd_cuda, FLASH_HEAD_DIMS,
+                                       "flash_attention", q, k, v, causal,
+                                       scale)
     return flash_attention_fwd_plain(q, k, v, causal, scale)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
                         scale: float):
     """``(dq, dk, dv)``: kernel B10's two backward kernels on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor (zero-padded as the forward), the plain version on a CPU
+    tensor."""
     if q.device.type == "cuda":
-        dout = dout.to(q.dtype).contiguous()
-        lse, di = lse.contiguous(), flash_delta(out, dout)
-        dq = _flash_bwd_dq_cuda(q, k, v, dout, lse, di, causal, scale)
-        dk, dv = _flash_bwd_dkv_cuda(q, k, v, dout, lse, di, causal, scale)
-        return dq, dk, dv
+        return flash_varlen.padded_bwd(_flash_bwd_cuda, FLASH_HEAD_DIMS,
+                                       "flash_attention", q, k, v, out, lse,
+                                       dout, causal, scale)
     return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale)
 
 

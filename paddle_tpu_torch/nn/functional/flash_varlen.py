@@ -185,7 +185,9 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 _NEG = -1e30          # masked score; lse of a row that sees no key
 _NEG_SAFE = -5e29     # lse floor in the backward: exp(_NEG - it) is 0
-#: head dims the CUDA kernels are built for
+#: head dims the CUDA kernels are built for; another multiple of 8 below
+#: 128 runs zero-padded to the next of them, a wider head raises on the
+#: card
 VARLEN_HEAD_DIMS = (64, 96, 128)
 #: the kernels' tiles, (q rows, keys), of the forward and dq walks and of
 #: the dk/dv walk, by dtype; lse, delta and the per-token metadata are
@@ -486,6 +488,56 @@ def _on_card(t) -> bool:
     return t.device.type == "cuda"
 
 
+def kernel_head_dim(d: int, built, what: str) -> int:
+    """The built kernel width that serves head_dim ``d``: ``d`` itself,
+    or for another multiple of 8 below the widest the next built width,
+    to which the caller zero-pads the head axis (exact: zero columns add
+    nothing to q.k and give zero columns of the outputs and gradients).
+    A wider head raises: the flash kernels keep a 64-row tile's output
+    in registers, sized for 128 columns at most."""
+    if d % 8 == 0:
+        for w in built:
+            if d <= w:
+                return w
+    raise NotImplementedError(
+        f"{what}: head_dim {d}: the CUDA kernels are built for {built} "
+        f"and take any multiple of 8 up to {max(built)} zero-padded; a "
+        "wider head needs other tiles (their register-held output), and "
+        "no rung uses one (ROADMAP.md queue C)")
+
+
+def pad_head(t, width: int):
+    """``t`` with its last axis zero-padded to ``width``."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
+
+
+def padded_fwd(fwd, built, what: str, q, k, v, *rest):
+    """``fwd(q, k, v, *rest) -> (out, lse)`` at the kernels' built head
+    width (``kernel_head_dim`` of ``built``): q, k and v zero-padded,
+    the caller's (true) scale in ``rest``, ``out`` sliced back; ``lse``
+    is unchanged."""
+    d = q.shape[-1]
+    w = kernel_head_dim(d, built, what)
+    if w == d:
+        return fwd(q, k, v, *rest)
+    out, lse = fwd(pad_head(q, w), pad_head(k, w), pad_head(v, w), *rest)
+    return out[..., :d], lse
+
+
+def padded_bwd(bwd, built, what: str, q, k, v, out, lse, dout, *rest):
+    """``bwd(q, k, v, out, lse, dout, *rest) -> (dq, dk, dv)`` at the
+    built head width as ``padded_fwd``: q, k, v, out and dout
+    zero-padded, dq, dk and dv sliced back (their padded columns are
+    0)."""
+    d = q.shape[-1]
+    w = kernel_head_dim(d, built, what)
+    if w == d:
+        return bwd(q, k, v, out, lse, dout, *rest)
+    q, k, v, out, dout = (pad_head(t, w) for t in (q, k, v, out, dout))
+    return tuple(t[..., :d] for t in bwd(q, k, v, out, lse, dout, *rest))
+
+
 def _card_pad(n: int) -> int:
     return _cdiv(n, _CARD_PAD) * _CARD_PAD
 
@@ -500,7 +552,7 @@ def _check_packed(what, q, k, v):
     if d not in VARLEN_HEAD_DIMS:
         raise NotImplementedError(
             f"{what}: head_dim {d}: the CUDA kernels are built for "
-            f"{VARLEN_HEAD_DIMS} only (ROADMAP.md queue C)")
+            f"{VARLEN_HEAD_DIMS} (packed_fwd/bwd pad to them)")
     if tq == 0 or k.shape[0] == 0:
         raise ValueError(f"{what}: empty packed batch (tq {tq}, tk "
                          f"{k.shape[0]})")
@@ -624,6 +676,20 @@ def _varlen_bwd_dkv_cuda(q, k, v, dout, lse, delta, cu_q, cu_k,
     return dk, dv
 
 
+def _varlen_bwd_cuda(q, k, v, out, lse, dout, cu_q, cu_k, causal: bool,
+                     scale: float):
+    """``(dq, dk, dv)``: ``delta`` by a PyTorch reduction, then B12 and
+    B13."""
+    dout = dout.to(q.dtype).contiguous()
+    lse = lse.contiguous()
+    delta = packed_delta(out, dout, lse.shape[1])
+    dq = _varlen_bwd_dq_cuda(q, k, v, dout, lse, delta, cu_q, cu_k, causal,
+                             scale)
+    dk, dv = _varlen_bwd_dkv_cuda(q, k, v, dout, lse, delta, cu_q, cu_k,
+                                  causal, scale)
+    return dq, dk, dv
+
+
 def _route(what: str, backend: str, t) -> str:
     """``kernel`` or ``plain``: a CPU tensor takes the plain version
     under every value; a CUDA tensor the kernels under ``auto`` and
@@ -648,7 +714,9 @@ def packed_fwd(q, k, v, cu_q, cu_k, *, scale: float, causal: bool,
     ``block_q``/``block_k`` tile the plain walk), the plain version on a
     CPU tensor."""
     if _route("flash_varlen_packed", backend, q) == "kernel":
-        return _varlen_fwd_cuda(q, k, v, cu_q, cu_k, causal, scale)
+        return padded_fwd(_varlen_fwd_cuda, VARLEN_HEAD_DIMS,
+                          "flash_varlen_packed", q, k, v, cu_q, cu_k,
+                          causal, scale)
     return packed_fwd_plain(q, k, v, cu_q, cu_k, scale=scale, causal=causal,
                             block_q=block_q, block_k=block_k)
 
@@ -657,16 +725,12 @@ def packed_bwd(q, k, v, out, lse, dout, cu_q, cu_k, *, scale: float,
                causal: bool, block_q: int = DEFAULT_BLOCK_Q,
                block_k: int = DEFAULT_BLOCK_K, backend: str = "auto"):
     """``(dq, dk, dv)``: ``delta`` by a PyTorch reduction, then B12 and
-    B13 on a CUDA tensor; the plain version on a CPU tensor."""
+    B13 on a CUDA tensor (zero-padded as the forward); the plain version
+    on a CPU tensor."""
     if _route("flash_varlen_packed", backend, q) == "kernel":
-        dout = dout.to(q.dtype).contiguous()
-        lse = lse.contiguous()
-        delta = packed_delta(out, dout, lse.shape[1])
-        dq = _varlen_bwd_dq_cuda(q, k, v, dout, lse, delta, cu_q, cu_k,
-                                 causal, scale)
-        dk, dv = _varlen_bwd_dkv_cuda(q, k, v, dout, lse, delta, cu_q, cu_k,
-                                      causal, scale)
-        return dq, dk, dv
+        return padded_bwd(_varlen_bwd_cuda, VARLEN_HEAD_DIMS,
+                          "flash_varlen_packed", q, k, v, out, lse, dout,
+                          cu_q, cu_k, causal, scale)
     return packed_bwd_plain(q, k, v, out, lse, dout, cu_q, cu_k, scale=scale,
                             causal=causal, block_q=block_q, block_k=block_k)
 

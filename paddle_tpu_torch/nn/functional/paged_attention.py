@@ -29,18 +29,36 @@ column ``p * page_size + s``. ``paged_decode_attention_inplace_q`` is
 its decode kernel (``csrc/paged_attention_q.cu``; plain version
 ``_paged_decode_q_plain``); ``write_prefill_kv_pages`` and
 ``gather_kv_pages`` take either pool form.
+
+``paged_attention`` is the public decode op (attend ``seq_lens`` cached
+tokens, no append), routed by ``FLAGS_paged_attention_backend`` to the
+kernels of ``csrc/paged_backends.cu``: ``stream`` (B7, the
+pool-streaming kernel, ``stream_paged``), ``fused`` (B8, one program per
+sequence, ``fused_paged``), ``pallas`` (B9, the stock kernel's compute
+blocks, ``pallas_paged``). ``xla`` names the plain gather
+``paged_attention_plain``. On a CPU tensor each wrapper runs its plain
+version (``_stream_paged_plain``, ``_fused_paged_plain``,
+``_pallas_paged_plain``); on a CUDA tensor it launches its kernel or
+raises, and ``xla`` raises. B7 masks the layer region by
+``pool_membership``, the block tables' own map, so a page two rows hold
+is read by both (the JAX kernel's one-owner ``build_pool_ownership`` is
+ported for parity and is wrong for shared pages).
 """
 from __future__ import annotations
 
 import torch
 
 from ... import _kernels
+from ...core.flags import flag
 from ...quantization.dynamic import dynamic_act_quant
 
-__all__ = ["paged_attention_plain", "paged_decode_attention_inplace",
+__all__ = ["paged_attention", "last_paged_attention_backend",
+           "paged_attention_plain", "paged_decode_attention_inplace",
            "paged_decode_attention_inplace_q", "quantize_kv_rows",
            "write_kv_pages", "write_prefill_kv_pages", "gather_kv_pages",
-           "STREAM_CHUNK_TOKENS", "stream_chunk_pages"]
+           "STREAM_CHUNK_TOKENS", "stream_chunk_pages", "pool_membership",
+           "build_pool_ownership", "stream_paged", "fused_paged",
+           "pallas_paged", "BACKEND_HEAD_DIMS", "STREAM_KERNEL_CHUNK"]
 
 # target token count per stream chunk of the JAX decode kernel; the
 # engines round their pool allocation with it (inference/engine.py
@@ -468,3 +486,466 @@ def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
     global q_launches
     q_launches += 1
     return out, kq_pool, ks_plane, vq_pool, vs_plane
+
+
+# ---------------------------------------------------------------------
+# The decode backends: kernels B7-B9 and the public paged_attention
+# ---------------------------------------------------------------------
+
+#: the values of FLAGS_paged_attention_backend
+BACKENDS = ("auto", "stream", "fused", "xla", "pallas")
+
+#: head dims the fused and pallas kernels are built for (stream: the
+#: multiples of 128 among them)
+BACKEND_HEAD_DIMS = (64, 96, 128, 256)
+
+#: region tokens a chunk of the pool-streaming kernel (B7): one block of
+#: the kernel stages one chunk of a kv head's region and rounds the
+#: chunk's probabilities, taken against the chunk's own max, to the pool
+#: dtype; the plain version cuts the region at the same points
+STREAM_KERNEL_CHUNK = 64
+
+_NEG = -1e30                 # the TPU kernels' NEG
+#: the stock TPU kernel's finite mask value (-0.7 * float32 max)
+_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+#: launches of the three kernels, counted once each has been issued
+#: without error (plain CPU calls do not count); B7 launches twice a
+#: call, its partials and their merge
+stream_launches = 0
+fused_launches = 0
+pallas_launches = 0
+
+_LAST_BACKEND = [None]
+
+
+def last_paged_attention_backend():
+    """The backend the most recent ``paged_attention`` call took:
+    ``"stream"``, ``"fused"``, ``"pallas"`` or ``"xla"``."""
+    return _LAST_BACKEND[0]
+
+
+def backend_flag() -> str:
+    """``FLAGS_paged_attention_backend``, checked against its values."""
+    backend = flag("paged_attention_backend")
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"FLAGS_paged_attention_backend={backend!r}: valid values "
+            "are 'auto', 'stream', 'fused', 'xla', 'pallas'")
+    return backend
+
+
+def check_stream_head_dim(d: int) -> None:
+    """The ``stream`` backend's head_dim rule (the reference's message)."""
+    if d % 128 != 0:
+        raise ValueError(
+            "paged_attention backend 'stream' requires head_dim to be a "
+            f"multiple of 128 (lane width); got {d}. Use 'auto' to fall "
+            "back automatically.")
+
+
+def pool_membership(block_tables, seq_lens, pool_pages: int,
+                    page_size: int):
+    """B7's mask: ``[b, pool_pages]`` int32 whose entry ``[r, p]`` is the
+    index ``j`` of page ``p`` in row ``r``'s (layer-local) block table
+    where ``j * page_size < seq_lens[r]``, else -1; token ``(p, s)`` of
+    the region is attended by row ``r`` when ``j >= 0`` and ``j *
+    page_size + s < seq_lens[r]``. A page two rows hold is valid for
+    both. An id outside ``[0, pool_pages)`` is dropped, as the JAX
+    package's scatter with ``mode="drop"``. Built on the tables' device
+    by one scatter, with no host read; layer-independent, so a decode
+    step can build it once for every layer."""
+    b, pp = block_tables.shape
+    dev = block_tables.device
+    j = torch.arange(pp, dtype=torch.int32, device=dev)
+    tables = block_tables.to(torch.int32)
+    live = ((j[None, :] * page_size
+             < seq_lens.to(device=dev, dtype=torch.int32)[:, None])
+            & (tables >= 0) & (tables < pool_pages))
+    # dropped entries land in a spare column that is cut off
+    idx = torch.where(live, tables, pool_pages).long()
+    out = torch.full((b, pool_pages + 1), -1, dtype=torch.int32, device=dev)
+    out.scatter_(1, idx, j.expand(b, pp).contiguous())
+    return out[:, :pool_pages].contiguous()
+
+
+def build_pool_ownership(block_tables, seq_lens, pool_pages: int,
+                         page_size: int):
+    """The JAX package's ownership map of a layer region (its
+    ``build_pool_ownership``, integer for integer): ``(owner_tok
+    [pool_pages * page_size] int32, the row that owns each token slot or
+    -1; pos_tok, the slot's position in its owner's sequence)``. Entries
+    at or past a row's length are padding and own nothing; ids outside
+    ``[0, pool_pages)`` are dropped.
+
+    It keeps ONE owner a page: a page that two rows hold (the prefix
+    cache's shared pages) is owned by whichever write lands last, and a
+    kernel masking by it hides the page from the other row. B7 masks by
+    ``pool_membership`` instead; this map serves the parity tests and
+    the chip check's control."""
+    b, pp = block_tables.shape
+    ps = int(page_size)
+    dev = block_tables.device
+    jstart = torch.arange(pp, dtype=torch.int32, device=dev)[None, :] * ps
+    tables = block_tables.to(torch.int32)
+    valid = ((jstart < seq_lens.to(device=dev, dtype=torch.int32)[:, None])
+             & (tables >= 0) & (tables < pool_pages))
+    idx = torch.where(valid, tables, pool_pages).reshape(-1).long()
+    rows = torch.arange(b, dtype=torch.int32, device=dev)[:, None] \
+        .expand(b, pp).reshape(-1)
+    pidx = torch.arange(pp, dtype=torch.int32, device=dev)[None, :] \
+        .expand(b, pp).reshape(-1)
+    owner_page = torch.full((pool_pages + 1,), -1, dtype=torch.int32,
+                            device=dev).index_put_((idx,), rows)
+    page_index = torch.zeros(pool_pages + 1, dtype=torch.int32,
+                             device=dev).index_put_((idx,), pidx)
+    owner_tok = owner_page[:pool_pages].repeat_interleave(ps)
+    slot = torch.arange(ps, dtype=torch.int32, device=dev)
+    pos_tok = (page_index[:pool_pages].repeat_interleave(ps) * ps
+               + slot.repeat(pool_pages))
+    return owner_tok, pos_tok
+
+
+def _pallas_ppcb(pages_per_seq: int, page_size: int) -> int:
+    """Pages a compute block of the stock kernel (B9): at most 512 tokens,
+    a divisor of the table width (the JAX ``_pallas_paged``'s rule)."""
+    ppcb = max(1, min(pages_per_seq, 512 // max(page_size, 1)))
+    while pages_per_seq % ppcb:
+        ppcb -= 1
+    return ppcb
+
+
+def _region_tokens(side, base: int, pages: int):
+    """One pool side's layer region as f32 ``[n_kv, pages * ps, d]``."""
+    r = side[base:base + pages]
+    return r.permute(1, 0, 2, 3).reshape(r.shape[1], -1, r.shape[3]).float()
+
+
+def _stream_paged_plain(q, key_cache, value_cache, seq_lens, block_tables,
+                        pool_base: int, pool_pages: int, membership=None,
+                        ownership=None, chunk: int = STREAM_KERNEL_CHUNK,
+                        round_p: bool = True):
+    """Plain version of B7 (the JAX ``_stream_paged`` with the block
+    tables' mask): the layer region ``[pool_base, pool_base +
+    pool_pages)`` in chunks of ``chunk`` tokens; per chunk and query row
+    the chunk's max ``m`` over the row's tokens, ``p = exp(s - m)``, ``l
+    = sum p`` and ``acc = p V`` with q and p cast to the pool dtype
+    first, as the TPU kernel casts them; the chunks merged by
+    log-sum-exp, ``out = sum_c e^(m_c - M) acc_c / max(sum_c e^(m_c - M)
+    l_c, 1e-30)``. A row that attends nothing gets 0. ``membership``
+    defaults to ``pool_membership``; ``ownership`` (a
+    ``build_pool_ownership`` pair) masks instead as the JAX kernel does,
+    one owner a page. ``round_p=False`` keeps p in f32 (the chip check's
+    witness of what that rounding moves)."""
+    b, n_q, d = q.shape
+    _, n_kv, ps, _ = key_cache.shape
+    g = n_q // n_kv
+    dt = key_cache.dtype
+    dev = q.device
+    T = pool_pages * ps
+    nch = -(-T // chunk)
+    pad = nch * chunk - T
+    k = _region_tokens(key_cache, pool_base, pool_pages)
+    v = _region_tokens(value_cache, pool_base, pool_pages)
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    lens = seq_lens.to(dev).long()[:, None]
+    tok = torch.arange(nch * chunk, device=dev)
+    in_region = tok < T
+    tok = torch.clamp(tok, max=T - 1)
+    if ownership is not None:
+        owner, pos = (t.to(dev).long() for t in ownership)
+        rows = torch.arange(b, device=dev)[:, None]
+        valid = (owner[tok][None, :] == rows) & (pos[tok][None, :] < lens)
+    else:
+        if membership is None:
+            membership = pool_membership(block_tables, seq_lens, pool_pages,
+                                         ps)
+        j = membership.to(dev).long()[:, tok // ps]           # [b, tokens]
+        valid = (j >= 0) & (j * ps + tok % ps < lens)
+    valid = (valid & in_region).reshape(b, 1, 1, nch, chunk)
+    qh = q.to(dt).float().reshape(b, n_kv, g, d)
+    s = torch.einsum("bngd,ntd->bngt", qh, k).reshape(
+        b, n_kv, g, nch, chunk) * (d ** -0.5)
+    m = torch.where(valid, s, _NEG).amax(-1)                  # [b,n,g,nch]
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bngck,nckd->bngcd",
+                       p.to(dt).float() if round_p else p,
+                       v.reshape(n_kv, nch, chunk, d))
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    out = (w[..., None] * acc).sum(-2) \
+        / torch.clamp((w * l).sum(-1), min=1e-30)[..., None]
+    return out.reshape(b, n_q, d).to(q.dtype)
+
+
+def _fused_paged_plain(q, key_cache, value_cache, seq_lens, block_tables,
+                       skip_last_page=False):
+    """Plain version of B8 (the JAX ``_fused_paged``): each row walks its
+    table's pages in order with an f32 online softmax per page (q scaled
+    in f32, masked past ``seq_lens``), ``out = acc / max(l, 1e-30)``; a
+    row that attends nothing gets 0. ``block_tables`` hold ABSOLUTE ids.
+    ``skip_last_page`` leaves out each row's last page that holds an
+    attended token (the chip check's control)."""
+    b, n_q, d = q.shape
+    _, n_kv, ps, _ = key_cache.shape
+    pp = block_tables.shape[1]
+    g = n_q // n_kv
+    dev = q.device
+    lens = seq_lens.to(dev).long()
+    last = torch.clamp(lens - 1, min=0) // ps
+    qf = q.float().reshape(b, n_kv, g, d) * (d ** -0.5)
+    m = torch.full((b, n_kv, g, 1), _NEG, device=dev)
+    l = torch.zeros((b, n_kv, g, 1), device=dev)
+    acc = torch.zeros((b, n_kv, g, d), device=dev)
+    slot = torch.arange(ps, device=dev)
+    for pg in range(pp):
+        ids = block_tables[:, pg].long()
+        k, v = key_cache[ids].float(), value_cache[ids].float()
+        logits = torch.einsum("bngd,bnsd->bngs", qf, k)
+        valid = pg * ps + slot[None, :] < lens[:, None]
+        if skip_last_page:
+            valid = valid & (last != pg)[:, None]
+        valid = valid[:, None, None, :]
+        logits = torch.where(valid, logits, _NEG)
+        pm = torch.maximum(m, logits.amax(-1, keepdim=True))
+        alpha = torch.exp(m - pm)
+        w = torch.where(valid, torch.exp(logits - pm), 0.0)
+        l = l * alpha + w.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bngs,bnsd->bngd", w, v)
+        m = pm
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, n_q, d).to(q.dtype)
+
+
+def _pallas_paged_plain(q, key_cache, value_cache, seq_lens, block_tables,
+                        skip_last_page=False):
+    """Plain version of B9 (the stock paged attention kernel behind the JAX
+    ``_pallas_paged``): q scaled in f32; for each compute block of
+    ``_pallas_ppcb`` pages that starts below the row's length, ``s = q
+    k`` plus the mask value past the length, ``m_cur = max s``, ``p =
+    exp(s - m_cur)``, ``l_cur = sum p``, ``o_cur = p V``, and the
+    renormalising update ``o = (l_prev a o + b o_cur) / l_next`` with
+    ``a = exp(m_prev - m_next)``, ``b = exp(m_cur - m_next)``, ``l_next =
+    a l_prev + b l_cur``. A row of length 0 runs no block: 0.
+    ``block_tables`` hold ABSOLUTE ids; K and V are read in the pool's
+    dtype (the stock kernel rounds an f32 pool's pages to bf16; the port
+    keeps f32). ``skip_last_page`` as in ``_fused_paged_plain``."""
+    b, n_q, d = q.shape
+    _, n_kv, ps, _ = key_cache.shape
+    pp = block_tables.shape[1]
+    g = n_q // n_kv
+    dev = q.device
+    ppcb = _pallas_ppcb(pp, ps)
+    bk = ppcb * ps
+    lens = seq_lens.to(dev).long()
+    last = torch.clamp(lens - 1, min=0) // ps
+    qf = q.float().reshape(b, n_kv, g, d) * (d ** -0.5)
+    m_prev = torch.full((b, n_kv, g, 1), -float("inf"), device=dev)
+    l_prev = torch.zeros((b, n_kv, g, 1), device=dev)
+    o = torch.zeros((b, n_kv, g, d), device=dev)
+    tok = torch.arange(bk, device=dev)
+    for i in range(pp // ppcb):
+        ids = block_tables[:, i * ppcb:(i + 1) * ppcb].long()   # [b, ppcb]
+
+        def side(pool):
+            return pool[ids].float().permute(0, 2, 1, 3, 4).reshape(
+                b, n_kv, bk, d)
+        k, v = side(key_cache), side(value_cache)
+        qk = torch.einsum("bngd,bntd->bngt", qf, k)
+        mask = i * bk + tok[None, :] < lens[:, None]
+        if skip_last_page:
+            mask = mask & (i * ppcb + tok[None, :] // ps != last[:, None])
+        qk = qk + torch.where(mask, 0.0, _MASK_VALUE)[:, None, None, :]
+        m_cur = qk.amax(-1, keepdim=True)
+        p = torch.exp(qk - m_cur)
+        l_cur = p.sum(-1, keepdim=True)
+        m_next = torch.maximum(m_prev, m_cur)
+        alpha = torch.exp(m_prev - m_next)
+        beta = torch.exp(m_cur - m_next)
+        l_next = alpha * l_prev + beta * l_cur
+        o_cur = torch.einsum("bngt,bntd->bngd", p, v)
+        o_new = (l_prev * alpha * o + beta * o_cur) / l_next
+        active = (i * bk < lens)[:, None, None, None]
+        o = torch.where(active, o_new, o)
+        m_prev = torch.where(active, m_next, m_prev)
+        l_prev = torch.where(active, l_next, l_prev)
+    return o.reshape(b, n_q, d).to(q.dtype)
+
+
+def _check_backend_operands(what, q, key_cache, value_cache, seq_lens,
+                            block_tables, head_dims, tables_cols=None):
+    """The kernels' operand contract; raises on what they do not take."""
+    if q.dim() != 3 or key_cache.dim() != 4:
+        raise ValueError(f"{what}: q must be [b, n_q, d] and the pools "
+                         "[pages, n_kv, page_size, d]")
+    b, n_q, d = q.shape
+    _, n_kv, ps, d_pool = key_cache.shape
+    if (n_kv == 0 or n_q % n_kv or n_q // n_kv > 8 or d_pool != d
+            or value_cache.shape != key_cache.shape):
+        raise ValueError(
+            f"{what}: needs n_q a multiple of n_kv with a group of at most "
+            f"8 and pools of q's head_dim alike; got q {tuple(q.shape)}, "
+            f"pool {tuple(key_cache.shape)}")
+    if d not in head_dims:
+        raise NotImplementedError(
+            f"{what}: head_dim {d}: the CUDA kernel is built for "
+            f"{head_dims}")
+    if tuple(seq_lens.shape) != (b,) or block_tables.dim() != 2 \
+            or block_tables.shape[0] != b \
+            or (tables_cols is not None
+                and block_tables.shape[1] != tables_cols):
+        raise ValueError(f"{what}: seq_lens must be [b] and the tables "
+                         f"[b, {tables_cols or 'pages_per_seq'}]")
+    for name, t in (("key_cache", key_cache), ("value_cache", value_cache)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, q is {q.dtype}; "
+                            "the kernel takes one dtype")
+    for name, t in (("seq_lens", seq_lens), ("tables", block_tables)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: {name} must be int32")
+    for t in (q, key_cache, value_cache, seq_lens, block_tables):
+        if t.device != q.device:
+            raise ValueError(f"{what}: all operands must be on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must be contiguous and "
+                             "16-byte aligned")
+    return _kernels.dtype_code(q, what)
+
+
+def stream_paged(q, key_cache, value_cache, seq_lens, block_tables,
+                 pool_base=None, pool_pages=None, membership=None):
+    """Kernel B7, pool-streaming decode attention over the layer region
+    ``[pool_base, pool_base + pool_pages)`` (default: the whole pool)
+    that the LAYER-LOCAL ``block_tables`` index; ``membership`` is a
+    precomputed ``pool_membership`` (built here when None). On a CUDA
+    tensor: two launches (partials per 64-token chunk and kv head, then
+    their merge), head_dim 128 or 256; on a CPU tensor the plain version
+    ``_stream_paged_plain``."""
+    what = "stream_paged"
+    ps = key_cache.shape[2]
+    base, region = _layer_region(what, key_cache.shape[0], pool_base,
+                                 pool_pages)
+    if membership is None:
+        membership = pool_membership(block_tables, seq_lens, region, ps)
+    if q.device.type != "cuda":
+        return _stream_paged_plain(q, key_cache, value_cache, seq_lens,
+                                   block_tables, base, region, membership)
+    dt = _check_backend_operands(what, q, key_cache, value_cache, seq_lens,
+                                 membership, (128, 256), region)
+    b, n_q, d = q.shape
+    n_kv = key_cache.shape[1]
+    nch = -(-region * ps // STREAM_KERNEL_CHUNK)
+    ws_ml = torch.empty((n_kv, nch, b * (n_q // n_kv), 2),
+                        dtype=torch.float32, device=q.device)
+    ws_acc = torch.empty((n_kv, nch, b * (n_q // n_kv), d),
+                         dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    fn = _kernels.lib("paged_backends").ptt_paged_stream
+    _kernels.check(fn(
+        q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+        seq_lens.data_ptr(), membership.data_ptr(), ws_ml.data_ptr(),
+        ws_acc.data_ptr(), out.data_ptr(), dt, b, n_q, n_kv, d, ps, base,
+        region, d ** -0.5, _kernels.stream_ptr(q.device)), what)
+    global stream_launches
+    stream_launches += 2
+    return out
+
+
+def _paged_kernel(what, fn_name, q, key_cache, value_cache, seq_lens,
+                  block_tables, *extra):
+    """Launch B8 or B9 over ABSOLUTE tables; returns the output."""
+    dt = _check_backend_operands(what, q, key_cache, value_cache, seq_lens,
+                                 block_tables, BACKEND_HEAD_DIMS)
+    b, n_q, d = q.shape
+    P, n_kv, ps, _ = key_cache.shape
+    if ps % 16:
+        raise ValueError(f"{what}: page_size {ps} must be a multiple of 16 "
+                         "(the kernel's 16-token slices)")
+    out = torch.empty_like(q)
+    fn = getattr(_kernels.lib("paged_backends"), fn_name)
+    _kernels.check(fn(
+        q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+        seq_lens.data_ptr(), block_tables.data_ptr(), out.data_ptr(), dt, b,
+        n_q, n_kv, d, ps, block_tables.shape[1], P, *extra, d ** -0.5,
+        _kernels.stream_ptr(q.device)), what)
+    return out
+
+
+def fused_paged(q, key_cache, value_cache, seq_lens, block_tables):
+    """Kernel B8, one program per sequence walking its pages in order,
+    over ABSOLUTE ``block_tables``; on a CPU tensor the plain version
+    ``_fused_paged_plain``."""
+    if q.device.type != "cuda":
+        return _fused_paged_plain(q, key_cache, value_cache, seq_lens,
+                                  block_tables)
+    out = _paged_kernel("fused_paged", "ptt_paged_fused", q, key_cache,
+                        value_cache, seq_lens, block_tables)
+    global fused_launches
+    fused_launches += 1
+    return out
+
+
+def pallas_paged(q, key_cache, value_cache, seq_lens, block_tables):
+    """Kernel B9, the stock paged attention schedule (compute blocks of
+    ``_pallas_ppcb`` pages, the renormalising update), reading the
+    page-major pool in place, over ABSOLUTE ``block_tables``; on a CPU
+    tensor the plain version ``_pallas_paged_plain``."""
+    if q.device.type != "cuda":
+        return _pallas_paged_plain(q, key_cache, value_cache, seq_lens,
+                                   block_tables)
+    ppcb = _pallas_ppcb(block_tables.shape[1], key_cache.shape[2])
+    out = _paged_kernel("pallas_paged", "ptt_paged_pallas", q, key_cache,
+                        value_cache, seq_lens, block_tables, ppcb)
+    global pallas_launches
+    pallas_launches += 1
+    return out
+
+
+def paged_attention(q, key_cache, value_cache, seq_lens, block_tables,
+                    pool_base=None, pool_pages=None, ownership=None):
+    """Single-token decode attention over a paged KV cache: row ``r``
+    attends its ``seq_lens[r]`` cached tokens through its block table.
+
+    ``pool_base``/``pool_pages`` describe a layer-folded pool: the tables
+    hold LAYER-LOCAL ids and the layer's region starts at physical page
+    ``pool_base`` (defaults: the whole pool). ``ownership``: a
+    precomputed ``pool_membership`` map, for the ``stream`` backend.
+
+    ``FLAGS_paged_attention_backend``: ``auto`` takes ``stream`` on a
+    CUDA tensor when head_dim is a multiple of 128 and ``pool_base`` is
+    given, else ``fused``; on a CPU tensor ``xla``. ``stream`` (B7) needs
+    head_dim % 128 == 0 and drops a table id outside the region;
+    ``fused`` (B8), ``pallas`` (B9) and ``xla`` (the plain gather, CPU
+    only) read the absolute page ``pool_base + id``, which must lie in
+    the pool. Each backend treats a row of length 0 as its reference
+    function does: 0 for the kernels, the mean of the table's V rows for
+    ``xla``."""
+    backend = backend_flag()
+    d = q.shape[-1]
+    on_card = q.device.type == "cuda"
+    if backend == "auto":
+        if on_card:
+            backend = "stream" if (d % 128 == 0 and pool_base is not None) \
+                else "fused"
+        else:
+            backend = "xla"
+    if backend == "stream":
+        check_stream_head_dim(d)
+        _LAST_BACKEND[0] = "stream"
+        return stream_paged(q, key_cache, value_cache, seq_lens,
+                            block_tables, pool_base=pool_base,
+                            pool_pages=pool_pages, membership=ownership)
+    if backend == "xla" and on_card:
+        raise ValueError(
+            "FLAGS_paged_attention_backend='xla' names the plain gather, "
+            "which runs on the CPU only; on the card the kernels of "
+            "csrc/paged_backends.cu serve 'stream', 'fused' and 'pallas'")
+    tables = block_tables if pool_base is None else block_tables + pool_base
+    _LAST_BACKEND[0] = backend
+    if backend == "pallas":
+        return pallas_paged(q, key_cache, value_cache, seq_lens, tables)
+    if backend == "fused":
+        return fused_paged(q, key_cache, value_cache, seq_lens, tables)
+    return paged_attention_plain(q, key_cache, value_cache, seq_lens, tables)

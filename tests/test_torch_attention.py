@@ -20,6 +20,7 @@ import torch
 from paddle_tpu.nn.functional import attention as jattn
 from paddle_tpu_torch import _kernels
 from paddle_tpu_torch.nn.functional import attention as tattn
+from paddle_tpu_torch.nn.functional import flash_varlen as tfv
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
@@ -255,15 +256,80 @@ def test_cuda_tensor_never_takes_the_plain_version(no_plain_no_kernel,
             tattn.dkv_launches) == before
 
 
-@pytest.mark.parametrize("head_dim", [8, 32, 80])
+@pytest.mark.parametrize("head_dim", [8, 32, 80, 136, 256])
 def test_head_dim_without_a_kernel_raises_on_the_card(no_plain_no_kernel,
                                                       head_dim):
-    """The route admits head_dim % 8 == 0; the kernel has 64, 96 and 128:
-    any other raises on the card, and never takes the dense path."""
+    """The route admits head_dim % 8 == 0; the kernel has 64, 96 and 128.
+    On the card another multiple of 8 up to 128 goes to the kernel
+    zero-padded (the library is missing here, so that raises), a wider
+    head raises NotImplementedError naming its reason; neither takes the
+    dense path."""
     assert tattn._use_flash(head_dim, 128, 128, False)
     q = _card(torch.randn(1, 128, 2, head_dim))
-    with pytest.raises(NotImplementedError, match="head_dim"):
+    err = (RuntimeError, "kernel library unavailable") if head_dim <= 128 \
+        else (NotImplementedError, "head_dim 136.*no rung"
+              if head_dim == 136 else "head_dim 256")
+    with pytest.raises(err[0], match=err[1]):
         tattn.scaled_dot_product_attention(q, q, q, is_causal=True)
+
+
+@pytest.mark.parametrize("head_dim,width", [(80, 96), (40, 64), (104, 128)])
+def test_padded_head_dim_reaches_the_kernel_at_its_built_width(monkeypatch,
+                                                               head_dim,
+                                                               width):
+    """A head_dim without a kernel reaches B10's three launches
+    zero-padded to the next built width with the true scale (recorded by
+    stand-ins for the launch functions), and comes back at its own
+    width."""
+    calls = []
+
+    def fwd(q, k, v, causal, scale):
+        calls.append(("fwd", q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        b, s, h, _ = q.shape
+        return torch.zeros(q.shape), torch.zeros(b, h, s)
+
+    def dq(q, k, v, dout, lse, di, causal, scale):
+        calls.append(("dq", q.shape[-1], dout.shape[-1], scale))
+        return torch.zeros(q.shape)
+
+    def dkv(q, k, v, dout, lse, di, causal, scale):
+        calls.append(("dkv", k.shape[-1], dout.shape[-1], scale))
+        return torch.zeros(k.shape), torch.zeros(v.shape)
+    monkeypatch.setattr(tattn, "_flash_fwd_cuda", fwd)
+    monkeypatch.setattr(tattn, "_flash_bwd_dq_cuda", dq)
+    monkeypatch.setattr(tattn, "_flash_bwd_dkv_cuda", dkv)
+    q = _card(torch.randn(1, 128, 2, head_dim)).requires_grad_(True)
+    out = tattn.scaled_dot_product_attention(q, q, q, is_causal=True)
+    assert out.shape == (1, 128, 2, head_dim)
+    out.backward(torch.ones_like(out))
+    assert q.grad.shape == q.shape
+    scale = head_dim ** -0.5
+    assert calls == [("fwd", width, width, width, scale),
+                     ("dq", width, width, scale),
+                     ("dkv", width, width, scale)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_zero_pad_route_equals_the_plain_version(causal):
+    """The card's route for head_dim 80 (pad to 96, the plain flash
+    versions at 96 with the true scale, slice) equals the plain versions
+    at 80: forward, lse and backward, f32, within 1e-6."""
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs((2, 128, 2, 80), (2, 128, 2, 80), seed=8))
+    scale = 80 ** -0.5
+    args = (tattn.FLASH_HEAD_DIMS, "flash_attention")
+    out, lse = tfv.padded_fwd(tattn.flash_attention_fwd_plain, *args, q, k,
+                              v, causal, scale)
+    out_r, lse_r = tattn.flash_attention_fwd_plain(q, k, v, causal, scale)
+    torch.testing.assert_close(out, out_r, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-6)
+    got = tfv.padded_bwd(tattn.flash_attention_bwd_plain, *args, q, k, v,
+                         out, lse, do, causal, scale)
+    want = tattn.flash_attention_bwd_plain(q, k, v, out_r, lse_r, do,
+                                           causal, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------------

@@ -359,13 +359,70 @@ def test_cuda_tensor_never_takes_the_plain_version(no_plain_no_kernel,
             tfv.dkv_varlen_launches) == before
 
 
-@pytest.mark.parametrize("head_dim", [16, 80])
+@pytest.mark.parametrize("head_dim", [16, 80, 136])
 def test_head_dim_without_a_kernel_raises_on_the_card(no_plain_no_kernel,
                                                       head_dim):
+    """A multiple of 8 up to 128 goes to the kernels zero-padded (the
+    library is missing here, so that raises); a wider head raises
+    NotImplementedError; neither reaches a plain version."""
     q = _card(torch.randn(100, 2, head_dim))
     cu = _card(torch.tensor([0, 100], dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="head_dim"):
+    err = (RuntimeError, "kernel library unavailable") if head_dim <= 128 \
+        else (NotImplementedError, "head_dim 136.*no rung")
+    with pytest.raises(err[0], match=err[1]):
         tfv.flash_varlen_packed(q, q, q, cu, cu, causal=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_zero_pad_route_equals_the_plain_version(causal):
+    """The card's route for head_dim 40 (pad to 64, the plain walks at 64
+    with the true scale, slice) equals the plain walks at 40 on the
+    ragged pack: out, lse, dq, dk, dv, f32, within 1e-6."""
+    cq, ck = (torch.from_numpy(c) for c in _pack("ragged"))
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs(int(cq[-1]), int(ck[-1]), 2, 40, seed=4))
+    scale = 40 ** -0.5
+
+    def fwd(q, k, v, cq, ck, causal, scale):
+        return tfv.packed_fwd_plain(q, k, v, cq, ck, scale=scale,
+                                    causal=causal)
+
+    def bwd(q, k, v, out, lse, do, cq, ck, causal, scale):
+        return tfv.packed_bwd_plain(q, k, v, out, lse, do, cq, ck,
+                                    scale=scale, causal=causal)
+    args = (tfv.VARLEN_HEAD_DIMS, "flash_varlen_packed")
+    out, lse = tfv.padded_fwd(fwd, *args, q, k, v, cq, ck, causal, scale)
+    out_r, lse_r = fwd(q, k, v, cq, ck, causal, scale)
+    torch.testing.assert_close(out, out_r, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-6)
+    got = tfv.padded_bwd(bwd, *args, q, k, v, out, lse, do, cq, ck, causal,
+                         scale)
+    want = bwd(q, k, v, out_r, lse_r, do, cq, ck, causal, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+def test_padded_head_dim_reaches_the_kernels_at_their_built_width(
+        monkeypatch):
+    """head_dim 40 reaches B11-B13 zero-padded to 64 with the true scale,
+    one launch each, and comes back at 40."""
+    fake = _FakeLib()
+    monkeypatch.setattr(tfv, "_on_card", lambda t: True)
+    monkeypatch.setattr(_kernels, "lib", lambda name: fake)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    q = torch.randn(100, 2, 40, requires_grad=True)
+    cu = torch.tensor([0, 60, 100], dtype=torch.int32)
+    out = tfv.flash_varlen_packed(q, q, q, cu, cu, causal=True)
+    assert out.shape == (100, 2, 40)
+    out.backward(torch.zeros_like(out))
+    assert q.grad.shape == q.shape
+    assert [c[0] for c in fake.calls] == [
+        "ptt_flash_varlen_fwd", "ptt_flash_varlen_bwd_dq",
+        "ptt_flash_varlen_bwd_dkv"]
+    fwd = fake.calls[0][1]     # 16 pointers, dtype, tq, tk, tq_pad, tk_pad,
+    assert fwd[21:23] == (2, 64)                      # h, d, ...
+    assert fwd[-2] == pytest.approx(40 ** -0.5)
 
 
 class _FakeLib:

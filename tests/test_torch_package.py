@@ -29,6 +29,13 @@ def test_import_leaves_jax_out():
         "import paddle_tpu_torch, paddle_tpu_torch.inference, "
         "paddle_tpu_torch.convert, paddle_tpu_torch._kernels\n"
         "import paddle_tpu_torch.nn.functional.paged_attention\n"
+        "from paddle_tpu_torch.nn.functional.paged_attention import (\n"
+        "    paged_attention, last_paged_attention_backend, stream_paged,\n"
+        "    fused_paged, pallas_paged, pool_membership,\n"
+        "    build_pool_ownership)\n"
+        "from paddle_tpu_torch.core.flags import get_flags\n"
+        "assert get_flags('FLAGS_paged_attention_backend') == "
+        "{'FLAGS_paged_attention_backend': 'auto'}\n"
         "import paddle_tpu_torch.nn.functional.stream_linear\n"
         "import paddle_tpu_torch.nn.functional.flash_varlen\n"
         "import paddle_tpu_torch.nn.functional.grouped_gemm\n"
@@ -155,6 +162,26 @@ def test_cpu_path_builds_nothing(monkeypatch):
     inputs, labels = bench.rung_batch(1, 64, "cpu")
     assert torch.isfinite(step(inputs, labels))
     assert gg.dw_launches == before_dw
+    # every decode backend takes its plain version on the CPU
+    from paddle_tpu_torch.core.flags import set_flags
+    before_pa = (pa.stream_launches, pa.fused_launches, pa.pallas_launches)
+    try:
+        for value in ("stream", "fused", "pallas", "xla"):
+            set_flags({"paged_attention_backend": value})
+            if value != "stream":           # head_dim 8: stream raises
+                out = GenerationEngine(model, page_size=4,
+                                       max_length=16).generate(
+                    [[1, 2, 3]], max_new_tokens=2)
+                assert out.shape == (1, 5)
+            q = torch.randn(1, 2, 128)
+            pool = torch.randn(4, 2, 4, 128)
+            pa.paged_attention(q, pool, pool, torch.tensor([5]),
+                               torch.tensor([[1, 2]]), pool_base=0,
+                               pool_pages=4)
+    finally:
+        set_flags({"paged_attention_backend": "auto"})
+    assert (pa.stream_launches, pa.fused_launches,
+            pa.pallas_launches) == before_pa
     # the launch counters count CUDA launches only
     assert (pa.launches, sl.launches, sl.tail_launches, fv.launches,
             gg.launches, tl.launches) == before
@@ -178,7 +205,7 @@ def test_kernel_sources_and_wrappers_present():
     assert set(_kernels._SIGNATURES) == set(_kernels.SOURCES) == {
         "paged_attention", "stream_linear", "flash_varlen",
         "paged_attention_q", "stream_linear_a8w8", "grouped_gemm",
-        "flash_attention", "flash_varlen_packed"}
+        "flash_attention", "flash_varlen_packed", "paged_backends"}
     for lib, fns in _kernels._SIGNATURES.items():
         src = (PKG / "csrc" / f"{lib}.cu").read_text()
         for fn in fns:
@@ -192,7 +219,11 @@ def test_kernel_sources_and_wrappers_present():
     assert {"ptt_flash_varlen_fwd", "ptt_flash_varlen_bwd_dq",
             "ptt_flash_varlen_bwd_dkv"} == \
         set(_kernels._SIGNATURES["flash_varlen_packed"])
-    for counter in (pa.launches, pa.q_launches, sl.launches,
+    assert {"ptt_paged_stream", "ptt_paged_fused", "ptt_paged_pallas"} == \
+        set(_kernels._SIGNATURES["paged_backends"])
+    for counter in (pa.stream_launches, pa.fused_launches,
+                    pa.pallas_launches, pa.launches, pa.q_launches,
+                    sl.launches,
                     sl.w8_launches, sl.tail_launches, sl.tail_w8_launches,
                     sl.a8w8_launches, fv.launches, gg.launches,
                     gg.dw_launches, tl.launches, at.fwd_launches,
