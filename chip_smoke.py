@@ -7,7 +7,9 @@ Phases, all run every time, each of which fails the run when it fails:
   device   the card's name and power limit, as nvidia-smi reports them;
   build    the CUDA kernels from csrc/, one nvcc per source in parallel;
   kernels  each kernel against its plain PyTorch version at the serving
-           path's shapes, in bfloat16 and float32 (tolerances printed),
+           path's shapes, in bfloat16 and float32 (tolerances printed;
+           the paged-prefill kernel on 16 cases with a swapped-pages
+           control that must fail),
            then timed with CUDA events beside its plain version, one
            PyTorch library call computing the same function where there
            is one, and the least time the card could take;
@@ -21,9 +23,12 @@ Phases, all run every time, each of which fails the run when it fails:
   serving  the same model under the SLO serving frontend (ServingEngine,
            chunked prefill of 256 through the paged-prefill kernel,
            prefix cache): 16 requests, 8 of them sharing a 512-token
-           system prompt, with its own launch counts; and one
-           1500-token prompt prefilled chunk by chunk on the kernel path
-           and on the plain path, whose last logits must agree;
+           system prompt, with its own launch counts; one 1500-token
+           prompt prefilled chunk by chunk on the kernel path and on
+           the plain path, whose last logits must agree; and one
+           256-token chunk at start 1792 timed through the stack
+           (prefill_chunk: wall, device ms, the paged-prefill kernel's
+           share, the top host ops);
   quantized the quantized kernels (the int8-weight GEMM and tail, the
            A8W8 GEMM, the int8-KV decode attention) checked and timed
            with the others; then the same model's stack quantized to
@@ -599,14 +604,15 @@ def kernel_stream_layer_tail(gen, int8=False) -> dict:
     return row
 
 
-def _prefill_case(dtype, gen, starts, c, g=1, d=HEAD_DIM, shared=0, L=1):
+def _prefill_case(dtype, gen, starts, c, g=1, d=HEAD_DIM, shared=0, L=1,
+                  ps=PAGE, n_kv=N_HEADS):
     """Kernel-4 inputs at the serving path's shapes: per row a full
-    table of 128 distinct pages (a 2048-token span, page 16; the first
-    ``shared`` pages common to every row), 16 kv heads (x g query heads),
-    a chunk of ``c`` queries at ``starts``; an ``L``-layer folded pool
-    (tables of layer l are offset by l * P) so timed calls rotate past
-    the L2."""
-    b, n_kv, pp = len(starts), N_HEADS, SERVE_MAX_LENGTH // PAGE
+    table of distinct pages spanning 2048 tokens (128 pages of 16, or
+    ``ps`` tokens a page; the first ``shared`` pages common to every
+    row), ``n_kv`` kv heads (x g query heads), a chunk of ``c`` queries at
+    ``starts``; an ``L``-layer folded pool (tables of layer l are offset
+    by l * P) so timed calls rotate past the L2."""
+    b, pp = len(starts), SERVE_MAX_LENGTH // ps
     P = b * pp + 1                             # + scratch page 0
     rng = np.random.RandomState(11)
     perm = list(rng.permutation(np.arange(1, P)))
@@ -617,37 +623,122 @@ def _prefill_case(dtype, gen, starts, c, g=1, d=HEAD_DIM, shared=0, L=1):
 
     def rnd(*s):
         return torch.randn(s, generator=gen, device=dev).to(dtype)
-    return dict(q=rnd(b, c, n_kv * g, d), kp=rnd(L * P, n_kv, PAGE, d),
-                vp=rnd(L * P, n_kv, PAGE, d), tables=tables,
+    return dict(q=rnd(b, c, n_kv * g, d), kp=rnd(L * P, n_kv, ps, d),
+                vp=rnd(L * P, n_kv, ps, d), tables=tables,
                 start=torch.tensor(starts, dtype=torch.int32, device=dev),
-                n_kv=n_kv, P=P, L=L, pp=pp)
+                n_kv=n_kv, P=P, L=L, pp=pp, ps=ps)
 
 
-def kernel_paged_prefill(gen) -> dict:
+#: kernel-4 check cases: (name, starts, chunk, valid rows, g, d, shared
+#: pages, table id past the pool at (row, page), page size, kv heads).
+#: The serving rung's chunks (start 0, 512, 1792), a bucket-padded tail,
+#: shared prefix pages, an id past the pool; GQA at g 2, 4 and 8; page
+#: sizes 8 and 32 (a 64-key tile is 8 pages, or half a page); chunks of
+#: 16 and 64 (one q tile, 16 and 5 key slices); three rows at other
+#: starts, the second ending on a slice boundary (key_end 320: five key
+#: tiles, one a slice); head_dim 64, 96 and 256
+PREFILL_CASES = (
+    ("start0", (0,), 256, 256, 1, HEAD_DIM, 0, None, PAGE, N_HEADS),
+    ("start512", (512,), 256, 256, 1, HEAD_DIM, 0, None, PAGE, N_HEADS),
+    ("start1792", (1792,), 256, 256, 1, HEAD_DIM, 0, None, PAGE, N_HEADS),
+    ("unaligned_padded_tail", (37,), 208, 200, 1, HEAD_DIM, 0, None, PAGE,
+     N_HEADS),
+    ("shared_prefix_two_rows", (300, 1000), 256, 256, 1, HEAD_DIM, 20,
+     None, PAGE, N_HEADS),
+    ("table_id_past_pool", (700,), 256, 256, 1, HEAD_DIM, 0, (0, 10), PAGE,
+     N_HEADS),
+    ("g2_d64", (512,), 256, 256, 2, 64, 0, None, PAGE, N_HEADS),
+    ("g4_d256", (512,), 256, 256, 4, 256, 0, None, PAGE, N_HEADS),
+    ("g8", (1000,), 256, 256, 8, HEAD_DIM, 0, None, PAGE, 2),
+    ("page8", (777,), 256, 256, 1, HEAD_DIM, 0, None, 8, N_HEADS),
+    ("page32", (1500,), 256, 256, 1, HEAD_DIM, 0, None, 32, N_HEADS),
+    ("c16", (1900,), 16, 16, 1, HEAD_DIM, 0, None, PAGE, N_HEADS),
+    ("c64", (333,), 64, 64, 1, HEAD_DIM, 0, None, PAGE, N_HEADS),
+    ("b3_split_boundary", (7, 256, 1500), 64, 64, 1, HEAD_DIM, 0, None,
+     PAGE, N_HEADS),
+    ("d64", (1024,), 256, 256, 1, 64, 0, None, PAGE, N_HEADS),
+    ("d96", (1024,), 256, 256, 1, 96, 0, None, PAGE, N_HEADS),
+)
+
+
+def _prefill_time(gen, start: int) -> dict:
+    """Kernel 4 timed (bf16, b1, a 256-token chunk at ``start``, h16
+    d128, rotating over 4 layers of the pool: 16.8 MB of K/V each, past
+    the L2) by CUDA events and by the profiler, beside the plain version,
+    SDPA over the K/V already gathered dense (masked by position, key <=
+    query) and the bound; one "time" line."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
 
+    c = SERVE_CHUNK
+    a = _prefill_case(torch.bfloat16, gen, (start,), c, L=4)
+    P, n_kv, d = a["P"], a["n_kv"], HEAD_DIM
+    tables = [torch.from_numpy(a["tables"] + l * P).cuda()
+              for l in range(a["L"])]
+    nxt = cycler(a["L"])
+
+    def kern():
+        fv.paged_prefill_attention(a["q"], a["kp"], a["vp"], tables[nxt()],
+                                   a["start"], n_kv=n_kv)
+
+    def plain():
+        fv._paged_prefill_plain(a["q"], a["kp"], a["vp"], tables[nxt()],
+                                a["start"], n_kv=n_kv)
+    S = a["pp"] * PAGE
+    dense = [(a["kp"][t.long()[0]].transpose(0, 1).reshape(1, n_kv, S, d),
+              a["vp"][t.long()[0]].transpose(0, 1).reshape(1, n_kv, S, d))
+             for t in tables]
+    qd = a["q"].transpose(1, 2).contiguous()            # [1, n_q, c, d]
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= start + torch.arange(c, device="cuda")[:, None])
+
+    def library():
+        kd, vd = dense[nxt()]
+        F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+    dev_ms = device_ms(kern, "paged_prefill_mma")
+    # what these inputs need: every K/V row below the last query's
+    # position once, q and the output once; q.k and p.v over the causal
+    # span of each query
+    isz = 2
+    n_q = a["q"].shape[2]
+    keys = min(S, start + c)
+    nbytes = (2 * keys * n_kv * d * isz + 2 * c * n_q * d * isz
+              + a["pp"] * 4 + 4)
+    flops = 4.0 * n_q * d * sum(start + t + 1 for t in range(c))
+    bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+    q_tiles, n_split, blocks = fv.prefill_grid(
+        1, c, n_kv, 1, S, d, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+           "bytes": nbytes, "flops": flops, "start": start, "c": c,
+           "q_tiles": q_tiles, "n_split": n_split, "blocks": blocks,
+           "tflops": flops / ms / 1e9,
+           "library_note": "scaled_dot_product_attention over pre-gathered "
+                           "K/V, masked by position"}
+    emit({"time": "paged_prefill_attention", **row})
+    del a, tables, dense
+    return row
+
+
+def kernel_paged_prefill(gen) -> dict:
+    """Kernel 4 against its plain version on PREFILL_CASES, f32 and bf16,
+    at the limits below; a control per dtype (the plain version fed the
+    start1792 table with pages 1 and 127 swapped) must exceed them. Then
+    timed at start 512 and 1792 (the kernels line's row)."""
+    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+
     res = {}
-    # (name, starts, chunk, valid rows, g, d, shared pages, table id
-    # past the pool at (row, page))
-    cases = [
-        ("start0", (0,), 256, 256, 1, HEAD_DIM, 0, None),
-        ("start512", (512,), 256, 256, 1, HEAD_DIM, 0, None),
-        ("start1792", (1792,), 256, 256, 1, HEAD_DIM, 0, None),
-        ("unaligned_padded_tail", (37,), 208, 200, 1, HEAD_DIM, 0, None),
-        ("shared_prefix_two_rows", (300, 1000), 256, 256, 1, HEAD_DIM, 20,
-         None),
-        ("table_id_past_pool", (700,), 256, 256, 1, HEAD_DIM, 0, (0, 10)),
-        ("g2_d64", (512,), 256, 256, 2, 64, 0, None),
-        ("g4_d256", (512,), 256, 256, 4, 256, 0, None)]
     # tolerances, scaled by the output's largest magnitude m: both sides
     # accumulate in fp32 in another order (float32: 2e-5 * max(m, 1));
     # bf16 outputs round the same fp32 value, one rounding may flip: one
     # bf16 ulp at m, 2^(floor(log2 m) - 7)
-    for name, starts, c, valid, g, d, shared, bad in cases:
+    for name, starts, c, valid, g, d, shared, bad, ps, n_kv in PREFILL_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            a = _prefill_case(dtype, gen, starts, c, g=g, d=d, shared=shared)
+            a = _prefill_case(dtype, gen, starts, c, g=g, d=d, shared=shared,
+                              ps=ps, n_kv=n_kv)
             if bad is not None:
                 a["tables"][bad] = a["P"]           # names no page
             tables = torch.from_numpy(a["tables"]).cuda()
@@ -662,61 +753,33 @@ def kernel_paged_prefill(gen) -> dict:
             tol = (2e-5 * max(m, 1.0) if dtype == torch.float32
                    else 2.0 ** (np.floor(np.log2(m)) - 7))
             err = max_err(out, ref)
-            emit({"check": "paged_prefill_attention", "case": name,
-                  "starts": list(starts), "c": c, "valid_rows": valid,
-                  "g": g, "d": d, "dtype": str(dtype), "max_abs_err": err,
-                  "tol": tol, "max_abs_ref": m})
+            line = {"check": "paged_prefill_attention", "case": name,
+                    "starts": list(starts), "c": c, "valid_rows": valid,
+                    "g": g, "d": d, "page_size": ps, "n_kv": n_kv,
+                    "dtype": str(dtype), "max_abs_err": err, "tol": tol,
+                    "max_abs_ref": m}
+            if name == "start1792":
+                swapped = a["tables"].copy()
+                swapped[0, [1, -1]] = swapped[0, [-1, 1]]
+                ctrl = fv._paged_prefill_plain(
+                    a["q"], a["kp"], a["vp"],
+                    torch.from_numpy(swapped).cuda(), a["start"],
+                    n_kv=a["n_kv"])
+                line["control_err"] = max_err(out, ctrl[:, :valid])
+                res[str(dtype)] = err
+            emit(line)
             check(err <= tol, f"paged prefill {name} {dtype}: {err} > "
                               f"{tol}")
-            if name == "start1792":
-                res[str(dtype)] = err
+            if "control_err" in line:
+                check(line["control_err"] > tol,
+                      f"paged prefill control (pages swapped) {dtype}: "
+                      f"{line['control_err']} is within {tol}")
             del a, out, ref
-    # timing, bf16, the last chunk of a 2048-token context, rotating
-    # over 4 layers of the pool (16.8 MB of K/V each, past the L2)
-    start, c = SERVE_MAX_LENGTH - SERVE_CHUNK, SERVE_CHUNK
-    a = _prefill_case(torch.bfloat16, gen, (start,), c, L=4)
-    P, n_kv, d = a["P"], a["n_kv"], HEAD_DIM
-    tables = [torch.from_numpy(a["tables"] + l * P).cuda()
-              for l in range(a["L"])]
-    nxt = cycler(a["L"])
-
-    def kern():
-        fv.paged_prefill_attention(a["q"], a["kp"], a["vp"], tables[nxt()],
-                                   a["start"], n_kv=n_kv)
-
-    def plain():
-        fv._paged_prefill_plain(a["q"], a["kp"], a["vp"], tables[nxt()],
-                                a["start"], n_kv=n_kv)
-    # library yardstick: SDPA over the K/V already gathered dense, masked
-    # by position (key <= query)
-    S = a["pp"] * PAGE
-    dense = [(a["kp"][t.long()[0]].transpose(0, 1).reshape(1, n_kv, S, d),
-              a["vp"][t.long()[0]].transpose(0, 1).reshape(1, n_kv, S, d))
-             for t in tables]
-    qd = a["q"].transpose(1, 2).contiguous()            # [1, n_q, c, d]
-    mask = (torch.arange(S, device="cuda")[None, :]
-            <= start + torch.arange(c, device="cuda")[:, None])
-
-    def library():
-        kd, vd = dense[nxt()]
-        F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
-    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
-    # what these inputs need: every K/V row below the last query's
-    # position once, q and the output once; q.k and p.v over the causal
-    # span of each query
-    isz = 2
-    n_q = a["q"].shape[2]
-    keys = min(S, start + c)
-    nbytes = (2 * keys * n_kv * d * isz + 2 * c * n_q * d * isz
-              + a["pp"] * 4 + 4)
-    flops = 4.0 * n_q * d * sum(start + t + 1 for t in range(c))
-    bms, by = bound_ms(nbytes, flops, torch.bfloat16)
-    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-           "flops": flops, "start": start, "c": c,
-           "max_abs_err": res[str(torch.bfloat16)]}
-    emit({"time": "paged_prefill_attention", **row})
-    return row
+    _prefill_time(gen, 512)
+    row = _prefill_time(gen, SERVE_MAX_LENGTH - SERVE_CHUNK)
+    check(row["blocks"] >= 132, f"paged prefill at the rung runs "
+                                f"{row['blocks']} blocks, fewer than 132")
+    return {**row, "max_abs_err": res[str(torch.bfloat16)]}
 
 
 # ------------------------------------------------- quantized kernels
@@ -2153,6 +2216,80 @@ def slice_chunked_prefill(model) -> None:
     check(err <= tol, f"chunked prefill logits differ by {err} > {tol}")
 
 
+def slice_prefill_chunk(model) -> None:
+    """One ``prefill_chunk_raw`` of 256 tokens at start 1792 (the last
+    chunk of a 2048-token prompt) through the d2048·L24 stack: its wall
+    ms on the host clock (each call ended by a synchronize; 5 calls after
+    2), and by the profiler its device ms, kernel 4's share of them and
+    the host ops with the most self CPU time; exactly one kernel-4
+    launch a layer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import (BlockKVCacheManager,
+                                            GenerationEngine)
+
+    st = model.stack
+    eng = GenerationEngine(model, page_size=PAGE,
+                           max_length=SERVE_MAX_LENGTH)
+    pp = SERVE_MAX_LENGTH // PAGE
+    mgr = BlockKVCacheManager(st.num_layers, st.num_kv_heads, st.head_dim,
+                              PAGE, num_pages=pp + 1, dtype=torch.bfloat16,
+                              reserve_scratch=True, device=model.device)
+    mgr.allocate(0, SERVE_MAX_LENGTH)
+    tables = mgr.block_tables([0], pp)
+    cache = mgr.fresh_cache()
+    start, c = SERVE_MAX_LENGTH - SERVE_CHUNK, SERVE_CHUNK
+    ids = torch.from_numpy(np.random.RandomState(6).randint(
+        0, VOCAB, c)).cuda()
+    x = eng._embed()[ids][None].to(torch.bfloat16)
+    w = eng._weights()
+    s0 = torch.tensor([start], dtype=torch.int32, device="cuda")
+    n = torch.tensor([c], dtype=torch.int32, device="cuda")
+
+    def chunk():
+        return st.prefill_chunk_raw(w, x, cache, tables, s0, n, eng._cos,
+                                    eng._sin)
+    for _ in range(2):
+        chunk()
+    torch.cuda.synchronize()
+    _reset_counters()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = _counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            chunk()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    evs = [ev for ev in avg if ev.device_type == DeviceType.CUDA]
+    host = sorted((ev for ev in avg if ev.device_type == DeviceType.CPU),
+                  key=lambda ev: -ev.self_cpu_time_total)[:8]
+    busy = sum(ev.self_device_time_total for ev in evs) / 3 / 1e3
+    b4 = sum(ev.self_device_time_total for ev in evs
+             if "paged_prefill" in ev.key) / 3 / 1e3
+    top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:6]
+    emit({"phase": "prefill_chunk", "start": start, "chunk": c,
+          "layers": st.num_layers, "wall_ms": walls,
+          "wall_ms_min": min(walls), "device_ms": busy,
+          "paged_prefill_device_ms": b4, "paged_prefill_share": b4 / busy,
+          "top_kernels_ms": {ev.key[:60]: ev.self_device_time_total / 3e3
+                             for ev in top},
+          "top_host_ops_self_ms": {
+              ev.key[:60]: [ev.self_cpu_time_total / 3e3, ev.count // 3]
+              for ev in host},
+          "launches": {k: v for k, v in counts.items() if v}})
+    check(counts["paged_prefill_attention"] == 5 * st.num_layers,
+          f"prefill_chunk: {counts['paged_prefill_attention']} kernel-4 "
+          f"launches in 5 chunks, expected {5 * st.num_layers}")
+    del mgr, cache
+
+
 # ---------------------------------------------------------------- MoE
 
 def _build_moe_model():
@@ -2545,8 +2682,10 @@ def _over(errs: dict, tols: dict) -> list:
 #: kernel-check cases: (b, s, h, d, dtype, causal): the rung, the s2048
 #: rung, head_dim 64 in f32 both ways and bf16, odd batch x heads,
 #: head_dim 96 at the gpt-760m rung's shape (bf16) and in f32,
-#: head_dim 64 at the MoE training rung's shape (bf16), and head_dim 80,
-#: which the wrappers run zero-padded to 96 (bf16)
+#: head_dim 64 at the MoE training rung's shape (bf16), head_dim 80,
+#: which the wrappers run zero-padded to 96 (bf16), and head_dim 256 (the
+#: width of public models such as Gemma's; bf16 and f32) and 200, padded
+#: to 256 (bf16)
 FLASH_CASES = (
     (4, 1024, 16, 128, torch.bfloat16, True),
     (2, 2048, 16, 128, torch.bfloat16, True),
@@ -2559,6 +2698,9 @@ FLASH_CASES = (
     (2, 256, 4, 96, torch.float32, True),
     (4, 1024, 16, 64, torch.bfloat16, True),
     (2, 512, 8, 80, torch.bfloat16, True),
+    (2, 512, 8, 256, torch.bfloat16, True),
+    (2, 256, 4, 256, torch.float32, True),
+    (2, 512, 8, 200, torch.bfloat16, True),
 )
 #: the gpt-760m rung (bench.py LADDER[1]: d1536, 16 heads of 96, seq
 #: 1024, batch 8, the _FAST options)
@@ -2749,7 +2891,9 @@ def kernel_flash_attention(gen) -> dict:
     _flash_times(gen, R760_BATCH, TRAIN_SEQ, N_HEADS, R760_D // N_HEADS)
     _flash_times(gen, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_HEADS,
                  MOE_D // MOE_HEADS)
-    _flash_pad_times(gen)
+    _flash_pad_times(gen, 80)
+    _flash_pad_times(gen, 256)
+    _flash_pad_times(gen, 200)
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     names = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
              "dkv": "flash_attention_bwd_dkv"}
@@ -2758,22 +2902,34 @@ def kernel_flash_attention(gen) -> dict:
             for n in names}
 
 
-def _flash_pad_times(gen) -> None:
-    """The zero-pad route's cost at head_dim 80 (b2 s512 h8, bf16,
-    causal): B10 through its wrappers, which pad to 96 and slice back,
-    beside the same kernels on operands padded beforehand (the
-    difference is the padding copies, PyTorch ops) and the plain
-    versions; the bounds count the true head_dim."""
+def _flash_pad_times(gen, d: int) -> None:
+    """B10 at head_dim ``d`` (b2 s512 h8, bf16, causal) through its
+    wrappers, which zero-pad a width without a kernel (80 -> 96, 200 ->
+    256) and slice back, beside the same kernels on operands padded
+    beforehand (the difference is the padding copies, PyTorch ops), the
+    plain versions, and the library: SDPA's forward and the aten flash
+    backward (dq, dk and dv in one call) at the true head_dim; the bounds
+    count the true head_dim. One "time" line, ``flash_attention_d{d}``."""
     from paddle_tpu_torch.nn.functional import attention as at
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
 
-    b, s, h, d, dt = 2, 512, 8, 80, torch.bfloat16
+    b, s, h, dt = 2, 512, 8, torch.bfloat16
+    w = fv.kernel_head_dim(d, at.FLASH_HEAD_DIMS, "flash_attention")
     scale = d ** -0.5
     q, k, v, do = _flash_inputs(gen, b, s, h, d, dt)
-    qp, kp, vp, dop = (fv.pad_head(t, 96).contiguous()
+    qp, kp, vp, dop = (fv.pad_head(t, w).contiguous()
                        for t in (q, k, v, do))
     out, lse = at.flash_attention_fwd(q, k, v, True, scale)
-    outp = fv.pad_head(out, 96).contiguous()
+    outp = fv.pad_head(out, w).contiguous()
+    aten = torch.ops.aten
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_bwd = aten._scaled_dot_product_flash_attention_backward
+    ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
+    o, lse_l, cq, ck, mq, mk, seed, off, _ = \
+        aten._scaled_dot_product_flash_attention(ql, kl, vl, 0.0, True,
+                                                  False, scale=scale)
+    saved = (do.transpose(1, 2), ql, kl, vl, o, lse_l, cq, ck, mq, mk, 0.0,
+             True, seed, off)
     times = {
         "fwd_ms": time_ms(lambda: at.flash_attention_fwd(q, k, v, True,
                                                          scale)),
@@ -2786,16 +2942,22 @@ def _flash_pad_times(gen) -> None:
         "plain_fwd_ms": time_ms(lambda: at.flash_attention_fwd_plain(
             q, k, v, True, scale), iters=5),
         "plain_bwd_ms": time_ms(lambda: at.flash_attention_bwd_plain(
-            q, k, v, out, lse, do, True, scale), iters=5)}
+            q, k, v, out, lse, do, True, scale), iters=5),
+        "library_fwd_ms": time_ms(lambda: sdpa(ql, kl, vl, is_causal=True,
+                                               scale=scale)),
+        "library_bwd_ms": time_ms(lambda: lib_bwd(*saved, scale=scale))}
     bounds = {n: bound_ms(*_flash_bounds(b, s, s, h, d, True, dt)[n], dt)
               for n in ("fwd", "dq", "dkv")}
-    emit({"time": "flash_attention_d80", "shape": [b, s, h, d],
-          "padded_to": 96, "causal": True, **times,
+    emit({"time": f"flash_attention_d{d}", "shape": [b, s, h, d],
+          "padded_to": w, "causal": True, **times,
           "pad_ms": times["fwd_ms"] - times["fwd_kernel_ms"]
           + times["bwd_ms"] - times["bwd_kernel_ms"],
           "bound_ms": {n: v[0] for n, v in bounds.items()},
-          "bound_by": {n: v[1] for n, v in bounds.items()}})
-    del q, k, v, do, qp, kp, vp, dop, out, outp
+          "bound_by": {n: v[1] for n, v in bounds.items()},
+          "library_note": "scaled_dot_product_attention forward; aten."
+                          "_scaled_dot_product_flash_attention_backward "
+                          "computes dq, dk and dv"})
+    del q, k, v, do, qp, kp, vp, dop, out, outp, saved
 
 
 @contextlib.contextmanager
@@ -3084,7 +3246,8 @@ def _ragged_lens(total: int, seed: int) -> list:
 #: kernel-check cases: (name, q lengths, k lengths or None, h, d, dtype,
 #: causal): the rung; a ragged pack; totals off the 64-row tile; cross
 #: lengths with an empty k segment; non-causal; f32 at d64; bf16 at d96;
-#: bf16 at d40, which the wrappers run zero-padded to 64
+#: bf16 at d40, which the wrappers run zero-padded to 64; bf16 and f32 at
+#: d256
 VARLEN_CASES = (
     ("rung", VARLEN_LENS, None, 16, 128, torch.bfloat16, True),
     ("ragged", _ragged_lens(32768, 11), None, 16, 128, torch.bfloat16, True),
@@ -3096,6 +3259,8 @@ VARLEN_CASES = (
     ("f32_d64", [300, 700, 24], None, 4, 64, torch.float32, True),
     ("bf16_d96", [1536, 512, 1000], None, 16, 96, torch.bfloat16, True),
     ("bf16_d40", [1536, 512, 1000], None, 16, 40, torch.bfloat16, True),
+    ("bf16_d256", [700, 300, 1000], None, 8, 256, torch.bfloat16, True),
+    ("f32_d256", [300, 200], None, 2, 256, torch.float32, True),
 )
 VARLEN_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
 #: each kernel's faulty-kernel control and the outputs it must push out
@@ -3274,24 +3439,28 @@ def kernel_flash_varlen(gen) -> dict:
             res = max_abs
         del q, k, v, do, got, ref
     torch.cuda.empty_cache()
-    _varlen_pad_times(gen)
+    _varlen_pad_times(gen, 40)
+    _varlen_pad_times(gen, 256)
     return _varlen_times(gen, res)
 
 
-def _varlen_pad_times(gen) -> None:
-    """The zero-pad route's cost at head_dim 40 (the bf16_d40 pack):
-    B11-B13 through their wrappers, which pad to 64 and slice back,
-    beside the same kernels on operands padded beforehand and the plain
-    versions; the bounds count the true head_dim."""
+def _varlen_pad_times(gen, d: int) -> None:
+    """B11-B13 at head_dim ``d`` on the [1536, 512, 1000] pack (h16,
+    bf16, causal) through their wrappers, which zero-pad a width without
+    a kernel (40 -> 64) and slice back, beside the same kernels on
+    operands padded beforehand, the plain versions and the aten varlen
+    flash forward and backward at the true head_dim; the bounds count the
+    true head_dim. One "time" line, ``flash_varlen_d{d}``."""
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
 
-    lens, h, d, dt = [1536, 512, 1000], 16, 40, torch.bfloat16
+    lens, h, dt = [1536, 512, 1000], 16, torch.bfloat16
+    w = fv.kernel_head_dim(d, fv.VARLEN_HEAD_DIMS, "flash_varlen_packed")
     T, scale, cu = sum(lens), d ** -0.5, _cu(lens)
     q, k, v, do = _varlen_inputs(gen, T, T, h, d, dt)
-    qp, kp, vp, dop = (fv.pad_head(t, 64).contiguous()
+    qp, kp, vp, dop = (fv.pad_head(t, w).contiguous()
                        for t in (q, k, v, do))
     out, lse = fv.packed_fwd(q, k, v, cu, cu, scale=scale, causal=True)
-    outp = fv.pad_head(out, 64).contiguous()
+    outp = fv.pad_head(out, w).contiguous()
     times = {
         "fwd_ms": time_ms(lambda: fv.packed_fwd(q, k, v, cu, cu,
                                                 scale=scale, causal=True)),
@@ -3306,10 +3475,22 @@ def _varlen_pad_times(gen) -> None:
         "plain_bwd_ms": time_ms(lambda: fv.packed_bwd_plain(
             q, k, v, out, lse, do, cu, cu, scale=scale, causal=True),
             iters=3, warmup=1)}
+    # the calls above are host-bound (the block map is built per call):
+    # the kernels' own device time, by the profiler
+    times["fwd_device_ms"] = device_ms(lambda: fv._varlen_fwd_cuda(
+        qp, kp, vp, cu, cu, True, scale), "varlen_fwd")
+    times["bwd_device_ms"] = device_ms(lambda: fv._varlen_bwd_cuda(
+        qp, kp, vp, outp, lse, dop, cu, cu, True, scale), "varlen_bwd")
+    lib, lib_err, why = _aten_varlen_times([(q, k, v, do, out)], cu,
+                                           max(lens), scale)
     bounds = {n: bound_ms(*v, dt) for n, v in _varlen_bounds(
         T, T, h, d, _varlen_pairs(lens, lens, True), dt).items()}
-    emit({"time": "flash_varlen_d40", "h": h, "d": d, "padded_to": 64,
+    emit({"time": f"flash_varlen_d{d}", "h": h, "d": d, "padded_to": w,
           "tq": T, "segments": len(lens), "causal": True, **times,
+          "library_fwd_ms": lib["fwd"], "library_bwd_ms": lib["bwd"],
+          "library_out_tile_rel_l2": lib_err, "library_note": why or
+          "aten._flash_attention_forward/_backward (cum_seq); the backward "
+          "computes dq, dk and dv",
           "pad_ms": times["fwd_ms"] - times["fwd_kernel_ms"]
           + times["bwd_ms"] - times["bwd_kernel_ms"],
           "bound_ms": {n: v[0] for n, v in bounds.items()},
@@ -4246,6 +4427,7 @@ def drive(args) -> None:
     by_path["continuous_batching"] = slice_continuous(model)
     by_path["serving"] = slice_serving(model)
     slice_chunked_prefill(model)
+    slice_prefill_chunk(model)
     # multi-LoRA serving on the bf16 stack, before it is quantized
     t0 = time.perf_counter()
     by_path["serving_lora"] = slice_serving_lora(model)

@@ -60,9 +60,10 @@ _SIGNATURES = {
             [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _F, _P],
     },
     "flash_varlen": {
-        # q, k_pool, v_pool, block_tables, start, out, dtype, b, c, n_q,
-        # n_kv, d, page_size, pages_per_seq, num_pages, scale, stream
-        "ptt_paged_prefill_attention": [_P] * 6 + [_I] * 9 + [_F, _P],
+        # q, k_pool, v_pool, block_tables, start, out, ws, dtype, b, c,
+        # n_q, n_kv, d, page_size, pages_per_seq, num_pages, n_split,
+        # scale, stream
+        "ptt_paged_prefill_attention": [_P] * 7 + [_I] * 10 + [_F, _P],
     },
     "paged_attention_q": {
         # q, new_k, new_v, kq_pool, ks_plane, vq_pool, vs_plane,

@@ -43,7 +43,13 @@
 // before its dot. The softmax runs in base 2 (scores pre-scaled by
 // scale * log2 e) with f32 statistics. float32 runs the same walk on the
 // CUDA cores (32 x 32 tiles, 4 threads a row, exact fp32 products). Built
-// for head_dim 64, 96 and 128; the tile machinery is flash_tiles.cuh.
+// for head_dim 64, 96, 128 and 256; the tile machinery is flash_tiles.cuh.
+// At 256 a warp's 16 x 256 fp32 accumulator is 128 registers a thread:
+// the forward and dq compute each 64-key tile in two 32-key sub-tiles
+// (a sub-tile wholly above a warp's rows is skipped, exactly: it would
+// add 0), and a dk/dv block owns one half of the head's columns for its
+// 64 keys (the grid doubles; each half recomputes S^T and dP^T, 1.5x the
+// products), so no thread holds more than the d128 kernels do.
 //
 // Bounds (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s). At the gpt3-1.3b
 // rung (b 4, s 1024, h 16, d 128, causal) the forward does 17.2 GFLOP
@@ -109,20 +115,21 @@ __device__ __forceinline__ void load_stats(float* dst, const float* plane,
              R);
 }
 
-// rows g and g + 8 of a warp's 16 x D accumulator, times `mul`, as bf16
-// rows of a contiguous [b, s, h, D] array from row r0
-template <int D>
+// rows g and g + 8 of a warp's 16 x DO accumulator, times `mul`, as bf16
+// columns col0.. of rows of a contiguous [b, s, h, D] array from row r0
+template <int D, int DO = D>
 __device__ __forceinline__ void store_rows(const FlashParams& p, void* dst,
                                            int s_len, int bi, int hi, int r0,
-                                           const float (&acc)[D / 8][4],
-                                           const float (&mul)[2]) {
+                                           const float (&acc)[DO / 8][4],
+                                           const float (&mul)[2],
+                                           int col0 = 0) {
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   bf16* out = static_cast<bf16*>(dst);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* row = out + dense_at<D>(p, s_len, bi, r0 + g + r * 8, hi);
+    bf16* row = out + dense_at<D>(p, s_len, bi, r0 + g + r * 8, hi) + col0;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+    for (int nt = 0; nt < DO / 8; ++nt)
       *reinterpret_cast<__nv_bfloat162*>(row + nt * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[nt][2 * r] * mul[r],
                                 acc[nt][2 * r + 1] * mul[r]);
@@ -135,6 +142,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const FlashParams p) {
   constexpr int kM = 64, kN = 64, kPitch = TileBf16<D>::kPitch;
+  constexpr int kS = TileBf16<D>::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);  // [kM][kPitch]
   bf16* sk = sq + kM * kPitch;               // [2][kN][kPitch]
@@ -167,42 +175,47 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait<1>();
     __syncthreads();
 
-    float s[kN / 8][4];
-    zero(s);
-    mma_abt<kN, D>(s, sq + warp * 16 * kPitch, sk + st * kN * kPitch);
-    const int k0 = j * kN, row0 = q0 + warp * 16 + g;
-    const bool diag = p.causal && k0 + kN - 1 > q0 + warp * 16;
-    float mx[2] = {m[0], m[1]};
+#pragma unroll 1
+    for (int sub = 0; sub < kN / kS; ++sub) {
+      const int k0 = j * kN + sub * kS, row0 = q0 + warp * 16 + g;
+      if (p.causal && k0 > q0 + warp * 16 + 15) continue;  // all masked
+      float s[kS / 8][4];
+      zero(s);
+      mma_abt<kS, D>(s, sq + warp * 16 * kPitch,
+                     sk + (st * kN + sub * kS) * kPitch);
+      const bool diag = p.causal && k0 + kS - 1 > q0 + warp * 16;
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
+      for (int nt = 0; nt < kS / 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[nt][c] * sl2;
-        if (diag && k0 + nt * 8 + 2 * t + (c & 1) > row0 + (c >> 1) * 8)
-          x = kMaskValue;
-        s[nt][c] = x;
-        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        for (int c = 0; c < 4; ++c) {
+          float x = s[nt][c] * sl2;
+          if (diag && k0 + nt * 8 + 2 * t + (c & 1) > row0 + (c >> 1) * 8)
+            x = kMaskValue;
+          s[nt][c] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        const float alpha = exp2f(m[r] - mx[r]);  // 0 on the first tile
+        m[r] = mx[r];
+        l[r] *= alpha;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          o[nt][2 * r] *= alpha;
+          o[nt][2 * r + 1] *= alpha;
+        }
       }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      const float alpha = exp2f(m[r] - mx[r]);  // 0 on the first tile
-      m[r] = mx[r];
-      l[r] *= alpha;
+      for (int nt = 0; nt < kS / 8; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        o[nt][2 * r] *= alpha;
-        o[nt][2 * r + 1] *= alpha;
-      }
+        for (int c = 0; c < 4; ++c) {
+          s[nt][c] = exp2f(s[nt][c] - m[c >> 1]);
+          l[c >> 1] += s[nt][c];
+        }
+      mma_xb<kS, D>(o, s, sv + (st * kN + sub * kS) * kPitch);
     }
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[nt][c] = exp2f(s[nt][c] - m[c >> 1]);
-        l[c >> 1] += s[nt][c];
-      }
-    mma_xb<kN, D>(o, s, sv + st * kN * kPitch);
     __syncthreads();  // the stage is refilled by the next iteration
   }
   cp_async_wait<0>();
@@ -229,6 +242,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_bf16(const FlashParams p) {
   constexpr int kM = 64, kN = 64, kPitch = TileBf16<D>::kPitch;
+  constexpr int kS = TileBf16<D>::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);  // [kM][kPitch]
   bf16* sdo = sq + kM * kPitch;              // [kM][kPitch]
@@ -274,25 +288,29 @@ __global__ void __launch_bounds__(kThreads)
         di[r] = sdi[warp * 16 + g + r * 8];
       }
     }
-    const bf16* kt = sk + st * kN * kPitch;
-    const bf16* vt = sv + st * kN * kPitch;
-    float s[kN / 8][4], dp[kN / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<kN, D>(s, sq + warp * 16 * kPitch, kt);
-    mma_abt<kN, D>(dp, sdo + warp * 16 * kPitch, vt);
-    const int k0 = j * kN, row0 = q0 + warp * 16 + g;
-    const bool diag = p.causal && k0 + kN - 1 > q0 + warp * 16;
+#pragma unroll 1
+    for (int sub = 0; sub < kN / kS; ++sub) {
+      const int k0 = j * kN + sub * kS, row0 = q0 + warp * 16 + g;
+      if (p.causal && k0 > q0 + warp * 16 + 15) continue;  // dS is 0
+      const bf16* kt = sk + (st * kN + sub * kS) * kPitch;
+      const bf16* vt = sv + (st * kN + sub * kS) * kPitch;
+      float s[kS / 8][4], dp[kS / 8][4];
+      zero(s);
+      zero(dp);
+      mma_abt<kS, D>(s, sq + warp * 16 * kPitch, kt);
+      mma_abt<kS, D>(dp, sdo + warp * 16 * kPitch, vt);
+      const bool diag = p.causal && k0 + kS - 1 > q0 + warp * 16;
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
+      for (int nt = 0; nt < kS / 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1;
-        float pr = exp2f(s[nt][c] * sl2 - lse2[r]);
-        if (diag && k0 + nt * 8 + 2 * t + (c & 1) > row0 + r * 8) pr = 0.f;
-        s[nt][c] = pr * (dp[nt][c] - di[r]);  // dS
-      }
-    mma_xb<kN, D>(dq, s, kt);
+        for (int c = 0; c < 4; ++c) {
+          const int r = c >> 1;
+          float pr = exp2f(s[nt][c] * sl2 - lse2[r]);
+          if (diag && k0 + nt * 8 + 2 * t + (c & 1) > row0 + r * 8) pr = 0.f;
+          s[nt][c] = pr * (dp[nt][c] - di[r]);  // dS
+        }
+      mma_xb<kS, D>(dq, s, kt);
+    }
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -300,13 +318,15 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<D>(p, p.out, p.sq, bi, hi, q0 + warp * 16, dq, mul);
 }
 
-// dk/dv: a block owns 64 keys (warp w keys 16w..) and walks the 32-row q
-// tiles from the diagonal on: S^T = K Q^T, P^T = exp(S^T - lse), dV +=
-// P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - di), dK += dS^T Q.
+// dk/dv: a block owns 64 keys (warp w keys 16w..) and kC of their D
+// columns, and walks the 32-row q tiles from the diagonal on: S^T = K Q^T,
+// P^T = exp(S^T - lse), dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T -
+// di), dK += dS^T Q.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_bf16(const FlashParams p) {
   constexpr int kM = 32, kN = 64, kPitch = TileBf16<D>::kPitch;
+  constexpr int kC = TileBf16<D>::kCols, kHalves = D / kC;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sk = reinterpret_cast<bf16*>(smem);  // [kN][kPitch]
   bf16* sv = sk + kN * kPitch;               // [kN][kPitch]
@@ -314,7 +334,8 @@ __global__ void __launch_bounds__(kThreads)
   bf16* sdo = sq + 2 * kM * kPitch;          // [2][kM][kPitch]
   float* slse = reinterpret_cast<float*>(sdo + 2 * kM * kPitch);  // [2][kM]
   float* sdi = slse + 2 * kM;                                      // [2][kM]
-  const int k0 = blockIdx.x * kN;  // low key tiles have the longest walks
+  // low key tiles have the longest walks
+  const int k0 = blockIdx.x / kHalves * kN, col0 = blockIdx.x % kHalves * kC;
   const int hi = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -334,7 +355,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[kC / 8][4], dv[kC / 8][4];
   zero(dk);
   zero(dv);
   const int key0 = k0 + warp * 16 + g;  // keys key0 and key0 + 8
@@ -369,7 +390,7 @@ __global__ void __launch_bounds__(kThreads)
         if (diag && r0 + rr < key0 + (c >> 1) * 8) pr = 0.f;
         s[nt][c] = pr;  // P^T
       }
-    mma_xb<kM, D>(dv, s, dot);
+    mma_xb<kM, kC, kPitch>(dv, s, dot + col0);
     float dp[kM / 8][4];
     zero(dp);
     mma_abt<kM, D>(dp, sv + warp * 16 * kPitch, dot);  // dP^T
@@ -378,13 +399,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         s[nt][c] *= dp[nt][c] - dt[nt * 8 + 2 * t + (c & 1)];  // dS^T
-    mma_xb<kM, D>(dk, s, qt);
+    mma_xb<kM, kC, kPitch>(dk, s, qt + col0);
     __syncthreads();
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f}, mul[2] = {p.scale, p.scale};
-  store_rows<D>(p, p.dk, p.sk, bi, hi, k0 + warp * 16, dk, mul);
-  store_rows<D>(p, p.dv, p.sk, bi, hi, k0 + warp * 16, dv, one);
+  store_rows<D, kC>(p, p.dk, p.sk, bi, hi, k0 + warp * 16, dk, mul, col0);
+  store_rows<D, kC>(p, p.dv, p.sk, bi, hi, k0 + warp * 16, dv, one, col0);
 }
 
 // ---------------------------------------------------------------- f32
@@ -603,17 +624,21 @@ int dispatch(int which, int dtype, const FlashParams& p,
     return bf ? launch(flash_bwd_dq_bf16<D>, grid, smem, stream, p)
               : launch(flash_bwd_dq_f32<D>, grid, smem, stream, p);
   }
-  const dim3 grid(p.sk / (bf ? 64 : kT), p.h, p.b);
+  // bf16: one block per (64 keys, kCols columns)
+  const dim3 grid(bf ? p.sk / 64 * (D / TileBf16<D>::kCols) : p.sk / kT,
+                  p.h, p.b);
   return bf ? launch(flash_bwd_dkv_bf16<D>, grid, smem, stream, p)
             : launch(flash_bwd_dkv_f32<D>, grid, smem, stream, p);
 }
 
 int run(int which, int dtype, int d, const FlashParams& p, void* stream) {
-  // the wrapper admits head_dim 64, 96 and 128 and sequences in whole tiles
+  // the wrapper admits head_dim 64, 96, 128 and 256 and sequences in
+  // whole tiles
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return dispatch<64>(which, dtype, p, s);
   if (d == 96) return dispatch<96>(which, dtype, p, s);
   if (d == 128) return dispatch<128>(which, dtype, p, s);
+  if (d == 256) return dispatch<256>(which, dtype, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -21,9 +21,15 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int D>
 struct TileBf16 {
   // elements: rows 16 bytes apart past D, so the 8 rows of an ldmatrix
-  // start in distinct banks (D = 64, 96 and 128: row starts 36, 52 and 68
-  // words apart, 8 distinct multiples of 4 modulo 32)
+  // start in distinct banks (D = 64, 96, 128 and 256: row starts 36, 52,
+  // 68 and 132 words apart, 8 distinct multiples of 4 modulo 32)
   static constexpr int kPitch = D + 8;
+  // A warp keeps a 16 x D fp32 accumulator in registers (D / 2 a thread).
+  // At D = 256 that is 128 registers, so a 64-key tile is computed in
+  // sub-tiles of kSub keys (16 x kSub scores beside it), and a dk/dv
+  // block, which holds two accumulators, owns kCols of the D columns.
+  static constexpr int kSub = D > 128 ? 32 : 64;
+  static constexpr int kCols = D > 128 ? D / 2 : D;
 };
 
 // rows [r0, r0 + R) of head hi (and batch bi) of a bf16 operand with batch,
@@ -53,6 +59,12 @@ __device__ __forceinline__ void load_words(void* dst, const void* src,
   for (int c = threadIdx.x; c < n / 4; c += kThreads)
     cp_async16(static_cast<int*>(dst) + c * 4,
                static_cast<const int*>(src) + c * 4, 16);
+}
+
+// x rounded to bf16 (to nearest even) and back: the hi half of a bf16
+// pair hi + lo that carries an fp32 probability into a bf16 product
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -85,12 +97,12 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
 }
 
 // acc[D/8][4] += X (16 x K, in registers as an fp32 accumulator x[K/8][4])
-// times B (K rows x D, row-major at `b`): O += P V and its kin.
-template <int K, int D>
+// times B (K rows x D, row-major at `b`, rows kPitch elements apart): O +=
+// P V and its kin.
+template <int K, int D, int kPitch = TileBf16<D>::kPitch>
 __device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
                                        const float (&x)[K / 8][4],
                                        const bf16* b) {
-  constexpr int kPitch = TileBf16<D>::kPitch;
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {

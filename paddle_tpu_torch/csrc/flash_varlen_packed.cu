@@ -46,6 +46,11 @@
 // dk/dv block 64 keys over 32-row q tiles; P and dS pass from one product
 // to the next in registers. f32 runs 32 x 32 tiles on the CUDA cores with
 // exact fp32 products. The softmax runs in base 2 with f32 statistics.
+// Built for head_dim 64, 96, 128 and 256. At 256, as in B10, the forward
+// and dq compute each 64-key tile of the map in two 32-key sub-tiles, and
+// a dk/dv block owns one half of the head's columns (the grid's head axis
+// doubles; each half recomputes S^T and dP^T), so a warp's accumulators
+// take no more registers than at 128.
 //
 // Bounds (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s). At the rung (h 16,
 // d 128, 8 causal segments of 4096, T 32768) there are 1.074 G visible
@@ -115,22 +120,23 @@ __device__ __forceinline__ bool visible(const VarlenParams& p, int sq,
 
 // ---------------------------------------------------------------- bf16
 
-// rows g and g + 8 below r0 of a warp's 16 x D accumulator, times `mul`,
-// as bf16 rows of a contiguous [n, h, D] array; rows at or past n are not
-// stored
-template <int D>
+// rows g and g + 8 below r0 of a warp's 16 x DO accumulator, times
+// `mul`, as bf16 columns col0.. of rows of a contiguous [n, h, D] array;
+// rows at or past n are not stored
+template <int D, int DO = D>
 __device__ __forceinline__ void store_rows(const VarlenParams& p, void* dst,
                                            int n, int hi, int r0,
-                                           const float (&acc)[D / 8][4],
-                                           const float (&mul)[2]) {
+                                           const float (&acc)[DO / 8][4],
+                                           const float (&mul)[2],
+                                           int col0 = 0) {
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + r * 8;
     if (row >= n) continue;
-    bf16* out = static_cast<bf16*>(dst) + packed_at<D>(p, row, hi);
+    bf16* out = static_cast<bf16*>(dst) + packed_at<D>(p, row, hi) + col0;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+    for (int nt = 0; nt < DO / 8; ++nt)
       *reinterpret_cast<__nv_bfloat162*>(out + nt * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[nt][2 * r] * mul[r],
                                 acc[nt][2 * r + 1] * mul[r]);
@@ -180,6 +186,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     varlen_fwd_bf16(const VarlenParams p) {
   constexpr int kM = 64, kN = 64, kPitch = TileBf16<D>::kPitch;
+  constexpr int kS = TileBf16<D>::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);                 // [kM][kPitch]
   bf16* sk = sq + kM * kPitch;                              // [2][kN][kPitch]
@@ -212,46 +219,52 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait<1>();
     __syncthreads();
 
-    float sc[kN / 8][4];
-    zero(sc);
-    mma_abt<kN, D>(sc, sq + warp * 16 * kPitch, sk + st * kN * kPitch);
-    const uint32_t vis =
-        interior(p, i, j)
-            ? 0xffffffffu
-            : visible_bits<kN>(p, qs, qp, skm + st * 2 * kN,
-                               skm + st * 2 * kN + kN);
-    float mx[2] = {m[0], m[1]};
+    const bool in = interior(p, i, j);
+#pragma unroll 1
+    for (int sub = 0; sub < kN / kS; ++sub) {
+      const int k0 = st * kN + sub * kS;  // the sub-tile's row in the stage
+      float sc[kS / 8][4];
+      zero(sc);
+      mma_abt<kS, D>(sc, sq + warp * 16 * kPitch, sk + k0 * kPitch);
+      const uint32_t vis =
+          in ? 0xffffffffu
+             : visible_bits<kS>(p, qs, qp, skm + st * 2 * kN + sub * kS,
+                                skm + st * 2 * kN + kN + sub * kS);
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
+      for (int nt = 0; nt < kS / 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float x = (vis >> (nt * 4 + c)) & 1u ? sc[nt][c] * sl2 : kNeg;
-        sc[nt][c] = x;
-        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        for (int c = 0; c < 4; ++c) {
+          const float x =
+              (vis >> (nt * 4 + c)) & 1u ? sc[nt][c] * sl2 : kNeg;
+          sc[nt][c] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        const float alpha = exp2f(m[r] - mx[r]);  // 0 once a key is seen
+        m[r] = mx[r];
+        l[r] *= alpha;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          o[nt][2 * r] *= alpha;
+          o[nt][2 * r + 1] *= alpha;
+        }
       }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      const float alpha = exp2f(m[r] - mx[r]);  // 0 once a key is seen
-      m[r] = mx[r];
-      l[r] *= alpha;
+      for (int nt = 0; nt < kS / 8; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        o[nt][2 * r] *= alpha;
-        o[nt][2 * r + 1] *= alpha;
-      }
+        for (int c = 0; c < 4; ++c) {
+          // masked pairs are 0, also while the row's max is still kNeg
+          const float pr = (vis >> (nt * 4 + c)) & 1u
+                               ? exp2f(sc[nt][c] - m[c >> 1])
+                               : 0.f;
+          sc[nt][c] = pr;
+          l[c >> 1] += pr;
+        }
+      mma_xb<kS, D>(o, sc, sv + k0 * kPitch);
     }
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // masked pairs are 0, also while the row's max is still kNeg
-        const float pr =
-            (vis >> (nt * 4 + c)) & 1u ? exp2f(sc[nt][c] - m[c >> 1]) : 0.f;
-        sc[nt][c] = pr;
-        l[c >> 1] += pr;
-      }
-    mma_xb<kN, D>(o, sc, sv + st * kN * kPitch);
     __syncthreads();  // the stage is refilled by the next iteration
   }
   cp_async_wait<0>();
@@ -278,6 +291,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     varlen_bwd_dq_bf16(const VarlenParams p) {
   constexpr int kM = 64, kN = 64, kPitch = TileBf16<D>::kPitch;
+  constexpr int kS = TileBf16<D>::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);                 // [kM][kPitch]
   bf16* sdo = sq + kM * kPitch;                             // [kM][kPitch]
@@ -317,29 +331,32 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait<1>();
     __syncthreads();
 
-    const bf16* kt = sk + st * kN * kPitch;
-    const bf16* vt = sv + st * kN * kPitch;
-    float sc[kN / 8][4], dp[kN / 8][4];
-    zero(sc);
-    zero(dp);
-    mma_abt<kN, D>(sc, sq + warp * 16 * kPitch, kt);
-    mma_abt<kN, D>(dp, sdo + warp * 16 * kPitch, vt);
-    const uint32_t vis =
-        interior(p, i, j)
-            ? 0xffffffffu
-            : visible_bits<kN>(p, qs, qp, skm + st * 2 * kN,
-                               skm + st * 2 * kN + kN);
+    const bool in = interior(p, i, j);
+#pragma unroll 1
+    for (int sub = 0; sub < kN / kS; ++sub) {
+      const bf16* kt = sk + (st * kN + sub * kS) * kPitch;
+      const bf16* vt = sv + (st * kN + sub * kS) * kPitch;
+      float sc[kS / 8][4], dp[kS / 8][4];
+      zero(sc);
+      zero(dp);
+      mma_abt<kS, D>(sc, sq + warp * 16 * kPitch, kt);
+      mma_abt<kS, D>(dp, sdo + warp * 16 * kPitch, vt);
+      const uint32_t vis =
+          in ? 0xffffffffu
+             : visible_bits<kS>(p, qs, qp, skm + st * 2 * kN + sub * kS,
+                                skm + st * 2 * kN + kN + sub * kS);
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
+      for (int nt = 0; nt < kS / 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1;
-        const float pr = (vis >> (nt * 4 + c)) & 1u
-                             ? exp2f(sc[nt][c] * sl2 - lse2[r])
-                             : 0.f;
-        sc[nt][c] = pr * (dp[nt][c] - dl[r]);  // dS
-      }
-    mma_xb<kN, D>(dq, sc, kt);
+        for (int c = 0; c < 4; ++c) {
+          const int r = c >> 1;
+          const float pr = (vis >> (nt * 4 + c)) & 1u
+                               ? exp2f(sc[nt][c] * sl2 - lse2[r])
+                               : 0.f;
+          sc[nt][c] = pr * (dp[nt][c] - dl[r]);  // dS
+        }
+      mma_xb<kS, D>(dq, sc, kt);
+    }
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -347,14 +364,15 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<D>(p, p.out, p.tq, hi, q0 + warp * 16, dq, mul);
 }
 
-// dk/dv: a block owns 64 keys of one head (warp w keys 16w..) and walks
-// the transposed map's interval of 32-row q tiles: S^T = K Q^T, P^T on
-// visible pairs, dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - delta),
-// dK += dS^T Q.
+// dk/dv: a block owns 64 keys of one head (warp w keys 16w..) and kC of
+// their D columns, and walks the transposed map's interval of 32-row q
+// tiles: S^T = K Q^T, P^T on visible pairs, dV += P^T dO, dP^T = V dO^T,
+// dS^T = P^T (dP^T - delta), dK += dS^T Q.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     varlen_bwd_dkv_bf16(const VarlenParams p) {
   constexpr int kM = 32, kN = 64, kPitch = TileBf16<D>::kPitch;
+  constexpr int kC = TileBf16<D>::kCols, kHalves = D / kC;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sk = reinterpret_cast<bf16*>(smem);  // [kN][kPitch]
   bf16* sv = sk + kN * kPitch;               // [kN][kPitch]
@@ -362,7 +380,8 @@ __global__ void __launch_bounds__(kThreads)
   bf16* sdo = sq + 2 * kM * kPitch;          // [2][kM][kPitch]
   // per stage: lse, delta (f32), segment, position (int32) of the q rows
   float* sst = reinterpret_cast<float*>(sdo + 2 * kM * kPitch);  // [2][4][kM]
-  const int hi = blockIdx.x, j = p.order[blockIdx.y];
+  const int hi = blockIdx.x / kHalves, col0 = blockIdx.x % kHalves * kC;
+  const int j = p.order[blockIdx.y];
   const int k0 = j * kN, qs0 = p.start[j], ql = p.len[j];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -396,7 +415,7 @@ __global__ void __launch_bounds__(kThreads)
   if (ql > 0) load_qtile(0, qs0);
   cp_async_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[kC / 8][4], dv[kC / 8][4];
   zero(dk);
   zero(dv);
   for (int s = 0; s < ql; ++s) {
@@ -429,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
             ok ? exp2f(sc[nt][c] * sl2 - fmaxf(lt[col], kNegSafe) * kLog2e)
                : 0.f;  // P^T
       }
-    mma_xb<kM, D>(dv, sc, dot);
+    mma_xb<kM, kC, kPitch>(dv, sc, dot + col0);
     float dp[kM / 8][4];
     zero(dp);
     mma_abt<kM, D>(dp, sv + warp * 16 * kPitch, dot);  // dP^T
@@ -438,13 +457,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         sc[nt][c] *= dp[nt][c] - dt[nt * 8 + 2 * t + (c & 1)];  // dS^T
-    mma_xb<kM, D>(dk, sc, qt);
+    mma_xb<kM, kC, kPitch>(dk, sc, qt + col0);
     __syncthreads();
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f}, mul[2] = {p.scale, p.scale};
-  store_rows<D>(p, p.dk, p.tk, hi, k0 + warp * 16, dk, mul);
-  store_rows<D>(p, p.dv, p.tk, hi, k0 + warp * 16, dv, one);
+  store_rows<D, kC>(p, p.dk, p.tk, hi, k0 + warp * 16, dk, mul, col0);
+  store_rows<D, kC>(p, p.dv, p.tk, hi, k0 + warp * 16, dv, one, col0);
 }
 
 // ---------------------------------------------------------------- f32
@@ -706,17 +725,20 @@ int dispatch(int which, int dtype, const VarlenParams& p,
     return bf ? launch(varlen_bwd_dq_bf16<D>, grid, smem, stream, p)
               : launch(varlen_bwd_dq_f32<D>, grid, smem, stream, p);
   }
-  const dim3 grid(p.h, p.tk_pad / tile);
+  // bf16: one block per (head, kCols columns, 64 keys)
+  const dim3 grid(bf ? p.h * (D / TileBf16<D>::kCols) : p.h,
+                  p.tk_pad / tile);
   return bf ? launch(varlen_bwd_dkv_bf16<D>, grid, smem, stream, p)
             : launch(varlen_bwd_dkv_f32<D>, grid, smem, stream, p);
 }
 
 int run(int which, int dtype, int d, const VarlenParams& p, void* stream) {
-  // the wrapper admits head_dim 64, 96 and 128
+  // the wrapper admits head_dim 64, 96, 128 and 256
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return dispatch<64>(which, dtype, p, s);
   if (d == 96) return dispatch<96>(which, dtype, p, s);
   if (d == 128) return dispatch<128>(which, dtype, p, s);
+  if (d == 256) return dispatch<256>(which, dtype, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

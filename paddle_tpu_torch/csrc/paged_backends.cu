@@ -103,10 +103,6 @@ __device__ __forceinline__ int64_t pool_at(const PagedParams& p, int pg,
   return ((static_cast<int64_t>(pg) * p.n_kv + h) * p.ps + s) * p.d;
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // ---------------------------------------------------------------- B7
 
 // Partials of one (chunk, kv head): the chunk's K and V rows staged once,

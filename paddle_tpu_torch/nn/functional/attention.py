@@ -16,7 +16,7 @@ over kernel B10 (``csrc/flash_attention.cu``): the forward kernel
 writes ``out`` and the f32 ``lse`` ``[b, h, s]``, which the backward's
 two kernels (dq; dk and dv) read back with ``di = sum(out * dout)``, a
 PyTorch reduction. On a CUDA tensor it launches the kernels, or raises
-(a build or launch failure, a head_dim past 128; a head_dim the
+(a build or launch failure, a head_dim past 256; a head_dim the
 kernels lack below it runs zero-padded to the next built width, exactly);
 on a CPU tensor it runs the plain versions ``flash_attention_fwd_plain`` and
 ``flash_attention_bwd_plain`` (explicit softmax in f32).
@@ -46,9 +46,9 @@ __all__ = ["scaled_dot_product_attention", "flash_attention",
            "FLASH_HEAD_DIMS"]
 
 #: head dims the CUDA kernels are built for; another multiple of 8 below
-#: 128 runs zero-padded to the next of them, a wider head raises on the
+#: 256 runs zero-padded to the next of them, a wider head raises on the
 #: card
-FLASH_HEAD_DIMS = (64, 96, 128)
+FLASH_HEAD_DIMS = (64, 96, 128, 256)
 
 #: the stock TPU kernel's finite mask value (-0.7 * float32 max)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)

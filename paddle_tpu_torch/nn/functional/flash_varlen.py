@@ -38,9 +38,13 @@ through the block table, with the JAX package's layouts:
 
 ``paged_prefill_attention`` launches ``csrc/flash_varlen.cu`` on a CUDA
 tensor and runs its plain version ``_paged_prefill_plain`` on a CPU
-tensor. An int8 pool (each side ``(int8 rows, f32 scale plane)``) has
-no kernel, as in the JAX package, where it is XLA's dense gather: the
-plain version dequantizes it, on the card too.
+tensor. A bf16 pool at a head_dim of ``PREFILL_MMA_HEAD_DIMS`` takes the
+tensor-core kernel, whose grid ``prefill_grid`` sizes from the shapes and
+the card's SM count: q tiles of 64 query vectors, each tile's key range
+cut into ``n_split`` slices merged in the kernel. An int8 pool (each side
+``(int8 rows, f32 scale plane)``) has no kernel, as in the JAX package,
+where it is XLA's dense gather: the plain version dequantizes it, on the
+card too.
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ import torch
 
 from ... import _kernels
 
-__all__ = ["paged_prefill_attention", "varlen_block_map", "BlockMap",
+__all__ = ["paged_prefill_attention", "prefill_grid", "varlen_block_map",
+           "BlockMap", "PREFILL_MMA_HEAD_DIMS",
            "flash_varlen_packed", "PackedFlashFunction", "packed_fwd",
            "packed_bwd", "packed_fwd_plain", "packed_bwd_plain",
            "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "VARLEN_HEAD_DIMS"]
@@ -111,6 +116,32 @@ def _paged_prefill_plain(q, key_cache, value_cache, block_tables, start, *,
 #: error (plain CPU calls do not count)
 launches = 0
 
+#: head dims of the tensor-core kernel (bf16); an f32 pool or another
+#: head_dim takes the CUDA-core kernel
+PREFILL_MMA_HEAD_DIMS = (64, 96, 128, 256)
+#: query vectors (chunk rows x the g heads of a kv head) a block owns
+PREFILL_Q_VECTORS = 64
+_PREFILL_MAX_SPLIT = 16
+
+
+def prefill_grid(b: int, c: int, n_kv: int, g: int, span: int, d: int,
+                 sms: int) -> tuple:
+    """``(q_tiles, n_split, blocks)`` of the tensor-core kernel: a block
+    owns 64 query vectors (``64 // g`` chunk rows) of one kv head and one
+    of ``n_split`` slices of their key range. ``n_split`` is as many
+    slices as keep two blocks on each of the card's ``sms`` SMs, at most
+    16, each at least two key tiles of the widest walk (``span``, the
+    table's positions); 1 when the q tiles alone fill the card."""
+    q_tiles = -(-c // (PREFILL_Q_VECTORS // g))
+    base = q_tiles * n_kv * b
+    widest = -(-span // (32 if d > 128 else 64))  # key tiles of the walk
+    n_split = max(1, min(2 * sms // base, widest // 2, _PREFILL_MAX_SPLIT))
+    return q_tiles, n_split, base * n_split
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
 
 def paged_prefill_attention(q, key_cache, value_cache, block_tables, start,
                             *, n_kv: int, scale=None):
@@ -128,7 +159,7 @@ def paged_prefill_attention(q, key_cache, value_cache, block_tables, start,
     n_q_heads, d]`` in q's dtype.
     """
     what = "paged_prefill_attention"
-    if q.device.type != "cuda":
+    if not _on_card(q):
         return _paged_prefill_plain(q, key_cache, value_cache, block_tables,
                                     start, n_kv=n_kv, scale=scale)
     if isinstance(key_cache, tuple) or isinstance(value_cache, tuple):
@@ -167,11 +198,22 @@ def paged_prefill_attention(q, key_cache, value_cache, block_tables, start,
     dt = _kernels.dtype_code(q, what)
     scale = float(scale if scale is not None else d ** -0.5)
     out = torch.empty_like(q)
+    n_split, ws = 1, None
+    if q.dtype == torch.bfloat16 and d in PREFILL_MMA_HEAD_DIMS:
+        q_tiles, n_split, _ = prefill_grid(b, c, n_kv, n_q // n_kv, pp * ps,
+                                           d, _sm_count(q.device))
+        if n_split > 1:
+            # f32 partials (outputs, then m and l) and an int32 counter a
+            # q tile (zeroed by the launch)
+            tiles = q_tiles * n_kv * b
+            ws = torch.empty(tiles * n_split * PREFILL_Q_VECTORS * (d + 2)
+                             + tiles, dtype=torch.float32, device=q.device)
     fn = _kernels.lib("flash_varlen").ptt_paged_prefill_attention
     _kernels.check(fn(
         q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        block_tables.data_ptr(), start.data_ptr(), out.data_ptr(), dt, b, c,
-        n_q, n_kv, d, ps, pp, P, scale, _kernels.stream_ptr(q.device)), what)
+        block_tables.data_ptr(), start.data_ptr(), out.data_ptr(),
+        _kernels.ptr(ws), dt, b, c, n_q, n_kv, d, ps, pp, P, n_split, scale,
+        _kernels.stream_ptr(q.device)), what)
     global launches
     launches += 1
     return out
@@ -186,9 +228,9 @@ DEFAULT_BLOCK_K = 128
 _NEG = -1e30          # masked score; lse of a row that sees no key
 _NEG_SAFE = -5e29     # lse floor in the backward: exp(_NEG - it) is 0
 #: head dims the CUDA kernels are built for; another multiple of 8 below
-#: 128 runs zero-padded to the next of them, a wider head raises on the
+#: 256 runs zero-padded to the next of them, a wider head raises on the
 #: card
-VARLEN_HEAD_DIMS = (64, 96, 128)
+VARLEN_HEAD_DIMS = (64, 96, 128, 256)
 #: the kernels' tiles, (q rows, keys), of the forward and dq walks and of
 #: the dk/dv walk, by dtype; lse, delta and the per-token metadata are
 #: padded to a multiple of 64 rows, a whole number of every tile
@@ -493,17 +535,23 @@ def kernel_head_dim(d: int, built, what: str) -> int:
     or for another multiple of 8 below the widest the next built width,
     to which the caller zero-pads the head axis (exact: zero columns add
     nothing to q.k and give zero columns of the outputs and gradients).
-    A wider head raises: the flash kernels keep a 64-row tile's output
-    in registers, sized for 128 columns at most."""
+    Another head raises: the flash kernels keep a warp's 16 x head_dim
+    output in registers, which at 256 already takes half of a thread's
+    255; a wider head needs the output split across warps or passes."""
     if d % 8 == 0:
         for w in built:
             if d <= w:
                 return w
+        raise NotImplementedError(
+            f"{what}: head_dim {d}: the CUDA kernels are built for {built} "
+            f"and take any multiple of 8 up to {max(built)} zero-padded; a "
+            "wider head needs its register-held output split across warps "
+            "or passes, and no model the repo supports uses one (ROADMAP.md "
+            "queue C)")
     raise NotImplementedError(
-        f"{what}: head_dim {d}: the CUDA kernels are built for {built} "
-        f"and take any multiple of 8 up to {max(built)} zero-padded; a "
-        "wider head needs other tiles (their register-held output), and "
-        "no rung uses one (ROADMAP.md queue C)")
+        f"{what}: head_dim {d} is not a multiple of 8: the kernels copy "
+        "rows in 16-byte pieces and take k in steps of 16; the flash "
+        "route admits multiples of 8 only")
 
 
 def pad_head(t, width: int):

@@ -256,24 +256,24 @@ def test_cuda_tensor_never_takes_the_plain_version(no_plain_no_kernel,
             tattn.dkv_launches) == before
 
 
-@pytest.mark.parametrize("head_dim", [8, 32, 80, 136, 256])
+@pytest.mark.parametrize("head_dim", [8, 32, 80, 136, 256, 264])
 def test_head_dim_without_a_kernel_raises_on_the_card(no_plain_no_kernel,
                                                       head_dim):
-    """The route admits head_dim % 8 == 0; the kernel has 64, 96 and 128.
-    On the card another multiple of 8 up to 128 goes to the kernel
+    """The route admits head_dim % 8 == 0; the kernel has 64, 96, 128 and
+    256. On the card another multiple of 8 up to 256 goes to the kernel
     zero-padded (the library is missing here, so that raises), a wider
     head raises NotImplementedError naming its reason; neither takes the
     dense path."""
     assert tattn._use_flash(head_dim, 128, 128, False)
     q = _card(torch.randn(1, 128, 2, head_dim))
-    err = (RuntimeError, "kernel library unavailable") if head_dim <= 128 \
-        else (NotImplementedError, "head_dim 136.*no rung"
-              if head_dim == 136 else "head_dim 256")
+    err = (RuntimeError, "kernel library unavailable") if head_dim <= 256 \
+        else (NotImplementedError, "head_dim 264.*no model")
     with pytest.raises(err[0], match=err[1]):
         tattn.scaled_dot_product_attention(q, q, q, is_causal=True)
 
 
-@pytest.mark.parametrize("head_dim,width", [(80, 96), (40, 64), (104, 128)])
+@pytest.mark.parametrize("head_dim,width", [(80, 96), (40, 64), (104, 128),
+                                            (136, 256), (200, 256)])
 def test_padded_head_dim_reaches_the_kernel_at_its_built_width(monkeypatch,
                                                                head_dim,
                                                                width):
@@ -309,14 +309,17 @@ def test_padded_head_dim_reaches_the_kernel_at_its_built_width(monkeypatch,
                      ("dkv", width, width, scale)]
 
 
+@pytest.mark.parametrize("head_dim", [80, 136])
 @pytest.mark.parametrize("causal", [True, False])
-def test_zero_pad_route_equals_the_plain_version(causal):
-    """The card's route for head_dim 80 (pad to 96, the plain flash
-    versions at 96 with the true scale, slice) equals the plain versions
-    at 80: forward, lse and backward, f32, within 1e-6."""
+def test_zero_pad_route_equals_the_plain_version(causal, head_dim):
+    """The card's route for head_dim 80 (pad to 96) or 136 (pad to 256):
+    the plain flash versions at the built width with the true scale,
+    sliced, equal the plain versions at the true width: forward, lse and
+    backward, f32, within 1e-6."""
+    shape = (2, 128, 2, head_dim)
     q, k, v, do = (torch.from_numpy(a) for a in
-                   _inputs((2, 128, 2, 80), (2, 128, 2, 80), seed=8))
-    scale = 80 ** -0.5
+                   _inputs(shape, shape, seed=8))
+    scale = head_dim ** -0.5
     args = (tattn.FLASH_HEAD_DIMS, "flash_attention")
     out, lse = tfv.padded_fwd(tattn.flash_attention_fwd_plain, *args, q, k,
                               v, causal, scale)
@@ -352,7 +355,7 @@ def test_head_dim_96_takes_the_kernel_on_the_card(no_plain_no_kernel,
                                                   dtype):
     """96 is one of the kernels' head dims: a d96 CUDA tensor goes to
     the kernel library, never to a plain version."""
-    assert tattn.FLASH_HEAD_DIMS == (64, 96, 128)
+    assert tattn.FLASH_HEAD_DIMS == (64, 96, 128, 256)
     q = _card(torch.randn(1, 128, 2, 96).to(dtype))
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         tattn.scaled_dot_product_attention(q, q, q, is_causal=True)

@@ -169,3 +169,134 @@ def test_int8_pool_is_the_dequantized_pool(bad_id):
     if bad_id is None:
         ref = _jax(dict(a, kp=kd, vp=vd), "xla")
         np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# The tensor-core kernel's grid: key slices merged by log-sum-exp
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,want", [
+    # (b, c, n_kv, g, span, d, sms): (q_tiles, n_split, blocks)
+    ((1, 256, 16, 1, 2048, 128, 132), (4, 4, 256)),   # the serving rung
+    ((1, 256, 16, 1, 2048, 256, 132), (4, 4, 256)),   # 32-key tiles
+    ((1, 16, 16, 1, 2048, 128, 132), (1, 16, 256)),   # a short chunk
+    ((3, 256, 16, 1, 2048, 128, 132), (4, 1, 192)),   # tiles fill it
+    ((1, 256, 2, 8, 2048, 128, 132), (32, 4, 256)),   # g 8: 8 rows a tile
+    ((1, 256, 16, 1, 128, 64, 132), (4, 1, 64)),      # two key tiles
+    ((2, 64, 16, 1, 2048, 96, 132), (1, 8, 256)),
+])
+def test_prefill_grid_fills_the_card(shape, want):
+    """The split count is a function of the shapes and the SM count: two
+    blocks an SM, at most 16 slices, each at least two key tiles of the
+    widest walk; at the serving rung 256 blocks on 132 SMs."""
+    assert fv.prefill_grid(*shape) == want
+
+
+def _split_render(q, kp, vp, tables, start, n_kv, n_split, kn,
+                  qv=fv.PREFILL_Q_VECTORS):
+    """The tensor-core kernel's arithmetic in PyTorch, f32: per (row, kv
+    head, q tile of ``qv`` vectors) the key range up to the tile's last
+    query position, cut into ``n_split`` slices of whole ``kn``-key
+    tiles as the kernel cuts it; each slice's partial (m, l, unnormalised
+    output) over its keys, merged in split order by log-sum-exp."""
+    b, c, n_q, d = q.shape
+    P, _, ps, _ = kp.shape
+    pp = tables.shape[1]
+    g, rows = n_q // n_kv, qv // (n_q // n_kv)
+    scale = d ** -0.5
+    out = torch.zeros(b, c, n_q, d)
+    for bi in range(b):
+        st = int(start[bi])
+        pos = torch.arange(pp * ps)
+        ids = tables[bi].long()[pos // ps]
+        ok = (ids >= 0) & (ids < P)
+        rows_of = ids.clamp(0, P - 1)
+        for kv in range(n_kv):
+            keys = kp[rows_of, kv, pos % ps].float()            # [S, d]
+            vals = vp[rows_of, kv, pos % ps].float()
+            for t0 in range(0, c, rows):
+                t1 = min(t0 + rows, c)
+                qt = q[bi, t0:t1, kv * g:(kv + 1) * g].float()  # [r, g, d]
+                qpos = st + torch.arange(t0, t1)
+                key_end = max(0, min(pp * ps, st + t1))
+                n_kt = -(-key_end // kn)
+                parts = []
+                for s in range(n_split):
+                    lo = s * n_kt // n_split * kn
+                    hi = min((s + 1) * n_kt // n_split * kn, key_end)
+                    kpos = torch.arange(lo, max(lo, hi))
+                    lg = torch.einsum("rgd,kd->rgk", qt, keys[kpos]) * scale
+                    vis = (kpos[None, :] <= qpos[:, None]) & ok[kpos][None]
+                    lg = torch.where(vis[:, None], lg, -torch.inf)
+                    m = lg.amax(-1).clamp_min(-1e30) if len(kpos) else \
+                        torch.full(qt.shape[:2], -1e30)
+                    p = torch.exp(lg - m[..., None])
+                    parts.append((m, p.sum(-1), p @ vals[kpos]))
+                mm = torch.stack([m for m, _, _ in parts]).amax(0)
+                ll = torch.zeros_like(mm)
+                acc = torch.zeros(*mm.shape, d)
+                for m, l, o in parts:
+                    f = torch.exp(m - mm)
+                    ll = ll + l * f
+                    acc = acc + o * f[..., None]
+                inv = torch.where(ll > 0, 1 / ll, 0.0)
+                out[bi, t0:t1, kv * g:(kv + 1) * g] = acc * inv[..., None]
+    return out
+
+
+@pytest.mark.parametrize("name", ["unaligned", "shared_prefix_b2",
+                                  "gqa_g2_b2", "padded_tail"])
+@pytest.mark.parametrize("n_split,kn", [(1, 8), (3, 4), (16, 4), (5, 8)])
+def test_split_merge_equals_the_plain_version(name, n_split, kn):
+    """Key slices of whole key tiles, each with its own softmax partial,
+    merged by log-sum-exp in split order, give the plain version's output
+    (f32, 1e-6): slices past the tile's walk (n_split above its key
+    tiles) and keys on an id outside the pool add nothing."""
+    starts, c, g, shared, _ = CASES[name]
+    a = _case(9, starts, c, g=g, shared=shared)
+    tables = a["tables"].copy()
+    tables[0, 3] = P + 1                     # names no page
+    t = torch.from_numpy
+    want = fv._paged_prefill_plain(t(a["q"]), t(a["kp"]), t(a["vp"]),
+                                   t(tables), t(a["start"]), n_kv=a["n_kv"])
+    got = _split_render(t(a["q"]), t(a["kp"]), t(a["vp"]), t(tables),
+                        t(a["start"]), a["n_kv"], n_split, kn, qv=8)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_wrapper_hands_the_kernel_its_grid_and_workspace(monkeypatch):
+    """On the card a bf16 pool at d128 reaches the tensor-core launch
+    with ``prefill_grid``'s split and a workspace of the partials and
+    counters; an f32 pool the CUDA-core launch with one slice and none.
+    One launch each, counted; nothing falls back to the plain version."""
+    from paddle_tpu_torch import _kernels
+
+    calls = []
+
+    class Lib:
+        def ptt_paged_prefill_attention(self, *args):
+            calls.append(args)
+            return 0
+
+    def refuse(*a, **k):
+        raise AssertionError("a card tensor reached the plain version")
+    monkeypatch.setattr(fv, "_on_card", lambda t: True)
+    monkeypatch.setattr(fv, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(fv, "_paged_prefill_plain", refuse)
+    monkeypatch.setattr(_kernels, "lib", lambda name: Lib())
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    b, c, n_kv, d, ps, pp = 1, 256, 16, 128, 16, 128
+    tables = torch.arange(1, pp + 1, dtype=torch.int32)[None]
+    start = torch.tensor([1792], dtype=torch.int32)
+    before = fv.launches
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.zeros(b, c, n_kv, d, dtype=dt)
+        pool = torch.zeros(pp + 1, n_kv, ps, d, dtype=dt)
+        fv.paged_prefill_attention(q, pool, pool, tables, start, n_kv=n_kv)
+    assert fv.launches == before + 2
+    bf, f32 = calls
+    # ws, dtype, b, c, n_q, n_kv, d, page_size, pp, P, n_split, scale
+    assert bf[6] != 0 and bf[7:17] == (1, b, c, n_kv, n_kv, d, ps, pp,
+                                       pp + 1, 4)
+    assert f32[6] is None and f32[7:17] == (0, b, c, n_kv, n_kv, d, ps, pp,
+                                            pp + 1, 1)

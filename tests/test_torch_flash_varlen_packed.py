@@ -359,29 +359,34 @@ def test_cuda_tensor_never_takes_the_plain_version(no_plain_no_kernel,
             tfv.dkv_varlen_launches) == before
 
 
-@pytest.mark.parametrize("head_dim", [16, 80, 136])
+@pytest.mark.parametrize("head_dim", [16, 80, 136, 256, 264, 100])
 def test_head_dim_without_a_kernel_raises_on_the_card(no_plain_no_kernel,
                                                       head_dim):
-    """A multiple of 8 up to 128 goes to the kernels zero-padded (the
-    library is missing here, so that raises); a wider head raises
-    NotImplementedError; neither reaches a plain version."""
+    """A multiple of 8 up to 256 goes to the kernels zero-padded (the
+    library is missing here, so that raises); a wider head, or one off a
+    multiple of 8, raises NotImplementedError naming its reason; neither
+    reaches a plain version."""
     q = _card(torch.randn(100, 2, head_dim))
     cu = _card(torch.tensor([0, 100], dtype=torch.int32))
-    err = (RuntimeError, "kernel library unavailable") if head_dim <= 128 \
-        else (NotImplementedError, "head_dim 136.*no rung")
+    err = (RuntimeError, "kernel library unavailable") \
+        if head_dim <= 256 and head_dim % 8 == 0 \
+        else (NotImplementedError, "head_dim 264.*no model"
+              if head_dim == 264 else "head_dim 100 is not a multiple of 8")
     with pytest.raises(err[0], match=err[1]):
         tfv.flash_varlen_packed(q, q, q, cu, cu, causal=True)
 
 
+@pytest.mark.parametrize("head_dim", [40, 136])
 @pytest.mark.parametrize("causal", [True, False])
-def test_zero_pad_route_equals_the_plain_version(causal):
-    """The card's route for head_dim 40 (pad to 64, the plain walks at 64
-    with the true scale, slice) equals the plain walks at 40 on the
-    ragged pack: out, lse, dq, dk, dv, f32, within 1e-6."""
+def test_zero_pad_route_equals_the_plain_version(causal, head_dim):
+    """The card's route for head_dim 40 (pad to 64) or 136 (pad to 256):
+    the plain walks at the built width with the true scale, sliced,
+    equal the plain walks at the true width on the ragged pack: out, lse,
+    dq, dk, dv, f32, within 1e-6."""
     cq, ck = (torch.from_numpy(c) for c in _pack("ragged"))
     q, k, v, do = (torch.from_numpy(a) for a in
-                   _inputs(int(cq[-1]), int(ck[-1]), 2, 40, seed=4))
-    scale = 40 ** -0.5
+                   _inputs(int(cq[-1]), int(ck[-1]), 2, head_dim, seed=4))
+    scale = head_dim ** -0.5
 
     def fwd(q, k, v, cq, ck, causal, scale):
         return tfv.packed_fwd_plain(q, k, v, cq, ck, scale=scale,
