@@ -5,12 +5,17 @@
 
 Phases, all run every time, each of which fails the run when it fails:
   device   the card's name and power limit, as nvidia-smi reports them;
-  build    the CUDA kernels from csrc/, one nvcc per source in parallel;
+  build    the CUDA kernels from csrc/, one nvcc per source in parallel,
+           then the machine code of B14's and B2's bf16 kernels read back
+           (cuobjdump -sass: HGMMA in B14, HMMA in B2; no ptxas spill);
   kernels  each kernel against its plain PyTorch version at the serving
            path's shapes, in bfloat16 and float32 (tolerances printed;
            the paged-prefill kernel on 16 cases with a swapped-pages
-           control that must fail),
-           then timed with CUDA events beside its plain version, one
+           control that must fail; B2's split-K merge at the tail's
+           N = 2048 shapes, repeatable bit for bit, with a control that
+           leaves out one K slice),
+           then timed with CUDA events (and, for B2, B3 and B14, the
+           profiler's device time) beside its plain version, one
            PyTorch library call computing the same function where there
            is one, and the least time the card could take;
   slice    the full-width d2048·L24 FusedCausalLM (bf16, random weights
@@ -38,7 +43,8 @@ Phases, all run every time, each of which fails the run when it fails:
            teacher-forced check against the plain path and a timed,
            profiled decode step — and serving_int8kv, the serving
            workload above over int8 weights and an int8 pool;
-  moe/lora the ragged grouped GEMM (B14) and the LoRA delta (B16) checked
+  moe/lora the ragged grouped GEMM (B14, with a control that drops one
+           expert's first 64-wide k-step) and the LoRA delta (B16) checked
            against their plain versions at the MoE rung's and the
            d2048 projections' shapes, and timed; serving_lora, the
            serving workload above (on the bf16 stack, before it is
@@ -123,6 +129,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -177,22 +184,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
+def device_ms(fn, kernel, iters: int = 20, per_call=None) -> float:
     """Device time per call of ``fn`` spent in the CUDA kernels whose
-    name holds ``kernel``, by torch.profiler: the kernel alone, where
-    ``time_ms`` also counts the gaps a host-bound caller leaves."""
+    name holds ``kernel`` (a name, or a tuple of names), by
+    torch.profiler: the kernels alone, where ``time_ms`` also counts the
+    gaps a host-bound caller leaves. With ``per_call`` (the launches one
+    call makes) the time is the mean of the launches the profiler
+    recorded times ``per_call``, which stays right when it drops some of
+    a long process's events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and kernel in ev.key)
-    return us / iters / 1e3
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and any(k in ev.key for k in names)]
+    us = sum(ev.self_device_time_total for ev in evs)
+    if per_call is None:
+        return us / iters / 1e3
+    n = sum(ev.count for ev in evs)
+    return us / n * per_call / 1e3 if n else 0.0
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -230,7 +247,58 @@ def phase_device() -> str:
 
 # ---------------------------------------------------------------- build
 
+#: the redesigned kernels whose machine code the build phase reads back:
+#: library, kernel name, the tensor-core instruction each was built
+#: around (HGMMA: wgmma; HMMA: mma.sync)
+DESIGNED_SASS = (("grouped_gemm", "grouped_gemm_wgmma", ("HGMMA",)),
+                 ("stream_linear", "stream_gemm_mma", ("HMMA", "HGMMA")))
+
+
+def _sass_functions(path) -> dict:
+    """{mangled kernel name: SASS text} of a built library, by cuobjdump
+    (beside nvcc)."""
+    from paddle_tpu_torch import _kernels
+
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def _ptxas_info(log: str) -> dict:
+    """{mangled name: {"registers", "spill_stores", "spill_loads"}} from
+    an nvcc -Xptxas -v log."""
+    info, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$.]+)'?", line)
+        if m:
+            cur = info.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return info
+
+
 def phase_build(out_dir):
+    """Every library built from csrc/, one nvcc per source in parallel;
+    then the redesigned kernels' machine code read back: each
+    instantiation of B14's bf16 kernel must hold HGMMA (wgmma) and B2's
+    bf16 kernel HMMA or HGMMA, with no register spill in ptxas's
+    report."""
     from paddle_tpu_torch import _kernels
 
     t0 = time.perf_counter()
@@ -242,6 +310,24 @@ def phase_build(out_dir):
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             for name, v in done.items():
                 f.write(f"== {name}\n{v['log']}\n")
+    for lib, kernel, opcodes in DESIGNED_SASS:
+        funcs = {k: v for k, v in _sass_functions(
+            _kernels._lib_path(lib)).items() if kernel in k}
+        ptxas = _ptxas_info(done[lib]["log"]) if lib in done else {}
+        check(bool(funcs), f"build: no {kernel} kernel in lib{lib}")
+        for name, sass in funcs.items():
+            found = [op for op in opcodes if op in sass]
+            info = ptxas.get(name, {})
+            emit({"check": "sass", "kernel": name, "wants": list(opcodes),
+                  "found": found, "registers": info.get("registers"),
+                  "spill_stores": info.get("spill_stores"),
+                  "spill_loads": info.get("spill_loads"),
+                  "ptxas": "reported" if info else
+                  "not reported (library not compiled in this run)"})
+            check(bool(found), f"build: {name} holds none of {opcodes}")
+            check(not info.get("spill_stores") and
+                  not info.get("spill_loads"),
+                  f"build: {name} spills registers ({info})")
 
 
 # ---------------------------------------------------------------- kernels
@@ -383,6 +469,13 @@ def kernel_paged_attention(gen) -> dict:
     return row
 
 
+#: profiler names of the bf16 GEMM of B2 (also B3's four GEMMs), of
+#: B3's launches, and of B14's bf16 kernel (forward and backward mode)
+B2_KERNEL = "stream_gemm_mma"
+B3_KERNELS = (B2_KERNEL, "layer_norm_kernel")
+B14_KERNEL = "grouped_gemm_wgmma"
+
+
 def kernel_stream_linear(gen) -> dict:
     from paddle_tpu_torch.nn.functional import stream_linear as sl
 
@@ -438,6 +531,7 @@ def kernel_stream_linear(gen) -> dict:
                   "K": 136, "N": 200, "activation": act,
                   "max_abs_err": e, "tol": tol})
             check(e <= tol, f"stream_linear M={m} {dtype}: {e} > {tol}")
+    _split_k_check(gen)
     # timing in bf16 at the two decode-step shapes: the QKV projection
     # over the 24-layer stack (layers rotate so W comes from HBM) and the
     # LM head with fp32 logits
@@ -465,17 +559,100 @@ def kernel_stream_linear(gen) -> dict:
         nbytes = wbytes + BATCH * D_MODEL * 2 + BATCH * n * (
             2 if name == "qkv" else 4) + (n * 2 if name == "qkv" else 0)
         bms, by = bound_ms(nbytes, 2.0 * BATCH * D_MODEL * n, dt)
-        rows[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+        split, steps, blocks, _ = sl.stream_plan(BATCH, D_MODEL, n,
+                                                 sl._sm_count(x.device))
+        rows[name] = {"ms": time_ms(kern),
+                      "device_ms": device_ms(kern, B2_KERNEL,
+                                             per_call=1),
+                      "plain_ms": time_ms(plain),
                       "library_ms": time_ms(lib), "bound_ms": bms,
-                      "bound_by": by, "bytes": nbytes}
+                      "bound_by": by, "bytes": nbytes, "split": split,
+                      "blocks": blocks}
         emit({"time": f"stream_linear[{name}]", **rows[name]})
     # one decode step runs both shapes once: report their sum
     row = {k: rows["qkv"][k] + rows["lm_head"][k]
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                     "bound_ms")}
     row["bound_by"] = "bytes" if all(
         r["bound_by"] == "bytes" for r in rows.values()) else "operations"
     row["max_abs_err"] = res[str(torch.bfloat16)]
     return row
+
+
+def _split_k_check(gen) -> None:
+    """B2's split-K merge at the tail's two N = 2048 shapes (O-proj: 8
+    slices of 4 k-steps; FFN2: 9 of 15), bf16, M 32, with bias and an
+    f32 residual: the kernel against the plain version (one bf16 ulp at
+    the output's largest magnitude), a second call bit for bit equal
+    (the merge order does not depend on which block comes last), the
+    counters back at 0; and a control, the plan's split rendered in
+    PyTorch with one K slice left out (a merge that skips a partial),
+    which must miss the plain version by more than ten times the
+    limit."""
+    from paddle_tpu_torch.nn.functional import stream_linear as sl
+
+    dev, dt = "cuda", torch.bfloat16
+    for name, K in (("o_proj", D_MODEL), ("ffn2", DFF)):
+        x = torch.randn(BATCH, K, generator=gen, device=dev).to(dt)
+        w = (torch.randn(K, D_MODEL, generator=gen, device=dev)
+             * 0.02).to(dt)
+        bias = (torch.randn(D_MODEL, generator=gen, device=dev)
+                * 0.1).to(dt)
+        res = torch.randn(BATCH, D_MODEL, generator=gen, device=dev)
+        split, steps, blocks, _ = sl.stream_plan(BATCH, K, D_MODEL,
+                                                 sl._sm_count(x.device))
+        out = sl._gemm("stream_linear", x, w, bias=bias, residual=res)
+        again = sl._gemm("stream_linear", x, w, bias=bias, residual=res)
+        ref = (sl._stream_linear_plain(x, w, None, bias,
+                                       out_dtype=torch.float32)
+               + res).to(dt)
+        ctrl = (sl._split_k_plain(x, w, split, steps, drop=split // 2)
+                + bias.float() + res).to(dt)
+        torch.cuda.synchronize()
+        tol = _ulp_tol(float(ref.float().abs().max()))
+        tickets = sl._split_buffers(
+            x.device, torch.cuda.current_stream().cuda_stream, 0, 0)[1]
+        e, c = max_err(out, ref), max_err(ctrl, ref)
+        same = torch.equal(out, again)
+        zeroed = int(tickets.abs().sum()) == 0
+        emit({"check": "stream_linear_split_k", "shape": name, "M": BATCH,
+              "K": K, "N": D_MODEL, "split": split, "steps": steps,
+              "blocks": blocks, "max_abs_err": e, "tol": tol,
+              "control_one_slice_left_out": c,
+              "second_call_bitwise_equal": same,
+              "counters_back_at_zero": zeroed})
+        check(split > 1, f"split-K {name}: the plan does not split")
+        check(e <= tol, f"split-K {name}: {e} > {tol}")
+        check(same and zeroed, f"split-K {name}: a second call differs "
+                               f"({same}) or a counter is left set")
+        check(c > 10 * tol, f"split-K {name}: the control {c} is not "
+                            f"over ten times the limit {tol}")
+        # what the split buys: the plan's device time against one slice
+        emit({"time": f"stream_linear_split_k[{name}]", "split": split,
+              "device_ms": device_ms(
+                  lambda: _gemm_at_split(x, w, split, steps), B2_KERNEL,
+                  per_call=1),
+              "device_ms_one_slice": device_ms(
+                  lambda: _gemm_at_split(x, w, 1, -(-K // sl.STREAM_BK)),
+                  B2_KERNEL, per_call=1)})
+
+
+def _gemm_at_split(x, w, split: int, steps: int):
+    """One launch of B2's bf16 kernel (x @ w, bf16 out) at a given split,
+    bypassing stream_plan: for timing the split against one slice."""
+    from paddle_tpu_torch import _kernels
+    from paddle_tpu_torch.nn.functional import stream_linear as sl
+
+    (M, K), N = x.shape, w.shape[1]
+    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ws, tickets = sl._split_buffers(x.device, stream, split * M * N,
+                                    -(-N // sl.STREAM_BN))
+    _kernels.check(_kernels.lib("stream_linear").ptt_stream_linear(
+        x.data_ptr(), w.data_ptr(), 1, None, 0, None, 0, None, 0,
+        out.data_ptr(), 1, 1, M, K, N, 0, ws.data_ptr(), tickets.data_ptr(),
+        split, steps, stream), "stream_linear at a split")
+    return out
 
 
 def _tail_weights(dtype, gen, L, int8=False):
@@ -588,6 +765,9 @@ def kernel_stream_layer_tail(gen, int8=False) -> dict:
     nxt = cycler(L)
     ms = time_ms(lambda: _call_tail(sl.stream_layer_tail, att, h, p,
                                     nxt(), L))
+    dev_ms = device_ms(lambda: _call_tail(sl.stream_layer_tail, att, h, p,
+                                          nxt(), L), B3_KERNELS,
+                       per_call=TAIL_LAUNCHES_PER_CALL)
     plain_ms = time_ms(lambda: _call_tail(_plain_tail, att, h, p, nxt(),
                                           L))
     welems = D_MODEL * D_MODEL + 2 * D_MODEL * DFF + D_MODEL * 3 * D_MODEL
@@ -597,9 +777,9 @@ def kernel_stream_layer_tail(gen, int8=False) -> dict:
     iobytes = 2 * BATCH * (2 * D_MODEL + D_MODEL + 3 * D_MODEL)
     nbytes = welems * (1 if int8 else 2) + vbytes + iobytes
     bms, by = bound_ms(nbytes, 2.0 * BATCH * welems, dt)
-    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-           "max_abs_err": res[str(dt)]}
+    row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "bytes": nbytes, "max_abs_err": res[str(dt)]}
     emit({"time": name, **row})
     return row
 
@@ -1114,6 +1294,10 @@ def _zero_bits(t) -> bool:
     return bool((t.contiguous().view(it) == 0).all())
 
 
+#: B14's k-step in bf16 (wgmma's K of four k16 products a stage)
+B14_KSTEP = 64
+
+
 def kernel_grouped_gemm(gen) -> dict:
     """Kernel B14 (grouped_gemm) against grouped_gemm_plain at the MoE
     rung's FFN shapes — FFN1 [T, 1024] x [8, 1024, 4096] + bias + GELU
@@ -1155,6 +1339,17 @@ def kernel_grouped_gemm(gen) -> dict:
                     float(h_ref.float().abs().max()))
                 tol2 = 1e-4
                 zeros = _zero_bits(h[total:]) and _zero_bits(y[total:])
+                # control: B14's first k-step (64 of K) of one expert's
+                # bank left out, in the forward layout
+                ctrl = None
+                if dtype == torch.bfloat16:
+                    ce = next(e for e in range(E)
+                              if int(off[e + 1]) > int(off[e]))
+                    w1_c = w1.clone()
+                    w1_c[ce, :B14_KSTEP] = 0
+                    ctrl = max_err(gg.grouped_gemm_plain(
+                        x, w1_c, off, bias=b1, activation="gelu"), h_ref)
+                    del w1_c
                 # the units the kernel decoded, against grouped_work_map
                 bm = gg.DEFAULT_BLOCK_ROWS
                 same_map = all(torch.equal(a, b) for a, b in zip(
@@ -1165,7 +1360,8 @@ def kernel_grouped_gemm(gen) -> dict:
                       "ffn1_max_abs_err": e1, "ffn1_tol": tol1,
                       "ffn2_f32_max_abs_err": e2, "ffn2_tol": tol2,
                       "rows_past_offsets_E_bitwise_zero": zeros,
-                      "kernel_units_equal_grouped_work_map": same_map})
+                      "kernel_units_equal_grouped_work_map": same_map,
+                      "ffn1_control_first_kstep_left_out": ctrl})
                 check(same_map, f"grouped_gemm T={T} {case}: the kernel's "
                                 "units differ from grouped_work_map")
                 check(e1 <= tol1 and e2 <= tol2,
@@ -1173,6 +1369,9 @@ def kernel_grouped_gemm(gen) -> dict:
                       f"{tol1}/{tol2}")
                 check(zeros, f"grouped_gemm {dtype} T={T} {case}: rows "
                              "past offsets[E] are not +0.0")
+                check(ctrl is None or ctrl > 10 * tol1,
+                      f"grouped_gemm {dtype} T={T} {case}: the k-step "
+                      f"control {ctrl} is not over ten times {tol1}")
                 if T == 64 and case == "uniform":
                     res[str(dtype)] = max(e1, e2)
             del x
@@ -1252,12 +1451,14 @@ def kernel_grouped_gemm(gen) -> dict:
         flops = 2.0 * T * d * dff * 2
         bms, by = bound_ms(nbytes, flops, dt)
         rows[phase] = {"ms": time_ms(kern),
-                       "device_ms": device_ms(kern, "grouped_gemm_kernel"),
+                       "device_ms": device_ms(kern, B14_KERNEL,
+                                              per_call=2),
                        "plain_ms": time_ms(plain),
                        "library_ms": lib_ms, "library": lib_note,
                        "per_expert_matmul_loop_ms": time_ms(loop),
                        "bound_ms": bms, "bound_by": by, "bytes": nbytes,
                        "flops": flops, "T": T}
+        rows[phase]["tflops"] = flops / rows[phase]["device_ms"] / 1e9
         emit({"time": f"grouped_gemm[{phase}]", **rows[phase]})
         del x, h
     del w1, w2
@@ -1533,7 +1734,12 @@ def kernel_grouped_gemm_bwd(gen) -> dict:
                 except (RuntimeError, TypeError, ValueError) as err:
                     lib_note = f"torch._grouped_mm refused: {str(err)[:120]}"
             bms, by = bound_ms(nbytes, flops, dt)
-            row = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+            row = {"ms": time_ms(kern),
+                   "device_ms": device_ms(kern, B14_KERNEL
+                                          if name == "grouped_gemm_dx"
+                                          else "grouped_dw_kernel",
+                                          per_call=1),
+                   "plain_ms": time_ms(plain, iters=5),
                    "library_ms": lib_ms, "library": lib_note,
                    "library_rel_l2_vs_plain_bf16_dz": lib_err,
                    "bound_ms": bms, "bound_by": by, "bytes": nbytes,
@@ -1969,10 +2175,13 @@ def slice_decode_step(model, out_dir, steps: int = 16, quant=None,
         profiled_ms = timed()
     groups = {"paged_decode_kernel": "paged_decode_attention_inplace",
               "paged_decode_q_kernel": "paged_decode_attention_inplace_q",
+              B2_KERNEL: "stream_linear GEMM (QKV, head, tail "
+                         "projections)",
               "stream_linear_kernel": "stream_linear GEMM (QKV, head, "
                                       "tail projections)",
               "a8w8_kernel": "stream_linear_a8w8 GEMM",
               "layer_norm_kernel": "tail LayerNorm",
+              B14_KERNEL: "grouped_gemm (MoE FFN1 + FFN2)",
               "grouped_gemm_kernel": "grouped_gemm (MoE FFN1 + FFN2)",
               "lora_delta_kernel": "lora_delta"}
     by_group, kernels = {}, []
@@ -3935,7 +4144,8 @@ def slice_train_moe(out_dir, gen, steps: int = MOE_TRAIN_STEPS) -> dict:
         for _ in range(prof_steps):
             loss = step(inputs, labels)
         float(loss)
-    groups = {"grouped_gemm_kernel": "B14 (forward, recompute, dx)",
+    groups = {B14_KERNEL: "B14 (forward, recompute, dx)",
+              "grouped_gemm_kernel": "B14 (forward, recompute, dx)",
               "grouped_dw_kernel": "B15 (dw)", "flash_fwd": "B10 forward",
               "flash_bwd_dq": "B10 dq", "flash_bwd_dkv": "B10 dk/dv"}
     by_group, kernels = {}, []

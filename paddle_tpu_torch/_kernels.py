@@ -13,6 +13,15 @@ kernels on every core: the two flash sources hold 18 kernels each).
 
 Every C entry point returns the ``cudaGetLastError()`` of its launch;
 ``check`` turns a non-zero code into an exception.
+
+Kernels that load tiles by TMA (``csrc/hopper.cuh``: B14's bf16 wgmma
+kernel) encode their tensor maps on the host at each call with the
+driver's ``cuTensorMapEncodeTiled``, which they reach through the CUDA
+runtime's driver entry point (``cudaGetDriverEntryPointByVersion``, or
+``cudaGetDriverEntryPoint`` before CUDA 12.5): no library links against
+``libcuda``, so the flags below carry no ``-lcuda``. A driver without the
+entry point makes such a launch return ``cudaErrorNotSupported`` (801).
+``wgmma`` needs the ``sm_90a`` target.
 """
 from __future__ import annotations
 
@@ -51,9 +60,10 @@ _SIGNATURES = {
     },
     "stream_linear": {
         # x, w, w_dt, scale, scale_dt, bias, bias_dt, residual,
-        # residual_dt, out, out_dt, dtype, M, K, N, activation, stream
+        # residual_dt, out, out_dt, dtype, M, K, N, activation, ws,
+        # counters, split, steps, stream
         "ptt_stream_linear":
-            [_P, _P, _I] + [_P, _I] * 4 + [_I] * 5 + [_P],
+            [_P, _P, _I] + [_P, _I] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
         # x, x_dt, scale, scale_dt, bias, bias_dt, out, out_dt, M, D,
         # eps, stream
         "ptt_layer_norm":

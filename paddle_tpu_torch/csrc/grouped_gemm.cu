@@ -33,24 +33,37 @@
 //
 // Design. The TPU kernel accumulates o_ref += over the consecutive units
 // of an output tile because its 128-row tiles can be split by a group
-// boundary. Here a block is one (unit, column strip) and computes only
-// the unit's live rows, each of which has exactly one owner: it writes
-// each output row once, with no accumulation across blocks and no
-// atomics. The first unit of each tile also writes the zero rows of its
+// boundary. Here each (unit, column strip) computes only the unit's live
+// rows, each of which has exactly one owner: each output row is written
+// once, with no accumulation across blocks and no atomics. The first unit of each tile also writes the zero rows of its
 // tile from offsets[E] on; every tile has a first unit, and no live row
 // lies past offsets[E], so every row is written exactly once.
 //
-// The grouped GEMM: a 64 x 64 output tile per block, 4 warps of 32 x 32,
-// K in steps of 64 bytes through a 4-stage cp.async ring in shared memory
-// (x rows outside the unit's live 16-row groups are not loaded). bf16
-// runs on the tensor cores (mma.sync m16n8k16 with fp32 accumulators,
-// fragments by ldmatrix, W's by ldmatrix.trans from its [K, N] tile; in
-// the backward mode by plain ldmatrix from the [N, K] rows of the bank,
-// which are the k-major columns mma's B operand wants);
-// m16 row groups without a live row are skipped, so a decode unit of 8
-// live rows costs one m16 group. fp32 runs the same tiles on the CUDA
-// cores (a 4 x 8 register tile per thread), exact fp32 products. Then
-// + bias (fp32), tanh-GELU or ReLU, the output dtype.
+// The grouped GEMM in bf16 (grouped_gemm_wgmma): a tile is one (unit,
+// 256-column strip), computed with wgmma m64n128k16 (bf16 in, fp32
+// accumulators, both operands from shared memory) by two consumer
+// warpgroups of 128 columns each, which share the x tile, and one
+// producer thread. The producer keeps a 4-stage ring full by TMA
+// (128-byte swizzle, full/empty mbarrier pairs): each stage is the x tile
+// [64 rows x 64 K] (K-major, a 2-D map over x [T, K], box at row t0 =
+// tid * 64) and the bank tile, [64 K x 256 N] N-major from the [E, K, N]
+// bank (wgmma's transposed B, four 64-column boxes) or, in the backward
+// mode, [256 N x 64 K] K-major from the same bank read as [E, N, K] (one
+// box): both from one template, the bank in place. The bank's map is
+// rank 3, so a K or N edge reads zeros and never the next expert's rows;
+// rows past T read as zeros. Rows of the tile outside the unit's live
+// range are loaded, multiplied and dropped at the store. The consumers
+// keep one k-step of products in flight (wgmma.wait_group 1) and release
+// a stage once its products are done. The kernel is persistent (one
+// block an SM: the ring takes 161 KB): a block walks tiles strip-fastest
+// (neighbouring blocks share a unit's x tile and an expert's bank), and
+// the ring runs on across tiles, so the producer loads the next tile
+// while the consumers store this one. Epilogue from registers: + bias
+// (fp32, loaded into registers before the tile's products), tanh-GELU or
+// ReLU, the output dtype, column pairs stored together. fp32 (the
+// CPU-parity dtype) keeps grouped_gemm_kernel: a 64 x 64 tile per block
+// on the CUDA cores (a 4 x 8 register tile per thread, exact fp32
+// products) over a 4-stage cp.async ring of 64-byte K steps.
 //
 // The weight gradient: the TPU kernel keeps an expert's [K, bn] block
 // resident across the expert's consecutive units. Here a block is one
@@ -78,14 +91,18 @@
 // the d1024 MoE model, 20 us at 3.35 TB/s; at prefill (8192 rows) the
 // bf16 tensor-core operations do (69 GFLOP, 69 us per FFN at 989
 // TFLOP/s), and so they do for the training step's backward mode and
-// weight gradient (69 GFLOP each per FFN at 8192 rows). mma.sync from a
-// cp.async ring reaches a fraction of that; wgmma with TMA loads and a
-// persistent schedule (and, for dw, split rows for a skewed expert) are
-// the later work. The LoRA delta is small against the base GEMM: x, A and B are read once
-// (bytes), and its phase 1 is latency bound at decode (K up to 8192
-// summed by 32 lanes per row); a delta fused into the base GEMM's
+// weight gradient (69 GFLOP each per FFN at 8192 rows). A 64-row unit
+// reuses each bank tile only 64 times, so at prefill the bank tiles'
+// reads from L2 (about 1 GB per FFN) rather than the tensor cores may set
+// the pace; 128-row tiles of one expert, or TMA multicast of a bank tile
+// across a cluster of two units, are the later work. The weight gradient
+// still runs mma.sync from a cp.async ring (hopper.cuh is its next
+// step). The LoRA delta is small against the base GEMM: x, A and B are
+// read once (bytes), and its phase 1 is latency bound at decode (K up to
+// 8192 summed by 32 lanes per row); a delta fused into the base GEMM's
 // epilogue is the later design.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -157,16 +174,18 @@ __device__ __forceinline__ Unit unit_at(const int* offsets, int E, int nm,
 
 // The tile's rows past offsets[E], written as zeros by the tile's first
 // unit, over columns [n0, n0 + bn).
+// Threads [0, nthreads) of the block take part.
 __device__ __forceinline__ void zero_dead_rows(const int* offsets, int E,
                                                int nm, int u, int T, int N,
                                                int n0, int bn, void* out,
-                                               int out_dt) {
+                                               int out_dt,
+                                               int nthreads = blockDim.x) {
   const int tile = unit_at(offsets, E, nm, u).tid;
   if (u > 0 && unit_at(offsets, E, nm, u - 1).tid == tile) return;
   const int t1 = min((tile + 1) * kBM, T);
   const int z0 = max(offsets[E], tile * kBM);
   const int cols = min(bn, N - n0);
-  for (int i = threadIdx.x; i < (t1 - z0) * cols; i += blockDim.x) {
+  for (int i = threadIdx.x; i < (t1 - z0) * cols; i += nthreads) {
     const int r = z0 + i / cols, n = n0 + i % cols;
     store_dt(out, static_cast<int64_t>(r) * N + n, out_dt, 0.f);
   }
@@ -221,85 +240,23 @@ __device__ __forceinline__ float epilogue(const GroupedParams& p, int g,
   return activate(v, p.act);
 }
 
-// B fragments of a k16 x n32 strip (four n8 fragments): from a [k][n]
-// tile by ldmatrix.trans, or from [n][k] rows (trans_w) by ldmatrix.
-template <bool kTrans>
+// B fragments of a k16 x n32 strip (four n8 fragments) from a [k][n]
+// tile, by ldmatrix.trans (the weight gradient's dz rows)
 __device__ __forceinline__ void load_b(const __nv_bfloat16* ws, int ks,
                                        int n_base, uint32_t (&b)[4][2]) {
   using G = Geo<__nv_bfloat16>;
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int np = 0; np < 2; ++np) {
-    if (kTrans) {
-      const int nrow = n_base + np * 16 + (lane & 7) + (lane >> 4) * 8;
-      const int kcol = ks * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
-                  b[2 * np + 1][1], ws + nrow * G::kXPitch + kcol);
-    } else {
-      const int krow = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int ncol = n_base + np * 16 + (lane >> 4) * 8;
-      ldmatrix_x4_trans(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
-                        b[2 * np + 1][1], ws + krow * G::kWPitch + ncol);
-    }
+    const int krow = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int ncol = n_base + np * 16 + (lane >> 4) * 8;
+    ldmatrix_x4_trans(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
+                      b[2 * np + 1][1], ws + krow * G::kWPitch + ncol);
   }
 }
 
-// bf16: tensor-core tiles. Warp (wm, wn) owns rows wm*32.. and columns
-// wn*32.. of the block's 64 x 64 tile.
-template <bool kTrans>
-__device__ __forceinline__ void compute_tile(
-    const __nv_bfloat16* xs, const __nv_bfloat16* ws, int m_lo, int m_hi,
-    float (&acc)[2][4][4]) {
-  using G = Geo<__nv_bfloat16>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  if (wm * 32 >= m_hi || wm * 32 + 32 <= m_lo) return;  // warp-uniform
-#pragma unroll
-  for (int ks = 0; ks < G::kBK / 16; ++ks) {
-    uint32_t b[4][2];
-    load_b<kTrans>(ws, ks, wn * 32, b);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int mb = wm * 32 + mi * 16;
-      if (mb + 16 <= m_lo || mb >= m_hi) continue;  // warp-uniform
-      uint32_t a0, a1, a2, a3;
-      ldmatrix_x4(a0, a1, a2, a3,
-                  xs + (mb + (lane & 15)) * G::kXPitch + ks * 16 +
-                      (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-        mma_bf16(acc[mi][nj], a0, a1, a2, a3, b[nj][0], b[nj][1]);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_tile(const GroupedParams& p,
-                                           const float (&acc)[2][4][4],
-                                           int g, int t0, int r0, int r1,
-                                           int n0) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = t0 + wm * 32 + mi * 16 + gq + h * 8;
-        if (r < r0 || r >= r1) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn * 32 + nj * 8 + tq * 2 + e;
-          if (n >= p.N) continue;
-          store_dt(p.out, static_cast<int64_t>(r) * p.N + n, p.out_dt,
-                   epilogue(p, g, n, acc[mi][nj][h * 2 + e]));
-        }
-      }
-}
-
-// fp32: the same tiles on the CUDA cores; thread (rg, cg) owns rows
-// rg*4.. and columns cg*8.. of the 64 x 64 tile.
+// fp32 on the CUDA cores: thread (rg, cg) owns rows rg*4.. and columns
+// cg*8.. of the block's 64 x 64 tile.
 template <bool kTrans>
 __device__ __forceinline__ void compute_tile(const float* xs,
                                              const float* ws, int m_lo,
@@ -359,13 +316,14 @@ struct Acc<float> {
   float v[4][8];
 };
 
-template <typename T, bool kTrans>
+// fp32: the CUDA-core kernel
+template <bool kTrans>
 __global__ void __launch_bounds__(kThreads)
     grouped_gemm_kernel(const GroupedParams p) {
-  using G = Geo<T>;
+  using G = Geo<float>;
   __shared__ __align__(16) unsigned char smem[G::kSmemBytes];
-  T* sx = reinterpret_cast<T*>(smem);            // [kStages][kXStage]
-  T* sw = sx + kStages * G::kXStage;             // [kStages][kWStage]
+  float* sx = reinterpret_cast<float*>(smem);    // [kStages][kXStage]
+  float* sw = sx + kStages * G::kXStage;         // [kStages][kWStage]
   const int u = blockIdx.y;
   const int n0 = blockIdx.x * kBN;
   zero_dead_rows(p.offsets, p.E, p.nm, u, p.T, p.N, n0, kBN, p.out,
@@ -379,13 +337,13 @@ __global__ void __launch_bounds__(kThreads)
   // the 16-row groups of the tile that hold live rows
   const int m_lo = (r0 - t0) / 16 * 16;
   const int m_hi = min(kBM, (r1 - t0 + 15) / 16 * 16);
-  Acc<T> acc{};
+  Acc<float> acc{};
   const int nk = (p.K + G::kBK - 1) / G::kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk)
-      load_stage<T, kTrans>(p, sx + s * G::kXStage, sw + s * G::kWStage, s,
-                            t0, r0, r1, m_lo, m_hi, n0, g);
+      load_stage<float, kTrans>(p, sx + s * G::kXStage, sw + s * G::kWStage,
+                                s, t0, r0, r1, m_lo, m_hi, n0, g);
     ptt::cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -394,9 +352,9 @@ __global__ void __launch_bounds__(kThreads)
     // the stage computed at kt - 1 is free once every thread is here
     const int nt = kt + kStages - 1;
     if (nt < nk)
-      load_stage<T, kTrans>(p, sx + (nt % kStages) * G::kXStage,
-                            sw + (nt % kStages) * G::kWStage, nt, t0, r0,
-                            r1, m_lo, m_hi, n0, g);
+      load_stage<float, kTrans>(p, sx + (nt % kStages) * G::kXStage,
+                                sw + (nt % kStages) * G::kWStage, nt, t0, r0,
+                                r1, m_lo, m_hi, n0, g);
     ptt::cp_async_commit();
     const int s = kt % kStages;
     compute_tile<kTrans>(sx + s * G::kXStage, sw + s * G::kWStage, m_lo,
@@ -404,6 +362,207 @@ __global__ void __launch_bounds__(kThreads)
   }
   ptt::cp_async_wait<0>();
   store_tile(p, acc.v, g, t0, r0, r1, n0);
+}
+
+// ------------------------------------------- bf16: wgmma over a TMA ring
+
+namespace hp = ptt::hopper;
+
+constexpr int kWgGroups = 2;    // consumer warpgroups, 128 columns each
+constexpr int kWgBN = 128 * kWgGroups;  // output columns per block
+constexpr int kWgBK = 64;       // K per stage: one 128-byte swizzled row
+constexpr int kWgStages = 4;
+constexpr int kWgConsumers = 128 * kWgGroups;
+constexpr int kWgThreads = kWgConsumers + 32;  // + the producer warp
+constexpr int kATile = kBM * kWgBK * 2;        // 8 KB
+constexpr int kBSub = kWgBK * 128 * 2;         // 16 KB: one group's
+constexpr int kBTile = kBSub * kWgGroups;
+constexpr int kWgSmem =
+    kWgStages * (kATile + kBTile) + 2 * kWgStages * 8 + 1024;  // + align
+
+// (row r, columns n, n + 1) of the output from their biased sums: the
+// activation, then the output dtype
+__device__ __forceinline__ void store_pair(const GroupedParams& p, int r,
+                                           int n, float v0, float v1) {
+  v0 = activate(v0, p.act);
+  v1 = activate(v1, p.act);
+  const int64_t i = static_cast<int64_t>(r) * p.N + n;  // even: N % 8 == 0
+  if (p.out_dt == ptt::kBF16)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) +
+                                       i) = __floats2bfloat162_rn(v0, v1);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + i) =
+        make_float2(v0, v1);
+}
+
+// A persistent block walks tiles t = blockIdx.x, + gridDim.x, ... of
+// (unit t / strips, column strip t % strips). kTrans 0: bank map [E, K, N]
+// (dims N, K, E), B tiles N-major; 1: the bank read as [E, N, K] (dims
+// K, N, E), B tiles K-major. x map [T, K] (dims K, T). The producer and
+// the consumers walk the same tiles and k-steps; `it` counts k-steps over
+// the walk, so the ring's stages and phases run on across tiles and the
+// producer loads the next tile's first stages during an epilogue.
+template <bool kTrans>
+__global__ void __launch_bounds__(kWgThreads)
+    grouped_gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const GroupedParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sa = smem;                       // [stages][64 rows][64 K]
+  unsigned char* sb = smem + kWgStages * kATile;  // [stages] bank tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + kWgStages * kBTile);
+  uint64_t* empty = full + kWgStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kWgConsumers);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  const int strips = (p.N + kWgBN - 1) / kWgBN;
+  const int tiles = strips * (p.nm + 2 * p.E + 1);
+  const int nk = (p.K + kWgBK - 1) / kWgBK;
+  const bool producer = threadIdx.x >= kWgConsumers;
+  if (producer && threadIdx.x != kWgConsumers) return;  // idle lanes
+  // consumers: warpgroup c owns columns n0 + 128c ..
+  const int c = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int u = t / strips;
+    const int n0 = (t % strips) * kWgBN;
+    if (!producer)
+      zero_dead_rows(p.offsets, p.E, p.nm, u, p.T, p.N, n0, kWgBN, p.out,
+                     p.out_dt, kWgConsumers);
+    const Unit un = unit_at(p.offsets, p.E, p.nm, u);
+    const int t0 = un.tid * kBM;
+    const int r0 = max(un.lo, t0);
+    const int r1 = min(min(un.hi, t0 + kBM), p.T);
+    if (r1 <= r0) continue;  // the same for every thread
+    const int g = un.gid;
+
+    if (producer) {
+      // one thread keeps the ring full
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kWgStages;
+        hp::mbar_wait(&empty[s], ((it / kWgStages) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(&full[s], kATile + kBTile);
+        const int k0 = kt * kWgBK;
+        hp::tma_load_2d(sa + s * kATile, &xmap, &full[s], k0, t0);
+        unsigned char* b = sb + s * kBTile;
+        if (kTrans) {
+          hp::tma_load_3d(b, &wmap, &full[s], k0, n0, g);
+        } else {
+#pragma unroll
+          for (int q = 0; q < kWgBN / 64; ++q)  // 64-column boxes
+            hp::tma_load_3d(b + q * (kBSub / 2), &wmap, &full[s],
+                            n0 + 64 * q, k0, g);
+        }
+      }
+      continue;
+    }
+
+    // consumers: the bias of the thread's 32 columns (n0 + 128c + 8j +
+    // 2(l%4) + e) comes in first, its loads overlapping the products;
+    // one k-step's products in flight, each stage released once its
+    // products are done
+    float bias[32];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + c * 128 + j * 8 + (lane % 4) * 2 + e;
+        bias[2 * j + e] =
+            p.bias != nullptr && n < p.N
+                ? load_dt(p.bias, static_cast<int64_t>(g) * p.N + n,
+                          p.bias_dt)
+                : 0.f;
+      }
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kWgStages;
+      hp::mbar_wait(&full[s], (it / kWgStages) & 1);
+      const unsigned char* a = sa + s * kATile;
+      const unsigned char* b = sb + s * kBTile + c * kBSub;
+      hp::fence_operands(acc);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWgBK / 16; ++ks) {
+        const uint64_t da = hp::desc_sw128(a + ks * 32, 16, 1024);
+        const uint64_t db =
+            kTrans ? hp::desc_sw128(b + ks * 32, 16, 1024)
+                   : hp::desc_sw128(b + ks * 16 * 128, kBSub / 2, 1024);
+        hp::wgmma_m64n128k16<kTrans ? 0 : 1>(acc, da, db, 1);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();
+      hp::fence_operands(acc);
+      if (kt > 0) hp::mbar_arrive(&empty[(it - 1) % kWgStages]);
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_operands(acc);
+    hp::mbar_arrive(&empty[(it - 1) % kWgStages]);
+
+    // epilogue: warp w of the group holds rows 16w + l/4 (+8), columns
+    // 8j + 2(l%4) (+1) of its 128
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = t0 + warp * 16 + lane / 4 + h * 8;
+      if (r < r0 || r >= r1) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = n0 + c * 128 + j * 8 + (lane % 4) * 2;
+        if (n < p.N)
+          store_pair(p, r, n, acc[4 * j + 2 * h] + bias[2 * j],
+                     acc[4 * j + 2 * h + 1] + bias[2 * j + 1]);
+      }
+    }
+  }
+}
+
+// The maps of one call and its launch.
+template <bool kTrans>
+int launch_wgmma(const GroupedParams& p, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t K = p.K, N = p.N, T = p.T, E = p.E;
+  const cuuint64_t xdims[2] = {K, T}, xstrides[1] = {K * 2};
+  const cuuint32_t xbox[2] = {kWgBK, kBM};
+  int err = hp::make_map_bf16(&xmap, p.x, 2, xdims, xstrides, xbox);
+  if (err) return err;
+  if (kTrans) {
+    const cuuint64_t dims[3] = {K, N, E}, strides[2] = {K * 2, N * K * 2};
+    const cuuint32_t box[3] = {kWgBK, kWgBN, 1};
+    err = hp::make_map_bf16(&wmap, p.w, 3, dims, strides, box);
+  } else {
+    const cuuint64_t dims[3] = {N, K, E}, strides[2] = {N * 2, K * N * 2};
+    const cuuint32_t box[3] = {64, kWgBK, 1};
+    err = hp::make_map_bf16(&wmap, p.w, 3, dims, strides, box);
+  }
+  if (err) return err;
+  static int sms[64] = {};  // per device: SM count once the attribute is set
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n_sm = dev < 64 ? sms[dev] : 0;
+  if (n_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        grouped_gemm_wgmma<kTrans>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) sms[dev] = n_sm;
+  }
+  // one block an SM (the ring takes 161 KB), never more than the tiles
+  const int tiles = (p.N + kWgBN - 1) / kWgBN * (p.nm + 2 * p.E + 1);
+  grouped_gemm_wgmma<kTrans>
+      <<<tiles < n_sm ? tiles : n_sm, kWgThreads, kWgSmem, stream>>>(
+          xmap, wmap, p);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------- weight gradient
@@ -453,7 +612,7 @@ __device__ __forceinline__ void dw_tile(const __nv_bfloat16* xs,
 #pragma unroll
   for (int ks = 0; ks < G::kBK / 16; ++ks) {
     uint32_t b[4][2];
-    load_b<false>(ds, ks, wn * 32, b);
+    load_b(ds, ks, wn * 32, b);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int rrow = ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
@@ -707,15 +866,14 @@ extern "C" int ptt_grouped_gemm(const void* x, const void* w,
                   T, K, N, E, nm, act};
   const dim3 grid((N + kBN - 1) / kBN, nwu);
   auto s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  if (dtype == ptt::kBF16 && !trans_w)
-    grouped_gemm_kernel<bf16, false><<<grid, kThreads, 0, s>>>(p);
-  else if (dtype == ptt::kBF16)
-    grouped_gemm_kernel<bf16, true><<<grid, kThreads, 0, s>>>(p);
-  else if (dtype == ptt::kF32 && !trans_w)
-    grouped_gemm_kernel<float, false><<<grid, kThreads, 0, s>>>(p);
+  if (dtype == ptt::kBF16) {
+    if (K % 8 || N % 8) return cudaErrorInvalidValue;  // 16-byte strides
+    return trans_w ? launch_wgmma<true>(p, s) : launch_wgmma<false>(p, s);
+  }
+  if (dtype == ptt::kF32 && !trans_w)
+    grouped_gemm_kernel<false><<<grid, kThreads, 0, s>>>(p);
   else if (dtype == ptt::kF32)
-    grouped_gemm_kernel<float, true><<<grid, kThreads, 0, s>>>(p);
+    grouped_gemm_kernel<true><<<grid, kThreads, 0, s>>>(p);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -63,6 +63,7 @@ import torch.nn.functional as F
 from ... import _kernels
 
 __all__ = ["grouped_work_map", "grouped_gemm", "grouped_gemm_plain",
+           "card_shape_error",
            "GroupedGemmFunction", "grouped_dw_plain",
            "moe_route", "moe_ffn_nodrop", "moe_ffn_ep",
            "DEFAULT_BLOCK_ROWS"]
@@ -227,6 +228,20 @@ def _check_on_card(what, x, tensors):
             raise ValueError(f"{what}: operands must be contiguous")
 
 
+def card_shape_error(K: int, N: int, dtype) -> str | None:
+    """Why B14 on the card refuses a ``[T, K] x [E, K, N]`` product (or
+    its backward mode's ``[T, N] x [E, K, N]^T``) in ``dtype``, or None.
+    Its rows move in 16-byte pieces: the bf16 kernel's TMA tensor maps
+    need 16-byte row strides of x and of the bank, the f32 kernel's
+    cp.async 16-byte chunks, so K and N are multiples of 8 (bf16) or 4
+    (f32)."""
+    vec = 16 // dtype.itemsize
+    if K % vec or N % vec:
+        return (f"K ({K}) and N ({N}) must be multiples of {vec} for "
+                f"{dtype}")
+    return None
+
+
 def _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype,
                        trans_w=False):
     """B14. ``trans_w``: the backward mode, ``x [T, N] @ w[e]^T`` over the
@@ -241,10 +256,9 @@ def _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype,
     if w.dtype != x.dtype:
         raise TypeError(f"{what}: x is {x.dtype} and w {w.dtype}; the "
                         "kernel takes w in x's dtype")
-    vec = 16 // x.element_size()
-    if K % vec or N % vec:
-        raise ValueError(f"{what}: K ({K}) and N ({N}) must be multiples "
-                         f"of {vec} for {x.dtype}")
+    refused = card_shape_error(K, N, x.dtype)
+    if refused:
+        raise ValueError(f"{what}: {refused}")
     if activation not in _ACTIVATIONS:
         raise ValueError(f"{what}: activation {activation!r} is not one "
                          "of None, 'gelu', 'relu'")
@@ -255,6 +269,8 @@ def _grouped_gemm_cuda(x, w, offsets, bias, activation, out_dtype,
     offsets = offsets.to(torch.int32)
     _check_on_card(what, x, (x, w, offsets, bias))
     if x.data_ptr() % 16 or w.data_ptr() % 16:
+        # a layer view w1[l] of an [L, E, K, N] stack is aligned whenever
+        # K and N pass the gate above
         raise ValueError(f"{what}: x and w must be 16-byte aligned")
     fn = _kernels.lib("grouped_gemm").ptt_grouped_gemm
     out = torch.empty((T, N), dtype=out_dtype, device=x.device)

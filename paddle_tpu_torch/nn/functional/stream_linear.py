@@ -24,7 +24,14 @@ On a CUDA tensor each wrapper launches the kernels of
 ``csrc/stream_linear.cu`` (and ``csrc/stream_linear_a8w8.cu``); on a
 CPU tensor it runs the plain version beside it
 (``_stream_linear_plain``, ``_stream_linear_a8w8_plain``,
-``_tail_fallback``).
+``_tail_fallback``). With bf16 x the GEMM runs on the tensor cores and
+splits K over blocks by ``stream_plan`` (a function of the shapes and
+the SM count): the fp32 partials go to a workspace, and the last block
+of each column tile merges them in split order, taking its ticket from
+a counter buffer; both are kept per device and stream
+(``_split_buffers``: the counters are zeroed once, and each merge sets
+its counter back to 0).
+``_split_k_plain`` renders that split in PyTorch.
 
 Precision of the tail: the kernel path keeps ``h2`` (the hidden state
 after the O-projection residual) in fp32 through LN2, and applies int8
@@ -41,7 +48,7 @@ import torch.nn.functional as F
 from ... import _kernels
 from ...quantization.dynamic import dynamic_act_quant, int8_dot_dequant
 
-__all__ = ["stream_linear", "stream_layer_tail"]
+__all__ = ["stream_linear", "stream_layer_tail", "stream_plan"]
 
 _ACTIVATIONS = {None: 0, "gelu": 1, "relu": 2}
 
@@ -139,6 +146,75 @@ def _check_vector(what, name, v, N):
         raise ValueError(f"{what}: {name} must be [{N}]")
 
 
+#: the tensor-core GEMM's tiles: a block owns STREAM_BN output columns of
+#: up to STREAM_ROWS rows and walks one K slice in STREAM_BK-row k-steps
+STREAM_BN, STREAM_BK, STREAM_ROWS = 64, 64, 64
+_STREAM_MAX_SPLIT = 16
+_STREAM_MIN_STEPS = 2
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def stream_plan(M: int, K: int, N: int, sms: int) -> tuple:
+    """``(split, steps, blocks, workspace)`` of the bf16 GEMM: ``split``
+    K slices of ``steps`` k-steps each (the last may be shorter, none is
+    empty), so that the (column tile x row block x slice) blocks number
+    about two an SM on ``sms`` SMs; at most 16 slices, each at least two
+    k-steps; 1 when the tiles alone fill the card. ``workspace`` is the
+    fp32 partials' element count (0 with one slice)."""
+    tiles = _cdiv(N, STREAM_BN) * _cdiv(M, STREAM_ROWS)
+    ksteps = _cdiv(K, STREAM_BK)
+    want = max(1, min(_cdiv(2 * sms, tiles), ksteps // _STREAM_MIN_STEPS,
+                      _STREAM_MAX_SPLIT))
+    steps = _cdiv(ksteps, want)
+    split = _cdiv(ksteps, steps)
+    return split, steps, tiles * split, split * M * N if split > 1 else 0
+
+
+def _split_k_plain(x, w, split: int, steps: int, drop=None):
+    """The split of ``stream_plan`` in PyTorch, f32: per K slice of
+    ``steps`` k-steps its partial ``x[:, ks] @ w[ks]``, summed in split
+    order. ``drop``: a slice left out (a faulty merge, for controls)."""
+    K = x.shape[1]
+    span = steps * STREAM_BK
+    acc = None
+    for s in range(split):
+        if s == drop:
+            continue
+        ks = slice(s * span, min(K, (s + 1) * span))
+        part = x[:, ks].float() @ w[ks].float()
+        acc = part if acc is None else acc + part
+    return acc
+
+
+#: (device, stream) -> [workspace, merge counters] of the split-K GEMM
+_SPLIT: dict = {}
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_buffers(device, stream: int, n_ws: int, n_tickets: int):
+    """The split-K buffers of one stream of ``device``: an fp32 workspace
+    of at least ``n_ws`` elements and at least ``n_tickets`` int32 merge
+    counters. Both are kept per stream and grow on demand: launches on
+    one stream run in order, so each reuses them; the counters are
+    zeroed once, when allocated, and every merge leaves its counter at
+    0."""
+    bufs = _SPLIT.get((device, stream))
+    if bufs is None:
+        bufs = _SPLIT[(device, stream)] = [None, None]
+    if bufs[0] is None or bufs[0].numel() < n_ws:
+        bufs[0] = torch.empty(n_ws, dtype=torch.float32, device=device)
+    if bufs[1] is None or bufs[1].numel() < n_tickets:
+        bufs[1] = torch.zeros(max(n_tickets, 1024), dtype=torch.int32,
+                              device=device)
+    return bufs
+
+
 def _gemm(what, x, w, bias=None, residual=None, activation=None,
           out_dtype=None, out=None, scale=None):
     """One launch of the CUDA GEMM: out = act(x @ w * scale + bias) +
@@ -175,13 +251,21 @@ def _gemm(what, x, w, bias=None, residual=None, activation=None,
 
     def code(t):
         return 0 if t is None else _kernels.dtype_code(t, what)
+    stream = _kernels.stream_ptr(x.device)
+    split, steps, ws, tickets = 1, 1, None, None
+    if x.dtype == torch.bfloat16 and M:
+        split, steps, blocks, n_ws = stream_plan(M, K, N,
+                                                 _sm_count(x.device))
+        if split > 1:
+            ws, tickets = _split_buffers(x.device, stream, n_ws,
+                                         blocks // split)
     fn = _kernels.lib("stream_linear").ptt_stream_linear
     _kernels.check(fn(
         x.data_ptr(), w.data_ptr(), _kernels.weight_code(w, what),
         _kernels.ptr(scale), code(scale), _kernels.ptr(bias), code(bias),
         _kernels.ptr(residual), code(residual), out.data_ptr(), code(out),
-        code(x), M, K, N, _ACTIVATIONS[activation],
-        _kernels.stream_ptr(x.device)), what)
+        code(x), M, K, N, _ACTIVATIONS[activation], _kernels.ptr(ws),
+        _kernels.ptr(tickets), split, steps, stream), what)
     _count_launch(what)
     return out
 

@@ -295,3 +295,25 @@ def test_device_side_of_routing_and_sorting_reads_nothing_back(monkeypatch):
     monkeypatch.undo()
     assert int(offsets[-1]) == 32 and int(counts.sum()) == 32
     assert int(s_off[-1]) == int(((slots >= 0) & (slots < 4)).sum())
+
+
+@pytest.mark.parametrize("K,N,dtype,refused", [
+    (1024, 4096, torch.bfloat16, False),   # the MoE rung's FFN1 bank
+    (136, 200, torch.bfloat16, False),     # ragged, 16-byte rows
+    (132, 200, torch.bfloat16, True),      # K off a multiple of 8
+    (136, 204, torch.bfloat16, True),      # N off a multiple of 8
+    (132, 204, torch.float32, False),      # f32: multiples of 4
+    (130, 204, torch.float32, True),
+])
+def test_card_shape_gate(K, N, dtype, refused):
+    """B14 on the card takes K and N whose rows are whole 16-byte pieces
+    (the bf16 kernel's TMA strides); the wrapper raises on the rest."""
+    msg = tgg.card_shape_error(K, N, dtype)
+    assert (msg is not None) == refused
+    if refused:
+        assert "multiples of" in msg
+        x = _card(torch.zeros(4, K, dtype=dtype))
+        w = _card(torch.zeros(2, K, N, dtype=dtype))
+        off = _card(torch.tensor([0, 2, 4], dtype=torch.int32))
+        with pytest.raises(ValueError, match="multiples of"):
+            tgg._grouped_gemm_cuda(x, w, off, None, None, dtype)

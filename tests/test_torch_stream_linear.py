@@ -307,3 +307,88 @@ def test_tail_scales_all_or_none():
     with pytest.raises(ValueError, match="so/s1/s2"):
         sl.stream_layer_tail(x, x, w, w, w, bo=z, b1=z, b2=z, ln2_scale=z,
                              ln2_bias=z, epsilon=EPS, so=z)
+
+
+# ---------------------------------------------------------------------
+# The bf16 GEMM's split-K: the planner, its PyTorch rendering, the launch
+# ---------------------------------------------------------------------
+
+#: the d2048 decode step's GEMMs (K, N) and the plan at 132 SMs:
+#: (split, steps); blocks are 64-column tiles x split
+PLAN_SHAPES = {"qkv": ((2048, 6144), (3, 11)),
+               "o_proj": ((2048, 2048), (8, 4)),
+               "ffn1": ((2048, 8192), (3, 11)),
+               "ffn2": ((8192, 2048), (9, 15)),
+               "lm_head": ((2048, 51200), (1, 32))}
+
+
+@pytest.mark.parametrize("m", [1, 32, 64])
+@pytest.mark.parametrize("name", list(PLAN_SHAPES))
+def test_stream_plan_fills_the_card(name, m):
+    """Two blocks an SM (ceil), at most 16 slices of at least two
+    k-steps, none empty; the workspace holds split * M * N floats; the
+    LM head's 800 column tiles fill the card unsplit."""
+    (K, N), (split, steps) = PLAN_SHAPES[name]
+    tiles = N // sl.STREAM_BN
+    want = (split, steps, tiles * split, split * m * N if split > 1 else 0)
+    assert sl.stream_plan(m, K, N, 132) == want
+    ksteps = K // sl.STREAM_BK
+    assert (split - 1) * steps < ksteps <= split * steps
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((100, 2048, 2048, 132), (5, 7, 320, 1024000)),  # two row blocks
+    ((32, 136, 200, 132), (1, 3, 4, 0)),            # three k-steps
+    ((32, 256, 2048, 132), (2, 2, 64, 131072)),     # two-step floor
+    ((32, 65536, 64, 132), (16, 64, 16, 32768)),    # 16-slice cap
+])
+def test_stream_plan_edges(shape, want):
+    assert sl.stream_plan(*shape) == want
+
+
+@pytest.mark.parametrize("K,split,steps", [(2048, 8, 4), (8192, 9, 15),
+                                           (136, 2, 2)])
+def test_split_k_rendering_matches_plain(K, split, steps):
+    """The kernel's split in PyTorch (whole 64-row k-steps a slice, f32
+    partials summed in split order) equals the plain product; leaving
+    out one slice (the chip check's control) does not."""
+    rng = np.random.RandomState(K)
+    x = torch.from_numpy(rng.randn(7, K).astype(np.float32))
+    w = torch.from_numpy(rng.randn(K, 48).astype(np.float32))
+    ref = sl._stream_linear_plain(x, w)
+    got = sl._split_k_plain(x, w, split, steps)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    bad = sl._split_k_plain(x, w, split, steps, drop=split - 1)
+    assert float((bad - ref).abs().max()) > 1.0
+
+
+def test_gemm_launch_arguments(monkeypatch):
+    """The launch the wrapper makes, the library faked: bf16 takes the
+    plan's split with the stream's workspace (at least split * M * N
+    floats) and merge counters (zeros), kept for the next call; f32
+    takes one slice and neither."""
+    calls = []
+
+    class Lib:
+        def ptt_stream_linear(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(sl._kernels, "lib", lambda name: Lib())
+    monkeypatch.setattr(sl._kernels, "stream_ptr", lambda dev: 7)
+    monkeypatch.setattr(sl, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(sl, "_SPLIT", {})
+    for dtype in (torch.bfloat16, torch.bfloat16, torch.float32):
+        x = torch.zeros(32, 2048, dtype=dtype)
+        w = torch.zeros(2048, 2048, dtype=dtype)
+        sl._gemm("stream_linear", x, w)
+    (bf, bf2, f32) = calls
+    ws, tickets, split, steps, stream = bf[16:21]
+    assert (split, steps, stream) == (8, 4, 7) and bf2[16:21] == bf[16:21]
+    buf_ws, buf_t = sl._SPLIT[(torch.device("cpu"), 7)]
+    assert (buf_ws.data_ptr(), buf_t.data_ptr()) == (ws, tickets)
+    assert buf_ws.numel() >= 8 * 32 * 2048 and buf_ws.dtype == torch.float32
+    assert buf_t.numel() >= 2048 // sl.STREAM_BN
+    assert int(buf_t.abs().sum()) == 0
+    assert f32[16:20] == (None, None, 1, 1)
