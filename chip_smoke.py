@@ -251,7 +251,9 @@ def phase_device() -> str:
 #: library, kernel name, the tensor-core instruction each was built
 #: around (HGMMA: wgmma; HMMA: mma.sync)
 DESIGNED_SASS = (("grouped_gemm", "grouped_gemm_wgmma", ("HGMMA",)),
-                 ("stream_linear", "stream_gemm_mma", ("HMMA", "HGMMA")))
+                 ("stream_linear", "stream_gemm_mma", ("HMMA", "HGMMA")),
+                 ("grouped_gemm", "grouped_dw_wgmma", ("HGMMA",)),
+                 ("flash_varlen_packed", "varlen_fwd_wgmma", ("HGMMA",)))
 
 
 def _sass_functions(path) -> dict:
@@ -296,9 +298,9 @@ def _ptxas_info(log: str) -> dict:
 def phase_build(out_dir):
     """Every library built from csrc/, one nvcc per source in parallel;
     then the redesigned kernels' machine code read back: each
-    instantiation of B14's bf16 kernel must hold HGMMA (wgmma) and B2's
-    bf16 kernel HMMA or HGMMA, with no register spill in ptxas's
-    report."""
+    instantiation of the bf16 kernels of B14, B15 and B11 (d64, d96,
+    d128) must hold HGMMA (wgmma) and B2's bf16 kernel HMMA or HGMMA,
+    with no register spill in ptxas's report."""
     from paddle_tpu_torch import _kernels
 
     t0 = time.perf_counter()
@@ -474,6 +476,10 @@ def kernel_paged_attention(gen) -> dict:
 B2_KERNEL = "stream_gemm_mma"
 B3_KERNELS = (B2_KERNEL, "layer_norm_kernel")
 B14_KERNEL = "grouped_gemm_wgmma"
+#: profiler names of B15's bf16 kernel and of B11's bf16 kernel at head_dim
+#: 64, 96 and 128 (d256 keeps varlen_fwd_bf16)
+B15_KERNEL = "grouped_dw_wgmma"
+B11_KERNEL = "varlen_fwd_wgmma"
 
 
 def kernel_stream_linear(gen) -> dict:
@@ -1270,9 +1276,13 @@ LORA_SLOTS, LORA_RANK = 4, 8
 
 def _moe_offsets(case: str, T: int, E: int = MOE_E):
     """int32 [E+1] offsets of T rows over E experts: uniform, one expert
-    owning every row, two empty experts, or a total short of T (the rows
-    past it must come out 0)."""
-    if case == "uniform":
+    owning every row, two empty experts, a total short of T (the rows
+    past it must come out 0), or "unaligned": every count 1-15 rows past
+    a multiple of 16, a one-row expert, the last expert ending at T."""
+    if case == "unaligned":
+        counts = [1, 1039, 1001, 1109, 1143, 1015, 995][:E - 1]
+        counts = counts + [T - sum(counts)]
+    elif case == "uniform":
         counts = [T // E] * E
     elif case == "one_expert":
         counts = [0] * E
@@ -1282,7 +1292,7 @@ def _moe_offsets(case: str, T: int, E: int = MOE_E):
         counts[1] = counts[5] = 0
     else:                                     # "short"
         counts = [T // (E + 1)] * E
-    if case != "short":
+    if case not in ("short", "unaligned"):
         counts[-1] += T - sum(counts)
     return torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
                         dtype=torch.int32, device="cuda")
@@ -1595,7 +1605,7 @@ def kernel_grouped_gemm_bwd(gen) -> dict:
     backward mode (dx = dz @ w[e]^T, the bank read in place) against
     their plain versions at the MoE training rung's two banks — FFN1
     [8, 1024, 4096] and FFN2 [8, 4096, 1024] — from T = 8192 rows, in
-    bf16 and f32, over the four _moe_offsets layouts (rows past
+    bf16 and f32, over the five _moe_offsets layouts (rows past
     offsets[E] hold 1e3, which must change nothing).
 
     Metric: the largest relative L2 error of any expert's dw block or
@@ -1608,7 +1618,10 @@ def kernel_grouped_gemm_bwd(gen) -> dict:
     control per kernel and case, a plain version with the first k-step
     of one expert left out (B15: its first rows; dx: the first columns of
     its reduction), must exceed ten times the limit. Empty experts' dw
-    and dx rows past offsets[E] must be +0.0 bit for bit. Then both
+    and dx rows past offsets[E] must be +0.0 bit for bit, a second B15
+    call bitwise equal to the first (deterministic), and in bf16 B15's
+    bf16 output (the training step's) its f32 output rounded and its walk
+    (heaviest expert first) ``dw_tile_order``'s. Then both
     kernels timed in bf16 (bf16 out, as the training step runs them)
     beside the plain versions, the bound and torch._grouped_mm."""
     from paddle_tpu_torch.nn.functional import grouped_gemm as gg
@@ -1624,7 +1637,8 @@ def kernel_grouped_gemm_bwd(gen) -> dict:
                  * 0.02).to(dtype)
             x = torch.randn(T, K, generator=gen, device=dev).to(dtype)
             dz = torch.randn(T, N, generator=gen, device=dev) * 0.01
-            for case in ("uniform", "one_expert", "two_empty", "short"):
+            for case in ("uniform", "one_expert", "two_empty", "short",
+                         "unaligned"):
                 off = _moe_offsets(case, T)
                 total = int(off[-1])
                 xs, dzs = x.clone(), dz.clone()
@@ -1634,6 +1648,20 @@ def kernel_grouped_gemm_bwd(gen) -> dict:
                 dw = gg._grouped_dw_cuda(xs, dz_k, off, E, torch.float32)
                 dx = gg._grouped_gemm_cuda(dz_k, w, off, None, None, dtype,
                                            trans_w=True)
+                # one writer and one row order per element: a second call
+                # is bitwise equal
+                again = torch.equal(dw.view(torch.int32), gg._grouped_dw_cuda(
+                    xs, dz_k, off, E, torch.float32).view(torch.int32))
+                # the bf16 output (the training step's, stored by TMA from
+                # shared memory) is the f32 result rounded, bit for bit
+                out16 = None if not bf16 else torch.equal(
+                    gg._grouped_dw_cuda(xs, dz_k, off, E, dtype)
+                    .view(torch.int16), dw.to(dtype).view(torch.int16))
+                # the bf16 kernel's walk, worked out on the device, is
+                # dw_tile_order's
+                walk = None if not bf16 else torch.equal(
+                    gg.kernel_dw_tile_order(off, K, N),
+                    gg.dw_tile_order(off, K, N))
                 torch.cuda.synchronize()
                 dw_ref = gg.grouped_dw_plain(xs, dzs, off, E)
                 dx_ref = gg.grouped_gemm_plain(
@@ -1679,7 +1707,10 @@ def kernel_grouped_gemm_bwd(gen) -> dict:
                       "empty_experts": empty,
                       "grouped_dw_max_abs_err": max_err(dw, dw_ref),
                       "dx_max_abs_err": max_err(dx, dx_ref),
-                      "empty_dw_and_dead_dx_rows_bitwise_zero": zeros})
+                      "empty_dw_and_dead_dx_rows_bitwise_zero": zeros,
+                      "grouped_dw_second_call_bitwise_equal": again,
+                      "grouped_dw_bf16_out_is_f32_out_rounded": out16,
+                      "grouped_dw_walk_is_dw_tile_order": walk})
                 what = f"grouped_gemm_bwd {bank} {dtype} {case}"
                 check(e_dw <= tol_dw, f"{what}: B15 {e_dw} > {tol_dw}")
                 check(e_dx <= tol_dx, f"{what}: dx {e_dx} > {tol_dx}")
@@ -1689,6 +1720,12 @@ def kernel_grouped_gemm_bwd(gen) -> dict:
                       f"{c_dx} is not over 10x the limit {tol_dx}")
                 check(zeros, f"{what}: an empty expert's dw or a dx row "
                              "past offsets[E] is not +0.0")
+                check(again, f"{what}: a second B15 call is not bitwise "
+                             "equal to the first")
+                check(out16 is not False, f"{what}: B15's bf16 output is "
+                      "not its f32 output rounded to bf16")
+                check(walk is not False, f"{what}: B15's walk is not "
+                      "dw_tile_order's")
                 if bf16 and bank == "ffn1" and case == "uniform":
                     errs["grouped_dw"] = max_err(dw, dw_ref)
                 del xs, dzs, dz_k, dw, dx, dw_ref, dx_ref, x_c, w_c
@@ -1737,8 +1774,7 @@ def kernel_grouped_gemm_bwd(gen) -> dict:
             row = {"ms": time_ms(kern),
                    "device_ms": device_ms(kern, B14_KERNEL
                                           if name == "grouped_gemm_dx"
-                                          else "grouped_dw_kernel",
-                                          per_call=1),
+                                          else B15_KERNEL, per_call=1),
                    "plain_ms": time_ms(plain, iters=5),
                    "library_ms": lib_ms, "library": lib_note,
                    "library_rel_l2_vs_plain_bf16_dz": lib_err,
@@ -3778,7 +3814,7 @@ def _varlen_times(gen, res: dict) -> dict:
                             causal=True)
 
     times = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
-    device = {"fwd": device_ms(fwd, "varlen_fwd_bf16"),
+    device = {"fwd": device_ms(fwd, B11_KERNEL),
               "dq": device_ms(dq, "varlen_bwd_dq_bf16"),
               "dkv": device_ms(dkv, "varlen_bwd_dkv_bf16")}
     plain = {"fwd": time_ms(plain_fwd, iters=3, warmup=1),
@@ -4146,7 +4182,8 @@ def slice_train_moe(out_dir, gen, steps: int = MOE_TRAIN_STEPS) -> dict:
         float(loss)
     groups = {B14_KERNEL: "B14 (forward, recompute, dx)",
               "grouped_gemm_kernel": "B14 (forward, recompute, dx)",
-              "grouped_dw_kernel": "B15 (dw)", "flash_fwd": "B10 forward",
+              "grouped_dw_kernel": "B15 (dw)", B15_KERNEL: "B15 (dw)",
+              "flash_fwd": "B10 forward",
               "flash_bwd_dq": "B10 dq", "flash_bwd_dkv": "B10 dk/dv"}
     by_group, kernels = {}, []
     for ev in prof.key_averages():

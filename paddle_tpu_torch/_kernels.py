@@ -93,6 +93,8 @@ _SIGNATURES = {
         "ptt_grouped_gemm": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 9 + [_P],
         # x, dz, offsets, out, out_dt, dtype, T, K, N, E, stream
         "ptt_grouped_dw": [_P] * 4 + [_I] * 6 + [_P],
+        # offsets, E, K, N, tiles, stream
+        "ptt_grouped_dw_tiles": [_P] + [_I] * 3 + [_P] * 2,
         # x, x_dt, a, a_dt, b, b_dt, offsets, out, out_dt, T, K, N, S, R,
         # bm, stream
         "ptt_lora_delta": [_P, _I] * 3 + [_P] * 2 + [_I] * 7 + [_P],

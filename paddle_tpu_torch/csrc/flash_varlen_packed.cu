@@ -38,28 +38,35 @@
 // lax.cond does; a boundary tile compares each pair's (segment, position)
 // from the map's per-token qmeta and kmeta [2, t_pad]. Rows past tq and
 // keys past tk are zero-filled by predicated cp.async and never stored;
-// they lie in the phantom segment, so no real query or key meets them.
+// they lie in the phantom segment, so no real query or key meets them
+// (the Hopper forward reads them as TMA's zeros).
 //
-// bf16 runs on the tensor cores (flash_tiles.cuh: mma.sync m16n8k16 with
-// fp32 sums, ldmatrix fragments, a 2-stage cp.async ring): the forward and
-// dq blocks own 64 query rows (warp w rows 16w..) over 64-key tiles, the
-// dk/dv block 64 keys over 32-row q tiles; P and dS pass from one product
-// to the next in registers. f32 runs 32 x 32 tiles on the CUDA cores with
-// exact fp32 products. The softmax runs in base 2 with f32 statistics.
-// Built for head_dim 64, 96, 128 and 256. At 256, as in B10, the forward
-// and dq compute each 64-key tile of the map in two 32-key sub-tiles, and
-// a dk/dv block owns one half of the head's columns (the grid's head axis
+// bf16 runs on the tensor cores. The forward at head_dim 64, 96 and 128
+// (varlen_fwd_wgmma) is Hopper's: a block owns a 128-row q tile of one
+// head, two consumer warpgroups of 64 rows, and walks 128-key tiles that a
+// producer warpgroup brings in by TMA (a 3-stage k ring, a 2-stage v
+// ring); S = Q K^T and O += P V are wgmma products (P from registers),
+// the softmax of one tile runs beside the P V product of the one before.
+// The forward at 256 and the backward (flash_tiles.cuh: mma.sync m16n8k16
+// with fp32 sums, ldmatrix fragments, a 2-stage cp.async ring): the d256
+// forward and dq blocks own 64 query rows (warp w rows 16w..) over 64-key
+// tiles, the dk/dv block 64 keys over 32-row q tiles; P and dS pass from
+// one product to the next in registers. f32 runs 32 x 32 tiles on the CUDA cores with exact fp32
+// products. The softmax runs in base 2 with f32 statistics. Built for
+// head_dim 64, 96, 128 and 256. At 256, as in B10, the forward and dq
+// compute each 64-key tile of the map in two 32-key sub-tiles, and a
+// dk/dv block owns one half of the head's columns (the grid's head axis
 // doubles; each half recomputes S^T and dP^T), so a warp's accumulators
-// take no more registers than at 128.
+// take no more registers than at 128. The wrapper pads lse and the
+// metadata to a multiple of 128 rows, a whole number of every tile.
 //
 // Bounds (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s). At the rung (h 16,
 // d 128, 8 causal segments of 4096, T 32768) there are 1.074 G visible
 // pairs a head-sum: the forward does 550 GFLOP (0.556 ms) against 0.161
 // ms of bytes, dq 825 GFLOP and dk/dv 1.10 TFLOP: operations bound all
-// three. mma.sync from a cp.async ring reaches a fraction of the wgmma
-// rate, and boundary tiles pay a per-pair compare; wgmma with TMA loads is
-// later work.
+// three. The backward on wgmma is later work.
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -276,6 +283,266 @@ __global__ void __launch_bounds__(kThreads)
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
   }
   store_rows<D>(p, p.out, p.tq, hi, q0 + warp * 16, o, inv);
+  if (t == 0) {
+    float* lse = p.lse + static_cast<int64_t>(hi) * p.tq_pad;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lse[row0 + r * 8] = l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : kNeg;
+  }
+}
+
+// ------------------------------------------- bf16 forward: wgmma + TMA
+
+namespace hp = ptt::hopper;
+
+constexpr int kFwdM = 128;            // query rows of a tile: 64 a warpgroup
+constexpr int kFwdN = 128;            // keys of a tile
+constexpr int kKStages = 3;           // k ring
+constexpr int kVStages = 2;           // v ring
+constexpr int kFwdConsumers = 256;    // two warpgroups
+constexpr int kFwdThreads = kFwdConsumers + 128;  // + the producer's
+constexpr int kFwdBox = 128 * 128;    // 16 KB: 128 rows x 64 columns
+constexpr int kFwdMeta = 2 * kFwdN * 4;  // a k tile's segments, positions
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kBoxes = (D + 63) / 64;  // 64-column boxes a tile
+  static constexpr int kTile = kBoxes * kFwdBox;
+  // q, the k ring, the v ring, the k tiles' key metadata and interior
+  // flags, then the barriers
+  static constexpr int kV = (1 + kKStages) * kTile;
+  static constexpr int kMeta = kV + kVStages * kTile;
+  static constexpr int kFlags = kMeta + kKStages * kFwdMeta;
+  static constexpr int kBars = kFlags + 16;
+  static constexpr int kBytes =
+      kBars + (1 + 2 * kKStages + 2 * kVStages) * 8 + 1024;  // + align
+};
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, ftz; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Forward on Hopper: a block owns a 128-row q tile of one head (two
+// consumer warpgroups of 64 rows) and walks its k-tile interval (128 keys
+// a tile). A producer warpgroup (one thread issues; its registers go to
+// the consumers by setmaxnreg) loads the q tile once and keeps a k ring
+// and a v ring full: rank-3 TMA maps over the strided [t, h, d] operands,
+// 128-byte swizzle, 64-column boxes; rows past tq or tk and columns past D
+// read as zeros; a k stage also holds its keys' segments and positions
+// (bulk copies) and whether the tile pair is interior. A warpgroup's
+// iteration s issues S(s) = Q K(s)^T (wgmma m64n128k16, q and k K-major
+// in shared memory) and then O += P(s-1) V(s-1) (wgmma m64nDk16, P from
+// registers: the previous S accumulator rounded to bf16 in pairs is the A
+// fragment; v N-major), takes its softmax of S(s) while the P V product
+// runs (masked scores are -inf on boundary tiles; base 2, f32
+// statistics), then rescales O. A k stage is released once S is done, a
+// v stage once its P V product is, so each ring refills early. At D 96
+// the second box's columns 96..127 are TMA's zeros, and the products run
+// at k 96 and n 96.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    varlen_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const VarlenParams p) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sq = smem;
+  unsigned char* sk = sq + L::kTile;                    // [k stages] tiles
+  unsigned char* sv = smem + L::kV;                     // [v stages] tiles
+  int* meta = reinterpret_cast<int*>(smem + L::kMeta);  // [k st][2][128]
+  int* flags = reinterpret_cast<int*>(smem + L::kFlags);  // [k stages]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* kempty = kfull + kKStages;
+  uint64_t* vfull = kempty + kKStages;
+  uint64_t* vempty = vfull + kVStages;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(qfull, 1);
+    for (int s = 0; s < kKStages; ++s) {
+      hp::mbar_init(&kfull[s], 1);
+      hp::mbar_init(&kempty[s], kFwdConsumers);
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      hp::mbar_init(&vfull[s], 1);
+      hp::mbar_init(&vempty[s], kFwdConsumers);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  // heads slowest: the blocks in flight share one or two heads' k and v
+  const int hi = blockIdx.y, i = p.order[blockIdx.x];
+  const int q0 = i * kFwdM, ks = p.start[i], kl = p.len[i];
+
+  if (threadIdx.x >= kFwdConsumers) {
+    hp::reg_dealloc<24>();
+    if (threadIdx.x != kFwdConsumers || kl == 0) return;
+    hp::mbar_arrive_expect_tx(qfull, L::kTile);
+#pragma unroll
+    for (int b = 0; b < L::kBoxes; ++b)
+      hp::tma_load_3d(sq + b * kFwdBox, &qmap, qfull, 64 * b, hi, q0);
+    // k tile s, then v tile s - 1: v is read a step after k
+    for (int s = 0; s <= kl; ++s) {
+      if (s < kl) {
+        const int st = s % kKStages, j = ks + s, k0 = j * kFwdN;
+        hp::mbar_wait(&kempty[st], ((s / kKStages) & 1) ^ 1);
+        // released by the arrive below, read after the consumers' wait
+        flags[st] = interior(p, i, j);
+        int* m = meta + st * 2 * kFwdN;
+        hp::mbar_arrive_expect_tx(&kfull[st], L::kTile + kFwdMeta);
+#pragma unroll
+        for (int b = 0; b < L::kBoxes; ++b)
+          hp::tma_load_3d(sk + st * L::kTile + b * kFwdBox, &kmap,
+                          &kfull[st], 64 * b, hi, k0);
+        hp::bulk_load(m, p.kmeta + k0, kFwdMeta / 2, &kfull[st]);
+        hp::bulk_load(m + kFwdN, p.kmeta + p.tk_pad + k0, kFwdMeta / 2,
+                      &kfull[st]);
+      }
+      if (s > 0) {
+        const int sv1 = (s - 1) % kVStages, k0 = (ks + s - 1) * kFwdN;
+        hp::mbar_wait(&vempty[sv1], (((s - 1) / kVStages) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(&vfull[sv1], L::kTile);
+#pragma unroll
+        for (int b = 0; b < L::kBoxes; ++b)
+          hp::tma_load_3d(sv + sv1 * L::kTile + b * kFwdBox, &vmap,
+                          &vfull[sv1], 64 * b, hi, k0);
+      }
+    }
+    return;
+  }
+  hp::reg_alloc<240>();
+
+  // consumers: warpgroup c owns rows q0 + 64c ..; this thread rows
+  // row0 and row0 + 8, key columns 8j + 2t (+1) of each tile
+  const int c = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + c * 64 + warp * 16 + g;
+  const float sl2 = p.scale * kLog2e;
+  int qs[2], qp[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qs[r] = p.qmeta[row0 + r * 8];
+    qp[r] = p.qmeta[p.tq_pad + row0 + r * 8];
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float sc[64];
+  uint32_t pa[kFwdN / 16][4];
+  const unsigned char* qa = sq + c * 64 * 128;  // this group's 64 rows
+  if (kl > 0) hp::mbar_wait(qfull, 0);
+  // iteration s: S(s) for s < kl, P(s-1) V(s-1) for s > 0
+  for (int s = 0; s <= kl; ++s) {
+    const int st = s % kKStages, sv1 = (s + kVStages - 1) % kVStages;
+    hp::fence_operands(sc);
+    hp::fence_operands(o);
+    if (s < kl) {
+      hp::mbar_wait(&kfull[st], (s / kKStages) & 1);
+      hp::wgmma_fence();
+      const unsigned char* kt = sk + st * L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = kk / 4 * kFwdBox + (kk % 4) * 32;
+        hp::wgmma_m64n128k16<0>(sc, hp::desc_sw128(qa + off, 16, 1024),
+                                hp::desc_sw128(kt + off, 16, 1024), kk > 0);
+      }
+      hp::wgmma_commit();
+    }
+    if (s > 0) {
+      hp::mbar_wait(&vfull[sv1], ((s - 1) / kVStages) & 1);
+      hp::wgmma_fence();
+      const unsigned char* vt = sv + sv1 * L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < kFwdN / 16; ++kk)
+        hp::wgmma_rs<D>(o, pa[kk],
+                        hp::desc_sw128(vt + kk * 2048, kFwdBox, 1024), 1);
+      hp::wgmma_commit();
+    }
+
+    float alpha[2] = {1.f, 1.f}, rs[2] = {0.f, 0.f};
+    if (s < kl) {
+      if (s > 0)
+        hp::wgmma_wait<1>();  // S(s) done; P(s-1) V(s-1) may still run
+      else
+        hp::wgmma_wait<0>();
+      hp::fence_operands(sc);
+      if (!flags[st]) {
+        // a boundary tile: scores of pairs that are not visible to -inf
+        const int* ksg = meta + st * 2 * kFwdN + 2 * t;
+#pragma unroll
+        for (int jj = 0; jj < kFwdN / 8; ++jj) {
+          const int2 sk2 = *reinterpret_cast<const int2*>(ksg + 8 * jj);
+          const int2 pk2 =
+              *reinterpret_cast<const int2*>(ksg + kFwdN + 8 * jj);
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int r = cc >> 1;
+            if (!visible(p, qs[r], qp[r], cc & 1 ? sk2.y : sk2.x,
+                         cc & 1 ? pk2.y : pk2.x))
+              sc[4 * jj + cc] = -INFINITY;
+          }
+        }
+      }
+      hp::mbar_arrive(&kempty[st]);  // k, its metadata and flag are read
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      float mneg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // a row that has seen no key keeps m = kNeg: alpha 1, p 0
+        const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+        alpha[r] = ex2(m[r] - mn);  // 0 once a key is seen
+        m[r] = mn;
+        mneg[r] = -mn;
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int r = (e >> 1) & 1;
+        sc[e] = ex2(fmaf(sc[e], sl2, mneg[r]));  // -inf: 0
+        rs[r] += sc[e];
+      }
+    }
+    if (s > 0) {
+      hp::wgmma_wait<0>();
+      hp::fence_operands(o);
+      hp::mbar_arrive(&vempty[sv1]);
+    }
+    if (s < kl) {
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int e = 0; e < 64; e += 2)
+        pa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row >= p.tq) continue;
+    bf16* out = static_cast<bf16*>(p.out) + packed_at<D>(p, row, hi);
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(out + jj * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[4 * jj + 2 * r] * inv[r],
+                                o[4 * jj + 2 * r + 1] * inv[r]);
+  }
   if (t == 0) {
     float* lse = p.lse + static_cast<int64_t>(hi) * p.tq_pad;
 #pragma unroll
@@ -707,6 +974,35 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+// a rank-3 map over a [t, h, D] bf16 operand with row and head strides ss,
+// sh (elements): boxes of 64 columns x 1 head x 128 rows
+int make_rows_map(CUtensorMap* map, const void* base, int t, int h, int d,
+                  int64_t ss, int64_t sh) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(t)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2};
+  const cuuint32_t box[3] = {64, 1, 128};
+  return hp::make_map_bf16(map, base, 3, dims, strides, box);
+}
+
+template <int D>
+int launch_fwd_wgmma(const VarlenParams& p, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  int err = make_rows_map(&qmap, p.q, p.tq, p.h, D, p.qss, p.qsh);
+  if (!err) err = make_rows_map(&kmap, p.k, p.tk, p.h, D, p.kss, p.ksh);
+  if (!err) err = make_rows_map(&vmap, p.v, p.tk, p.h, D, p.vss, p.vsh);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      varlen_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FwdSmem<D>::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  varlen_fwd_wgmma<D><<<dim3(p.tq_pad / kFwdM, p.h), kFwdThreads,
+                        FwdSmem<D>::kBytes, stream>>>(qmap, kmap, vmap, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int dispatch(int which, int dtype, const VarlenParams& p,
              cudaStream_t stream) {
@@ -717,8 +1013,12 @@ int dispatch(int which, int dtype, const VarlenParams& p,
   const int tile = bf ? 64 : kT;
   if (which == kFwd) {
     const dim3 grid(p.h, p.tq_pad / tile);
-    return bf ? launch(varlen_fwd_bf16<D>, grid, smem, stream, p)
-              : launch(varlen_fwd_f32<D>, grid, smem, stream, p);
+    if (!bf) return launch(varlen_fwd_f32<D>, grid, smem, stream, p);
+    // bf16: wgmma over 128 x 128 tiles up to D 128; mma.sync over 64 x 64
+    // at D 256, where a consumer's 64 x 256 fp32 output (128 registers a
+    // thread) beside S and P (96) would not fit setmaxnreg's 240
+    if constexpr (D <= 128) return launch_fwd_wgmma<D>(p, stream);
+    else return launch(varlen_fwd_bf16<D>, grid, smem, stream, p);
   }
   if (which == kDq) {
     const dim3 grid(p.h, p.tq_pad / tile);

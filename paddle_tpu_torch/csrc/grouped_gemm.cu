@@ -66,14 +66,24 @@
 // products) over a 4-stage cp.async ring of 64-byte K steps.
 //
 // The weight gradient: the TPU kernel keeps an expert's [K, bn] block
-// resident across the expert's consecutive units. Here a block is one
-// (expert, 64 x 64 tile of [K, N]) and walks the expert's rows
-// [offsets[e], offsets[e+1]) itself, 64 bytes of rows a stage through
-// the same 4-stage cp.async ring: each dw element has exactly one
-// writer, the sum runs in one fixed order (deterministic, no atomics),
-// and an expert with no rows writes exact zeros. Both operands are read
-// transposed against the forward: the x rows [r, K] are the k-major
-// side of A (ldmatrix.trans), the dz rows [r, N] B's as in the forward.
+// resident across the expert's consecutive units. Here a tile is one
+// (expert, block of [K, N]) and walks the expert's rows [offsets[e],
+// offsets[e+1]) itself: each dw element has exactly one writer, the sum
+// runs in one fixed order (deterministic, no atomics), and an expert with
+// no rows writes exact zeros. In bf16 (grouped_dw_wgmma) the tile is 128
+// x 256, taken by two consumer warpgroups of 64 rows with wgmma
+// m64n256k16 (A = x's rows read M-major as x^T, B = dz's rows N-major,
+// as the forward's bank tile), fed by one producer thread through a
+// 3-stage TMA ring of 64-row stages (2-D maps over x and dz, boxes at any
+// row, so a walk starts exactly at the expert's first row); the rows of
+// the neighbour in an expert's last stage are zeroed in shared memory in
+// both operands before the products read it. The kernel is persistent;
+// each block ranks the experts by row count itself and walks their tiles
+// heaviest expert first (nothing on the host); a bf16 tile leaves by TMA
+// stores from shared memory that overlap the next tile's products (stores
+// from registers took a third of the kernel's time). fp32 keeps
+// grouped_dw_kernel: a 64 x 64 tile per block on the CUDA cores over a
+// 4-stage cp.async ring.
 //
 // The LoRA delta: a block of 512 threads is one (unit, 512-column strip).
 // Phase 1, h = x @ A[s] for the unit's live rows, 8 rows at a time: each
@@ -95,9 +105,9 @@
 // reuses each bank tile only 64 times, so at prefill the bank tiles'
 // reads from L2 (about 1 GB per FFN) rather than the tensor cores may set
 // the pace; 128-row tiles of one expert, or TMA multicast of a bank tile
-// across a cluster of two units, are the later work. The weight gradient
-// still runs mma.sync from a cp.async ring (hopper.cuh is its next
-// step). The LoRA delta is small against the base GEMM: x, A and B are
+// across a cluster of two units, are the later work. The weight
+// gradient's 128 x 256 tile reads x and dz about 0.77 GB from L2 per FFN
+// at the rung (a 64 x 64 tile read about 2 GB). The LoRA delta is small against the base GEMM: x, A and B are
 // read once (bytes), and its phase 1 is latency bound at decode (K up to
 // 8192 summed by 32 lanes per row); a delta fused into the base GEMM's
 // epilogue is the later design.
@@ -107,9 +117,6 @@
 namespace {
 
 using ptt::activate;
-using ptt::ldmatrix_x4;
-using ptt::ldmatrix_x4_trans;
-using ptt::mma_bf16;
 using ptt::load_dt;
 using ptt::store_dt;
 
@@ -240,21 +247,6 @@ __device__ __forceinline__ float epilogue(const GroupedParams& p, int g,
   return activate(v, p.act);
 }
 
-// B fragments of a k16 x n32 strip (four n8 fragments) from a [k][n]
-// tile, by ldmatrix.trans (the weight gradient's dz rows)
-__device__ __forceinline__ void load_b(const __nv_bfloat16* ws, int ks,
-                                       int n_base, uint32_t (&b)[4][2]) {
-  using G = Geo<__nv_bfloat16>;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int np = 0; np < 2; ++np) {
-    const int krow = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int ncol = n_base + np * 16 + (lane >> 4) * 8;
-    ldmatrix_x4_trans(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
-                      b[2 * np + 1][1], ws + krow * G::kWPitch + ncol);
-  }
-}
-
 // fp32 on the CUDA cores: thread (rg, cg) owns rows rg*4.. and columns
 // cg*8.. of the block's 64 x 64 tile.
 template <bool kTrans>
@@ -305,17 +297,6 @@ __device__ __forceinline__ void store_tile(const GroupedParams& p,
   }
 }
 
-template <typename T>
-struct Acc;
-template <>
-struct Acc<__nv_bfloat16> {
-  float v[2][4][4];
-};
-template <>
-struct Acc<float> {
-  float v[4][8];
-};
-
 // fp32: the CUDA-core kernel
 template <bool kTrans>
 __global__ void __launch_bounds__(kThreads)
@@ -337,7 +318,7 @@ __global__ void __launch_bounds__(kThreads)
   // the 16-row groups of the tile that hold live rows
   const int m_lo = (r0 - t0) / 16 * 16;
   const int m_hi = min(kBM, (r1 - t0 + 15) / 16 * 16);
-  Acc<float> acc{};
+  float acc[4][8] = {};
   const int nk = (p.K + G::kBK - 1) / G::kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -358,10 +339,10 @@ __global__ void __launch_bounds__(kThreads)
     ptt::cp_async_commit();
     const int s = kt % kStages;
     compute_tile<kTrans>(sx + s * G::kXStage, sw + s * G::kWStage, m_lo,
-                         m_hi, acc.v);
+                         m_hi, acc);
   }
   ptt::cp_async_wait<0>();
-  store_tile(p, acc.v, g, t0, r0, r1, n0);
+  store_tile(p, acc, g, t0, r0, r1, n0);
 }
 
 // ------------------------------------------- bf16: wgmma over a TMA ring
@@ -576,70 +557,44 @@ struct DwParams {
   int T, K, N;
 };
 
-// One stage of the walk: kBK rows (from r) of x's [r, m0:m0+64] and of
-// dz's [r, n0:n0+64], rows past r1 zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_dw_stage(const DwParams& p, T* sx,
-                                              T* sd, int r, int r1, int m0,
-                                              int n0) {
-  using G = Geo<T>;
-  const T* x = static_cast<const T*>(p.x);
-  const T* dz = static_cast<const T*>(p.dz);
-  constexpr int rc = kBN / G::kVec;  // 16-byte chunks per tile row
-  for (int c = threadIdx.x; c < G::kBK * rc; c += kThreads) {
-    const int rr = c / rc, cc = (c % rc) * G::kVec;
+// fp32 on the CUDA cores: a block is one (expert, 64 x 64 tile of [K,
+// N]); a stage is 16 rows of x's [r, m0:m0+64] and of dz's [r, n0:n0+64],
+// rows past r1 zero-filled; thread (rg, cg) owns m rows rg*4.. and n
+// columns cg*8..
+constexpr int kDwF32Rows = Geo<float>::kBK;      // 16
+constexpr int kDwF32Pitch = Geo<float>::kWPitch;  // 68 floats
+
+__device__ __forceinline__ void load_dw_stage(const DwParams& p, float* sx,
+                                              float* sd, int r, int r1,
+                                              int m0, int n0) {
+  const float* x = static_cast<const float*>(p.x);
+  const float* dz = static_cast<const float*>(p.dz);
+  constexpr int rc = kBN / 4;  // 16-byte chunks per tile row
+  for (int c = threadIdx.x; c < kDwF32Rows * rc; c += kThreads) {
+    const int rr = c / rc, cc = (c % rc) * 4;
     const int row = r + rr, m = m0 + cc, n = n0 + cc;
     const bool live = row < r1;
     const bool okx = live && m < p.K, okd = live && n < p.N;
-    ptt::cp_async16(sx + rr * G::kWPitch + cc,
+    ptt::cp_async16(sx + rr * kDwF32Pitch + cc,
                     okx ? x + static_cast<int64_t>(row) * p.K + m : x,
                     okx ? 16 : 0);
-    ptt::cp_async16(sd + rr * G::kWPitch + cc,
+    ptt::cp_async16(sd + rr * kDwF32Pitch + cc,
                     okd ? dz + static_cast<int64_t>(row) * p.N + n : dz,
                     okd ? 16 : 0);
   }
 }
 
-// bf16: acc[m][n] += sum_r x[r][m] dz[r][n] over a stage's kBK rows; the
-// stage holds x and dz row-major by r, so A (= x^T, m x r) comes by
-// ldmatrix.trans and B (r x n) as the forward's W.
-__device__ __forceinline__ void dw_tile(const __nv_bfloat16* xs,
-                                        const __nv_bfloat16* ds,
-                                        float (&acc)[2][4][4]) {
-  using G = Geo<__nv_bfloat16>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-#pragma unroll
-  for (int ks = 0; ks < G::kBK / 16; ++ks) {
-    uint32_t b[4][2];
-    load_b(ds, ks, wn * 32, b);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int rrow = ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
-      const int mcol = wm * 32 + mi * 16 + ((lane >> 3) & 1) * 8;
-      uint32_t a0, a1, a2, a3;
-      ldmatrix_x4_trans(a0, a1, a2, a3, xs + rrow * G::kWPitch + mcol);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-        mma_bf16(acc[mi][nj], a0, a1, a2, a3, b[nj][0], b[nj][1]);
-    }
-  }
-}
-
-// fp32 on the CUDA cores: thread (rg, cg) owns m rows rg*4.. and n
-// columns cg*8..
 __device__ __forceinline__ void dw_tile(const float* xs, const float* ds,
                                         float (&acc)[4][8]) {
-  using G = Geo<float>;
   const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
 #pragma unroll
-  for (int kk = 0; kk < G::kBK; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(
-        xs + kk * G::kWPitch + rg * 4);
+  for (int kk = 0; kk < kDwF32Rows; ++kk) {
+    const float4 a =
+        *reinterpret_cast<const float4*>(xs + kk * kDwF32Pitch + rg * 4);
     const float4 b0 =
-        *reinterpret_cast<const float4*>(ds + kk * G::kWPitch + cg * 8);
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(ds + kk * G::kWPitch + cg * 8 + 4);
+        *reinterpret_cast<const float4*>(ds + kk * kDwF32Pitch + cg * 8);
+    const float4 b1 = *reinterpret_cast<const float4*>(
+        ds + kk * kDwF32Pitch + cg * 8 + 4);
     const float av[4] = {a.x, a.y, a.z, a.w};
     const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -649,62 +604,24 @@ __device__ __forceinline__ void dw_tile(const float* xs, const float* ds,
   }
 }
 
-__device__ __forceinline__ void store_dw(const DwParams& p, int64_t base,
-                                         int m, int n, float v) {
-  if (m < p.K && n < p.N)
-    store_dt(p.out, base + static_cast<int64_t>(m) * p.N + n, p.out_dt, v);
-}
-
-__device__ __forceinline__ void store_dw_tile(const DwParams& p,
-                                              int64_t base, int m0, int n0,
-                                              const float (&acc)[2][4][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          store_dw(p, base, m0 + wm * 32 + mi * 16 + gq + h * 8,
-                   n0 + wn * 32 + nj * 8 + tq * 2 + e,
-                   acc[mi][nj][h * 2 + e]);
-}
-
-__device__ __forceinline__ void store_dw_tile(const DwParams& p,
-                                              int64_t base, int m0, int n0,
-                                              const float (&acc)[4][8]) {
-  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      store_dw(p, base, m0 + rg * 4 + i, n0 + cg * 8 + j, acc[i][j]);
-}
-
 // Block (n tile, m tile, expert e): dw[e][m0:m0+64][n0:n0+64] over e's
 // rows, in row order through the 4-stage ring; the only writer of its
 // tile.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
     grouped_dw_kernel(const DwParams p) {
-  using G = Geo<T>;
-  constexpr int kStage = G::kBK * G::kWPitch;
-  __shared__ __align__(16) T sx[kStages][kStage];
-  __shared__ __align__(16) T sd[kStages][kStage];
+  constexpr int kStage = kDwF32Rows * kDwF32Pitch;
+  __shared__ __align__(16) float sx[kStages][kStage];
+  __shared__ __align__(16) float sd[kStages][kStage];
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * kBN, n0 = blockIdx.x * kBN;
   const int r1 = min(p.offsets[e + 1], p.T);
   const int r0 = min(p.offsets[e], r1);
-  const int nk = (r1 - r0 + G::kBK - 1) / G::kBK;
-  Acc<T> acc{};
+  const int nk = (r1 - r0 + kDwF32Rows - 1) / kDwF32Rows;
+  float acc[4][8] = {};
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk)
-      load_dw_stage<T>(p, sx[s], sd[s], r0 + s * G::kBK, r1, m0, n0);
+      load_dw_stage(p, sx[s], sd[s], r0 + s * kDwF32Rows, r1, m0, n0);
     ptt::cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -712,13 +629,269 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int nt = kt + kStages - 1;
     if (nt < nk)
-      load_dw_stage<T>(p, sx[nt % kStages], sd[nt % kStages],
-                       r0 + nt * G::kBK, r1, m0, n0);
+      load_dw_stage(p, sx[nt % kStages], sd[nt % kStages],
+                    r0 + nt * kDwF32Rows, r1, m0, n0);
     ptt::cp_async_commit();
-    dw_tile(sx[kt % kStages], sd[kt % kStages], acc.v);
+    dw_tile(sx[kt % kStages], sd[kt % kStages], acc);
   }
   ptt::cp_async_wait<0>();
-  store_dw_tile(p, static_cast<int64_t>(e) * p.K * p.N, m0, n0, acc.v);
+  const int64_t base = static_cast<int64_t>(e) * p.K * p.N;
+  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = m0 + rg * 4 + i, n = n0 + cg * 8 + j;
+      if (m < p.K && n < p.N)
+        store_dt(p.out, base + static_cast<int64_t>(m) * p.N + n, p.out_dt,
+                 acc[i][j]);
+    }
+}
+
+// bf16: wgmma over a TMA ring. A tile is one (expert, 128 x 256 block of
+// [K, N]), numbered e * mt * nt + m tile * nt + n tile; the walk takes
+// the experts by row count, the heaviest first (ties by index), and an
+// expert's tiles in order (the wrapper's dw_tile_order renders it in
+// PyTorch).
+constexpr int kDwBM = 128;           // K rows of a tile: 64 a warpgroup
+constexpr int kDwBN = 256;           // N columns
+constexpr int kDwRows = 64;          // x and dz rows a stage (wgmma's k)
+constexpr int kDwStages = 3;
+constexpr int kDwBox = kDwRows * 128;  // 8 KB: 64 rows x 64 columns
+constexpr int kDwXTile = (kDwBM / 64) * kDwBox;  // 16 KB
+constexpr int kDwDTile = (kDwBN / 64) * kDwBox;  // 32 KB
+constexpr int kDwStage = kDwXTile + kDwDTile;    // 48 KB
+// a warpgroup's bf16 output tile, 64 x 256, staged for the TMA store
+constexpr int kDwStaging = 64 * kDwBN * 2;       // 32 KB
+constexpr int kDwSmem = kDwStages * kDwStage + 2 * kDwStaging +
+                        2 * kDwStages * 8 + 1024;  // + align
+constexpr int kDwMaxExperts = 1024;  // the walk's expert order, in smem
+
+// order[r] = the expert of rank r: by row count offsets[e+1] - offsets[e],
+// the largest first, ties by index. The block's threads rank one expert
+// each (E^2 compares of L1-resident offsets); the caller syncs after.
+__device__ __forceinline__ void dw_expert_order(const int* offsets, int E,
+                                                int* order) {
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int c = offsets[e + 1] - offsets[e];
+    int rank = 0;
+    for (int f = 0; f < E; ++f) {
+      const int cf = offsets[f + 1] - offsets[f];
+      rank += cf > c || (cf == c && f < e);
+    }
+    order[rank] = e;
+  }
+}
+
+// tile t of the walk over `per` tiles an expert
+__device__ __forceinline__ int dw_tile_at(const int* order, int per, int t) {
+  return order[t / per] * per + t % per;
+}
+
+// Block b walks tiles b, b + gridDim.x, ... of the walk. Stage kt of a
+// tile holds rows r = offsets[e] + 64 kt .. + 63 of x [T, K] at columns
+// m0 .. m0 + 127 (two 64-column boxes, one a consumer warpgroup) and of
+// dz [T, N] at n0 .. n0 + 255 (four boxes). Rows at or past the expert's
+// end r1 (the next expert's, or TMA's zeros past T) appear only in its
+// last stage: the consumers zero those rows in both operands (a row is
+// one 128-byte line of a box under the swizzle), fence the writes to the
+// async proxy and meet at a named barrier before any product reads the
+// stage, and skip the k16 steps that lie wholly past r1. Warpgroup c
+// computes dw rows m0 + 64c .. by wgmma m64n256k16: A = the x box read
+// M-major (x^T), B = the dz boxes N-major; fp32 accumulators in registers,
+// one fixed row order, one writer per element. A bf16 dw tile leaves
+// through shared memory: each warpgroup writes its 64 x 256 block there in
+// the output map's swizzled layout and one of its threads issues TMA
+// stores (a rank-3 map over [E, K, N], so rows past K and columns past N
+// are not written), which run on while the next tile's products do; the
+// buffer is rewritten once the stores have read it. f32 (the parity
+// dtype) stores from registers.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    grouped_dw_wgmma(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap dmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     const DwParams p, int E) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int order[kDwMaxExperts];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* staging = smem + kDwStages * kDwStage;  // [2] groups
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(staging + 2 * kDwStaging);
+  uint64_t* empty = full + kDwStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kWgConsumers);
+    }
+    hp::fence_barrier_init();
+  }
+  dw_expert_order(p.offsets, E, order);
+  __syncthreads();
+  const int nt = (p.N + kDwBN - 1) / kDwBN;
+  const int per = (p.K + kDwBM - 1) / kDwBM * nt;
+  const int n_tiles = E * per;
+  const bool producer = threadIdx.x >= kWgConsumers;
+  if (producer && threadIdx.x != kWgConsumers) return;  // idle lanes
+  const int c = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int id = dw_tile_at(order, per, t);
+    const int e = id / per;
+    const int m0 = id % per / nt * kDwBM, n0 = id % nt * kDwBN;
+    const int r1 = min(p.offsets[e + 1], p.T);
+    const int r0 = min(p.offsets[e], r1);
+    const int nk = (r1 - r0 + kDwRows - 1) / kDwRows;
+
+    if (producer) {
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kDwStages;
+        hp::mbar_wait(&empty[s], ((it / kDwStages) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(&full[s], kDwStage);
+        unsigned char* st = smem + s * kDwStage;
+        const int r = r0 + kt * kDwRows;
+#pragma unroll
+        for (int q = 0; q < kDwBM / 64; ++q)
+          hp::tma_load_2d(st + q * kDwBox, &xmap, &full[s], m0 + 64 * q, r);
+#pragma unroll
+        for (int q = 0; q < kDwBN / 64; ++q)
+          hp::tma_load_2d(st + kDwXTile + q * kDwBox, &dmap, &full[s],
+                          n0 + 64 * q, r);
+      }
+      continue;
+    }
+
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kDwStages;
+      hp::mbar_wait(&full[s], (it / kDwStages) & 1);
+      unsigned char* st = smem + s * kDwStage;
+      const int live = min(kDwRows, r1 - r0 - kt * kDwRows);
+      if (live < kDwRows) {
+        // the expert's last stage: lines live.. of all six boxes to zero
+        const int dead = (kDwRows - live) * 8;  // 16-byte chunks a box
+        for (int i = threadIdx.x; i < dead * (kDwStage / kDwBox);
+             i += kWgConsumers) {
+          const int box = i / dead, ch = i % dead;
+          *reinterpret_cast<uint4*>(st + box * kDwBox + live * 128 +
+                                    ch * 16) = make_uint4(0, 0, 0, 0);
+        }
+        hp::fence_proxy_async();
+        hp::bar_sync(1, kWgConsumers);
+      }
+      const unsigned char* a = st + c * kDwBox;
+      const unsigned char* b = st + kDwXTile;
+      hp::fence_operands(acc);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kDwRows / 16; ++ks)
+        if (ks * 16 < live)  // k16 steps wholly past r1 are skipped
+          hp::wgmma_m64n256k16<1, 1>(
+              acc, hp::desc_sw128(a + ks * 2048, kDwBox, 1024),
+              hp::desc_sw128(b + ks * 2048, kDwBox, 1024), 1);
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();
+      hp::fence_operands(acc);
+      if (kt > 0) hp::mbar_arrive(&empty[(it - 1) % kDwStages]);
+    }
+    if (nk > 0) {
+      hp::wgmma_wait<0>();
+      hp::fence_operands(acc);
+      hp::mbar_arrive(&empty[(it - 1) % kDwStages]);
+    }
+
+    // epilogue: warp w holds dw rows m0 + 64c + 16w + l/4 (+8), columns
+    // n0 + 8j + 2(l%4) (+1); an expert with no rows writes +0.0
+    if (p.out_dt == ptt::kBF16) {
+      unsigned char* stg = staging + c * kDwStaging;  // [4 boxes][64][64]
+      const bool issuer = threadIdx.x % 128 == 0;
+      if (issuer) hp::bulk_wait_read<0>();  // the last tile's stores read it
+      hp::bar_sync(2 + c, 128);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + lane / 4 + h * 8;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              stg + j / 8 * kDwBox + r * 128 + ((j % 8) ^ (r % 8)) * 16 +
+              (lane % 4) * 4) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1]);
+      }
+      hp::fence_proxy_async();
+      hp::bar_sync(2 + c, 128);
+      if (issuer) {
+#pragma unroll
+        for (int q = 0; q < kDwBN / 64; ++q)
+          hp::tma_store_3d(&omap, stg + q * kDwBox, n0 + 64 * q,
+                           m0 + 64 * c, e);
+        hp::bulk_commit();
+      }
+      continue;
+    }
+    const int64_t base = static_cast<int64_t>(e) * p.K * p.N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + c * 64 + warp * 16 + lane / 4 + h * 8;
+      if (m >= p.K) continue;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int n = n0 + j * 8 + (lane % 4) * 2;
+        if (n >= p.N) continue;
+        const int64_t i = base + static_cast<int64_t>(m) * p.N + n;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + i) =
+            make_float2(v0, v1);
+      }
+    }
+  }
+  // the stores have finished before the block leaves
+  if (threadIdx.x < kWgConsumers && threadIdx.x % 128 == 0)
+    hp::bulk_wait<0>();
+}
+
+int launch_dw_wgmma(const DwParams& p, int E, cudaStream_t stream) {
+  CUtensorMap xmap, dmap;
+  const cuuint64_t K = p.K, N = p.N, T = p.T;
+  const cuuint32_t box[2] = {64, kDwRows};
+  const cuuint64_t xdims[2] = {K, T}, xstrides[1] = {K * 2};
+  int err = hp::make_map_bf16(&xmap, p.x, 2, xdims, xstrides, box);
+  if (err) return err;
+  const cuuint64_t ddims[2] = {N, T}, dstrides[1] = {N * 2};
+  err = hp::make_map_bf16(&dmap, p.dz, 2, ddims, dstrides, box);
+  if (err) return err;
+  // dw [E, K, N] for the bf16 stores (dims N, K, E; boxes 64 x 64 x 1)
+  CUtensorMap omap = dmap;  // unused by an f32 output
+  if (p.out_dt == ptt::kBF16) {
+    const cuuint64_t odims[3] = {N, K, static_cast<cuuint64_t>(E)};
+    const cuuint64_t ostrides[2] = {N * 2, K * N * 2};
+    const cuuint32_t obox[3] = {64, 64, 1};
+    err = hp::make_map_bf16(&omap, p.out, 3, odims, ostrides, obox);
+    if (err) return err;
+  }
+  static int sms[64] = {};  // per device: SM count once the attribute is set
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n_sm = dev < 64 ? sms[dev] : 0;
+  if (n_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        grouped_dw_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kDwSmem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) sms[dev] = n_sm;
+  }
+  const int n_tiles = E * ((p.K + kDwBM - 1) / kDwBM) *
+                      ((p.N + kDwBN - 1) / kDwBN);
+  // one block an SM (ring and staging take 209 KB), never more than the
+  // tiles
+  grouped_dw_wgmma<<<n_tiles < n_sm ? n_tiles : n_sm, kWgThreads, kDwSmem,
+                     stream>>>(xmap, dmap, omap, p, E);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ LoRA delta
@@ -826,6 +999,16 @@ __global__ void __launch_bounds__(kLoraThreads, 1)
   }
 }
 
+// B15's walk written out (for the check against dw_tile_order)
+__global__ void dw_tiles_kernel(const int* offsets, int E, int per,
+                                int* tiles) {
+  __shared__ int order[kDwMaxExperts];
+  dw_expert_order(offsets, E, order);
+  __syncthreads();
+  for (int t = threadIdx.x; t < E * per; t += blockDim.x)
+    tiles[t] = dw_tile_at(order, per, t);
+}
+
 __global__ void work_map_kernel(const int* offsets, int E, int nm, int nwu,
                                 int* gids, int* tids, int* lo, int* hi) {
   const int u = blockIdx.x * blockDim.x + threadIdx.x;
@@ -879,6 +1062,18 @@ extern "C" int ptt_grouped_gemm(const void* x, const void* w,
   return cudaGetLastError();
 }
 
+// the tiles B15's bf16 kernel walks, in order: E * cdiv(K, 128) *
+// cdiv(N, 256) ids into `tiles`
+extern "C" int ptt_grouped_dw_tiles(const int* offsets, int E, int K, int N,
+                                    int* tiles, void* stream) {
+  if (E < 1 || E > kDwMaxExperts || K < 1 || N < 1)
+    return cudaErrorInvalidValue;
+  const int per = (K + kDwBM - 1) / kDwBM * ((N + kDwBN - 1) / kDwBN);
+  dw_tiles_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      offsets, E, per, tiles);
+  return cudaGetLastError();
+}
+
 // dw [E, K, N] (out_dt) = per expert x[seg]^T @ dz[seg]; x [T, K] and dz
 // [T, N] in dtype
 extern "C" int ptt_grouped_dw(const void* x, const void* dz,
@@ -889,14 +1084,14 @@ extern "C" int ptt_grouped_dw(const void* x, const void* dz,
   if (E < 1 || E > 65535 || mt > 65535 || T < 0)
     return cudaErrorInvalidValue;
   DwParams p{x, dz, offsets, out, out_dt, T, K, N};
-  const dim3 grid((N + kBN - 1) / kBN, mt, E);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16)
-    grouped_dw_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
-  else if (dtype == ptt::kF32)
-    grouped_dw_kernel<float><<<grid, kThreads, 0, s>>>(p);
-  else
-    return cudaErrorInvalidValue;
+  if (dtype == ptt::kBF16) {
+    if (K % 8 || N % 8 || T < 1 || E > kDwMaxExperts)
+      return cudaErrorInvalidValue;  // 16-byte strides; a map needs rows
+    return launch_dw_wgmma(p, E, s);
+  }
+  if (dtype != ptt::kF32) return cudaErrorInvalidValue;
+  grouped_dw_kernel<<<dim3((N + kBN - 1) / kBN, mt, E), kThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 

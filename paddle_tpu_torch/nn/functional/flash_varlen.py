@@ -231,12 +231,17 @@ _NEG_SAFE = -5e29     # lse floor in the backward: exp(_NEG - it) is 0
 #: 256 runs zero-padded to the next of them, a wider head raises on the
 #: card
 VARLEN_HEAD_DIMS = (64, 96, 128, 256)
-#: the kernels' tiles, (q rows, keys), of the forward and dq walks and of
-#: the dk/dv walk, by dtype; lse, delta and the per-token metadata are
-#: padded to a multiple of 64 rows, a whole number of every tile
-_CARD_TILES = {torch.bfloat16: ((64, 64), (32, 64)),
-               torch.float32: ((32, 32), (32, 32))}
-_CARD_PAD = 64
+#: the kernels' tiles, (q rows, keys), of the forward, dq and dk/dv walks
+#: by dtype (the bf16 forward at head_dim 256 keeps 64 x 64:
+#: ``_WIDE_FWD_TILE``); lse, delta and the per-token metadata are padded
+#: to a multiple of ``_CARD_PAD`` rows, a whole number of every tile, so
+#: the forward writes every row of the lse that B12/B13 read
+_CARD_TILES = {torch.bfloat16: {"fwd": (128, 128), "dq": (64, 64),
+                                "dkv": (32, 64)},
+               torch.float32: {"fwd": (32, 32), "dq": (32, 32),
+                               "dkv": (32, 32)}}
+_WIDE_FWD_TILE = (64, 64)
+_CARD_PAD = 128
 _BACKENDS = ("auto", "pallas", "interpret", "xla")
 
 #: launches of B11, B12 and B13, counted after each returns without an
@@ -547,7 +552,7 @@ def kernel_head_dim(d: int, built, what: str) -> int:
             f"and take any multiple of 8 up to {max(built)} zero-padded; a "
             "wider head needs its register-held output split across warps "
             "or passes, and no model the repo supports uses one (ROADMAP.md "
-            "queue C)")
+            "A13)")
     raise NotImplementedError(
         f"{what}: head_dim {d} is not a multiple of 8: the kernels copy "
         "rows in 16-byte pieces and take k in steps of 16; the flash "
@@ -590,6 +595,14 @@ def _card_pad(n: int) -> int:
     return _cdiv(n, _CARD_PAD) * _CARD_PAD
 
 
+def card_tile(kernel: str, dtype, head_dim: int) -> tuple:
+    """``(q rows, keys)`` of a kernel's walk on the card: ``kernel`` is
+    ``"fwd"`` (B11), ``"dq"`` (B12) or ``"dkv"`` (B13)."""
+    if kernel == "fwd" and dtype == torch.bfloat16 and head_dim > 128:
+        return _WIDE_FWD_TILE
+    return _CARD_TILES[dtype][kernel]
+
+
 def _check_packed(what, q, k, v):
     if q.dim() != 3 or k.dim() != 3 or k.shape[1:] != q.shape[1:] \
             or v.shape != k.shape:
@@ -609,8 +622,8 @@ def _check_packed(what, q, k, v):
             raise ValueError(f"{what}: q, k and v must share device and "
                              "dtype")
     _kernels.dtype_code(q, what)
-    tile = _CARD_TILES[q.dtype][0][0]
-    if max(_cdiv(tq, tile), _cdiv(k.shape[0], tile)) > 65535:
+    tile = _CARD_TILES[q.dtype]["dq"][0]   # dq's and dk/dv's grid axis
+    if max(_card_pad(tq), _card_pad(k.shape[0])) // tile > 65535:
         raise ValueError(f"{what}: more than 65535 tiles of {tile} rows "
                          "(the grid's second axis)")
 
@@ -625,13 +638,14 @@ def _strided(t):
     return t
 
 
-def _card_map(cu_q, cu_k, tq: int, tk: int, dtype, causal: bool,
+def _card_map(cu_q, cu_k, tq: int, tk: int, tile: tuple, causal: bool,
               transposed: bool):
     """``(map pointers, tq_pad, tk_pad, keep-alive)`` for a kernel: the
-    block map at the kernel's tile, its 11 int32 arrays in the C order
-    (order, start, len, qslo, qshi, qpos0, kslo, kshi, kmax, qmeta,
-    kmeta), ``order`` the walked tiles longest walk first."""
-    bq, bk = _CARD_TILES[dtype][int(transposed)]
+    block map at the kernel's ``tile`` (``card_tile``), its 11 int32
+    arrays in the C order (order, start, len, qslo, qshi, qpos0, kslo,
+    kshi, kmax, qmeta, kmeta), ``order`` the walked tiles longest walk
+    first."""
+    bq, bk = tile
     tqp, tkp = _card_pad(tq), _card_pad(tk)
     bm = varlen_block_map(cu_q, cu_k, tqp, tkp, bq, bk, causal)
     start, length = (bm.qstart2, bm.qlen2) if transposed else \
@@ -658,8 +672,9 @@ def _varlen_fwd_cuda(q, k, v, cu_q, cu_k, causal: bool, scale: float):
     _check_packed(what, q, k, v)
     fn = _kernels.lib("flash_varlen_packed").ptt_flash_varlen_fwd
     q, k, v = _strided(q), _strided(k), _strided(v)
-    ptrs, tqp, tkp, _keep = _card_map(cu_q, cu_k, q.shape[0], k.shape[0],
-                                      q.dtype, causal, False)
+    ptrs, tqp, tkp, _keep = _card_map(
+        cu_q, cu_k, q.shape[0], k.shape[0],
+        card_tile("fwd", q.dtype, q.shape[2]), causal, False)
     out = q.new_empty(q.shape)
     lse = q.new_empty((q.shape[1], tqp), dtype=torch.float32)
     _kernels.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -693,8 +708,9 @@ def _varlen_bwd_dq_cuda(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
     """B12: dq ``[tq, h, d]``, one launch over the forward map."""
     what = "flash_varlen_packed backward (dq)"
     lib, q, k, v = _bwd_operands(what, q, k, v, dout, lse, delta)
-    ptrs, tqp, tkp, _keep = _card_map(cu_q, cu_k, q.shape[0], k.shape[0],
-                                      q.dtype, causal, False)
+    ptrs, tqp, tkp, _keep = _card_map(
+        cu_q, cu_k, q.shape[0], k.shape[0],
+        card_tile("dq", q.dtype, q.shape[2]), causal, False)
     dq = q.new_empty(q.shape)
     _kernels.check(lib.ptt_flash_varlen_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -711,8 +727,9 @@ def _varlen_bwd_dkv_cuda(q, k, v, dout, lse, delta, cu_q, cu_k,
     map."""
     what = "flash_varlen_packed backward (dk, dv)"
     lib, q, k, v = _bwd_operands(what, q, k, v, dout, lse, delta)
-    ptrs, tqp, tkp, _keep = _card_map(cu_q, cu_k, q.shape[0], k.shape[0],
-                                      q.dtype, causal, True)
+    ptrs, tqp, tkp, _keep = _card_map(
+        cu_q, cu_k, q.shape[0], k.shape[0],
+        card_tile("dkv", q.dtype, q.shape[2]), causal, True)
     dk = k.new_empty(k.shape)
     dv = v.new_empty(v.shape)
     _kernels.check(lib.ptt_flash_varlen_bwd_dkv(
@@ -758,9 +775,9 @@ def _route(what: str, backend: str, t) -> str:
 def packed_fwd(q, k, v, cu_q, cu_k, *, scale: float, causal: bool,
                block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
                backend: str = "auto"):
-    """``(out, lse)``: B11 on a CUDA tensor (its own 64- or 32-row tiles;
-    ``block_q``/``block_k`` tile the plain walk), the plain version on a
-    CPU tensor."""
+    """``(out, lse)``: B11 on a CUDA tensor (its own tiles,
+    ``card_tile``; ``block_q``/``block_k`` tile the plain walk), the plain
+    version on a CPU tensor."""
     if _route("flash_varlen_packed", backend, q) == "kernel":
         return padded_fwd(_varlen_fwd_cuda, VARLEN_HEAD_DIMS,
                           "flash_varlen_packed", q, k, v, cu_q, cu_k,

@@ -27,9 +27,12 @@ token matrix sorted by expert id: expert ``e`` owns rows
   ``db`` is the segment sum of ``dz`` over the live
   rows, torch ops on the device with nothing read back.
 - the weight gradient ``dw[e] = x[seg_e]^T @ dz[seg_e]`` ``[E, K, N]``:
-  kernel B15 on a CUDA tensor, ``grouped_dw_plain`` (a per-expert loop
-  in f32; rows past ``offsets[E]`` add nothing, an expert with no rows
-  gets exact zeros) on a CPU tensor.
+  kernel B15 on a CUDA tensor (in bf16 a persistent walk of 128 x 256
+  tiles of ``[K, N]``, heaviest expert first, which the kernel works out
+  from ``offsets`` itself; ``dw_tile_order`` renders it in PyTorch and
+  ``kernel_dw_tile_order`` reads it back), ``grouped_dw_plain`` (a per-expert loop in f32; rows past
+  ``offsets[E]`` add nothing, an expert with no rows gets exact zeros)
+  on a CPU tensor.
 - ``moe_route`` (fp32 softmax router, top-k with the lower index first
   on ties, as the JAX package's top-k), ``_sort_by_expert`` (stable sort by
   expert) and ``moe_ffn_nodrop`` (route, sort, FFN1 with the activation
@@ -64,7 +67,7 @@ from ... import _kernels
 
 __all__ = ["grouped_work_map", "grouped_gemm", "grouped_gemm_plain",
            "card_shape_error",
-           "GroupedGemmFunction", "grouped_dw_plain",
+           "GroupedGemmFunction", "grouped_dw_plain", "dw_tile_order",
            "moe_route", "moe_ffn_nodrop", "moe_ffn_ep",
            "DEFAULT_BLOCK_ROWS"]
 
@@ -211,6 +214,42 @@ def grouped_dw_plain(x, dz, offsets, E: int):
     return dw
 
 
+#: B15's bf16 tile on the card: 128 rows of K by 256 columns of N; the
+#: kernel ranks at most DW_MAX_EXPERTS experts in shared memory
+DW_TILE_K, DW_TILE_N = 128, 256
+DW_MAX_EXPERTS = 1024
+
+
+def dw_tile_order(offsets, K: int, N: int):
+    """The tiles B15's bf16 kernel walks, in order, as the kernel works
+    them out from ``offsets`` on the device: int32 ``[E * cdiv(K, 128) *
+    cdiv(N, 256)]`` ids ``e * per + m * nt + n`` (``nt`` column tiles,
+    ``per`` tiles an expert), every tile of every expert once, empty
+    experts included, the experts by row count, heaviest first (ties by
+    index) and an expert's tiles consecutive."""
+    offsets = offsets.to(torch.int32)
+    per = _cdiv(K, DW_TILE_K) * _cdiv(N, DW_TILE_N)
+    order = torch.argsort(offsets[1:] - offsets[:-1], descending=True,
+                          stable=True)
+    tiles = torch.arange(per, dtype=torch.int64, device=offsets.device)
+    return (order[:, None] * per + tiles).reshape(-1).to(torch.int32)
+
+
+def kernel_dw_tile_order(offsets, K: int, N: int):
+    """The walk B15's bf16 kernel computes from ``offsets`` (on the card),
+    written out by the same device code, for holding it to
+    ``dw_tile_order``."""
+    what = "kernel_dw_tile_order"
+    E = offsets.shape[0] - 1
+    offsets = offsets.to(torch.int32).contiguous()
+    tiles = torch.empty(E * _cdiv(K, DW_TILE_K) * _cdiv(N, DW_TILE_N),
+                        dtype=torch.int32, device=offsets.device)
+    _kernels.check(_kernels.lib("grouped_gemm").ptt_grouped_dw_tiles(
+        offsets.data_ptr(), E, K, N, tiles.data_ptr(),
+        _kernels.stream_ptr(offsets.device)), what)
+    return tiles
+
+
 #: launches of B14 (forward, recompute and backward mode) and of B15,
 #: counted once each has been issued without an error (plain CPU calls
 #: do not count)
@@ -300,6 +339,9 @@ def _grouped_dw_cuda(x, dz, offsets, E: int, out_dtype):
     if K % vec or N % vec:
         raise ValueError(f"{what}: K ({K}) and N ({N}) must be multiples "
                          f"of {vec} for {x.dtype}")
+    if x.dtype == torch.bfloat16 and E > DW_MAX_EXPERTS:
+        raise ValueError(f"{what}: the bf16 kernel takes at most "
+                         f"{DW_MAX_EXPERTS} experts, not {E}")
     offsets = offsets.to(torch.int32)
     if offsets.shape[0] != E + 1:
         raise ValueError(f"{what}: offsets needs E+1 = {E + 1} entries")
@@ -307,6 +349,8 @@ def _grouped_dw_cuda(x, dz, offsets, E: int, out_dtype):
     if x.data_ptr() % 16 or dz.data_ptr() % 16:
         raise ValueError(f"{what}: x and dz must be 16-byte aligned")
     fn = _kernels.lib("grouped_gemm").ptt_grouped_dw
+    if T == 0:
+        return torch.zeros((E, K, N), dtype=out_dtype, device=x.device)
     out = torch.empty((E, K, N), dtype=out_dtype, device=x.device)
     _kernels.check(fn(x.data_ptr(), dz.data_ptr(), offsets.data_ptr(),
                       out.data_ptr(), _kernels.dtype_code(out, what),

@@ -61,6 +61,39 @@ def _close(got, want, tol, what):
     assert err <= limit, f"{what}: max error {err} > {limit}"
 
 
+def test_flash_route_f32_case_is_bitwise_repeatable():
+    """Both sides of ``test_flash_route_matches_jax[shape0-True-float32]``
+    are bitwise repeatable in one process: the port's plain f32 flash
+    route (out and the three gradients) under one torch thread and under
+    the default count, twice each, and the JAX reference twice. A
+    reduction order that followed the thread count, or any state that
+    moved one side between calls, would show here."""
+    def bits(ts):
+        return [np.ascontiguousarray(t).view(np.int32).copy() for t in ts]
+
+    arrs = _inputs((2, 128, 2, 16), (2, 128, 2, 16))
+    threads = torch.get_num_threads()
+    runs = []
+    try:
+        for n in (1, threads, 1, threads):
+            torch.set_num_threads(n)
+            runs.append(bits(_port([a.copy() for a in arrs], "float32",
+                                   True)[1]))
+    finally:
+        torch.set_num_threads(threads)
+    for run in runs[1:]:
+        for got, first in zip(run, runs[0]):
+            assert np.array_equal(got, first)
+    want = [bits(_jax([a.copy() for a in arrs], "float32", True))
+            for _ in range(2)]
+    for got, first in zip(want[1], want[0]):
+        assert np.array_equal(got, first)
+    # and the case itself, well inside its limit
+    for name, g, w in zip(("out", "dq", "dk", "dv"), runs[0], want[0]):
+        g, w = g.view(np.float32), w.view(np.float32)
+        _close(g, w, TOL["float32"] / 5, f"{name} f32 causal")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(2, 128, 2, 16), (1, 256, 3, 8)])

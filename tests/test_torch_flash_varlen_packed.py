@@ -483,24 +483,30 @@ def test_kernel_path_reads_nothing_back_and_counts_launches(monkeypatch,
     # the launches' shape arguments: dtype, tq, tk, tq_pad, tk_pad, h, d
     fwd_args = fake.calls[0][1]
     assert fwd_args[16:23] == (_kernels.dtype_code(q, ""), 200, 180, 256,
-                               192, 2, 64)
+                               256, 2, 64)
     assert q.grad is not None and k.grad is not None
 
 
 def test_kernel_map_arrays_follow_the_jax_map():
-    """``_card_map`` hands the kernels the JAX map at their own tiles and
-    the order of the longest walks first."""
+    """``_card_map`` hands each kernel the JAX map at its own tile (the
+    bf16 forward at 128 x 128, 64 x 64 at head_dim 256; dq 64 x 64; dk/dv
+    32 x 64; f32 32 x 32) and the order of the longest walks first."""
     cq, ck = _pack("ragged")
-    for dtype, transposed in ((torch.bfloat16, False),
-                              (torch.bfloat16, True),
-                              (torch.float32, False)):
+    for dtype, kernel, d, want_tile in (
+            (torch.bfloat16, "fwd", 128, (128, 128)),
+            (torch.bfloat16, "fwd", 256, (64, 64)),
+            (torch.bfloat16, "dq", 128, (64, 64)),
+            (torch.bfloat16, "dkv", 128, (32, 64)),
+            (torch.float32, "fwd", 64, (32, 32))):
+        tile = tfv.card_tile(kernel, dtype, d)
+        assert tile == want_tile
+        transposed = kernel == "dkv"
         _, tqp, tkp, arrays = tfv._card_map(
-            torch.from_numpy(cq), torch.from_numpy(ck), 454, 454, dtype,
+            torch.from_numpy(cq), torch.from_numpy(ck), 454, 454, tile,
             True, transposed)
         assert (tqp, tkp) == (512, 512)
-        bq, bk = tfv._CARD_TILES[dtype][int(transposed)]
         want = jfv.varlen_block_map(jnp.asarray(cq), jnp.asarray(ck), 512,
-                                    512, bq, bk, True)
+                                    512, *tile, True)
         start, length = ((want.qstart2, want.qlen2) if transposed
                          else (want.kstart, want.klen))
         order, *fields = [a.numpy() for a in arrays]
@@ -511,3 +517,28 @@ def test_kernel_map_arrays_follow_the_jax_map():
         lens = np.asarray(length)[order]
         assert sorted(order.tolist()) == list(range(len(order)))
         assert (np.diff(lens) <= 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_dim", [64, 96, 128, 256])
+def test_lse_padding_is_whole_tiles_of_every_kernel(dtype, head_dim):
+    """B11 writes the ``[h, tq_pad]`` lse that B12 and B13 read: the pad
+    (and so tq_pad and tk_pad) is a whole number of every kernel's q and
+    key tile, so each kernel's map covers the padded axes exactly."""
+    for kernel in ("fwd", "dq", "dkv"):
+        bq, bk = tfv.card_tile(kernel, dtype, head_dim)
+        assert tfv._CARD_PAD % bq == 0 and tfv._CARD_PAD % bk == 0
+    for t in (1, 63, 64, 127, 128, 129, 454):
+        tp = tfv._card_pad(t)
+        assert tp >= t and tp - t < tfv._CARD_PAD
+        assert all(tp % b == 0 for kernel in ("fwd", "dq", "dkv")
+                   for b in tfv.card_tile(kernel, dtype, head_dim))
+
+
+def test_head_dim_past_256_names_its_roadmap_item(no_plain_no_kernel):
+    """A head_dim of 264 raises NotImplementedError pointing at ROADMAP.md
+    A13, before any kernel or plain version is reached."""
+    q = _card(torch.randn(100, 2, 264))
+    cu = _card(torch.tensor([0, 100], dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A13\)"):
+        tfv.flash_varlen_packed(q, q, q, cu, cu, causal=True)

@@ -30,14 +30,16 @@ from paddle_tpu_torch.nn.functional import grouped_gemm as tgg
 
 K, N = 128, 256
 #: (T, per-expert counts): uniform and ragged counts off the 128/64-row
-#: tiles, one expert owning every row, two empty experts, and
-#: offsets[E] = 150 < T = 200
+#: tiles, one expert owning every row, two empty experts,
+#: offsets[E] = 150 < T = 200, and counts 1-15 rows past a multiple of 16
+#: (B15's k16 steps) with a one-row expert and the last ending at T
 COUNTS = {
     "uniform": (192, [48, 48, 48, 48]),
     "ragged": (200, [37, 61, 50, 52]),
     "skewed": (200, [0, 200, 0, 0]),
     "empty": (150, [70, 0, 0, 80]),
     "short": (200, [40, 30, 60, 20]),
+    "unaligned": (216, [35, 1, 77, 103]),
 }
 
 
@@ -172,6 +174,29 @@ def test_grouped_dw_ignores_rows_past_offsets_and_casts():
     assert out.dtype == torch.bfloat16 and out.shape == (4, K, N)
 
 
+@pytest.mark.parametrize("counts,K,N", [
+    ([35, 1, 77, 103], 128, 256),      # one tile an expert
+    ([0, 200, 0, 0], 1024, 4096),      # the FFN1 bank, three empty
+    ([70, 0, 0, 80], 4096, 1024),      # the FFN2 bank
+    ([3, 3, 0, 9, 3], 136, 200),       # ragged K and N, ties
+])
+def test_dw_tile_order_visits_every_tile_heaviest_expert_first(counts, K,
+                                                              N):
+    """B15's bf16 walk: every (expert, 128 x 256 tile) exactly once, empty
+    experts included (they write zeros), an expert's tiles consecutive,
+    the experts by row count with the heaviest first (ties by index)."""
+    off = torch.from_numpy(_offsets(counts))
+    tiles = tgg.dw_tile_order(off, K, N)
+    E, per = len(counts), -(-K // 128) * -(-N // 256)
+    assert tiles.dtype == torch.int32 and tiles.shape == (E * per,)
+    ids = tiles.tolist()
+    assert sorted(ids) == list(range(E * per))
+    experts = [i // per for i in ids]
+    walk = experts[::per]
+    assert experts == [e for e in walk for _ in range(per)]
+    assert walk == sorted(range(E), key=lambda e: (-counts[e], e))
+
+
 # ---------------------------------------------------------------------
 # guards: no plain version for a CUDA tensor, no host read on the card
 # ---------------------------------------------------------------------
@@ -267,6 +292,48 @@ def test_backward_kernel_route_reads_nothing_back(monkeypatch):
     monkeypatch.undo()
     assert log == ["gemm", "gemm", "dx", "dw"]
     assert b.grad.shape == b.shape and x.grad.dtype == torch.bfloat16
+
+
+class _FakeLib:
+    """Stands in for the built library: records each call, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        return fn
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_dw_launch_arguments(monkeypatch, dtype):
+    """B15's wrapper with the library faked: one launch with the shapes,
+    counted; no rows (T 0) gives zeros without a launch; the bf16 kernel
+    refuses more experts than it ranks in shared memory."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_kernels, "lib", lambda name: fake)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    x = torch.randn(24, 256).to(dtype)
+    dz = torch.randn(24, 512).to(dtype)
+    off = torch.tensor([0, 10, 10, 24], dtype=torch.int32)
+    before = tgg.dw_launches
+    out = tgg._grouped_dw_cuda(x, dz, off, 3, torch.bfloat16)
+    assert out.shape == (3, 256, 512) and out.dtype == torch.bfloat16
+    assert tgg.dw_launches == before + 1
+    (name, args), = fake.calls
+    assert name == "ptt_grouped_dw"
+    assert args[5:10] == (_kernels.dtype_code(x, ""), 24, 256, 512, 3)
+    empty = tgg._grouped_dw_cuda(x[:0], dz[:0], off * 0, 3, torch.float32)
+    assert len(fake.calls) == 1 and tgg.dw_launches == before + 1
+    assert (empty == 0).all() and empty.shape == (3, 256, 512)
+    many = torch.zeros(tgg.DW_MAX_EXPERTS + 2, dtype=torch.int32)
+    many[-1] = 24
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="at most 1024 experts"):
+            tgg._grouped_dw_cuda(x, dz, many, tgg.DW_MAX_EXPERTS + 1,
+                                 torch.bfloat16)
 
 
 def test_segment_sum_is_the_live_rows_per_expert():

@@ -212,7 +212,7 @@ def test_kernel_sources_and_wrappers_present():
             assert f'extern "C" int {fn}(' in src
         assert "sm_90a" in " ".join(_kernels._FLAGS)
     assert {"ptt_grouped_gemm", "ptt_grouped_dw", "ptt_lora_delta",
-            "ptt_grouped_work_map"} == set(
+            "ptt_grouped_work_map", "ptt_grouped_dw_tiles"} == set(
         _kernels._SIGNATURES["grouped_gemm"])
     assert {"ptt_flash_fwd", "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv"} == \
         set(_kernels._SIGNATURES["flash_attention"])
