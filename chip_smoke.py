@@ -79,8 +79,10 @@ Phases, all run every time, each of which fails the run when it fails:
            128, bf16), a 72-document ragged pack, totals off the tile, an
            empty key segment (rows exactly 0), non-causal, f32 at
            head_dim 64 and bf16 at 96 (witness limits as for B10, one
-           faulty-map control per kernel), and timed beside the aten
-           varlen flash forward and backward; then slice_attn_varlen:
+           faulty-map control per kernel; a second backward bitwise
+           equal to the first), and timed beside the aten varlen flash
+           forward and backward, also as one flash_attn_unpadded
+           forward + backward through autograd; then slice_attn_varlen:
            bench.run_attn_varlen_bench() (21 forward launches; tokens/s,
            peak memory O(T·d)) and one training-shaped flash_attn_unpadded
            call on the ragged pack (one launch of each kernel, held to
@@ -117,7 +119,8 @@ Phases, all run every time, each of which fails the run when it fails:
            card, and the public paged_attention under auto on a live
            pool for each layer (stream, 48 launches). B10 is also
            checked at head_dim 80 and B11-B13 at 40, both zero-padded
-           by their wrappers, with the padding's cost timed.
+           by their wrappers, with the padding's cost timed (B11-B13
+           are also timed at 96 and 256).
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -253,7 +256,10 @@ def phase_device() -> str:
 DESIGNED_SASS = (("grouped_gemm", "grouped_gemm_wgmma", ("HGMMA",)),
                  ("stream_linear", "stream_gemm_mma", ("HMMA", "HGMMA")),
                  ("grouped_gemm", "grouped_dw_wgmma", ("HGMMA",)),
-                 ("flash_varlen_packed", "varlen_fwd_wgmma", ("HGMMA",)))
+                 ("flash_varlen_packed", "varlen_fwd_wgmma", ("HGMMA",)),
+                 ("flash_varlen_packed", "varlen_bwd_dq_wgmma", ("HGMMA",)),
+                 ("flash_varlen_packed", "varlen_bwd_dkv_wgmma",
+                  ("HGMMA",)))
 
 
 def _sass_functions(path) -> dict:
@@ -298,7 +304,7 @@ def _ptxas_info(log: str) -> dict:
 def phase_build(out_dir):
     """Every library built from csrc/, one nvcc per source in parallel;
     then the redesigned kernels' machine code read back: each
-    instantiation of the bf16 kernels of B14, B15 and B11 (d64, d96,
+    instantiation of the bf16 kernels of B14, B15 and B11-B13 (d64, d96,
     d128) must hold HGMMA (wgmma) and B2's bf16 kernel HMMA or HGMMA,
     with no register spill in ptxas's report."""
     from paddle_tpu_torch import _kernels
@@ -476,10 +482,13 @@ def kernel_paged_attention(gen) -> dict:
 B2_KERNEL = "stream_gemm_mma"
 B3_KERNELS = (B2_KERNEL, "layer_norm_kernel")
 B14_KERNEL = "grouped_gemm_wgmma"
-#: profiler names of B15's bf16 kernel and of B11's bf16 kernel at head_dim
-#: 64, 96 and 128 (d256 keeps varlen_fwd_bf16)
+#: profiler names of B15's bf16 kernel and of B11's, B12's and B13's bf16
+#: kernels at head_dim 64, 96 and 128 (d256 keeps varlen_fwd_bf16,
+#: varlen_bwd_dq_bf16 and varlen_bwd_dkv_bf16)
 B15_KERNEL = "grouped_dw_wgmma"
 B11_KERNEL = "varlen_fwd_wgmma"
+B12_KERNEL = "varlen_bwd_dq_wgmma"
+B13_KERNEL = "varlen_bwd_dkv_wgmma"
 
 
 def kernel_stream_linear(gen) -> dict:
@@ -3529,6 +3538,21 @@ def _varlen_pairs(lq, lk, causal: bool) -> int:
                for a, b in zip(lq, lk))
 
 
+def _unpartnered(lq, lk, causal: bool):
+    """Boolean masks of the queries that see no key and of the keys that
+    no query sees (an empty segment on the other side; under causal,
+    keys at in-segment positions past the segment's last query)."""
+    rows = torch.zeros(sum(lq), dtype=torch.bool, device="cuda")
+    keys = torch.zeros(sum(lk), dtype=torch.bool, device="cuda")
+    for i, (a, b) in enumerate(zip(lq, lk)):
+        q0, k0 = sum(lq[:i]), sum(lk[:i])
+        if b == 0:
+            rows[q0:q0 + a] = True
+        seen = min(a, b) if causal else (b if a else 0)
+        keys[k0 + seen:k0 + b] = True
+    return rows, keys
+
+
 def _varlen_inputs(gen, tq, tk, h, d, dtype):
     mk = lambda t: torch.randn(t, h, d, generator=gen,  # noqa: E731
                                device="cuda").to(dtype)
@@ -3620,12 +3644,15 @@ def kernel_flash_varlen(gen) -> dict:
     dq, dk or dv by its largest relative L2 error over any (64-row tile,
     head), limited by the one-ulp witness on that metric plus 2^-8; lse
     (real rows) 1e-5 absolute; float32 1e-5 (out) and 1e-4 (dq, dk, dv)
-    absolute. Rows that see no key must be exactly 0 with lse -1e30. One
-    control per kernel, in every case: the plain walk over the map with
-    the first tile of the late walks dropped (``_drop_first_tile``) must
-    exceed the out, dq, and dk and dv limits. Then timed at the rung
-    beside the plain versions and the aten varlen flash forward and
-    backward (``_flash_attention_forward``/``_backward`` with cum_seq)."""
+    absolute. Rows that see no key must be exactly 0 with lse -1e30, and
+    their dq rows 0; keys that no row sees get dk and dv exactly 0. A
+    second call of the kernels must give bitwise the same outputs (one
+    owner a tile, no atomics). One control per kernel, in every case:
+    the plain walk over the map with the first tile of the late walks
+    dropped (``_drop_first_tile``) must exceed the out, dq, and dk and dv
+    limits. Then timed at the rung beside the plain versions and the aten
+    varlen flash forward and backward (``_flash_attention_forward``/
+    ``_backward`` with cum_seq)."""
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
 
     res = {}
@@ -3636,7 +3663,10 @@ def kernel_flash_varlen(gen) -> dict:
         scale = d ** -0.5
         bf16 = dtype == torch.bfloat16
         got = _varlen_kernel_all(q, k, v, do, cq, ck, causal, scale)
+        again = _varlen_kernel_all(q, k, v, do, cq, ck, causal, scale)
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
         ref = _varlen_plain_all(q, k, v, do, cq, ck, causal, scale)
         errs = _varlen_errs(got, ref, bf16)
         max_abs = {n: max_err(g, r)
@@ -3645,7 +3675,8 @@ def kernel_flash_varlen(gen) -> dict:
                 "tq": sum(lq), "tk": sum(lk), "segments": len(lq),
                 "dtype": str(dtype), "causal": causal,
                 "metric": "tile_rel_l2" if bf16 else "max_abs_err",
-                "err": errs, "max_abs_err": max_abs}
+                "err": errs, "max_abs_err": max_abs,
+                "second_call_bitwise": bitwise}
         if bf16:
             wit = _varlen_errs(_varlen_plain_all(
                 *(_ulp_nudge(t, gen) for t in (q, k, v, do)), cq, ck,
@@ -3663,18 +3694,22 @@ def kernel_flash_varlen(gen) -> dict:
             ctrl.update({n: bad[n] for n in outs})
         line.update({"tol": tols, "control_err": ctrl})
         what = f"flash_varlen {name}"
-        if lk != lq:
-            # q segments whose k segment is empty see no key
-            rows = torch.zeros(sum(lq), dtype=torch.bool, device="cuda")
-            for i, (a, b) in enumerate(zip(lq, lk)):
-                if b == 0:
-                    rows[sum(lq[:i]):sum(lq[:i + 1])] = True
+        rows, keys = _unpartnered(lq, lk, causal)
+        if bool(rows.any()):
             empty_ok = bool((got[0][rows] == 0).all()) and bool(
-                (got[1][:, rows] == -1e30).all())
+                (got[1][:, rows] == -1e30).all()) and bool(
+                (got[2][rows] == 0).all())
             line["empty_rows_exact"] = empty_ok
             check(empty_ok, f"{what}: rows that see no key are not exactly "
-                  "0 with lse -1e30")
+                  "0 with lse -1e30 and dq 0")
+        if bool(keys.any()):
+            keys_ok = bool((got[3][keys] == 0).all()) and bool(
+                (got[4][keys] == 0).all())
+            line["unseen_keys_exact"] = keys_ok
+            check(keys_ok, f"{what}: keys that no row sees do not get dk "
+                  "and dv exactly 0")
         emit(line)
+        check(bitwise, f"{what}: a second call is not bitwise equal")
         bad = _over(errs, tols)
         check(not bad, f"{what}: {bad} over the limits: {errs} > {tols}")
         for kern, outs in VARLEN_CONTROLS.items():
@@ -3684,18 +3719,19 @@ def kernel_flash_varlen(gen) -> dict:
             res = max_abs
         del q, k, v, do, got, ref
     torch.cuda.empty_cache()
-    _varlen_pad_times(gen, 40)
-    _varlen_pad_times(gen, 256)
+    for d in (40, 96, 256):
+        _varlen_pad_times(gen, d)
     return _varlen_times(gen, res)
 
 
 def _varlen_pad_times(gen, d: int) -> None:
     """B11-B13 at head_dim ``d`` on the [1536, 512, 1000] pack (h16,
     bf16, causal) through their wrappers, which zero-pad a width without
-    a kernel (40 -> 64) and slice back, beside the same kernels on
-    operands padded beforehand, the plain versions and the aten varlen
-    flash forward and backward at the true head_dim; the bounds count the
-    true head_dim. One "time" line, ``flash_varlen_d{d}``."""
+    a kernel (40 -> 64; 96 and 256 are built) and slice back, beside the
+    same kernels on operands padded beforehand, the plain versions and
+    the aten varlen flash forward and backward at the true head_dim; the
+    bounds count the true head_dim. One "time" line,
+    ``flash_varlen_d{d}``."""
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
 
     lens, h, dt = [1536, 512, 1000], 16, torch.bfloat16
@@ -3778,7 +3814,10 @@ def _aten_varlen_times(sets, cu, cmax: int, scale: float):
 def _varlen_times(gen, res: dict) -> dict:
     """B11-B13 timed at the rung (CUDA events over 20 calls after 3
     warm-ups, inputs rotating over 4 sets) and by the profiler, beside the
-    plain versions and the aten varlen flash forward and backward."""
+    plain versions and the aten varlen flash forward and backward; then
+    one ``flash_attn_unpadded`` forward + backward through autograd (one
+    block map for the three launches) beside aten's forward + backward."""
+    from paddle_tpu_torch.nn.functional import attention as at
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
 
     lens, h, d, dt = VARLEN_LENS, 16, 128, torch.bfloat16
@@ -3815,8 +3854,8 @@ def _varlen_times(gen, res: dict) -> dict:
 
     times = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
     device = {"fwd": device_ms(fwd, B11_KERNEL),
-              "dq": device_ms(dq, "varlen_bwd_dq_bf16"),
-              "dkv": device_ms(dkv, "varlen_bwd_dkv_bf16")}
+              "dq": device_ms(dq, B12_KERNEL),
+              "dkv": device_ms(dkv, B13_KERNEL)}
     plain = {"fwd": time_ms(plain_fwd, iters=3, warmup=1),
              "bwd": time_ms(plain_bwd, iters=3, warmup=1)}
     lib, lib_err, why = _aten_varlen_times(sets, cu, max(lens), scale)
@@ -3840,6 +3879,25 @@ def _varlen_times(gen, res: dict) -> dict:
               "packed_bwd_plain computes dq, dk and dv",
               "library_note": note,
               "library_out_tile_rel_l2": lib_err})
+
+    def train():
+        q, k, v, do = sets[nxt()][:4]
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out, _ = at.flash_attn_unpadded(*leaves, cu, cu, max(lens),
+                                        max(lens), scale, causal=True)
+        out.backward(do)
+
+    both = None if lib["fwd"] is None else lib["fwd"] + lib["bwd"]
+    emit({"time": "flash_attn_unpadded_train", "h": h, "d": d, "tq": T,
+          "segments": len(lens), "causal": True, "ms": time_ms(train),
+          "kernels_device_ms": device_ms(
+              train, (B11_KERNEL, B12_KERNEL, B13_KERNEL)),
+          "device_ms": device_ms(train, ""),
+          "kernels_bound_ms": sum(r["bound_ms"] for r in rows.values()),
+          "library_ms": both, "library_note": why if both is None else
+          "aten._flash_attention_forward + _backward (cum_seq), apart",
+          "note": "autograd forward + backward: the block map once, "
+          "delta, B11, B12, B13; device_ms counts every kernel"})
     del sets
     torch.cuda.empty_cache()
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}

@@ -37,34 +37,41 @@
 // qslo/qshi/qpos0 and kslo/kshi/kmax) skips the mask, as the reference's
 // lax.cond does; a boundary tile compares each pair's (segment, position)
 // from the map's per-token qmeta and kmeta [2, t_pad]. Rows past tq and
-// keys past tk are zero-filled by predicated cp.async and never stored;
-// they lie in the phantom segment, so no real query or key meets them
-// (the Hopper forward reads them as TMA's zeros).
+// keys past tk are zero-filled by predicated cp.async (the Hopper kernels
+// read them as TMA's zeros) and never stored; they lie in the phantom
+// segment, so no real query or key meets them.
 //
-// bf16 runs on the tensor cores. The forward at head_dim 64, 96 and 128
-// (varlen_fwd_wgmma) is Hopper's: a block owns a 128-row q tile of one
-// head, two consumer warpgroups of 64 rows, and walks 128-key tiles that a
-// producer warpgroup brings in by TMA (a 3-stage k ring, a 2-stage v
-// ring); S = Q K^T and O += P V are wgmma products (P from registers),
-// the softmax of one tile runs beside the P V product of the one before.
-// The forward at 256 and the backward (flash_tiles.cuh: mma.sync m16n8k16
-// with fp32 sums, ldmatrix fragments, a 2-stage cp.async ring): the d256
-// forward and dq blocks own 64 query rows (warp w rows 16w..) over 64-key
-// tiles, the dk/dv block 64 keys over 32-row q tiles; P and dS pass from
-// one product to the next in registers. f32 runs 32 x 32 tiles on the CUDA cores with exact fp32
-// products. The softmax runs in base 2 with f32 statistics. Built for
-// head_dim 64, 96, 128 and 256. At 256, as in B10, the forward and dq
-// compute each 64-key tile of the map in two 32-key sub-tiles, and a
-// dk/dv block owns one half of the head's columns (the grid's head axis
-// doubles; each half recomputes S^T and dP^T), so a warp's accumulators
-// take no more registers than at 128. The wrapper pads lse and the
-// metadata to a multiple of 128 rows, a whole number of every tile.
+// bf16 runs on the tensor cores. At head_dim 64, 96 and 128 all three
+// kernels are Hopper's (wgmma fed by TMA rings, a producer warpgroup whose
+// registers go to two consumer warpgroups by setmaxnreg) and walk one
+// 128 x 128 map. The forward (varlen_fwd_wgmma) owns a 128-row q tile of
+// one head and walks 128-key tiles (a 3-stage k ring, a 2-stage v ring);
+// S = Q K^T and O += P V are wgmma products (P from registers), the
+// softmax of one tile runs beside the P V product of the one before. dq
+// (varlen_bwd_dq_wgmma) owns a 128-row q tile and walks its k tiles as
+// 64-key sub-tiles: S and dP by wgmma m64n64k16, dQ += dS K with dS from
+// registers, dS of one sub-tile formed beside the dQ product of the one
+// before. dk/dv (varlen_bwd_dkv_wgmma) owns 128 keys and walks its q tiles
+// as 64-row sub-tiles: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+// dK += dS^T Q with P^T and dS^T from registers. At 256 the kernels are
+// mma.sync (flash_tiles.cuh: m16n8k16 with fp32 sums, ldmatrix fragments,
+// a 2-stage cp.async ring): the forward and dq blocks own 64 query rows
+// (warp w rows 16w..) over 64-key tiles walked in 32-key sub-tiles, and a
+// dk/dv block owns 64 keys and one half of the head's columns over 32-row
+// q tiles (the grid's head axis doubles; each half recomputes S^T and
+// dP^T), so a warp's accumulators take no more registers than at 128; P
+// and dS pass from one product to the next in registers. f32 runs 32 x 32
+// tiles on the CUDA cores with exact fp32 products. The softmax runs in
+// base 2 with f32 statistics. The wrapper pads lse and the metadata to a
+// multiple of 128 rows, a whole number of every tile.
 //
 // Bounds (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s). At the rung (h 16,
 // d 128, 8 causal segments of 4096, T 32768) there are 1.074 G visible
 // pairs a head-sum: the forward does 550 GFLOP (0.556 ms) against 0.161
-// ms of bytes, dq 825 GFLOP and dk/dv 1.10 TFLOP: operations bound all
-// three. The backward on wgmma is later work.
+// ms of bytes, dq 825 GFLOP (0.834 ms) and dk/dv 1.10 TFLOP (1.112 ms):
+// operations bound all three. Two backward kernels, each output tile
+// written by its one owner with no atomics, recompute S and dP in both:
+// 1.93 TFLOP against the 1.38 of one kernel that sums dq by atomics.
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
 
@@ -187,8 +194,8 @@ __device__ __forceinline__ uint32_t visible_bits(const VarlenParams& p,
   return bits;
 }
 
-// Forward: a block owns 64 query rows of one head and walks its k-tile
-// interval with an online softmax over the visible keys.
+// Forward at D 256: a block owns 64 query rows of one head and walks its
+// k-tile interval with an online softmax over the visible keys.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     varlen_fwd_bf16(const VarlenParams p) {
@@ -551,9 +558,486 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// dq: a block owns 64 query rows of one head and walks the forward map's
-// k-tile interval: S = Q K^T, P = exp(S - lse) on visible pairs, dP = dO
-// V^T, dS = P (dP - delta), dQ += dS K.
+// ------------------------------------------ bf16 backward: wgmma + TMA
+
+// Both backward kernels walk the forward's 128 x 128 map; a block owns a
+// 128-row tile (q rows for dq, keys for dk/dv: 64 a consumer warpgroup)
+// and takes each 128-row tile of its walk as two 64-row sub-tiles, which
+// a ring of 64-row TMA boxes brings in. A 128-row operand is stored as
+// [half][64-column box][64 rows], so half c is warpgroup c's A operand.
+constexpr int kBwdSub = 64;               // rows of a sub-tile
+constexpr int kBwdBox = kBwdSub * 128;    // 8 KB: 64 rows x 64 columns
+constexpr int kBwdMeta = 2 * kBwdSub * 4;  // segments, positions of 64 rows
+constexpr int kDqKStages = 4;             // dq: k ring (held to dQ's product)
+constexpr int kDqVStages = 3;             // dq: v ring
+constexpr int kDkvStages = 4;             // dk/dv: q + dO ring
+constexpr int kDkvStats = 4 * kBwdSub * 4;  // lse, delta, segment, position
+
+template <int D>
+struct BwdTile {
+  static constexpr int kBoxes = (D + 63) / 64;
+  static constexpr int kSub = kBoxes * kBwdBox;  // a 64-row sub-tile
+};
+
+template <int D>
+struct DqSmem {
+  static constexpr int kSub = BwdTile<D>::kSub;
+  // q and dO (128 rows each), the k ring, the v ring, the k sub-tiles'
+  // key metadata, their interior flags, then the barriers
+  static constexpr int kDo = 2 * kSub;
+  static constexpr int kK = 4 * kSub;
+  static constexpr int kV = kK + kDqKStages * kSub;
+  static constexpr int kMeta = kV + kDqVStages * kSub;
+  static constexpr int kFlags = kMeta + kDqKStages * kBwdMeta;
+  static constexpr int kBars = kFlags + 64;
+  static constexpr int kBytes =
+      kBars + (1 + 2 * kDqKStages + 2 * kDqVStages) * 8 + 1024;  // + align
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kSub = BwdTile<D>::kSub;
+  // k and v (128 rows each), the ring of q and dO sub-tiles, the stages'
+  // per-row statistics and interior flags, then the barriers
+  static constexpr int kV = 2 * kSub;
+  static constexpr int kRing = 4 * kSub;
+  static constexpr int kStats = kRing + kDkvStages * 2 * kSub;
+  static constexpr int kFlags = kStats + kDkvStages * kDkvStats;
+  static constexpr int kBars = kFlags + 64;
+  static constexpr int kBytes =
+      kBars + (1 + 2 * kDkvStages) * 8 + 1024;  // + align
+};
+
+// the 1 KB-aligned start of a kernel's dynamic shared memory
+__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
+  return raw + ((1024 - (hp::smem_u32(raw) & 1023)) & 1023);
+}
+
+// rows r0 .. r0 + 127 of head hi of a rank-3 [t, h, D] map (64-row boxes)
+// into a 128-row operand [half][box][64 rows]
+template <int D>
+__device__ __forceinline__ void tma_rows128(unsigned char* dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int hi, int r0) {
+  constexpr int kB = BwdTile<D>::kBoxes;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int b = 0; b < kB; ++b)
+      hp::tma_load_3d(dst + (c * kB + b) * kBwdBox, map, bar, 64 * b, hi,
+                      r0 + 64 * c);
+}
+
+// a 64-row sub-tile from row r0 into [box][64 rows]
+template <int D>
+__device__ __forceinline__ void tma_rows64(unsigned char* dst,
+                                           const CUtensorMap* map,
+                                           uint64_t* bar, int hi, int r0) {
+#pragma unroll
+  for (int b = 0; b < BwdTile<D>::kBoxes; ++b)
+    hp::tma_load_3d(dst + b * kBwdBox, map, bar, 64 * b, hi, r0);
+}
+
+// acc[64 x 64] = A (64 rows, K-major over D, a [box][64 rows] operand) B^T
+// (B a 64-row sub-tile, K-major over D): S = Q K^T and its kin, D / 16
+// k-steps of m64n64k16
+template <int D>
+__device__ __forceinline__ void wgmma_abt64(float (&acc)[32],
+                                            const unsigned char* a,
+                                            const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = kk / 4 * kBwdBox + (kk % 4) * 32;
+    hp::wgmma_m64n64k16<0>(acc, hp::desc_sw128(a + off, 16, 1024),
+                           hp::desc_sw128(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc[64 x D] += X (64 x 64, register fragments x[4][4]) B (a 64-row
+// sub-tile read N-major: rows are k, columns D): dQ += dS K, dV += P^T dO,
+// dK += dS^T Q. At D 96 the second box's columns 96.. are TMA's zeros and
+// the product runs at n96.
+template <int D>
+__device__ __forceinline__ void wgmma_xb64(float (&acc)[D / 2],
+                                           const uint32_t (&x)[4][4],
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hp::wgmma_rs<D>(acc, x[kk], hp::desc_sw128(b + kk * 2048, kBwdBox, 1024),
+                    1);
+}
+
+// a consumer's 64 x D accumulator (rows r0 + 16w + g + 8h, columns 8j + 2t
+// + e), times `mul`, as bf16 rows of a contiguous [n, h, D] array; rows at
+// or past n are not stored
+template <int D>
+__device__ __forceinline__ void store_acc(const VarlenParams& p, void* dst,
+                                          int n, int hi, int r0,
+                                          const float (&acc)[D / 2],
+                                          float mul) {
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + g + 8 * h;
+    if (row >= n) continue;
+    bf16* out = static_cast<bf16*>(dst) + packed_at<D>(p, row, hi);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul,
+                                acc[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+// dq on Hopper: a block owns a 128-row q tile of one head (two consumer
+// warpgroups of 64 rows) and walks its k-tile interval of the forward map
+// in 64-key sub-tiles. A producer warpgroup (one thread issues; its
+// registers go to the consumers) loads q and dO once and keeps a k ring
+// and a v ring full; a k stage also carries its keys' segments and
+// positions (bulk copies) and the tile pair's interior flag. A
+// warpgroup's iteration s issues S(s) = Q K(s)^T and dP(s) = dO V(s)^T
+// (wgmma m64n64k16, all operands K-major in shared memory), then dQ +=
+// dS(s-1) K(s-1) (m64nDk16, dS from registers as bf16 pairs, k N-major),
+// and forms dS(s) = P (dP - delta), P = exp(S - lse) on visible pairs,
+// while that product runs: on a boundary tile the scores of pairs that are
+// not visible go to -inf first, an interior tile skips that pass (folded
+// into the exponent loop of every tile, it made a first design much
+// slower). A v stage is released once dP is done, a k stage once its dQ
+// product is. One block a (tile, head), heads slowest: the blocks in
+// flight share one or two heads' k and v. Heads fastest was slower, and
+// so was a persistent walk (one block an SM taking the tiles in a static
+// round robin, q and dO double-buffered): the hardware's block scheduler
+// balances the walks' lengths better than the round robin.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    varlen_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap dmap,
+                        const VarlenParams p) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1k(smem_raw);
+  unsigned char* sq = smem;
+  unsigned char* sdo = smem + L::kDo;
+  unsigned char* sk = smem + L::kK;                     // [k stages] subs
+  unsigned char* sv = smem + L::kV;                     // [v stages] subs
+  int* meta = reinterpret_cast<int*>(smem + L::kMeta);  // [k st][2][64]
+  int* flags = reinterpret_cast<int*>(smem + L::kFlags);  // [k stages]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* kempty = kfull + kDqKStages;
+  uint64_t* vfull = kempty + kDqKStages;
+  uint64_t* vempty = vfull + kDqVStages;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(qfull, 1);
+    for (int s = 0; s < kDqKStages; ++s) {
+      hp::mbar_init(&kfull[s], 1);
+      hp::mbar_init(&kempty[s], kFwdConsumers);
+    }
+    for (int s = 0; s < kDqVStages; ++s) {
+      hp::mbar_init(&vfull[s], 1);
+      hp::mbar_init(&vempty[s], kFwdConsumers);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  // heads slowest: the blocks in flight share one or two heads' k and v
+  const int hi = blockIdx.y, i = p.order[blockIdx.x];
+  const int q0 = i * kFwdM, ks = p.start[i], n = 2 * p.len[i];
+
+  if (threadIdx.x >= kFwdConsumers) {
+    hp::reg_dealloc<24>();
+    if (threadIdx.x != kFwdConsumers || n == 0) return;
+    hp::mbar_arrive_expect_tx(qfull, 4 * L::kSub);
+    tma_rows128<D>(sq, &qmap, qfull, hi, q0);
+    tma_rows128<D>(sdo, &dmap, qfull, hi, q0);
+    for (int s = 0; s < n; ++s) {
+      const int kst = s % kDqKStages, vst = s % kDqVStages;
+      const int j = ks + s / 2, k0 = j * kFwdN + (s % 2) * kBwdSub;
+      hp::mbar_wait(&kempty[kst], ((s / kDqKStages) & 1) ^ 1);
+      // released by the arrive below, read after the consumers' wait
+      flags[kst] = interior(p, i, j);
+      int* m = meta + kst * 2 * kBwdSub;
+      hp::mbar_arrive_expect_tx(&kfull[kst], L::kSub + kBwdMeta);
+      tma_rows64<D>(sk + kst * L::kSub, &kmap, &kfull[kst], hi, k0);
+      hp::bulk_load(m, p.kmeta + k0, kBwdMeta / 2, &kfull[kst]);
+      hp::bulk_load(m + kBwdSub, p.kmeta + p.tk_pad + k0, kBwdMeta / 2,
+                    &kfull[kst]);
+      hp::mbar_wait(&vempty[vst], ((s / kDqVStages) & 1) ^ 1);
+      hp::mbar_arrive_expect_tx(&vfull[vst], L::kSub);
+      tma_rows64<D>(sv + vst * L::kSub, &vmap, &vfull[vst], hi, k0);
+    }
+    return;
+  }
+  hp::reg_alloc<240>();
+
+  // consumers: warpgroup c owns rows q0 + 64c ..; this thread rows row0
+  // and row0 + 8, key columns 8j + 2t (+1) of each sub-tile
+  const int c = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + c * 64 + warp * 16 + g;
+  const float sl2 = p.scale * kLog2e;
+  int qs[2], qp[2];
+  float nl2[2], dl[2];  // -lse (floored) in base 2, delta
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + h * 8;
+    const int64_t at = static_cast<int64_t>(hi) * p.tq_pad + row;
+    qs[h] = p.qmeta[row];
+    qp[h] = p.qmeta[p.tq_pad + row];
+    nl2[h] = -fmaxf(p.lse[at], kNegSafe) * kLog2e;
+    dl[h] = p.delta[at];
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+  float sc[32], dp[32];
+  uint32_t dsa[4][4];
+  const unsigned char* qa = sq + c * L::kSub;  // this group's 64 rows
+  const unsigned char* da = sdo + c * L::kSub;
+  if (n > 0) hp::mbar_wait(qfull, 0);
+  // iteration s: S(s), dP(s) for s < n; dQ += dS(s-1) K(s-1) for s > 0
+  for (int s = 0; s <= n; ++s) {
+    const int kst = s % kDqKStages, vst = s % kDqVStages;
+    const int kst1 = (s + kDqKStages - 1) % kDqKStages;
+    hp::fence_operands(sc);
+    hp::fence_operands(dp);
+    hp::fence_operands(dq);
+    if (s < n) {
+      hp::mbar_wait(&kfull[kst], (s / kDqKStages) & 1);
+      hp::mbar_wait(&vfull[vst], (s / kDqVStages) & 1);
+      hp::wgmma_fence();
+      wgmma_abt64<D>(sc, qa, sk + kst * L::kSub);
+      wgmma_abt64<D>(dp, da, sv + vst * L::kSub);
+      hp::wgmma_commit();
+    }
+    if (s > 0) {
+      hp::wgmma_fence();
+      wgmma_xb64<D>(dq, dsa, sk + kst1 * L::kSub);
+      hp::wgmma_commit();
+    }
+    if (s < n) {
+      if (s > 0)
+        hp::wgmma_wait<1>();  // S(s), dP(s) done; dQ's product may run
+      else
+        hp::wgmma_wait<0>();
+      hp::fence_operands(sc);
+      hp::fence_operands(dp);
+      hp::mbar_arrive(&vempty[vst]);
+      if (!flags[kst]) {
+        // a boundary tile: scores of pairs that are not visible to -inf
+        const int* ksg = meta + kst * 2 * kBwdSub + 2 * t;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int2 sk2 = *reinterpret_cast<const int2*>(ksg + 8 * jj);
+          const int2 pk2 =
+              *reinterpret_cast<const int2*>(ksg + kBwdSub + 8 * jj);
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int h = cc >> 1;
+            if (!visible(p, qs[h], qp[h], cc & 1 ? sk2.y : sk2.x,
+                         cc & 1 ? pk2.y : pk2.x))
+              sc[4 * jj + cc] = -INFINITY;
+          }
+        }
+      }
+      // dS = P (dP - delta) in sc, P = exp(S - lse) (-inf: 0)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int h = (e >> 1) & 1;
+        sc[e] = ex2(fmaf(sc[e], sl2, nl2[h])) * (dp[e] - dl[h]);
+      }
+    }
+    if (s > 0) {
+      hp::wgmma_wait<0>();
+      hp::fence_operands(dq);
+      hp::fence_operands(dsa);
+      hp::mbar_arrive(&kempty[kst1]);  // K(s-1) read by its dQ product
+    }
+    if (s < n) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2)
+        dsa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
+    }
+  }
+  store_acc<D>(p, p.out, p.tq, hi, q0 + c * 64, dq, p.scale);
+}
+
+// dk/dv on Hopper: a block owns 128 keys of one head (two consumer
+// warpgroups of 64 keys) and walks its q-tile interval of the transposed
+// map in 64-row sub-tiles. The producer warpgroup loads k and v once and
+// keeps one ring full: a stage holds 64 rows of q and of dO and those
+// rows' lse, delta, segment and position (bulk copies), and the tile
+// pair's interior flag. A warpgroup's iteration issues S^T = K Q^T and
+// dP^T = V dO^T (wgmma m64n64k16), forms P^T on visible pairs (the mask
+// pass on boundary tiles only, as in dq) and issues dV += P^T dO
+// (m64nDk16, P^T from registers, dO N-major), forms dS^T = P^T (dP^T -
+// delta) while that product runs and issues dK += dS^T Q. The next
+// iteration's S^T and dP^T queue behind those products; a stage is
+// released once they are done.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    varlen_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap dmap,
+                         const VarlenParams p) {
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1k(smem_raw);
+  unsigned char* sk = smem;
+  unsigned char* sv = smem + L::kV;
+  unsigned char* ring = smem + L::kRing;  // [stage][q, dO][sub-tile]
+  float* stats = reinterpret_cast<float*>(smem + L::kStats);  // [st][4][64]
+  int* flags = reinterpret_cast<int*>(smem + L::kFlags);      // [stages]
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + kDkvStages;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(kvfull, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kFwdConsumers);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  const int hi = blockIdx.y, j = p.order[blockIdx.x];
+  const int k0 = j * kFwdN, qs0 = p.start[j], n = 2 * p.len[j];
+
+  if (threadIdx.x >= kFwdConsumers) {
+    hp::reg_dealloc<24>();
+    if (threadIdx.x != kFwdConsumers || n == 0) return;
+    hp::mbar_arrive_expect_tx(kvfull, 4 * L::kSub);
+    tma_rows128<D>(sk, &kmap, kvfull, hi, k0);
+    tma_rows128<D>(sv, &vmap, kvfull, hi, k0);
+    for (int s = 0; s < n; ++s) {
+      const int st = s % kDkvStages, tt = qs0 + s / 2;
+      const int r0 = tt * kFwdM + (s % 2) * kBwdSub;
+      hp::mbar_wait(&empty[st], ((s / kDkvStages) & 1) ^ 1);
+      flags[st] = interior(p, tt, j);
+      unsigned char* stage = ring + st * 2 * L::kSub;
+      float* sst = stats + st * 4 * kBwdSub;
+      const int64_t plane = static_cast<int64_t>(hi) * p.tq_pad + r0;
+      hp::mbar_arrive_expect_tx(&full[st], 2 * L::kSub + kDkvStats);
+      tma_rows64<D>(stage, &qmap, &full[st], hi, r0);
+      tma_rows64<D>(stage + L::kSub, &dmap, &full[st], hi, r0);
+      hp::bulk_load(sst, p.lse + plane, kBwdSub * 4, &full[st]);
+      hp::bulk_load(sst + kBwdSub, p.delta + plane, kBwdSub * 4, &full[st]);
+      hp::bulk_load(sst + 2 * kBwdSub, p.qmeta + r0, kBwdSub * 4, &full[st]);
+      hp::bulk_load(sst + 3 * kBwdSub, p.qmeta + p.tq_pad + r0, kBwdSub * 4,
+                    &full[st]);
+    }
+    return;
+  }
+  hp::reg_alloc<240>();
+
+  // consumers: warpgroup c owns keys k0 + 64c ..; this thread keys key0
+  // and key0 + 8, q columns 8j + 2t (+1) of each sub-tile
+  const int c = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + c * 64 + warp * 16 + g;
+  const float sl2 = p.scale * kLog2e;
+  int ksg[2], kps[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ksg[h] = p.kmeta[key0 + h * 8];
+    kps[h] = p.kmeta[p.tk_pad + key0 + h * 8];
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+  float sc[32], dp[32];
+  uint32_t pa[4][4], dsa[4][4];
+  const unsigned char* ka = sk + c * L::kSub;  // this group's 64 keys
+  const unsigned char* va = sv + c * L::kSub;
+  if (n > 0) hp::mbar_wait(kvfull, 0);
+  for (int s = 0; s < n; ++s) {
+    const int st = s % kDkvStages;
+    const unsigned char* qt = ring + st * 2 * L::kSub;
+    const unsigned char* dot = qt + L::kSub;
+    hp::fence_operands(sc);
+    hp::fence_operands(dp);
+    hp::mbar_wait(&full[st], (s / kDkvStages) & 1);
+    hp::wgmma_fence();
+    wgmma_abt64<D>(sc, ka, qt);   // S^T
+    wgmma_abt64<D>(dp, va, dot);  // dP^T
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();  // also the products of iteration s - 1
+    hp::fence_operands(sc);
+    hp::fence_operands(dp);
+    hp::fence_operands(dk);
+    hp::fence_operands(dv);
+    hp::fence_operands(pa);
+    hp::fence_operands(dsa);
+    if (s > 0) hp::mbar_arrive(&empty[(s + kDkvStages - 1) % kDkvStages]);
+    // this thread's q columns of the stage: 8jj + 2t (+1)
+    const float* sst = stats + st * 4 * kBwdSub + 2 * t;
+    if (!flags[st]) {
+      // a boundary tile: scores of pairs that are not visible to -inf
+      const int* qsg = reinterpret_cast<const int*>(sst + 2 * kBwdSub);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int2 sq2 = *reinterpret_cast<const int2*>(qsg + 8 * jj);
+        const int2 pq2 =
+            *reinterpret_cast<const int2*>(qsg + kBwdSub + 8 * jj);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int h = cc >> 1;
+          if (!visible(p, cc & 1 ? sq2.y : sq2.x, cc & 1 ? pq2.y : pq2.x,
+                       ksg[h], kps[h]))
+            sc[4 * jj + cc] = -INFINITY;
+        }
+      }
+    }
+    // P^T = exp(S^T - lse) (-inf: 0), rounded to bf16 fragments
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sst + 8 * jj);
+      const float nl0 = -fmaxf(l2.x, kNegSafe) * kLog2e;
+      const float nl1 = -fmaxf(l2.y, kNegSafe) * kLog2e;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        sc[4 * jj + cc] = ex2(fmaf(sc[4 * jj + cc], sl2, cc & 1 ? nl1 : nl0));
+    }
+#pragma unroll
+    for (int e = 0; e < 32; e += 2)
+      pa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
+    hp::wgmma_fence();
+    wgmma_xb64<D>(dv, pa, dot);  // dV's product runs while dS^T is formed
+    hp::wgmma_commit();
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(sst + kBwdSub + 8 * jj);
+#pragma unroll
+      for (int cc = 0; cc < 4; cc += 2) {
+        const int e = 4 * jj + cc;
+        dsa[e / 8][(e % 8) / 2] = pack_bf16(sc[e] * (dp[e] - d2.x),
+                                            sc[e + 1] * (dp[e + 1] - d2.y));
+      }
+    }
+    hp::wgmma_fence();
+    wgmma_xb64<D>(dk, dsa, qt);
+    hp::wgmma_commit();
+  }
+  hp::wgmma_wait<0>();
+  hp::fence_operands(dk);
+  hp::fence_operands(dv);
+  hp::fence_operands(pa);
+  hp::fence_operands(dsa);
+  store_acc<D>(p, p.dk, p.tk, hi, k0 + c * 64, dk, p.scale);
+  store_acc<D>(p, p.dv, p.tk, hi, k0 + c * 64, dv, 1.f);
+}
+
+// dq at D 256: a block owns 64 query rows of one head and walks the
+// forward map's k-tile interval: S = Q K^T, P = exp(S - lse) on visible
+// pairs, dP = dO V^T, dS = P (dP - delta), dQ += dS K.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     varlen_bwd_dq_bf16(const VarlenParams p) {
@@ -631,10 +1115,10 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<D>(p, p.out, p.tq, hi, q0 + warp * 16, dq, mul);
 }
 
-// dk/dv: a block owns 64 keys of one head (warp w keys 16w..) and kC of
-// their D columns, and walks the transposed map's interval of 32-row q
-// tiles: S^T = K Q^T, P^T on visible pairs, dV += P^T dO, dP^T = V dO^T,
-// dS^T = P^T (dP^T - delta), dK += dS^T Q.
+// dk/dv at D 256: a block owns 64 keys of one head (warp w keys 16w..)
+// and kC of their D columns, and walks the transposed map's interval of
+// 32-row q tiles: S^T = K Q^T, P^T on visible pairs, dV += P^T dO, dP^T
+// = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     varlen_bwd_dkv_bf16(const VarlenParams p) {
@@ -862,12 +1346,14 @@ __global__ void __launch_bounds__(kThreads)
       sds[r * (kT + 1) + c] = ds;
     }
     __syncwarp();
+    // key by key, one dS a step (the sums in the same order as column by
+    // column, with fewer values held: a column-outer loop spilled at D 96)
+#pragma unroll 4
+    for (int c = 0; c < kT; ++c) {
+      const float ds = sds[r * (kT + 1) + c];
+      const float* kc = sk + c * kPitch + qd;
 #pragma unroll
-    for (int e = 0; e < D / 4; ++e) {
-      float acc = dq[e];
-      for (int c = 0; c < kT; ++c)
-        acc = fmaf(sds[r * (kT + 1) + c], sk[c * kPitch + e * 4 + qd], acc);
-      dq[e] = acc;
+      for (int e = 0; e < D / 4; ++e) dq[e] = fmaf(ds, kc[e * 4], dq[e]);
     }
   }
   store_cols_f32<D>(p, p.out, p.tq, hi, row, dq, p.scale);
@@ -975,15 +1461,15 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 }
 
 // a rank-3 map over a [t, h, D] bf16 operand with row and head strides ss,
-// sh (elements): boxes of 64 columns x 1 head x 128 rows
+// sh (elements): boxes of 64 columns x 1 head x `rows` rows
 int make_rows_map(CUtensorMap* map, const void* base, int t, int h, int d,
-                  int64_t ss, int64_t sh) {
+                  int64_t ss, int64_t sh, int rows = 128) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(t)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(ss) * 2};
-  const cuuint32_t box[3] = {64, 1, 128};
+  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(rows)};
   return hp::make_map_bf16(map, base, 3, dims, strides, box);
 }
 
@@ -1003,33 +1489,62 @@ int launch_fwd_wgmma(const VarlenParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// B12 or B13 on Hopper: one block per (128-row tile, head), heads slowest;
+// q, k, v and dO through maps of 64-row boxes
+template <int D>
+int launch_bwd_wgmma(int which, const VarlenParams& p, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap, dmap;
+  const int64_t dss = static_cast<int64_t>(p.h) * D;
+  int err = make_rows_map(&qmap, p.q, p.tq, p.h, D, p.qss, p.qsh, kBwdSub);
+  if (!err)
+    err = make_rows_map(&kmap, p.k, p.tk, p.h, D, p.kss, p.ksh, kBwdSub);
+  if (!err)
+    err = make_rows_map(&vmap, p.v, p.tk, p.h, D, p.vss, p.vsh, kBwdSub);
+  if (!err)
+    err = make_rows_map(&dmap, p.dout, p.tq, p.h, D, dss, D, kBwdSub);
+  if (err) return err;
+  const auto kernel =
+      which == kDq ? &varlen_bwd_dq_wgmma<D> : &varlen_bwd_dkv_wgmma<D>;
+  const int bytes = which == kDq ? DqSmem<D>::kBytes : DkvSmem<D>::kBytes;
+  const int tiles = (which == kDq ? p.tq_pad : p.tk_pad) / kFwdM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(tiles, p.h), kFwdThreads, bytes, stream>>>(qmap, kmap, vmap,
+                                                            dmap, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int dispatch(int which, int dtype, const VarlenParams& p,
              cudaStream_t stream) {
-  const bool bf = dtype == ptt::kBF16;
-  const size_t smem = smem_bytes<D>(which, bf);
-  // one block per (head, tile): 64-row tiles in bf16 (the dk/dv walk owns
-  // 64 keys), 32 in f32
-  const int tile = bf ? 64 : kT;
-  if (which == kFwd) {
-    const dim3 grid(p.h, p.tq_pad / tile);
-    if (!bf) return launch(varlen_fwd_f32<D>, grid, smem, stream, p);
-    // bf16: wgmma over 128 x 128 tiles up to D 128; mma.sync over 64 x 64
-    // at D 256, where a consumer's 64 x 256 fp32 output (128 registers a
-    // thread) beside S and P (96) would not fit setmaxnreg's 240
-    if constexpr (D <= 128) return launch_fwd_wgmma<D>(p, stream);
-    else return launch(varlen_fwd_bf16<D>, grid, smem, stream, p);
+  const size_t smem = smem_bytes<D>(which, dtype == ptt::kBF16);
+  if (dtype != ptt::kBF16) {  // f32: one block per (head, 32-row tile)
+    const dim3 grid(p.h, (which == kDkv ? p.tk_pad : p.tq_pad) / kT);
+    if (which == kFwd) return launch(varlen_fwd_f32<D>, grid, smem, stream, p);
+    if (which == kDq)
+      return launch(varlen_bwd_dq_f32<D>, grid, smem, stream, p);
+    return launch(varlen_bwd_dkv_f32<D>, grid, smem, stream, p);
   }
-  if (which == kDq) {
-    const dim3 grid(p.h, p.tq_pad / tile);
-    return bf ? launch(varlen_bwd_dq_bf16<D>, grid, smem, stream, p)
-              : launch(varlen_bwd_dq_f32<D>, grid, smem, stream, p);
+  // bf16: wgmma over the 128 x 128 map up to D 128; mma.sync over 64-row
+  // tiles at D 256, where a consumer's 64 x 256 fp32 output (128 registers
+  // a thread) beside S and P, or its dK beside dV, would not fit
+  // setmaxnreg's 240
+  if constexpr (D <= 128) {
+    return which == kFwd ? launch_fwd_wgmma<D>(p, stream)
+                         : launch_bwd_wgmma<D>(which, p, stream);
+  } else {
+    if (which == kFwd)
+      return launch(varlen_fwd_bf16<D>, dim3(p.h, p.tq_pad / 64), smem,
+                    stream, p);
+    if (which == kDq)
+      return launch(varlen_bwd_dq_bf16<D>, dim3(p.h, p.tq_pad / 64), smem,
+                    stream, p);
+    // one block per (head, kCols columns, 64 keys)
+    return launch(varlen_bwd_dkv_bf16<D>,
+                  dim3(p.h * (D / TileBf16<D>::kCols), p.tk_pad / 64), smem,
+                  stream, p);
   }
-  // bf16: one block per (head, kCols columns, 64 keys)
-  const dim3 grid(bf ? p.h * (D / TileBf16<D>::kCols) : p.h,
-                  p.tk_pad / tile);
-  return bf ? launch(varlen_bwd_dkv_bf16<D>, grid, smem, stream, p)
-            : launch(varlen_bwd_dkv_f32<D>, grid, smem, stream, p);
 }
 
 int run(int which, int dtype, int d, const VarlenParams& p, void* stream) {

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's kernels: TMA tensor maps,
 // tile loads and stores and 1-D bulk copies, mbarriers, named barriers,
 // setmaxnreg, and the bf16 wgmma products (both operands from shared
-// memory, either of them transposed; or A from registers) with their
-// descriptors.
+// memory at n64, n128 and n256, either of them transposed; or A from
+// registers at n64, n96 and n128) with their descriptors.
 //
 // Tensor maps are encoded on the host for each call by the driver's
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry
@@ -218,6 +218,16 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for register-A fragments, which a product reads until its
+// wait
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
+}
+
 // The products, bf16 in, fp32 accumulators. Accumulator layout of
 // m64nNk16 (warp w of the warpgroup, lane l): d[4j + 2h + e] is row
 // 16w + l/4 + 8h, column 8j + 2(l%4) + e.
@@ -259,6 +269,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], as the n128 product
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 

@@ -14,7 +14,8 @@ equals the JAX map's. ``PackedFlashFunction`` (the JAX ``_packed_core``
 custom VJP) runs, on a CUDA tensor, kernel B11 (forward: ``out`` and an
 f32 ``lse``) and, in its backward, ``delta = sum(dout * out)`` as a
 PyTorch reduction, then B12 (dq over the forward map) and B13 (dk, dv
-over the transposed map), all in ``csrc/flash_varlen_packed.cu``; on a
+over the transposed map), all in ``csrc/flash_varlen_packed.cu``; the
+three walk one map (``CardMaps``), built once a training call; on a
 CPU tensor it runs the plain versions ``_packed_fwd_plain`` and
 ``_packed_bwd_plain``, the tile walks of the JAX ``_packed_fwd_xla`` and
 ``_packed_bwd_xla`` in f32 and O(T·d) memory (no ``[T, T]`` tensor). A
@@ -55,7 +56,8 @@ import torch
 from ... import _kernels
 
 __all__ = ["paged_prefill_attention", "prefill_grid", "varlen_block_map",
-           "BlockMap", "PREFILL_MMA_HEAD_DIMS",
+           "BlockMap", "CardMap", "CardMaps", "card_tile", "card_grid",
+           "PREFILL_MMA_HEAD_DIMS",
            "flash_varlen_packed", "PackedFlashFunction", "packed_fwd",
            "packed_bwd", "packed_fwd_plain", "packed_bwd_plain",
            "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "VARLEN_HEAD_DIMS"]
@@ -232,15 +234,16 @@ _NEG_SAFE = -5e29     # lse floor in the backward: exp(_NEG - it) is 0
 #: card
 VARLEN_HEAD_DIMS = (64, 96, 128, 256)
 #: the kernels' tiles, (q rows, keys), of the forward, dq and dk/dv walks
-#: by dtype (the bf16 forward at head_dim 256 keeps 64 x 64:
-#: ``_WIDE_FWD_TILE``); lse, delta and the per-token metadata are padded
-#: to a multiple of ``_CARD_PAD`` rows, a whole number of every tile, so
-#: the forward writes every row of the lse that B12/B13 read
-_CARD_TILES = {torch.bfloat16: {"fwd": (128, 128), "dq": (64, 64),
-                                "dkv": (32, 64)},
+#: by dtype: one tile of all three, so a forward and its backward walk one
+#: map (the bf16 kernels at head_dim 256 keep the mma.sync tiles:
+#: ``_WIDE_TILES``); lse, delta and the per-token metadata are padded to a
+#: multiple of ``_CARD_PAD`` rows, a whole number of every tile, so the
+#: forward writes every row of the lse that B12/B13 read
+_CARD_TILES = {torch.bfloat16: {"fwd": (128, 128), "dq": (128, 128),
+                                "dkv": (128, 128)},
                torch.float32: {"fwd": (32, 32), "dq": (32, 32),
                                "dkv": (32, 32)}}
-_WIDE_FWD_TILE = (64, 64)
+_WIDE_TILES = {"fwd": (64, 64), "dq": (64, 64), "dkv": (32, 64)}
 _CARD_PAD = 128
 _BACKENDS = ("auto", "pallas", "interpret", "xla")
 
@@ -598,9 +601,24 @@ def _card_pad(n: int) -> int:
 def card_tile(kernel: str, dtype, head_dim: int) -> tuple:
     """``(q rows, keys)`` of a kernel's walk on the card: ``kernel`` is
     ``"fwd"`` (B11), ``"dq"`` (B12) or ``"dkv"`` (B13)."""
-    if kernel == "fwd" and dtype == torch.bfloat16 and head_dim > 128:
-        return _WIDE_FWD_TILE
+    if dtype == torch.bfloat16 and head_dim > 128:
+        return _WIDE_TILES[kernel]
     return _CARD_TILES[dtype][kernel]
+
+
+def card_grid(kernel: str, dtype, head_dim: int, tq_pad: int, tk_pad: int,
+              h: int) -> tuple:
+    """``(x, y)`` of a kernel's launch grid, as the C dispatch sets it: the
+    wgmma kernels (bf16 at head_dim <= 128) one block per (tile, head),
+    heads slowest; the others (head, tile), the bf16 dk/dv kernel at 256
+    with two column halves a head. Tiles are q tiles, or k tiles for
+    ``"dkv"``, of ``card_tile``."""
+    bq, bk = card_tile(kernel, dtype, head_dim)
+    tiles = tk_pad // bk if kernel == "dkv" else tq_pad // bq
+    if dtype == torch.bfloat16 and head_dim <= 128:
+        return tiles, h
+    halves = 2 if dtype == torch.bfloat16 and kernel == "dkv" else 1
+    return h * halves, tiles
 
 
 def _check_packed(what, q, k, v):
@@ -622,10 +640,12 @@ def _check_packed(what, q, k, v):
             raise ValueError(f"{what}: q, k and v must share device and "
                              "dtype")
     _kernels.dtype_code(q, what)
-    tile = _CARD_TILES[q.dtype]["dq"][0]   # dq's and dk/dv's grid axis
-    if max(_card_pad(tq), _card_pad(k.shape[0])) // tile > 65535:
-        raise ValueError(f"{what}: more than 65535 tiles of {tile} rows "
-                         "(the grid's second axis)")
+    for kernel in ("fwd", "dq", "dkv"):
+        grid = card_grid(kernel, q.dtype, d, _card_pad(tq),
+                         _card_pad(k.shape[0]), h)
+        if grid[1] > 65535:
+            raise ValueError(f"{what}: the {kernel} kernel's grid {grid} "
+                             "has more than 65535 blocks on its second axis")
 
 
 def _strided(t):
@@ -638,24 +658,63 @@ def _strided(t):
     return t
 
 
-def _card_map(cu_q, cu_k, tq: int, tk: int, tile: tuple, causal: bool,
-              transposed: bool):
-    """``(map pointers, tq_pad, tk_pad, keep-alive)`` for a kernel: the
-    block map at the kernel's ``tile`` (``card_tile``), its 11 int32
-    arrays in the C order (order, start, len, qslo, qshi, qpos0, kslo,
-    kshi, kmax, qmeta, kmeta), ``order`` the walked tiles longest walk
-    first."""
-    bq, bk = tile
-    tqp, tkp = _card_pad(tq), _card_pad(tk)
-    bm = varlen_block_map(cu_q, cu_k, tqp, tkp, bq, bk, causal)
-    start, length = (bm.qstart2, bm.qlen2) if transposed else \
-        (bm.kstart, bm.klen)
-    order = torch.argsort(length, descending=True, stable=True) \
-        .to(torch.int32)
-    arrays = [t.contiguous() for t in (
-        order, start, length, bm.qslo, bm.qshi, bm.qpos0, bm.kslo, bm.kshi,
-        bm.kmax, bm.qmeta, bm.kmeta)]
-    return [t.data_ptr() for t in arrays], tqp, tkp, arrays
+class CardMap:
+    """The block map at one card tile (``card_tile``), as the kernels read
+    it: int32 arrays on ``cu_seqlens``' device, padded axes ``tq_pad`` and
+    ``tk_pad``. One ``varlen_block_map`` serves both walks: the forward
+    map's (B11, B12: q tiles in ``argsort`` of ``klen``) and the
+    transposed map's (B13: k tiles in ``argsort`` of ``qlen2``); each
+    walk's order is taken at its first use."""
+
+    def __init__(self, cu_q, cu_k, tq: int, tk: int, tile: tuple,
+                 causal: bool):
+        self.tq_pad, self.tk_pad = _card_pad(tq), _card_pad(tk)
+        self.bm = varlen_block_map(cu_q, cu_k, self.tq_pad, self.tk_pad,
+                                   *tile, causal)
+        bm = self.bm
+        self._shared = [t.contiguous() for t in (
+            bm.qslo, bm.qshi, bm.qpos0, bm.kslo, bm.kshi, bm.kmax, bm.qmeta,
+            bm.kmeta)]
+        self._walks = {}
+
+    def arrays(self, transposed: bool) -> list:
+        """A walk's 11 arrays in the C order (order, start, len, qslo,
+        qshi, qpos0, kslo, kshi, kmax, qmeta, kmeta), ``order`` the walked
+        tiles longest walk first; the last eight are the same tensors in
+        both walks."""
+        if transposed not in self._walks:
+            start, length = (self.bm.qstart2, self.bm.qlen2) if transposed \
+                else (self.bm.kstart, self.bm.klen)
+            order = torch.argsort(length, descending=True, stable=True)
+            self._walks[transposed] = [order.to(torch.int32),
+                                       start.contiguous(),
+                                       length.contiguous()]
+        return self._walks[transposed] + self._shared
+
+    def pointers(self, transposed: bool) -> list:
+        return [t.data_ptr() for t in self.arrays(transposed)]
+
+
+class CardMaps:
+    """The card maps of one packing, each built at its first use at a tile
+    and kept. A forward and its backward share one (``PackedFlashFunction``
+    keeps it), so where the three kernels walk one tile (bf16 up to
+    head_dim 128, f32) a training call builds its block map once."""
+
+    def __init__(self, cu_q, cu_k, tq: int, tk: int, causal: bool):
+        self._args = (cu_q, cu_k, tq, tk)
+        self.causal = causal
+        self._maps = {}
+
+    def at(self, tile: tuple) -> CardMap:
+        if tile not in self._maps:
+            self._maps[tile] = CardMap(*self._args, tile, self.causal)
+        return self._maps[tile]
+
+
+def _card_maps(maps, cu_q, cu_k, q, k, causal: bool) -> CardMaps:
+    return maps if maps is not None else CardMaps(cu_q, cu_k, q.shape[0],
+                                                  k.shape[0], causal)
 
 
 def _shape_args(what, q, k, v, tqp, tkp, causal, scale):
@@ -666,19 +725,22 @@ def _shape_args(what, q, k, v, tqp, tkp, causal, scale):
             _kernels.stream_ptr(q.device))
 
 
-def _varlen_fwd_cuda(q, k, v, cu_q, cu_k, causal: bool, scale: float):
-    """B11: ``(out [tq, h, d], lse [h, tq_pad] f32)``, one launch."""
+def _varlen_fwd_cuda(q, k, v, cu_q, cu_k, causal: bool, scale: float,
+                     maps=None):
+    """B11: ``(out [tq, h, d], lse [h, tq_pad] f32)``, one launch, over
+    the map ``maps`` (a ``CardMaps``; one is built when it is None) holds
+    at B11's tile."""
     what = "flash_varlen_packed forward"
     _check_packed(what, q, k, v)
     fn = _kernels.lib("flash_varlen_packed").ptt_flash_varlen_fwd
     q, k, v = _strided(q), _strided(k), _strided(v)
-    ptrs, tqp, tkp, _keep = _card_map(
-        cu_q, cu_k, q.shape[0], k.shape[0],
-        card_tile("fwd", q.dtype, q.shape[2]), causal, False)
+    cm = _card_maps(maps, cu_q, cu_k, q, k, causal).at(
+        card_tile("fwd", q.dtype, q.shape[2]))
+    tqp, tkp = cm.tq_pad, cm.tk_pad
     out = q.new_empty(q.shape)
     lse = q.new_empty((q.shape[1], tqp), dtype=torch.float32)
     _kernels.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), lse.data_ptr(), *ptrs,
+                      out.data_ptr(), lse.data_ptr(), *cm.pointers(False),
                       *_shape_args(what, q, k, v, tqp, tkp, causal, scale)),
                    what)
     global fwd_varlen_launches
@@ -704,54 +766,58 @@ def _bwd_operands(what, q, k, v, dout, lse, delta):
 
 
 def _varlen_bwd_dq_cuda(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
-                        scale: float):
-    """B12: dq ``[tq, h, d]``, one launch over the forward map."""
+                        scale: float, maps=None):
+    """B12: dq ``[tq, h, d]``, one launch over the forward map (of
+    ``maps`` at B12's tile, as ``_varlen_fwd_cuda``)."""
     what = "flash_varlen_packed backward (dq)"
     lib, q, k, v = _bwd_operands(what, q, k, v, dout, lse, delta)
-    ptrs, tqp, tkp, _keep = _card_map(
-        cu_q, cu_k, q.shape[0], k.shape[0],
-        card_tile("dq", q.dtype, q.shape[2]), causal, False)
+    cm = _card_maps(maps, cu_q, cu_k, q, k, causal).at(
+        card_tile("dq", q.dtype, q.shape[2]))
     dq = q.new_empty(q.shape)
     _kernels.check(lib.ptt_flash_varlen_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *ptrs,
-        *_shape_args(what, q, k, v, tqp, tkp, causal, scale)), what)
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *cm.pointers(False),
+        *_shape_args(what, q, k, v, cm.tq_pad, cm.tk_pad, causal, scale)),
+        what)
     global dq_varlen_launches
     dq_varlen_launches += 1
     return dq
 
 
 def _varlen_bwd_dkv_cuda(q, k, v, dout, lse, delta, cu_q, cu_k,
-                         causal: bool, scale: float):
-    """B13: dk and dv ``[tk, h, d]``, one launch over the transposed
-    map."""
+                         causal: bool, scale: float, maps=None):
+    """B13: dk and dv ``[tk, h, d]``, one launch over the transposed map
+    (of ``maps`` at B13's tile, as ``_varlen_fwd_cuda``)."""
     what = "flash_varlen_packed backward (dk, dv)"
     lib, q, k, v = _bwd_operands(what, q, k, v, dout, lse, delta)
-    ptrs, tqp, tkp, _keep = _card_map(
-        cu_q, cu_k, q.shape[0], k.shape[0],
-        card_tile("dkv", q.dtype, q.shape[2]), causal, True)
+    cm = _card_maps(maps, cu_q, cu_k, q, k, causal).at(
+        card_tile("dkv", q.dtype, q.shape[2]))
     dk = k.new_empty(k.shape)
     dv = v.new_empty(v.shape)
     _kernels.check(lib.ptt_flash_varlen_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *ptrs, *_shape_args(what, q, k, v, tqp, tkp, causal, scale)), what)
+        *cm.pointers(True),
+        *_shape_args(what, q, k, v, cm.tq_pad, cm.tk_pad, causal, scale)),
+        what)
     global dkv_varlen_launches
     dkv_varlen_launches += 1
     return dk, dv
 
 
 def _varlen_bwd_cuda(q, k, v, out, lse, dout, cu_q, cu_k, causal: bool,
-                     scale: float):
+                     scale: float, maps=None):
     """``(dq, dk, dv)``: ``delta`` by a PyTorch reduction, then B12 and
-    B13."""
+    B13 over the maps of ``maps`` (the forward's, or one built here for
+    both)."""
     dout = dout.to(q.dtype).contiguous()
     lse = lse.contiguous()
     delta = packed_delta(out, dout, lse.shape[1])
+    maps = _card_maps(maps, cu_q, cu_k, q, k, causal)
     dq = _varlen_bwd_dq_cuda(q, k, v, dout, lse, delta, cu_q, cu_k, causal,
-                             scale)
+                             scale, maps)
     dk, dv = _varlen_bwd_dkv_cuda(q, k, v, dout, lse, delta, cu_q, cu_k,
-                                  causal, scale)
+                                  causal, scale, maps)
     return dq, dk, dv
 
 
@@ -774,45 +840,49 @@ def _route(what: str, backend: str, t) -> str:
 
 def packed_fwd(q, k, v, cu_q, cu_k, *, scale: float, causal: bool,
                block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
-               backend: str = "auto"):
+               backend: str = "auto", maps=None):
     """``(out, lse)``: B11 on a CUDA tensor (its own tiles,
-    ``card_tile``; ``block_q``/``block_k`` tile the plain walk), the plain
-    version on a CPU tensor."""
+    ``card_tile``; ``block_q``/``block_k`` tile the plain walk; the map
+    from ``maps``, a ``CardMaps``, when given), the plain version on a CPU
+    tensor."""
     if _route("flash_varlen_packed", backend, q) == "kernel":
         return padded_fwd(_varlen_fwd_cuda, VARLEN_HEAD_DIMS,
                           "flash_varlen_packed", q, k, v, cu_q, cu_k,
-                          causal, scale)
+                          causal, scale, maps)
     return packed_fwd_plain(q, k, v, cu_q, cu_k, scale=scale, causal=causal,
                             block_q=block_q, block_k=block_k)
 
 
 def packed_bwd(q, k, v, out, lse, dout, cu_q, cu_k, *, scale: float,
                causal: bool, block_q: int = DEFAULT_BLOCK_Q,
-               block_k: int = DEFAULT_BLOCK_K, backend: str = "auto"):
+               block_k: int = DEFAULT_BLOCK_K, backend: str = "auto",
+               maps=None):
     """``(dq, dk, dv)``: ``delta`` by a PyTorch reduction, then B12 and
-    B13 on a CUDA tensor (zero-padded as the forward); the plain version
-    on a CPU tensor."""
+    B13 on a CUDA tensor (zero-padded as the forward; over the maps of
+    ``maps`` when given); the plain version on a CPU tensor."""
     if _route("flash_varlen_packed", backend, q) == "kernel":
         return padded_bwd(_varlen_bwd_cuda, VARLEN_HEAD_DIMS,
                           "flash_varlen_packed", q, k, v, out, lse, dout,
-                          cu_q, cu_k, causal, scale)
+                          cu_q, cu_k, causal, scale, maps)
     return packed_bwd_plain(q, k, v, out, lse, dout, cu_q, cu_k, scale=scale,
                             causal=causal, block_q=block_q, block_k=block_k)
 
 
 class PackedFlashFunction(torch.autograd.Function):
-    """The JAX ``_packed_core`` custom VJP: the forward keeps ``out`` and
-    the f32 ``lse``; the backward runs dq and dk/dv over the block map."""
+    """The JAX ``_packed_core`` custom VJP: the forward keeps ``out``, the
+    f32 ``lse`` and, on the card, its block map (``CardMaps``); the
+    backward runs dq and dk/dv over that map."""
 
     @staticmethod
     def forward(ctx, q, k, v, cu_q, cu_k, causal: bool, scale: float,
                 block_q: int, block_k: int, backend: str):
+        maps = CardMaps(cu_q, cu_k, q.shape[0], k.shape[0], causal)
         out, lse = packed_fwd(q, k, v, cu_q, cu_k, scale=scale,
                               causal=causal, block_q=block_q,
-                              block_k=block_k, backend=backend)
+                              block_k=block_k, backend=backend, maps=maps)
         ctx.save_for_backward(q, k, v, cu_q, cu_k, out, lse)
         ctx.args = dict(scale=scale, causal=causal, block_q=block_q,
-                        block_k=block_k, backend=backend)
+                        block_k=block_k, backend=backend, maps=maps)
         return out
 
     @staticmethod

@@ -2,8 +2,9 @@
 
 The same seeded numpy inputs go to both packages. The block map is pinned
 exactly: every field of ``varlen_block_map`` (``n_active`` included)
-equals the JAX map's, at the TPU's tiles (128, 128) and the card's (64,
-64) and (32, 64). The port's plain versions (the CPU path of
+equals the JAX map's, at the TPU's tiles (128, 128), which the card's
+bf16 kernels share up to head_dim 128, and the card's head_dim-256 tiles
+(64, 64) and (32, 64). The port's plain versions (the CPU path of
 ``flash_varlen_packed``) are held to the JAX tile walks
 ``_packed_fwd_xla`` / ``_packed_bwd_xla`` and to the JAX
 ``flash_attn_unpadded`` under ``jax.vjp``, run as the JAX tests run them
@@ -488,22 +489,25 @@ def test_kernel_path_reads_nothing_back_and_counts_launches(monkeypatch,
 
 
 def test_kernel_map_arrays_follow_the_jax_map():
-    """``_card_map`` hands each kernel the JAX map at its own tile (the
-    bf16 forward at 128 x 128, 64 x 64 at head_dim 256; dq 64 x 64; dk/dv
-    32 x 64; f32 32 x 32) and the order of the longest walks first."""
+    """``CardMap`` hands each kernel the JAX map at its own tile (bf16 at
+    head_dim <= 128: all three at 128 x 128; at 256 the forward and dq 64
+    x 64, dk/dv 32 x 64; f32 32 x 32) and the order of the longest walks
+    first."""
     cq, ck = _pack("ragged")
     for dtype, kernel, d, want_tile in (
             (torch.bfloat16, "fwd", 128, (128, 128)),
             (torch.bfloat16, "fwd", 256, (64, 64)),
-            (torch.bfloat16, "dq", 128, (64, 64)),
-            (torch.bfloat16, "dkv", 128, (32, 64)),
+            (torch.bfloat16, "dq", 128, (128, 128)),
+            (torch.bfloat16, "dkv", 128, (128, 128)),
+            (torch.bfloat16, "dq", 256, (64, 64)),
+            (torch.bfloat16, "dkv", 256, (32, 64)),
             (torch.float32, "fwd", 64, (32, 32))):
         tile = tfv.card_tile(kernel, dtype, d)
         assert tile == want_tile
         transposed = kernel == "dkv"
-        _, tqp, tkp, arrays = tfv._card_map(
-            torch.from_numpy(cq), torch.from_numpy(ck), 454, 454, tile,
-            True, transposed)
+        cm = tfv.CardMap(torch.from_numpy(cq), torch.from_numpy(ck), 454,
+                         454, tile, True)
+        tqp, tkp, arrays = cm.tq_pad, cm.tk_pad, cm.arrays(transposed)
         assert (tqp, tkp) == (512, 512)
         want = jfv.varlen_block_map(jnp.asarray(cq), jnp.asarray(ck), 512,
                                     512, *tile, True)
@@ -542,3 +546,110 @@ def test_head_dim_past_256_names_its_roadmap_item(no_plain_no_kernel):
     cu = _card(torch.tensor([0, 100], dtype=torch.int32))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A13\)"):
         tfv.flash_varlen_packed(q, q, q, cu, cu, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_and_backward_share_one_block_map(monkeypatch, dtype):
+    """One ``flash_attn_unpadded`` forward + backward on the kernel path
+    (the library faked, as above) builds its block map once: one
+    ``varlen_block_map`` call; the three launches get the same pointers
+    for the eight fields both walks share, B11 and B12 the same walk
+    (order, start, len), B13 the transposed walk of that map; nothing is
+    read back to the host."""
+    fake = _FakeLib()
+    monkeypatch.setattr(tfv, "_on_card", lambda t: True)
+    monkeypatch.setattr(_kernels, "lib", lambda name: fake)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    tiles = []
+    build = tfv.varlen_block_map
+
+    def counted(cu_q, cu_k, tqp, tkp, bq, bk, causal):
+        tiles.append((bq, bk))
+        return build(cu_q, cu_k, tqp, tkp, bq, bk, causal)
+    monkeypatch.setattr(tfv, "varlen_block_map", counted)
+    cq, ck = _pack("ragged")
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in
+                   _inputs(int(cq[-1]), int(ck[-1]), 2, 64))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a host read on the kernel path")
+    for name in ("item", "tolist", "__int__", "__bool__", "__float__",
+                 "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    out, _ = tattn.flash_attn_unpadded(q, k, v, torch.from_numpy(cq),
+                                       torch.from_numpy(ck), 260, 260, 0.125,
+                                       causal=True)
+    out.backward(do)
+    monkeypatch.undo()
+    assert tiles == [tfv.card_tile("fwd", dtype, 64)]
+    assert [c[0] for c in fake.calls] == [
+        "ptt_flash_varlen_fwd", "ptt_flash_varlen_bwd_dq",
+        "ptt_flash_varlen_bwd_dkv"]
+    # the 11 map pointers follow 5, 7 and 8 operand pointers
+    fwd, dq, dkv = (args[n:n + 11] for (_, args), n in
+                    zip(fake.calls, (5, 7, 8)))
+    assert fwd == dq
+    assert fwd[3:] == dkv[3:]
+    assert not set(fwd[:3]) & set(dkv[:3])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("pack", ["ragged", "cross_empty"])
+def test_plain_backward_on_the_card_map_matches_jax_packed_core(pack,
+                                                                causal):
+    """The card's kernels walk one 128 x 128 map at bf16 head_dim <= 128
+    (``card_tile`` of B11, B12, B13). The plain forward and backward
+    walking that map (``packed_fwd_plain``/``packed_bwd_plain`` at those
+    tiles) against ``jax.vjp`` of the JAX ``_packed_core`` (its XLA route
+    at the same tiles): out, dq, dk, dv in f32 within 1e-5 of the largest
+    value (sums in another order); rows that see no key exactly 0."""
+    tile = tfv.card_tile("dq", torch.bfloat16, 128)
+    assert tile == (128, 128) == tfv.card_tile("dkv", torch.bfloat16, 128) \
+        == tfv.card_tile("fwd", torch.bfloat16, 128)
+    cq, ck = _pack(pack)
+    arrs = _inputs(int(cq[-1]), int(ck[-1]), 2, 64, seed=5)
+    scale = 0.125
+    out_j, vjp = jax.vjp(lambda q, k, v: jfv._packed_core(
+        q, k, v, jnp.asarray(cq), jnp.asarray(ck), causal, scale, *tile,
+        "xla"), *(jnp.asarray(a) for a in arrs[:3]))
+    want = [np.asarray(out_j), *(np.asarray(g) for g in
+                                 vjp(jnp.asarray(arrs[3])))]
+    q, k, v, do = (torch.from_numpy(a) for a in arrs)
+    cu_q, cu_k = torch.from_numpy(cq), torch.from_numpy(ck)
+    kw = dict(scale=scale, causal=causal, block_q=tile[0], block_k=tile[1])
+    out, lse = tfv.packed_fwd_plain(q, k, v, cu_q, cu_k, **kw)
+    got = [out, *tfv.packed_bwd_plain(q, k, v, out, lse, do, cu_q, cu_k,
+                                      **kw)]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        _close(g.numpy(), w, 1e-5, f"{pack} {name}")
+    if pack == "cross_empty":                  # segment 1 sees no key
+        assert torch.equal(got[1][70:110], torch.zeros_like(got[1][70:110]))
+
+
+def test_card_grid_follows_the_dispatch_and_bounds_the_call():
+    """``card_grid`` renders the C dispatch's grids: the wgmma kernels
+    (bf16, head_dim <= 128) one block per (128-row tile, head), heads
+    slowest; bf16 at 256 (head, 64-row tile), dk/dv with two column halves
+    a head; f32 (head, 32-row tile). ``_check_packed`` refuses a call only
+    where a grid's second axis passes 65535: 4.2 M packed rows in one head
+    fit the wgmma grids, not the 32-row f32 or 64-row d256 ones."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for kernel in ("fwd", "dq", "dkv"):
+        assert tfv.card_grid(kernel, bf, 128, 512, 384, 16) == (
+            (3 if kernel == "dkv" else 4), 16)
+        assert tfv.card_grid(kernel, f32, 64, 512, 384, 4) == (
+            4, (12 if kernel == "dkv" else 16))
+    assert tfv.card_grid("fwd", bf, 256, 512, 384, 8) == (8, 8)
+    assert tfv.card_grid("dq", bf, 256, 512, 384, 8) == (8, 8)
+    assert tfv.card_grid("dkv", bf, 256, 512, 384, 8) == (16, 6)
+    rows = 4_200_000
+    for dtype, d, ok in ((bf, 128, True), (bf, 64, True), (f32, 64, False),
+                         (bf, 256, False)):
+        q = torch.zeros(1, 1, d, dtype=dtype).expand(rows, 1, d)
+        if ok:
+            tfv._check_packed("grid", q, q, q)
+        else:
+            with pytest.raises(ValueError, match="more than 65535 blocks"):
+                tfv._check_packed("grid", q, q, q)
