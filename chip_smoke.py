@@ -6,8 +6,9 @@
 Phases, all run every time, each of which fails the run when it fails:
   device   the card's name and power limit, as nvidia-smi reports them;
   build    the CUDA kernels from csrc/, one nvcc per source in parallel,
-           then the machine code of B14's and B2's bf16 kernels read back
-           (cuobjdump -sass: HGMMA in B14, HMMA in B2; no ptxas spill);
+           then the machine code of the redesigned bf16 kernels read back
+           (cuobjdump -sass: HGMMA in B10-B15, HMMA or HGMMA in B2; no
+           ptxas spill);
   kernels  each kernel against its plain PyTorch version at the serving
            path's shapes, in bfloat16 and float32 (tolerances printed;
            the paged-prefill kernel on 16 cases with a swapped-pages
@@ -58,13 +59,17 @@ Phases, all run every time, each of which fails the run when it fails:
            rows whose routes agree, with a faulty-FFN2 control) and a
            profiled decode step (decode_step_moe);
   train    dense flash attention (B10: the forward and the dq and dk/dv
-           backward kernels) checked against its plain versions at the
-           training rung's shapes (bf16 limits from a one-ulp witness,
-           a faulty-dq control) and timed beside
-           scaled_dot_product_attention; then bench.py's gpt3-1.3b
-           training rung (d2048, 24 layers, seq 1024, batch 4, the _FAST
-           options) through the port's bench.make_train_step: the kernel
-           route against the plain attention route from one initial
+           backward kernels; bf16 at head_dim 64-128 the wgmma kernels
+           flash_*_wgmma on a dense walk) checked against its plain
+           versions at the training rung's shapes, at lengths that are
+           multiples of 64 but not of 128 and at cross lengths (bf16
+           limits from a one-ulp witness, a faulty control per kernel)
+           and timed (events and profiler device time) beside
+           scaled_dot_product_attention and the aten flash backward;
+           then bench.py's gpt3-1.3b training rung (d2048, 24 layers,
+           seq 1024, batch 4, the _FAST options) through the port's
+           bench.make_train_step: the kernel route against the plain
+           attention route from one initial
            state (logits, loss, every gradient, 3 steps' losses, each
            within twice a one-ulp witness, a faulty control outside),
            5 timed steps (tokens/s, MFU, device busy and idle share,
@@ -254,6 +259,9 @@ def phase_device() -> str:
 #: library, kernel name, the tensor-core instruction each was built
 #: around (HGMMA: wgmma; HMMA: mma.sync)
 DESIGNED_SASS = (("grouped_gemm", "grouped_gemm_wgmma", ("HGMMA",)),
+                 ("flash_attention", "flash_fwd_wgmma", ("HGMMA",)),
+                 ("flash_attention", "flash_bwd_dq_wgmma", ("HGMMA",)),
+                 ("flash_attention", "flash_bwd_dkv_wgmma", ("HGMMA",)),
                  ("stream_linear", "stream_gemm_mma", ("HMMA", "HGMMA")),
                  ("grouped_gemm", "grouped_dw_wgmma", ("HGMMA",)),
                  ("flash_varlen_packed", "varlen_fwd_wgmma", ("HGMMA",)),
@@ -304,8 +312,8 @@ def _ptxas_info(log: str) -> dict:
 def phase_build(out_dir):
     """Every library built from csrc/, one nvcc per source in parallel;
     then the redesigned kernels' machine code read back: each
-    instantiation of the bf16 kernels of B14, B15 and B11-B13 (d64, d96,
-    d128) must hold HGMMA (wgmma) and B2's bf16 kernel HMMA or HGMMA,
+    instantiation of the bf16 kernels of B14, B15, B10 and B11-B13 (d64,
+    d96, d128) must hold HGMMA (wgmma) and B2's bf16 kernel HMMA or HGMMA,
     with no register spill in ptxas's report."""
     from paddle_tpu_torch import _kernels
 
@@ -2864,11 +2872,15 @@ def _flash_bounds(b, sq, sk, h, d, causal, dtype) -> dict:
         "dkv": (2 * q_io + 4 * k_io + 2 * stats, 8.0 * n)}
 
 
-def _flash_inputs(gen, b, s, h, d, dtype):
+def _flash_inputs(gen, b, s, h, d, dtype, sk=None):
     """q, k, v as strided views of one [b, s, 3, h, d] tensor (as the
-    GPT block hands them over), and a dout."""
+    GPT block hands them over), and a dout; with ``sk`` (cross lengths),
+    k and v are views of a second such tensor of ``sk`` rows."""
     qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(dtype)
     q, k, v = qkv.unbind(2)
+    if sk is not None:
+        k, v = torch.randn(b, sk, 3, h, d, generator=gen,
+                           device="cuda").to(dtype).unbind(2)[1:]
     do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
     return q, k, v, do
 
@@ -2898,10 +2910,11 @@ FLASH_CONTROLS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
 
 def _late_tile_drop(sq: int, sk: int):
     """The (query, key) pairs a faulty kernel would skip, for the
-    controls: key tile ``t = sk / 128`` (the middle one) from every
-    query row past it, rows ``(t + 1) * 64`` on (key tile 8 from row 576
-    at s 1024)."""
-    t = sk // (2 * FLASH_TILE)
+    controls: key tile ``t = min(sq, sk) / 128`` (the middle one of the
+    shorter length, so causal rows see it at cross lengths too) from
+    every query row past it, rows ``(t + 1) * 64`` on (key tile 8 from
+    row 576 at s 1024)."""
+    t = min(sq, sk) // (2 * FLASH_TILE)
     drop = torch.zeros((sq, sk), dtype=torch.bool, device="cuda")
     drop[(t + 1) * FLASH_TILE:, t * FLASH_TILE:(t + 1) * FLASH_TILE] = True
     return drop
@@ -2933,13 +2946,15 @@ def _over(errs: dict, tols: dict) -> list:
     return [n for n in errs if errs[n] > tols[n]]
 
 
-#: kernel-check cases: (b, s, h, d, dtype, causal): the rung, the s2048
-#: rung, head_dim 64 in f32 both ways and bf16, odd batch x heads,
-#: head_dim 96 at the gpt-760m rung's shape (bf16) and in f32,
-#: head_dim 64 at the MoE training rung's shape (bf16), head_dim 80,
-#: which the wrappers run zero-padded to 96 (bf16), and head_dim 256 (the
+#: kernel-check cases: (b, s, h, d, dtype, causal), s an int or (sq, sk):
+#: the rung, the s2048 rung, head_dim 64 in f32 both ways and bf16, odd
+#: batch x heads, head_dim 96 at the gpt-760m rung's shape (bf16) and in
+#: f32, head_dim 64 at the MoE training rung's shape (bf16), head_dim 80,
+#: which the wrappers run zero-padded to 96 (bf16), head_dim 256 (the
 #: width of public models such as Gemma's; bf16 and f32) and 200, padded
-#: to 256 (bf16)
+#: to 256 (bf16); then the wgmma kernels' edges at d128: a length that is
+#: a multiple of 64 but not of 128 (the last tile half past it), causal
+#: and not, and cross lengths both ways
 FLASH_CASES = (
     (4, 1024, 16, 128, torch.bfloat16, True),
     (2, 2048, 16, 128, torch.bfloat16, True),
@@ -2955,7 +2970,15 @@ FLASH_CASES = (
     (2, 512, 8, 256, torch.bfloat16, True),
     (2, 256, 4, 256, torch.float32, True),
     (2, 512, 8, 200, torch.bfloat16, True),
+    (2, 320, 4, 128, torch.bfloat16, True),
+    (2, 320, 4, 128, torch.bfloat16, False),
+    (2, (384, 768), 4, 128, torch.bfloat16, True),
+    (2, (768, 384), 4, 128, torch.bfloat16, True),
 )
+#: profiler names of B10's bf16 kernels at head_dim 64, 96 and 128 (d256
+#: keeps flash_fwd_bf16, flash_bwd_dq_bf16 and flash_bwd_dkv_bf16)
+B10_KERNELS = {"fwd": "flash_fwd_wgmma", "dq": "flash_bwd_dq_wgmma",
+               "dkv": "flash_bwd_dkv_wgmma"}
 #: the gpt-760m rung (bench.py LADDER[1]: d1536, 16 heads of 96, seq
 #: 1024, batch 8, the _FAST options)
 R760_D, R760_BATCH = 1536, 8
@@ -3033,9 +3056,15 @@ def _flash_times(gen, b, s, h, d) -> dict:
     bounds = _flash_bounds(b, s, s, h, d, True, dt)
     rows = {}
     times = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
-    device = {"fwd": device_ms(fwd, "flash_fwd_bf16"),
-              "dq": device_ms(dq, "flash_bwd_dq_bf16"),
-              "dkv": device_ms(dkv, "flash_bwd_dkv_bf16")}
+    device = {}
+    for n, fn in (("fwd", fwd), ("dq", dq), ("dkv", dkv)):
+        # one launch a call; a second reading if the profiler dropped
+        # every event of the first
+        device[n] = device_ms(fn, B10_KERNELS[n], per_call=1) or \
+            device_ms(fn, B10_KERNELS[n], per_call=1)
+    check(all(v > 0 for v in device.values()),
+          f"flash_attention {[b, s, h, d]}: the profiler found no "
+          f"{list(B10_KERNELS.values())} kernel time: {device}")
     plain = {"fwd": time_ms(plain_fwd, iters=5),
              "bwd": time_ms(plain_bwd, iters=5)}
     lib = {"fwd": time_ms(lib_fwd), "fwd_bwd": time_ms(lib_fwd_bwd),
@@ -3049,6 +3078,12 @@ def _flash_times(gen, b, s, h, d) -> dict:
     lib_err = {n: _tile_rel_l2(g, r) for n, g, r in
                zip(("dq", "dk", "dv"), lib_grads, plain_grads)}
     whole_bwd = time_ms(bwd)
+
+    def delta():
+        _, _, _, do, out, _, _ = sets[nxt()]
+        at.flash_delta(out, do)
+
+    di_ms = time_ms(delta)
     for name in ("fwd", "dq", "dkv"):
         nbytes, flops = bounds[name]
         bms, by = bound_ms(nbytes, flops, dt)
@@ -3068,6 +3103,7 @@ def _flash_times(gen, b, s, h, d) -> dict:
     nb, fl = (sum(bounds[n][i] for n in ("dq", "dkv")) for i in (0, 1))
     emit({"time": "flash_attention_backward", "shape": [b, s, h, d],
           "ms": whole_bwd, "note": "di reduction + dq + dk/dv launches",
+          "di_ms": di_ms, "di_share": di_ms / whole_bwd,
           "plain_ms": plain["bwd"], "sdpa_fwd_ms": lib["fwd"],
           "sdpa_fwd_bwd_ms": lib["fwd_bwd"], "library_ms": lib["bwd"],
           "library_tile_rel_l2": lib_err,
@@ -3099,7 +3135,9 @@ def kernel_flash_attention(gen) -> dict:
 
     res = {}
     for b, s, h, d, dtype, causal in FLASH_CASES:
-        q, k, v, do = _flash_inputs(gen, b, s, h, d, dtype)
+        sq, sk = s if isinstance(s, tuple) else (s, s)
+        q, k, v, do = _flash_inputs(gen, b, sq, h, d, dtype,
+                                    None if sk == sq else sk)
         scale = d ** -0.5
         bf16 = dtype == torch.bfloat16
         got = _flash_kernel_all(q, k, v, do, causal, scale)
@@ -3108,7 +3146,8 @@ def kernel_flash_attention(gen) -> dict:
         errs = _flash_errs(got, ref, bf16)
         max_abs = {n: max_err(g, r)
                    for n, g, r in zip(FLASH_OUTPUTS, got, ref)}
-        line = {"check": "flash_attention", "shape": [b, s, h, d],
+        line = {"check": "flash_attention", "shape": [b, s, h, d]
+                if sq == sk else [b, [sq, sk], h, d],
                 "dtype": str(dtype), "causal": causal,
                 "metric": "tile_rel_l2" if bf16 else "max_abs_err",
                 "err": errs, "max_abs_err": max_abs}
@@ -3122,7 +3161,7 @@ def kernel_flash_attention(gen) -> dict:
         else:
             tols = {"out": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4,
                     "dv": 1e-4}
-        drop = _late_tile_drop(s, s)
+        drop = _late_tile_drop(sq, sk)
         c_out, c_lse = at.flash_attention_fwd_plain(q, k, v, causal, scale,
                                                     drop=drop)
         ctrl = _flash_errs((c_out, c_lse, *at.flash_attention_bwd_plain(

@@ -42,18 +42,20 @@
 // segment, so no real query or key meets them.
 //
 // bf16 runs on the tensor cores. At head_dim 64, 96 and 128 all three
-// kernels are Hopper's (wgmma fed by TMA rings, a producer warpgroup whose
-// registers go to two consumer warpgroups by setmaxnreg) and walk one
-// 128 x 128 map. The forward (varlen_fwd_wgmma) owns a 128-row q tile of
-// one head and walks 128-key tiles (a 3-stage k ring, a 2-stage v ring);
-// S = Q K^T and O += P V are wgmma products (P from registers), the
-// softmax of one tile runs beside the P V product of the one before. dq
-// (varlen_bwd_dq_wgmma) owns a 128-row q tile and walks its k tiles as
-// 64-key sub-tiles: S and dP by wgmma m64n64k16, dQ += dS K with dS from
-// registers, dS of one sub-tile formed beside the dQ product of the one
-// before. dk/dv (varlen_bwd_dkv_wgmma) owns 128 keys and walks its q tiles
-// as 64-row sub-tiles: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
-// dK += dS^T Q with P^T and dS^T from registers. At 256 the kernels are
+// kernels are Hopper's (flash_wgmma.cuh: wgmma fed by TMA rings, a
+// producer warpgroup whose registers go to two consumer warpgroups by
+// setmaxnreg), shared with B10's dense kernels in flash_attention.cu; here
+// they take VarlenWalk, which reads one 128 x 128 map. The forward
+// (varlen_fwd_wgmma) owns a 128-row q tile of one head and walks 128-key
+// tiles (a 3-stage k ring, a 2-stage v ring); S = Q K^T and O += P V are
+// wgmma products (P from registers), the softmax of one tile runs beside
+// the P V product of the one before. dq (varlen_bwd_dq_wgmma) owns a
+// 128-row q tile and walks its k tiles as 64-key sub-tiles: S and dP by
+// wgmma m64n64k16, dQ += dS K with dS from registers, dS of one sub-tile
+// formed beside the dQ product of the one before. dk/dv
+// (varlen_bwd_dkv_wgmma) owns 128 keys and walks its q tiles as 64-row
+// sub-tiles: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and dK +=
+// dS^T Q with P^T and dS^T from registers. At 256 the kernels are
 // mma.sync (flash_tiles.cuh: m16n8k16 with fp32 sums, ldmatrix fragments,
 // a 2-stage cp.async ring): the forward and dq blocks own 64 query rows
 // (warp w rows 16w..) over 64-key tiles walked in 32-key sub-tiles, and a
@@ -72,17 +74,14 @@
 // operations bound all three. Two backward kernels, each output tile
 // written by its one owner with no atomics, recompute S and dP in both:
 // 1.93 TFLOP against the 1.38 of one kernel that sums dq by atomics.
-#include "flash_tiles.cuh"
-#include "hopper.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace ptt::tiles;
+using namespace ptt::flash;
 using ptt::cp_async_commit;
 using ptt::cp_async_wait;
-
-constexpr float kNeg = -1e30f;      // the reference's _NEG
-constexpr float kNegSafe = -5e29f;  // its lse floor in the backward
 
 struct VarlenParams {
   const void* q;
@@ -298,417 +297,127 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------- bf16 forward: wgmma + TMA
+// ------------------------------------------- bf16 on Hopper: wgmma + TMA
 
-namespace hp = ptt::hopper;
+// The walk of the Hopper kernels (flash_wgmma.cuh) over the block map:
+// a block takes tile order[blockIdx.x] of head blockIdx.y (heads slowest:
+// the blocks in flight share one or two heads' k and v; the longest walks
+// first), walks the map's interval of that tile (128-key tiles for the
+// forward, their 64-key halves for dq, the transposed map's 64-row q
+// halves for dk/dv), reads its interior flags from the map's segment
+// aggregates and masks by each token's (segment, position), which a k
+// stage (forward, dq) or a q stage (dk/dv: with lse and delta) carries in
+// shared memory. Rank-3 maps over the strided [t, h, D] operands; lse and
+// delta are [h, tq_pad].
+template <int K>
+struct VarlenWalk {
+  using Params = VarlenParams;
+  static constexpr int kKeyMeta = 8;  // a key's segment and position
+  static constexpr int kQStats = 16;  // a row's lse, delta, segment, position
+  static constexpr bool kTmaStore = false;  // out from registers
+  static constexpr bool kMultiTile = false;  // a block a tile
+  static constexpr int kProducerRegs = 24;
+  const VarlenParams& p;
+  int hi, tile, start, r0, n;
 
-constexpr int kFwdM = 128;            // query rows of a tile: 64 a warpgroup
-constexpr int kFwdN = 128;            // keys of a tile
-constexpr int kKStages = 3;           // k ring
-constexpr int kVStages = 2;           // v ring
-constexpr int kFwdConsumers = 256;    // two warpgroups
-constexpr int kFwdThreads = kFwdConsumers + 128;  // + the producer's
-constexpr int kFwdBox = 128 * 128;    // 16 KB: 128 rows x 64 columns
-constexpr int kFwdMeta = 2 * kFwdN * 4;  // a k tile's segments, positions
-
-template <int D>
-struct FwdSmem {
-  static constexpr int kBoxes = (D + 63) / 64;  // 64-column boxes a tile
-  static constexpr int kTile = kBoxes * kFwdBox;
-  // q, the k ring, the v ring, the k tiles' key metadata and interior
-  // flags, then the barriers
-  static constexpr int kV = (1 + kKStages) * kTile;
-  static constexpr int kMeta = kV + kVStages * kTile;
-  static constexpr int kFlags = kMeta + kKStages * kFwdMeta;
-  static constexpr int kBars = kFlags + 16;
-  static constexpr int kBytes =
-      kBars + (1 + 2 * kKStages + 2 * kVStages) * 8 + 1024;  // + align
+  __device__ __forceinline__ explicit VarlenWalk(const VarlenParams& params)
+      : p(params) {
+    hi = blockIdx.y;
+    tile = p.order[blockIdx.x];
+    start = p.start[tile];
+    r0 = tile * kFwdM;
+    n = (K == kFwd ? 1 : 2) * p.len[tile];
+  }
+  __device__ __forceinline__ bool next() { return false; }
+  __device__ __forceinline__ int first(int s) const {
+    return K == kFwd ? (start + s) * kFwdN
+                     : (start + s / 2) * kFwdN + (s % 2) * kBwdSub;
+  }
+  __device__ __forceinline__ bool interior(int s) const {
+    const int other = start + (K == kFwd ? s : s / 2);
+    return K == kDkv ? ::interior(p, other, tile) : ::interior(p, tile, other);
+  }
+  __device__ __forceinline__ void tma(void* dst, const CUtensorMap* map,
+                                      uint64_t* bar, int col, int row) const {
+    hp::tma_load_3d(dst, map, bar, col, hi, row);
+  }
+  __device__ __forceinline__ void load_keys(int* dst, int k0, int keys,
+                                            uint64_t* bar) const {
+    hp::bulk_load(dst, p.kmeta + k0, keys * 4, bar);
+    hp::bulk_load(dst + keys, p.kmeta + p.tk_pad + k0, keys * 4, bar);
+  }
+  __device__ __forceinline__ void load_qstats(float* dst, int row,
+                                              uint64_t* bar) const {
+    const int64_t plane = static_cast<int64_t>(hi) * p.tq_pad + row;
+    hp::bulk_load(dst, p.lse + plane, kBwdSub * 4, bar);
+    hp::bulk_load(dst + kBwdSub, p.delta + plane, kBwdSub * 4, bar);
+    hp::bulk_load(dst + 2 * kBwdSub, p.qmeta + row, kBwdSub * 4, bar);
+    hp::bulk_load(dst + 3 * kBwdSub, p.qmeta + p.tq_pad + row, kBwdSub * 4,
+                  bar);
+  }
+  struct Rows {
+    int seg[2], pos[2];
+  };
+  __device__ __forceinline__ Rows rows(int row) const {
+    const int* meta = K == kDkv ? p.kmeta : p.qmeta;
+    const int pad = K == kDkv ? p.tk_pad : p.tq_pad;
+    Rows r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      r.seg[h] = meta[row + h * 8];
+      r.pos[h] = meta[pad + row + h * 8];
+    }
+    return r;
+  }
+  // meta: the stage's segments, its positions N further on
+  template <int N>
+  __device__ __forceinline__ void mask(float (&sc)[N / 2], const Rows& r,
+                                       const int* meta, int) const {
+    const int* cs = meta + 2 * (threadIdx.x % 4);
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const int2 s2 = *reinterpret_cast<const int2*>(cs + 8 * jj);
+      const int2 p2 = *reinterpret_cast<const int2*>(cs + N + 8 * jj);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int h = cc >> 1;
+        const int sg = cc & 1 ? s2.y : s2.x, ps = cc & 1 ? p2.y : p2.x;
+        const bool ok = K == kDkv ? visible(p, sg, ps, r.seg[h], r.pos[h])
+                                  : visible(p, r.seg[h], r.pos[h], sg, ps);
+        if (!ok) sc[4 * jj + cc] = -INFINITY;
+      }
+    }
+  }
+  __device__ __forceinline__ int rows_out() const {
+    return K == kDkv ? p.tk : p.tq;
+  }
+  template <int D>
+  __device__ __forceinline__ int64_t out_at(int row) const {
+    return packed_at<D>(p, row, hi);
+  }
+  // lse and delta are [h, tq_pad]: every row of a tile has them
+  __device__ __forceinline__ float stat(const float* plane, int row) const {
+    return plane[static_cast<int64_t>(hi) * p.tq_pad + row];
+  }
+  __device__ __forceinline__ void store_lse(int row, float v) const {
+    p.lse[static_cast<int64_t>(hi) * p.tq_pad + row] = v;
+  }
 };
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x, ftz; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Forward on Hopper: a block owns a 128-row q tile of one head (two
-// consumer warpgroups of 64 rows) and walks its k-tile interval (128 keys
-// a tile). A producer warpgroup (one thread issues; its registers go to
-// the consumers by setmaxnreg) loads the q tile once and keeps a k ring
-// and a v ring full: rank-3 TMA maps over the strided [t, h, d] operands,
-// 128-byte swizzle, 64-column boxes; rows past tq or tk and columns past D
-// read as zeros; a k stage also holds its keys' segments and positions
-// (bulk copies) and whether the tile pair is interior. A warpgroup's
-// iteration s issues S(s) = Q K(s)^T (wgmma m64n128k16, q and k K-major
-// in shared memory) and then O += P(s-1) V(s-1) (wgmma m64nDk16, P from
-// registers: the previous S accumulator rounded to bf16 in pairs is the A
-// fragment; v N-major), takes its softmax of S(s) while the P V product
-// runs (masked scores are -inf on boundary tiles; base 2, f32
-// statistics), then rescales O. A k stage is released once S is done, a
-// v stage once its P V product is, so each ring refills early. At D 96
-// the second box's columns 96..127 are TMA's zeros, and the products run
-// at k 96 and n 96.
+// B11 (flash_wgmma.cuh fwd_wgmma): a block per (128-row q tile, head)
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     varlen_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const VarlenParams p) {
-  using L = FwdSmem<D>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* sq = smem;
-  unsigned char* sk = sq + L::kTile;                    // [k stages] tiles
-  unsigned char* sv = smem + L::kV;                     // [v stages] tiles
-  int* meta = reinterpret_cast<int*>(smem + L::kMeta);  // [k st][2][128]
-  int* flags = reinterpret_cast<int*>(smem + L::kFlags);  // [k stages]
-  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::kBars);
-  uint64_t* kfull = qfull + 1;
-  uint64_t* kempty = kfull + kKStages;
-  uint64_t* vfull = kempty + kKStages;
-  uint64_t* vempty = vfull + kVStages;
-  if (threadIdx.x == 0) {
-    hp::mbar_init(qfull, 1);
-    for (int s = 0; s < kKStages; ++s) {
-      hp::mbar_init(&kfull[s], 1);
-      hp::mbar_init(&kempty[s], kFwdConsumers);
-    }
-    for (int s = 0; s < kVStages; ++s) {
-      hp::mbar_init(&vfull[s], 1);
-      hp::mbar_init(&vempty[s], kFwdConsumers);
-    }
-    hp::fence_barrier_init();
-  }
-  __syncthreads();
-  // heads slowest: the blocks in flight share one or two heads' k and v
-  const int hi = blockIdx.y, i = p.order[blockIdx.x];
-  const int q0 = i * kFwdM, ks = p.start[i], kl = p.len[i];
-
-  if (threadIdx.x >= kFwdConsumers) {
-    hp::reg_dealloc<24>();
-    if (threadIdx.x != kFwdConsumers || kl == 0) return;
-    hp::mbar_arrive_expect_tx(qfull, L::kTile);
-#pragma unroll
-    for (int b = 0; b < L::kBoxes; ++b)
-      hp::tma_load_3d(sq + b * kFwdBox, &qmap, qfull, 64 * b, hi, q0);
-    // k tile s, then v tile s - 1: v is read a step after k
-    for (int s = 0; s <= kl; ++s) {
-      if (s < kl) {
-        const int st = s % kKStages, j = ks + s, k0 = j * kFwdN;
-        hp::mbar_wait(&kempty[st], ((s / kKStages) & 1) ^ 1);
-        // released by the arrive below, read after the consumers' wait
-        flags[st] = interior(p, i, j);
-        int* m = meta + st * 2 * kFwdN;
-        hp::mbar_arrive_expect_tx(&kfull[st], L::kTile + kFwdMeta);
-#pragma unroll
-        for (int b = 0; b < L::kBoxes; ++b)
-          hp::tma_load_3d(sk + st * L::kTile + b * kFwdBox, &kmap,
-                          &kfull[st], 64 * b, hi, k0);
-        hp::bulk_load(m, p.kmeta + k0, kFwdMeta / 2, &kfull[st]);
-        hp::bulk_load(m + kFwdN, p.kmeta + p.tk_pad + k0, kFwdMeta / 2,
-                      &kfull[st]);
-      }
-      if (s > 0) {
-        const int sv1 = (s - 1) % kVStages, k0 = (ks + s - 1) * kFwdN;
-        hp::mbar_wait(&vempty[sv1], (((s - 1) / kVStages) & 1) ^ 1);
-        hp::mbar_arrive_expect_tx(&vfull[sv1], L::kTile);
-#pragma unroll
-        for (int b = 0; b < L::kBoxes; ++b)
-          hp::tma_load_3d(sv + sv1 * L::kTile + b * kFwdBox, &vmap,
-                          &vfull[sv1], 64 * b, hi, k0);
-      }
-    }
-    return;
-  }
-  hp::reg_alloc<240>();
-
-  // consumers: warpgroup c owns rows q0 + 64c ..; this thread rows
-  // row0 and row0 + 8, key columns 8j + 2t (+1) of each tile
-  const int c = threadIdx.x / 128;
-  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + c * 64 + warp * 16 + g;
-  const float sl2 = p.scale * kLog2e;
-  int qs[2], qp[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    qs[r] = p.qmeta[row0 + r * 8];
-    qp[r] = p.qmeta[p.tq_pad + row0 + r * 8];
-  }
-  float o[D / 2];
-#pragma unroll
-  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float sc[64];
-  uint32_t pa[kFwdN / 16][4];
-  const unsigned char* qa = sq + c * 64 * 128;  // this group's 64 rows
-  if (kl > 0) hp::mbar_wait(qfull, 0);
-  // iteration s: S(s) for s < kl, P(s-1) V(s-1) for s > 0
-  for (int s = 0; s <= kl; ++s) {
-    const int st = s % kKStages, sv1 = (s + kVStages - 1) % kVStages;
-    hp::fence_operands(sc);
-    hp::fence_operands(o);
-    if (s < kl) {
-      hp::mbar_wait(&kfull[st], (s / kKStages) & 1);
-      hp::wgmma_fence();
-      const unsigned char* kt = sk + st * L::kTile;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = kk / 4 * kFwdBox + (kk % 4) * 32;
-        hp::wgmma_m64n128k16<0>(sc, hp::desc_sw128(qa + off, 16, 1024),
-                                hp::desc_sw128(kt + off, 16, 1024), kk > 0);
-      }
-      hp::wgmma_commit();
-    }
-    if (s > 0) {
-      hp::mbar_wait(&vfull[sv1], ((s - 1) / kVStages) & 1);
-      hp::wgmma_fence();
-      const unsigned char* vt = sv + sv1 * L::kTile;
-#pragma unroll
-      for (int kk = 0; kk < kFwdN / 16; ++kk)
-        hp::wgmma_rs<D>(o, pa[kk],
-                        hp::desc_sw128(vt + kk * 2048, kFwdBox, 1024), 1);
-      hp::wgmma_commit();
-    }
-
-    float alpha[2] = {1.f, 1.f}, rs[2] = {0.f, 0.f};
-    if (s < kl) {
-      if (s > 0)
-        hp::wgmma_wait<1>();  // S(s) done; P(s-1) V(s-1) may still run
-      else
-        hp::wgmma_wait<0>();
-      hp::fence_operands(sc);
-      if (!flags[st]) {
-        // a boundary tile: scores of pairs that are not visible to -inf
-        const int* ksg = meta + st * 2 * kFwdN + 2 * t;
-#pragma unroll
-        for (int jj = 0; jj < kFwdN / 8; ++jj) {
-          const int2 sk2 = *reinterpret_cast<const int2*>(ksg + 8 * jj);
-          const int2 pk2 =
-              *reinterpret_cast<const int2*>(ksg + kFwdN + 8 * jj);
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
-            const int r = cc >> 1;
-            if (!visible(p, qs[r], qp[r], cc & 1 ? sk2.y : sk2.x,
-                         cc & 1 ? pk2.y : pk2.x))
-              sc[4 * jj + cc] = -INFINITY;
-          }
-        }
-      }
-      hp::mbar_arrive(&kempty[st]);  // k, its metadata and flag are read
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int e = 0; e < 64; ++e)
-        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
-      float mneg[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        // a row that has seen no key keeps m = kNeg: alpha 1, p 0
-        const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
-        alpha[r] = ex2(m[r] - mn);  // 0 once a key is seen
-        m[r] = mn;
-        mneg[r] = -mn;
-      }
-#pragma unroll
-      for (int e = 0; e < 64; ++e) {
-        const int r = (e >> 1) & 1;
-        sc[e] = ex2(fmaf(sc[e], sl2, mneg[r]));  // -inf: 0
-        rs[r] += sc[e];
-      }
-    }
-    if (s > 0) {
-      hp::wgmma_wait<0>();
-      hp::fence_operands(o);
-      hp::mbar_arrive(&vempty[sv1]);
-    }
-    if (s < kl) {
-#pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-#pragma unroll
-      for (int e = 0; e < 64; e += 2)
-        pa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);
-    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    if (row >= p.tq) continue;
-    bf16* out = static_cast<bf16*>(p.out) + packed_at<D>(p, row, hi);
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<__nv_bfloat162*>(out + jj * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[4 * jj + 2 * r] * inv[r],
-                                o[4 * jj + 2 * r + 1] * inv[r]);
-  }
-  if (t == 0) {
-    float* lse = p.lse + static_cast<int64_t>(hi) * p.tq_pad;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      lse[row0 + r * 8] = l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : kNeg;
-  }
+  fwd_wgmma<D, VarlenWalk<kFwd>>(&qmap, &kmap, &vmap, nullptr, p);
 }
 
-// ------------------------------------------ bf16 backward: wgmma + TMA
-
-// Both backward kernels walk the forward's 128 x 128 map; a block owns a
-// 128-row tile (q rows for dq, keys for dk/dv: 64 a consumer warpgroup)
-// and takes each 128-row tile of its walk as two 64-row sub-tiles, which
-// a ring of 64-row TMA boxes brings in. A 128-row operand is stored as
-// [half][64-column box][64 rows], so half c is warpgroup c's A operand.
-constexpr int kBwdSub = 64;               // rows of a sub-tile
-constexpr int kBwdBox = kBwdSub * 128;    // 8 KB: 64 rows x 64 columns
-constexpr int kBwdMeta = 2 * kBwdSub * 4;  // segments, positions of 64 rows
-constexpr int kDqKStages = 4;             // dq: k ring (held to dQ's product)
-constexpr int kDqVStages = 3;             // dq: v ring
-constexpr int kDkvStages = 4;             // dk/dv: q + dO ring
-constexpr int kDkvStats = 4 * kBwdSub * 4;  // lse, delta, segment, position
-
-template <int D>
-struct BwdTile {
-  static constexpr int kBoxes = (D + 63) / 64;
-  static constexpr int kSub = kBoxes * kBwdBox;  // a 64-row sub-tile
-};
-
-template <int D>
-struct DqSmem {
-  static constexpr int kSub = BwdTile<D>::kSub;
-  // q and dO (128 rows each), the k ring, the v ring, the k sub-tiles'
-  // key metadata, their interior flags, then the barriers
-  static constexpr int kDo = 2 * kSub;
-  static constexpr int kK = 4 * kSub;
-  static constexpr int kV = kK + kDqKStages * kSub;
-  static constexpr int kMeta = kV + kDqVStages * kSub;
-  static constexpr int kFlags = kMeta + kDqKStages * kBwdMeta;
-  static constexpr int kBars = kFlags + 64;
-  static constexpr int kBytes =
-      kBars + (1 + 2 * kDqKStages + 2 * kDqVStages) * 8 + 1024;  // + align
-};
-
-template <int D>
-struct DkvSmem {
-  static constexpr int kSub = BwdTile<D>::kSub;
-  // k and v (128 rows each), the ring of q and dO sub-tiles, the stages'
-  // per-row statistics and interior flags, then the barriers
-  static constexpr int kV = 2 * kSub;
-  static constexpr int kRing = 4 * kSub;
-  static constexpr int kStats = kRing + kDkvStages * 2 * kSub;
-  static constexpr int kFlags = kStats + kDkvStages * kDkvStats;
-  static constexpr int kBars = kFlags + 64;
-  static constexpr int kBytes =
-      kBars + (1 + 2 * kDkvStages) * 8 + 1024;  // + align
-};
-
-// the 1 KB-aligned start of a kernel's dynamic shared memory
-__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
-  return raw + ((1024 - (hp::smem_u32(raw) & 1023)) & 1023);
-}
-
-// rows r0 .. r0 + 127 of head hi of a rank-3 [t, h, D] map (64-row boxes)
-// into a 128-row operand [half][box][64 rows]
-template <int D>
-__device__ __forceinline__ void tma_rows128(unsigned char* dst,
-                                            const CUtensorMap* map,
-                                            uint64_t* bar, int hi, int r0) {
-  constexpr int kB = BwdTile<D>::kBoxes;
-#pragma unroll
-  for (int c = 0; c < 2; ++c)
-#pragma unroll
-    for (int b = 0; b < kB; ++b)
-      hp::tma_load_3d(dst + (c * kB + b) * kBwdBox, map, bar, 64 * b, hi,
-                      r0 + 64 * c);
-}
-
-// a 64-row sub-tile from row r0 into [box][64 rows]
-template <int D>
-__device__ __forceinline__ void tma_rows64(unsigned char* dst,
-                                           const CUtensorMap* map,
-                                           uint64_t* bar, int hi, int r0) {
-#pragma unroll
-  for (int b = 0; b < BwdTile<D>::kBoxes; ++b)
-    hp::tma_load_3d(dst + b * kBwdBox, map, bar, 64 * b, hi, r0);
-}
-
-// acc[64 x 64] = A (64 rows, K-major over D, a [box][64 rows] operand) B^T
-// (B a 64-row sub-tile, K-major over D): S = Q K^T and its kin, D / 16
-// k-steps of m64n64k16
-template <int D>
-__device__ __forceinline__ void wgmma_abt64(float (&acc)[32],
-                                            const unsigned char* a,
-                                            const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = kk / 4 * kBwdBox + (kk % 4) * 32;
-    hp::wgmma_m64n64k16<0>(acc, hp::desc_sw128(a + off, 16, 1024),
-                           hp::desc_sw128(b + off, 16, 1024), kk > 0);
-  }
-}
-
-// acc[64 x D] += X (64 x 64, register fragments x[4][4]) B (a 64-row
-// sub-tile read N-major: rows are k, columns D): dQ += dS K, dV += P^T dO,
-// dK += dS^T Q. At D 96 the second box's columns 96.. are TMA's zeros and
-// the product runs at n96.
-template <int D>
-__device__ __forceinline__ void wgmma_xb64(float (&acc)[D / 2],
-                                           const uint32_t (&x)[4][4],
-                                           const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    hp::wgmma_rs<D>(acc, x[kk], hp::desc_sw128(b + kk * 2048, kBwdBox, 1024),
-                    1);
-}
-
-// a consumer's 64 x D accumulator (rows r0 + 16w + g + 8h, columns 8j + 2t
-// + e), times `mul`, as bf16 rows of a contiguous [n, h, D] array; rows at
-// or past n are not stored
-template <int D>
-__device__ __forceinline__ void store_acc(const VarlenParams& p, void* dst,
-                                          int n, int hi, int r0,
-                                          const float (&acc)[D / 2],
-                                          float mul) {
-  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + warp * 16 + g + 8 * h;
-    if (row >= n) continue;
-    bf16* out = static_cast<bf16*>(dst) + packed_at<D>(p, row, hi);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul,
-                                acc[4 * j + 2 * h + 1] * mul);
-  }
-}
-
-// dq on Hopper: a block owns a 128-row q tile of one head (two consumer
-// warpgroups of 64 rows) and walks its k-tile interval of the forward map
-// in 64-key sub-tiles. A producer warpgroup (one thread issues; its
-// registers go to the consumers) loads q and dO once and keeps a k ring
-// and a v ring full; a k stage also carries its keys' segments and
-// positions (bulk copies) and the tile pair's interior flag. A
-// warpgroup's iteration s issues S(s) = Q K(s)^T and dP(s) = dO V(s)^T
-// (wgmma m64n64k16, all operands K-major in shared memory), then dQ +=
-// dS(s-1) K(s-1) (m64nDk16, dS from registers as bf16 pairs, k N-major),
-// and forms dS(s) = P (dP - delta), P = exp(S - lse) on visible pairs,
-// while that product runs: on a boundary tile the scores of pairs that are
-// not visible go to -inf first, an interior tile skips that pass (folded
-// into the exponent loop of every tile, it made a first design much
-// slower). A v stage is released once dP is done, a k stage once its dQ
-// product is. One block a (tile, head), heads slowest: the blocks in
-// flight share one or two heads' k and v. Heads fastest was slower, and
-// so was a persistent walk (one block an SM taking the tiles in a static
-// round robin, q and dO double-buffered): the hardware's block scheduler
-// balances the walks' lengths better than the round robin.
+// B12 (bwd_dq_wgmma): a block per (128-row q tile, head). Heads fastest
+// was slower, and so was a persistent walk (one block an SM taking the
+// tiles in a static round robin, q and dO double-buffered): the hardware's
+// block scheduler balances the walks' lengths better than the round robin.
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     varlen_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
@@ -716,168 +425,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                         const __grid_constant__ CUtensorMap vmap,
                         const __grid_constant__ CUtensorMap dmap,
                         const VarlenParams p) {
-  using L = DqSmem<D>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_1k(smem_raw);
-  unsigned char* sq = smem;
-  unsigned char* sdo = smem + L::kDo;
-  unsigned char* sk = smem + L::kK;                     // [k stages] subs
-  unsigned char* sv = smem + L::kV;                     // [v stages] subs
-  int* meta = reinterpret_cast<int*>(smem + L::kMeta);  // [k st][2][64]
-  int* flags = reinterpret_cast<int*>(smem + L::kFlags);  // [k stages]
-  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::kBars);
-  uint64_t* kfull = qfull + 1;
-  uint64_t* kempty = kfull + kDqKStages;
-  uint64_t* vfull = kempty + kDqKStages;
-  uint64_t* vempty = vfull + kDqVStages;
-  if (threadIdx.x == 0) {
-    hp::mbar_init(qfull, 1);
-    for (int s = 0; s < kDqKStages; ++s) {
-      hp::mbar_init(&kfull[s], 1);
-      hp::mbar_init(&kempty[s], kFwdConsumers);
-    }
-    for (int s = 0; s < kDqVStages; ++s) {
-      hp::mbar_init(&vfull[s], 1);
-      hp::mbar_init(&vempty[s], kFwdConsumers);
-    }
-    hp::fence_barrier_init();
-  }
-  __syncthreads();
-  // heads slowest: the blocks in flight share one or two heads' k and v
-  const int hi = blockIdx.y, i = p.order[blockIdx.x];
-  const int q0 = i * kFwdM, ks = p.start[i], n = 2 * p.len[i];
-
-  if (threadIdx.x >= kFwdConsumers) {
-    hp::reg_dealloc<24>();
-    if (threadIdx.x != kFwdConsumers || n == 0) return;
-    hp::mbar_arrive_expect_tx(qfull, 4 * L::kSub);
-    tma_rows128<D>(sq, &qmap, qfull, hi, q0);
-    tma_rows128<D>(sdo, &dmap, qfull, hi, q0);
-    for (int s = 0; s < n; ++s) {
-      const int kst = s % kDqKStages, vst = s % kDqVStages;
-      const int j = ks + s / 2, k0 = j * kFwdN + (s % 2) * kBwdSub;
-      hp::mbar_wait(&kempty[kst], ((s / kDqKStages) & 1) ^ 1);
-      // released by the arrive below, read after the consumers' wait
-      flags[kst] = interior(p, i, j);
-      int* m = meta + kst * 2 * kBwdSub;
-      hp::mbar_arrive_expect_tx(&kfull[kst], L::kSub + kBwdMeta);
-      tma_rows64<D>(sk + kst * L::kSub, &kmap, &kfull[kst], hi, k0);
-      hp::bulk_load(m, p.kmeta + k0, kBwdMeta / 2, &kfull[kst]);
-      hp::bulk_load(m + kBwdSub, p.kmeta + p.tk_pad + k0, kBwdMeta / 2,
-                    &kfull[kst]);
-      hp::mbar_wait(&vempty[vst], ((s / kDqVStages) & 1) ^ 1);
-      hp::mbar_arrive_expect_tx(&vfull[vst], L::kSub);
-      tma_rows64<D>(sv + vst * L::kSub, &vmap, &vfull[vst], hi, k0);
-    }
-    return;
-  }
-  hp::reg_alloc<240>();
-
-  // consumers: warpgroup c owns rows q0 + 64c ..; this thread rows row0
-  // and row0 + 8, key columns 8j + 2t (+1) of each sub-tile
-  const int c = threadIdx.x / 128;
-  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + c * 64 + warp * 16 + g;
-  const float sl2 = p.scale * kLog2e;
-  int qs[2], qp[2];
-  float nl2[2], dl[2];  // -lse (floored) in base 2, delta
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + h * 8;
-    const int64_t at = static_cast<int64_t>(hi) * p.tq_pad + row;
-    qs[h] = p.qmeta[row];
-    qp[h] = p.qmeta[p.tq_pad + row];
-    nl2[h] = -fmaxf(p.lse[at], kNegSafe) * kLog2e;
-    dl[h] = p.delta[at];
-  }
-  float dq[D / 2];
-#pragma unroll
-  for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
-  float sc[32], dp[32];
-  uint32_t dsa[4][4];
-  const unsigned char* qa = sq + c * L::kSub;  // this group's 64 rows
-  const unsigned char* da = sdo + c * L::kSub;
-  if (n > 0) hp::mbar_wait(qfull, 0);
-  // iteration s: S(s), dP(s) for s < n; dQ += dS(s-1) K(s-1) for s > 0
-  for (int s = 0; s <= n; ++s) {
-    const int kst = s % kDqKStages, vst = s % kDqVStages;
-    const int kst1 = (s + kDqKStages - 1) % kDqKStages;
-    hp::fence_operands(sc);
-    hp::fence_operands(dp);
-    hp::fence_operands(dq);
-    if (s < n) {
-      hp::mbar_wait(&kfull[kst], (s / kDqKStages) & 1);
-      hp::mbar_wait(&vfull[vst], (s / kDqVStages) & 1);
-      hp::wgmma_fence();
-      wgmma_abt64<D>(sc, qa, sk + kst * L::kSub);
-      wgmma_abt64<D>(dp, da, sv + vst * L::kSub);
-      hp::wgmma_commit();
-    }
-    if (s > 0) {
-      hp::wgmma_fence();
-      wgmma_xb64<D>(dq, dsa, sk + kst1 * L::kSub);
-      hp::wgmma_commit();
-    }
-    if (s < n) {
-      if (s > 0)
-        hp::wgmma_wait<1>();  // S(s), dP(s) done; dQ's product may run
-      else
-        hp::wgmma_wait<0>();
-      hp::fence_operands(sc);
-      hp::fence_operands(dp);
-      hp::mbar_arrive(&vempty[vst]);
-      if (!flags[kst]) {
-        // a boundary tile: scores of pairs that are not visible to -inf
-        const int* ksg = meta + kst * 2 * kBwdSub + 2 * t;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int2 sk2 = *reinterpret_cast<const int2*>(ksg + 8 * jj);
-          const int2 pk2 =
-              *reinterpret_cast<const int2*>(ksg + kBwdSub + 8 * jj);
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
-            const int h = cc >> 1;
-            if (!visible(p, qs[h], qp[h], cc & 1 ? sk2.y : sk2.x,
-                         cc & 1 ? pk2.y : pk2.x))
-              sc[4 * jj + cc] = -INFINITY;
-          }
-        }
-      }
-      // dS = P (dP - delta) in sc, P = exp(S - lse) (-inf: 0)
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int h = (e >> 1) & 1;
-        sc[e] = ex2(fmaf(sc[e], sl2, nl2[h])) * (dp[e] - dl[h]);
-      }
-    }
-    if (s > 0) {
-      hp::wgmma_wait<0>();
-      hp::fence_operands(dq);
-      hp::fence_operands(dsa);
-      hp::mbar_arrive(&kempty[kst1]);  // K(s-1) read by its dQ product
-    }
-    if (s < n) {
-#pragma unroll
-      for (int e = 0; e < 32; e += 2)
-        dsa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
-    }
-  }
-  store_acc<D>(p, p.out, p.tq, hi, q0 + c * 64, dq, p.scale);
+  bwd_dq_wgmma<D, VarlenWalk<kDq>>(&qmap, &kmap, &vmap, &dmap, p);
 }
 
-// dk/dv on Hopper: a block owns 128 keys of one head (two consumer
-// warpgroups of 64 keys) and walks its q-tile interval of the transposed
-// map in 64-row sub-tiles. The producer warpgroup loads k and v once and
-// keeps one ring full: a stage holds 64 rows of q and of dO and those
-// rows' lse, delta, segment and position (bulk copies), and the tile
-// pair's interior flag. A warpgroup's iteration issues S^T = K Q^T and
-// dP^T = V dO^T (wgmma m64n64k16), forms P^T on visible pairs (the mask
-// pass on boundary tiles only, as in dq) and issues dV += P^T dO
-// (m64nDk16, P^T from registers, dO N-major), forms dS^T = P^T (dP^T -
-// delta) while that product runs and issues dK += dS^T Q. The next
-// iteration's S^T and dP^T queue behind those products; a stage is
-// released once they are done.
+// B13 (bwd_dkv_wgmma): a block per (128 keys, head)
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     varlen_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
@@ -885,154 +436,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                          const __grid_constant__ CUtensorMap vmap,
                          const __grid_constant__ CUtensorMap dmap,
                          const VarlenParams p) {
-  using L = DkvSmem<D>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_1k(smem_raw);
-  unsigned char* sk = smem;
-  unsigned char* sv = smem + L::kV;
-  unsigned char* ring = smem + L::kRing;  // [stage][q, dO][sub-tile]
-  float* stats = reinterpret_cast<float*>(smem + L::kStats);  // [st][4][64]
-  int* flags = reinterpret_cast<int*>(smem + L::kFlags);      // [stages]
-  uint64_t* kvfull = reinterpret_cast<uint64_t*>(smem + L::kBars);
-  uint64_t* full = kvfull + 1;
-  uint64_t* empty = full + kDkvStages;
-  if (threadIdx.x == 0) {
-    hp::mbar_init(kvfull, 1);
-    for (int s = 0; s < kDkvStages; ++s) {
-      hp::mbar_init(&full[s], 1);
-      hp::mbar_init(&empty[s], kFwdConsumers);
-    }
-    hp::fence_barrier_init();
-  }
-  __syncthreads();
-  const int hi = blockIdx.y, j = p.order[blockIdx.x];
-  const int k0 = j * kFwdN, qs0 = p.start[j], n = 2 * p.len[j];
-
-  if (threadIdx.x >= kFwdConsumers) {
-    hp::reg_dealloc<24>();
-    if (threadIdx.x != kFwdConsumers || n == 0) return;
-    hp::mbar_arrive_expect_tx(kvfull, 4 * L::kSub);
-    tma_rows128<D>(sk, &kmap, kvfull, hi, k0);
-    tma_rows128<D>(sv, &vmap, kvfull, hi, k0);
-    for (int s = 0; s < n; ++s) {
-      const int st = s % kDkvStages, tt = qs0 + s / 2;
-      const int r0 = tt * kFwdM + (s % 2) * kBwdSub;
-      hp::mbar_wait(&empty[st], ((s / kDkvStages) & 1) ^ 1);
-      flags[st] = interior(p, tt, j);
-      unsigned char* stage = ring + st * 2 * L::kSub;
-      float* sst = stats + st * 4 * kBwdSub;
-      const int64_t plane = static_cast<int64_t>(hi) * p.tq_pad + r0;
-      hp::mbar_arrive_expect_tx(&full[st], 2 * L::kSub + kDkvStats);
-      tma_rows64<D>(stage, &qmap, &full[st], hi, r0);
-      tma_rows64<D>(stage + L::kSub, &dmap, &full[st], hi, r0);
-      hp::bulk_load(sst, p.lse + plane, kBwdSub * 4, &full[st]);
-      hp::bulk_load(sst + kBwdSub, p.delta + plane, kBwdSub * 4, &full[st]);
-      hp::bulk_load(sst + 2 * kBwdSub, p.qmeta + r0, kBwdSub * 4, &full[st]);
-      hp::bulk_load(sst + 3 * kBwdSub, p.qmeta + p.tq_pad + r0, kBwdSub * 4,
-                    &full[st]);
-    }
-    return;
-  }
-  hp::reg_alloc<240>();
-
-  // consumers: warpgroup c owns keys k0 + 64c ..; this thread keys key0
-  // and key0 + 8, q columns 8j + 2t (+1) of each sub-tile
-  const int c = threadIdx.x / 128;
-  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int key0 = k0 + c * 64 + warp * 16 + g;
-  const float sl2 = p.scale * kLog2e;
-  int ksg[2], kps[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    ksg[h] = p.kmeta[key0 + h * 8];
-    kps[h] = p.kmeta[p.tk_pad + key0 + h * 8];
-  }
-  float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
-  float sc[32], dp[32];
-  uint32_t pa[4][4], dsa[4][4];
-  const unsigned char* ka = sk + c * L::kSub;  // this group's 64 keys
-  const unsigned char* va = sv + c * L::kSub;
-  if (n > 0) hp::mbar_wait(kvfull, 0);
-  for (int s = 0; s < n; ++s) {
-    const int st = s % kDkvStages;
-    const unsigned char* qt = ring + st * 2 * L::kSub;
-    const unsigned char* dot = qt + L::kSub;
-    hp::fence_operands(sc);
-    hp::fence_operands(dp);
-    hp::mbar_wait(&full[st], (s / kDkvStages) & 1);
-    hp::wgmma_fence();
-    wgmma_abt64<D>(sc, ka, qt);   // S^T
-    wgmma_abt64<D>(dp, va, dot);  // dP^T
-    hp::wgmma_commit();
-    hp::wgmma_wait<0>();  // also the products of iteration s - 1
-    hp::fence_operands(sc);
-    hp::fence_operands(dp);
-    hp::fence_operands(dk);
-    hp::fence_operands(dv);
-    hp::fence_operands(pa);
-    hp::fence_operands(dsa);
-    if (s > 0) hp::mbar_arrive(&empty[(s + kDkvStages - 1) % kDkvStages]);
-    // this thread's q columns of the stage: 8jj + 2t (+1)
-    const float* sst = stats + st * 4 * kBwdSub + 2 * t;
-    if (!flags[st]) {
-      // a boundary tile: scores of pairs that are not visible to -inf
-      const int* qsg = reinterpret_cast<const int*>(sst + 2 * kBwdSub);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int2 sq2 = *reinterpret_cast<const int2*>(qsg + 8 * jj);
-        const int2 pq2 =
-            *reinterpret_cast<const int2*>(qsg + kBwdSub + 8 * jj);
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int h = cc >> 1;
-          if (!visible(p, cc & 1 ? sq2.y : sq2.x, cc & 1 ? pq2.y : pq2.x,
-                       ksg[h], kps[h]))
-            sc[4 * jj + cc] = -INFINITY;
-        }
-      }
-    }
-    // P^T = exp(S^T - lse) (-inf: 0), rounded to bf16 fragments
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const float2 l2 = *reinterpret_cast<const float2*>(sst + 8 * jj);
-      const float nl0 = -fmaxf(l2.x, kNegSafe) * kLog2e;
-      const float nl1 = -fmaxf(l2.y, kNegSafe) * kLog2e;
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        sc[4 * jj + cc] = ex2(fmaf(sc[4 * jj + cc], sl2, cc & 1 ? nl1 : nl0));
-    }
-#pragma unroll
-    for (int e = 0; e < 32; e += 2)
-      pa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
-    hp::wgmma_fence();
-    wgmma_xb64<D>(dv, pa, dot);  // dV's product runs while dS^T is formed
-    hp::wgmma_commit();
-    // dS^T = P^T (dP^T - delta)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const float2 d2 =
-          *reinterpret_cast<const float2*>(sst + kBwdSub + 8 * jj);
-#pragma unroll
-      for (int cc = 0; cc < 4; cc += 2) {
-        const int e = 4 * jj + cc;
-        dsa[e / 8][(e % 8) / 2] = pack_bf16(sc[e] * (dp[e] - d2.x),
-                                            sc[e + 1] * (dp[e + 1] - d2.y));
-      }
-    }
-    hp::wgmma_fence();
-    wgmma_xb64<D>(dk, dsa, qt);
-    hp::wgmma_commit();
-  }
-  hp::wgmma_wait<0>();
-  hp::fence_operands(dk);
-  hp::fence_operands(dv);
-  hp::fence_operands(pa);
-  hp::fence_operands(dsa);
-  store_acc<D>(p, p.dk, p.tk, hi, k0 + c * 64, dk, p.scale);
-  store_acc<D>(p, p.dv, p.tk, hi, k0 + c * 64, dv, 1.f);
+  bwd_dkv_wgmma<D, VarlenWalk<kDkv>>(&qmap, &kmap, &vmap, &dmap, p);
 }
 
 // dq at D 256: a block owns 64 query rows of one head and walks the
@@ -1430,8 +834,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------- host
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
-
 template <int D>
 size_t smem_bytes(int which, bool bf) {
   if (bf) {
@@ -1482,10 +884,11 @@ int launch_fwd_wgmma(const VarlenParams& p, cudaStream_t stream) {
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
       varlen_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      FwdSmem<D>::kBytes);
+      FwdSmem<D, VarlenWalk<kFwd>>::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   varlen_fwd_wgmma<D><<<dim3(p.tq_pad / kFwdM, p.h), kFwdThreads,
-                        FwdSmem<D>::kBytes, stream>>>(qmap, kmap, vmap, p);
+                        FwdSmem<D, VarlenWalk<kFwd>>::kBytes, stream>>>(
+      qmap, kmap, vmap, p);
   return static_cast<int>(cudaGetLastError());
 }
 

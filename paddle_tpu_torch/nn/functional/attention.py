@@ -15,7 +15,12 @@ The flash route is ``FlashAttentionFunction``, an autograd function
 over kernel B10 (``csrc/flash_attention.cu``): the forward kernel
 writes ``out`` and the f32 ``lse`` ``[b, h, s]``, which the backward's
 two kernels (dq; dk and dv) read back with ``di = sum(out * dout)``, a
-PyTorch reduction. On a CUDA tensor it launches the kernels, or raises
+PyTorch reduction. In bf16 at head_dim 64, 96 and 128 the three are the
+Hopper kernels ``flash_fwd_wgmma``, ``flash_bwd_dq_wgmma`` and
+``flash_bwd_dkv_wgmma``: B11-B13's mainloops (``csrc/flash_wgmma.cuh``)
+on a dense walk that needs no block map (``dense_walk``, ``flash_grid``),
+reading q, k and v in place as strided views. On a CUDA tensor it
+launches the kernels, or raises
 (a build or launch failure, a head_dim past 256; a head_dim the
 kernels lack below it runs zero-padded to the next built width, exactly);
 on a CPU tensor it runs the plain versions ``flash_attention_fwd_plain`` and
@@ -141,7 +146,74 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool,
 # Kernel B10
 # ---------------------------------------------------------------------
 
-def _check_operands(what, q, k, v):
+#: a launch grid's limits by axis (x, y, z)
+_GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def flash_grid(kernel: str, dtype, head_dim: int, b: int, sq: int, sk: int,
+               h: int, sms: int = 132) -> tuple:
+    """The launch grid the C dispatch gives B10's ``kernel`` (``"fwd"``,
+    ``"dq"`` or ``"dkv"``) on a card of ``sms`` SMs: the wgmma kernels
+    (bf16 at head_dim <= 128) one axis over ``ceil(tiles / 2) * b * h``
+    fold units (``dense_walk``; tiles of 128 rows of ``sq``, of ``sk`` for
+    dk/dv): the forward and dq a block per ``ceil(units / sms)`` units, at
+    most ``sms`` blocks; dk/dv a block a (tile, batch, head); the others
+    ``(tiles, h, b)``: 64-row tiles at bf16 d256 (dk/dv with two column
+    halves a tile), 32-row tiles in f32."""
+    rows = sk if kernel == "dkv" else sq
+    if dtype == torch.bfloat16 and head_dim <= 128:
+        units = _cdiv(_cdiv(rows, 128), 2) * b * h
+        if kernel == "dkv":
+            return _cdiv(rows, 128) * b * h, 1
+        return _cdiv(units, _cdiv(units, sms)), 1
+    if dtype == torch.bfloat16:
+        return rows // 64 * (2 if kernel == "dkv" else 1), h, b
+    return rows // 32, h, b
+
+
+def dense_walk(kernel: str, sq: int, sk: int, causal: bool) -> list:
+    """B10's walk on the card (bf16 at head_dim <= 128) for one (batch,
+    head), as ``DenseWalk`` in ``csrc/flash_attention.cu`` works it out
+    from ``(sq, sk, causal)``: one dict per 128-row tile (q rows for
+    ``"fwd"`` and ``"dq"``, keys for ``"dkv"``), in the order the grid
+    takes them: the forward and dq by fold units, tiles ``nt - 1 - f`` and
+    ``f`` of ``nt``, whose causal walks add up to the same length in every
+    unit, a block taking a few units one after the other; dk/dv a tile a
+    block, the longest causal walks (the lowest k tiles) first: ``r0``, the
+    tile's first row; ``steps``, the first row of each step (128-key
+    tiles, 64-key sub-tiles, or 64-row q sub-tiles for dk/dv); and
+    ``interior``, per step, whether no pair in it is masked (the kernel
+    then skips its mask pass). Under causal (top left) q tile ``i``
+    visits key tiles ``0 .. min(i, nk - 1)`` and k tile ``j`` the q rows
+    from ``128 j`` on; dq and dk/dv stop at ``sk`` or ``sq``."""
+    walk = []
+    nt = _cdiv(sk if kernel == "dkv" else sq, 128)
+    order = range(nt) if kernel == "dkv" else [
+        i for f in range(_cdiv(nt, 2)) for i in dict.fromkeys((nt - 1 - f,
+                                                               f))]
+    if kernel == "dkv":
+        for t in order:
+            r0, s0 = 128 * t, (2 * t if causal else 0)
+            steps = [64 * (s0 + s) for s in range(max(sq // 64 - s0, 0))]
+            walk.append({"r0": r0, "steps": steps, "interior": [
+                not causal or r0 + 127 <= f for f in steps]})
+        return walk
+    step = 128 if kernel == "fwd" else 64
+    for tile in order:
+        r0 = tile * 128
+        seen = min(r0 + 128, sk) if causal else sk
+        steps = [step * s for s in range(_cdiv(seen, step))]
+        walk.append({"r0": r0, "steps": steps, "interior": [
+            (not causal or f + step - 1 <= r0)
+            and (kernel == "dq" or f + step <= sk) for f in steps]})
+    return walk
+
+
+def _check_operands(what, q, k, v, kernels=("fwd", "dq", "dkv")):
     b, sq, h, d = q.shape
     if k.shape != (b, k.shape[1], h, d) or v.shape != k.shape:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)} "
@@ -160,6 +232,19 @@ def _check_operands(what, q, k, v):
             raise ValueError(f"{what}: q, k and v must share device and "
                              "dtype")
     _kernels.dtype_code(q, what)
+    for kernel in kernels:
+        rows = k.shape[1] if kernel == "dkv" else sq
+        units = _cdiv(_cdiv(rows, 128), 2) * b * h
+        if q.dtype == torch.bfloat16 and d <= 128 and units > 2 ** 31 - 1:
+            raise ValueError(f"{what}: the {kernel} kernel's {units} fold "
+                             "units pass the int32 limit of 2147483647")
+        grid = flash_grid(kernel, q.dtype, d, b, sq, k.shape[1], h)
+        for axis, (n, limit) in enumerate(zip(grid, _GRID_LIMITS)):
+            if n > limit:
+                raise ValueError(
+                    f"{what}: the {kernel} kernel's grid {grid} has {n} "
+                    f"blocks on axis {'xyz'[axis]}, past its limit of "
+                    f"{limit}")
 
 
 def _strided(t):
@@ -178,7 +263,7 @@ def _strides(*ts):
 
 def _flash_fwd_cuda(q, k, v, causal, scale):
     what = "flash_attention forward"
-    _check_operands(what, q, k, v)
+    _check_operands(what, q, k, v, ("fwd",))
     fn = _kernels.lib("flash_attention").ptt_flash_fwd
     q, k, v = _strided(q), _strided(k), _strided(v)
     b, sq, h, d = q.shape
@@ -194,8 +279,14 @@ def _flash_fwd_cuda(q, k, v, causal, scale):
     return out, lse
 
 
-def _bwd_operands(what, q, k, v, dout, lse, di):
-    _check_operands(what, q, k, v)
+def _aligned(t):
+    """``t``, or a copy if its data does not start on 16 bytes (the
+    kernels' bulk copies and tensor maps need it)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _bwd_operands(what, q, k, v, dout, lse, di, causal, kernel):
+    _check_operands(what, q, k, v, (kernel,))
     lib = _kernels.lib("flash_attention")
     b, sq, h, d = q.shape
     for t, shape in ((dout, (b, sq, h, d)), (lse, (b, h, sq)),
@@ -208,19 +299,20 @@ def _bwd_operands(what, q, k, v, dout, lse, di):
         raise TypeError(f"{what}: dout in q's dtype, lse and di in f32")
     q, k, v = _strided(q), _strided(k), _strided(v)
     head = (_kernels.dtype_code(q, what), b, sq, k.shape[1], h, d,
-            *_strides(q, k, v))
-    return lib, q, k, v, head
+            *_strides(q, k, v), int(causal))
+    return lib, q, k, v, *(_aligned(t) for t in (dout, lse, di)), head
 
 
 def _flash_bwd_dq_cuda(q, k, v, dout, lse, di, causal, scale):
     """dq by ``ptt_flash_bwd_dq``: one launch."""
     what = "flash_attention backward (dq)"
-    lib, q, k, v, head = _bwd_operands(what, q, k, v, dout, lse, di)
+    lib, q, k, v, dout, lse, di, head = _bwd_operands(what, q, k, v, dout,
+                                                      lse, di, causal, "dq")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _kernels.check(lib.ptt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *head, int(causal),
-        float(scale), _kernels.stream_ptr(q.device)), what)
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *head, float(scale),
+        _kernels.stream_ptr(q.device)), what)
     global dq_launches
     dq_launches += 1
     return dq
@@ -229,13 +321,14 @@ def _flash_bwd_dq_cuda(q, k, v, dout, lse, di, causal, scale):
 def _flash_bwd_dkv_cuda(q, k, v, dout, lse, di, causal, scale):
     """dk and dv by ``ptt_flash_bwd_dkv``: one launch."""
     what = "flash_attention backward (dk, dv)"
-    lib, q, k, v, head = _bwd_operands(what, q, k, v, dout, lse, di)
+    lib, q, k, v, dout, lse, di, head = _bwd_operands(what, q, k, v, dout,
+                                                      lse, di, causal, "dkv")
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _kernels.check(lib.ptt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), *head,
-        int(causal), float(scale), _kernels.stream_ptr(q.device)), what)
+        float(scale), _kernels.stream_ptr(q.device)), what)
     global dkv_launches
     dkv_launches += 1
     return dk, dv

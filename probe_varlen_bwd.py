@@ -5,10 +5,11 @@
                                 [--out DIR]
 
 Builds ``paddle_tpu_torch/csrc/flash_varlen_packed.cu`` as it stands
-("design") and as each named variant (text substitutions of the source:
-ablations, and the alternatives that were measured against the design;
-``VARIANTS`` below) into libraries of their own, one nvcc each, all
-started together. It checks the design's build with
+("design") and as each named variant (text substitutions of its sources:
+the ``.cu`` and the headers it includes, where the mainloops live in
+``flash_wgmma.cuh``; ablations, and the alternatives that were measured
+against the design; ``VARIANTS`` below) into libraries of their own, one
+nvcc each, all started together. It checks the design's build with
 ``chip_smoke.kernel_flash_varlen`` (every ``VARLEN_CASES`` case, no
 timing), then times B12 (dq) and B13 (dk/dv) by the profiler (device ms
 of the kernels alone) on each pack, for every build in turns (design,
@@ -35,13 +36,14 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 NAME = "flash_varlen_packed"
 
-#: name -> (what it changes, {old text: new text} in flash_varlen_packed.cu)
+#: name -> (what it changes, {old text: new text} in flash_varlen_packed.cu
+#: or a header under csrc/; each old text must occur in one of them)
 VARIANTS = {
     "no_mask": (
         "the interior flag forced true: no visibility pass (its cost; "
         "wrong on boundary tiles)",
-        {"if (!flags[kst]) {": "if (false) {",
-         "if (!flags[st]) {": "if (false) {"}),
+        {"if (!flags[kst])": "if (false)",
+         "if (!flags[st])": "if (false)"}),
     "no_exp": (
         "P = S - lse without the exponential (the exponentials' cost; "
         "wrong values)",
@@ -53,12 +55,9 @@ VARIANTS = {
          "nl0);"}),
     "heads_fastest": (
         "one block a (head, tile), heads fastest",
-        {"  const int hi = blockIdx.y, i = p.order[blockIdx.x];\n"
-         "  const int q0 = i * kFwdM, ks = p.start[i], n = 2 * p.len[i];":
-         "  const int hi = blockIdx.x, i = p.order[blockIdx.y];\n"
-         "  const int q0 = i * kFwdM, ks = p.start[i], n = 2 * p.len[i];",
-         "const int hi = blockIdx.y, j = p.order[blockIdx.x];":
-         "const int hi = blockIdx.x, j = p.order[blockIdx.y];",
+        {"    hi = blockIdx.y;\n    tile = p.order[blockIdx.x];":
+         "    hi = K == kFwd ? blockIdx.y : blockIdx.x;\n"
+         "    tile = p.order[K == kFwd ? blockIdx.x : blockIdx.y];",
          "kernel<<<dim3(tiles, p.h), kFwdThreads":
          "kernel<<<dim3(p.h, tiles), kFwdThreads"}),
     "dkv_fused_issue": (
@@ -88,19 +87,22 @@ def build(names, out_dir: str) -> dict:
     for name in ["design", *names]:
         d = os.path.join(out_dir, name)
         os.makedirs(d, exist_ok=True)
+        subs = {} if name == "design" else dict(VARIANTS[name][1])
+        found = set()
         for f in os.listdir(src_dir):
-            if not f.endswith((".cu", ".cuh")):
+            if not f.endswith(".cuh") and f != f"{NAME}.cu":
                 continue
             with open(os.path.join(src_dir, f)) as fh:
                 text = fh.read()
-            if f == f"{NAME}.cu" and name != "design":
-                for old, new in VARIANTS[name][1].items():
-                    if old not in text:
-                        raise SystemExit(f"variant {name}: {old[:60]!r} is "
-                                         "not in the source")
+            for old, new in subs.items():
+                if old in text:
+                    found.add(old)
                     text = text.replace(old, new)
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(text)
+        for old in set(subs) - found:
+            raise SystemExit(f"variant {name}: {old[:60]!r} is not in the "
+                             "sources")
         so = os.path.join(d, f"lib{NAME}.so")
         cmd = [_kernels._nvcc(), *_kernels._FLAGS, "-o", so,
                os.path.join(d, f"{NAME}.cu")]
