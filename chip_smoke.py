@@ -7,8 +7,8 @@ Phases, all run every time, each of which fails the run when it fails:
   device   the card's name and power limit, as nvidia-smi reports them;
   build    the CUDA kernels from csrc/, one nvcc per source in parallel,
            then the machine code of the redesigned bf16 kernels read back
-           (cuobjdump -sass: HGMMA in B10-B15, HMMA or HGMMA in B2; no
-           ptxas spill);
+           (cuobjdump -sass: HGMMA in B10-B15, HMMA or HGMMA in B2 and B7,
+           IMMA in B6; no ptxas spill);
   kernels  each kernel against its plain PyTorch version at the serving
            path's shapes, in bfloat16 and float32 (tolerances printed;
            the paged-prefill kernel on 16 cases with a swapped-pages
@@ -36,8 +36,10 @@ Phases, all run every time, each of which fails the run when it fails:
            (prefill_chunk: wall, device ms, the paged-prefill kernel's
            share, the top host ops);
   quantized the quantized kernels (the int8-weight GEMM and tail, the
-           A8W8 GEMM, the int8-KV decode attention) checked and timed
-           with the others; then the same model's stack quantized to
+           A8W8 GEMM, the int8-KV decode attention: also with NaN scales
+           past every row's length, on long split rows, and a control
+           skipping each row's last live page) checked and timed with
+           the others; then the same model's stack quantized to
            int8 in place and driven through bench.py's quantized decode
            rungs — generate_int8 (b32), generate_a8w8 (b32),
            generate_int8kv (int8 weights and KV pool, b64), each with a
@@ -267,7 +269,9 @@ DESIGNED_SASS = (("grouped_gemm", "grouped_gemm_wgmma", ("HGMMA",)),
                  ("flash_varlen_packed", "varlen_fwd_wgmma", ("HGMMA",)),
                  ("flash_varlen_packed", "varlen_bwd_dq_wgmma", ("HGMMA",)),
                  ("flash_varlen_packed", "varlen_bwd_dkv_wgmma",
-                  ("HGMMA",)))
+                  ("HGMMA",)),
+                 ("paged_attention_q", "paged_decode_q_mma", ("IMMA",)),
+                 ("paged_backends", "stream_walk_bf16", ("HMMA", "HGMMA")))
 
 
 def _sass_functions(path) -> dict:
@@ -313,8 +317,9 @@ def phase_build(out_dir):
     """Every library built from csrc/, one nvcc per source in parallel;
     then the redesigned kernels' machine code read back: each
     instantiation of the bf16 kernels of B14, B15, B10 and B11-B13 (d64,
-    d96, d128) must hold HGMMA (wgmma) and B2's bf16 kernel HMMA or HGMMA,
-    with no register spill in ptxas's report."""
+    d96, d128) must hold HGMMA (wgmma), B2's and B7's bf16 kernels HMMA or
+    HGMMA and B6's bf16 kernel IMMA (int8 mma.sync), with no register
+    spill in ptxas's report."""
     from paddle_tpu_torch import _kernels
 
     t0 = time.perf_counter()
@@ -497,6 +502,9 @@ B15_KERNEL = "grouped_dw_wgmma"
 B11_KERNEL = "varlen_fwd_wgmma"
 B12_KERNEL = "varlen_bwd_dq_wgmma"
 B13_KERNEL = "varlen_bwd_dkv_wgmma"
+#: profiler names of B7's bf16 launches, the walk and the merge (f32 keeps
+#: stream_partial_f32)
+B7_KERNELS = ("stream_walk_bf16", "stream_merge")
 
 
 def kernel_stream_linear(gen) -> dict:
@@ -1149,18 +1157,35 @@ def kernel_stream_linear_a8w8(gen) -> dict:
     return row
 
 
-def _decode_q_case(dtype, gen, g=1, d=HEAD_DIM, L=2):
+#: profiler name of B6's bf16 kernel (f32 keeps paged_decode_q_kernel)
+B6_KERNEL = "paged_decode_q_mma"
+#: the long-row case of B6 (b4, 64 pages a row: the kernel splits rows)
+DECODE_Q_LONG_LENS = [1023, 777, 301, 16]
+
+
+def _decode_q_case(dtype, gen, g=1, d=HEAD_DIM, L=2, lens=None, pp=17):
     """Kernel-6 inputs at the int8-KV rung's shapes: batch 64 (the 32
     rows of DECODE_LENS — idle slot, page edges, a shared page, a table
     id past the region, a full table — and 32 more at contexts
     128..257), 16 kv heads of d, page 16, 17 pages a row; an L-layer
-    int8 pool with its scale planes, quantized from random rows."""
+    int8 pool with its scale planes, quantized from random rows. ``lens``
+    and ``pp`` replace the batch (distinct pages, no shared page and no
+    id past the region)."""
     from paddle_tpu_torch.nn.functional.paged_attention import (
         quantize_kv_rows)
 
-    b, n_kv, ps, pp = 2 * BATCH, N_HEADS, PAGE, 17
-    lens = DECODE_LENS + [int(n) for n in np.linspace(128, 257, BATCH)]
-    tables, P = _decode_tables(lens, pp, 8)
+    n_kv, ps = N_HEADS, PAGE
+    if lens is None:
+        lens = DECODE_LENS + [int(n) for n in np.linspace(128, 257, BATCH)]
+        tables, P = _decode_tables(lens, pp, 8)
+    else:
+        P = len(lens) * pp + 1
+        perm = list(np.random.RandomState(9).permutation(np.arange(1, P)))
+        tables = np.zeros((len(lens), pp), np.int32)
+        for r, n in enumerate(lens):
+            need = min(-(-(n + 1) // ps), pp)
+            tables[r, :need] = [perm.pop() for _ in range(need)]
+    b = len(lens)
     dev = "cuda"
 
     def rnd(*s):
@@ -1179,11 +1204,32 @@ def _decode_q_case(dtype, gen, g=1, d=HEAD_DIM, L=2):
                 tables=torch.from_numpy(tables).to(dev), P=P, L=L, pp=pp)
 
 
+def _nan_past_lengths(c, base: int) -> None:
+    """Scale planes (both sides) set to NaN at every slot, in layer
+    ``base``'s region, of every table page at or past its row's length
+    (the append's slot included), as a pool from torch.empty may hold
+    where nothing was written."""
+    ps, pp = PAGE, c["pp"]
+    tables = c["tables"].long()
+    pos = torch.arange(pp * ps, device="cuda")
+    page = tables[:, pos // ps]                              # [b, cap]
+    past = (pos[None, :] >= c["lens"].long()[:, None]) & (page < c["P"])
+    cols = ((page + base) * ps + pos % ps)[past]
+    for k in ("ks", "vs"):
+        c[k][:, cols] = float("nan")
+
+
 def kernel_paged_attention_q(gen) -> dict:
     """Kernel B6 (int8-KV decode attention with its quantized append):
     batch 64 at contexts 0..272 against the plain version, the pool rows
     and planes after the append compared exactly; g 4 / d 64 and d 96
-    besides; timed beside SDPA over the pre-dequantized gathered K/V."""
+    besides; the rung's shape again with every scale past a row's length
+    NaN (outputs finite and within the limit: the kernel selects, never
+    multiplies, what it masks); a long-row batch (b4, 64 pages a row,
+    which decode_q_plan splits); a control per case, the plain version
+    skipping each row's last live page, which must exceed the limit;
+    timed (events and the profiler's device time) beside SDPA over the
+    pre-dequantized gathered K/V."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.nn.functional import paged_attention as pa
@@ -1192,35 +1238,61 @@ def kernel_paged_attention_q(gen) -> dict:
     # tolerances: the logits of cached tokens are the same fp32 products
     # on both sides (an exact integer dot); the softmax and the weighted
     # sums differ only in summation order (float32: 2e-5 at outputs of
-    # magnitude ~1; bf16 outputs one ulp, 2^-7 below 2)
-    for (g, d), dtype, tol in [
-            (gd, dt, tl) for gd in ((1, HEAD_DIM), (4, 64), (2, 96))
-            for dt, tl in ((torch.float32, 2e-5),
-                           (torch.bfloat16, 2 ** -7))]:
-        c = _decode_q_case(dtype, gen, g=g, d=d)
-        ref_pool = [c[k].clone() for k in ("kq", "ks", "vq", "vs")]
+    # magnitude ~1; bf16 outputs one ulp, 2^-7 below 2; the bf16 kernel's
+    # weights enter P V as a bf16 pair, within 2^-16 of each)
+    cases = [((g, d), dt, tl, kw)
+             for (g, d), kw in (((1, HEAD_DIM), {}), ((4, 64), {}),
+                                ((2, 96), {}), ((1, HEAD_DIM), {"nan": 1}),
+                                ((1, HEAD_DIM),
+                                 {"lens": DECODE_Q_LONG_LENS, "pp": 64}))
+             for dt, tl in ((torch.float32, 2e-5),
+                            (torch.bfloat16, 2 ** -7))]
+    for (g, d), dtype, tol, kw in cases:
+        kw = dict(kw)
+        nan = kw.pop("nan", 0)
+        c = _decode_q_case(dtype, gen, g=g, d=d, **kw)
         base = c["P"]
+        if nan:
+            _nan_past_lengths(c, base)
+        ref_pool = [c[k].clone() for k in ("kq", "ks", "vq", "vs")]
+        ctrl_pool = [t.clone() for t in ref_pool]
         out = pa.paged_decode_attention_inplace_q(
             c["q"], c["nk"], c["nv"], c["kq"], c["ks"], c["vq"], c["vs"],
             c["lens"], c["tables"], pool_base=base, pool_pages=c["P"])[0]
         ref = pa._paged_decode_q_plain(c["q"], c["nk"], c["nv"], *ref_pool,
                                        c["lens"], c["tables"], base, c["P"])
+        ctrl = pa._paged_decode_q_plain(c["q"], c["nk"], c["nv"],
+                                        *ctrl_pool, c["lens"], c["tables"],
+                                        base, c["P"], skip_last_page=True)
         torch.cuda.synchronize()
-        err = max_err(out, ref)
-        pools_equal = all(torch.equal(c[k], r) for k, r in
-                          zip(("kq", "ks", "vq", "vs"), ref_pool))
+        err, ctrl_err = max_err(out, ref), max_err(ctrl, ref)
+        # NaN planes compare equal where both hold NaN
+        pools_equal = all(torch.equal(c[k], r) if k in ("kq", "vq") else
+                          bool(torch.equal(c[k].isnan(), r.isnan()) and
+                               torch.equal(c[k].nan_to_num(), r.nan_to_num()))
+                          for k, r in zip(("kq", "ks", "vq", "vs"), ref_pool))
+        finite = bool(torch.isfinite(out).all())
+        b = int(c["q"].shape[0])
+        n_split = (pa.decode_q_plan(b, N_HEADS, c["pp"] * PAGE,
+                                    pa._sm_count(c["q"].device))[0]
+                   if dtype == torch.bfloat16 else 1)
         emit({"check": "paged_decode_attention_inplace_q", "g": g, "d": d,
-              "dtype": str(dtype), "batch": int(c["q"].shape[0]),
-              "max_abs_err": err, "tol": tol,
+              "dtype": str(dtype), "batch": b, "pages_per_seq": c["pp"],
+              "nan_planes_past_lengths": bool(nan), "n_split": n_split,
+              "max_abs_err": err, "tol": tol, "control_err": ctrl_err,
+              "output_finite": finite,
               "pool_and_planes_after_append_equal": pools_equal})
-        check(err <= tol, f"paged attention q g={g} d={d} {dtype}: "
-                          f"{err} > {tol}")
-        check(pools_equal, f"paged attention q g={g} d={d} {dtype}: int8 "
-                           "rows or scale planes after the append differ "
-                           "from the plain write")
-        if (g, d) == (1, HEAD_DIM):
+        what = f"paged attention q g={g} d={d} {dtype} b={b}" + \
+            (" (NaN planes)" if nan else "")
+        check(finite, f"{what}: output not finite")
+        check(err <= tol, f"{what}: {err} > {tol}")
+        check(ctrl_err > tol, f"{what}: the control (last live page "
+              f"skipped, {ctrl_err}) is within the limit {tol}")
+        check(pools_equal, f"{what}: int8 rows or scale planes after the "
+                           "append differ from the plain write")
+        if (g, d) == (1, HEAD_DIM) and not nan and b == 2 * BATCH:
             res[str(dtype)] = err
-        del c, ref_pool
+        del c, ref_pool, ctrl_pool
     # timing, bf16, alternating over the pool's 2 layers
     c = _decode_q_case(torch.bfloat16, gen)
     nxt = cycler(c["L"])
@@ -1259,6 +1331,11 @@ def kernel_paged_attention_q(gen) -> dict:
     def library():
         F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
     ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+    dev_ms = device_ms(kern, B6_KERNEL, per_call=1)
+    if dev_ms == 0.0:                   # the profiler dropped every event
+        dev_ms = device_ms(kern, B6_KERNEL, per_call=1)
+    check(dev_ms > 0.0, f"paged attention q: no {B6_KERNEL} device time "
+                        "recorded")
     # bytes this run's data needs: each attended int8 K/V row and its two
     # f32 scales once, q, the operands, the output, the appended rows and
     # scales, the tables and lengths
@@ -1273,10 +1350,14 @@ def kernel_paged_attention_q(gen) -> dict:
               + b * 4)
     flops = 4.0 * (tok + b) * n_kv * d
     bms, by = bound_ms(nbytes, flops, torch.bfloat16)
-    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-           "attended_tokens": tok, "max_abs_err": res[str(torch.bfloat16)]}
-    emit({"time": "paged_decode_attention_inplace_q", **row})
+    row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+           "bytes": nbytes, "attended_tokens": tok,
+           "max_abs_err": res[str(torch.bfloat16)]}
+    emit({"time": "paged_decode_attention_inplace_q", "batch": b,
+          "n_split": pa.decode_q_plan(b, n_kv, cap,
+                                      pa._sm_count(c["q"].device))[0],
+          **row})
     return row
 
 
@@ -2228,6 +2309,7 @@ def slice_decode_step(model, out_dir, steps: int = 16, quant=None,
         profiled_ms = timed()
     groups = {"paged_decode_kernel": "paged_decode_attention_inplace",
               "paged_decode_q_kernel": "paged_decode_attention_inplace_q",
+              B6_KERNEL: "paged_decode_attention_inplace_q",
               B2_KERNEL: "stream_linear GEMM (QKV, head, tail "
                          "projections)",
               "stream_linear_kernel": "stream_linear GEMM (QKV, head, "
@@ -4515,6 +4597,15 @@ def _backend_times(name, gen, res) -> dict:
         F.scaled_dot_product_attention(qd, kg, vg, attn_mask=mask)
     ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
     lib_ms = time_ms(library)
+    if name == "stream":
+        # the profiler's device time a call, and of each of its launches
+        dev = {}
+        for k in B7_KERNELS:
+            dev[k] = device_ms(kern, k, per_call=1)
+            if dev[k] == 0.0:           # the profiler dropped every event
+                dev[k] = device_ms(kern, k, per_call=1)
+            check(dev[k] > 0.0, f"stream: no {k} device time recorded")
+        dev_ms = sum(dev.values())
     isz, n_tok = 2, int(attended.sum())
     nbytes = (2 * n_tok * n_kv * d * isz + 2 * b * n_kv * d * isz
               + b * 4 + (b * P * 4 if name == "stream"
@@ -4527,10 +4618,17 @@ def _backend_times(name, gen, res) -> dict:
     extra = {}
     if name == "stream":
         region = 2 * P * PAGE * n_kv * d * isz
-        nch = -(-P * PAGE // pa.STREAM_KERNEL_CHUNK)
-        extra = {"region_bytes": region,
+        blocks, cpb, run_pages, _ = pa.stream_walk(
+            b, 1, n_kv, P, PAGE, pa._sm_count(c["q"].device))
+        live = int(pa.stream_live_pages(mem, 1).sum())
+        row["device_ms"] = dev_ms
+        extra = {"device_ms": dev_ms, "device_ms_by_launch": dev,
+                 "region_bytes": region,
                  "region_bound_ms": region / HBM_BYTES_PER_S * 1e3,
-                 "workspace_bytes": n_kv * nch * b * (d + 2) * 4,
+                 "live_pages": live, "region_pages": P,
+                 "live_bytes": 2 * live * PAGE * n_kv * d * isz,
+                 "blocks_per_head": blocks, "chunks_per_block": cpb,
+                 "workspace_bytes": n_kv * blocks * b * (d + 2) * 4,
                  "launches_per_call": 2}
     emit({"time": f"paged_attention_{name}", "batch": b, "g": 1, "d": d,
           "pages_per_seq": pp, "attended_tokens": n_tok, **row, **extra,

@@ -37,7 +37,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "lib", "check", "dtype_code", "weight_code", "ptr",
-           "stream_ptr", "SOURCES", "BUILD_DIR"]
+           "stream_ptr", "sm_count", "SOURCES", "BUILD_DIR"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -77,10 +77,10 @@ _SIGNATURES = {
     },
     "paged_attention_q": {
         # q, new_k, new_v, kq_pool, ks_plane, vq_pool, vs_plane,
-        # seq_lens, block_tables, out, dtype, b, n_q, n_kv, d,
+        # seq_lens, block_tables, out, ws, dtype, b, n_q, n_kv, d,
         # page_size, pages_per_seq, pool_base, pool_pages, plane_cols,
-        # scale, stream
-        "ptt_paged_decode_attention_q": [_P] * 10 + [_I] * 10 + [_F, _P],
+        # n_split, scale, stream
+        "ptt_paged_decode_attention_q": [_P] * 11 + [_I] * 11 + [_F, _P],
     },
     "stream_linear_a8w8": {
         # x_q, x_scale, w, w_scale, bias, bias_dt, out, out_dt, M, K, N,
@@ -130,8 +130,8 @@ _SIGNATURES = {
     "paged_backends": {
         # q, k_pool, v_pool, seq_lens, membership, ws_ml, ws_acc, out,
         # dtype, b, n_q, n_kv, d, page_size, pool_base, pool_pages,
-        # scale, stream
-        "ptt_paged_stream": [_P] * 8 + [_I] * 8 + [_F, _P],
+        # blocks, chunks_per_block, run_pages, scale, stream
+        "ptt_paged_stream": [_P] * 8 + [_I] * 11 + [_F, _P],
         # q, k_pool, v_pool, seq_lens, block_tables, out, dtype, b, n_q,
         # n_kv, d, page_size, pages_per_seq, num_pages, scale, stream
         "ptt_paged_fused": [_P] * 6 + [_I] * 8 + [_F, _P],
@@ -244,3 +244,9 @@ def ptr(t) -> int | None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, which the wrappers size their
+    grids by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

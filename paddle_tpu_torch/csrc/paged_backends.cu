@@ -21,11 +21,15 @@
 //
 // B7 keeps the TPU design: the layer region's tokens are streamed once,
 // in chunks of kChunk = 64 region tokens, and every query row is served
-// from each chunk, so a K/V byte of the region is read once per call. The
-// TPU grid walks the chunks in order and carries an online softmax in
-// VMEM; here one block per (chunk, kv head) writes f32 partials (the
-// chunk's own max m, sum l, unnormalised output acc) to a workspace and a
-// second launch merges them by log-sum-exp. The mask is the block
+// from each chunk, so a K/V byte of the region is read at most once per
+// call. The TPU grid walks the chunks in order and carries an online
+// softmax in VMEM. Here (bf16, stream_walk_bf16) a kv head's chunks are cut
+// into runs, one block a run, about two blocks an SM in all (the wrapper's
+// stream_walk); a block walks its run through a 2-stage cp.async ring,
+// folds its chunks by log-sum-exp in registers and writes one f32 state per
+// (block, row); a second launch (stream_merge) merges the head's states, a
+// few a row. A page that no row holds is not read. float32 keeps one block
+// per (chunk, kv head) writing the chunk's partials, merged alike. The mask is the block
 // tables': token (p, s) of the region is valid for row r when membership
 // [r, p] = j >= 0 and j * page_size + s < seq_lens[r] (membership is the
 // wrapper's pool_membership, built on the device); a page two rows hold
@@ -56,10 +60,12 @@
 //
 // Bounds (H100 SXM: 3.35 TB/s). Decode attention does 4 flops a K/V row
 // pair per query head: far below the card's balance, so bytes bound all
-// three: B8 and B9 read the attended K/V rows once; B7 reads the whole
-// layer region once, plus its f32 workspace. B8's grid of b blocks fills a
+// three: B8 and B9 read the attended K/V rows once; B7 the pages some row
+// holds once, plus its f32 workspace (bf16: a state per block and row). B8's grid of b blocks fills a
 // quarter of the SMs at b 32; wgmma, TMA page loads and a split of long
 // rows are later work.
+#include <type_traits>
+
 #include "flash_tiles.cuh"
 
 namespace {
@@ -73,8 +79,10 @@ using ptt::to_f32;
 
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;  // the TPU kernels' NEG
-constexpr int kChunk = 64;      // B7: region tokens a block (the wrapper's
+constexpr int kChunk = 64;      // B7: region tokens a chunk (the wrapper's
                                 // STREAM_KERNEL_CHUNK)
+constexpr int kRows = 64;       // B7 bf16: query rows a pass, 16 a warp
+constexpr int kRing = 2;        // B7 bf16: chunks in flight
 constexpr int kSub = 16;        // B8/B9: key rows of a slice
 constexpr int kUnroll = 4;      // f32: K/V rows a warp keeps in flight
 
@@ -85,9 +93,13 @@ struct PagedParams {
   const int* seq_lens;
   const int* tables;  // B7: membership [b, pool_pages]; B8/B9 [b, pp]
   void* out;
-  float* ws_ml;   // B7: [n_kv, nch, b*g, 2] (m, l)
-  float* ws_acc;  // B7: [n_kv, nch, b*g, d]
+  float* ws_ml;   // B7: [n_kv, nch_blocks, b*g, 2] (m, l)
+  float* ws_acc;  // B7: [n_kv, nch_blocks, b*g, d]
   int b, n_kv, g, d, ps, pp, pool_base, pool_pages, num_pages, ppcb, nch;
+  int ps_shift;    // B7 bf16: log2(page_size) for a power of two, else -1
+  int nch_blocks;  // B7: blocks a kv head (f32: one a chunk)
+  int cpb;         // B7 bf16: chunks a block's run
+  int run_pages;   // B7 bf16: region pages a run spans, at most
   float scale;
 };
 
@@ -105,105 +117,319 @@ __device__ __forceinline__ int64_t pool_at(const PagedParams& p, int pg,
 
 // ---------------------------------------------------------------- B7
 
-// Partials of one (chunk, kv head): the chunk's K and V rows staged once,
-// then every query row of the head in tiles of 64 (16 a warp).
+// One block per (run of chunks, kv head): the run's chunks walked through a
+// 2-stage cp.async ring, every query row of the head served from each
+// chunk, rows in passes of 64 (16 a warp). Per pass the block stages the
+// q tile and its batch rows' membership columns of the run's pages once;
+// a page no row of the pass holds (every membership entry -1) is not
+// read, and a chunk with no such page is skipped. Each chunk's
+// probabilities are taken against the chunk's own max and rounded to bf16
+// for P V; a warp folds its chunks' (m, l, acc) into one running state by
+// log-sum-exp in f32 registers (acc scaled before and after the product,
+// so the chunk's p is never rescaled). The pass's states go to the
+// workspace, one per (block, row), which stream_merge folds into the
+// output.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    stream_partial_bf16(const PagedParams p) {
+    stream_walk_bf16(const PagedParams p) {
   constexpr int kPitch = TileBf16<D>::kPitch, kVec = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);  // [64][kPitch]
-  bf16* sk = sq + 64 * kPitch;               // [kChunk][kPitch]
-  bf16* sv = sk + kChunk * kPitch;
-  const int c = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // [kRows][kPitch]
+  bf16* ring = sq + kRows * kPitch;          // [kRing][K, V][kChunk][kPitch]
+  // per batch row of the pass: its valid slots of each run page, then one
+  // bit a run token (32 a word)
+  int* nvalid = reinterpret_cast<int*>(ring + kRing * 2 * kChunk * kPitch);
+  unsigned* vbits =
+      reinterpret_cast<unsigned*>(nvalid + kRows * p.run_pages);
+  const int n_words = 2 * p.cpb;  // run tokens / 32
+  unsigned* live = vbits + kRows * n_words;
+  int* list = reinterpret_cast<int*>(live + (p.run_pages + 31) / 32);
+  int* misc = list + p.cpb;  // the number of live chunks, then the lengths
+                             // of the pass's batch rows
+  float* xmax = reinterpret_cast<float*>(misc + 1 + kRows);  // [4][16]
+  const int blk = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, t = lane & 3;
-  const int T = p.pool_pages * p.ps, t0 = c * kChunk, bg = p.b * p.g;
+  const int T = p.pool_pages * p.ps, bg = p.b * p.g;
+  const int c0 = blk * p.cpb, c1 = min(p.nch, c0 + p.cpb);
+  // tok / page_size, a shift for a power of two
+  auto div_ps = [&](int tok) {
+    return p.ps_shift >= 0 ? tok >> p.ps_shift : tok / p.ps;
+  };
+  const int pg0 = div_ps(c0 * kChunk);  // the run's first region page
+  const int n_pg = min(p.pool_pages, div_ps(c1 * kChunk + p.ps - 1)) - pg0;
   const bf16* kp = static_cast<const bf16*>(p.k_pool);
   const bf16* vp = static_cast<const bf16*>(p.v_pool);
   const bf16* q = static_cast<const bf16*>(p.q);
-  for (int i = threadIdx.x; i < kChunk * kVec; i += kThreads) {
-    const int r = i / kVec, e = (i % kVec) * 8, tok = t0 + r;
-    const bool in = tok < T;
-    const int64_t off =
-        in ? pool_at(p, p.pool_base + tok / p.ps, h, tok % p.ps) + e : 0;
-    cp_async16(sk + r * kPitch + e, kp + off, in ? 16 : 0);
-    cp_async16(sv + r * kPitch + e, vp + off, in ? 16 : 0);
-  }
-  for (int r0 = 0; r0 < bg; r0 += 64) {
-    for (int i = threadIdx.x; i < 64 * kVec; i += kThreads) {
+  const int n_rt = (bg + kRows - 1) / kRows;
+
+  for (int rt = 0; rt < n_rt; ++rt) {
+    const int r0 = rt * kRows;
+    const int bi0 = r0 / p.g;
+    const int nb = min(p.b, (min(bg, r0 + kRows) - 1) / p.g + 1) - bi0;
+    __syncthreads();  // the previous pass is done with shared memory
+    // the q tile (rows past bg zero) by cp.async; the valid slots of each
+    // (batch row, run page) from the membership columns meanwhile: j * ps
+    // + s < seq_lens for the page's table index j >= 0
+    for (int i = tid; i < kRows * kVec; i += kThreads) {
       const int r = i / kVec, e = (i % kVec) * 8, row = r0 + r;
       const bool in = row < bg;
       const int64_t off = in ? q_at(p, row / p.g, h, row % p.g) + e : 0;
       cp_async16(sq + r * kPitch + e, q + off, in ? 16 : 0);
     }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    const int wr0 = r0 + warp * 16;
-    if (wr0 < bg) {
-      float s[kChunk / 8][4];
-      zero(s);
-      mma_abt<kChunk, D>(s, sq + warp * 16 * kPitch, sk);
-      int len[2];
-      const int* mem[2];
-      bool ok_row[2];
+    for (int i = tid; i < (n_pg + 31) / 32; i += kThreads) live[i] = 0u;
+    if (tid < nb) misc[1 + tid] = p.seq_lens[bi0 + tid];
+    // the membership entries, kStage a thread with their loads in flight
+    // together, then their valid slots
+    constexpr int kStage = 8;
+    for (int i0 = 0; i0 < nb * n_pg; i0 += kThreads * kStage) {
+      int jv[kStage];
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int row = wr0 + gq + rr * 8;
-        ok_row[rr] = row < bg;
-        const int bi = ok_row[rr] ? row / p.g : 0;
-        len[rr] = p.seq_lens[bi];
-        mem[rr] = p.tables + static_cast<int64_t>(bi) * p.pool_pages;
+      for (int k = 0; k < kStage; ++k) {
+        const int i = i0 + k * kThreads + tid;
+        jv[k] = -1;
+        if (i < nb * n_pg) {
+          const int lb = i / n_pg;
+          jv[k] = p.tables[static_cast<int64_t>(bi0 + lb) * p.pool_pages +
+                           pg0 + i - lb * n_pg];
+        }
       }
-      float mx[2] = {kNeg, kNeg};
+      __syncthreads();  // the lengths are staged
 #pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt)
+      for (int k = 0; k < kStage; ++k) {
+        const int i = i0 + k * kThreads + tid;
+        if (i < nb * n_pg) {
+          const int lb = i / n_pg, pg = i - lb * n_pg;
+          const int left = misc[1 + lb] - jv[k] * p.ps;
+          nvalid[lb * p.run_pages + pg] =
+              jv[k] >= 0 ? max(0, min(p.ps, left)) : 0;
+        }
+      }
+    }
+    __syncthreads();
+    for (int pg = tid; pg < n_pg; pg += kThreads) {
+      bool any = false;
+      for (int lb = 0; lb < nb && !any; ++lb)
+        any = nvalid[lb * p.run_pages + pg] > 0;
+      if (any) atomicOr(live + pg / 32, 1u << (pg % 32));
+    }
+    // word w of batch row lb: run tokens 32 w .. 32 w + 31, each page's
+    // valid slots a run of ones from the page's first token
+    for (int i = tid; i < nb * n_words; i += kThreads) {
+      const int lb = i / n_words, w = i % n_words;
+      const int tw = c0 * kChunk + 32 * w;  // region token of bit 0
+      unsigned bits = 0u;
+      for (int pg = div_ps(tw) - pg0; pg < n_pg && (pg + pg0) * p.ps < tw + 32;
+           ++pg) {
+        const int lo = (pg + pg0) * p.ps - tw;  // may be < 0
+        const int hi = min(32, lo + nvalid[lb * p.run_pages + pg]);
+        const int a = max(0, lo);
+        if (hi > a)
+          bits |= (hi - a == 32 ? 0xffffffffu : ((1u << (hi - a)) - 1u)) << a;
+      }
+      vbits[i] = bits;
+    }
+    __syncthreads();
+    if (tid == 0) {  // the run's chunks that hold a live page, in order
+      int n = 0;
+      for (int c = c0; c < c1; ++c) {
+        const int a = div_ps(c * kChunk) - pg0;
+        const int z = min(n_pg - 1, div_ps((c + 1) * kChunk - 1) - pg0);
+        bool any = false;
+        for (int pg = a; pg <= z && !any; ++pg)
+          any = (live[pg / 32] >> (pg % 32)) & 1u;
+        if (any) list[n++] = c;
+      }
+      misc[0] = n;
+    }
+    __syncthreads();
+    const int n_live = misc[0];
+
+    // chunk list[i] into stage i % kRing: rows of a page the pass holds,
+    // others zero-filled and not read
+    auto issue = [&](int i) {
+      const int c = list[i];
+      bf16* sk = ring + (i % kRing) * 2 * kChunk * kPitch;
+      bf16* sv = sk + kChunk * kPitch;
+      for (int x = tid; x < kChunk * kVec; x += kThreads) {
+        const int r = x / kVec, e = (x % kVec) * 8, tok = c * kChunk + r;
+        const int pg = div_ps(tok) - pg0;
+        const bool in = tok < T && ((live[pg / 32] >> (pg % 32)) & 1u);
+        const int64_t off =
+            in ? pool_at(p, p.pool_base + pg0 + pg, h,
+                         tok - (pg0 + pg) * p.ps) + e
+               : 0;
+        cp_async16(sk + r * kPitch + e, kp + off, in ? 16 : 0);
+        cp_async16(sv + r * kPitch + e, vp + off, in ? 16 : 0);
+      }
+    };
+    if (n_live > 0) issue(0);
+    cp_async_commit();  // with the q tile
+
+    // a pass of at most 32 rows splits each chunk's keys between two warp
+    // pairs: warp w takes row tile w & 1 and key half w >> 1, the pair
+    // sharing the chunk's max through shared memory; otherwise warp w
+    // takes row tile w and every key
+    const bool split = bg - r0 <= 32;
+    const int rtile = split ? (warp & 1) : warp, kh = split ? warp >> 1 : 0;
+    // this thread's rows wr0 + gq (+ 8): their batch rows' bit words
+    const int wr0 = r0 + rtile * 16;
+    const unsigned* vrow[2];
+    bool ok_row[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = wr0 + gq + rr * 8;
+      ok_row[rr] = row < bg;
+      vrow[rr] = vbits + ((ok_row[rr] ? row / p.g : bi0) - bi0) * n_words;
+    }
+    float mrun[2] = {kNeg, kNeg}, lrun[2] = {0.f, 0.f};
+    float o[D / 8][4];
+    zero(o);
+    // chunk c from stage `stage`: this warp's KN keys (from key kh * KN)
+    // folded into the running state. Every warp runs it (a warp without
+    // rows computes masked scores and keeps nothing): the pair's exchange
+    // is a block barrier.
+    auto fold = [&](auto kn, int c, int stage) {
+      constexpr int KN = decltype(kn)::value;
+      const bf16* sk =
+          ring + stage * 2 * kChunk * kPitch + kh * KN * kPitch;
+      const bf16* sv = sk + kChunk * kPitch;
+      float s[KN / 8][4];
+      zero(s);
+      mma_abt<KN, D>(s, sq + rtile * 16 * kPitch, sk);
+      float mx[2] = {kNeg, kNeg};
+      unsigned vb[2][KN / 32];  // [row][32-key word]
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int hw = 0; hw < KN / 32; ++hw)
+          vb[rr][hw] = ok_row[rr]
+                           ? vrow[rr][2 * (c - c0) + kh * (KN / 32) + hw]
+                           : 0u;
+#pragma unroll
+      for (int nt = 0; nt < KN / 8; ++nt)
 #pragma unroll
         for (int cc = 0; cc < 4; ++cc) {
-          const int rr = cc >> 1, tok = t0 + nt * 8 + 2 * t + (cc & 1);
-          bool ok = ok_row[rr] && tok < T;
-          if (ok) {
-            const int j = mem[rr][tok / p.ps];
-            ok = j >= 0 && j * p.ps + tok % p.ps < len[rr];
-          }
+          const int rr = cc >> 1;
+          const int bit = (nt & 3) * 8 + 2 * t + (cc & 1);
+          const bool ok = (vb[rr][nt >> 2] >> bit) & 1u;
           const float x = ok ? s[nt][cc] * p.scale : -INFINITY;
           s[nt][cc] = x;
           mx[rr] = fmaxf(mx[rr], x);
         }
-      float l[2] = {0.f, 0.f};
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) mx[rr] = quad_max(mx[rr]);
-#pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          s[nt][cc] = expf(s[nt][cc] - mx[cc >> 1]);  // masked: 0
-          l[cc >> 1] += s[nt][cc];
+      if (KN < kChunk) {  // the chunk's max over both key halves
+        if (t == 0) {
+          xmax[warp * 16 + gq] = mx[0];
+          xmax[warp * 16 + 8 + gq] = mx[1];
         }
-      float o[D / 8][4];
-      zero(o);
-      mma_xb<kChunk, D>(o, s, sv);  // p packed to bf16, as the TPU kernel
+        __syncthreads();
+        mx[0] = fmaxf(mx[0], xmax[(warp ^ 2) * 16 + gq]);
+        mx[1] = fmaxf(mx[1], xmax[(warp ^ 2) * 16 + 8 + gq]);
+      }
+      // fold the chunk (m_c, l_c, p_c V) into the running state: a new
+      // max rescales the state by e^(M - m_c); else the chunk's product
+      // enters at weight b = e^(m_c - M), the state divided by b before
+      // the product and multiplied after (a chunk 2^-40 below is dropped)
+      float pre[2], post[2], lc[2] = {0.f, 0.f};
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
-        l[rr] = quad_sum(l[rr]);
-        const int row = wr0 + gq + rr * 8;
-        if (!ok_row[rr]) continue;
-        const int64_t at = (static_cast<int64_t>(h) * p.nch + c) * bg + row;
-        if (t == 0) {
-          p.ws_ml[at * 2] = mx[rr];
-          p.ws_ml[at * 2 + 1] = l[rr];
-        }
-        if (l[rr] > 0.f) {
-          float* acc = p.ws_acc + at * D;
-#pragma unroll
-          for (int nt = 0; nt < D / 8; ++nt)
-            *reinterpret_cast<float2*>(acc + nt * 8 + 2 * t) =
-                make_float2(o[nt][2 * rr], o[nt][2 * rr + 1]);
+        pre[rr] = post[rr] = 1.f;
+        if (mx[rr] > mrun[rr]) {
+          pre[rr] = expf(mrun[rr] - mx[rr]);  // kNeg first: 0
+          lrun[rr] *= pre[rr];
+          mrun[rr] = mx[rr];
+        } else if (mx[rr] > kNeg) {
+          post[rr] = expf(mx[rr] - mrun[rr]);
+          pre[rr] = post[rr] >= 0x1p-40f ? 1.f / post[rr] : 1.f;
         }
       }
+#pragma unroll
+      for (int nt = 0; nt < KN / 8; ++nt)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int rr = cc >> 1;
+          float e = expf(s[nt][cc] - mx[rr]);  // masked: 0
+          lc[rr] += e;
+          if (post[rr] < 0x1p-40f) e = 0.f;
+          s[nt][cc] = e;
+        }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        lrun[rr] = fmaf(lc[rr], post[rr], lrun[rr]);
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          o[nt][2 * rr] *= pre[rr];
+          o[nt][2 * rr + 1] *= pre[rr];
+        }
+      }
+      mma_xb<KN, D>(o, s, sv);  // p packed to bf16, as the TPU kernel
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        if (post[rr] == 1.f || post[rr] < 0x1p-40f) continue;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          o[nt][2 * rr] *= post[rr];
+          o[nt][2 * rr + 1] *= post[rr];
+        }
+      }
+    };
+    for (int i = 0; i < n_live; ++i) {
+      if (i + 1 < n_live) issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // chunk i (and the q tile) landed
+      if (split)
+        fold(std::integral_constant<int, kChunk / 2>(), list[i], i % kRing);
+      else
+        fold(std::integral_constant<int, kChunk>(), list[i], i % kRing);
+      __syncthreads();  // the stage is refilled by the next chunk
     }
-    __syncthreads();  // sq is refilled by the next row tile
+    cp_async_wait<0>();
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) lrun[rr] = quad_sum(lrun[rr]);
+    if (split) {  // the second key half's state joins the first's (the
+                  // pair kept one max, so the sums simply add)
+      float* xo = reinterpret_cast<float*>(ring) + (rtile * 32 + lane) *
+                                                        (D / 2 + 2);
+      __syncthreads();  // every warp is done with the ring
+      if (kh == 1) {
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) xo[nt * 4 + cc] = o[nt][cc];
+        xo[D / 2] = lrun[0];
+        xo[D / 2 + 1] = lrun[1];
+      }
+      __syncthreads();
+      if (kh == 0) {
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) o[nt][cc] += xo[nt * 4 + cc];
+        lrun[0] += xo[D / 2];
+        lrun[1] += xo[D / 2 + 1];
+      }
+    }
+
+    // the pass's state, one per (block, row)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = wr0 + gq + rr * 8;
+      if (!ok_row[rr] || kh != 0) continue;
+      const int64_t at =
+          (static_cast<int64_t>(h) * p.nch_blocks + blk) * bg + row;
+      if (t == 0) {
+        p.ws_ml[at * 2] = mrun[rr];
+        p.ws_ml[at * 2 + 1] = lrun[rr];
+      }
+      float* acc = p.ws_acc + at * D;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<float2*>(acc + nt * 8 + 2 * t) =
+            make_float2(o[nt][2 * rr], o[nt][2 * rr + 1]);
+    }
   }
 }
 
@@ -288,28 +514,33 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (query row, kv head): the chunks' partials by log-sum-exp,
-// over the chunks where the row attends a token (l > 0).
+// One block per (query row, kv head): the partials (one per chunk in f32,
+// per block of the walk in bf16) by log-sum-exp, over those where the row
+// attends a token (l > 0; an f32 chunk without one leaves its acc
+// unwritten), in order, the loads unrolled so they are in flight at once.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) stream_merge(const PagedParams p) {
   const int row = blockIdx.x, h = blockIdx.y, bg = p.b * p.g;
-  const int64_t at0 = static_cast<int64_t>(h) * p.nch * bg + row;
+  const int n = p.nch_blocks;
+  const int64_t at0 = static_cast<int64_t>(h) * n * bg + row;
   float mx = kNeg;
-  for (int c = 0; c < p.nch; ++c) {
+#pragma unroll 8
+  for (int c = 0; c < n; ++c) {
     const float* ml = p.ws_ml + (at0 + static_cast<int64_t>(c) * bg) * 2;
-    if (ml[1] > 0.f) mx = fmaxf(mx, ml[0]);
+    const float lc = ml[1], mc = ml[0];
+    mx = lc > 0.f ? fmaxf(mx, mc) : mx;
   }
   T* out = static_cast<T*>(p.out) + q_at(p, row / p.g, h, row % p.g);
   for (int e = threadIdx.x; e < p.d; e += kThreads) {
     float o = 0.f, l = 0.f;
-    for (int c = 0; c < p.nch; ++c) {
+#pragma unroll 8
+    for (int c = 0; c < n; ++c) {
       const int64_t at = at0 + static_cast<int64_t>(c) * bg;
       const float lc = p.ws_ml[at * 2 + 1];
-      if (lc > 0.f) {
-        const float w = expf(p.ws_ml[at * 2] - mx);
-        o = fmaf(w, p.ws_acc[at * p.d + e], o);
-        l = fmaf(w, lc, l);
-      }
+      const float w = lc > 0.f ? expf(p.ws_ml[at * 2] - mx) : 0.f;
+      const float a = lc > 0.f ? p.ws_acc[at * p.d + e] : 0.f;
+      o = fmaf(w, a, o);
+      l = fmaf(w, lc, l);
     }
     out[e] = from_f32<T>(o / fmaxf(l, 1e-30f));
   }
@@ -793,9 +1024,12 @@ size_t stat_bytes(int d) {
 
 template <int D>
 int run_stream_bf16(const PagedParams& p, cudaStream_t s) {
-  const size_t smem = sizeof(bf16) * (64 + 2 * kChunk) * TileBf16<D>::kPitch;
+  const size_t smem =
+      sizeof(bf16) * (kRows + kRing * 2 * kChunk) * TileBf16<D>::kPitch +
+      sizeof(int) * (kRows * p.run_pages + kRows * 2 * p.cpb +
+                     (p.run_pages + 31) / 32 + p.cpb + 1 + kRows + 64);
   const int e =
-      launch(stream_partial_bf16<D>, dim3(p.nch, p.n_kv), smem, s, p);
+      launch(stream_walk_bf16<D>, dim3(p.nch_blocks, p.n_kv), smem, s, p);
   if (e) return e;
   return launch(stream_merge<bf16>, dim3(p.b * p.g, p.n_kv), 0, s, p);
 }
@@ -892,13 +1126,16 @@ bool shape_ok(int n_q, int n_kv, int d, int page_size) {
 
 }  // namespace
 
-// Returns the cudaError_t of the first failing launch (B7 launches twice:
-// partials, then the merge). Shapes: q/out [b, n_q, d] (n_q = n_kv * g,
-// g <= 8), pools [pages, n_kv, page_size, d], all of `dtype` and
-// contiguous; seq_lens [b] int32. B7: membership [b, pool_pages] int32,
-// the layer region pool pages [pool_base, pool_base + pool_pages), d 128
-// or 256, workspaces ws_ml [n_kv, nch, b*g, 2] and ws_acc [n_kv, nch,
-// b*g, d] f32 with nch = ceil(pool_pages * page_size / 64). B8/B9:
+// Returns the cudaError_t of the first failing launch. Shapes: q/out [b,
+// n_q, d] (n_q = n_kv * g, g <= 8), pools [pages, n_kv, page_size, d], all
+// of `dtype` and contiguous; seq_lens [b] int32. B7: membership [b,
+// pool_pages] int32, the layer region pool pages [pool_base, pool_base +
+// pool_pages), d 128 or 256, nch = ceil(pool_pages * page_size / 64)
+// chunks; workspaces ws_ml [n_kv, blocks, b*g, 2] and ws_acc [n_kv,
+// blocks, b*g, d] f32. Two launches: the partials, then their merge. bf16:
+// `blocks` a kv head, each a run of `chunks_per_block` chunks spanning at
+// most `run_pages` pages, blocks * chunks_per_block >= nch > (blocks - 1)
+// * chunks_per_block. float32: blocks = nch, chunks_per_block 1. B8/B9:
 // block_tables [b, pages_per_seq] int32 of absolute ids in [0, num_pages),
 // d 64, 96, 128 or 256, page_size a multiple of 16; B9 pages_per_seq a
 // multiple of ppcb.
@@ -906,10 +1143,13 @@ extern "C" int ptt_paged_stream(const void* q, const void* k_pool,
                                 const void* v_pool, const int* seq_lens,
                                 const int* membership, float* ws_ml,
                                 float* ws_acc, void* out, int dtype, int b,
-                                int n_q, int n_kv, int d, int page_size,
-                                int pool_base, int pool_pages, float scale,
-                                void* stream) {
-  if (!shape_ok(n_q, n_kv, d, page_size) || pool_base < 0 || pool_pages <= 0)
+                                int n_q, int n_kv, int d,
+                                int page_size, int pool_base, int pool_pages,
+                                int blocks, int chunks_per_block,
+                                int run_pages, float scale, void* stream) {
+  if (!shape_ok(n_q, n_kv, d, page_size) || pool_base < 0 ||
+      pool_pages <= 0 || n_kv > 65535 || blocks <= 0 ||
+      chunks_per_block <= 0 || run_pages <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   PagedParams p = make_params(q, k_pool, v_pool, seq_lens, membership, out, b,
                               n_q, n_kv, d, page_size, scale);
@@ -917,7 +1157,21 @@ extern "C" int ptt_paged_stream(const void* q, const void* k_pool,
   p.ws_acc = ws_acc;
   p.pool_base = pool_base;
   p.pool_pages = pool_pages;
-  p.nch = (pool_pages * page_size + kChunk - 1) / kChunk;
+  p.nch = static_cast<int>(
+      (static_cast<int64_t>(pool_pages) * page_size + kChunk - 1) / kChunk);
+  p.nch_blocks = blocks;
+  p.cpb = chunks_per_block;
+  p.run_pages = run_pages;
+  p.ps_shift = -1;
+  for (int sh = 0; sh < 31; ++sh)
+    if ((1 << sh) == page_size) p.ps_shift = sh;
+  const bool bf16_walk = dtype == ptt::kBF16;
+  const int64_t covered = static_cast<int64_t>(blocks) * chunks_per_block;
+  if (bf16_walk ? (covered < p.nch || covered - chunks_per_block >= p.nch ||
+                   static_cast<int64_t>(chunks_per_block) * kChunk >
+                       static_cast<int64_t>(run_pages - 1) * page_size)
+                : (blocks != p.nch || chunks_per_block != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   return run(kStream, dtype, p, stream);
 }
 

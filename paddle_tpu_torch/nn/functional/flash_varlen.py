@@ -141,8 +141,7 @@ def prefill_grid(b: int, c: int, n_kv: int, g: int, span: int, d: int,
     return q_tiles, n_split, base * n_split
 
 
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_sm_count = _kernels.sm_count
 
 
 def paged_prefill_attention(q, key_cache, value_cache, block_tables, start,

@@ -58,7 +58,8 @@ __all__ = ["paged_attention", "last_paged_attention_backend",
            "write_kv_pages", "write_prefill_kv_pages", "gather_kv_pages",
            "STREAM_CHUNK_TOKENS", "stream_chunk_pages", "pool_membership",
            "build_pool_ownership", "stream_paged", "fused_paged",
-           "pallas_paged", "BACKEND_HEAD_DIMS", "STREAM_KERNEL_CHUNK"]
+           "pallas_paged", "BACKEND_HEAD_DIMS", "STREAM_KERNEL_CHUNK",
+           "decode_q_plan", "stream_walk", "stream_live_pages"]
 
 # target token count per stream chunk of the JAX decode kernel; the
 # engines round their pool allocation with it (inference/engine.py
@@ -347,7 +348,7 @@ def paged_decode_attention_inplace(q, new_k, new_v, key_cache,
 
 def _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane, vq_pool,
                           vs_plane, seq_lens, block_tables, pool_base=0,
-                          pool_pages=None):
+                          pool_pages=None, skip_last_page=False):
     """Plain version of the int8-KV decode kernel (the port's contract;
     ``paged_decode_attention_inplace_q``):
 
@@ -363,6 +364,9 @@ def _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane, vq_pool,
       ``(qq * qs) . new_k * d^-0.5``, value ``new_v``;
     - fp32 softmax over both; output ``sum_t w_t * v_scale[t] * vq[t]
       + w_cur * new_v``, cast to q's dtype.
+
+    ``skip_last_page`` leaves out each row's last page that holds an
+    attended token (the chip check's control).
     """
     b, n_q, d = q.shape
     _, n_kv, ps, _ = kq_pool.shape
@@ -394,14 +398,20 @@ def _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane, vq_pool,
                                                               cap)
     logits = dots * qss[..., None] * ks[:, :, None, :]
     pos = torch.arange(cap, device=q.device)
-    mask = (pos[None, :] < torch.clamp(lens, max=cap)[:, None]) \
+    n_tok = torch.clamp(lens, max=cap)
+    mask = (pos[None, :] < n_tok[:, None]) \
         & in_region.repeat_interleave(ps, dim=1)
+    if skip_last_page:
+        last = torch.clamp(n_tok - 1, min=0) // ps
+        mask = mask & (pos[None, :] // ps != last[:, None])
     logits = torch.where(mask[:, None, None, :], logits,
                          torch.finfo(torch.float32).min)
     qd = qq * qs.reshape(b, n_kv, g)[..., None]
     nk, nv = new_k.float(), new_v.float()
     cur = torch.einsum("bngd,bnd->bng", qd, nk)[..., None] * scale
     w = torch.softmax(torch.cat([logits, cur], dim=-1), dim=-1)
+    # a select, not a product: the scale of a slot nobody wrote may be NaN
+    vs = torch.where(mask[:, None, :], vs, 0.0)
     wv = (w[..., :cap] * vs[:, :, None, :]).reshape(b, n_kv, g, pp, ps)
     out = torch.einsum("bngps,bpnsd->bngd", wv, vg)
     out = out + w[..., cap:] * nv[:, :, None, :]
@@ -410,6 +420,41 @@ def _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane, vq_pool,
 
 #: launches of the int8-KV CUDA kernel (plain CPU calls do not count)
 q_launches = 0
+
+#: tokens a tile of the int8-KV tensor-core kernel (a warp's unit of work)
+DECODE_Q_TILE = 16
+_DECODE_Q_MAX_SPLIT = 16
+#: the card's grid limit on its second dimension (the batch rows of B6)
+_GRID_Y_MAX = 65535
+
+
+def decode_q_plan(b: int, n_kv: int, span: int, sms: int) -> tuple:
+    """``(n_split, blocks)`` of the int8-KV tensor-core kernel (bf16 q):
+    a block of 4 warps per (row, kv head), or per (row, kv head, split)
+    with each split a contiguous share of the row's 16-token tiles. A
+    row is split only where ``b * n_kv`` blocks leave the card's ``sms``
+    SMs short of two blocks each: into as many splits as fill two an SM,
+    at most 16, each at least 8 tiles (two a warp) of the table's span
+    ``span`` (``pages_per_seq * page_size``). Raises past the grid's
+    limit of 65535 rows."""
+    if b > _GRID_Y_MAX:
+        raise ValueError(f"paged_decode_attention_inplace_q: batch {b} "
+                         f"exceeds the kernel grid's limit of {_GRID_Y_MAX} "
+                         "rows")
+    base = b * n_kv
+    tiles = -(-span // DECODE_Q_TILE)
+    n_split = 1
+    if 0 < base < 2 * sms:
+        n_split = max(1, min(-(-2 * sms // base), tiles // 8,
+                             _DECODE_Q_MAX_SPLIT))
+    return n_split, base * n_split
+
+
+def _on_card(t) -> bool:
+    return t.device.type == "cuda"
+
+
+_sm_count = _kernels.sm_count
 
 
 def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
@@ -426,12 +471,15 @@ def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
     function is ``_paged_decode_q_plain``'s; ``pool_base``/
     ``pool_pages`` and the guards are those of
     ``paged_decode_attention_inplace``. Masking follows each row's
-    block table, so a page shared by two rows is read by both.
+    block table, so a page shared by two rows is read by both. On the
+    card a bf16 q runs the tensor-core kernel with ``decode_q_plan``'s
+    split (one launch, a workspace when it splits), f32 the CUDA-core
+    kernel.
     """
     what = "paged_decode_attention_inplace_q"
     P = kq_pool.shape[0]
     base, region = _layer_region(what, P, pool_base, pool_pages)
-    if q.device.type != "cuda":
+    if not _on_card(q):
         out = _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane,
                                     vq_pool, vs_plane, seq_lens,
                                     block_tables, base, region)
@@ -474,14 +522,24 @@ def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: operands must be contiguous and "
                              "16-byte aligned")
+    dt = _kernels.dtype_code(q, what)
+    n_split, ws = 1, None
+    if q.dtype == torch.bfloat16:
+        n_split, _ = decode_q_plan(b, n_kv, pp * ps, _sm_count(q.device))
+        if n_split > 1:
+            # f32 partials (outputs, then m and l) of every split and an
+            # int32 ticket a (row, kv head), zeroed by the launch
+            rows = b * n_kv
+            ws = torch.empty(rows * n_split * (n_q // n_kv) * (d + 2) + rows,
+                             dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     fn = _kernels.lib("paged_attention_q").ptt_paged_decode_attention_q
     _kernels.check(fn(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
         kq_pool.data_ptr(), ks_plane.data_ptr(), vq_pool.data_ptr(),
         vs_plane.data_ptr(), seq_lens.data_ptr(), block_tables.data_ptr(),
-        out.data_ptr(), _kernels.dtype_code(q, what), b, n_q, n_kv, d, ps,
-        pp, base, region, P * ps, d ** -0.5,
+        out.data_ptr(), _kernels.ptr(ws), dt, b, n_q, n_kv, d, ps, pp, base,
+        region, P * ps, n_split, d ** -0.5,
         _kernels.stream_ptr(q.device)), what)
     global q_launches
     q_launches += 1
@@ -508,6 +566,12 @@ STREAM_KERNEL_CHUNK = 64
 _NEG = -1e30                 # the TPU kernels' NEG
 #: the stock TPU kernel's finite mask value (-0.7 * float32 max)
 _MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+#: query rows a pass of B7's bf16 walk (4 warps of 16)
+STREAM_ROWS = 64
+#: the pages a run of B7's bf16 walk may span: its membership columns are
+#: staged in shared memory once a pass
+_STREAM_MAX_RUN_PAGES = 128
 
 #: launches of the three kernels, counted once each has been issued
 #: without error (plain CPU calls do not count); B7 launches twice a
@@ -604,6 +668,45 @@ def build_pool_ownership(block_tables, seq_lens, pool_pages: int,
     pos_tok = (page_index[:pool_pages].repeat_interleave(ps) * ps
                + slot.repeat(pool_pages))
     return owner_tok, pos_tok
+
+
+def stream_walk(b: int, g: int, n_kv: int, pool_pages: int, page_size: int,
+                sms: int) -> tuple:
+    """``(blocks, chunks_per_block, run_pages, passes)`` of B7's bf16
+    walk: the layer region's ``nch = ceil(pool_pages * page_size / 64)``
+    chunks of a kv head cut into runs of ``chunks_per_block``, one block a
+    run, ``blocks`` a head, about two blocks an SM of the card's ``sms``
+    in all; a run spans at most ``run_pages`` region pages (at most 128,
+    its membership columns staged in shared memory); the ``b * g`` query
+    rows go in ``passes`` of 64. Raises past the grid's limit of 65535
+    kv heads."""
+    if n_kv > _GRID_Y_MAX:
+        raise ValueError(f"stream_paged: {n_kv} kv heads exceed the kernel "
+                         f"grid's limit of {_GRID_Y_MAX}")
+    nch = -(-pool_pages * page_size // STREAM_KERNEL_CHUNK)
+    blocks = max(1, min(nch, -(-2 * sms // n_kv)))
+    cap = max(1, (_STREAM_MAX_RUN_PAGES - 1) * page_size
+              // STREAM_KERNEL_CHUNK)
+    cpb = min(-(-nch // blocks), cap)
+    blocks = -(-nch // cpb)
+    run_pages = -(-cpb * STREAM_KERNEL_CHUNK // page_size) + 1
+    return blocks, cpb, run_pages, -(-b * g // STREAM_ROWS)
+
+
+def stream_live_pages(membership, g: int):
+    """The region pages B7's bf16 walk reads: ``[passes, pool_pages]``
+    bool, page ``p`` live in pass ``i`` when a batch row of that pass's
+    query rows (``64 i .. 64 i + 63`` of the ``b * g``, row ``r`` of batch
+    row ``r // g``) holds it (``membership >= 0``); the kernel tests its
+    staged columns the same way. Built on the device, with no host
+    read."""
+    b, P = membership.shape
+    passes = -(-b * g // STREAM_ROWS)
+    rows = torch.arange(passes * STREAM_ROWS, device=membership.device)
+    held = membership >= 0                                   # [b, P]
+    bi = torch.clamp(rows // g, max=b - 1)
+    held_rows = held[bi] & (rows < b * g)[:, None]           # [rows, P]
+    return held_rows.reshape(passes, STREAM_ROWS, P).any(1)
 
 
 def _pallas_ppcb(pages_per_seq: int, page_size: int) -> int:
@@ -820,34 +923,41 @@ def stream_paged(q, key_cache, value_cache, seq_lens, block_tables,
     ``[pool_base, pool_base + pool_pages)`` (default: the whole pool)
     that the LAYER-LOCAL ``block_tables`` index; ``membership`` is a
     precomputed ``pool_membership`` (built here when None). On a CUDA
-    tensor: two launches (partials per 64-token chunk and kv head, then
-    their merge), head_dim 128 or 256; on a CPU tensor the plain version
-    ``_stream_paged_plain``."""
+    tensor, head_dim 128 or 256, two launches: the partials (bf16:
+    ``stream_walk``'s runs of chunks, a state per block and row; f32: one
+    per 64-token chunk and kv head), then their merge; on a CPU tensor
+    the plain version ``_stream_paged_plain``."""
     what = "stream_paged"
     ps = key_cache.shape[2]
     base, region = _layer_region(what, key_cache.shape[0], pool_base,
                                  pool_pages)
     if membership is None:
         membership = pool_membership(block_tables, seq_lens, region, ps)
-    if q.device.type != "cuda":
+    if not _on_card(q):
         return _stream_paged_plain(q, key_cache, value_cache, seq_lens,
                                    block_tables, base, region, membership)
     dt = _check_backend_operands(what, q, key_cache, value_cache, seq_lens,
                                  membership, (128, 256), region)
     b, n_q, d = q.shape
     n_kv = key_cache.shape[1]
-    nch = -(-region * ps // STREAM_KERNEL_CHUNK)
-    ws_ml = torch.empty((n_kv, nch, b * (n_q // n_kv), 2),
-                        dtype=torch.float32, device=q.device)
-    ws_acc = torch.empty((n_kv, nch, b * (n_q // n_kv), d),
-                         dtype=torch.float32, device=q.device)
+    g = n_q // n_kv
+    if q.dtype == torch.bfloat16:
+        blocks, cpb, run_pages, _ = stream_walk(b, g, n_kv, region, ps,
+                                                _sm_count(q.device))
+    else:
+        blocks, cpb, run_pages = -(-region * ps // STREAM_KERNEL_CHUNK), 1, 1
+    # f32 (m, l) pairs, then the unnormalised outputs, a partial a row
+    ws = torch.empty(n_kv * blocks * b * g * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    ws_acc = ws[n_kv * blocks * b * g * 2:]
     out = torch.empty_like(q)
     fn = _kernels.lib("paged_backends").ptt_paged_stream
     _kernels.check(fn(
         q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        seq_lens.data_ptr(), membership.data_ptr(), ws_ml.data_ptr(),
+        seq_lens.data_ptr(), membership.data_ptr(), ws.data_ptr(),
         ws_acc.data_ptr(), out.data_ptr(), dt, b, n_q, n_kv, d, ps, base,
-        region, d ** -0.5, _kernels.stream_ptr(q.device)), what)
+        region, blocks, cpb, run_pages, d ** -0.5,
+        _kernels.stream_ptr(q.device)), what)
     global stream_launches
     stream_launches += 2
     return out

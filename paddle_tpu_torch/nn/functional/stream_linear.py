@@ -193,8 +193,7 @@ def _split_k_plain(x, w, split: int, steps: int, drop=None):
 _SPLIT: dict = {}
 
 
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_sm_count = _kernels.sm_count
 
 
 def _split_buffers(device, stream: int, n_ws: int, n_tickets: int):

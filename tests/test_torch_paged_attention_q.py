@@ -138,13 +138,18 @@ def test_plain_matches_jax_kernel_and_writes_bitwise(layer):
 
 
 def test_overfull_row_is_a_noop_write():
-    """A row whose table is full (lens == pp * ps) touches no int8 row
+    """Rows whose tables are full (lens == pp * ps) touch no int8 row
     and no plane column, as the JAX kernel's masked write; the other
-    row's append lands (mirrors tests/test_paged_backends.py)."""
-    a = _case(lens=(24, 5), seed=11)
-    a["tables"] = np.zeros((2, 6), np.int32)
+    row's append lands (mirrors tests/test_paged_backends.py). The
+    shapes are _case's, so the JAX kernel's interpret-mode compile is
+    shared with the tests above."""
+    a = _case(seed=11)
+    a["lens"] = np.array([24, 5, 24, 24], np.int32)
+    a["tables"] = np.zeros((4, 6), np.int32)
     a["tables"][0] = np.arange(1, 7)
     a["tables"][1, :2] = [7, 8]
+    a["tables"][2] = np.arange(9, 15)
+    a["tables"][3] = [15, 1, 2, 3, 4, 5]
     out_t, pools_t = _port(a)
     _, pools_j = _jax(a)
     for t, j in zip(pools_t, pools_j):
@@ -160,27 +165,26 @@ def test_overfull_row_is_a_noop_write():
 
 
 def test_shared_prefix_page_follows_block_tables():
-    """Two rows sharing pages 1 and 2 (tables [[1,2,3],[1,2,4]], lens
-    [10, 9], d 128, 2 kv heads, page 4): the port attends through each
-    row's table and matches the dequantized reference. The JAX int8
-    kernel masks with one owner per page: its row 0 is off by ~2
-    (measured 1.91 here) while row 1 keeps the int8 error (0.0068) —
-    checked so the recorded fault stays reproducible."""
-    rng = np.random.RandomState(0)
-    n_kv, d, ps, P = 2, 128, 4, 8
-    kq, ks = _int8_pool(rng, P, n_kv, ps, d)
-    vq, vs = _int8_pool(rng, P, n_kv, ps, d)
-    a = dict(q=rng.randn(2, n_kv, d).astype(np.float32),
-             nk=rng.randn(2, n_kv, d).astype(np.float32),
-             nv=rng.randn(2, n_kv, d).astype(np.float32),
-             kq=kq, ks=ks, vq=vq, vs=vs, lens=np.array([10, 9], np.int32),
-             tables=np.array([[1, 2, 3], [1, 2, 4]], np.int32), P=P, ps=ps)
+    """Rows 0 and 1 share pages 1 and 2 (tables [1,2,3] and [1,2,4],
+    lens 10 and 9, d 128, 2 kv heads, page 4; rows 2 and 3 on pages of
+    their own, _case's shapes): the port attends through each row's table
+    and matches the dequantized reference. The JAX int8 kernel masks with
+    one owner per page: its row 0 is off by more than 0.5 while row 1
+    keeps the int8 error — checked so the recorded fault stays
+    reproducible."""
+    a = _case(seed=0)
+    a["lens"] = np.array([10, 9, 6, 3], np.int32)
+    a["tables"] = np.zeros((4, 6), np.int32)
+    a["tables"][0, :3] = [1, 2, 3]
+    a["tables"][1, :3] = [1, 2, 4]
+    a["tables"][2, :2] = [5, 6]
+    a["tables"][3, :1] = [7]
     ref = _dequant_reference(a, 0)
     out_t, _ = _port(a)
     np.testing.assert_allclose(out_t, ref, atol=TOL_REF)
     out_j, _ = _jax(a)
-    err_j = np.abs(out_j - ref).reshape(2, -1).max(axis=1)
-    assert err_j[0] > 0.5 and err_j[1] < TOL_KERNEL, err_j
+    err_j = np.abs(out_j - ref).reshape(4, -1).max(axis=1)
+    assert err_j[0] > 0.5 and (err_j[1:] < TOL_KERNEL).all(), err_j
 
 
 @pytest.mark.parametrize("base,pages", [(-1, 10), (0, 33), (20, 13)])
@@ -270,3 +274,123 @@ def test_bf16_operands():
     np.testing.assert_allclose(out.float().numpy(), out32, atol=2 ** -7)
     for t, r in zip(pools, pools32):
         np.testing.assert_array_equal(t.numpy(), r)
+
+
+# ---------------------------------------------------------------------
+# the tensor-core kernel's split plan, the chip check's control, and the
+# card route (library faked)
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,n_kv,span,sms,want", [
+    (64, 16, 17 * 16, 132, (1, 1024)),      # the int8-KV rung: no split
+    (4, 16, 64 * 16, 132, (5, 320)),        # long rows: two blocks an SM
+    (4, 16, 4 * 16, 132, (1, 64)),          # too few tiles to split
+    (1, 1, 400 * 16, 132, (16, 16)),        # at most 16 splits
+    (2, 8, 24 * 16, 132, (3, 48)),          # each split >= 8 tiles
+])
+def test_decode_q_plan_splits_rows_only_when_the_card_is_short(b, n_kv, span,
+                                                               sms, want):
+    assert pa.decode_q_plan(b, n_kv, span, sms) == want
+
+
+def test_decode_q_plan_raises_past_the_grid():
+    with pytest.raises(ValueError, match="grid's limit of 65535"):
+        pa.decode_q_plan(65536, 1, 16, 132)
+
+
+def test_skip_last_page_control_differs_from_the_plain_result():
+    """The chip check's control (each row's last live page left out)
+    moves the outputs far past the kernel's limits; without the flag the
+    plain version is unchanged."""
+    a = _case(g=2, seed=21, lens=(5, 0, 13, 9))
+    pools = [_t(a[k]) for k in ("kq", "ks", "vq", "vs")]
+    args = (_t(a["q"]), _t(a["nk"]), _t(a["nv"]))
+
+    def run(**kw):
+        return pa._paged_decode_q_plain(
+            *args, *[p.clone() for p in pools], _t(a["lens"]),
+            _t(a["tables"]), 0, a["P"], **kw).numpy()
+    ref, ctrl = run(), run(skip_last_page=True)
+    np.testing.assert_array_equal(run(skip_last_page=False), ref)
+    err = np.abs(ctrl - ref).reshape(len(a["lens"]), -1).max(axis=1)
+    assert err[1] == 0.0                     # length 0: nothing to skip
+    assert (err[[0, 2, 3]] > 2 ** -7).all(), err
+
+
+def test_nan_scales_past_the_lengths_are_selected_away():
+    """Scale columns nobody wrote (NaN in a pool from torch.empty) past
+    each row's length, the append's slot included, leave the output
+    bitwise as with finite ones: masked weights are selected, never
+    multiplied."""
+    a = _case(g=2, seed=23, lens=(5, 0, 13, 9))
+    ps = a["ps"]
+    nan = {k: a[k].copy() for k in ("ks", "vs")}
+    for r, n in enumerate(a["lens"]):
+        for j, page in enumerate(a["tables"][r]):
+            for slot in range(ps):
+                if j * ps + slot >= n and page:
+                    for k in nan:
+                        nan[k][:, page * ps + slot] = np.nan
+    out, pools = _port(a)
+    out_nan, pools_nan = _port({**a, **nan})
+    assert np.isfinite(out_nan).all()
+    np.testing.assert_array_equal(out_nan, out)
+    for t, r in zip(pools_nan, pools):          # the rest as written
+        np.testing.assert_array_equal(np.where(np.isnan(t), r, t), r)
+    for r, n in enumerate(a["lens"]):           # the appends landed
+        col = a["tables"][r, n // ps] * ps + n % ps
+        assert np.isfinite(pools_nan[1][:, col]).all()
+        assert np.isfinite(pools_nan[3][:, col]).all()
+
+
+class _Lib:
+    def __init__(self):
+        self.calls = []
+
+    def ptt_paged_decode_attention_q(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype,lens,n_kv,pp,n_split", [
+    (torch.bfloat16, (17, 200, 5, 0) * 5, 16, 17, 1),   # 320 blocks
+    (torch.bfloat16, (1000, 700), 2, 64, 8),
+    (torch.float32, (1000, 700), 2, 64, 1),
+])
+def test_card_tensors_reach_the_kernel_with_their_split(monkeypatch, dtype,
+                                                        lens, n_kv, pp,
+                                                        n_split):
+    """With the card faked, the wrapper hands the library decode_q_plan's
+    split (bf16; f32 one block a row and head), a workspace of the
+    partials and tickets only when it splits, and counts one launch;
+    nothing reaches the plain version."""
+    from paddle_tpu_torch import _kernels
+
+    lib = _Lib()
+
+    def refuse(*a, **k):
+        raise AssertionError("a card tensor reached the plain version")
+    monkeypatch.setattr(pa, "_on_card", lambda t: True)
+    monkeypatch.setattr(pa, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(pa, "_paged_decode_q_plain", refuse)
+    monkeypatch.setattr(_kernels, "lib", lambda name: lib)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    b, g, d, ps = len(lens), 4, 64, 16
+    P = b * pp + 1
+    rows = torch.zeros(P, n_kv, ps, d, dtype=torch.int8)
+    plane = torch.zeros(n_kv, P * ps)
+    q = torch.zeros(b, n_kv * g, d, dtype=dtype)
+    nk = torch.zeros(b, n_kv, d, dtype=dtype)
+    tables = torch.arange(1, b * pp + 1, dtype=torch.int32).reshape(b, pp)
+    before = pa.q_launches
+    out = pa.paged_decode_attention_inplace_q(
+        q, nk, nk.clone(), rows, plane, rows.clone(), plane.clone(),
+        torch.tensor(lens, dtype=torch.int32), tables, pool_base=0,
+        pool_pages=P)[0]
+    assert pa.q_launches == before + 1 and out.shape == q.shape
+    (args,) = lib.calls
+    # ws, dtype, b, n_q, n_kv, d, page_size, pp, base, region, plane_cols,
+    # n_split
+    assert (args[10] is None) == (n_split == 1)
+    assert args[11:22] == (int(dtype == torch.bfloat16), b, n_kv * g, n_kv,
+                           d, ps, pp, 0, P, P * ps, n_split)

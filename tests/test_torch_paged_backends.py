@@ -261,6 +261,188 @@ def test_ownership_map_is_integer_equal_to_jax(seed):
 
 
 # ---------------------------------------------------------------------
+# B7's bf16 walk: its plan, the pages it reads, its fold, the card route
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,want", [
+    ((32, 1, 16, 545, 16, 132), (16, 9, 37, 1)),      # the decode rung
+    ((32, 4, 16, 545, 16, 132), (16, 9, 37, 2)),      # 128 rows: 2 passes
+    ((32, 1, 16, 100000, 16, 132), (807, 31, 125, 1)),  # runs capped
+    ((2, 1, 1, 3, 1, 132), (1, 1, 65, 1)),            # one chunk
+])
+def test_stream_walk_plan(shape, want):
+    assert tpa.stream_walk(*shape) == want
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_stream_walk_runs_cover_the_region_once(seed):
+    """Runs of whole 64-token chunks, every chunk in one run, no empty
+    block, a run's pages within run_pages (at most 128), about two blocks
+    an SM where the region has the chunks for it."""
+    rng = np.random.RandomState(seed)
+    b, g, n_kv = rng.randint(1, 80), rng.randint(1, 9), rng.randint(1, 33)
+    P, ps = rng.randint(1, 5000), int(rng.choice([1, 8, 16, 64, 128]))
+    blocks, cpb, run_pages, passes = tpa.stream_walk(b, g, n_kv, P, ps, 132)
+    nch = -(-P * ps // 64)
+    assert (blocks - 1) * cpb < nch <= blocks * cpb
+    assert run_pages <= 128
+    assert cpb * 64 <= (run_pages - 1) * ps         # the kernel's own check
+    assert passes == -(-b * g // 64)
+    if nch >= -(-264 // n_kv) and cpb * 64 <= 127 * ps:
+        assert blocks * n_kv >= 264
+
+
+def test_stream_walk_raises_past_the_grid():
+    with pytest.raises(ValueError, match="grid's limit of 65535"):
+        tpa.stream_walk(1, 1, 65536, 16, 16, 132)
+
+
+def test_stream_live_pages_are_the_tables_pages(monkeypatch):
+    """The pages B7's walk reads, by pass of 64 query rows, against the
+    block tables: a page some row of the pass holds below its length;
+    built from pool_membership on the device with no host read."""
+    rng = np.random.RandomState(5)
+    b, g, ps, pp, P = 30, 3, 4, 6, 50
+    lens = rng.randint(0, pp * ps + 1, b).astype(np.int32)
+    tables = rng.randint(0, P + 3, (b, pp)).astype(np.int32)  # ids past P
+    mem = tpa.pool_membership(torch.from_numpy(tables),
+                              torch.from_numpy(lens), P, ps)
+
+    def refuse(*a, **k):
+        raise AssertionError("a host read on the device path")
+    for name in ("item", "tolist", "__bool__", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    live = tpa.stream_live_pages(mem, g)
+    monkeypatch.undo()
+    want = np.zeros((2, P), bool)
+    for row in range(b * g):
+        r = row // g
+        for j in range(pp):
+            if j * ps < lens[r] and 0 <= tables[r, j] < P:
+                want[row // 64, tables[r, j]] = True
+    np.testing.assert_array_equal(live.numpy(), want)
+
+
+def _walk_render(q, kp, vp, lens, tables, base, P, cpb):
+    """B7's bf16 walk rendered in PyTorch on f32 pools: per chunk the
+    plain version's (m, l, p V); a block folds its run's chunks in order
+    as the kernel does (a new max rescales the state; else the chunk
+    enters at e^(m_c - M), dropped below 2^-40); the blocks' states are
+    merged by log-sum-exp over those with l > 0."""
+    b, n_q, d = q.shape
+    _, n_kv, ps, _ = kp.shape
+    g, C = n_q // n_kv, tpa.STREAM_KERNEL_CHUNK
+    T = P * ps
+    nch = -(-T // C)
+    k = torch.nn.functional.pad(tpa._region_tokens(kp, base, P),
+                                (0, 0, 0, nch * C - T))
+    v = torch.nn.functional.pad(tpa._region_tokens(vp, base, P),
+                                (0, 0, 0, nch * C - T))
+    mem = tpa.pool_membership(tables, lens, P, ps).long()
+    tok = torch.arange(nch * C)
+    tc = torch.clamp(tok, max=T - 1)
+    j = mem[:, tc // ps]
+    valid = ((j >= 0) & (j * ps + tc % ps < lens.long()[:, None])
+             & (tok < T)).reshape(b, 1, 1, nch, C)
+    s = torch.einsum("bngd,ntd->bngt", q.reshape(b, n_kv, g, d), k) \
+        .reshape(b, n_kv, g, nch, C) * d ** -0.5
+    m = torch.where(valid, s, tpa._NEG).amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bngck,nckd->bngcd", p, v.reshape(n_kv, nch, C, d))
+    states = []
+    for c0 in range(0, nch, cpb):
+        M = torch.full(m.shape[:-1], tpa._NEG)
+        L = torch.zeros(m.shape[:-1])
+        O = torch.zeros(acc.shape[:3] + (d,))
+        for c in range(c0, min(nch, c0 + cpb)):
+            mc, lc, oc = m[..., c], l[..., c], acc[..., c, :]
+            new = mc > M
+            alpha = torch.where(new, torch.exp(M - mc), 1.0)
+            beta = torch.where(new, 1.0, torch.exp(mc - M))
+            keep = new | (beta >= 2.0 ** -40)
+            O = torch.where((new | ~keep)[..., None], O * alpha[..., None]
+                            + torch.where(keep, 1.0, 0.0)[..., None] * oc,
+                            (O / beta[..., None] + oc) * beta[..., None])
+            L = L * alpha + lc * beta
+            M = torch.maximum(M, mc)
+        states.append((M, L, O))
+    Ms = torch.stack([st[0] for st in states])
+    Ls = torch.stack([st[1] for st in states])
+    Os = torch.stack([st[2] for st in states])
+    mx = torch.where(Ls > 0, Ms, tpa._NEG).amax(0)
+    w = torch.where(Ls > 0, torch.exp(Ms - mx), 0.0)
+    out = (w[..., None] * Os).sum(0) \
+        / torch.clamp((w * Ls).sum(0), min=1e-30)[..., None]
+    return out.reshape(b, n_q, d)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_stream_walk_fold_equals_the_plain_version(g):
+    """The walk's fold (chunks in runs of stream_walk's length, a state
+    per run, merged) against _stream_paged_plain on a five-chunk region
+    cut into two runs: equal to f32 order (1e-6)."""
+    rng = np.random.RandomState(11 + g)
+    b, n_kv, ps, P, d = 5, 2, 8, 40, 128
+    lens = np.array([0, 37, 120, 9, 64], np.int32)
+    tables = _tables(rng, lens, 16, ps, P, share=(1, 2))
+    blocks, cpb, _, _ = tpa.stream_walk(b, g, n_kv, P, ps, 2)
+    assert (blocks, cpb) == (2, 3)
+    q = torch.from_numpy(rng.randn(b, n_kv * g, d).astype(np.float32))
+    kp = torch.from_numpy(rng.randn(2 * P, n_kv, ps, d).astype(np.float32))
+    vp = torch.from_numpy(rng.randn(2 * P, n_kv, ps, d).astype(np.float32))
+    lens_t, tables_t = torch.from_numpy(lens), torch.from_numpy(tables)
+    want = tpa._stream_paged_plain(q, kp, vp, lens_t, tables_t, P, P)
+    got = _walk_render(q, kp, vp, lens_t, tables_t, P, P, cpb)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+class _BackendsLib:
+    def __init__(self):
+        self.calls = []
+
+    def ptt_paged_stream(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_tensors_reach_the_stream_kernel(monkeypatch, dtype):
+    """With the card faked, stream_paged hands the library stream_walk's
+    runs (bf16; f32 one block a chunk) and a workspace of one partial a
+    block and row, and counts its two launches; nothing reaches the plain
+    version."""
+    from paddle_tpu_torch import _kernels
+
+    lib = _BackendsLib()
+
+    def refuse(*a, **k):
+        raise AssertionError("a card tensor reached the plain version")
+    monkeypatch.setattr(tpa, "_on_card", lambda t: True)
+    monkeypatch.setattr(tpa, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(tpa, "_stream_paged_plain", refuse)
+    monkeypatch.setattr(_kernels, "lib", lambda name: lib)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    c = _case(2, 128)
+    q, kp, vp, lens, tables = _torch(c, "q", "kp", "vp", "lens", "tables")
+    before = tpa.stream_launches
+    out = tpa.stream_paged(q.to(dtype), kp.to(dtype), vp.to(dtype), lens,
+                           tables, pool_base=c["P"], pool_pages=c["P"])
+    assert tpa.stream_launches == before + 2 and out.dtype == dtype
+    (args,) = lib.calls
+    b, n_q, n_kv = q.shape[0], q.shape[1], kp.shape[1]
+    runs = (tpa.stream_walk(b, 2, n_kv, c["P"], c["ps"], 132)[:3]
+            if dtype == torch.bfloat16 else (2, 1, 1))
+    # ws_ml, ws_acc: (m, l) pairs, then the outputs, of one buffer
+    assert args[6] - args[5] == n_kv * runs[0] * b * 2 * 2 * 4
+    # dtype, b, n_q, n_kv, d, page_size, pool_base, pool_pages, blocks,
+    # chunks_per_block, run_pages
+    assert args[8:19] == (int(dtype == torch.bfloat16), b, n_q, n_kv, 128,
+                          c["ps"], c["P"], c["P"]) + runs
+
+
+# ---------------------------------------------------------------------
 # decode_raw's routes
 # ---------------------------------------------------------------------
 
