@@ -271,7 +271,9 @@ DESIGNED_SASS = (("grouped_gemm", "grouped_gemm_wgmma", ("HGMMA",)),
                  ("flash_varlen_packed", "varlen_bwd_dkv_wgmma",
                   ("HGMMA",)),
                  ("paged_attention_q", "paged_decode_q_mma", ("IMMA",)),
-                 ("paged_backends", "stream_walk_bf16", ("HMMA", "HGMMA")))
+                 ("paged_backends", "stream_walk_bf16", ("HMMA", "HGMMA")),
+                 ("paged_attention", "paged_decode_mma", ("HMMA",)),
+                 ("grouped_gemm", "lora_delta_mma", ("HMMA",)))
 
 
 def _sass_functions(path) -> dict:
@@ -318,8 +320,8 @@ def phase_build(out_dir):
     then the redesigned kernels' machine code read back: each
     instantiation of the bf16 kernels of B14, B15, B10 and B11-B13 (d64,
     d96, d128) must hold HGMMA (wgmma), B2's and B7's bf16 kernels HMMA or
-    HGMMA and B6's bf16 kernel IMMA (int8 mma.sync), with no register
-    spill in ptxas's report."""
+    HGMMA, B6's bf16 kernel IMMA (int8 mma.sync) and B1's and B16's bf16
+    kernels HMMA, with no register spill in ptxas's report."""
     from paddle_tpu_torch import _kernels
 
     t0 = time.perf_counter()
@@ -382,12 +384,32 @@ def _decode_tables(lens, pp: int, seed: int):
     return tables, P
 
 
-def _decode_case(dtype, gen, g=1, d=HEAD_DIM, L=4):
+def _long_tables(lens, pp: int):
+    """Block tables for the long-row cases of B1 and B6: distinct random
+    pages (never page 0) covering lens + 1 tokens, no shared page and
+    no id past the region. Returns (tables, pages per layer)."""
+    P = len(lens) * pp + 1
+    perm = list(np.random.RandomState(9).permutation(np.arange(1, P)))
+    tables = np.zeros((len(lens), pp), np.int32)
+    for r, n in enumerate(lens):
+        need = min(-(-(n + 1) // PAGE), pp)
+        tables[r, :need] = [perm.pop() for _ in range(need)]
+    return tables, P
+
+
+def _decode_case(dtype, gen, g=1, d=HEAD_DIM, L=4, lens=None, pp=17):
     """Kernel-1 inputs at the path's shapes: batch 32 of DECODE_LENS
     (_decode_tables), 16 kv heads (x g query heads) of d = 128, page 16;
-    a 4-layer folded pool so timed calls rotate past the L2."""
-    b, n_kv, ps, pp = BATCH, N_HEADS, PAGE, 17
-    tables, P = _decode_tables(DECODE_LENS, pp, 7)
+    a 4-layer folded pool so timed calls rotate past the L2. ``lens`` and
+    ``pp`` replace the batch (distinct pages, no shared page and no id
+    past the region)."""
+    n_kv, ps = N_HEADS, PAGE
+    if lens is None:
+        lens = DECODE_LENS
+        tables, P = _decode_tables(lens, pp, 7)
+    else:
+        tables, P = _long_tables(lens, pp)
+    b = len(lens)
     dev = "cuda"
 
     def rnd(*s):
@@ -395,47 +417,75 @@ def _decode_case(dtype, gen, g=1, d=HEAD_DIM, L=4):
     return dict(
         q=rnd(b, n_kv * g, d), nk=rnd(b, n_kv, d), nv=rnd(b, n_kv, d),
         kp=rnd(L * P, n_kv, ps, d), vp=rnd(L * P, n_kv, ps, d),
-        lens=torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev),
+        lens=torch.tensor(lens, dtype=torch.int32, device=dev),
         tables=torch.from_numpy(tables).to(dev), P=P, L=L, pp=pp)
 
 
 def kernel_paged_attention(gen) -> dict:
+    """Kernel B1 (bf16/f32 decode attention with its in-place append)
+    against the plain version: batch 32 at contexts 0..272 (an idle
+    row, page edges, rows 7 and 8 sharing their first page, a page past
+    the region, a full table) at (g, d) = (1, 128), (2, 64), (4, 256),
+    (1, 96), the pools after the append compared bytewise; a long-row
+    batch (b4, 64 pages a row, which decode_q_plan splits for bf16, from
+    its own generator); a control per case, the plain version leaving
+    out each row's last live 16-token tile, which must exceed the limit;
+    timed (events and the profiler's device time) beside SDPA over the
+    pre-gathered K/V."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.nn.functional import paged_attention as pa
 
     res = {}
     # tolerances: both sides accumulate in fp32 (sums differ only in
-    # order, ~1e-7); bf16 outputs may then round one ulp apart (2^-8
-    # below magnitude 2). Beyond the path's shape (g 1, d 128): grouped
-    # queries and the vector (64, 256) and masked (96) head widths.
-    for (g, d), dtype, tol in [
-            (gd, dt, tl) for gd in ((1, HEAD_DIM), (2, 64), (4, 256), (1, 96))
-            for dt, tl in ((torch.float32, 2e-5),
-                           (torch.bfloat16, 2 ** -7))]:
-        c = _decode_case(dtype, gen, g=g, d=d)
+    # order, ~1e-7; the bf16 tensor-core kernel's weights enter P V as
+    # three bf16 parts, within 2^-27 of each); bf16 outputs may then
+    # round one ulp apart (2^-8 below magnitude 2). Beyond the path's
+    # shape (g 1, d 128): grouped queries and the vector (64, 256) and
+    # masked (96) head widths, and the long rows.
+    long_gen = torch.Generator(device="cuda")
+    long_gen.manual_seed(15)
+    cases = [(gd, dt, tl, {}) for gd in ((1, HEAD_DIM), (2, 64), (4, 256),
+                                         (1, 96))
+             for dt, tl in ((torch.float32, 2e-5), (torch.bfloat16, 2 ** -7))]
+    cases += [((1, HEAD_DIM), dt, tl,
+               {"lens": DECODE_Q_LONG_LENS, "pp": 64, "L": 2})
+              for dt, tl in ((torch.float32, 2e-5), (torch.bfloat16, 2 ** -7))]
+    for (g, d), dtype, tol, kw in cases:
+        c = _decode_case(dtype, long_gen if kw else gen, g=g, d=d, **kw)
         kp2, vp2 = c["kp"].clone(), c["vp"].clone()
+        kp3, vp3 = c["kp"].clone(), c["vp"].clone()
         base = c["P"]                           # layer 1's region
         out, _, _ = pa.paged_decode_attention_inplace(
             c["q"], c["nk"], c["nv"], c["kp"], c["vp"], c["lens"],
             c["tables"], pool_base=base, pool_pages=c["P"])
         ref = pa._paged_decode_plain(c["q"], c["nk"], c["nv"], kp2, vp2,
                                      c["lens"], c["tables"], base, c["P"])
+        ctrl = pa._paged_decode_plain(c["q"], c["nk"], c["nv"], kp3, vp3,
+                                      c["lens"], c["tables"], base, c["P"],
+                                      skip_last_tile=True)
         torch.cuda.synchronize()
-        err = max_err(out, ref)
+        err, ctrl_err = max_err(out, ref), max_err(ctrl, ref)
         pools_equal = bool(torch.equal(c["kp"], kp2)
                            and torch.equal(c["vp"], vp2))
+        b = int(c["q"].shape[0])
+        n_split = (pa.decode_q_plan(b, N_HEADS, c["pp"] * PAGE,
+                                    pa._sm_count(c["q"].device))[0]
+                   if dtype == torch.bfloat16 and d % 32 == 0 else 1)
         emit({"check": "paged_decode_attention_inplace", "g": g, "d": d,
-              "dtype": str(dtype), "max_abs_err": err, "tol": tol,
+              "dtype": str(dtype), "batch": b, "pages_per_seq": c["pp"],
+              "n_split": n_split, "max_abs_err": err, "tol": tol,
+              "control_err": ctrl_err,
               "pool_after_write_bytewise_equal": pools_equal})
-        check(err <= tol, f"paged attention g={g} d={d} {dtype}: "
-                          f"{err} > {tol}")
-        check(pools_equal, f"paged attention g={g} d={d} {dtype}: pool "
-                           "contents after the append differ from the "
-                           "plain write")
-        if (g, d) == (1, HEAD_DIM):
+        what = f"paged attention g={g} d={d} {dtype} b={b}"
+        check(err <= tol, f"{what}: {err} > {tol}")
+        check(ctrl_err > tol, f"{what}: the control (last live tile "
+              f"skipped, {ctrl_err}) is within the limit {tol}")
+        check(pools_equal, f"{what}: pool contents after the append "
+                           "differ from the plain write")
+        if (g, d) == (1, HEAD_DIM) and not kw:
             res[str(dtype)] = err
-        del c, kp2, vp2
+        del c, kp2, vp2, kp3, vp3
     # timing, bf16 (the path's dtype), rotating over the pool's layers
     c = _decode_case(torch.bfloat16, gen)
     nxt = cycler(c["L"])
@@ -470,6 +520,11 @@ def kernel_paged_attention(gen) -> dict:
     def library():
         F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
     ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+    dev_ms = device_ms(kern, B1_KERNEL, per_call=1)
+    if dev_ms == 0.0:                   # the profiler dropped every event
+        dev_ms = device_ms(kern, B1_KERNEL, per_call=1)
+    check(dev_ms > 0.0, f"paged attention: no {B1_KERNEL} device time "
+                        "recorded")
     # bytes this run's data needs: each attended K/V row once, q, the
     # operands, the output and the appended rows
     isz = 2
@@ -483,10 +538,14 @@ def kernel_paged_attention(gen) -> dict:
               + b * 4)
     flops = 4.0 * (tok + b) * n_kv * d         # q.k and p.v, g = 1
     bms, by = bound_ms(nbytes, flops, torch.bfloat16)
-    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+    row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+           "bytes": nbytes, "attended_tokens": tok,
            "max_abs_err": res[str(torch.bfloat16)]}
-    emit({"time": "paged_decode_attention_inplace", **row})
+    emit({"time": "paged_decode_attention_inplace", "batch": b,
+          "n_split": pa.decode_q_plan(b, n_kv, cap,
+                                      pa._sm_count(c["q"].device))[0],
+          **row})
     return row
 
 
@@ -1159,6 +1218,10 @@ def kernel_stream_linear_a8w8(gen) -> dict:
 
 #: profiler name of B6's bf16 kernel (f32 keeps paged_decode_q_kernel)
 B6_KERNEL = "paged_decode_q_mma"
+#: profiler names of B1's bf16 kernel (f32 keeps paged_decode_kernel) and
+#: of B16's bf16 kernel (f32 takes lora_delta_fma)
+B1_KERNEL = "paged_decode_mma"
+B16_KERNEL = "lora_delta_mma"
 #: the long-row case of B6 (b4, 64 pages a row: the kernel splits rows)
 DECODE_Q_LONG_LENS = [1023, 777, 301, 16]
 
@@ -1179,12 +1242,7 @@ def _decode_q_case(dtype, gen, g=1, d=HEAD_DIM, L=2, lens=None, pp=17):
         lens = DECODE_LENS + [int(n) for n in np.linspace(128, 257, BATCH)]
         tables, P = _decode_tables(lens, pp, 8)
     else:
-        P = len(lens) * pp + 1
-        perm = list(np.random.RandomState(9).permutation(np.arange(1, P)))
-        tables = np.zeros((len(lens), pp), np.int32)
-        for r, n in enumerate(lens):
-            need = min(-(-(n + 1) // ps), pp)
-            tables[r, :need] = [perm.pop() for _ in range(need)]
+        tables, P = _long_tables(lens, pp)
     b = len(lens)
     dev = "cuda"
 
@@ -1590,8 +1648,8 @@ def kernel_lora_delta(gen) -> dict:
     """Kernel B16 (lora_delta) against lora_delta_plain on the four
     d2048 projections (QKV 2048 -> 6144, O 2048 -> 2048, FFN1 2048 ->
     8192, FFN2 8192 -> 2048), 4 slots of rank 16, T 8 / 32 / 256 rows
-    mixing base rows and slots with one slot empty, in float32 and bf16;
-    then timed at T 8 (the serve's decode batch) over 24 layers."""
+    mixing base rows and slots with one slot empty, in float32 and bf16,
+    and three narrow widths at T 256; then timed at T 8 (the serve's decode batch) over 24 layers."""
     from paddle_tpu_torch.nn.functional import lora as tl
 
     dev, S, R = "cuda", LORA_SLOTS, 16
@@ -1625,6 +1683,38 @@ def kernel_lora_delta(gen) -> dict:
                       "a base row is not +0.0")
                 if T == 8:
                     res[str(dtype)] = max(res.get(str(dtype), 0.0), e)
+    # narrow widths (N not a multiple of 64: the cluster's top blocks own
+    # no column) at T 256, with tiles wholly below offsets[S] and with
+    # every row adaptered; own generator, so later phases' inputs stay
+    narrow_gen = torch.Generator(device="cuda")
+    narrow_gen.manual_seed(16)
+    for dtype in (torch.float32, torch.bfloat16):
+        for K, N in ((2048, 200), (256, 72), (2048, 100)):
+            a = (torch.randn(S, K, R, generator=narrow_gen, device=dev)
+                 * 0.02).to(dtype)
+            b = (torch.randn(S, R, N, generator=narrow_gen, device=dev)
+                 * 0.02).to(dtype)
+            for full in (False, True):
+                ids = _lora_rows(256, S, narrow_gen)
+                if full:
+                    ids[ids < 0] = 0
+                order, offsets, _ = tl.sort_by_adapter(ids, S)
+                xs = torch.randn(256, K, generator=narrow_gen, device=dev) \
+                    .to(dtype)[order.long()]
+                out = tl.lora_delta(xs, a, b, offsets)
+                ref = tl.lora_delta_plain(xs, a, b, offsets)
+                torch.cuda.synchronize()
+                total = int(offsets[-1])
+                e = max_err(out, ref)
+                zeros = _zero_bits(out[total:])
+                emit({"check": "lora_delta", "proj": f"{K}->{N}",
+                      "dtype": str(dtype), "T": 256,
+                      "base_rows": 256 - total, "max_abs_err": e,
+                      "tol": tol, "base_rows_bitwise_zero": zeros})
+                check(e <= tol and zeros,
+                      f"lora_delta {K}->{N} {dtype} T=256 "
+                      f"base_rows={256 - total}: {e} > {tol} or a base "
+                      "row is not +0.0")
     dt, L, T = torch.bfloat16, N_LAYERS, 8
     order, offsets, _ = tl.sort_by_adapter(_lora_rows(T, S, gen), S)
     active = int((offsets[1:] > offsets[:-1]).sum())
@@ -1649,7 +1739,7 @@ def kernel_lora_delta(gen) -> dict:
         flops = 2.0 * T * R * (K + N)
         bms, by = bound_ms(nbytes, flops, dt)
         rows[name] = {"ms": time_ms(kern),
-                      "device_ms": device_ms(kern, "lora_delta_kernel"),
+                      "device_ms": device_ms(kern, B16_KERNEL),
                       "plain_ms": time_ms(plain), "library_ms": None,
                       "bound_ms": bms, "bound_by": by, "bytes": nbytes}
         emit({"time": f"lora_delta[{name}]", **rows[name]})
@@ -2308,6 +2398,7 @@ def slice_decode_step(model, out_dir, steps: int = 16, quant=None,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed()
     groups = {"paged_decode_kernel": "paged_decode_attention_inplace",
+              B1_KERNEL: "paged_decode_attention_inplace",
               "paged_decode_q_kernel": "paged_decode_attention_inplace_q",
               B6_KERNEL: "paged_decode_attention_inplace_q",
               B2_KERNEL: "stream_linear GEMM (QKV, head, tail "
@@ -2318,7 +2409,7 @@ def slice_decode_step(model, out_dir, steps: int = 16, quant=None,
               "layer_norm_kernel": "tail LayerNorm",
               B14_KERNEL: "grouped_gemm (MoE FFN1 + FFN2)",
               "grouped_gemm_kernel": "grouped_gemm (MoE FFN1 + FFN2)",
-              "lora_delta_kernel": "lora_delta"}
+              "lora_delta_": "lora_delta"}
     by_group, kernels = {}, []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:

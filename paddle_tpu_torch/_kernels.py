@@ -26,6 +26,7 @@ entry point makes such a launch return ``cudaErrorNotSupported`` (801).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -53,10 +54,10 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "paged_attention": {
         # q, new_k, new_v, k_pool, v_pool, seq_lens, block_tables, out,
-        # dtype, b, n_q, n_kv, d, page_size, pages_per_seq, pool_base,
-        # pool_pages, scale, stream
+        # ws, dtype, b, n_q, n_kv, d, page_size, pages_per_seq, pool_base,
+        # pool_pages, n_split, scale, stream
         "ptt_paged_decode_attention":
-            [_P] * 8 + [_I] * 9 + [_F, _P],
+            [_P] * 9 + [_I] * 10 + [_F, _P],
     },
     "stream_linear": {
         # x, w, w_dt, scale, scale_dt, bias, bias_dt, residual,
@@ -246,7 +247,8 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """The card's streaming multiprocessors, which the wrappers size their
-    grids by."""
+    grids by (read once a device: the query takes microseconds)."""
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -85,16 +85,27 @@
 // grouped_dw_kernel: a 64 x 64 tile per block on the CUDA cores over a
 // 4-stage cp.async ring.
 //
-// The LoRA delta: a block of 512 threads is one (unit, 512-column strip).
-// Phase 1, h = x @ A[s] for the unit's live rows, 8 rows at a time: each
-// of the 16 warps takes one sixteenth of K, its lanes stride that slice
-// and hold a row's R (<= 32) fp32 partial sums, reduced over the warp by
-// shuffles; the warps' partials meet in shared memory and are summed in
-// warp order into h [64][32]. Phase 2: each thread owns a column n, keeps
-// B[s][:, n] in registers and writes h[r] @ B[s][:, n] for the live rows.
-// Phase 1 is repeated by every strip of the unit (its reads, x rows and
-// A[s], come from L2 after the first strip): wide strips keep the
-// repeats few, and many warps per block keep each one short.
+// The LoRA delta (lora_delta_mma for bf16, lora_delta_fma for the other
+// dtypes and shapes): one thread-block cluster of 8 blocks per unit of
+// the work map, so h = x_unit @ A[s] is summed once a unit, in parallel
+// over K, and not once per column strip. Block c of the cluster takes K
+// slice c (whole 16-wide k-steps) and output columns [c * cols,
+// min((c + 1) * cols, N)), none when c * cols >= N (a narrow N). Phase 1:
+// with bf16 x and A (K % 8 == 0, R % 16 == 0) the slice runs on the
+// tensor cores, mma.sync m16n8k16 with x's live rows as M (16-row tiles)
+// and R as N, exact bf16 products, each k-step's 16 summed by the tensor
+// cores from zero and added in fp32 (the accumulators truncate; carrying
+// the sum in them is what moved B1's scores), x and A rows brought by
+// 16-byte cp.async through a 4-stage ring of 128-K chunks, warp w taking
+// k-steps w, w + 4, ...; otherwise on the CUDA cores (fp32 products of x
+// and A rounded to x's dtype, in K order). The slices meet through
+// distributed shared memory: every block sums the 8 partials in rank
+// order (the same h everywhere, no atomics), and h stays in fp32, never
+// rounded to a bf16. Phase 2: each block writes h @ B[s] over its
+// columns with fp32 FMAs, 4 rows x 8 columns an item, B staged in shared
+// memory by 16-byte cp.async issued before phase 1 (its latency hides
+// under it). A unit with no live rows only writes its tile's rows past
+// offsets[S] as zeros and exits at once. One launch a projection.
 //
 // Bounds. The grouped GEMM at decode (64 rows over 8 experts) reads every
 // active expert's W once: bytes bound it, 8 x 2 x 4 MB = 67 MB per FFN of
@@ -108,10 +119,14 @@
 // across a cluster of two units, are the later work. The weight
 // gradient's 128 x 256 tile reads x and dz about 0.77 GB from L2 per FFN
 // at the rung (a 64 x 64 tile read about 2 GB). The LoRA delta is small against the base GEMM: x, A and B are
-// read once (bytes), and its phase 1 is latency bound at decode (K up to
-// 8192 summed by 32 lanes per row); a delta fused into the base GEMM's
-// epilogue is the later design.
+// read once (bytes, about 1.3 MB a d2048 projection at T 8, 0.4 us at
+// 3.35 TB/s), so a launch is a chain of latencies (the offsets, the
+// slices, the cluster's exchange, the stores); a delta fused into the
+// base GEMM's epilogue is the later design.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "flash_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -180,7 +195,8 @@ __device__ __forceinline__ Unit unit_at(const int* offsets, int E, int nm,
 }
 
 // The tile's rows past offsets[E], written as zeros by the tile's first
-// unit, over columns [n0, n0 + bn).
+// unit, over columns [n0, min(n0 + bn, N)); nothing when n0 >= N or the
+// tile holds no such row.
 // Threads [0, nthreads) of the block take part.
 __device__ __forceinline__ void zero_dead_rows(const int* offsets, int E,
                                                int nm, int u, int T, int N,
@@ -192,6 +208,7 @@ __device__ __forceinline__ void zero_dead_rows(const int* offsets, int E,
   const int t1 = min((tile + 1) * kBM, T);
   const int z0 = max(offsets[E], tile * kBM);
   const int cols = min(bn, N - n0);
+  if (cols <= 0 || t1 <= z0) return;
   for (int i = threadIdx.x; i < (t1 - z0) * cols; i += nthreads) {
     const int r = z0 + i / cols, n = n0 + i % cols;
     store_dt(out, static_cast<int64_t>(r) * N + n, out_dt, 0.f);
@@ -896,9 +913,22 @@ int launch_dw_wgmma(const DwParams& p, int E, cudaStream_t stream) {
 
 // ------------------------------------------------------------ LoRA delta
 
-constexpr int kLoraThreads = 512;
-constexpr int kLoraBN = kLoraThreads;  // one output column per thread
+constexpr int kLoraC = 8;          // blocks a cluster: one live unit
+constexpr int kLoraThreads = 128;  // 4 warps
+constexpr int kLoraCols = 1024;    // B columns a block stages at a time
 constexpr int kMaxRank = 32;
+// the tensor-core phase 1: K chunks of 8 k-steps, x rows and A rows in a
+// 4-stage cp.async ring (three chunks in flight)
+constexpr int kLoraStages = 4;
+constexpr int kLoraKC = 128;
+constexpr int kLoraXP = kLoraKC + 8;   // elements an x row (272 bytes)
+constexpr int kLoraAP = kMaxRank + 8;  // elements an A row (80 bytes)
+constexpr int kLoraStage = (kBM * kLoraXP + kLoraKC * kLoraAP) * 2;
+// the CUDA-core phase 1: K chunks of 64 as float
+constexpr int kLoraFC = 64;
+constexpr int kLoraFStage =
+    (kBM * (kLoraFC + 1) + kLoraFC * kMaxRank) * 4;
+constexpr int kLoraH = kBM * kMaxRank * 4;  // bytes of h [64][32] f32
 
 struct LoraParams {
   const void* x;
@@ -908,6 +938,8 @@ struct LoraParams {
   void* out;
   int out_dt;
   int T, K, N, S, R, nm;
+  int cols;            // output columns a block of the cluster owns
+  int b_vec, out_vec;  // B rows, out rows: 16-byte aligned vectors
 };
 
 // a value of A as the TPU kernel multiplies it: rounded to x's dtype
@@ -922,81 +954,341 @@ __device__ __forceinline__ float as_x_dtype<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-constexpr int kLoraWarps = kLoraThreads / 32;
-constexpr int kPassRows = 8;  // live rows per phase-1 pass
+// Phase 1 on the tensor cores (bf16 x and A; K % 8 == 0, R % 16 == 0):
+// the block's partial x[r0, r1) @ A[s] over k-steps [ks0, ks1) into
+// s_part [64][kMaxRank]. Warp w takes k-steps w, w + 4, ... of each
+// chunk, all row and rank tiles: mma.sync m16n8k16 (x's rows as M, R as
+// N), exact bf16 products, each k-step's 16 summed by the tensor cores
+// from zero and added to the warp's sums by an fp32 add; the warps' sums
+// meet in warp order.
+__device__ __forceinline__ void lora_h_mma(const LoraParams& p, int s,
+                                           int r0, int r1, int ks0,
+                                           int ks1, unsigned char* stage,
+                                           float* s_part) {
+  using bf16 = __nv_bfloat16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int nr = r1 - r0, n_mt = (nr + 15) / 16, R = p.R;
+  const int kend = min(p.K, ks1 * 16);
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* a = static_cast<const bf16*>(p.a) +
+                  static_cast<int64_t>(s) * p.K * R;
+  const int n_chunks = (ks1 - ks0 + 7) / 8;
+  auto load = [&](int ci) {
+    bf16* sx = reinterpret_cast<bf16*>(stage + (ci % kLoraStages) *
+                                                   kLoraStage);
+    bf16* sa = sx + kBM * kLoraXP;
+    const int k0 = (ks0 + ci * 8) * 16;
+    for (int c = threadIdx.x; c < n_mt * 16 * (kLoraKC / 8);
+         c += kLoraThreads) {
+      const int i = c / (kLoraKC / 8), e = (c % (kLoraKC / 8)) * 8;
+      const bool in = r0 + i < r1 && k0 + e < kend;
+      ptt::cp_async16(sx + i * kLoraXP + e,
+                      in ? x + static_cast<int64_t>(r0 + i) * p.K + k0 + e
+                         : x,
+                      in ? 16 : 0);
+    }
+    for (int c = threadIdx.x; c < kLoraKC * (R / 8); c += kLoraThreads) {
+      const int k = c / (R / 8), e = (c % (R / 8)) * 8;
+      const bool in = k0 + k < kend;
+      ptt::cp_async16(sa + k * kLoraAP + e,
+                      in ? a + static_cast<int64_t>(k0 + k) * R + e : a,
+                      in ? 16 : 0);
+    }
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) ptt::tiles::zero(acc[mt]);
+  for (int ci = 0; ci < kLoraStages - 1; ++ci) {
+    if (ci < n_chunks) load(ci);
+    ptt::cp_async_commit();
+  }
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    if (ci + kLoraStages - 1 < n_chunks) load(ci + kLoraStages - 1);
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<kLoraStages - 1>();
+    __syncthreads();
+    const bf16* sx = reinterpret_cast<const bf16*>(
+        stage + (ci % kLoraStages) * kLoraStage);
+    const bf16* sa = sx + kBM * kLoraXP;
+    const int steps = min(8, ks1 - ks0 - ci * 8);
+    for (int st = warp; st < steps; st += 4) {
+      uint32_t b[2][4];
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        if (np * 16 < R)
+          ptt::ldmatrix_x4_trans(
+              b[np][0], b[np][1], b[np][2], b[np][3],
+              sa + (st * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLoraAP +
+                  np * 16 + 8 * (lane >> 4));
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= n_mt) break;
+        uint32_t a0, a1, a2, a3;
+        ptt::ldmatrix_x4(a0, a1, a2, a3,
+                         sx + (mt * 16 + (lane & 15)) * kLoraXP + st * 16 +
+                             8 * (lane >> 4));
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          if (np * 16 < R) {
+            // the k-step's products from zero, added in fp32: the tensor
+            // cores truncate as they accumulate
+            float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+            ptt::mma_bf16(t[0], a0, a1, a2, a3, b[np][0], b[np][1]);
+            ptt::mma_bf16(t[1], a0, a1, a2, a3, b[np][2], b[np][3]);
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              acc[mt][2 * np + q / 4][q % 4] += t[q / 4][q % 4];
+          }
+      }
+    }
+    __syncthreads();  // the stage is refilled from the next chunk on
+  }
+  ptt::cp_async_wait<0>();
+  // the warps' sums [4][64][kMaxRank] over the ring, then in warp order
+  float* s_w = reinterpret_cast<float*>(stage);
+  float* wrow = s_w + warp * kBM * kMaxRank;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      if (mt < n_mt && nt * 8 < R)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          wrow[(mt * 16 + gq + 8 * (c >> 1)) * kMaxRank + nt * 8 + 2 * t4 +
+               (c & 1)] = acc[mt][nt][c];
+  __syncthreads();
+  for (int e = threadIdx.x; e < nr * R; e += kLoraThreads) {
+    const int i = e / R, j = e % R;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) v += s_w[(w * kBM + i) * kMaxRank + j];
+    s_part[i * kMaxRank + j] = v;
+  }
+}
 
+// Phase 1 on the CUDA cores (f32 x or A, or shapes the tensor-core form
+// does not take): each thread sums its (row, rank) outputs of the block's
+// K slice [k_lo, k_hi) in K order, fp32 products of x and A rounded to
+// x's dtype, over chunks of 64 K staged as float.
 template <typename TX, typename TA>
-__global__ void __launch_bounds__(kLoraThreads, 1)
-    lora_delta_kernel(const LoraParams p) {
-  __shared__ float h[kBM][kMaxRank];
-  __shared__ float part[kLoraWarps][kPassRows][kMaxRank];
-  const int u = blockIdx.y;
-  const int n0 = blockIdx.x * kLoraBN;
-  zero_dead_rows(p.offsets, p.S, p.nm, u, p.T, p.N, n0, kLoraBN, p.out,
+__device__ __forceinline__ void lora_h_fma(const LoraParams& p, int s,
+                                           int r0, int r1, int k_lo,
+                                           int k_hi, unsigned char* stage,
+                                           float* s_part) {
+  constexpr int kPer = kBM * kMaxRank / kLoraThreads;  // outputs a thread
+  const int nr = r1 - r0, R = p.R;
+  const TX* x = static_cast<const TX*>(p.x);
+  const TA* a = static_cast<const TA*>(p.a) +
+                static_cast<int64_t>(s) * p.K * R;
+  float* sxf = reinterpret_cast<float*>(stage);     // [64][kLoraFC + 1]
+  float* saf = sxf + kBM * (kLoraFC + 1);           // [kLoraFC][kMaxRank]
+  float acc[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) acc[q] = 0.f;
+  for (int k0 = k_lo; k0 < k_hi; k0 += kLoraFC) {
+    const int kn = min(kLoraFC, k_hi - k0);
+    __syncthreads();
+    for (int c = threadIdx.x; c < nr * kn; c += kLoraThreads) {
+      const int i = c / kn, k = c % kn;
+      sxf[i * (kLoraFC + 1) + k] =
+          ptt::to_f32(x[static_cast<int64_t>(r0 + i) * p.K + k0 + k]);
+    }
+    for (int c = threadIdx.x; c < kn * R; c += kLoraThreads)
+      saf[(c / R) * kMaxRank + c % R] = as_x_dtype<TX>(
+          ptt::to_f32(a[static_cast<int64_t>(k0) * R + c]));
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int e = threadIdx.x + q * kLoraThreads;
+      if (e < nr * R) {
+        const float* xr = sxf + (e / R) * (kLoraFC + 1);
+        const float* ac = saf + e % R;
+        for (int k = 0; k < kn; ++k)
+          acc[q] = fmaf(xr[k], ac[k * kMaxRank], acc[q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int e = threadIdx.x + q * kLoraThreads;
+    if (e < nr * R) s_part[(e / R) * kMaxRank + e % R] = acc[q];
+  }
+}
+
+// One cluster of kLoraC blocks per unit of the work map; block c (its
+// rank) owns output columns [c * cols, (c + 1) * cols) and K slice c of
+// cdiv(K, 16) k-steps. A unit with no live rows writes its tile's rows
+// past offsets[S] as zeros (over each block's columns) and exits. A live
+// unit: each block issues its first B chunk, sums its K slice of
+// x_unit @ A[s] (phase 1), the slices meet through distributed shared
+// memory, summed by every block in rank order (the same h in all, no
+// atomics), and each block writes h @ B[s] over its columns with fp32
+// FMAs, B read in 16-byte vectors from shared memory (phase 2).
+template <typename TX, typename TA, bool kMma>
+__device__ __forceinline__ void lora_delta_body(const LoraParams& p) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kStageBytes = kMma ? kLoraStages * kLoraStage : kLoraFStage;
+  unsigned char* stage = smem;
+  float* s_part = reinterpret_cast<float*>(smem + kStageBytes);
+  float* s_h = s_part + kBM * kMaxRank;
+  TA* s_b = reinterpret_cast<TA*>(s_h + kBM * kMaxRank);  // [R][kLoraCols]
+  const int rank = blockIdx.x, u = blockIdx.y, R = p.R;
+  const int n_lo = rank * p.cols, n_hi = min(p.N, n_lo + p.cols);
+  zero_dead_rows(p.offsets, p.S, p.nm, u, p.T, p.N, n_lo, p.cols, p.out,
                  p.out_dt);
   const Unit un = unit_at(p.offsets, p.S, p.nm, u);
   const int t0 = un.tid * kBM;
   const int r0 = max(un.lo, t0);
   const int r1 = min(min(un.hi, t0 + kBM), p.T);
-  if (r1 <= r0) return;
-  const int s = un.gid;
-  const TX* x = static_cast<const TX*>(p.x);
-  const TA* a = static_cast<const TA*>(p.a) +
-                static_cast<int64_t>(s) * p.K * p.R;
+  if (r1 <= r0) return;  // the whole cluster: one unit
+  const int s = un.gid, nr = r1 - r0;
   const TA* bs = static_cast<const TA*>(p.b) +
-                 static_cast<int64_t>(s) * p.R * p.N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // phase 1: h[r] = x[r] @ A[s]; warp w sums K slice [kb, ke)
-  const int slice = (p.K + kLoraThreads - 1) / kLoraThreads * 32;
-  const int kb = warp * slice, ke = min(p.K, kb + slice);
-  for (int pr = r0; pr < r1; pr += kPassRows) {
-    const int nr = min(kPassRows, r1 - pr);
-    for (int i = 0; i < nr; ++i) {
-      float acc[kMaxRank];
-#pragma unroll
-      for (int j = 0; j < kMaxRank; ++j) acc[j] = 0.f;
-      const TX* xr = x + static_cast<int64_t>(pr + i) * p.K;
-#pragma unroll 4
-      for (int k = kb + lane; k < ke; k += 32) {
-        const float xv = ptt::to_f32(xr[k]);
-        const TA* ar = a + static_cast<int64_t>(k) * p.R;
-#pragma unroll
-        for (int j = 0; j < kMaxRank; ++j)
-          if (j < p.R)
-            acc[j] = fmaf(xv, as_x_dtype<TX>(ptt::to_f32(ar[j])), acc[j]);
+                 static_cast<int64_t>(s) * R * p.N;
+  constexpr int kVec = 16 / sizeof(TA);  // B columns a 16-byte copy
+  // B columns [n0, n0 + cols) into s_b
+  auto load_b = [&](int n0) {
+    const int cols = min(kLoraCols, n_hi - n0);
+    if (p.b_vec) {
+      for (int c = threadIdx.x; c < R * (cols / kVec); c += kLoraThreads) {
+        const int j = c / (cols / kVec), e = (c % (cols / kVec)) * kVec;
+        ptt::cp_async16(s_b + j * kLoraCols + e,
+                        bs + static_cast<int64_t>(j) * p.N + n0 + e, 16);
       }
-#pragma unroll
-      for (int j = 0; j < kMaxRank; ++j)
-        if (j < p.R) {
-          const float v = ptt::warp_sum(acc[j]);
-          if (lane == 0) part[warp][i][j] = v;
-        }
+    } else {
+      for (int c = threadIdx.x; c < R * cols; c += kLoraThreads) {
+        const int j = c / cols, e = c % cols;
+        s_b[j * kLoraCols + e] = bs[static_cast<int64_t>(j) * p.N + n0 + e];
+      }
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < nr * p.R; e += kLoraThreads) {
-      const int i = e / p.R, j = e % p.R;
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kLoraWarps; ++w) v += part[w][i][j];
-      h[pr + i - t0][j] = v;
-    }
-    __syncthreads();
-  }
-  // phase 2: out[r][n] = h[r] @ B[s][:, n], B in fp32
-  const int n = n0 + threadIdx.x;
-  if (n >= p.N) return;
-  float bv[kMaxRank];
-#pragma unroll
-  for (int j = 0; j < kMaxRank; ++j)
-    bv[j] = j < p.R ? ptt::to_f32(bs[static_cast<int64_t>(j) * p.N + n])
-                    : 0.f;
-  for (int r = r0; r < r1; ++r) {
+  };
+  if (n_lo < n_hi) load_b(n_lo);  // in flight beside phase 1
+  ptt::cp_async_commit();
+
+  const int KS = (p.K + 15) / 16;
+  const int ks0 = rank * KS / kLoraC, ks1 = (rank + 1) * KS / kLoraC;
+  if constexpr (kMma)
+    lora_h_mma(p, s, r0, r1, ks0, ks1, stage, s_part);
+  else
+    lora_h_fma<TX, TA>(p, s, r0, r1, min(p.K, ks0 * 16),
+                       min(p.K, ks1 * 16), stage, s_part);
+
+  // h = the blocks' slices summed in rank order, read from each block's
+  // shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int e = threadIdx.x; e < nr * R; e += kLoraThreads) {
+    const int i = e / R, j = e % R;
     float v = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxRank; ++j)
-      if (j < p.R) v = fmaf(h[r - t0][j], bv[j], v);
-    store_dt(p.out, static_cast<int64_t>(r) * p.N + n, p.out_dt, v);
+    for (int c = 0; c < kLoraC; ++c)
+      v += cluster.map_shared_rank(s_part, c)[i * kMaxRank + j];
+    s_h[i * kMaxRank + j] = v;
   }
+  cluster.sync();  // no block leaves while its slice is read
+  ptt::cp_async_wait<0>();
+  __syncthreads();
+
+  // phase 2: out[r][n] = h[r] @ B[s][:, n], 4 rows x 8 columns an item
+  for (int n0 = n_lo; n0 < n_hi; n0 += kLoraCols) {
+    if (n0 != n_lo) {
+      __syncthreads();
+      load_b(n0);
+      ptt::cp_async_commit();
+      ptt::cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int cols = min(kLoraCols, n_hi - n0);
+    const int n_groups = (cols + 7) / 8, n_items = (nr + 3) / 4 * n_groups;
+    for (int it = threadIdx.x; it < n_items; it += kLoraThreads) {
+      const int rc = it / n_groups, cg8 = (it % n_groups) * 8;
+      float acc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+      for (int j = 0; j < R; ++j) {
+        float bv[8];
+        const TA* brow = s_b + j * kLoraCols + cg8;
+        if constexpr (sizeof(TA) == 2) {
+          const uint4 w = *reinterpret_cast<const uint4*>(brow);
+          const __nv_bfloat162* h2 =
+              reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h2[e]);
+            bv[2 * e] = f.x;
+            bv[2 * e + 1] = f.y;
+          }
+        } else {
+          const float4 w0 = *reinterpret_cast<const float4*>(brow);
+          const float4 w1 = *reinterpret_cast<const float4*>(brow + 4);
+          bv[0] = w0.x, bv[1] = w0.y, bv[2] = w0.z, bv[3] = w0.w;
+          bv[4] = w1.x, bv[5] = w1.y, bv[6] = w1.z, bv[7] = w1.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float hv = s_h[min(rc * 4 + i, nr - 1) * kMaxRank + j];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(hv, bv[e], acc[i][e]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + rc * 4 + i;
+        if (r >= r1) break;
+        const int64_t o = static_cast<int64_t>(r) * p.N + n0 + cg8;
+        if (p.out_vec && cg8 + 8 <= cols) {
+          float* dst = static_cast<float*>(p.out) + o;
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          *reinterpret_cast<float4*>(dst + 4) =
+              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (cg8 + e < cols) store_dt(p.out, o + e, p.out_dt, acc[i][e]);
+        }
+      }
+    }
+  }
+}
+
+// phase 1 on the tensor cores (bf16 x and A) or on the CUDA cores
+__global__ void __launch_bounds__(kLoraThreads)
+    lora_delta_mma(const LoraParams p) {
+  lora_delta_body<__nv_bfloat16, __nv_bfloat16, true>(p);
+}
+
+template <typename TX, typename TA>
+__global__ void __launch_bounds__(kLoraThreads)
+    lora_delta_fma(const LoraParams p) {
+  lora_delta_body<TX, TA, false>(p);
+}
+
+template <typename TA>
+cudaError_t launch_lora(void (*kernel)(LoraParams), bool mma,
+                        const LoraParams& p, int nwu, cudaStream_t s) {
+  const int smem = (mma ? kLoraStages * kLoraStage : kLoraFStage) +
+                   2 * kLoraH +
+                   p.R * kLoraCols * static_cast<int>(sizeof(TA));
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kLoraC, nwu);
+  cfg.blockDim = dim3(kLoraThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kLoraC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, p);
 }
 
 // B15's walk written out (for the check against dw_tile_order)
@@ -1095,6 +1387,9 @@ extern "C" int ptt_grouped_dw(const void* x, const void* dz,
   return cudaGetLastError();
 }
 
+// out [T, N] (out_dt) = per slot (x[seg] @ A[s]) @ B[s]; x [T, K] in x_dt,
+// A [S, K, R] and B [S, R, N] in one bank dtype, R <= 32; rows past
+// offsets[S] are written as zeros. Pointers 16-byte aligned.
 extern "C" int ptt_lora_delta(const void* x, int x_dt, const void* a,
                               int a_dt, const void* b, int b_dt,
                               const int* offsets, void* out, int out_dt,
@@ -1102,21 +1397,32 @@ extern "C" int ptt_lora_delta(const void* x, int x_dt, const void* a,
                               void* stream) {
   const int nm = (T + kBM - 1) / kBM, nwu = nm + 2 * S + 1;
   if (bm != kBM || nwu > 65535 || S < 1 || T < 1 || R < 1 ||
-      R > kMaxRank || a_dt != b_dt)
+      R > kMaxRank || a_dt != b_dt || K < 1 || N < 1)
     return cudaErrorInvalidValue;
-  LoraParams p{x, a, b, offsets, out, out_dt, T, K, N, S, R, nm};
-  const dim3 grid((N + kLoraBN - 1) / kLoraBN, nwu);
+  // each block's columns: a multiple of 8 (whole 16-byte B vectors)
+  const int cols = ((N + kLoraC - 1) / kLoraC + 7) / 8 * 8;
+  auto aligned = [](const void* v) {
+    return reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  };
+  const int b_item = a_dt == ptt::kBF16 ? 2 : 4;
+  const int b_vec = aligned(b) && N * b_item % 16 == 0;
+  const int out_vec = out_dt == ptt::kF32 && aligned(out) && N % 4 == 0;
+  LoraParams p{x,  a,  b, offsets, out, out_dt, T,   K,
+               N,  S,  R, nm,      cols, b_vec, out_vec};
   auto s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
+  if (x_dt == ptt::kBF16 && a_dt == ptt::kBF16 && K % 8 == 0 &&
+      R % 16 == 0 && aligned(x) && aligned(a))
+    return launch_lora<bf16>(lora_delta_mma, true, p, nwu, s);
   if (x_dt == ptt::kBF16 && a_dt == ptt::kBF16)
-    lora_delta_kernel<bf16, bf16><<<grid, kLoraThreads, 0, s>>>(p);
-  else if (x_dt == ptt::kBF16 && a_dt == ptt::kF32)
-    lora_delta_kernel<bf16, float><<<grid, kLoraThreads, 0, s>>>(p);
-  else if (x_dt == ptt::kF32 && a_dt == ptt::kBF16)
-    lora_delta_kernel<float, bf16><<<grid, kLoraThreads, 0, s>>>(p);
-  else if (x_dt == ptt::kF32 && a_dt == ptt::kF32)
-    lora_delta_kernel<float, float><<<grid, kLoraThreads, 0, s>>>(p);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return launch_lora<bf16>(lora_delta_fma<bf16, bf16>, false, p, nwu, s);
+  if (x_dt == ptt::kBF16 && a_dt == ptt::kF32)
+    return launch_lora<float>(lora_delta_fma<bf16, float>, false, p, nwu,
+                              s);
+  if (x_dt == ptt::kF32 && a_dt == ptt::kBF16)
+    return launch_lora<bf16>(lora_delta_fma<float, bf16>, false, p, nwu, s);
+  if (x_dt == ptt::kF32 && a_dt == ptt::kF32)
+    return launch_lora<float>(lora_delta_fma<float, float>, false, p, nwu,
+                              s);
+  return cudaErrorInvalidValue;
 }

@@ -58,7 +58,9 @@
 // The warps' states merge through shared memory; a split writes its state
 // to the workspace and the last split of a (row, head), by an atomic
 // ticket, merges them in split order: one launch a call. Only split 0
-// appends, with warps 0 and 1; no block reads that slot.
+// appends, with warps 0 and 1; no block reads that slot. The ring, the
+// walk, the softmax step, the weight split and the merge are
+// decode_tiles.cuh's, shared with B1's bf16 kernel (paged_decode_mma).
 // float32 q (paged_decode_q_kernel): the CUDA-core kernel, 4 warps taking
 // interleaved runs of 4 tokens, fp32 dots (exact integers: |products| <=
 // 127^2 and d <= 256 keep every partial sum below 2^24) and per-warp
@@ -68,15 +70,16 @@
 // (2 * len * d bytes per kv head) plus 8 bytes of scales per token, half
 // the bytes of the bf16 pool; 4 operations a K/V byte pair per query head
 // are far below the tensor cores' balance.
-#include "flash_tiles.cuh"
+#include "decode_tiles.cuh"
 
 namespace {
 
 using ptt::from_f32;
 using ptt::load_dt;
 using ptt::to_f32;
+using ptt::decode::kWarps;
+namespace decode = ptt::decode;
 
-constexpr int kWarps = 4;
 constexpr int kUnroll = 4;  // K/V rows a warp keeps in flight
 
 struct Params {
@@ -317,23 +320,21 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 namespace mma {
 
-constexpr int kTile = 16;      // tokens a tile
-constexpr int kStages = 3;     // tiles in a warp's ring
+using decode::kStages;
+using decode::kTile;
 
+// int8 rows of head_dim padded to k32 steps, then 16 k and 16 v scales
 template <int NG>
-struct Ring {
-  static constexpr int kDP = 32 * NG;      // head_dim padded to k32 steps
-  static constexpr int kPitch = kDP + 16;  // bytes a token row
-  // a stage: K rows, V rows, then 16 k and 16 v scales
-  static constexpr int kStage = 2 * kTile * kPitch + 2 * kTile * 4;
-  static constexpr int kWarpBytes = kStages * kStage;
+struct Ring : decode::Ring<32 * NG, 2 * kTile * 4> {
+  using Base = decode::Ring<32 * NG, 2 * kTile * 4>;
+  static constexpr int kDP = 32 * NG;
   static constexpr int kAccPitch = kDP + 4;  // floats, the warps' merge
   static constexpr size_t kSmem =
-      kWarps * kWarpBytes + 8 * kDP                  // rings, qq [8][kDP]
+      kWarps * Base::kWarpBytes + 8 * kDP            // rings, qq [8][kDP]
       + sizeof(float) * (3 * 8 + 2 * kDP)            // qs, qss, cur, nk, nv
       + sizeof(int) * (kWarps * kStages + 4);        // valid masks, ticket
   static_assert(sizeof(float) * kWarps * 8 * (2 + kAccPitch) <=
-                    kWarps * kWarpBytes,
+                    kWarps * Base::kWarpBytes,
                 "the warps' states must fit over the rings");
 };
 
@@ -367,16 +368,6 @@ __device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <int NG>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_q_mma(const Params p) {
@@ -407,47 +398,27 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int64_t cur = (static_cast<int64_t>(row) * n_kv + h) * d;
   const unsigned region = static_cast<unsigned>(p.pool_pages);
   const int64_t plane0 = static_cast<int64_t>(h) * p.plane_cols;
+  const decode::Pool pool{page_stride, head_stride, d, ps, p.pool_base,
+                          region};
 
-  // the block's tiles [t_lo, t_hi); warp w takes t_lo + w + 4 j
-  const int n_tiles = (n_tok + kTile - 1) / kTile;
-  const int t_lo = split * n_tiles / p.n_split;
-  const int t_hi = (split + 1) * n_tiles / p.n_split;
-  const int nj = t_hi - t_lo > warp ? (t_hi - t_lo - warp + kWarps - 1) / kWarps
-                                    : 0;
-  const bool vec16 = d % 16 == 0;  // rows 16-byte aligned
+  // the block's tiles; warp w takes t_lo + w + 4 j
+  const decode::Walk wk = decode::walk(n_tok, split, p.n_split, warp);
+  const int nj = wk.nj;
   const int side = lane >> 4, r = lane & 15;
 
-  // the page id of this lane's token of the warp's tile j (-1: none)
   auto fetch = [&](int j) {
-    const int tok = (t_lo + warp + kWarps * j) * kTile + r;
-    return j < nj && tok < n_tok ? trow[tok / ps] : -1;
+    return decode::page_of(trow, wk, n_tok, ps, warp, j, r);
   };
-  // tile j into stage j % kStages: lane r copies token r's K row (lanes
-  // 0-15) or V row (16-31) and its scale; a token off the region is not
-  // copied and its bit in the stage's mask stays 0
+  // tile j into stage j % kStages, each lane's scale beside its row
   auto issue = [&](int j, int id) {
     unsigned char* st = ring + (j % kStages) * R::kStage;
-    const bool ok = static_cast<unsigned>(id) < region;
-    const unsigned m = __ballot_sync(0xffffffffu, ok);
-    if (lane == 0) s_valid[j % kStages] = static_cast<int>(m & 0xffffu);
-    if (!ok) return;
-    const int tok = (t_lo + warp + kWarps * j) * kTile + r;
-    const int64_t pg = id + static_cast<int64_t>(p.pool_base);
-    const int8_t* src = (side ? p.vq : p.kq) + pg * page_stride +
-                        h * head_stride + static_cast<int64_t>(tok % ps) * d;
-    int8_t* dst = reinterpret_cast<int8_t*>(st) + (side * kTile + r) * kPitch;
-    if (vec16) {
-#pragma unroll
-      for (int c = 0; c < kDP / 16; ++c) {
-        const bool in = c * 16 < d;  // the k tail of the last step: zeros
-        ptt::cp_async16(dst + c * 16, in ? src + c * 16 : src, in ? 16 : 0);
-      }
-    } else {
-      for (int e = 0; e < kDP; ++e) dst[e] = e < d ? src[e] : 0;
-    }
+    const int64_t slot = decode::issue_tile<kDP, 1>(
+        st, s_valid + j % kStages, id, decode::tile_token(wk, warp, j, r),
+        h, pool, p.kq, p.vq, lane);
+    if (slot < 0) return;
     float* sc = reinterpret_cast<float*>(st + 2 * kTile * kPitch) +
                 side * kTile + r;
-    cp_async4(sc, (side ? p.vs : p.ks) + plane0 + pg * ps + tok % ps);
+    cp_async4(sc, (side ? p.vs : p.ks) + plane0 + slot);
   };
 
   int id0 = fetch(0), id1 = fetch(1);
@@ -545,7 +516,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         mma_s8(c[1], qa[kk][0], qa[kk][1], b2, b3);
       }
       // logits of tokens 8 nt + 2 t4 + e; masked: -inf
-      float x[2][2], mt = -INFINITY;
+      float x[2][2];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -556,40 +527,17 @@ __global__ void __launch_bounds__(kWarps * 32)
                                               qss),
                                     sks[tk])
                         : -INFINITY;
-          mt = fmaxf(mt, x[nt][e]);
         }
-      const float mn = fmaxf(m, quad_max(mt));  // finite: a valid token
-      const float alpha = expf(m - mn);         // m = -inf first: 0
-      m = mn;
-      l *= alpha;
+      const float alpha = decode::tile_max(x, m, l);
 #pragma unroll
       for (int G = 0; G < NG; ++G)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc) acc[G][jj][cc] *= alpha;
-      // weights p * v_scale as bf16 hi + mid + lo: the A fragments of P V
-      float hi[2][2], mid[2][2], lo[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int tk = nt * 8 + 2 * t4 + e;
-          const bool ok = (valid >> tk) & 1u;
-          const float pr = ok ? expf(x[nt][e] - mn) : 0.f;
-          l += pr;
-          const float w = ok ? pr * svs[tk] : 0.f;  // a select: vs may be NaN
-          hi[nt][e] = ptt::tiles::bf16_round(w);
-          const float r1 = w - hi[nt][e];
-          mid[nt][e] = ptt::tiles::bf16_round(r1);
-          lo[nt][e] = r1 - mid[nt][e];
-        }
-      const uint32_t a0 = ptt::tiles::pack_bf16(hi[0][0], hi[0][1]);
-      const uint32_t a1 = ptt::tiles::pack_bf16(mid[0][0], mid[0][1]);
-      const uint32_t a2 = ptt::tiles::pack_bf16(hi[1][0], hi[1][1]);
-      const uint32_t a3 = ptt::tiles::pack_bf16(mid[1][0], mid[1][1]);
-      const uint32_t l0 = ptt::tiles::pack_bf16(lo[0][0], lo[0][1]);
-      const uint32_t l2 = ptt::tiles::pack_bf16(lo[1][0], lo[1][1]);
+      // weights p * v_scale: the A fragments of P V
+      const decode::PV f = decode::tile_weights(
+          x, valid, t4, m, l, [&](float pr, int tk) { return pr * svs[tk]; });
 #pragma unroll
       for (int G = 0; G < NG; ++G) {
         // V words: 4 dims (32G + 4 gq ..) of tokens 2 t4, 2 t4 + 1, 2 t4 + 8,
@@ -607,15 +555,15 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int jj = 0; jj < 4; ++jj) {
           const uint32_t b0 = bf16x2_of(i8_at(w0, jj), i8_at(w1, jj));
           const uint32_t b1 = bf16x2_of(i8_at(w2, jj), i8_at(w3, jj));
-          ptt::mma_bf16(acc[G][jj], a0, a1, a2, a3, b0, b1);
-          ptt::mma_bf16(acc[G][jj], l0, 0u, l2, 0u, b0, b1);
+          ptt::mma_bf16(acc[G][jj], f.a0, f.a1, f.a2, f.a3, b0, b1);
+          ptt::mma_bf16(acc[G][jj], f.l0, 0u, f.l2, 0u, b0, b1);
         }
       }
     }
     __syncwarp();  // the stage is refilled from the next tile on
   }
   ptt::cp_async_wait<0>();
-  l = quad_sum(l);
+  l = ptt::tiles::quad_sum(l);
 
   // the warps' states over the rings: s_m, s_l [kWarps][8], s_acc
   // [kWarps][8][kAccPitch]
@@ -645,79 +593,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (lane == 0) s_cur[gi] = dot * p.scale;
   }
   __syncthreads();
-
-  const int64_t out0 = (static_cast<int64_t>(row) * n_q + h * g) * d;
-  if (p.n_split == 1) {
-    for (int i = tid; i < g * d; i += kWarps * 32) {
-      const int gi = i / d, e = i % d;
-      float mx = s_cur[gi];
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w * 8 + gi]);
-      float den = expf(s_cur[gi] - mx);
-      float num = den * s_nv[e];
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(s_m[w * 8 + gi] - mx);  // no token: 0
-        den = fmaf(s_l[w * 8 + gi], f, den);
-        num = fmaf(s_acc[(w * 8 + gi) * R::kAccPitch + e], f, num);
-      }
-      ptt::store_dt(p.out, out0 + i, p.dt, num / den);
-    }
-    return;
-  }
-
-  // a split: its state to the workspace (partials [rows * n_kv][n_split]
-  // [g][d], then (m, l) pairs, then a counter a (row, head))
-  const int64_t rh = static_cast<int64_t>(row) * n_kv + h;
-  const int64_t n_rh = static_cast<int64_t>(gridDim.y) * n_kv;
-  float* part = p.ws;
-  float* part_ml = p.ws + n_rh * p.n_split * g * d;
-  int* counter = reinterpret_cast<int*>(part_ml + n_rh * p.n_split * g * 2);
-  const int64_t base = (rh * p.n_split + split) * g;
-  for (int i = tid; i < g * d; i += kWarps * 32) {
-    const int gi = i / d, e = i % d;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w * 8 + gi]);
-    float sum = 0.f, num = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(s_m[w * 8 + gi] - mx);
-        sum = fmaf(s_l[w * 8 + gi], f, sum);
-        num = fmaf(s_acc[(w * 8 + gi) * R::kAccPitch + e], f, num);
-      }
-    }
-    part[(base + gi) * d + e] = num;
-    if (e == 0) {
-      part_ml[(base + gi) * 2] = mx;
-      part_ml[(base + gi) * 2 + 1] = sum;
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) *ticket = atomicAdd(counter + rh, 1);
-  __syncthreads();
-  if (*ticket != p.n_split - 1) return;
-  __threadfence();  // every split's state is visible
-  const int64_t base0 = rh * p.n_split * g;
-  for (int i = tid; i < g * d; i += kWarps * 32) {
-    const int gi = i / d, e = i % d;
-    float mx = s_cur[gi];
-    for (int s2 = 0; s2 < p.n_split; ++s2)
-      mx = fmaxf(mx, __ldcg(part_ml + (base0 + s2 * g + gi) * 2));
-    float den = expf(s_cur[gi] - mx);
-    float num = den * s_nv[e];
-#pragma unroll 4
-    for (int s2 = 0; s2 < p.n_split; ++s2) {
-      const float* ml = part_ml + (base0 + s2 * g + gi) * 2;
-      const float f = expf(__ldcg(ml) - mx);  // a split with no token: 0
-      den = fmaf(__ldcg(ml + 1), f, den);
-      num = fmaf(__ldcg(part + (base0 + s2 * g + gi) * d + e), f, num);
-    }
-    ptt::store_dt(p.out, out0 + i, p.dt, num / den);
-  }
-  if (tid == 0) counter[rh] = 0;
+  decode::finish(s_m, s_l, s_acc, R::kAccPitch, s_cur, s_nv, ticket,
+                 decode::Finish{p.out, p.dt,
+                                (static_cast<int64_t>(row) * n_q + h * g) * d,
+                                g, d, p.n_split, split, p.ws,
+                                static_cast<int64_t>(row) * n_kv + h});
 }
 
 template <int NG>

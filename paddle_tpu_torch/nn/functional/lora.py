@@ -13,8 +13,10 @@ SLOT.
   delta for every token: the work units of ``grouped_gemm`` over the
   slots, and per unit two chained products, ``[rows, K] x [K, R]`` down
   to the rank in fp32 and ``[rows, R] x [R, N]`` back up, B in fp32. On
-  a CUDA tensor it launches ``csrc/grouped_gemm.cu``'s LoRA entry; on a
-  CPU tensor it runs the plain version ``lora_delta_plain``.
+  a CUDA tensor it launches ``csrc/grouped_gemm.cu``'s LoRA entry (a
+  cluster of 8 blocks a unit of rows, each summing one K slice, the
+  slices added in rank order); on a CPU tensor it runs the plain version
+  ``lora_delta_plain``.
 - ``pad_rank`` pads ranks to the weight dtype's sublane tile (int8 32,
   bf16 16, f32 8), the bank's layout in both packages; padded rank
   columns are zero and contribute exact +0.0.

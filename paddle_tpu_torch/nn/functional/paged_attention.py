@@ -220,7 +220,8 @@ def _region_tables(block_tables, pool_base, pool_pages, n_pages):
 
 
 def _paged_decode_plain(q, new_k, new_v, key_cache, value_cache, seq_lens,
-                        block_tables, pool_base=0, pool_pages=None):
+                        block_tables, pool_base=0, pool_pages=None,
+                        skip_last_tile=False):
     """Plain version of the decode kernel: the guarded append, then
     attention over the row's cached tokens plus the current one.
 
@@ -231,7 +232,11 @@ def _paged_decode_plain(q, new_k, new_v, key_cache, value_cache, seq_lens,
     the kernel does. A table id outside the layer region ``[0,
     pool_pages)`` (default: the rest of the pool from ``pool_base``)
     names no page: its tokens are not attended and an append into it is
-    skipped, so nothing outside the region is read or written."""
+    skipped, so nothing outside the region is read or written.
+
+    ``skip_last_tile`` leaves out each row's last 16-token tile
+    (``DECODE_Q_TILE``) that holds an attended token (the chip check's
+    control)."""
     b, n_q, d = q.shape
     _, n_kv, ps, _ = key_cache.shape
     pp = block_tables.shape[1]
@@ -253,8 +258,12 @@ def _paged_decode_plain(q, new_k, new_v, key_cache, value_cache, seq_lens,
     logits = torch.einsum("bngd,bpnsd->bngps", qh, kg) * scale
     logits = logits.reshape(b, n_kv, group, cap)
     pos = torch.arange(cap, device=q.device)
-    mask = (pos[None, :] < torch.clamp(lens, max=cap)[:, None]) \
+    n_tok = torch.clamp(lens, max=cap)
+    mask = (pos[None, :] < n_tok[:, None]) \
         & in_region.repeat_interleave(ps, dim=1)
+    if skip_last_tile:
+        last = torch.clamp(n_tok - 1, min=0) // DECODE_Q_TILE
+        mask = mask & (pos[None, :] // DECODE_Q_TILE != last[:, None])
     logits = torch.where(mask[:, None, None, :], logits,
                          torch.finfo(torch.float32).min)
     # the current token joins from the operands (cast to the pool dtype
@@ -272,6 +281,57 @@ def _paged_decode_plain(q, new_k, new_v, key_cache, value_cache, seq_lens,
 #: launches of the CUDA kernel, counted once each has been issued
 #: without error (plain CPU calls do not count)
 launches = 0
+
+#: tokens a tile of the tensor-core decode kernels, B1's and B6's (a
+#: warp's unit of work)
+DECODE_Q_TILE = 16
+_DECODE_Q_MAX_SPLIT = 16
+#: the card's grid limit on its second dimension (the batch rows)
+_GRID_Y_MAX = 65535
+
+
+def decode_q_plan(b: int, n_kv: int, span: int, sms: int) -> tuple:
+    """``(n_split, blocks)`` of the tensor-core decode kernels (B1 on a
+    bf16 pool, B6 on an int8 one, bf16 q): a block of 4 warps per (row,
+    kv head), or per (row, kv head, split) with each split a contiguous
+    share of the row's 16-token tiles. A row is split only where ``b *
+    n_kv`` blocks leave the card's ``sms`` SMs short of two blocks each:
+    into as many splits as fill two an SM, at most 16, each at least 8
+    tiles (two a warp) of the table's span ``span`` (``pages_per_seq *
+    page_size``). Raises past the grid's limit of 65535 rows."""
+    if b > _GRID_Y_MAX:
+        raise ValueError(f"paged decode attention: batch {b} exceeds the "
+                         f"kernel grid's limit of {_GRID_Y_MAX} rows")
+    base = b * n_kv
+    tiles = -(-span // DECODE_Q_TILE)
+    n_split = 1
+    if 0 < base < 2 * sms:
+        n_split = max(1, min(-(-2 * sms // base), tiles // 8,
+                             _DECODE_Q_MAX_SPLIT))
+    return n_split, base * n_split
+
+
+def _on_card(t) -> bool:
+    return t.device.type == "cuda"
+
+
+_sm_count = _kernels.sm_count
+
+
+def _decode_split(q, b: int, n_kv: int, d: int, span: int, mma: bool):
+    """``(n_split, workspace)`` of a tensor-core decode launch: bf16 q on
+    a kernel that splits (``mma``) takes ``decode_q_plan``'s split and,
+    when it splits, an f32 workspace of every split's partials (outputs,
+    then m and l) and an int32 ticket a (row, kv head), zeroed by the
+    launch; otherwise one block a (row, kv head) and none. Raises past
+    the grid's limit of 65535 rows."""
+    n_split, _ = decode_q_plan(b, n_kv, span, _sm_count(q.device))
+    if q.dtype != torch.bfloat16 or not mma or n_split == 1:
+        return 1, None
+    rows = b * n_kv
+    g = q.shape[1] // n_kv
+    return n_split, torch.empty(rows * n_split * g * (d + 2) + rows,
+                                dtype=torch.float32, device=q.device)
 
 
 def paged_decode_attention_inplace(q, new_k, new_v, key_cache,
@@ -291,11 +351,16 @@ def paged_decode_attention_inplace(q, new_k, new_v, key_cache,
     append: its write is skipped (the pool stays untouched) and its
     attention still folds in the operand token — the caller must grow
     the table before retrying.
+
+    On the card bf16 at a head_dim that is a multiple of 32 runs the
+    tensor-core kernel with ``decode_q_plan``'s split (one launch, a
+    workspace when it splits); f32 and other head dims the CUDA-core
+    kernel.
     """
     what = "paged_decode_attention_inplace"
     P = key_cache.shape[0]
     base, region = _layer_region(what, P, pool_base, pool_pages)
-    if q.device.type != "cuda":
+    if not _on_card(q):
         out = _paged_decode_plain(q, new_k, new_v, key_cache, value_cache,
                                   seq_lens, block_tables, base, region)
         return out, key_cache, value_cache
@@ -334,13 +399,15 @@ def paged_decode_attention_inplace(q, new_k, new_v, key_cache,
             raise ValueError(f"{what}: operands must be contiguous and "
                              "16-byte aligned")
     dt = _kernels.dtype_code(q, what)
+    n_split, ws = _decode_split(q, b, n_kv, d, pp * ps, d % 32 == 0)
     out = torch.empty_like(q)
     fn = _kernels.lib("paged_attention").ptt_paged_decode_attention
     _kernels.check(fn(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
         key_cache.data_ptr(), value_cache.data_ptr(), seq_lens.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(), dt, b, n_q, n_kv, d, ps,
-        pp, base, region, d ** -0.5, _kernels.stream_ptr(q.device)), what)
+        block_tables.data_ptr(), out.data_ptr(), _kernels.ptr(ws), dt, b,
+        n_q, n_kv, d, ps, pp, base, region, n_split, d ** -0.5,
+        _kernels.stream_ptr(q.device)), what)
     global launches
     launches += 1
     return out, key_cache, value_cache
@@ -421,41 +488,6 @@ def _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane, vq_pool,
 #: launches of the int8-KV CUDA kernel (plain CPU calls do not count)
 q_launches = 0
 
-#: tokens a tile of the int8-KV tensor-core kernel (a warp's unit of work)
-DECODE_Q_TILE = 16
-_DECODE_Q_MAX_SPLIT = 16
-#: the card's grid limit on its second dimension (the batch rows of B6)
-_GRID_Y_MAX = 65535
-
-
-def decode_q_plan(b: int, n_kv: int, span: int, sms: int) -> tuple:
-    """``(n_split, blocks)`` of the int8-KV tensor-core kernel (bf16 q):
-    a block of 4 warps per (row, kv head), or per (row, kv head, split)
-    with each split a contiguous share of the row's 16-token tiles. A
-    row is split only where ``b * n_kv`` blocks leave the card's ``sms``
-    SMs short of two blocks each: into as many splits as fill two an SM,
-    at most 16, each at least 8 tiles (two a warp) of the table's span
-    ``span`` (``pages_per_seq * page_size``). Raises past the grid's
-    limit of 65535 rows."""
-    if b > _GRID_Y_MAX:
-        raise ValueError(f"paged_decode_attention_inplace_q: batch {b} "
-                         f"exceeds the kernel grid's limit of {_GRID_Y_MAX} "
-                         "rows")
-    base = b * n_kv
-    tiles = -(-span // DECODE_Q_TILE)
-    n_split = 1
-    if 0 < base < 2 * sms:
-        n_split = max(1, min(-(-2 * sms // base), tiles // 8,
-                             _DECODE_Q_MAX_SPLIT))
-    return n_split, base * n_split
-
-
-def _on_card(t) -> bool:
-    return t.device.type == "cuda"
-
-
-_sm_count = _kernels.sm_count
-
 
 def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
                                      vq_pool, vs_plane, seq_lens,
@@ -523,15 +555,7 @@ def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
             raise ValueError(f"{what}: operands must be contiguous and "
                              "16-byte aligned")
     dt = _kernels.dtype_code(q, what)
-    n_split, ws = 1, None
-    if q.dtype == torch.bfloat16:
-        n_split, _ = decode_q_plan(b, n_kv, pp * ps, _sm_count(q.device))
-        if n_split > 1:
-            # f32 partials (outputs, then m and l) of every split and an
-            # int32 ticket a (row, kv head), zeroed by the launch
-            rows = b * n_kv
-            ws = torch.empty(rows * n_split * (n_q // n_kv) * (d + 2) + rows,
-                             dtype=torch.float32, device=q.device)
+    n_split, ws = _decode_split(q, b, n_kv, d, pp * ps, True)
     out = torch.empty_like(q)
     fn = _kernels.lib("paged_attention_q").ptt_paged_decode_attention_q
     _kernels.check(fn(

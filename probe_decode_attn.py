@@ -1,35 +1,50 @@
-"""Probes of the decode attention kernels B6 and B7 on one card.
+"""Probes of the decode kernels B1, B6, B7 and B16 on one card.
 
     python3 probe_decode_attn.py [--check] [--parent DIR] [--step]
                                  [--variants NAME,...] [--rounds N]
                                  [--out DIR]
 
-``--check`` first runs ``chip_smoke.phase_build`` and the B6 and B7-B9
-kernel checks (``kernel_paged_attention_q``, ``kernel_paged_backends``)
-on this tree. Then, for this tree and, with ``--parent DIR`` (another
-tree's root, e.g. the parent commit unpacked by ``git archive`` into a
-git-ignored directory), for that tree too, in turns (parent, this, this,
-parent; ``--rounds`` times over), one process each:
+``--check`` first runs ``chip_smoke.phase_build`` and the B1, B6, B7-B9
+and B16 kernel checks (``kernel_paged_attention``,
+``kernel_paged_attention_q``, ``kernel_paged_backends``,
+``kernel_lora_delta``) on this tree. Then, for this tree and, with
+``--parent DIR`` (another tree's root, e.g. the parent commit unpacked
+by ``git archive`` into a git-ignored directory), for that tree too, in
+turns (parent, this, this, parent; ``--rounds`` times over), one
+process each:
+  - B1 (bf16 decode attention with its append) at the decode rung's
+    inputs (``chip_smoke._decode_case``: b32 g1 d128, page 16, 17 pages
+    a row, rotating over 4 layers): CUDA events ms a call and the
+    profiler's device ms of the kernels named ``paged_decode_`` (either
+    tree's B1 kernel); SDPA over the pre-gathered K/V beside it;
   - B6 (int8-KV decode attention, bf16) at the int8-KV rung's inputs
     (``chip_smoke._decode_q_case``: b64, 16 kv heads of 128, page 16, 17
-    pages a row), alternating over its 2 layers: CUDA events ms a call
-    and the profiler's device ms of the kernels named ``paged_decode_q``;
+    pages a row), alternating over its 2 layers: events and device ms
+    of the kernels named ``paged_decode_q``, and a hash of its first
+    output (trees with the same B6 print the same);
   - B7 (``stream_paged``, bf16) at the decode backends' rung
-    (``chip_smoke._decode_case``: b32 g1 d128 over a 545-page region,
-    rotating over 4 layers): events ms a call, the device ms of every
-    ``stream_`` kernel a call and of each kernel name apart;
-  - with ``--step``, the int8-KV decode step (``chip_smoke``'s
-    ``slice_decode_step`` on the d2048·L24 stack quantized to int8
-    weights and an int8 pool, b64 at context 128): its device ms by
-    group, B6's among them.
+    (``chip_smoke._decode_case`` over a 545-page region, rotating over 4
+    layers): events ms a call, the device ms of every ``stream_`` kernel
+    a call and of each kernel name apart;
+  - B16 (``lora_delta``, bf16) on the four d2048 projections at T 8, 4
+    slots of rank 16 (one empty), rotating over 24 layers: events and
+    device ms (kernels named ``lora_delta``) summed over the four;
+  - B5 (``_stream_linear_a8w8``) on the four projections at batch 32,
+    rotating over 24 layers: device ms (``a8w8_kernel``) summed;
+  - with ``--step``, the bf16 decode step (``chip_smoke``'s
+    ``slice_decode_step`` on the d2048·L24 stack, b32 at context 128:
+    its device ms by group, B1's among them) and the int8-KV decode step
+    (the stack quantized to int8 weights and an int8 pool, b64).
 With ``--variants`` (names of ``VARIANTS`` below: text substitutions
 of one kernel source, ablations of the design), each variant and the
 design are built into libraries of their own, one nvcc each, all started
 together, and timed in this process in turns (design, variants...,
 variants reversed, design) by the profiler's device ms of their kernel
 at the same inputs. Prints the card's name and power limit first, then
-one JSON line per tree, variant and reading. Needs one card and nvcc;
-imports nothing of JAX.
+one JSON line per tree, variant and reading, each also appended to
+``--out``/results.jsonl (a long call's output is cut to its tail). Needs one card and nvcc;
+imports nothing of JAX. On a card's machine, from the repo root:
+``python3 probe_decode_attn.py --check --parent <dir> --step``.
 """
 from __future__ import annotations
 
@@ -44,6 +59,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: name -> (what it changes, the library, {old text: new text} in its .cu)
 VARIANTS = {
+    "b1_scores_in_mma": (
+        "B1's scores carried across k-steps in the mma accumulators (the "
+        "first design; moved the MoE rung's routes)",
+        "paged_attention",
+        {"""        float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        ptt::mma_bf16(t[0], a0, 0u, a2, 0u, b0, b1);
+        ptt::mma_bf16(t[1], a0, 0u, a2, 0u, b2, b3);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) c[q / 4][q % 4] += t[q / 4][q % 4];""":
+         """        ptt::mma_bf16(c[0], a0, 0u, a2, 0u, b0, b1);
+        ptt::mma_bf16(c[1], a0, 0u, a2, 0u, b2, b3);"""}),
     "b7_no_merge": (
         "B7's last block does not merge (the walk alone; no output)",
         "paged_backends",
@@ -78,32 +104,49 @@ VARIANTS = {
 }
 
 #: run inside a tree's root: its own chip_smoke and paddle_tpu_torch
-_MEASURE = r'''
-import json, sys, torch
+_MEASURE = r"""
+import hashlib, json, sys, torch
+import torch.nn.functional as F
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from paddle_tpu_torch import _kernels
+from paddle_tpu_torch.nn.functional import lora as tl
 from paddle_tpu_torch.nn.functional import paged_attention as pa
+from paddle_tpu_torch.nn.functional import stream_linear as sl
+from paddle_tpu_torch.quantization.dynamic import dynamic_act_quant
 
 tag, step, out = sys.argv[1], sys.argv[2] == "1", sys.argv[3]
 _kernels.build(["paged_attention_q", "paged_backends", "stream_linear",
-                "paged_attention"])
+                "paged_attention", "grouped_gemm", "stream_linear_a8w8"])
 gen = torch.Generator(device="cuda")
 gen.manual_seed(0)
 res = {"tree": tag}
-c = cs._decode_q_case(torch.bfloat16, gen)
-nxt = cs.cycler(c["L"])
-args = [c[k] for k in ("q", "nk", "nv", "kq", "ks", "vq", "vs", "lens",
-                       "tables")]
-
-def b6():
-    pa.paged_decode_attention_inplace_q(*args, pool_base=nxt() * c["P"],
-                                        pool_pages=c["P"])
-res["b6_ms"] = cs.time_ms(b6, iters=40)
-res["b6_device_ms"] = cs.device_ms(b6, "paged_decode_q", iters=40)
-del c, args
 c = cs._decode_case(torch.bfloat16, gen)
 P = c["P"]
+nxt = cs.cycler(c["L"])
+
+def b1():
+    pa.paged_decode_attention_inplace(c["q"], c["nk"], c["nv"], c["kp"],
+                                      c["vp"], c["lens"], c["tables"],
+                                      pool_base=nxt() * P, pool_pages=P)
+res["b1_ms"] = cs.time_ms(b1, iters=40)
+res["b1_device_ms"] = cs.device_ms(b1, "paged_decode_", iters=40)
+b, n_kv, d = c["q"].shape
+cap = c["pp"] * cs.PAGE
+tables = c["tables"].long()
+kd = torch.cat([c["kp"][tables].permute(0, 2, 1, 3, 4).reshape(b, n_kv, cap, d),
+                c["nk"][:, :, None]], dim=2).contiguous()
+vd = torch.cat([c["vp"][tables].permute(0, 2, 1, 3, 4).reshape(b, n_kv, cap, d),
+                c["nv"][:, :, None]], dim=2).contiguous()
+pos = torch.arange(cap + 1, device="cuda")
+att = (pos[None, :cap] < torch.clamp(c["lens"].long(), max=cap)[:, None]) \
+    & (c["tables"] < P).repeat_interleave(cs.PAGE, dim=1)
+mask = torch.cat([att, torch.ones_like(att[:, :1])], dim=1)[:, None, None, :]
+qd = c["q"][:, :, None, :]
+res["b1_sdpa_ms"] = cs.time_ms(
+    lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+    iters=40)
+del kd, vd
 mem = pa.pool_membership(c["tables"], c["lens"], P, cs.PAGE)
 nxt = cs.cycler(c["L"])
 
@@ -115,13 +158,60 @@ res["b7_device_ms"] = cs.device_ms(b7, "stream_", iters=40)
 for name in ("stream_partial", "stream_merge", "stream_walk"):
     res[f"b7_device_ms_{name}"] = cs.device_ms(b7, name, iters=40)
 del c, mem
+c = cs._decode_q_case(torch.bfloat16, gen)
+nxt = cs.cycler(c["L"])
+args = [c[k] for k in ("q", "nk", "nv", "kq", "ks", "vq", "vs", "lens",
+                       "tables")]
+
+out6 = pa.paged_decode_attention_inplace_q(*args, pool_base=0,
+                                           pool_pages=c["P"])[0]
+res["b6_out_sha256"] = hashlib.sha256(
+    out6.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+def b6():
+    pa.paged_decode_attention_inplace_q(*args, pool_base=nxt() * c["P"],
+                                        pool_pages=c["P"])
+res["b6_ms"] = cs.time_ms(b6, iters=40)
+res["b6_device_ms"] = cs.device_ms(b6, "paged_decode_q", iters=40)
+del c, args
+torch.cuda.empty_cache()
+L, S, R, T, dt = cs.N_LAYERS, cs.LORA_SLOTS, 16, 8, torch.bfloat16
+order, offsets, _ = tl.sort_by_adapter(cs._lora_rows(T, S, gen), S)
+b16_ms = b16_dev = b5_dev = 0.0
+for name, K, N, act in cs.A8W8_SHAPES:
+    a = (torch.randn(L, S, K, R, generator=gen, device="cuda") * 0.02).to(dt)
+    bk = (torch.randn(L, S, R, N, generator=gen, device="cuda") * 0.02).to(dt)
+    xs = torch.randn(T, K, generator=gen, device="cuda").to(dt)
+    nxt = cs.cycler(L)
+
+    def b16():
+        l = nxt()
+        tl.lora_delta(xs, a[l], bk[l], offsets)
+    b16_ms += cs.time_ms(b16, iters=40)
+    b16_dev += cs.device_ms(b16, "lora_delta", iters=40)
+    del a, bk
+    wq, sc = cs._quantized(torch.randn(L, K, N, generator=gen,
+                                       device="cuda") * 0.02)
+    bias = (torch.randn(L, N, generator=gen, device="cuda") * 0.02).to(dt)
+    xq, xsc = dynamic_act_quant(torch.randn(cs.BATCH, K, generator=gen,
+                                            device="cuda").to(dt))
+
+    def b5():
+        l = nxt()
+        sl._stream_linear_a8w8(xq, xsc, wq[l], sc[l], bias[l], act, dt)
+    b5_dev += cs.device_ms(b5, "a8w8_kernel", iters=40)
+    del wq
+res["b16_ms_4proj"] = b16_ms
+res["b16_device_ms_4proj"] = b16_dev
+res["b5_device_ms_4proj"] = b5_dev
 torch.cuda.empty_cache()
 if step:
     model = cs._build_model()
+    cs.slice_decode_step(model, out, name=f"decode_step_bf16_{tag}")
     cs.slice_decode_step(model, out, quant="int8", kv_dtype="int8",
                          batch=2 * cs.BATCH, name=f"decode_step_int8kv_{tag}")
 print(json.dumps(res), flush=True)
-'''
+"""
 
 
 def _build_variants(names, out_dir: str) -> dict:
@@ -166,8 +256,8 @@ def _build_variants(names, out_dir: str) -> dict:
 
 
 def _variant_times(cs, names, out_dir: str, rounds: int) -> None:
-    """Device ms of B6 or B7 (by its variants' library) at the rung, for
-    the design and each variant in turns."""
+    """Device ms of B1, B6 or B7 (by its variants' library) at the rung,
+    for the design and each variant in turns."""
     import torch
 
     from paddle_tpu_torch import _kernels
@@ -179,6 +269,8 @@ def _variant_times(cs, names, out_dir: str, rounds: int) -> None:
     c6 = cs._decode_q_case(torch.bfloat16, gen)
     c7 = cs._decode_case(torch.bfloat16, gen)
     mem = pa.pool_membership(c7["tables"], c7["lens"], c7["P"], cs.PAGE)
+    c1 = cs._decode_case(torch.bfloat16, gen)
+    n1 = cs.cycler(c1["L"])
     n6, n7 = cs.cycler(c6["L"]), cs.cycler(c7["L"])
     args6 = [c6[k] for k in ("q", "nk", "nv", "kq", "ks", "vq", "vs",
                              "lens", "tables")]
@@ -191,20 +283,34 @@ def _variant_times(cs, names, out_dir: str, rounds: int) -> None:
         pa.stream_paged(c7["q"], c7["kp"], c7["vp"], c7["lens"],
                         c7["tables"], pool_base=n7() * c7["P"],
                         pool_pages=c7["P"], membership=mem)
+
+    def b1():
+        pa.paged_decode_attention_inplace(
+            c1["q"], c1["nk"], c1["nv"], c1["kp"], c1["vp"], c1["lens"],
+            c1["tables"], pool_base=n1() * c1["P"], pool_pages=c1["P"])
+    timed = {"paged_attention_q": (b6, cs.B6_KERNEL),
+             "paged_backends": (b7, cs.B7_KERNELS),
+             "paged_attention": (b1, cs.B1_KERNEL)}
     order = list(libs) + list(reversed(list(libs)))
     for _ in range(rounds):
         for name in order:
             lib, handle = libs[name]
             _kernels._LIBS[lib] = handle
-            fn, kernel = ((b6, cs.B6_KERNEL) if lib == "paged_attention_q"
-                          else (b7, cs.B7_KERNELS))
+            fn, kernel = timed[lib]
             ms = cs.device_ms(fn, kernel, iters=40)
-            print(json.dumps({"variant": name, "library": lib,
+            _emit(json.dumps({"variant": name, "library": lib,
                               "device_ms": ms,
                               "what": VARIANTS[name][0]
                               if name in VARIANTS else "the design"}),
-                  flush=True)
+                  out_dir)
     _kernels._LIBS.clear()
+
+
+def _emit(line: str, out: str) -> None:
+    """A result line to stdout and to ``out``/results.jsonl."""
+    print(line, flush=True)
+    with open(os.path.join(out, "results.jsonl"), "a") as f:
+        f.write(line + "\n")
 
 
 def _run(root: str, tag: str, step: bool, out: str) -> None:
@@ -213,7 +319,7 @@ def _run(root: str, tag: str, step: bool, out: str) -> None:
                           capture_output=True, text=True, timeout=1500)
     for line in proc.stdout.splitlines():
         if line.startswith("{"):
-            print(line, flush=True)
+            _emit(line, out)
     if proc.returncode != 0:
         print(proc.stderr[-4000:], file=sys.stderr, flush=True)
         raise SystemExit(f"probe: the {tag} tree failed "
@@ -238,13 +344,15 @@ def main() -> None:
     sys.path.insert(0, HERE)
     import chip_smoke as cs
 
-    cs.phase_device()
+    _emit(json.dumps({"device": cs.phase_device()}), args.out)
     if args.check:
         cs.phase_build(args.out)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
+        cs.kernel_paged_attention(gen)
         cs.kernel_paged_attention_q(gen)
         cs.kernel_paged_backends(gen)
+        cs.kernel_lora_delta(gen)
         torch.cuda.empty_cache()
     if args.variants:
         names = [n for n in args.variants.split(",") if n]

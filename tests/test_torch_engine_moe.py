@@ -30,6 +30,10 @@ from paddle_tpu_torch.inference import (ContinuousBatchingEngine as TCBE,
 from paddle_tpu_torch.serving import ServingEngine as TEngine
 from paddle_tpu_torch.serving import SLOConfig as TSLO
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 CFG = dict(vocab_size=64, embed_dim=64, num_heads=4, dim_feedforward=128,
            num_layers=2, max_position=128, moe_num_experts=4, moe_top_k=2)
 TOL = 1e-5

@@ -44,6 +44,10 @@ from paddle_tpu_torch.inference import (ContinuousBatchingEngine as TCBE,
                                         GenerationEngine as TGE)
 from paddle_tpu_torch.profiler import stats as tstats
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 CFG = dict(vocab_size=64, embed_dim=32, num_heads=4, dim_feedforward=64,
            num_layers=2, max_position=128)
 TOL_LOGITS_REL = 0.04

@@ -19,6 +19,10 @@ from paddle_tpu.nn.functional.flash_varlen import (
     paged_prefill_attention as jax_paged_prefill)
 from paddle_tpu_torch.nn.functional import flash_varlen as fv
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 PS, PP, P, D = 4, 8, 48, 16          # page size, table width, pool, d
 SPAN = PS * PP
 

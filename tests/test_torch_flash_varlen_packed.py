@@ -18,6 +18,7 @@ key are exactly 0.
 """
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,10 @@ from paddle_tpu_torch import _kernels
 from paddle_tpu_torch.core.flags import set_flags
 from paddle_tpu_torch.nn.functional import attention as tattn
 from paddle_tpu_torch.nn.functional import flash_varlen as tfv
+
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
@@ -76,6 +81,24 @@ def _close(got, want, tol, what, extra=0.0):
 # the block map
 # ---------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _jax_map(pack, tqp, tkp, bq, bk, causal):
+    """The JAX ``varlen_block_map`` of ``pack``, shared by the tests that
+    hold a map to it and compiled as one program (its fields are
+    integers, the same as op by op, without a compile per primitive and
+    shape): a namespace of numpy arrays, ``names`` its fields in order."""
+    cq, ck = _pack(pack)
+    names = []
+
+    def fields(a, b):
+        m = jfv.varlen_block_map(a, b, tqp, tkp, bq, bk, causal)
+        names[:] = [f.name for f in dataclasses.fields(m)]
+        return tuple(getattr(m, n) for n in names)
+    arrays = jax.jit(fields)(jnp.asarray(cq), jnp.asarray(ck))
+    return types.SimpleNamespace(names=tuple(names), **{
+        n: np.asarray(a) for n, a in zip(names, arrays)})
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("blocks", [(128, 128), (64, 64), (32, 64)])
 @pytest.mark.parametrize("pack", sorted(PACKS))
@@ -84,17 +107,15 @@ def test_block_map_equals_jax(pack, blocks, causal):
     bq, bk = blocks
     tqp = -(-int(cq[-1]) // bq) * bq
     tkp = -(-int(ck[-1]) // bk) * bk
-    want = jfv.varlen_block_map(jnp.asarray(cq), jnp.asarray(ck), tqp, tkp,
-                                bq, bk, causal)
+    want = _jax_map(pack, tqp, tkp, bq, bk, causal)
     got = tfv.varlen_block_map(torch.from_numpy(cq), torch.from_numpy(ck),
                                tqp, tkp, bq, bk, causal)
-    names = [f.name for f in dataclasses.fields(want)]
+    names = list(want.names)
     assert names == [f.name for f in dataclasses.fields(got)]
     for name in names:
         g = getattr(got, name)
         assert g.dtype == torch.int32, name
-        np.testing.assert_array_equal(g.numpy(), np.asarray(getattr(want,
-                                                                    name)),
+        np.testing.assert_array_equal(g.numpy(), getattr(want, name),
                                       err_msg=name)
 
 
@@ -509,8 +530,7 @@ def test_kernel_map_arrays_follow_the_jax_map():
                          454, tile, True)
         tqp, tkp, arrays = cm.tq_pad, cm.tk_pad, cm.arrays(transposed)
         assert (tqp, tkp) == (512, 512)
-        want = jfv.varlen_block_map(jnp.asarray(cq), jnp.asarray(ck), 512,
-                                    512, *tile, True)
+        want = _jax_map("ragged", 512, 512, *tile, True)
         start, length = ((want.qstart2, want.qlen2) if transposed
                          else (want.kstart, want.klen))
         order, *fields = [a.numpy() for a in arrays]

@@ -23,6 +23,10 @@ from paddle_tpu_torch.incubate.nn.fused_transformer import (
     FusedMultiTransformer as TStack, PagedKV as TPagedKV,
     rope_table as t_rope)
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 D, H, DFF, L, PS = 128, 2, 256, 2, 4
 TOL = 2e-5
 

@@ -22,6 +22,10 @@ from paddle_tpu_torch import _kernels
 from paddle_tpu_torch.core.flags import set_flags
 from paddle_tpu_torch.nn.functional import grouped_gemm as tgg
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 
 def _offsets(counts):
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)

@@ -28,6 +28,10 @@ from paddle_tpu.nn.functional import grouped_gemm as jgg
 from paddle_tpu_torch import _kernels
 from paddle_tpu_torch.nn.functional import grouped_gemm as tgg
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 K, N = 128, 256
 #: (T, per-expert counts): uniform and ragged counts off the 128/64-row
 #: tiles, one expert owning every row, two empty experts,

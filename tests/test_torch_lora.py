@@ -35,6 +35,10 @@ from paddle_tpu_torch.nn.functional import lora as tl
 from paddle_tpu_torch.profiler import stats as tstats
 from paddle_tpu_torch.serving.adapters import AdapterBank as TBank
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -106,6 +110,85 @@ def test_lora_delta_bf16_bank_matches_jax():
                         torch.from_numpy(off))
     _close(got, want)
     assert (got[int(off[-1]):] == 0).all()
+
+
+#: blocks a cluster of the card's kernel (kLoraC, csrc/grouped_gemm.cu)
+LORA_CLUSTER = 8
+
+
+def _k_slices(K):
+    """The card kernel's K slices ``[(k_lo, k_hi)]``, one per block of a
+    cluster, in rank order: block ``c`` takes 16-wide k-steps ``c *
+    steps // 8`` up to ``(c + 1) * steps // 8`` of ``steps = cdiv(K,
+    16)``; every block adds the slices' sums in rank order."""
+    steps = -(-K // 16)
+    return [(min(K, c * steps // LORA_CLUSTER * 16),
+             min(K, (c + 1) * steps // LORA_CLUSTER * 16))
+            for c in range(LORA_CLUSTER)]
+
+
+@pytest.mark.parametrize("K", [8, 16, 200, 264, 2048, 8192])
+def test_lora_k_slices_cover_k_once_in_rank_order(K):
+    """The card kernel's K slices, one a block of a cluster in rank
+    order: whole 16-wide k-steps that cover [0, K) exactly once."""
+    slices = _k_slices(K)
+    assert len(slices) == LORA_CLUSTER
+    assert [k for lo, hi in slices for k in range(lo, hi)] == list(range(K))
+    assert all(lo % 16 == 0 and hi >= lo for lo, hi in slices)
+
+
+def _cluster_delta(x, a, b, off):
+    """The card kernel's order rendered in PyTorch: per slot, x_seg @
+    A[s] (A rounded to x's dtype) summed in fp32 on each block's K slice
+    (``_k_slices``), the slices added in rank order, then h @ B[s]
+    in fp32 (h not rounded); rows past offsets[S] stay +0.0."""
+    T, K = x.shape
+    S, _, R = a.shape
+    out = torch.zeros(T, b.shape[-1])
+    for s in range(S):
+        lo, hi = int(off[s]), min(int(off[s + 1]), T)
+        if hi <= lo:
+            continue
+        xs, As = x[lo:hi].float(), a[s].to(x.dtype).float()
+        h = torch.zeros(hi - lo, R)
+        for k0, k1 in _k_slices(K):
+            h = h + xs[:, k0:k1] @ As[k0:k1]
+        out[lo:hi] = h @ b[s].float()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [8, 33])
+def test_cluster_reduction_order_matches_jax(T, dtype):
+    """B16's reduction order (x A summed in 8 rank-ordered K slices of
+    whole k-steps, then times B in fp32) against the JAX ``lora_delta``
+    on its XLA walk (bitwise the interpret-mode kernel's, which
+    ``test_lora_delta_plain_matches_jax`` runs) within 2e-5 (fp32 sums
+    in another order; deltas of
+    magnitude ~0.2), at T 8 and 33 with slot 2 empty; base rows are
+    bitwise +0.0 in the rendering and in the port's plain version."""
+    rng = np.random.RandomState(40 + T)
+    S, K, N, R = 4, 264, 256, 16
+    slots = np.resize(np.array([0, 1, -1, 3, 0, 1, 3, -1], np.int32), T)
+    order, off, _ = jl.sort_by_adapter(jnp.asarray(rng.permutation(slots)),
+                                       S)
+    off = np.array(off)
+    xs = rng.randn(T, K).astype(np.float32)[np.array(order)]
+    a = (rng.randn(S, K, R) * 0.05).astype(np.float32)
+    b = (rng.randn(S, R, N) * 0.05).astype(np.float32)
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jl.lora_delta(*(jnp.asarray(v).astype(jd) for v in (xs, a, b)),
+                         jnp.asarray(off), backend="xla")
+    t = [torch.from_numpy(v).to(dtype) for v in (xs, a, b)]
+    got = _cluster_delta(*t, off)
+    assert off[3] == off[2]                       # slot 2 holds no row
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+    plain = tl.lora_delta(*t, torch.from_numpy(off))
+    for out in (got, plain):
+        base = out[int(off[-1]):]
+        assert base.shape[0] == int((slots < 0).sum())
+        assert (base == 0).all() and not torch.signbit(base).any()
 
 
 def test_padded_rank_columns_give_zero_delta():

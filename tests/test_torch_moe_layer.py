@@ -34,6 +34,10 @@ from paddle_tpu_torch.nn import initializer as TI
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.profiler import stats as tstats
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 D, E, DFF = 16, 4, 32
 
 

@@ -43,6 +43,10 @@ from paddle_tpu_torch.jit import TrainStep as TTrainStep
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.optimizer import AdamW as TAdamW
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import bench as jbench  # noqa: E402  (the root bench: the JAX rung)

@@ -24,6 +24,10 @@ from paddle_tpu.optimizer import AdamW as JAdamW
 from paddle_tpu.optimizer.optimizer import _stochastic_round_bf16
 from paddle_tpu_torch.optimizer import Adam, AdamW, stochastic_round_bf16
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 SHAPES = [(16, 24), (24,), (8, 3, 5)]
 STEPS = 3
 

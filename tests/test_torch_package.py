@@ -13,6 +13,10 @@ from pathlib import Path
 import pytest
 import torch
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "paddle_tpu_torch"
 

@@ -26,6 +26,10 @@ from paddle_tpu.nn.functional.paged_attention import (
     write_prefill_kv_pages as jax_write_prefill)
 from paddle_tpu_torch.nn.functional import paged_attention as pa
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 TOL_REF = 1e-5
 TOL_KERNEL = 0.03
 

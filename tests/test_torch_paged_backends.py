@@ -33,6 +33,10 @@ from paddle_tpu_torch.inference import FusedCausalLM as TLM
 from paddle_tpu_torch.inference import GenerationEngine as TGE
 from paddle_tpu_torch.nn.functional import paged_attention as tpa
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

@@ -33,6 +33,10 @@ from paddle_tpu_torch.quantization import (
     int8_dot_dequant as t_dot)
 from paddle_tpu_torch.quantization.dynamic import _int32_matmul
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

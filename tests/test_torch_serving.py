@@ -49,6 +49,10 @@ from paddle_tpu_torch.serving import prefix_cache as tprefix
 from paddle_tpu_torch.serving.accounting import UsageLedger as TLedger
 from paddle_tpu_torch.serving.slo import SLOMonitor as TMonitor
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 CFG = dict(vocab_size=64, embed_dim=32, num_heads=4, dim_feedforward=64,
            num_layers=2, max_position=128)
 

@@ -21,6 +21,10 @@ from paddle_tpu.nn.functional.stream_linear import (
     stream_layer_tail as jax_tail, stream_linear as jax_stream_linear)
 from paddle_tpu_torch.nn.functional import stream_linear as sl
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 EPS = 1e-5
 L, M, D, DFF = 3, 8, 128, 256
 

@@ -23,6 +23,10 @@ from paddle_tpu.quantization.dynamic import dynamic_act_quant as j_quant
 from paddle_tpu_torch.nn.functional import stream_linear as sl
 from paddle_tpu_torch.quantization import dynamic_act_quant as t_quant
 
+# tiny cases: torch's intra-op threads would only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 L, K, N = 3, 256, 384
 
 
