@@ -8,14 +8,14 @@ Phases, all run every time, each of which fails the run when it fails:
   build    the CUDA kernels from csrc/, one nvcc per source in parallel,
            then the machine code of the redesigned bf16 kernels read back
            (cuobjdump -sass: HGMMA in B10-B15, HMMA or HGMMA in B2 and B7,
-           IMMA in B6; no ptxas spill);
+           HMMA in B1, B8 and B16, IMMA in B5 and B6; no ptxas spill);
   kernels  each kernel against its plain PyTorch version at the serving
            path's shapes, in bfloat16 and float32 (tolerances printed;
            the paged-prefill kernel on 16 cases with a swapped-pages
            control that must fail; B2's split-K merge at the tail's
-           N = 2048 shapes, repeatable bit for bit, with a control that
-           leaves out one K slice),
-           then timed with CUDA events (and, for B2, B3 and B14, the
+           N = 2048 shapes and B5's at its four projections, repeatable
+           bit for bit, each with a control that leaves out one K slice),
+           then timed with CUDA events (and, for most kernels, the
            profiler's device time) beside its plain version, one
            PyTorch library call computing the same function where there
            is one, and the least time the card could take;
@@ -113,11 +113,12 @@ Phases, all run every time, each of which fails the run when it fails:
            share, peak memory; 60 B14, 24 B15, 12/12/12 B10 launches a
            step).
   backends the decode backends of FLAGS_paged_attention_backend: B7
-           (stream_paged, pool streaming), B8 (fused_paged, one program
-           per sequence) and B9 (pallas_paged, the stock kernel's
-           compute blocks) checked against their plain versions on the
-           decode check's inputs (an empty row exactly 0, a shared page,
-           an id past the region; a control per kernel) and timed beside
+           (stream_paged, pool streaming), B8 (fused_paged, B1's tile
+           walk with no current token; also on long rows it splits) and
+           B9 (pallas_paged, the stock kernel's compute blocks) checked
+           against their plain versions on the decode check's inputs (an
+           empty row exactly 0, a shared page, an id past the region; a
+           control per kernel) and timed beside
            SDPA over gathered K/V; then, on the bf16 d2048·L24 model
            before it is quantized, generate_fused and generate_pallas
            (b32, prompt 128, 33 new tokens: 24 launches of B8 or B9 a
@@ -194,32 +195,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel, iters: int = 20, per_call=None) -> float:
+def device_ms(fn, kernel, iters: int = 20, per_call=None,
+              attempts: int = 4) -> float:
     """Device time per call of ``fn`` spent in the CUDA kernels whose
     name holds ``kernel`` (a name, or a tuple of names), by
     torch.profiler: the kernels alone, where ``time_ms`` also counts the
     gaps a host-bound caller leaves. With ``per_call`` (the launches one
     call makes) the time is the mean of the launches the profiler
     recorded times ``per_call``, which stays right when it drops some of
-    a long process's events."""
+    a long process's events. A window in which the profiler recorded
+    none of them (it drops every event now and then in a long process)
+    is profiled again, up to ``attempts`` windows; 0.0 after that."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages()
-           if ev.device_type == DeviceType.CUDA
-           and any(k in ev.key for k in names)]
-    us = sum(ev.self_device_time_total for ev in evs)
-    if per_call is None:
-        return us / iters / 1e3
-    n = sum(ev.count for ev in evs)
-    return us / n * per_call / 1e3 if n else 0.0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and any(k in ev.key for k in names)]
+        n = sum(ev.count for ev in evs)
+        if n:
+            us = sum(ev.self_device_time_total for ev in evs)
+            return us / iters / 1e3 if per_call is None else \
+                us / n * per_call / 1e3
+    return 0.0
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -273,7 +279,9 @@ DESIGNED_SASS = (("grouped_gemm", "grouped_gemm_wgmma", ("HGMMA",)),
                  ("paged_attention_q", "paged_decode_q_mma", ("IMMA",)),
                  ("paged_backends", "stream_walk_bf16", ("HMMA", "HGMMA")),
                  ("paged_attention", "paged_decode_mma", ("HMMA",)),
-                 ("grouped_gemm", "lora_delta_mma", ("HMMA",)))
+                 ("grouped_gemm", "lora_delta_mma", ("HMMA",)),
+                 ("stream_linear_a8w8", "a8w8_mma", ("IMMA",)),
+                 ("paged_backends", "fused_paged_mma", ("HMMA",)))
 
 
 def _sass_functions(path) -> dict:
@@ -320,8 +328,8 @@ def phase_build(out_dir):
     then the redesigned kernels' machine code read back: each
     instantiation of the bf16 kernels of B14, B15, B10 and B11-B13 (d64,
     d96, d128) must hold HGMMA (wgmma), B2's and B7's bf16 kernels HMMA or
-    HGMMA, B6's bf16 kernel IMMA (int8 mma.sync) and B1's and B16's bf16
-    kernels HMMA, with no register spill in ptxas's report."""
+    HGMMA, B5's and B6's kernels IMMA (int8 mma.sync) and B1's, B8's and
+    B16's bf16 kernels HMMA, with no register spill in ptxas's report."""
     from paddle_tpu_torch import _kernels
 
     t0 = time.perf_counter()
@@ -521,8 +529,6 @@ def kernel_paged_attention(gen) -> dict:
         F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
     ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
     dev_ms = device_ms(kern, B1_KERNEL, per_call=1)
-    if dev_ms == 0.0:                   # the profiler dropped every event
-        dev_ms = device_ms(kern, B1_KERNEL, per_call=1)
     check(dev_ms > 0.0, f"paged attention: no {B1_KERNEL} device time "
                         "recorded")
     # bytes this run's data needs: each attended K/V row once, q, the
@@ -552,6 +558,10 @@ def kernel_paged_attention(gen) -> dict:
 #: profiler names of the bf16 GEMM of B2 (also B3's four GEMMs), of
 #: B3's launches, and of B14's bf16 kernel (forward and backward mode)
 B2_KERNEL = "stream_gemm_mma"
+#: profiler names of B5's kernel and of B8's bf16 kernel (f32 keeps
+#: fused_f32)
+B5_KERNEL = "a8w8_mma"
+B8_KERNEL = "fused_paged_mma"
 B3_KERNELS = (B2_KERNEL, "layer_norm_kernel")
 B14_KERNEL = "grouped_gemm_wgmma"
 #: profiler names of B15's bf16 kernel and of B11's, B12's and B13's bf16
@@ -1140,8 +1150,12 @@ A8W8_SHAPES = (("qkv", D_MODEL, 3 * D_MODEL, None),
 
 def kernel_stream_linear_a8w8(gen) -> dict:
     """Kernel B5 (stream_linear act_quant=True): the four projections
-    at batch 32, plus batch 1 and 64, against the plain version; then
-    timed per projection at batch 32 beside torch._int_mm."""
+    at batch 32, plus batch 1 and 64, against the plain version; at batch
+    32 a second call bitwise equal to the first with the merge counters
+    back at 0, and a control per projection, the split's PyTorch
+    rendering with one K slice left out, which must exceed its limit;
+    then timed per projection at batch 32 (events and the profiler's
+    device time) beside torch._int_mm."""
     from paddle_tpu_torch.nn.functional import stream_linear as sl
     from paddle_tpu_torch.quantization.dynamic import dynamic_act_quant
 
@@ -1168,11 +1182,39 @@ def kernel_stream_linear_a8w8(gen) -> dict:
                 tol = ((0.0 if act is None else 2e-6 * max(mref, 1.0))
                        if dtype == torch.float32 else _ulp_tol(mref))
                 e = max_err(out, ref)
-                emit({"check": "stream_linear_a8w8", "proj": name,
-                      "dtype": str(dtype), "M": m, "K": K, "N": N,
-                      "activation": act, "max_abs_err": e, "tol": tol})
-                check(e <= tol, f"stream_linear_a8w8 {name} M={m} "
-                                f"{dtype}: {e} > {tol}")
+                split, steps, _, _ = sl.a8w8_plan(m, K, N,
+                                                  sl._sm_count(x.device))
+                line = {"check": "stream_linear_a8w8", "proj": name,
+                        "dtype": str(dtype), "M": m, "K": K, "N": N,
+                        "activation": act, "split": split, "steps": steps,
+                        "max_abs_err": e, "tol": tol}
+                what = f"stream_linear_a8w8 {name} M={m} {dtype}"
+                if m == BATCH and dtype == torch.float32:
+                    again = sl.stream_linear(x, wq, layer=1, bias=bias,
+                                             scale=s, activation=act,
+                                             act_quant=True)
+                    ctrl = sl._a8w8_split_plain(
+                        xq, xs, wq[1], s[1], split, steps, bias[1], act,
+                        dtype, drop=split // 2)
+                    tickets = sl._split_buffers(
+                        x.device, torch.cuda.current_stream().cuda_stream,
+                        0, 0)[1]
+                    torch.cuda.synchronize()
+                    line.update(
+                        control_one_slice_left_out=max_err(ctrl, ref),
+                        second_call_bitwise_equal=torch.equal(out, again),
+                        counters_back_at_zero=int(tickets.abs().sum()) == 0)
+                    check(split > 1, f"{what}: the plan does not split")
+                    check(line["second_call_bitwise_equal"]
+                          and line["counters_back_at_zero"],
+                          f"{what}: a second call differs or a merge "
+                          "counter is left set")
+                    check(line["control_one_slice_left_out"] >
+                          max(tol, _ulp_tol(mref)),
+                          f"{what}: the control (one K slice left out) is "
+                          f"within the limit ({line})")
+                emit(line)
+                check(e <= tol, f"{what}: {e} > {tol}")
                 if m == BATCH:
                     res[str(dtype)] = max(res.get(str(dtype), 0.0), e)
         del wq
@@ -1201,18 +1243,26 @@ def kernel_stream_linear_a8w8(gen) -> dict:
             torch._int_mm(xq, wq[nxt()])
         nbytes = K * N + BATCH * K + BATCH * 4 + N * (4 + 2) + BATCH * N * 2
         bms, by = bound_ms(nbytes, 2.0 * BATCH * K * N, torch.int8)
-        rows[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+        dev_ms = device_ms(kern, B5_KERNEL, per_call=1)
+        check(dev_ms > 0.0, f"stream_linear_a8w8 {name}: no {B5_KERNEL} "
+                            "device time recorded")
+        rows[name] = {"ms": time_ms(kern), "device_ms": dev_ms,
+                      "plain_ms": time_ms(plain),
                       "library_ms": time_ms(library), "bound_ms": bms,
-                      "bound_by": by, "bytes": nbytes}
+                      "bound_by": by, "bytes": nbytes,
+                      "split": sl.a8w8_plan(BATCH, K, N,
+                                            sl._sm_count(x.device))[0]}
         emit({"time": f"stream_linear_a8w8[{name}]", **rows[name]})
         del wq
     # one decode step runs each projection once per layer: report the
     # sum of the four
     row = {k: sum(r[k] for r in rows.values())
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                     "bound_ms")}
     row["bound_by"] = "bytes" if all(
         r["bound_by"] == "bytes" for r in rows.values()) else "operations"
     row["max_abs_err"] = res[str(dt)]
+    emit({"time": "stream_linear_a8w8[four projections]", **row})
     return row
 
 
@@ -1390,8 +1440,6 @@ def kernel_paged_attention_q(gen) -> dict:
         F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
     ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
     dev_ms = device_ms(kern, B6_KERNEL, per_call=1)
-    if dev_ms == 0.0:                   # the profiler dropped every event
-        dev_ms = device_ms(kern, B6_KERNEL, per_call=1)
     check(dev_ms > 0.0, f"paged attention q: no {B6_KERNEL} device time "
                         "recorded")
     # bytes this run's data needs: each attended int8 K/V row and its two
@@ -2405,7 +2453,7 @@ def slice_decode_step(model, out_dir, steps: int = 16, quant=None,
                          "projections)",
               "stream_linear_kernel": "stream_linear GEMM (QKV, head, "
                                       "tail projections)",
-              "a8w8_kernel": "stream_linear_a8w8 GEMM",
+              B5_KERNEL: "stream_linear_a8w8 GEMM",
               "layer_norm_kernel": "tail LayerNorm",
               B14_KERNEL: "grouped_gemm (MoE FFN1 + FFN2)",
               "grouped_gemm_kernel": "grouped_gemm (MoE FFN1 + FFN2)",
@@ -3231,10 +3279,8 @@ def _flash_times(gen, b, s, h, d) -> dict:
     times = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
     device = {}
     for n, fn in (("fwd", fwd), ("dq", dq), ("dkv", dkv)):
-        # one launch a call; a second reading if the profiler dropped
-        # every event of the first
-        device[n] = device_ms(fn, B10_KERNELS[n], per_call=1) or \
-            device_ms(fn, B10_KERNELS[n], per_call=1)
+        # one launch a call
+        device[n] = device_ms(fn, B10_KERNELS[n], per_call=1)
     check(all(v > 0 for v in device.values()),
           f"flash_attention {[b, s, h, d]}: the profiler found no "
           f"{list(B10_KERNELS.values())} kernel time: {device}")
@@ -4630,9 +4676,49 @@ def kernel_paged_backends(gen) -> dict:
             if (g, d) == (1, HEAD_DIM):
                 res[str(dtype)] = line["max_abs_err"]
             del c, got, ref, ctrl_out
+        if name == "fused":
+            _fused_long_rows()
         rows[f"paged_attention_{name}"] = _backend_times(name, gen, res)
     torch.cuda.empty_cache()
     return rows
+
+
+def _fused_long_rows() -> None:
+    """B8 on B1's long rows (b4, 64 pages a row, from its own generator so
+    later inputs do not move), which decode_q_plan splits for bf16: f32
+    2e-5, bf16 2^-7 on ``_rel1_err``; the skip-last-page control must
+    exceed the limit."""
+    from paddle_tpu_torch.nn.functional import paged_attention as pa
+
+    long_gen = torch.Generator(device="cuda")
+    long_gen.manual_seed(16)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -7)):
+        bf16 = dtype == torch.bfloat16
+        c = _decode_case(dtype, long_gen, lens=DECODE_Q_LONG_LENS, pp=64,
+                         L=2)
+        base = c["P"]
+        got = _backend_call("fused", c, base)
+        torch.cuda.synchronize()
+        ref = _backend_call("fused", c, base, plain=True)
+        ctrl_out = _backend_call("fused", c, base, plain=True,
+                                 skip_last_page=True)
+        metric = _rel1_err if bf16 else max_err
+        err, ctrl = metric(got, ref), metric(ctrl_out, ref)
+        b = int(c["q"].shape[0])
+        n_split = pa.decode_q_plan(b, N_HEADS, c["pp"] * PAGE,
+                                   pa._sm_count(c["q"].device))[0] \
+            if bf16 else 1
+        emit({"check": "paged_attention_fused_long_rows",
+              "dtype": str(dtype), "batch": b, "pages_per_seq": c["pp"],
+              "n_split": n_split, "err": err,
+              "max_abs_err": max_err(got, ref), "tol": tol,
+              "control_err": ctrl})
+        what = f"paged_attention_fused long rows {dtype}"
+        check(err <= tol, f"{what}: {err} > {tol}")
+        check(ctrl > tol, f"{what}: the control ({ctrl}) is within the "
+                          f"limit {tol}")
+        check(n_split > 1 or not bf16, f"{what}: the rows are not split")
+        del c, got, ref, ctrl_out
 
 
 def _backend_times(name, gen, res) -> dict:
@@ -4693,8 +4779,6 @@ def _backend_times(name, gen, res) -> dict:
         dev = {}
         for k in B7_KERNELS:
             dev[k] = device_ms(kern, k, per_call=1)
-            if dev[k] == 0.0:           # the profiler dropped every event
-                dev[k] = device_ms(kern, k, per_call=1)
             check(dev[k] > 0.0, f"stream: no {k} device time recorded")
         dev_ms = sum(dev.values())
     isz, n_tok = 2, int(attended.sum())
@@ -4707,6 +4791,13 @@ def _backend_times(name, gen, res) -> dict:
            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
            "max_abs_err": res[str(torch.bfloat16)]}
     extra = {}
+    if name == "fused":
+        # the profiler's device time of B8's bf16 kernel a call
+        row["device_ms"] = device_ms(kern, B8_KERNEL, per_call=1)
+        check(row["device_ms"] > 0.0,
+              f"fused: no {B8_KERNEL} device time recorded")
+        extra = {"n_split": pa.decode_q_plan(
+            b, n_kv, cap, pa._sm_count(c["q"].device))[0]}
     if name == "stream":
         region = 2 * P * PAGE * n_kv * d * isz
         blocks, cpb, run_pages, _ = pa.stream_walk(

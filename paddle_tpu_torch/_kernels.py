@@ -85,8 +85,9 @@ _SIGNATURES = {
     },
     "stream_linear_a8w8": {
         # x_q, x_scale, w, w_scale, bias, bias_dt, out, out_dt, M, K, N,
-        # activation, stream
-        "ptt_stream_linear_a8w8": [_P] * 5 + [_I, _P] + [_I] * 5 + [_P],
+        # activation, ws, counters, split, steps, stream
+        "ptt_stream_linear_a8w8":
+            [_P] * 5 + [_I, _P] + [_I] * 5 + [_P, _P, _I, _I, _P],
     },
     "grouped_gemm": {
         # x, w, bias, bias_dt, offsets, out, out_dt, dtype, T, K, N, E,
@@ -134,8 +135,9 @@ _SIGNATURES = {
         # blocks, chunks_per_block, run_pages, scale, stream
         "ptt_paged_stream": [_P] * 8 + [_I] * 11 + [_F, _P],
         # q, k_pool, v_pool, seq_lens, block_tables, out, dtype, b, n_q,
-        # n_kv, d, page_size, pages_per_seq, num_pages, scale, stream
-        "ptt_paged_fused": [_P] * 6 + [_I] * 8 + [_F, _P],
+        # n_kv, d, page_size, pages_per_seq, num_pages, ws, n_split,
+        # scale, stream
+        "ptt_paged_fused": [_P] * 6 + [_I] * 8 + [_P, _I, _F, _P],
         # as ptt_paged_fused, with pages_per_compute_block after num_pages
         "ptt_paged_pallas": [_P] * 6 + [_I] * 9 + [_F, _P],
     },

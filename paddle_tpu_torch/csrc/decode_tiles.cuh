@@ -1,6 +1,8 @@
 // Tile machinery of the paged decode kernels with tensor-core scores: B1
-// (paged_attention.cu, paged_decode_mma: a bf16 pool) and B6
-// (paged_attention_q.cu, paged_decode_q_mma: an int8 pool).
+// (paged_attention.cu, paged_decode_mma: a bf16 pool, its append and the
+// current token), B8 (paged_backends.cu, fused_paged_mma: a bf16 pool,
+// absolute page ids, no current token) and B6 (paged_attention_q.cu,
+// paged_decode_q_mma: an int8 pool).
 //
 // A block of 4 warps serves one (batch row, kv head), or one (row, kv
 // head, split) of a row's 16-token tiles. Warp w walks the block's tiles
@@ -13,8 +15,9 @@
 // stage's mask stays 0 and its score and weight are selected away. The
 // softmax runs once a tile (tile_max, tile_weights); P V takes the weights
 // as three bf16 parts, and the block's end (finish) merges the warps' states with
-// the current token and, when the row is split, the splits' states in
-// split order, the last split by an atomic ticket.
+// the current token (B8 has none: a logit of kNoToken) and, when the row
+// is split, the splits' states in split order, the last split by an
+// atomic ticket. bf16_tile is the tile body of the bf16 pools (B1, B8).
 #pragma once
 
 #include "flash_tiles.cuh"
@@ -25,6 +28,7 @@ namespace decode {
 constexpr int kWarps = 4;
 constexpr int kTile = 16;    // tokens a tile
 constexpr int kStages = 3;   // tiles in a warp's ring
+constexpr float kNoToken = -1e30f;  // finish's logit of no current token
 
 // A warp's ring: kStages stages, each the tile's 16 K rows, its 16 V rows
 // (kRowBytes of data, then 16 bytes of padding) and kExtra bytes more.
@@ -206,6 +210,97 @@ __device__ __forceinline__ PV tile_weights(const float (&x)[2][2],
             tiles::pack_bf16(lo[1][0], lo[1][1])};
 }
 
+// bf16 pools (B1, B8): rows of head_dim 32 NG. The block's shared memory:
+// the warps' rings, q's 8 rows, the current token's logits [8], k and v
+// [kD] as float, the stages' masks and the ticket.
+template <int NG>
+struct BfRing : Ring<64 * NG, 0> {
+  using Base = Ring<64 * NG, 0>;
+  static constexpr int kD = 32 * NG;
+  static constexpr int kPitchE = Base::kPitch / 2;  // elements a token row
+  static constexpr int kQPitch = kD + 8;            // elements a q row
+  static constexpr int kAccPitch = kD + 4;          // floats, the merge
+  static constexpr size_t kSmem =
+      kWarps * Base::kWarpBytes + 2 * 8 * kQPitch     // rings, q [8][kQPitch]
+      + sizeof(float) * (8 + 2 * kD)                  // cur, nk, nv
+      + sizeof(int) * (kWarps * kStages + 4);         // valid masks, ticket
+  static_assert(sizeof(float) * kWarps * 8 * (2 + kAccPitch) <=
+                    kWarps * Base::kWarpBytes,
+                "the warps' states must fit over the rings");
+};
+
+// One tile of a bf16 pool (B1, B8) into head gq's state: its stage `sk`
+// (16 K rows, then 16 V rows, kPitchE elements apart), the mask `valid`
+// of its tokens in (not 0), q's row gq from shared memory (`qrow`: its
+// elements 2 t4, + 1 of each k16 step).
+//   S = q K^T on the bf16 tensor cores, mma.sync m16n8k16 (the g <= 8
+//   query heads as M; the tile's 16 tokens as two n8 tiles, K by
+//   ldmatrix), each k-step's products summed from zero and added to the
+//   scores by an fp32 add, then the scale (the accumulators truncate as
+//   they accumulate, and a score's error is its weight's relative error).
+//   Softmax once a tile (tile_max, the rescale, tile_weights).
+//   P V on the bf16 tensor cores with the weights as three bf16 parts,
+//   V by ldmatrix.trans: acc[n] c0/c1 dims 8 n + 2 t4 (+1), hi and lo
+//   products; c2/c3 the mid products of the same dims.
+template <int NG>
+__device__ __forceinline__ void bf16_tile(const __nv_bfloat16* qrow,
+                                          const __nv_bfloat16* sk,
+                                          unsigned valid, float scale,
+                                          float& m, float& l,
+                                          float (&acc)[4 * NG][4]) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kPitchE = BfRing<NG>::kPitchE;
+  const int lane = threadIdx.x & 31, t4 = lane & 3;
+  const bf16* sv = sk + kTile * kPitchE;
+  float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  // fully unrolled up to d128; two k-steps at a time past it (fully
+  // unrolled, every k-step's products stay live, and d192 and d224
+  // spilled)
+#pragma unroll (NG <= 4 ? 2 * NG : 2)
+  for (int kk = 0; kk < 2 * NG; ++kk) {
+    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qrow + kk * 16);
+    const uint32_t a2 =
+        *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 8);
+    uint32_t b0, b1, b2, b3;
+    ldmatrix_x4(b0, b1, b2, b3,
+                sk + ((lane & 7) + 8 * (lane >> 4)) * kPitchE + kk * 16 +
+                    8 * ((lane >> 3) & 1));
+    // the k-step's products from zero, added to the scores in fp32
+    float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    mma_bf16(t[0], a0, 0u, a2, 0u, b0, b1);
+    mma_bf16(t[1], a0, 0u, a2, 0u, b2, b3);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) c[q / 4][q % 4] += t[q / 4][q % 4];
+  }
+  // logits of tokens 8 nt + 2 t4 + e; masked: -inf
+  float x[2][2];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int tk = nt * 8 + 2 * t4 + e;
+      x[nt][e] = (valid >> tk) & 1u ? c[nt][e] * scale : -INFINITY;
+    }
+  const float alpha = tile_max(x, m, l);
+#pragma unroll
+  for (int n = 0; n < 4 * NG; ++n)
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) acc[n][cc] *= alpha;
+  const PV f =
+      tile_weights(x, valid, t4, m, l, [](float pr, int) { return pr; });
+#pragma unroll
+  for (int np = 0; np < 2 * NG; ++np) {
+    uint32_t b0, b1, b2, b3;
+    ldmatrix_x4_trans(b0, b1, b2, b3,
+                      sv + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kPitchE +
+                          np * 16 + 8 * (lane >> 4));
+    mma_bf16(acc[2 * np], f.a0, f.a1, f.a2, f.a3, b0, b1);
+    mma_bf16(acc[2 * np], f.l0, 0u, f.l2, 0u, b0, b1);
+    mma_bf16(acc[2 * np + 1], f.a0, f.a1, f.a2, f.a3, b2, b3);
+    mma_bf16(acc[2 * np + 1], f.l0, 0u, f.l2, 0u, b2, b3);
+  }
+}
+
 // The output rows of a block and, when rows are split, its workspace.
 struct Finish {
   void* out;
@@ -223,7 +318,12 @@ struct Finish {
 // n_split > 1, the block's state into the workspace (partials [rows *
 // n_kv][n_split][g][d], then (m, l) pairs, then a counter a (row, head))
 // and the last split of the (row, head), by an atomic ticket, merging
-// them in split order. The counter is left at 0.
+// them in split order. The counter is left at 0. A kernel with no current
+// token (B8) passes logits kNoToken and a value of zeros: that token's
+// weight expf(kNoToken - mx) is exactly 0 beside any attended token, and
+// a row that attends nothing (every warp's m -inf, mx = kNoToken) gets
+// num 0 over den 1, exactly 0, where an m of -inf alone would make
+// expf(-inf + inf) a NaN.
 __device__ __forceinline__ void finish(const float* s_m, const float* s_l,
                                        const float* s_acc, int acc_pitch,
                                        const float* s_cur,

@@ -26,7 +26,8 @@
 // table, so a shared page is read by every row that maps it.
 //
 // bf16 at a head_dim that is a multiple of 32 (paged_decode_mma, the
-// serving path): B6's structure on the bf16 pool, from decode_tiles.cuh.
+// serving path): B6's structure on the bf16 pool, from decode_tiles.cuh
+// (its ring BfRing and tile body bf16_tile, which B8 shares).
 // One block of 4 warps per (row, kv head), or per (row, kv head, split)
 // when b * n_kv leaves the card short of blocks (the wrapper's
 // decode_q_plan). A row's tokens go in tiles of 16; warp w takes the
@@ -265,32 +266,14 @@ namespace mma {
 
 using bf16 = __nv_bfloat16;
 using decode::kStages;
-using decode::kTile;
-
-// bf16 rows of head_dim 32 NG
-template <int NG>
-struct Ring : decode::Ring<64 * NG, 0> {
-  using Base = decode::Ring<64 * NG, 0>;
-  static constexpr int kD = 32 * NG;
-  static constexpr int kPitchE = Base::kPitch / 2;  // elements a token row
-  static constexpr int kQPitch = kD + 8;            // elements a q row
-  static constexpr int kAccPitch = kD + 4;          // floats, the merge
-  static constexpr size_t kSmem =
-      kWarps * Base::kWarpBytes + 2 * 8 * kQPitch     // rings, q [8][kQPitch]
-      + sizeof(float) * (8 + 2 * kD)                  // cur, nk, nv
-      + sizeof(int) * (kWarps * kStages + 4);         // valid masks, ticket
-  static_assert(sizeof(float) * kWarps * 8 * (2 + kAccPitch) <=
-                    kWarps * Base::kWarpBytes,
-                "the warps' states must fit over the rings");
-};
 
 // (a minimum of one block an SM: without it ptxas held d64 at 80
 // registers with a 4-byte spill)
 template <int NG>
 __global__ void __launch_bounds__(kWarps * 32, 1)
     paged_decode_mma(const Params p) {
-  using R = Ring<NG>;
-  constexpr int kD = R::kD, kPitchE = R::kPitchE, kQPitch = R::kQPitch;
+  using R = decode::BfRing<NG>;
+  constexpr int kD = R::kD, kQPitch = R::kQPitch;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
@@ -391,62 +374,11 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
     ptt::cp_async_wait<kStages - 1>();
     __syncwarp();
     const unsigned valid = static_cast<unsigned>(s_valid[j % kStages]);
-    if (valid != 0u) {
-      const bf16* sk =
-          reinterpret_cast<const bf16*>(ring + (j % kStages) * R::kStage);
-      const bf16* sv = sk + kTile * kPitchE;
-      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      // fully unrolled up to d128; two k-steps at a time past it (fully
-      // unrolled, every k-step's products stay live, and d192 and d224
-      // spilled)
-#pragma unroll (NG <= 4 ? 2 * NG : 2)
-      for (int kk = 0; kk < 2 * NG; ++kk) {
-        const uint32_t a0 =
-            *reinterpret_cast<const uint32_t*>(qrow + kk * 16);
-        const uint32_t a2 =
-            *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 8);
-        uint32_t b0, b1, b2, b3;
-        ptt::ldmatrix_x4(b0, b1, b2, b3,
-                         sk + ((lane & 7) + 8 * (lane >> 4)) * kPitchE +
-                             kk * 16 + 8 * ((lane >> 3) & 1));
-        // the k-step's products from zero, added to the scores in fp32:
-        // the tensor cores truncate as they accumulate, and a score's
-        // error is its weight's relative error
-        float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        ptt::mma_bf16(t[0], a0, 0u, a2, 0u, b0, b1);
-        ptt::mma_bf16(t[1], a0, 0u, a2, 0u, b2, b3);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) c[q / 4][q % 4] += t[q / 4][q % 4];
-      }
-      // logits of tokens 8 nt + 2 t4 + e; masked: -inf
-      float x[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int tk = nt * 8 + 2 * t4 + e;
-          x[nt][e] = (valid >> tk) & 1u ? c[nt][e] * p.scale : -INFINITY;
-        }
-      const float alpha = decode::tile_max(x, m, l);
-#pragma unroll
-      for (int n = 0; n < 4 * NG; ++n)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) acc[n][cc] *= alpha;
-      const decode::PV f = decode::tile_weights(
-          x, valid, t4, m, l, [](float pr, int) { return pr; });
-#pragma unroll
-      for (int np = 0; np < 2 * NG; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ptt::ldmatrix_x4_trans(
-            b0, b1, b2, b3,
-            sv + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kPitchE + np * 16 +
-                8 * (lane >> 4));
-        ptt::mma_bf16(acc[2 * np], f.a0, f.a1, f.a2, f.a3, b0, b1);
-        ptt::mma_bf16(acc[2 * np], f.l0, 0u, f.l2, 0u, b0, b1);
-        ptt::mma_bf16(acc[2 * np + 1], f.a0, f.a1, f.a2, f.a3, b2, b3);
-        ptt::mma_bf16(acc[2 * np + 1], f.l0, 0u, f.l2, 0u, b2, b3);
-      }
-    }
+    if (valid != 0u)
+      decode::bf16_tile<NG>(
+          qrow,
+          reinterpret_cast<const bf16*>(ring + (j % kStages) * R::kStage),
+          valid, p.scale, m, l, acc);
     __syncwarp();  // the stage is refilled from the next tile on
   }
   ptt::cp_async_wait<0>();
@@ -486,7 +418,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
 
 template <int NG>
 int launch_mma(const Params& p, int b, cudaStream_t stream) {
-  constexpr size_t smem = Ring<NG>::kSmem;
+  constexpr size_t smem = decode::BfRing<NG>::kSmem;
   const cudaError_t e = cudaFuncSetAttribute(
       paged_decode_mma<NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

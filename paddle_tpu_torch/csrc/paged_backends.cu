@@ -37,36 +37,37 @@
 // shared pages.) As the TPU kernel, B7 casts the probabilities to the
 // pool's dtype before the value product (p relative to the chunk's max).
 //
-// B8 keeps the TPU grid: one block per sequence walking its table's pages
-// in order, the next K/V slice in flight (a 2-stage cp.async ring of
-// 16-token slices per warp, one kv head a warp: a whole page of all heads,
-// 64 KB a side at the d2048 rung, would not fit twice), with an online
-// softmax. Pages past the row's length hold no attended token and are not
-// read. B9 keeps the stock kernel's schedule: one block per (sequence, kv
-// head), compute blocks of `ppcb` pages, lengths masked per compute block,
-// and its renormalising update o = (l_prev a o + b o_cur) / l_next; the
-// 4 warps of a block share each compute block's slices and merge. The
-// stock kernel wants a [n_kv, pages, ps, d] pool, which the reference
-// makes by transposing the whole pool on every call; B9 reads the
-// page-major pool in place. B8 and B9 take absolute page ids; a page id
-// outside the pool is never read (its tokens are masked).
+// B8 (bf16: fused_paged_mma) is B1's design without B1's current token
+// and append: the TPU kernel's one program a sequence, walking its pages in
+// order, left 32 of 132 SMs busy at b 32 with one 16-token slice in flight
+// a warp. Here a block of 4 warps serves a (row, kv head), or a (row, kv
+// head, split) of the row's 16-token tiles where b * n_kv blocks leave the
+// card short (decode_q_plan), each warp walking its tiles through a
+// 3-tile ring of its own, on csrc/decode_tiles.cuh (B1's ring, walk, copy,
+// tile body and merge). Tokens past the row's length are not read. B9
+// keeps the stock kernel's schedule: one block per (sequence, kv head),
+// compute blocks of `ppcb` pages, lengths masked per compute block, and
+// its renormalising update o = (l_prev a o + b o_cur) / l_next; the 4
+// warps of a block share each compute block's slices and merge. The stock
+// kernel wants a [n_kv, pages, ps, d] pool, which the reference makes by
+// transposing the whole pool on every call; B9 reads the page-major pool
+// in place. B8 and B9 take absolute page ids; a page id outside the pool
+// is never read (its tokens are masked).
 //
 // Dtypes. bf16 runs on the tensor cores (mma.sync m16n8k16 from ldmatrix
-// fragments, flash_tiles.cuh): S = Q K^T with q's raw bf16 values and the
-// scale applied to the f32 scores; in B8 and B9 the probabilities enter
-// P V as a bf16 pair (hi + lo), so they are rounded to 2^-17 and not to
-// bf16 (the TPU's DEFAULT precision rounds them to bf16; the plain
+// fragments): S = Q K^T with q's raw bf16 values and the scale applied to
+// the f32 scores; B9's probabilities enter P V as a bf16 pair (hi + lo),
+// rounded to 2^-17, B8's (B1's tile body) as three bf16 parts, within
+// 2^-27 (the TPU's DEFAULT precision rounds them to bf16; the plain
 // versions keep f32). float32 runs on the CUDA cores.
 //
 // Bounds (H100 SXM: 3.35 TB/s). Decode attention does 4 flops a K/V row
 // pair per query head: far below the card's balance, so bytes bound all
 // three: B8 and B9 read the attended K/V rows once; B7 the pages some row
-// holds once, plus its f32 workspace (bf16: a state per block and row). B8's grid of b blocks fills a
-// quarter of the SMs at b 32; wgmma, TMA page loads and a split of long
-// rows are later work.
+// holds once, plus its f32 workspace (bf16: a state per block and row).
 #include <type_traits>
 
-#include "flash_tiles.cuh"
+#include "decode_tiles.cuh"
 
 namespace {
 
@@ -76,6 +77,7 @@ using ptt::cp_async_commit;
 using ptt::cp_async_wait;
 using ptt::from_f32;
 using ptt::to_f32;
+namespace decode = ptt::decode;
 
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;  // the TPU kernels' NEG
@@ -637,51 +639,126 @@ __device__ __forceinline__ void attend_slice(float (&m)[2], float (&l)[2],
   mma_xb<kSub, D>(o, lo, sv);
 }
 
-// B8: one block per sequence, kv head h on warp h % 4, its slices in order
-template <int D>
-__global__ void __launch_bounds__(kThreads) fused_bf16(const PagedParams p) {
-  constexpr int kPitch = TileBf16<D>::kPitch, kTile = kSub * kPitch;
+// B8, bf16 (fused_paged_mma): B1's tile walk (csrc/decode_tiles.cuh) with
+// no current token and no append. One block of 4 warps a (row, kv head),
+// or a (row, kv head, split) of the row's 16-token tiles (the wrapper's
+// decode_q_plan); warp w walks tiles w, w + 4, ... through its own 3-tile
+// cp.async ring, whole rows a warp instruction, page ids read a tile
+// ahead, a tile the warp never reaches not issued. Ids are absolute: one
+// outside [0, num_pages) is never read, its tokens masked. The tile body
+// is B1's (bf16_tile); finish merges the warps and, split, the splits in
+// split order by a ticket, with a phantom current token of logit
+// kNoToken and value 0 (exactly 0 for a row that attends nothing). `ws`
+// (n_split > 1): the splits' partials, (m, l) pairs, then a ticket a
+// (row, kv head).
+template <int NG>
+__global__ void __launch_bounds__(decode::kWarps * 32, 1)
+    fused_paged_mma(const PagedParams p, float* ws, int n_split) {
+  using R = decode::BfRing<NG>;
+  using decode::kStages;
+  constexpr int kD = R::kD, kQPitch = R::kQPitch, kW = decode::kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, t = lane & 3;
-  bf16* sq = reinterpret_cast<bf16*>(smem) + warp * 5 * kTile;
-  bf16* sk = sq + kTile;      // [2][kSub][kPitch]
-  bf16* sv = sk + 2 * kTile;  // [2][kSub][kPitch]
-  const int bi = blockIdx.x;
-  const int n = min(max(p.seq_lens[bi], 0), p.pp * p.ps);
-  const int nsub = (n + kSub - 1) / kSub;
-  bf16* out = static_cast<bf16*>(p.out);
-  for (int h = warp; h < p.n_kv; h += kWarps) {
-    warp_load_q<D>(sq, p, bi, h);
-    if (nsub > 0) warp_load_kv<D>(sk, sv, p, bi, h, 0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int split = blockIdx.x % n_split, h = blockIdx.x / n_split;
+  const int row = blockIdx.y;
+  const int g = p.g, ps = p.ps, n_kv = p.n_kv;
+  const bf16* q = static_cast<const bf16*>(p.q);
+  unsigned char* ring = smem + warp * R::kWarpBytes;
+  bf16* s_q = reinterpret_cast<bf16*>(smem + kW * R::kWarpBytes);
+  float* s_cur = reinterpret_cast<float*>(s_q + 8 * kQPitch);  // [8]
+  float* s_nv = s_cur + 8 + kD;  // the phantom token's value [kD]: 0
+  int* s_valid = reinterpret_cast<int*>(s_nv + kD) + warp * kStages;
+  int* ticket = reinterpret_cast<int*>(s_nv + kD) + kW * kStages;
+
+  const int n_tok = min(max(p.seq_lens[row], 0), p.pp * ps);
+  const int* trow = p.tables + static_cast<int64_t>(row) * p.pp;
+  const int64_t head_stride = static_cast<int64_t>(ps) * kD;
+  const decode::Pool pool{head_stride * n_kv, head_stride, kD, ps, 0,
+                          static_cast<unsigned>(p.num_pages)};
+
+  // the block's tiles; warp w takes t_lo + w + 4 j
+  const decode::Walk wk = decode::walk(n_tok, split, n_split, warp);
+  const int nj = wk.nj;
+  const int r = lane & 15;
+  auto fetch = [&](int j) {
+    return decode::page_of(trow, wk, n_tok, ps, warp, j, r);
+  };
+  // tile j into stage j % kStages (a tile past the warp's last is never
+  // read, so not issued)
+  auto issue = [&](int j, int id) {
+    if (j >= nj) return;
+    decode::issue_tile_rows<2 * kD, 2>(
+        ring + (j % kStages) * R::kStage, s_valid + j % kStages, id,
+        decode::tile_token(wk, warp, j, 0), h, pool, p.k_pool, p.v_pool,
+        lane);
+  };
+
+  int ids[kStages - 1];
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) ids[j] = fetch(j);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    issue(j, ids[j]);
     cp_async_commit();
-    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, o[D / 8][4];
-    zero(o);
-    for (int j = 0; j < nsub; ++j) {
-      if (j + 1 < nsub)
-        warp_load_kv<D>(sk + ((j + 1) & 1) * kTile, sv + ((j + 1) & 1) * kTile,
-                        p, bi, h, j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncwarp();
-      attend_slice<D>(m, l, o, sq, sk + (j & 1) * kTile, sv + (j & 1) * kTile,
-                      j * kSub, n, slice_page(p, bi, j) >= 0, p.scale);
-      __syncwarp();  // the stage is refilled two slices on
-    }
-    cp_async_wait<0>();
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = gq + r * 8;
-      const float den = fmaxf(quad_sum(l[r]), 1e-30f);
-      if (row >= p.g) continue;
-      bf16* dst = out + q_at(p, bi, h, row);
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8 + 2 * t) =
-            __floats2bfloat162_rn(o[nt][2 * r] / den, o[nt][2 * r + 1] / den);
-    }
   }
+  int id_next = fetch(kStages - 1);
+
+  // q's rows into shared memory (rows g..7 zero), 16 bytes a copy; the
+  // phantom current token
+  for (int i = tid; i < 8 * kD / 8; i += kW * 32) {
+    const int gi = i / (kD / 8), c = i % (kD / 8);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (gi < g)
+      v = *reinterpret_cast<const uint4*>(q + q_at(p, row, h, gi) + 8 * c);
+    *reinterpret_cast<uint4*>(s_q + gi * kQPitch + 8 * c) = v;
+  }
+  for (int i = tid; i < kD; i += kW * 32) s_nv[i] = 0.f;
+  if (tid < 8) s_cur[tid] = decode::kNoToken;
+  __syncthreads();
+
+  float m = -INFINITY, l = 0.f;
+  float acc[4 * NG][4];
+  zero(acc);
+  const bf16* qrow = s_q + gq * kQPitch + 2 * t4;
+  for (int j = 0; j < nj; ++j) {
+    issue(j + kStages - 1, id_next);
+    cp_async_commit();
+    id_next = fetch(j + kStages);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const unsigned valid = static_cast<unsigned>(s_valid[j % kStages]);
+    if (valid != 0u)
+      decode::bf16_tile<NG>(
+          qrow,
+          reinterpret_cast<const bf16*>(ring + (j % kStages) * R::kStage),
+          valid, p.scale, m, l, acc);
+    __syncwarp();  // the stage is refilled from the next tile on
+  }
+  cp_async_wait<0>();
+  l = quad_sum(l);
+
+  // the warps' states over the rings: s_m, s_l [kWarps][8], s_acc
+  // [kWarps][8][kAccPitch]
+  __syncthreads();
+  float* s_m = reinterpret_cast<float*>(smem);
+  float* s_l = s_m + kW * 8;
+  float* s_acc = s_l + kW * 8;
+  if (t4 == 0) {
+    s_m[warp * 8 + gq] = m;
+    s_l[warp * 8 + gq] = l;
+  }
+  float* arow = s_acc + (warp * 8 + gq) * R::kAccPitch + 2 * t4;
+#pragma unroll
+  for (int n = 0; n < 4 * NG; ++n) {
+    arow[8 * n] = acc[n][0] + acc[n][2];
+    arow[8 * n + 1] = acc[n][1] + acc[n][3];
+  }
+  __syncthreads();
+  decode::finish(s_m, s_l, s_acc, R::kAccPitch, s_cur, s_nv, ticket,
+                 decode::Finish{p.out, ptt::kBF16, q_at(p, row, h, 0), g, kD,
+                                n_split, split, ws,
+                                static_cast<int64_t>(row) * n_kv + h});
 }
 
 // B9's merge of one compute block: every warp left its (m, l) per row in
@@ -1034,11 +1111,29 @@ int run_stream_bf16(const PagedParams& p, cudaStream_t s) {
   return launch(stream_merge<bf16>, dim3(p.b * p.g, p.n_kv), 0, s, p);
 }
 
+// B8, bf16: one launch of fused_paged_mma; its tickets, after the
+// partials and (m, l) pairs, are zeroed first when it splits
 template <int D>
-int run_paged_bf16(int which, const PagedParams& p, cudaStream_t s) {
+int run_fused_bf16(const PagedParams& p, float* ws, int n_split,
+                   cudaStream_t s) {
+  constexpr size_t smem = decode::BfRing<D / 32>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_paged_mma<D / 32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess && n_split > 1) {
+    const size_t rows = static_cast<size_t>(p.b) * p.n_kv;
+    e = cudaMemsetAsync(ws + rows * n_split * p.g * (D + 2), 0,
+                        rows * sizeof(int), s);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_paged_mma<D / 32>
+      <<<dim3(p.n_kv * n_split, p.b), kThreads, smem, s>>>(p, ws, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int run_pallas_bf16(const PagedParams& p, cudaStream_t s) {
   const size_t tile = sizeof(bf16) * kSub * TileBf16<D>::kPitch;
-  if (which == kFused)
-    return launch(fused_bf16<D>, dim3(p.b), kWarps * 5 * tile, s, p);
   // the f32 so_w [kWarps][16][D] lies over the rings (kWarps * 4 tiles)
   static_assert(kWarps * 16 * D * sizeof(float) <=
                     kWarps * 4 * sizeof(bf16) * kSub * TileBf16<D>::kPitch,
@@ -1081,10 +1176,12 @@ int run(int which, int dtype, const PagedParams& p, void* stream) {
       if (p.d == 256) return run_stream_bf16<256>(p, s);
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (p.d == 64) return run_paged_bf16<64>(which, p, s);
-    if (p.d == 96) return run_paged_bf16<96>(which, p, s);
-    if (p.d == 128) return run_paged_bf16<128>(which, p, s);
-    if (p.d == 256) return run_paged_bf16<256>(which, p, s);
+    if (which == kFused)  // ptt_paged_fused launches run_fused_bf16
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (p.d == 64) return run_pallas_bf16<64>(p, s);
+    if (p.d == 96) return run_pallas_bf16<96>(p, s);
+    if (p.d == 128) return run_pallas_bf16<128>(p, s);
+    if (p.d == 256) return run_pallas_bf16<256>(p, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
@@ -1138,7 +1235,9 @@ bool shape_ok(int n_q, int n_kv, int d, int page_size) {
 // * chunks_per_block. float32: blocks = nch, chunks_per_block 1. B8/B9:
 // block_tables [b, pages_per_seq] int32 of absolute ids in [0, num_pages),
 // d 64, 96, 128 or 256, page_size a multiple of 16; B9 pages_per_seq a
-// multiple of ppcb.
+// multiple of ppcb. B8 bf16 takes n_split (1 to 16) blocks a (row, kv
+// head), b <= 65535; n_split > 1 needs `ws`: f32 [b * n_kv * n_split * g
+// * (d + 2)] then int32 [b * n_kv] tickets (zeroed here); f32 takes 1.
 extern "C" int ptt_paged_stream(const void* q, const void* k_pool,
                                 const void* v_pool, const int* seq_lens,
                                 const int* membership, float* ws_ml,
@@ -1179,16 +1278,27 @@ extern "C" int ptt_paged_fused(const void* q, const void* k_pool,
                                const void* v_pool, const int* seq_lens,
                                const int* block_tables, void* out, int dtype,
                                int b, int n_q, int n_kv, int d, int page_size,
-                               int pages_per_seq, int num_pages, float scale,
-                               void* stream) {
+                               int pages_per_seq, int num_pages, void* ws,
+                               int n_split, float scale, void* stream) {
   if (!shape_ok(n_q, n_kv, d, page_size) || page_size % kSub != 0 ||
-      pages_per_seq <= 0)
+      pages_per_seq <= 0 || b > 65535 || n_split < 1 || n_split > 16 ||
+      static_cast<int64_t>(n_kv) * n_split > 2147483647 ||
+      (n_split > 1 && (dtype != ptt::kBF16 || ws == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedParams p = make_params(q, k_pool, v_pool, seq_lens, block_tables, out,
                               b, n_q, n_kv, d, page_size, scale);
   p.pp = pages_per_seq;
   p.num_pages = num_pages;
-  return run(kFused, dtype, p, stream);
+  if (dtype != ptt::kBF16 || b == 0) return run(kFused, dtype, p, stream);
+  float* w = static_cast<float*>(ws);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return run_fused_bf16<64>(p, w, n_split, s);
+    case 96: return run_fused_bf16<96>(p, w, n_split, s);
+    case 128: return run_fused_bf16<128>(p, w, n_split, s);
+    case 256: return run_fused_bf16<256>(p, w, n_split, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int ptt_paged_pallas(const void* q, const void* k_pool,

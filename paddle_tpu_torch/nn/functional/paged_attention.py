@@ -33,8 +33,9 @@ its decode kernel (``csrc/paged_attention_q.cu``; plain version
 ``paged_attention`` is the public decode op (attend ``seq_lens`` cached
 tokens, no append), routed by ``FLAGS_paged_attention_backend`` to the
 kernels of ``csrc/paged_backends.cu``: ``stream`` (B7, the
-pool-streaming kernel, ``stream_paged``), ``fused`` (B8, one program per
-sequence, ``fused_paged``), ``pallas`` (B9, the stock kernel's compute
+pool-streaming kernel, ``stream_paged``), ``fused`` (B8, the TPU's one
+program per sequence; on the card B1's tile walk with no current token,
+``fused_paged``), ``pallas`` (B9, the stock kernel's compute
 blocks, ``pallas_paged``). ``xla`` names the plain gather
 ``paged_attention_plain``. On a CPU tensor each wrapper runs its plain
 version (``_stream_paged_plain``, ``_fused_paged_plain``,
@@ -282,8 +283,8 @@ def _paged_decode_plain(q, new_k, new_v, key_cache, value_cache, seq_lens,
 #: without error (plain CPU calls do not count)
 launches = 0
 
-#: tokens a tile of the tensor-core decode kernels, B1's and B6's (a
-#: warp's unit of work)
+#: tokens a tile of the tensor-core decode kernels, B1's, B6's and B8's
+#: (a warp's unit of work)
 DECODE_Q_TILE = 16
 _DECODE_Q_MAX_SPLIT = 16
 #: the card's grid limit on its second dimension (the batch rows)
@@ -291,8 +292,8 @@ _GRID_Y_MAX = 65535
 
 
 def decode_q_plan(b: int, n_kv: int, span: int, sms: int) -> tuple:
-    """``(n_split, blocks)`` of the tensor-core decode kernels (B1 on a
-    bf16 pool, B6 on an int8 one, bf16 q): a block of 4 warps per (row,
+    """``(n_split, blocks)`` of the tensor-core decode kernels (B1 and B8
+    on a bf16 pool, B6 on an int8 one, bf16 q): a block of 4 warps per (row,
     kv head), or per (row, kv head, split) with each split a contiguous
     share of the row's 16-token tiles. A row is split only where ``b *
     n_kv`` blocks leave the card's ``sms`` SMs short of two blocks each:
@@ -988,8 +989,10 @@ def stream_paged(q, key_cache, value_cache, seq_lens, block_tables,
 
 
 def _paged_kernel(what, fn_name, q, key_cache, value_cache, seq_lens,
-                  block_tables, *extra):
-    """Launch B8 or B9 over ABSOLUTE tables; returns the output."""
+                  block_tables, extra=(), split=False):
+    """Launch B8 or B9 over ABSOLUTE tables; returns the output.
+    ``extra``: the arguments after ``num_pages``; ``split`` (B8): the
+    workspace and split of ``_decode_split`` instead."""
     dt = _check_backend_operands(what, q, key_cache, value_cache, seq_lens,
                                  block_tables, BACKEND_HEAD_DIMS)
     b, n_q, d = q.shape
@@ -997,6 +1000,10 @@ def _paged_kernel(what, fn_name, q, key_cache, value_cache, seq_lens,
     if ps % 16:
         raise ValueError(f"{what}: page_size {ps} must be a multiple of 16 "
                          "(the kernel's 16-token slices)")
+    if split:
+        n_split, ws = _decode_split(q, b, n_kv, d,
+                                    block_tables.shape[1] * ps, mma=True)
+        extra = (_kernels.ptr(ws), n_split)
     out = torch.empty_like(q)
     fn = getattr(_kernels.lib("paged_backends"), fn_name)
     _kernels.check(fn(
@@ -1008,14 +1015,16 @@ def _paged_kernel(what, fn_name, q, key_cache, value_cache, seq_lens,
 
 
 def fused_paged(q, key_cache, value_cache, seq_lens, block_tables):
-    """Kernel B8, one program per sequence walking its pages in order,
-    over ABSOLUTE ``block_tables``; on a CPU tensor the plain version
-    ``_fused_paged_plain``."""
-    if q.device.type != "cuda":
+    """Kernel B8, decode attention over ABSOLUTE ``block_tables`` with no
+    current token; on a CPU tensor the plain version ``_fused_paged_plain``.
+    On the card bf16 runs B1's tile walk (a block of 4 warps a (row, kv
+    head), or a split of its tiles by ``decode_q_plan``, one launch with
+    a workspace when it splits); f32 one block a row."""
+    if not _on_card(q):
         return _fused_paged_plain(q, key_cache, value_cache, seq_lens,
                                   block_tables)
     out = _paged_kernel("fused_paged", "ptt_paged_fused", q, key_cache,
-                        value_cache, seq_lens, block_tables)
+                        value_cache, seq_lens, block_tables, split=True)
     global fused_launches
     fused_launches += 1
     return out
@@ -1031,7 +1040,7 @@ def pallas_paged(q, key_cache, value_cache, seq_lens, block_tables):
                                    block_tables)
     ppcb = _pallas_ppcb(block_tables.shape[1], key_cache.shape[2])
     out = _paged_kernel("pallas_paged", "ptt_paged_pallas", q, key_cache,
-                        value_cache, seq_lens, block_tables, ppcb)
+                        value_cache, seq_lens, block_tables, (ppcb,))
     global pallas_launches
     pallas_launches += 1
     return out

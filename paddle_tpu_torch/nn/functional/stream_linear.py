@@ -12,8 +12,9 @@ from device memory: the weight stream is the bound.
   int8) the kernel converts each weight to fp32 in its inner loop and
   scales the fp32 accumulator. With ``act_quant=True`` (A8W8) x is
   quantized per token (``quantization.dynamic``) and the product runs
-  int8 x int8 with int32 accumulation, dequantized once by
-  ``act_scale (x) scale`` (``csrc/stream_linear_a8w8.cu``).
+  int8 x int8 with int32 accumulation on the int8 tensor cores,
+  dequantized once by ``act_scale (x) scale``
+  (``csrc/stream_linear_a8w8.cu``), split over K by ``a8w8_plan``.
 - ``stream_layer_tail`` — the grouped layer tail: O-projection +
   residual + LN2 + FFN + residual, and optionally the next layer's
   LN1 + QKV projection (the cross-layer prefetch of the grouped decode
@@ -30,8 +31,9 @@ the SM count): the fp32 partials go to a workspace, and the last block
 of each column tile merges them in split order, taking its ticket from
 a counter buffer; both are kept per device and stream
 (``_split_buffers``: the counters are zeroed once, and each merge sets
-its counter back to 0).
-``_split_k_plain`` renders that split in PyTorch.
+its counter back to 0). The A8W8 GEMM splits alike by ``a8w8_plan``,
+its int32 partials in the same workspace. ``_split_k_plain`` and
+``_a8w8_split_plain`` render the two splits in PyTorch.
 
 Precision of the tail: the kernel path keeps ``h2`` (the hidden state
 after the O-projection residual) in fp32 through LN2, and applies int8
@@ -46,9 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from ... import _kernels
-from ...quantization.dynamic import dynamic_act_quant, int8_dot_dequant
+from ...quantization.dynamic import (_int32_matmul, dynamic_act_quant,
+                                     int8_dot_dequant)
 
-__all__ = ["stream_linear", "stream_layer_tail", "stream_plan"]
+__all__ = ["stream_linear", "stream_layer_tail", "stream_plan", "a8w8_plan"]
 
 _ACTIVATIONS = {None: 0, "gelu": 1, "relu": 2}
 
@@ -149,7 +152,10 @@ def _check_vector(what, name, v, N):
 #: the tensor-core GEMM's tiles: a block owns STREAM_BN output columns of
 #: up to STREAM_ROWS rows and walks one K slice in STREAM_BK-row k-steps
 STREAM_BN, STREAM_BK, STREAM_ROWS = 64, 64, 64
+#: the A8W8 GEMM's (B5): 128 columns (32 a warp) of up to STREAM_ROWS rows
+A8W8_BN, A8W8_BK = 128, 64
 _STREAM_MAX_SPLIT = 16
+_A8W8_MAX_SPLIT = 8
 _STREAM_MIN_STEPS = 2
 
 
@@ -157,20 +163,36 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def stream_plan(M: int, K: int, N: int, sms: int) -> tuple:
-    """``(split, steps, blocks, workspace)`` of the bf16 GEMM: ``split``
-    K slices of ``steps`` k-steps each (the last may be shorter, none is
+def _split_plan(M: int, K: int, N: int, sms: int, bn: int, bk: int,
+                max_split: int) -> tuple:
+    """``(split, steps, blocks, workspace)`` of a split-K GEMM whose block
+    owns ``bn`` columns of up to STREAM_ROWS rows: ``split`` K slices of
+    ``steps`` ``bk``-row k-steps each (the last may be shorter, none is
     empty), so that the (column tile x row block x slice) blocks number
-    about two an SM on ``sms`` SMs; at most 16 slices, each at least two
-    k-steps; 1 when the tiles alone fill the card. ``workspace`` is the
-    fp32 partials' element count (0 with one slice)."""
-    tiles = _cdiv(N, STREAM_BN) * _cdiv(M, STREAM_ROWS)
-    ksteps = _cdiv(K, STREAM_BK)
+    about two an SM on ``sms`` SMs; at most ``max_split`` slices, each at
+    least two k-steps; 1 when the tiles alone fill the card.
+    ``workspace`` is the partials' element count (0 with one slice)."""
+    tiles = _cdiv(N, bn) * _cdiv(M, STREAM_ROWS)
+    ksteps = _cdiv(K, bk)
     want = max(1, min(_cdiv(2 * sms, tiles), ksteps // _STREAM_MIN_STEPS,
-                      _STREAM_MAX_SPLIT))
+                      max_split))
     steps = _cdiv(ksteps, want)
     split = _cdiv(ksteps, steps)
     return split, steps, tiles * split, split * M * N if split > 1 else 0
+
+
+def stream_plan(M: int, K: int, N: int, sms: int) -> tuple:
+    """The split of the bf16 GEMM (``_split_plan`` at 64 x 64 tiles, at
+    most 16 slices): fp32 partials."""
+    return _split_plan(M, K, N, sms, STREAM_BN, STREAM_BK, _STREAM_MAX_SPLIT)
+
+
+def a8w8_plan(M: int, K: int, N: int, sms: int) -> tuple:
+    """The split of the A8W8 GEMM (``_split_plan`` at 128-column tiles,
+    64-row k-steps, at most ``_A8W8_MAX_SPLIT`` slices): int32 partials,
+    which the tile's last block reads back, so each slice costs the merge
+    time as well."""
+    return _split_plan(M, K, N, sms, A8W8_BN, A8W8_BK, _A8W8_MAX_SPLIT)
 
 
 def _split_k_plain(x, w, split: int, steps: int, drop=None):
@@ -187,6 +209,28 @@ def _split_k_plain(x, w, split: int, steps: int, drop=None):
         part = x[:, ks].float() @ w[ks].float()
         acc = part if acc is None else acc + part
     return acc
+
+
+def _a8w8_split_plain(x_q, x_scale, w, scale, split: int, steps: int,
+                      bias=None, activation=None, out_dtype=torch.float32,
+                      drop=None):
+    """The split of ``a8w8_plan`` in PyTorch: per K slice of ``steps``
+    64-row k-steps its exact int32 partial, the partials summed in split
+    order, then the plain version's dequant (``acc * x_scale * scale +
+    bias``), activation and output dtype. ``drop``: a slice left out (the
+    chip check's control)."""
+    K = x_q.shape[1]
+    span = steps * A8W8_BK
+    acc = torch.zeros(x_q.shape[0], w.shape[1], dtype=torch.int32,
+                      device=x_q.device)
+    for s in range(split):
+        if s != drop:
+            ks = slice(s * span, min(K, (s + 1) * span))
+            acc += _int32_matmul(x_q[:, ks], w[ks])
+    out = acc.float() * x_scale.float()[:, None] * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return _apply_activation(out, activation).to(out_dtype)
 
 
 #: (device, stream) -> [workspace, merge counters] of the split-K GEMM
@@ -292,7 +336,9 @@ def _stream_linear_a8w8(x_q, x_scale, w, scale, bias=None, activation=None,
     """One launch of the CUDA int8 x int8 GEMM (kernel B5): x_q [M, K]
     int8 and x_scale [M] f32 against int8 w [K, N] (a layer view is
     fine) with scale [N] f32; out = act(float(x_q @ w) * x_scale *
-    scale + bias) in ``out_dtype``."""
+    scale + bias) in ``out_dtype``. K is split by ``a8w8_plan``; with
+    more than one slice the int32 partials and merge counters are the
+    stream's ``_split_buffers``."""
     what = "stream_linear_a8w8"
     M, K = x_q.shape
     N = w.shape[-1]
@@ -317,13 +363,22 @@ def _stream_linear_a8w8(x_q, x_scale, w, scale, bias=None, activation=None,
                          "of None, 'gelu', 'relu'")
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
     _check_cuda(what, x_q, x_scale, scale, bias, out, aligned=(x_q, w))
+    stream = _kernels.stream_ptr(x_q.device)
+    split, steps, ws, tickets = 1, _cdiv(K, A8W8_BK), None, None
+    if M:
+        split, steps, blocks, n_ws = a8w8_plan(M, K, N,
+                                               _sm_count(x_q.device))
+        if split > 1:
+            ws, tickets = _split_buffers(x_q.device, stream, n_ws,
+                                         blocks // split)
     fn = _kernels.lib("stream_linear_a8w8").ptt_stream_linear_a8w8
     _kernels.check(fn(
         x_q.data_ptr(), x_scale.data_ptr(), w.data_ptr(), scale.data_ptr(),
         _kernels.ptr(bias),
         0 if bias is None else _kernels.dtype_code(bias, what),
         out.data_ptr(), _kernels.dtype_code(out, what), M, K, N,
-        _ACTIVATIONS[activation], _kernels.stream_ptr(x_q.device)), what)
+        _ACTIVATIONS[activation], _kernels.ptr(ws), _kernels.ptr(tickets),
+        split, steps, stream), what)
     _count_launch(what)
     return out
 

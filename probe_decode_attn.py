@@ -1,14 +1,14 @@
-"""Probes of the decode kernels B1, B6, B7 and B16 on one card.
+"""Probes of the decode kernels B1, B5, B6, B7, B8 and B16 on one card.
 
     python3 probe_decode_attn.py [--check] [--parent DIR] [--step]
                                  [--variants NAME,...] [--rounds N]
-                                 [--out DIR]
+                                 [--b5-caps N,...] [--out DIR]
 
-``--check`` first runs ``chip_smoke.phase_build`` and the B1, B6, B7-B9
-and B16 kernel checks (``kernel_paged_attention``,
+``--check`` first runs ``chip_smoke.phase_build`` and the B1, B6, B7-B9,
+B16 and B5 kernel checks (``kernel_paged_attention``,
 ``kernel_paged_attention_q``, ``kernel_paged_backends``,
-``kernel_lora_delta``) on this tree. Then, for this tree and, with
-``--parent DIR`` (another tree's root, e.g. the parent commit unpacked
+``kernel_lora_delta``, ``kernel_stream_linear_a8w8``) on this tree.
+Then, for this tree and, with ``--parent DIR`` (another tree's root, e.g. the parent commit unpacked
 by ``git archive`` into a git-ignored directory), for that tree too, in
 turns (parent, this, this, parent; ``--rounds`` times over), one
 process each:
@@ -16,7 +16,13 @@ process each:
     inputs (``chip_smoke._decode_case``: b32 g1 d128, page 16, 17 pages
     a row, rotating over 4 layers): CUDA events ms a call and the
     profiler's device ms of the kernels named ``paged_decode_`` (either
-    tree's B1 kernel); SDPA over the pre-gathered K/V beside it;
+    tree's B1 kernel); SDPA over the pre-gathered K/V beside it; and one
+    hash of its outputs and pools after the append at the check's (g,
+    d) = (1, 128), (2, 64), (4, 256), (1, 96) (trees with the same B1
+    print the same);
+  - B8 (``fused_paged``, bf16) at the same inputs over absolute tables,
+    rotating over the 4 layers: events ms and the device ms of the
+    kernels named ``fused_`` (either tree's B8), SDPA beside it;
   - B6 (int8-KV decode attention, bf16) at the int8-KV rung's inputs
     (``chip_smoke._decode_q_case``: b64, 16 kv heads of 128, page 16, 17
     pages a row), alternating over its 2 layers: events and device ms
@@ -30,20 +36,23 @@ process each:
     slots of rank 16 (one empty), rotating over 24 layers: events and
     device ms (kernels named ``lora_delta``) summed over the four;
   - B5 (``_stream_linear_a8w8``) on the four projections at batch 32,
-    rotating over 24 layers: device ms (``a8w8_kernel``) summed;
+    rotating over 24 layers: events and device ms (kernels named
+    ``a8w8_``, either tree's B5) summed over the four;
   - with ``--step``, the bf16 decode step (``chip_smoke``'s
     ``slice_decode_step`` on the d2048·L24 stack, b32 at context 128:
-    its device ms by group, B1's among them) and the int8-KV decode step
-    (the stack quantized to int8 weights and an int8 pool, b64).
+    its device ms by group, B1's among them), the int8-KV decode step
+    (the stack quantized to int8 weights and an int8 pool, b64) and the
+    A8W8 decode step (b32: B5's share by group).
 With ``--variants`` (names of ``VARIANTS`` below: text substitutions
 of one kernel source, ablations of the design), each variant and the
 design are built into libraries of their own, one nvcc each, all started
 together, and timed in this process in turns (design, variants...,
 variants reversed, design) by the profiler's device ms of their kernel
-at the same inputs. Prints the card's name and power limit first, then
-one JSON line per tree, variant and reading, each also appended to
-``--out``/results.jsonl (a long call's output is cut to its tail). Needs one card and nvcc;
-imports nothing of JAX. On a card's machine, from the repo root:
+at the same inputs; B5's per projection at each of ``--b5-caps``
+(``a8w8_plan``'s most slices, default 8). Prints the card's name and
+power limit first, then one JSON line per tree, variant and reading,
+each also appended to ``--out``/results.jsonl (a long call's output is
+cut to its tail). Needs one card and nvcc; imports nothing of JAX. On a card's machine, from the repo root:
 ``python3 probe_decode_attn.py --check --parent <dir> --step``.
 """
 from __future__ import annotations
@@ -70,6 +79,39 @@ VARIANTS = {
         for (int q = 0; q < 8; ++q) c[q / 4][q % 4] += t[q / 4][q % 4];""":
          """        ptt::mma_bf16(c[0], a0, 0u, a2, 0u, b0, b1);
         ptt::mma_bf16(c[1], a0, 0u, a2, 0u, b2, b3);"""}),
+    "b5_stages4": (
+        "B5's ring of 4 stages (the design: 3)", "stream_linear_a8w8",
+        {"constexpr int kStages = 3;": "constexpr int kStages = 4;"}),
+    "b5_stages6": (
+        "B5's ring of 6 stages (the design: 3)", "stream_linear_a8w8",
+        {"constexpr int kStages = 3;": "constexpr int kStages = 6;"}),
+    "b5_no_swizzle": (
+        "B5's W tile unswizzled (4-way bank conflicts on the B reads)",
+        "stream_linear_a8w8",
+        {"return r * kBN + ((c ^ (((r >> 2) & 3) << 1)) << 4);":
+         "return r * kBN + (c << 4);",
+         "const int off = ((2 * warp + (g >> 2)) ^ (a << 1)) * 16":
+         "const int off = (2 * warp + (g >> 2)) * 16"}),
+    "b5_ticket_only": (
+        "B5's last block resets its counter and returns (the ticket alone; "
+        "no output)", "stream_linear_a8w8",
+        {"  if (ticket != p.split - 1) return;":
+         "  if (tid == 0 && ticket == p.split - 1) p.counters[cid] = 0;\n"
+         "  return;"}),
+    "b5_merge_one_slice": (
+        "B5's last block reads one slice (wrong output; what of the merge "
+        "grows with the split)", "stream_linear_a8w8",
+        {"    for (int s = 0; s < p.split; ++s) {":
+         "    for (int s = 0; s < 1; ++s) {"}),
+    "b5_no_acquire_fence": (
+        "B5's last block without the fence after its ticket",
+        "stream_linear_a8w8",
+        {"  __threadfence();  // every partial of the tile is visible\n": ""}),
+    "b5_no_merge": (
+        "B5's last block skips the merge (the walk and the partials alone; "
+        "no output)", "stream_linear_a8w8",
+        {"  if (tid == 0) ticket = atomicAdd(p.counters + cid, 1);":
+         "  return;  // no ticket (the counters stay 0), no merge"}),
     "b7_no_merge": (
         "B7's last block does not merge (the walk alone; no output)",
         "paged_backends",
@@ -129,6 +171,19 @@ def b1():
     pa.paged_decode_attention_inplace(c["q"], c["nk"], c["nv"], c["kp"],
                                       c["vp"], c["lens"], c["tables"],
                                       pool_base=nxt() * P, pool_pages=P)
+# B1's outputs and pools after its append, bf16, at the check's (g, d)
+# on inputs of their own generator: one hash over all four
+h1, g1 = hashlib.sha256(), torch.Generator(device="cuda")
+g1.manual_seed(1)
+for g, d in ((1, 128), (2, 64), (4, 256), (1, 96)):
+    c1 = cs._decode_case(torch.bfloat16, g1, g=g, d=d)
+    out1 = pa.paged_decode_attention_inplace(
+        c1["q"], c1["nk"], c1["nv"], c1["kp"], c1["vp"], c1["lens"],
+        c1["tables"], pool_base=c1["P"], pool_pages=c1["P"])[0]
+    for t in (out1, c1["kp"], c1["vp"]):
+        h1.update(t.view(torch.int16).cpu().numpy().tobytes())
+    del c1, out1
+res["b1_out_sha256"] = h1.hexdigest()[:16]
 res["b1_ms"] = cs.time_ms(b1, iters=40)
 res["b1_device_ms"] = cs.device_ms(b1, "paged_decode_", iters=40)
 b, n_kv, d = c["q"].shape
@@ -147,6 +202,25 @@ res["b1_sdpa_ms"] = cs.time_ms(
     lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
     iters=40)
 del kd, vd
+# B8 at the backends' rung: absolute ids of each layer's region (row 30's
+# id past the region reads its layer's page 0), as chip_smoke times it
+local = torch.where(c["tables"] < P, c["tables"], 0)
+absolute = [local + l * P for l in range(c["L"])]
+nxt = cs.cycler(c["L"])
+
+def b8():
+    pa.fused_paged(c["q"], c["kp"], c["vp"], c["lens"], absolute[nxt()])
+res["b8_ms"] = cs.time_ms(b8, iters=40)
+res["b8_device_ms"] = cs.device_ms(b8, ("fused_",), iters=40)
+att = (pos[None, :cap] < c["lens"].long()[:, None])[:, None, None, :]
+kg = c["kp"][absolute[1].long()].permute(0, 2, 1, 3, 4).reshape(
+    b, n_kv, cap, d).contiguous()
+vg = c["vp"][absolute[1].long()].permute(0, 2, 1, 3, 4).reshape(
+    b, n_kv, cap, d).contiguous()
+res["b8_sdpa_ms"] = cs.time_ms(
+    lambda: F.scaled_dot_product_attention(qd, kg, vg, attn_mask=att),
+    iters=40)
+del kg, vg, absolute
 mem = pa.pool_membership(c["tables"], c["lens"], P, cs.PAGE)
 nxt = cs.cycler(c["L"])
 
@@ -177,7 +251,7 @@ del c, args
 torch.cuda.empty_cache()
 L, S, R, T, dt = cs.N_LAYERS, cs.LORA_SLOTS, 16, 8, torch.bfloat16
 order, offsets, _ = tl.sort_by_adapter(cs._lora_rows(T, S, gen), S)
-b16_ms = b16_dev = b5_dev = 0.0
+b16_ms = b16_dev = b5_dev = b5_ms = 0.0
 for name, K, N, act in cs.A8W8_SHAPES:
     a = (torch.randn(L, S, K, R, generator=gen, device="cuda") * 0.02).to(dt)
     bk = (torch.randn(L, S, R, N, generator=gen, device="cuda") * 0.02).to(dt)
@@ -199,10 +273,12 @@ for name, K, N, act in cs.A8W8_SHAPES:
     def b5():
         l = nxt()
         sl._stream_linear_a8w8(xq, xsc, wq[l], sc[l], bias[l], act, dt)
-    b5_dev += cs.device_ms(b5, "a8w8_kernel", iters=40)
+    b5_ms += cs.time_ms(b5, iters=40)
+    b5_dev += cs.device_ms(b5, ("a8w8_",), iters=40)
     del wq
 res["b16_ms_4proj"] = b16_ms
 res["b16_device_ms_4proj"] = b16_dev
+res["b5_ms_4proj"] = b5_ms
 res["b5_device_ms_4proj"] = b5_dev
 torch.cuda.empty_cache()
 if step:
@@ -210,6 +286,9 @@ if step:
     cs.slice_decode_step(model, out, name=f"decode_step_bf16_{tag}")
     cs.slice_decode_step(model, out, quant="int8", kv_dtype="int8",
                          batch=2 * cs.BATCH, name=f"decode_step_int8kv_{tag}")
+    # the stack is int8 now: the A8W8 step, whose B5 share this reads
+    cs.slice_decode_step(model, out, quant="a8w8",
+                         name=f"decode_step_a8w8_{tag}")
 print(json.dumps(res), flush=True)
 """
 
@@ -255,9 +334,12 @@ def _build_variants(names, out_dir: str) -> dict:
     return libs
 
 
-def _variant_times(cs, names, out_dir: str, rounds: int) -> None:
-    """Device ms of B1, B6 or B7 (by its variants' library) at the rung,
-    for the design and each variant in turns."""
+def _variant_times(cs, names, out_dir: str, rounds: int,
+                   b5_caps=(8,)) -> None:
+    """Device ms of B1, B5, B6 or B7 (by its variants' library) at the
+    rung, for the design and each variant in turns; B5's four projections
+    each apart, at each split cap of ``b5_caps`` (``a8w8_plan``'s most
+    slices)."""
     import torch
 
     from paddle_tpu_torch import _kernels
@@ -288,16 +370,59 @@ def _variant_times(cs, names, out_dir: str, rounds: int) -> None:
         pa.paged_decode_attention_inplace(
             c1["q"], c1["nk"], c1["nv"], c1["kp"], c1["vp"], c1["lens"],
             c1["tables"], pool_base=n1() * c1["P"], pool_pages=c1["P"])
+    from paddle_tpu_torch.nn.functional import stream_linear as sl
+    from paddle_tpu_torch.quantization.dynamic import dynamic_act_quant
+
+    L, dt = cs.N_LAYERS, torch.bfloat16
+    projs = []
+    for _, K, N, act in cs.A8W8_SHAPES:
+        wq, sc = cs._quantized(torch.randn(L, K, N, generator=gen,
+                                           device="cuda") * 0.02)
+        bias = (torch.randn(L, N, generator=gen, device="cuda")
+                * 0.02).to(dt)
+        xq, xsc = dynamic_act_quant(torch.randn(cs.BATCH, K, generator=gen,
+                                                device="cuda").to(dt))
+        projs.append((xq, xsc, wq, sc, bias, act))
+    n5 = cs.cycler(L)
+
+    def b5_times() -> dict:
+        """{projection: device ms a launch, "four": their sum} at each
+        cap"""
+        out = {}
+        for cap in b5_caps:
+            sl._A8W8_MAX_SPLIT = cap
+            row = {}
+            for (name, *_), (xq, xsc, wq, sc, bias, act) in zip(
+                    cs.A8W8_SHAPES, projs):
+                def one():
+                    l = n5()
+                    sl._stream_linear_a8w8(xq, xsc, wq[l], sc[l], bias[l],
+                                           act, dt)
+                row[name] = cs.device_ms(one, cs.B5_KERNEL, iters=40,
+                                         per_call=1)
+            row["four"] = sum(row.values())
+            out[f"cap_{cap}"] = row
+        sl._A8W8_MAX_SPLIT = saved_cap
+        return out
+    saved_cap = sl._A8W8_MAX_SPLIT
     timed = {"paged_attention_q": (b6, cs.B6_KERNEL),
              "paged_backends": (b7, cs.B7_KERNELS),
              "paged_attention": (b1, cs.B1_KERNEL)}
+    # launches a call: the profiler's mean a launch times these stays
+    # right when it drops some of a long process's events
+    per_call = {"paged_attention_q": 1, "paged_backends": 2,
+                "paged_attention": 1}
     order = list(libs) + list(reversed(list(libs)))
     for _ in range(rounds):
         for name in order:
             lib, handle = libs[name]
             _kernels._LIBS[lib] = handle
-            fn, kernel = timed[lib]
-            ms = cs.device_ms(fn, kernel, iters=40)
+            if lib == "stream_linear_a8w8":
+                ms = b5_times()
+            else:
+                fn, kernel = timed[lib]
+                ms = cs.device_ms(fn, kernel, iters=40,
+                                  per_call=per_call[lib])
             _emit(json.dumps({"variant": name, "library": lib,
                               "device_ms": ms,
                               "what": VARIANTS[name][0]
@@ -333,6 +458,7 @@ def main() -> None:
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--variants", default="")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--b5-caps", default="8")
     ap.add_argument("--out", default=os.path.join(
         HERE, "paddle_tpu_torch", "_build", "probe_decode_attn"))
     args = ap.parse_args()
@@ -353,13 +479,15 @@ def main() -> None:
         cs.kernel_paged_attention_q(gen)
         cs.kernel_paged_backends(gen)
         cs.kernel_lora_delta(gen)
+        cs.kernel_stream_linear_a8w8(gen)
         torch.cuda.empty_cache()
     if args.variants:
         names = [n for n in args.variants.split(",") if n]
         unknown = set(names) - set(VARIANTS)
         if unknown:
             raise SystemExit(f"probe: unknown variants {sorted(unknown)}")
-        _variant_times(cs, names, args.out, args.rounds)
+        _variant_times(cs, names, args.out, args.rounds,
+                       tuple(int(c) for c in args.b5_caps.split(",")))
         torch.cuda.empty_cache()
     order = [("this", HERE)]
     if args.parent:

@@ -8,7 +8,9 @@ stock kernels (``_fused_paged``, ``_pallas_paged``) run on a TPU only, so
 the port's plain versions of B8 and B9 are held to the function they
 compute, the XLA gather ``_xla_paged``, on rows with a length, and to 0
 on empty rows (both kernels return 0 there; ``_xla_paged`` averages the
-table's V rows). Tolerances: f32 scores, softmax and sums on both sides
+table's V rows); B8's bf16 kernel is also rendered tile for tile (B1's
+walk with no current token) and held to ``_xla_paged``. Tolerances: f32
+scores, softmax and sums on both sides
 in another order: 1e-5 absolute on outputs of magnitude ~1 (hidden
 states of the decode step too). Integer maps are compared exactly.
 """
@@ -444,6 +446,182 @@ def test_card_tensors_reach_the_stream_kernel(monkeypatch, dtype):
     # chunks_per_block, run_pages
     assert args[8:19] == (int(dtype == torch.bfloat16), b, n_q, n_kv, 128,
                           c["ps"], c["P"], c["P"]) + runs
+
+
+# ---------------------------------------------------------------------
+# B8 on the card: B1's tile walk with no current token, rendered in
+# PyTorch; the card route (library faked)
+# ---------------------------------------------------------------------
+
+def _b8_tiles(q, kp, vp, lens, tables, num_pages, n_split):
+    """B8's bf16 kernel rendered tile for tile: per (row, kv head) and
+    split s of ``decode::walk`` (16-token tiles s * n // n_split up to (s
+    + 1) * n // n_split of the row's n), warp w walking tiles t_lo + w,
+    + 4, ...; a token below min(seq_lens, pp * ps) on an ABSOLUTE id in
+    [0, num_pages) is read, others not; an f32 online softmax a tile from
+    m = -inf, P V with the weights as three bf16 parts; the warps' states
+    merged, then the splits' in split order with a phantom current token
+    of logit -1e30 and value 0 (kNoToken). Returns (out, the (row, head,
+    page, slot) reads with their counts)."""
+    b, n_q, d = q.shape
+    _, n_kv, ps, _ = kp.shape
+    g, pp, T = n_q // n_kv, tables.shape[1], tpa.DECODE_Q_TILE
+    scale, inf = d ** -0.5, float("inf")
+    out = torch.empty(b, n_q, d, dtype=q.dtype)
+    reads = {}
+
+    def fold(states):                     # [(m, l, acc)] -> (mx, l, acc)
+        mx = torch.stack([m for m, _, _ in states]).max(0).values
+        f = [torch.where(torch.isfinite(mx), torch.exp(m - mx), 0.0)
+             for m, _, _ in states]
+        return (mx, sum(l * fw for (_, l, _), fw in zip(states, f)),
+                sum(a * fw[:, None] for (_, _, a), fw in zip(states, f)))
+    for r in range(b):
+        n_tok = min(max(int(lens[r]), 0), pp * ps)
+        n = -(-n_tok // T)
+        for h in range(n_kv):
+            qh = q[r, h * g:(h + 1) * g].float()
+            splits = []
+            for s in range(n_split):
+                t_lo, t_hi = s * n // n_split, (s + 1) * n // n_split
+                warps = []
+                for w in range(4):
+                    m = torch.full((g,), -inf)
+                    l, acc = torch.zeros(g), torch.zeros(g, d)
+                    for t in range(t_lo + w, t_hi, 4):
+                        tok = torch.arange(t * T, (t + 1) * T)
+                        ids = tables[r, torch.clamp(tok // ps, max=pp - 1)]
+                        ok = (tok < n_tok) & (ids >= 0) & (ids < num_pages)
+                        if not bool(ok.any()):
+                            continue
+                        for i in torch.nonzero(ok)[:, 0].tolist():
+                            key = (r, h, int(ids[i]), int(tok[i]) % ps)
+                            reads[key] = reads.get(key, 0) + 1
+                        pages = torch.where(ok, ids, 0).long()
+                        kt = torch.where(ok[:, None],
+                                         kp[pages, h, tok % ps].float(), 0.0)
+                        vt = torch.where(ok[:, None],
+                                         vp[pages, h, tok % ps].float(), 0.0)
+                        x = torch.where(ok, (qh @ kt.T) * scale, -inf)
+                        mn = torch.maximum(m, x.max(1).values)
+                        alpha = torch.exp(m - mn)
+                        p = torch.where(ok, torch.exp(x - mn[:, None]), 0.0)
+                        l = l * alpha + p.sum(1)
+                        hi = p.to(torch.bfloat16).float()
+                        mid = (p - hi).to(torch.bfloat16).float()
+                        lo = (p - hi - mid).to(torch.bfloat16).float()
+                        acc = acc * alpha[:, None] + sum(
+                            part @ vt for part in (hi, mid, lo))
+                        m = mn
+                    warps.append((m, l, acc))
+                splits.append(fold(warps))
+            _, l, acc = fold([(torch.full((g,), -1e30), torch.ones(g),
+                               torch.zeros(g, d))] + splits)
+            out[r, h * g:(h + 1) * g] = (acc / l[:, None]).to(q.dtype)
+    return out, reads
+
+
+def _b8_case(g, dtype, share=None, seed=30):
+    """``_case``'s inputs over layer 1's region (absolute ids), rounded
+    to ``dtype``; the JAX ``_xla_paged`` on the same values."""
+    c = _case(g, 128, seed=seed + g, share=share)
+    for k in ("q", "kp", "vp"):
+        c[k] = torch.from_numpy(c[k]).to(dtype).float().numpy()
+    return c, _xla(c, 16)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3])
+@pytest.mark.parametrize("g,dtype,share", [
+    (1, torch.float32, None), (2, torch.float32, (3, 4)),
+    (2, torch.bfloat16, (3, 4)), (4, torch.bfloat16, None)])
+def test_b8_tile_rendering_matches_jax(g, dtype, share, n_split):
+    """B8's tile-order fold with no current token against the JAX
+    ``_xla_paged`` on rows with a length (f32 within 2e-5; bf16, its
+    inputs and output rounded, within the chip check's 2^-7), the empty
+    row exactly 0, a page that rows 3 and 4 share read by both; every
+    token below a row's length read exactly once over the splits and
+    warps, and nothing else."""
+    c, want = _b8_case(g, dtype, share)
+    q, kp, vp, lens = _torch(c, "q", "kp", "vp", "lens")
+    tables = torch.from_numpy(c["tables"] + 16)
+    got, reads = _b8_tiles(q.to(dtype), kp.to(dtype), vp.to(dtype), lens,
+                           tables, kp.shape[0], n_split)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    np.testing.assert_allclose(got[1:].float().numpy(), want[1:], atol=tol,
+                               rtol=0)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    ps, n_kv = c["ps"], kp.shape[1]
+    expect = {(r, h, int(tables[r, t // ps]), t % ps): 1
+              for r, n in enumerate(c["lens"]) for h in range(n_kv)
+              for t in range(int(n))}
+    assert reads == expect
+    if share is not None:
+        page = int(tables[share[0], 0])
+        assert {r for r, _, pg, _ in reads if pg == page} == set(share)
+
+
+def test_b8_ids_outside_the_pool_are_never_read():
+    """An id past the pool (row 2's last page) or negative (row 3's) is
+    not read: its tokens drop out, as if the row ended at the page before
+    (the JAX ``_xla_paged`` at that shorter length)."""
+    c, _ = _b8_case(1, torch.float32)
+    P2 = c["kp"].shape[0]
+    tables = c["tables"] + 16
+    tables[2, 2], tables[3, 3] = P2, -1          # lengths 17 and 32
+    q, kp, vp, lens = _torch(c, "q", "kp", "vp", "lens")
+    got, reads = _b8_tiles(q, kp, vp, lens, torch.from_numpy(tables), P2, 2)
+    assert all(0 <= pg < P2 for _, _, pg, _ in reads)
+    short = dict(c, lens=np.array([0, 5, 16, 24, 9, 1], np.int32))
+    want = _xla(short, 16)
+    np.testing.assert_allclose(got[1:].numpy(), want[1:], atol=2e-5, rtol=0)
+
+
+class _FusedLib:
+    def __init__(self):
+        self.calls = []
+
+    def ptt_paged_fused(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype,d,lens,n_split", [
+    (torch.bfloat16, 128, (17, 200, 5, 0) * 8, 1),   # the rung: 512 blocks
+    (torch.bfloat16, 64, (1000, 700), 8),            # long rows split
+    (torch.float32, 128, (1000, 700), 1),            # f32: a block a row
+])
+def test_card_tensors_reach_the_fused_kernel(monkeypatch, dtype, d, lens,
+                                             n_split):
+    """With the card faked, fused_paged hands the library decode_q_plan's
+    split for bf16 (f32: 1) and a workspace of the partials, (m, l) pairs
+    and tickets only when it splits, and counts one launch; nothing
+    reaches the plain version."""
+    from paddle_tpu_torch import _kernels
+
+    lib = _FusedLib()
+
+    def refuse(*a, **k):
+        raise AssertionError("a card tensor reached the plain version")
+    monkeypatch.setattr(tpa, "_on_card", lambda t: True)
+    monkeypatch.setattr(tpa, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(tpa, "_fused_paged_plain", refuse)
+    monkeypatch.setattr(_kernels, "lib", lambda name: lib)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    b, n_kv, g, ps, pp = len(lens), 2 if len(lens) < 8 else 16, 4, 16, 64
+    P = b * pp + 1
+    pool = torch.zeros(P, n_kv, ps, d, dtype=dtype)
+    q = torch.zeros(b, n_kv * g, d, dtype=dtype)
+    tables = torch.arange(1, b * pp + 1, dtype=torch.int32).reshape(b, pp)
+    before = tpa.fused_launches
+    out = tpa.fused_paged(q, pool, pool.clone(),
+                          torch.tensor(lens, dtype=torch.int32), tables)
+    assert tpa.fused_launches == before + 1 and out.shape == q.shape
+    (args,) = lib.calls
+    # dtype, b, n_q, n_kv, d, page_size, pages_per_seq, num_pages, ws,
+    # n_split
+    assert args[6:14] == (int(dtype == torch.bfloat16), b, n_kv * g, n_kv,
+                          d, ps, pp, P)
+    assert (args[14] is None) == (n_split == 1) and args[15] == n_split
 
 
 # ---------------------------------------------------------------------

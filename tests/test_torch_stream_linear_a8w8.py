@@ -8,10 +8,14 @@ layer index, with and without bias, gelu and relu, M in {1, 8, 32};
 rtol 1e-5 (the dequant and activation in fp32 on both sides).
 ``stream_linear(act_quant=True)`` against the JAX public call, and the
 documented error bound of the dynamic act quant against an fp32
-reference:
+reference; B5's split plan, its split-K arithmetic rendered in PyTorch
+(bitwise against the JAX kernel without a bias) and its card route with
+the library faked. The bound:
 
     |out - x @ dequant(w) - b| <= 0.5 * act_scale(row) * sum_k |w_deq|
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,22 +50,29 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_case(M, activation, with_bias):
+    """x_q, x_scale and the JAX kernel's output in interpret mode at
+    layer 2 (shared by the tests below)."""
+    wq, s, b = _weights()
+    x = np.random.RandomState(M).randn(M, K).astype(np.float32) * 2
+    xq, xs = j_quant(jnp.asarray(x))
+    ref = jax_a8w8(xq, xs, jnp.asarray(wq), jnp.asarray(s)[:, None, :],
+                   jnp.asarray(b)[:, None, :] if with_bias else None,
+                   2, activation, jnp.float32, interpret=True)
+    return np.asarray(xq), np.asarray(xs), np.asarray(ref)
+
+
 @pytest.mark.parametrize("M", [1, 8, 32])
 @pytest.mark.parametrize("activation", [None, "gelu", "relu"])
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_plain_matches_jax_interpret_kernel(M, activation, with_bias):
     wq, s, b = _weights()
-    x = np.random.RandomState(M).randn(M, K).astype(np.float32) * 2
-    xq, xs = j_quant(jnp.asarray(x))
-    layer = 2
-    ref = jax_a8w8(xq, xs, jnp.asarray(wq), jnp.asarray(s)[:, None, :],
-                   jnp.asarray(b)[:, None, :] if with_bias else None,
-                   layer, activation, jnp.float32, interpret=True)
+    xq, xs, ref = _jax_case(M, activation, with_bias)
     out = sl._stream_linear_a8w8_plain(
-        _t(xq), _t(xs), _t(wq), _t(s), layer, _t(b) if with_bias else None,
+        _t(xq), _t(xs), _t(wq), _t(s), 2, _t(b) if with_bias else None,
         activation, torch.float32)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
-                               atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -127,3 +138,157 @@ def test_cpu_calls_count_no_launch(monkeypatch):
     sl.stream_linear(x, _t(wq), layer=0, scale=_t(s), act_quant=True)
     sl.stream_linear(x, _t(wq), layer=0, scale=_t(s))
     assert (sl.a8w8_launches, sl.w8_launches) == before
+
+
+# ---------------------------------------------------------------------
+# B5 on the card: its split plan, a rendering of its arithmetic, the
+# card route (library faked)
+# ---------------------------------------------------------------------
+
+#: the A8W8 step's four projections (K, N) and the plan at 132 SMs:
+#: (split, steps); blocks are 128-column tiles x split
+A8W8_PLANS = {"qkv": ((2048, 6144), (6, 6)), "o_proj": ((2048, 2048), (8, 4)),
+              "ffn1": ((2048, 8192), (5, 7)), "ffn2": ((8192, 2048), (8, 16))}
+
+
+@pytest.mark.parametrize("m", [1, 32, 64])
+@pytest.mark.parametrize("name", list(A8W8_PLANS))
+def test_a8w8_plan_fills_the_card(name, m):
+    """Every K slice holds at least one 64-row k-step and the slices
+    cover K once; the blocks number two an SM or more, by at most one
+    column tile's worth of slices (the split rounds up), unless the split
+    reaches its cap of 8 (each slice also costs the tile's last block a
+    read of its partial); the workspace is split * M * N int32
+    partials."""
+    (K, N), (split, steps) = A8W8_PLANS[name]
+    tiles = N // sl.A8W8_BN
+    assert sl.a8w8_plan(m, K, N, 132) == (split, steps, tiles * split,
+                                          split * m * N)
+    ksteps = K // sl.A8W8_BK
+    spans = [(s * steps, min(ksteps, (s + 1) * steps)) for s in range(split)]
+    assert all(hi > lo for lo, hi in spans)
+    assert [k for lo, hi in spans for k in range(lo, hi)] == \
+        list(range(ksteps))
+    assert 2 * 132 <= tiles * split < 2 * 132 + 2 * tiles or \
+        split == sl._A8W8_MAX_SPLIT == 8
+
+
+def test_a8w8_plan_unsplit_and_row_blocks():
+    """One slice when the tiles fill the card (workspace 0); rows past 64
+    add row blocks that the split counts."""
+    assert sl.a8w8_plan(32, 2048, 6144, 8) == (1, 32, 48, 0)
+    assert sl.a8w8_plan(100, 2048, 2048, 132) == (8, 4, 256, 8 * 100 * 2048)
+
+
+def _b5_render(xq, xs, w, s, bias, activation, split, steps):
+    """B5's arithmetic in PyTorch, as the kernel runs it: per K slice of
+    ``steps`` 64-row k-steps its exact int32 partial, formed in the
+    products' stride-4 column order (product j of a warp's 32 columns
+    takes columns j, j + 4, ..., j + 28) and put back in column order;
+    the partials summed in split order; then the dequant ``acc *
+    x_scale * scale + bias`` and the activation, in f32."""
+    M, K = xq.shape
+    N = w.shape[1]
+    order = torch.tensor([c0 + 4 * n + j for c0 in range(0, N, 32)
+                          for j in range(4) for n in range(8)])
+    back = torch.argsort(order)
+    span = steps * sl.A8W8_BK
+    acc = torch.zeros(M, N, dtype=torch.int32)
+    for sl_i in range(split):
+        ks = slice(sl_i * span, min(K, (sl_i + 1) * span))
+        part = xq[:, ks].to(torch.int32) @ w[ks][:, order].to(torch.int32)
+        acc += part[:, back]
+    out = acc.float() * xs.float()[:, None] * s.float()
+    if bias is not None:
+        out = out + bias.float()
+    return sl._apply_activation(out, activation)
+
+
+def test_b5_lane_holds_eight_consecutive_columns():
+    """The epilogue's store: fragment e of product j at lane 4 g + a is
+    n8 column 2 a + e, in the stride-4 order the warp's column 4 (2 a +
+    e) + j, so a lane's 8 values are columns 8 a .. 8 a + 7 of its rows."""
+    for a in range(4):
+        cols = sorted(4 * (2 * a + e) + j for j in range(4) for e in range(2))
+        assert cols == list(range(8 * a, 8 * a + 8))
+
+
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("split,steps", [(1, 4), (2, 2), (4, 1)])
+def test_b5_rendering_matches_jax(M, with_bias, split, steps):
+    """The rendering, f32 with no activation, against the JAX kernel in
+    interpret mode: bitwise without a bias (XLA's dequant rounds step by
+    step as the kernel does), within 1e-5 with one (XLA contracts the
+    bias add into an FMA) and there bitwise against the plain version.
+    Leaving out one K slice (the chip check's control) moves it."""
+    wq, s, b = _weights()
+    xq, xs, ref = _jax_case(M, None, with_bias)
+    bias = _t(b[2]) if with_bias else None
+    got = _b5_render(_t(xq), _t(xs), _t(wq[2]), _t(s[2]), bias, None,
+                     split, steps)
+    plain = sl._a8w8_split_plain(_t(xq), _t(xs), _t(wq[2]), _t(s[2]), split,
+                                 steps, bias)
+    assert torch.equal(got, plain)
+    assert torch.equal(got, sl._stream_linear_a8w8_plain(
+        _t(xq), _t(xs), _t(wq), _t(s), 2, _t(b) if with_bias else None))
+    if with_bias:
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got.numpy(), ref)
+    if split > 1:
+        ctrl = sl._a8w8_split_plain(_t(xq), _t(xs), _t(wq[2]), _t(s[2]),
+                                    split, steps, bias, drop=split // 2)
+        assert float((ctrl - got).abs().max()) > 1.0
+
+
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+def test_b5_rendering_with_activation_matches_jax(activation):
+    wq, s, b = _weights()
+    xq, xs, ref = _jax_case(32, activation, True)
+    got = _b5_render(_t(xq), _t(xs), _t(wq[2]), _t(s[2]), _t(b[2]),
+                     activation, 2, 2)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sms,M", [(132, 32), (132, 100), (8, 32)])
+def test_a8w8_launch_arguments(monkeypatch, sms, M):
+    """The launch the wrapper makes, the library faked: a8w8_plan's split
+    and steps, and with a split the stream's workspace (at least split *
+    M * N elements, read as int32 partials) and merge counters (zeros),
+    the same buffers B2 uses and kept for the next call; one launch
+    counted. Unsplit: no workspace."""
+    calls = []
+
+    class Lib:
+        def ptt_stream_linear_a8w8(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(sl._kernels, "lib", lambda name: Lib())
+    monkeypatch.setattr(sl._kernels, "stream_ptr", lambda dev: 7)
+    monkeypatch.setattr(sl, "_sm_count", lambda dev: sms)
+    monkeypatch.setattr(sl, "_SPLIT", {})
+    Kp, Np = 2048, 2048
+    xq = torch.zeros(M, Kp, dtype=torch.int8)
+    xs = torch.ones(M)
+    w = torch.zeros(Kp, Np, dtype=torch.int8)
+    before = sl.a8w8_launches
+    for _ in range(2):
+        out = sl._stream_linear_a8w8(xq, xs, w, torch.ones(Np),
+                                     torch.zeros(Np, dtype=torch.bfloat16),
+                                     "gelu", torch.bfloat16)
+    assert sl.a8w8_launches == before + 2
+    assert out.shape == (M, Np) and out.dtype == torch.bfloat16
+    first, second = calls
+    split, steps, blocks, n_ws = sl.a8w8_plan(M, Kp, Np, sms)
+    # M, K, N, activation, ws, counters, split, steps, stream
+    assert first[8:12] == (M, Kp, Np, 1)
+    assert first[14:17] == (split, steps, 7) and second[12:17] == first[12:17]
+    if split == 1:
+        assert first[12:14] == (None, None) and not sl._SPLIT
+        return
+    buf_ws, buf_t = sl._SPLIT[(torch.device("cpu"), 7)]
+    assert (buf_ws.data_ptr(), buf_t.data_ptr()) == first[12:14]
+    assert buf_ws.numel() >= split * M * Np
+    assert buf_t.numel() >= blocks // split and int(buf_t.abs().sum()) == 0
