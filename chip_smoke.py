@@ -8,7 +8,8 @@ Phases, all run every time, each of which fails the run when it fails:
   build    the CUDA kernels from csrc/, one nvcc per source in parallel,
            then the machine code of the redesigned bf16 kernels read back
            (cuobjdump -sass: HGMMA in B10-B15, HMMA or HGMMA in B2 and B7,
-           HMMA in B1, B8 and B16, IMMA in B5 and B6; no ptxas spill);
+           HMMA in B1, B8, B9 and B16, IMMA in B5 and B6; no ptxas
+           spill);
   kernels  each kernel against its plain PyTorch version at the serving
            path's shapes, in bfloat16 and float32 (tolerances printed;
            the paged-prefill kernel on 16 cases with a swapped-pages
@@ -114,8 +115,9 @@ Phases, all run every time, each of which fails the run when it fails:
            step).
   backends the decode backends of FLAGS_paged_attention_backend: B7
            (stream_paged, pool streaming), B8 (fused_paged, B1's tile
-           walk with no current token; also on long rows it splits) and
-           B9 (pallas_paged, the stock kernel's compute blocks) checked
+           walk with no current token) and B9 (pallas_paged: the same
+           walk under its own name, held to the stock kernel's compute
+           blocks; both also on long rows they split) checked
            against their plain versions on the decode check's inputs (an
            empty row exactly 0, a shared page, an id past the region; a
            control per kernel) and timed beside
@@ -125,7 +127,18 @@ Phases, all run every time, each of which fails the run when it fails:
            decode step, none of B1) with their teacher-forced checks,
            one decode step under stream (B1, not B7), xla raising on the
            card, and the public paged_attention under auto on a live
-           pool for each layer (stream, 48 launches). B10 is also
+           pool for each layer (stream, 48 launches). Then, on the same
+           model, sampled decoding (generate at b32 with temperature 0.8,
+           top-k 50, top-p 0.9 from an explicit generator beside greedy,
+           launches as greedy's, top_k=1 bitwise greedy, 10^5 draws on one
+           logits row within a total-variation limit of the filtered
+           softmax) and speculative decoding (bench.py's --decode-spec
+           protocol: 8 requests, prompt 128, 128 new, spec_k 4, a
+           ScheduledDrafter replaying the plain run's streams; tokens/s
+           of both, accept rate, rounds, 24 B4 launches a verify round,
+           the pool drained; the verify pass held to the decode step
+           teacher-forced; a few rounds with SelfDraftHeads and with a
+           d1024·L4 draft model). B10 is also
            checked at head_dim 80 and B11-B13 at 40, both zero-padded
            by their wrappers, with the padding's cost timed (B11-B13
            are also timed at 96 and 256).
@@ -281,7 +294,8 @@ DESIGNED_SASS = (("grouped_gemm", "grouped_gemm_wgmma", ("HGMMA",)),
                  ("paged_attention", "paged_decode_mma", ("HMMA",)),
                  ("grouped_gemm", "lora_delta_mma", ("HMMA",)),
                  ("stream_linear_a8w8", "a8w8_mma", ("IMMA",)),
-                 ("paged_backends", "fused_paged_mma", ("HMMA",)))
+                 ("paged_backends", "fused_paged_mma", ("HMMA",)),
+                 ("paged_backends", "pallas_paged_mma", ("HMMA",)))
 
 
 def _sass_functions(path) -> dict:
@@ -328,8 +342,9 @@ def phase_build(out_dir):
     then the redesigned kernels' machine code read back: each
     instantiation of the bf16 kernels of B14, B15, B10 and B11-B13 (d64,
     d96, d128) must hold HGMMA (wgmma), B2's and B7's bf16 kernels HMMA or
-    HGMMA, B5's and B6's kernels IMMA (int8 mma.sync) and B1's, B8's and
-    B16's bf16 kernels HMMA, with no register spill in ptxas's report."""
+    HGMMA, B5's and B6's kernels IMMA (int8 mma.sync) and B1's, B8's, B9's
+    and B16's bf16 kernels HMMA, with no register spill in ptxas's
+    report."""
     from paddle_tpu_torch import _kernels
 
     t0 = time.perf_counter()
@@ -558,10 +573,11 @@ def kernel_paged_attention(gen) -> dict:
 #: profiler names of the bf16 GEMM of B2 (also B3's four GEMMs), of
 #: B3's launches, and of B14's bf16 kernel (forward and backward mode)
 B2_KERNEL = "stream_gemm_mma"
-#: profiler names of B5's kernel and of B8's bf16 kernel (f32 keeps
-#: fused_f32)
+#: profiler names of B5's kernel and of B8's and B9's bf16 kernels (f32
+#: keeps fused_f32 and pallas_f32)
 B5_KERNEL = "a8w8_mma"
 B8_KERNEL = "fused_paged_mma"
+B9_KERNEL = "pallas_paged_mma"
 B3_KERNELS = (B2_KERNEL, "layer_norm_kernel")
 B14_KERNEL = "grouped_gemm_wgmma"
 #: profiler names of B15's bf16 kernel and of B11's, B12's and B13's bf16
@@ -2326,7 +2342,8 @@ def _prefilled(model, b: int, steps: int, seed: int, quant=None,
     logits, ck, cv = eng._prefill_fn(w, emb, head, lnf_s, lnf_b, ids, lens,
                                      cache.k, cache.v, tables)
     return dict(eng=eng, st=st, tables=tables, ck=ck, cv=cv, lens=lens,
-                tok=eng._argmax(logits), w=w, emb=emb, head=head,
+                tok=eng._argmax(logits), logits=logits, w=w, emb=emb,
+                head=head,
                 lnf_s=lnf_s, lnf_b=lnf_b)
 
 
@@ -4616,9 +4633,9 @@ def kernel_paged_backends(gen) -> dict:
     full page, row 30's last page outside the region) over layer 1's
     region of a 4-layer folded pool, at BACKEND_SHAPES. Limits: float32
     2e-5 absolute (f32 sums in another order); bf16 2^-7 on
-    ``_rel1_err`` (both sides keep f32 statistics; B8 and B9 feed P V a
-    bf16 pair, so only f32 order and the output's rounding differ: one
-    bf16 ulp); B7 and its plain version round the probabilities to bf16
+    ``_rel1_err`` (both sides keep f32 statistics; B8 and B9 feed P V
+    three bf16 parts, within 2^-27 of f32, so only f32 order and the
+    output's rounding differ: one bf16 ulp); B7 and its plain version round the probabilities to bf16
     alike, where an f32-order difference can flip one rounding, so B7's
     limit is ``_stream_tol`` of a witness. Rows of length 0 must be exactly 0. One control
     per kernel, which must exceed its limit: B7's plain version masked by
@@ -4676,18 +4693,20 @@ def kernel_paged_backends(gen) -> dict:
             if (g, d) == (1, HEAD_DIM):
                 res[str(dtype)] = line["max_abs_err"]
             del c, got, ref, ctrl_out
-        if name == "fused":
-            _fused_long_rows()
+        if name in ("fused", "pallas"):
+            _walk_long_rows(name)
         rows[f"paged_attention_{name}"] = _backend_times(name, gen, res)
     torch.cuda.empty_cache()
     return rows
 
 
-def _fused_long_rows() -> None:
-    """B8 on B1's long rows (b4, 64 pages a row, from its own generator so
-    later inputs do not move), which decode_q_plan splits for bf16: f32
-    2e-5, bf16 2^-7 on ``_rel1_err``; the skip-last-page control must
-    exceed the limit."""
+def _walk_long_rows(name) -> None:
+    """B8 or B9 (``name`` "fused" or "pallas") on B1's long rows (b4, 64
+    pages a row, from its own generator so later inputs do not move),
+    which decode_q_plan splits for bf16: f32 2e-5, bf16 2^-7 on
+    ``_rel1_err`` against the backend's plain version (B9's keeps the
+    stock kernel's compute blocks of 32 pages); the skip-last-page
+    control must exceed the limit."""
     from paddle_tpu_torch.nn.functional import paged_attention as pa
 
     long_gen = torch.Generator(device="cuda")
@@ -4697,10 +4716,10 @@ def _fused_long_rows() -> None:
         c = _decode_case(dtype, long_gen, lens=DECODE_Q_LONG_LENS, pp=64,
                          L=2)
         base = c["P"]
-        got = _backend_call("fused", c, base)
+        got = _backend_call(name, c, base)
         torch.cuda.synchronize()
-        ref = _backend_call("fused", c, base, plain=True)
-        ctrl_out = _backend_call("fused", c, base, plain=True,
+        ref = _backend_call(name, c, base, plain=True)
+        ctrl_out = _backend_call(name, c, base, plain=True,
                                  skip_last_page=True)
         metric = _rel1_err if bf16 else max_err
         err, ctrl = metric(got, ref), metric(ctrl_out, ref)
@@ -4708,12 +4727,12 @@ def _fused_long_rows() -> None:
         n_split = pa.decode_q_plan(b, N_HEADS, c["pp"] * PAGE,
                                    pa._sm_count(c["q"].device))[0] \
             if bf16 else 1
-        emit({"check": "paged_attention_fused_long_rows",
+        emit({"check": f"paged_attention_{name}_long_rows",
               "dtype": str(dtype), "batch": b, "pages_per_seq": c["pp"],
               "n_split": n_split, "err": err,
               "max_abs_err": max_err(got, ref), "tol": tol,
               "control_err": ctrl})
-        what = f"paged_attention_fused long rows {dtype}"
+        what = f"paged_attention_{name} long rows {dtype}"
         check(err <= tol, f"{what}: {err} > {tol}")
         check(ctrl > tol, f"{what}: the control ({ctrl}) is within the "
                           f"limit {tol}")
@@ -4791,11 +4810,12 @@ def _backend_times(name, gen, res) -> dict:
            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
            "max_abs_err": res[str(torch.bfloat16)]}
     extra = {}
-    if name == "fused":
-        # the profiler's device time of B8's bf16 kernel a call
-        row["device_ms"] = device_ms(kern, B8_KERNEL, per_call=1)
+    if name in ("fused", "pallas"):
+        # the profiler's device time of B8's (B9's) bf16 kernel a call
+        kname = B8_KERNEL if name == "fused" else B9_KERNEL
+        row["device_ms"] = device_ms(kern, kname, per_call=1)
         check(row["device_ms"] > 0.0,
-              f"fused: no {B8_KERNEL} device time recorded")
+              f"{name}: no {kname} device time recorded")
         extra = {"n_split": pa.decode_q_plan(
             b, n_kv, cap, pa._sm_count(c["q"].device))[0]}
     if name == "stream":
@@ -4938,6 +4958,332 @@ def slice_decode_backends(model) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------- A6
+
+#: GenerationEngine.generate's sampling settings of the sampling phase
+SAMPLE_CFG = (0.8, 50, 0.9)
+#: draws of the sampling phase's distribution check, and its limit on
+#: their total-variation distance from the filtered softmax (at most 50
+#: tokens kept: the expected distance at 10^5 draws is below 0.009)
+SAMPLE_DRAWS, SAMPLE_TV_LIMIT = 100_000, 0.02
+#: the speculative phase: bench.py's --decode-spec protocol (batch 8,
+#: prompt 128, 128 new tokens, spec_k 4) and the draft model of the
+#: DraftModelDrafter rounds
+SPEC_BATCH, SPEC_NEW, SPEC_K = 8, 128, 4
+DRAFT_D, DRAFT_LAYERS, DRAFT_HEADS, DRAFT_DFF = 1024, 4, 8, 4096
+
+
+def slice_sampling(model) -> dict:
+    """Sampled decoding on the bf16 d2048·L24 model: GenerationEngine.
+    generate at batch 32, prompt 128, BACKEND_NEW_TOKENS new tokens,
+    greedy and with do_sample (temperature 0.8, top-k 50, top-p 0.9, the
+    Gumbel noise from an explicit torch.Generator), tokens/s of both;
+    launch counts reset before and checked after the sampled call (the
+    filter and the draw are PyTorch ops: the same B1/B2/B3 launches as
+    greedy); top_k=1 sampling bitwise equal to the greedy output; then
+    SAMPLE_DRAWS draws on one prefill logits row of the model, whose
+    total-variation distance from the filtered softmax (the engine's own
+    ``_filter_logits``, then softmax) must stay under SAMPLE_TV_LIMIT,
+    with no draw outside the kept set."""
+    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.inference.engine import gumbel_noise
+
+    new = BACKEND_NEW_TOKENS
+    eng = GenerationEngine(model, page_size=PAGE, max_length=PROMPT + new)
+    ids = np.random.RandomState(0).randint(0, VOCAB, (BATCH, PROMPT))
+    gen = torch.Generator(device="cuda")
+    t, top_k, top_p = SAMPLE_CFG
+    sample = dict(do_sample=True, temperature=t, top_k=top_k, top_p=top_p)
+    eng.generate(ids[:, :16], max_new_tokens=4, generator=gen,
+                 **sample)                                # warm-up
+    res = {}
+    for name, kw in (("greedy", {}),
+                     ("sampled", dict(sample, generator=gen))):
+        gen.manual_seed(17)
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        out = eng.generate(ids, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res[name] = dict(out=out, seconds=dt, counts=_counters(),
+                         tokens_per_s=BATCH * new / dt)
+    expect = _expected_launches(new - 1, 1, layers=model.stack.num_layers)
+    gen.manual_seed(17)
+    top1 = eng.generate(ids, max_new_tokens=new, do_sample=True,
+                        temperature=t, top_k=1, top_p=top_p, generator=gen)
+    greedy, sampled = res["greedy"]["out"], res["sampled"]["out"]
+    # the distribution of the draw on one row of real logits
+    s = _prefilled(model, 1, 1, seed=7)
+    row = s["logits"][0].float()
+    cfg = (t, top_k, top_p)
+    probs = torch.softmax(GenerationEngine._filter_logits(row[None], cfg),
+                          dim=-1)[0]
+    kept = probs > 0
+    counts = torch.zeros(VOCAB, dtype=torch.float64, device="cuda")
+    draw_gen = torch.Generator(device="cuda")
+    draw_gen.manual_seed(5)
+    chunk = 2000
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_DRAWS // chunk):
+        lg = row.expand(chunk, VOCAB)
+        toks = GenerationEngine._pick_token(
+            lg, gumbel_noise(lg.shape, draw_gen), cfg)
+        counts += torch.bincount(toks.long(), minlength=VOCAB)
+    freq = counts / SAMPLE_DRAWS
+    tv = float(0.5 * (freq - probs.double()).abs().sum())
+    outside = int(counts[~kept].sum())
+    draw_s = time.perf_counter() - t0
+    differ = float((sampled[:, PROMPT:] != greedy[:, PROMPT:]).mean())
+    emit({"phase": "sampling", "batch": BATCH, "prompt": PROMPT,
+          "new_tokens": new, "temperature": t, "top_k": top_k,
+          "top_p": top_p,
+          "greedy_tokens_per_s": res["greedy"]["tokens_per_s"],
+          "sampled_tokens_per_s": res["sampled"]["tokens_per_s"],
+          "greedy_seconds": res["greedy"]["seconds"],
+          "sampled_seconds": res["sampled"]["seconds"],
+          "sampled_differs_from_greedy": differ,
+          "top_k_1_equals_greedy": bool((top1 == greedy).all()),
+          "draws": SAMPLE_DRAWS, "kept_tokens": int(kept.sum()),
+          "tv_distance": tv, "tv_limit": SAMPLE_TV_LIMIT,
+          "draws_outside_kept": outside, "draw_seconds": draw_s,
+          "launches": res["sampled"]["counts"], "expected_launches": expect})
+    for name in ("greedy", "sampled"):
+        out = res[name]["out"]
+        check(out.shape == (BATCH, PROMPT + new), f"sampling {name} shape")
+        check(bool((out >= 0).all() and (out < VOCAB).all()),
+              f"sampling {name}: token ids outside the vocabulary")
+        check(bool((out[:, :PROMPT] == ids).all()),
+              f"sampling {name}: prompt lost")
+        _check_launches(f"generate {name}", res[name]["counts"], expect)
+    check(bool((top1 == greedy).all()),
+          "sampling: top_k=1 differs from the greedy tokens")
+    check(differ > 0.0, "sampling: the sampled tokens are the greedy ones")
+    check(outside == 0, f"sampling: {outside} draws outside the kept set")
+    check(tv < SAMPLE_TV_LIMIT, f"sampling: total-variation distance {tv} "
+          f">= {SAMPLE_TV_LIMIT}")
+    del s
+    return res["sampled"]["counts"]
+
+
+def _spec_teacher_forced(model, k: int = SPEC_K) -> None:
+    """The verify pass against the decode step, teacher-forced: from one
+    prefilled pool (b 8, context 128) the decode path (B1, B2/B3) takes
+    k + 1 greedy steps; the verify pass (B4 and the prompt GEMMs, then
+    the LM head on b (k + 1) rows) scores the same k + 1 tokens at once
+    from a copy of the starting pool. Their logits at each window
+    position must agree within the bf16 teacher-forced limit (0.1: the
+    two round bf16 intermediates at other points); the share of equal
+    greedy picks is printed (at a near-tie they can differ, so the
+    speculative stream is not required to equal the plain one token for
+    token)."""
+    from paddle_tpu_torch.incubate.nn.fused_transformer import PagedKV
+
+    b, tol = SPEC_BATCH, 0.1
+    s = _prefilled(model, b, k + 1, seed=6)
+    eng, st, tables = s["eng"], s["st"], s["tables"]
+    w, emb, head, lnf_s, lnf_b = (s[n] for n in ("w", "emb", "head",
+                                                 "lnf_s", "lnf_b"))
+    ck0, cv0 = _clone(s["ck"]), _clone(s["cv"])
+    tok, pos = s["tok"], s["lens"].clone()
+    window, dec = [tok], []
+    for _ in range(k + 1):
+        x = emb[tok.long()].to(torch.bfloat16)
+        h, _ = st.decode_raw(w, x, PagedKV(s["ck"], s["cv"]), tables, pos,
+                             eng._cos, eng._sin)
+        lg = eng._logits(h, head, lnf_s, lnf_b)
+        dec.append(lg)
+        tok = eng._argmax(lg)
+        window.append(tok)
+        pos = pos + 1
+    ids = torch.stack(window[:k + 1], dim=1)                  # [b, k+1]
+    x = emb[ids.long()].to(torch.bfloat16)
+    h, _ = st.prefill_chunk_raw(
+        w, x, PagedKV(ck0, cv0), tables, s["lens"],
+        torch.full((b,), k + 1, dtype=torch.int32, device="cuda"),
+        eng._cos, eng._sin)
+    ver = eng._logits(h.reshape(b * (k + 1), -1), head, lnf_s, lnf_b) \
+        .reshape(b, k + 1, -1)
+    dec = torch.stack(dec, dim=1)
+    errs = [max_err(ver[:, j], dec[:, j]) for j in range(k + 1)]
+    agree = float((eng._argmax(ver.reshape(b * (k + 1), -1))
+                   == eng._argmax(dec.reshape(b * (k + 1), -1)))
+                  .float().mean())
+    emit({"phase": "teacher_forced_verify", "batch": b, "window": k + 1,
+          "context": PROMPT, "logits_max_abs_err": max(errs),
+          "per_position": errs, "tol": tol, "argmax_agreement": agree})
+    check(bool(torch.isfinite(ver).all()), "verify: logits not finite")
+    check(max(errs) <= tol, f"verify: logits differ from the decode "
+          f"step's by {max(errs)} > {tol}")
+    del s, ck0, cv0
+
+
+def _build_draft_model():
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import FusedCausalLM
+
+    ptt.seed(3)
+    draft = FusedCausalLM(
+        vocab_size=VOCAB, embed_dim=DRAFT_D, num_heads=DRAFT_HEADS,
+        dim_feedforward=DRAFT_DFF, num_layers=DRAFT_LAYERS,
+        max_position=PROMPT + SPEC_NEW + 1)
+    st = draft.stack
+    for n in ("qkv_weight", "qkv_bias", "out_weight", "out_bias",
+              "ffn1_weight", "ffn1_bias", "ffn2_weight", "ffn2_bias"):
+        p = getattr(st, n)
+        p.data = p.data.to(torch.bfloat16)
+    return draft
+
+
+def slice_speculative(model) -> dict:
+    """Speculative decoding on the bf16 d2048·L24 model, bench.py's
+    --decode-spec protocol: the same 8 requests (prompt 128, 128 new
+    tokens) through a ContinuousBatchingEngine plain, then with spec_k 4
+    and a ScheduledDrafter replaying greedy streams: first the plain
+    run's, then (timed as the acceptance ceiling) the speculative run's
+    own, since the verify pass and the decode step pick apart at
+    near-ties; tokens/s of each, accept rates and rounds.
+    Launch counts reset before and checked after each: the plain run's
+    as slice_continuous's; the speculative run's 24 B4 launches a verify
+    round and one LM head (B2) a round and an admission, nothing else.
+    The pool drains to its starting free pages. Every emitted token is
+    the verify pass's own pick, so the streams are held to the plain ones
+    only through the teacher-forced check (_spec_teacher_forced) and the
+    accept rate. Then a few rounds each with SelfDraftHeads and with a
+    DraftModelDrafter (d1024·L4, 8 heads of 128, bf16, random weights
+    from a seed): valid tokens, the pool drained."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            DraftModelDrafter,
+                                            ScheduledDrafter)
+    from paddle_tpu_torch.profiler import stats
+
+    t_phase = time.perf_counter()
+    L = model.stack.num_layers
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, VOCAB, (PROMPT,)) for _ in range(SPEC_BATCH)]
+    kw = dict(max_batch=SPEC_BATCH, page_size=PAGE,
+              max_length=PROMPT + SPEC_NEW)
+
+    def drive(eng, n_new=SPEC_NEW, ps=prompts):
+        free0 = eng._mgr.free_pages
+        rids = [eng.submit(p, max_new_tokens=n_new) for p in ps]
+        torch.cuda.synchronize()
+        _reset_counters()
+        steps0 = stats.counter("serving.decode_steps").value
+        keys = ("serving.spec_rounds", "serving.spec_drafted_tokens",
+                "serving.spec_accepted_tokens")
+        c0 = {k: stats.counter(k).value for k in keys}
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        by = {r.id: list(r.generated) for r in eng.finished}
+        eng.finished.clear()
+        return dict(seconds=dt, streams=[by[r] for r in rids],
+                    counts=_counters(), free=(free0, eng._mgr.free_pages),
+                    steps=stats.counter("serving.decode_steps").value
+                    - steps0,
+                    **{k.split(".")[1]: stats.counter(k).value - c0[k]
+                       for k in keys})
+
+    def same(a, b):
+        return float(np.mean([u == v for x, y in zip(a, b)
+                              for u, v in zip(x, y)]))
+
+    plain_eng = ContinuousBatchingEngine(model, **kw)
+    drive(plain_eng, 4, prompts[:2])                          # warm-up
+    plain = drive(plain_eng)
+    streams = plain["streams"]
+    script = {}
+    drafter = ScheduledDrafter(
+        lambda req: script.get(np.asarray(req.prompt).tobytes(), []))
+    spec_eng = ContinuousBatchingEngine(model, speculative=drafter,
+                                        spec_k=SPEC_K, **kw)
+    drive(spec_eng, 4, [rng.randint(0, VOCAB, (PROMPT,))])    # warm-up
+    # first the plain run's streams as the script; the verify pass (B4
+    # and the prompt GEMMs) and the decode step (B1, B2/B3) pick apart
+    # at near-ties of the random model's logits (teacher_forced_verify
+    # prints the share), and a stream that moved off its script is
+    # rejected from there on. Then the speculative run's own streams as
+    # the script: the acceptance ceiling of bench.py's protocol, timed
+    script.update((np.asarray(p, np.int32).tobytes(), st)
+                  for p, st in zip(prompts, streams))
+    replay_plain = drive(spec_eng)
+    script.update((np.asarray(p, np.int32).tobytes(), st)
+                  for p, st in zip(prompts, replay_plain["streams"]))
+    spec = drive(spec_eng)
+    total = sum(len(x) for x in streams)
+    accept = spec["spec_accepted_tokens"] / spec["spec_drafted_tokens"]
+    rounds = spec["spec_rounds"]
+    expect_plain = _expected_launches(plain["steps"], SPEC_BATCH, layers=L)
+    expect_spec = dict.fromkeys(_SOURCES, 0)
+    expect_spec["paged_prefill_attention"] = L * rounds
+    expect_spec["stream_linear"] = rounds + SPEC_BATCH
+    emit({"phase": "speculative", "batch": SPEC_BATCH, "prompt": PROMPT,
+          "new_tokens": SPEC_NEW, "spec_k": SPEC_K,
+          "drafter": "ScheduledDrafter (a speculative run's own streams)",
+          "plain_seconds": plain["seconds"],
+          "spec_seconds": spec["seconds"],
+          "plain_tokens_per_s": total / plain["seconds"],
+          "spec_tokens_per_s": total / spec["seconds"],
+          "speedup": plain["seconds"] / spec["seconds"],
+          "accept_rate": accept, "rounds": rounds,
+          "plain_decode_steps": plain["steps"],
+          "replaying_plain": {
+              "seconds": replay_plain["seconds"],
+              "tokens_per_s": total / replay_plain["seconds"],
+              "accept_rate": replay_plain["spec_accepted_tokens"]
+              / replay_plain["spec_drafted_tokens"],
+              "rounds": replay_plain["spec_rounds"],
+              "tokens_equal_to_plain": same(replay_plain["streams"],
+                                            streams)},
+          "tokens_equal_to_plain": same(spec["streams"], streams),
+          "tokens_equal_to_script": same(spec["streams"],
+                                         replay_plain["streams"]),
+          "free_pages": {"plain": plain["free"], "spec": spec["free"]},
+          "launches_plain": plain["counts"],
+          "launches_spec": spec["counts"],
+          "expected_launches_spec": expect_spec})
+    _check_launches("speculative plain", plain["counts"], expect_plain)
+    _check_launches("speculative", spec["counts"], expect_spec)
+    check(rounds > 0, "speculative: no verify round ran")
+    check(all(len(x) == SPEC_NEW for x in spec["streams"]),
+          "speculative: a request finished with other than 128 tokens")
+    check(all(0 <= t < VOCAB for x in spec["streams"] for t in x),
+          "speculative: token ids outside the vocabulary")
+    for name, r in (("plain", plain), ("speculative", spec),
+                    ("speculative replaying plain", replay_plain)):
+        check(r["free"][0] == r["free"][1], f"{name}: the pool's free pages "
+              f"did not return to their start value {r['free']}")
+    _spec_teacher_forced(model)
+    # a few rounds with each learned-free drafter
+    draft = _build_draft_model()
+    for name, arg in (("self", "self"), ("draft_model",
+                                         DraftModelDrafter(draft))):
+        eng = ContinuousBatchingEngine(model, speculative=arg,
+                                       spec_k=SPEC_K, **kw)
+        r = drive(eng, 2 * (SPEC_K + 1) + 1)
+        emit({"phase": f"speculative_{name}", "batch": SPEC_BATCH,
+              "new_tokens": 2 * (SPEC_K + 1) + 1, "rounds": r["spec_rounds"],
+              "accept_rate": r["spec_accepted_tokens"]
+              / max(r["spec_drafted_tokens"], 1),
+              "seconds": r["seconds"], "free_pages": r["free"],
+              "launches": r["counts"]})
+        check(r["spec_rounds"] >= 2, f"speculative_{name}: fewer than two "
+              "rounds ran")
+        check(all(0 <= t < VOCAB for x in r["streams"] for t in x),
+              f"speculative_{name}: token ids outside the vocabulary")
+        check(r["free"][0] == r["free"][1],
+              f"speculative_{name}: the pool did not drain {r['free']}")
+        check(r["counts"]["paged_prefill_attention"] >= L * r["spec_rounds"],
+              f"speculative_{name}: the verify did not run B4")
+        del eng
+    del draft
+    torch.cuda.empty_cache()
+    emit({"phase": "a6_paths", "wall_s": time.perf_counter() - t_phase})
+    return spec["counts"]
+
+
 # ---------------------------------------------------------------- main
 
 _SOURCES = {
@@ -5063,6 +5409,12 @@ def drive(args) -> None:
     emit({"phase": "decode_backend_kernels",
           "wall_s": time.perf_counter() - t0})
     by_path.update(slice_decode_backends(model))
+    # sampled and speculative decoding, on the bf16 stack
+    t0 = time.perf_counter()
+    by_path["generate_sampled"] = slice_sampling(model)
+    by_path["speculative"] = slice_speculative(model)
+    emit({"phase": "sampling_speculative", "wall_s":
+          time.perf_counter() - t0})
     # quantized serving on the same model: the first quantized engine
     # turns its bf16 stack into int8 in place
     t0 = time.perf_counter()

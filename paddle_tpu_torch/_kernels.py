@@ -139,7 +139,7 @@ _SIGNATURES = {
         # scale, stream
         "ptt_paged_fused": [_P] * 6 + [_I] * 8 + [_P, _I, _F, _P],
         # as ptt_paged_fused, with pages_per_compute_block after num_pages
-        "ptt_paged_pallas": [_P] * 6 + [_I] * 9 + [_F, _P],
+        "ptt_paged_pallas": [_P] * 6 + [_I] * 9 + [_P, _I, _F, _P],
     },
 }
 

@@ -177,6 +177,19 @@ define_flag("serve_shed_burn_rate", 0.0,
             "overload shedding on service health: reject submits "
             "with ServerOverloaded while the rolling SLO burn-rate "
             "gauge (serving/slo.py) exceeds this; 0 disables")
+define_flag("spec_k", 4,
+            "speculative decoding window (inference/speculative.py): "
+            "draft tokens proposed per verify round when the engines "
+            "run with speculative= and no explicit spec_k; the verify "
+            "pass scores k+1 tokens in ONE pass through the stack, so "
+            "the weights are read once per accepted window instead of "
+            "once per token")
+define_flag("spec_drafter", "self",
+            "default drafter for speculative=True: self (training-free "
+            "self-drafting heads off the target's hidden state — no "
+            "extra weights to stream) | draft (requires an explicit "
+            "FusedCausalLM draft model / DraftModelDrafter passed as "
+            "speculative=, which keeps its own tiny KV state)")
 define_flag("kv_host_tier_bytes", 0,
             "host-DRAM KV tier capacity per engine in bytes; the tier "
             "comes with the fleet slice of the port, so any value "

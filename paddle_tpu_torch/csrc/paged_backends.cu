@@ -45,21 +45,22 @@
 // card short (decode_q_plan), each warp walking its tiles through a
 // 3-tile ring of its own, on csrc/decode_tiles.cuh (B1's ring, walk, copy,
 // tile body and merge). Tokens past the row's length are not read. B9
-// keeps the stock kernel's schedule: one block per (sequence, kv head),
-// compute blocks of `ppcb` pages, lengths masked per compute block, and
-// its renormalising update o = (l_prev a o + b o_cur) / l_next; the 4
-// warps of a block share each compute block's slices and merge. The stock
-// kernel wants a [n_kv, pages, ps, d] pool, which the reference makes by
-// transposing the whole pool on every call; B9 reads the page-major pool
-// in place. B8 and B9 take absolute page ids; a page id outside the pool
-// is never read (its tokens are masked).
+// (bf16: pallas_paged_mma) is the same walk under its own name. The stock
+// kernel runs one program per (sequence, kv head) over compute blocks of
+// `ppcb` pages with the renormalising update o = (l_prev a o + b o_cur) /
+// l_next, and wants a [n_kv, pages, ps, d] pool, which the reference makes
+// by transposing the whole pool on every call; both fold the same tokens,
+// so on the card B9 takes B8's tile order (its plain version keeps the
+// compute blocks, and the chip check holds the kernel to it) and reads the
+// page-major pool in place. float32 B9 keeps the compute blocks and the
+// renormalising update on the CUDA cores. B8 and B9 take absolute page
+// ids; a page id outside the pool is never read (its tokens are masked).
 //
 // Dtypes. bf16 runs on the tensor cores (mma.sync m16n8k16 from ldmatrix
 // fragments): S = Q K^T with q's raw bf16 values and the scale applied to
-// the f32 scores; B9's probabilities enter P V as a bf16 pair (hi + lo),
-// rounded to 2^-17, B8's (B1's tile body) as three bf16 parts, within
-// 2^-27 (the TPU's DEFAULT precision rounds them to bf16; the plain
-// versions keep f32). float32 runs on the CUDA cores.
+// the f32 scores; the probabilities enter P V (B1's tile body) as three
+// bf16 parts, within 2^-27 (the TPU's DEFAULT precision rounds them to
+// bf16; the plain versions keep f32). float32 runs on the CUDA cores.
 //
 // Bounds (H100 SXM: 3.35 TB/s). Decode attention does 4 flops a K/V row
 // pair per query head: far below the card's balance, so bytes bound all
@@ -85,7 +86,6 @@ constexpr int kChunk = 64;      // B7: region tokens a chunk (the wrapper's
                                 // STREAM_KERNEL_CHUNK)
 constexpr int kRows = 64;       // B7 bf16: query rows a pass, 16 a warp
 constexpr int kRing = 2;        // B7 bf16: chunks in flight
-constexpr int kSub = 16;        // B8/B9: key rows of a slice
 constexpr int kUnroll = 4;      // f32: K/V rows a warp keeps in flight
 
 struct PagedParams {
@@ -549,111 +549,23 @@ __global__ void __launch_bounds__(kThreads) stream_merge(const PagedParams p) {
 }
 
 // ---------------------------------------------------------------- B8/B9
-// bf16: a warp's 16-row q tile (rows >= g zero) and a 2-stage ring of
-// 16-token K/V slices in shared memory.
 
-template <int D>
-__device__ __forceinline__ void warp_load_q(bf16* sq, const PagedParams& p,
-                                            int bi, int h) {
-  constexpr int kPitch = TileBf16<D>::kPitch, kVec = D / 8;
-  const bf16* q = static_cast<const bf16*>(p.q);
-  for (int i = threadIdx.x % 32; i < kSub * kVec; i += 32) {
-    const int r = i / kVec, e = (i % kVec) * 8;
-    const bool in = r < p.g;
-    cp_async16(sq + r * kPitch + e, q + (in ? q_at(p, bi, h, r) + e : 0),
-               in ? 16 : 0);
-  }
-}
-
-// absolute page of slice j of batch row bi (16 tokens from token 16 j), or
-// -1 when the id lies outside the pool
-__device__ __forceinline__ int slice_page(const PagedParams& p, int bi,
-                                          int j) {
-  const int pg = p.tables[static_cast<int64_t>(bi) * p.pp + j * kSub / p.ps];
-  return pg >= 0 && pg < p.num_pages ? pg : -1;
-}
-
-// slice j of kv head h's K and V rows into sk/sv, by the lanes of a warp
-template <int D>
-__device__ __forceinline__ void warp_load_kv(bf16* sk, bf16* sv,
-                                             const PagedParams& p, int bi,
-                                             int h, int j) {
-  constexpr int kPitch = TileBf16<D>::kPitch, kVec = D / 8;
-  const int pg = slice_page(p, bi, j), s0 = (j * kSub) % p.ps;
-  const bf16* kp = static_cast<const bf16*>(p.k_pool);
-  const bf16* vp = static_cast<const bf16*>(p.v_pool);
-  for (int i = threadIdx.x % 32; i < kSub * kVec; i += 32) {
-    const int r = i / kVec, e = (i % kVec) * 8;
-    const int64_t off = pg >= 0 ? pool_at(p, pg, h, s0 + r) + e : 0;
-    cp_async16(sk + r * kPitch + e, kp + off, pg >= 0 ? 16 : 0);
-    cp_async16(sv + r * kPitch + e, vp + off, pg >= 0 ? 16 : 0);
-  }
-}
-
-// One slice into a warp's online softmax (m, l per thread-quad row; o
-// the 16 x D accumulator): keys key0 + col, valid below n on a page of
-// the pool. P V takes p as a bf16 pair (hi + lo).
-template <int D>
-__device__ __forceinline__ void attend_slice(float (&m)[2], float (&l)[2],
-                                             float (&o)[D / 8][4],
-                                             const bf16* sq, const bf16* sk,
-                                             const bf16* sv, int key0, int n,
-                                             bool page_ok, float scale) {
-  const int t = threadIdx.x % 4;
-  float s[kSub / 8][4];
-  zero(s);
-  mma_abt<kSub, D>(s, sq, sk);
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int nt = 0; nt < kSub / 8; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int pos = key0 + nt * 8 + 2 * t + (c & 1);
-      const float x = page_ok && pos < n ? s[nt][c] * scale : -INFINITY;
-      s[nt][c] = x;
-      mx[c >> 1] = fmaxf(mx[c >> 1], x);
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = quad_max(mx[r]);
-    const float alpha = expf(m[r] - mx[r]);
-    m[r] = mx[r];
-    l[r] *= alpha;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      o[nt][2 * r] *= alpha;
-      o[nt][2 * r + 1] *= alpha;
-    }
-  }
-  float lo[kSub / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < kSub / 8; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float e = expf(s[nt][c] - m[c >> 1]);  // masked: 0
-      l[c >> 1] += e;
-      s[nt][c] = bf16_round(e);
-      lo[nt][c] = e - s[nt][c];
-    }
-  mma_xb<kSub, D>(o, s, sv);
-  mma_xb<kSub, D>(o, lo, sv);
-}
-
-// B8, bf16 (fused_paged_mma): B1's tile walk (csrc/decode_tiles.cuh) with
-// no current token and no append. One block of 4 warps a (row, kv head),
-// or a (row, kv head, split) of the row's 16-token tiles (the wrapper's
-// decode_q_plan); warp w walks tiles w, w + 4, ... through its own 3-tile
-// cp.async ring, whole rows a warp instruction, page ids read a tile
-// ahead, a tile the warp never reaches not issued. Ids are absolute: one
-// outside [0, num_pages) is never read, its tokens masked. The tile body
-// is B1's (bf16_tile); finish merges the warps and, split, the splits in
-// split order by a ticket, with a phantom current token of logit
-// kNoToken and value 0 (exactly 0 for a row that attends nothing). `ws`
-// (n_split > 1): the splits' partials, (m, l) pairs, then a ticket a
-// (row, kv head).
+// B8 and B9, bf16 (fused_paged_mma, pallas_paged_mma): B1's tile walk
+// (csrc/decode_tiles.cuh) with no current token and no append. One block
+// of 4 warps a (row, kv head), or a (row, kv head, split) of the row's
+// 16-token tiles (the wrapper's decode_q_plan); warp w walks tiles w, w +
+// 4, ... through its own 3-tile cp.async ring, whole rows a warp
+// instruction, page ids read a tile ahead, a tile the warp never reaches
+// not issued. Ids are absolute: one outside [0, num_pages) is never read,
+// its tokens masked. The tile body is B1's (bf16_tile); finish merges the
+// warps and, split, the splits in split order by a ticket, with a phantom
+// current token of logit kNoToken and value 0 (exactly 0 for a row that
+// attends nothing). `ws` (n_split > 1): the splits' partials, (m, l)
+// pairs, then a ticket a (row, kv head). The two kernels differ in name
+// only, so the profiler tells B8's launches from B9's.
 template <int NG>
-__global__ void __launch_bounds__(decode::kWarps * 32, 1)
-    fused_paged_mma(const PagedParams p, float* ws, int n_split) {
+__device__ __forceinline__ void tile_walk_bf16(const PagedParams& p,
+                                               float* ws, int n_split) {
   using R = decode::BfRing<NG>;
   using decode::kStages;
   constexpr int kD = R::kD, kQPitch = R::kQPitch, kW = decode::kWarps;
@@ -761,6 +673,22 @@ __global__ void __launch_bounds__(decode::kWarps * 32, 1)
                                 static_cast<int64_t>(row) * n_kv + h});
 }
 
+template <int NG>
+__global__ void __launch_bounds__(decode::kWarps * 32, 1)
+    fused_paged_mma(const PagedParams p, float* ws, int n_split) {
+  tile_walk_bf16<NG>(p, ws, n_split);
+}
+
+// B9, bf16: the stock kernel's compute blocks of ppcb pages and its
+// renormalising update fold the same tokens in another order; the tile
+// walk folds them a 16-token tile at a time (the wrapper's plain version
+// keeps the compute blocks and is the definition)
+template <int NG>
+__global__ void __launch_bounds__(decode::kWarps * 32, 1)
+    pallas_paged_mma(const PagedParams p, float* ws, int n_split) {
+  tile_walk_bf16<NG>(p, ws, n_split);
+}
+
 // B9's merge of one compute block: every warp left its (m, l) per row in
 // sml[w][row] and its unnormalised output in so_w[w][row][D]; the stock
 // kernel's renormalising update folds them into so (the running output
@@ -803,9 +731,8 @@ __device__ __forceinline__ void pallas_fold(const PagedParams& p,
   __syncthreads();
 }
 
-// shared-memory layout of B9's f32 statistics, after the per-dtype tiles:
-// so [16][d], so_w [kWarps][16][d] (the bf16 kernel lays it over its
-// rings), sml [kWarps][16][2], sfac [kWarps][16], st [16][4]
+// shared-memory layout of B9's f32 statistics: so [16][d], so_w
+// [kWarps][16][d], sml [kWarps][16][2], sfac [kWarps][16], st [16][4]
 constexpr int kStatFloats = kWarps * 16 * 2 + kWarps * 16 + 16 * 4;
 
 __device__ __forceinline__ void pallas_init(const PagedParams& p, float* so,
@@ -825,79 +752,6 @@ __device__ __forceinline__ void pallas_store(const PagedParams& p, int bi,
     const int row = i / p.d, e = i % p.d;
     out[q_at(p, bi, h, row) + e] = from_f32<T>(so[row * p.d + e]);
   }
-}
-
-// B9: one block per (sequence, kv head); within each compute block of
-// ppcb pages that holds an attended token, warp w takes slices w, w + 4,
-// ... with its own ring and online softmax, then the block folds them.
-template <int D>
-__global__ void __launch_bounds__(kThreads) pallas_bf16(const PagedParams p) {
-  constexpr int kPitch = TileBf16<D>::kPitch, kTile = kSub * kPitch;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, t = lane & 3;
-  bf16* sq = reinterpret_cast<bf16*>(smem);  // [kSub][kPitch], shared
-  bf16* ring = sq + kTile;                   // [kWarps][4][kSub][kPitch]
-  bf16* sk = ring + warp * 4 * kTile;
-  bf16* sv = sk + 2 * kTile;
-  float* so = reinterpret_cast<float*>(ring + kWarps * 4 * kTile);  // [16][D]
-  float* sml = so + 16 * D;
-  float* sfac = sml + kWarps * 16 * 2;
-  float* st = sfac + kWarps * 16;
-  float* so_w = reinterpret_cast<float*>(ring);  // over the rings
-  const int bi = blockIdx.x, h = blockIdx.y;
-  const int n = min(max(p.seq_lens[bi], 0), p.pp * p.ps);
-  const int bk = p.ppcb * p.ps, per_blk = bk / kSub;
-  for (int i = threadIdx.x; i < kSub * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), e = (i % (D / 8)) * 8;
-    const bool in = r < p.g;
-    cp_async16(sq + r * kPitch + e,
-               static_cast<const bf16*>(p.q) + (in ? q_at(p, bi, h, r) + e : 0),
-               in ? 16 : 0);
-  }
-  cp_async_commit();
-  pallas_init(p, so, st);
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int blk = 0; blk * bk < n; ++blk) {
-    const int mine = (per_blk - warp + kWarps - 1) / kWarps;
-    const int j0 = blk * per_blk + warp;
-    if (mine > 0) warp_load_kv<D>(sk, sv, p, bi, h, j0);
-    cp_async_commit();
-    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, o[D / 8][4];
-    zero(o);
-    for (int k = 0; k < mine; ++k) {
-      const int j = j0 + k * kWarps;
-      if (k + 1 < mine)
-        warp_load_kv<D>(sk + ((k + 1) & 1) * kTile, sv + ((k + 1) & 1) * kTile,
-                        p, bi, h, j + kWarps);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncwarp();
-      attend_slice<D>(m, l, o, sq, sk + (k & 1) * kTile, sv + (k & 1) * kTile,
-                      j * kSub, n, slice_page(p, bi, j) >= 0, p.scale);
-      __syncwarp();
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every ring is drained: so_w may overwrite them
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = gq + r * 8;
-      const float lr = quad_sum(l[r]);
-      if (t == 0) {
-        sml[(warp * 16 + row) * 2] = m[r];
-        sml[(warp * 16 + row) * 2 + 1] = lr;
-      }
-      float* dst = so_w + (warp * 16 + row) * D;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        *reinterpret_cast<float2*>(dst + nt * 8 + 2 * t) =
-            make_float2(o[nt][2 * r], o[nt][2 * r + 1]);
-    }
-    __syncthreads();
-    pallas_fold(p, sml, so_w, so, st, sfac);
-  }
-  pallas_store<bf16>(p, bi, h, so);
 }
 
 // ---------------------------------------------------------------- f32
@@ -1111,14 +965,17 @@ int run_stream_bf16(const PagedParams& p, cudaStream_t s) {
   return launch(stream_merge<bf16>, dim3(p.b * p.g, p.n_kv), 0, s, p);
 }
 
-// B8, bf16: one launch of fused_paged_mma; its tickets, after the
-// partials and (m, l) pairs, are zeroed first when it splits
+// B8 or B9, bf16: one launch of fused_paged_mma (pallas_paged_mma); its
+// tickets, after the partials and (m, l) pairs, are zeroed first when it
+// splits
 template <int D>
-int run_fused_bf16(const PagedParams& p, float* ws, int n_split,
-                   cudaStream_t s) {
+int run_walk_bf16(int which, const PagedParams& p, float* ws, int n_split,
+                  cudaStream_t s) {
   constexpr size_t smem = decode::BfRing<D / 32>::kSmem;
+  const auto kernel = which == kFused ? fused_paged_mma<D / 32>
+                                      : pallas_paged_mma<D / 32>;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_paged_mma<D / 32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e == cudaSuccess && n_split > 1) {
     const size_t rows = static_cast<size_t>(p.b) * p.n_kv;
@@ -1126,20 +983,8 @@ int run_fused_bf16(const PagedParams& p, float* ws, int n_split,
                         rows * sizeof(int), s);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_paged_mma<D / 32>
-      <<<dim3(p.n_kv * n_split, p.b), kThreads, smem, s>>>(p, ws, n_split);
+  kernel<<<dim3(p.n_kv * n_split, p.b), kThreads, smem, s>>>(p, ws, n_split);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int run_pallas_bf16(const PagedParams& p, cudaStream_t s) {
-  const size_t tile = sizeof(bf16) * kSub * TileBf16<D>::kPitch;
-  // the f32 so_w [kWarps][16][D] lies over the rings (kWarps * 4 tiles)
-  static_assert(kWarps * 16 * D * sizeof(float) <=
-                    kWarps * 4 * sizeof(bf16) * kSub * TileBf16<D>::kPitch,
-                "so_w must fit over the rings");
-  return launch(pallas_bf16<D>, dim3(p.b, p.n_kv),
-                (1 + 4 * kWarps) * tile + stat_bytes(D), s, p);
 }
 
 template <int EPL, int G>
@@ -1176,12 +1021,7 @@ int run(int which, int dtype, const PagedParams& p, void* stream) {
       if (p.d == 256) return run_stream_bf16<256>(p, s);
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (which == kFused)  // ptt_paged_fused launches run_fused_bf16
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (p.d == 64) return run_pallas_bf16<64>(p, s);
-    if (p.d == 96) return run_pallas_bf16<96>(p, s);
-    if (p.d == 128) return run_pallas_bf16<128>(p, s);
-    if (p.d == 256) return run_pallas_bf16<256>(p, s);
+    // ptt_paged_fused and ptt_paged_pallas launch run_walk_bf16
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
@@ -1221,6 +1061,30 @@ bool shape_ok(int n_q, int n_kv, int d, int page_size) {
          n_q / n_kv <= 8 && d > 0 && d <= 256 && page_size > 0;
 }
 
+// B8's and B9's shared argument contract
+bool walk_args_ok(int dtype, int b, int n_q, int n_kv, int d, int page_size,
+                  int pages_per_seq, const void* ws, int n_split) {
+  return shape_ok(n_q, n_kv, d, page_size) && page_size % 16 == 0 &&
+         pages_per_seq > 0 && b <= 65535 && n_split >= 1 && n_split <= 16 &&
+         static_cast<int64_t>(n_kv) * n_split <= 2147483647 &&
+         (n_split == 1 || (dtype == ptt::kBF16 && ws != nullptr));
+}
+
+// B8 or B9: bf16 on the tile walk, f32 on the CUDA cores
+int run_walk(int which, int dtype, const PagedParams& p, void* ws,
+             int n_split, void* stream) {
+  if (dtype != ptt::kBF16 || p.b == 0) return run(which, dtype, p, stream);
+  float* w = static_cast<float*>(ws);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p.d) {
+    case 64: return run_walk_bf16<64>(which, p, w, n_split, s);
+    case 96: return run_walk_bf16<96>(which, p, w, n_split, s);
+    case 128: return run_walk_bf16<128>(which, p, w, n_split, s);
+    case 256: return run_walk_bf16<256>(which, p, w, n_split, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the first failing launch. Shapes: q/out [b,
@@ -1235,8 +1099,8 @@ bool shape_ok(int n_q, int n_kv, int d, int page_size) {
 // * chunks_per_block. float32: blocks = nch, chunks_per_block 1. B8/B9:
 // block_tables [b, pages_per_seq] int32 of absolute ids in [0, num_pages),
 // d 64, 96, 128 or 256, page_size a multiple of 16; B9 pages_per_seq a
-// multiple of ppcb. B8 bf16 takes n_split (1 to 16) blocks a (row, kv
-// head), b <= 65535; n_split > 1 needs `ws`: f32 [b * n_kv * n_split * g
+// multiple of ppcb. B8 and B9 bf16 take n_split (1 to 16) blocks a (row,
+// kv head), b <= 65535; n_split > 1 needs `ws`: f32 [b * n_kv * n_split * g
 // * (d + 2)] then int32 [b * n_kv] tickets (zeroed here); f32 takes 1.
 extern "C" int ptt_paged_stream(const void* q, const void* k_pool,
                                 const void* v_pool, const int* seq_lens,
@@ -1280,25 +1144,14 @@ extern "C" int ptt_paged_fused(const void* q, const void* k_pool,
                                int b, int n_q, int n_kv, int d, int page_size,
                                int pages_per_seq, int num_pages, void* ws,
                                int n_split, float scale, void* stream) {
-  if (!shape_ok(n_q, n_kv, d, page_size) || page_size % kSub != 0 ||
-      pages_per_seq <= 0 || b > 65535 || n_split < 1 || n_split > 16 ||
-      static_cast<int64_t>(n_kv) * n_split > 2147483647 ||
-      (n_split > 1 && (dtype != ptt::kBF16 || ws == nullptr)))
+  if (!walk_args_ok(dtype, b, n_q, n_kv, d, page_size, pages_per_seq, ws,
+                    n_split))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedParams p = make_params(q, k_pool, v_pool, seq_lens, block_tables, out,
                               b, n_q, n_kv, d, page_size, scale);
   p.pp = pages_per_seq;
   p.num_pages = num_pages;
-  if (dtype != ptt::kBF16 || b == 0) return run(kFused, dtype, p, stream);
-  float* w = static_cast<float*>(ws);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64: return run_fused_bf16<64>(p, w, n_split, s);
-    case 96: return run_fused_bf16<96>(p, w, n_split, s);
-    case 128: return run_fused_bf16<128>(p, w, n_split, s);
-    case 256: return run_fused_bf16<256>(p, w, n_split, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return run_walk(kFused, dtype, p, ws, n_split, stream);
 }
 
 extern "C" int ptt_paged_pallas(const void* q, const void* k_pool,
@@ -1306,10 +1159,11 @@ extern "C" int ptt_paged_pallas(const void* q, const void* k_pool,
                                 const int* block_tables, void* out, int dtype,
                                 int b, int n_q, int n_kv, int d, int page_size,
                                 int pages_per_seq, int num_pages,
-                                int pages_per_compute_block, float scale,
-                                void* stream) {
-  if (!shape_ok(n_q, n_kv, d, page_size) || page_size % kSub != 0 ||
-      pages_per_seq <= 0 || pages_per_compute_block <= 0 ||
+                                int pages_per_compute_block, void* ws,
+                                int n_split, float scale, void* stream) {
+  if (!walk_args_ok(dtype, b, n_q, n_kv, d, page_size, pages_per_seq, ws,
+                    n_split) ||
+      pages_per_compute_block <= 0 ||
       pages_per_seq % pages_per_compute_block != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   PagedParams p = make_params(q, k_pool, v_pool, seq_lens, block_tables, out,
@@ -1317,5 +1171,5 @@ extern "C" int ptt_paged_pallas(const void* q, const void* k_pool,
   p.pp = pages_per_seq;
   p.num_pages = num_pages;
   p.ppcb = pages_per_compute_block;
-  return run(kPallas, dtype, p, stream);
+  return run_walk(kPallas, dtype, p, ws, n_split, stream);
 }

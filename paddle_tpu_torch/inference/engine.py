@@ -1,9 +1,10 @@
 """Generation engines: prefill + paged-KV decode loop.
 
 Counterpart of ``paddle_tpu/inference/engine.py``. ``GenerationEngine``
-prefills a batch of prompts and decodes greedily in chunks of k steps,
-each chunk a loop of device work with ONE host sync at its end (the
-picked token feeds the next step on the device). The
+prefills a batch of prompts and decodes in chunks of k steps, greedily
+or by temperature/top-k/top-p sampling, each chunk a loop of device work
+with ONE host sync at its end (the picked token feeds the next step on
+the device). The
 ``ContinuousBatchingEngine`` keeps ``max_batch`` decode slots over one
 shared paged KV pool and admits waiting requests as slots free up.
 
@@ -15,8 +16,10 @@ int8 with f32 scales. An MoE model (``moe_num_experts``) decodes
 through the ungrouped layer body with its expert FFN on the grouped
 GEMM. The continuous engine's ``_adapter_operands`` hook (the serving
 frontend's ``AdapterBank``) turns a decode chunk into the adaptered
-decode step. Sampling, speculative decoding, KV migration and host-tier
-spill come with later slices of the port and raise.
+decode step. ``speculative=`` replaces the continuous engine's decode
+chunk with draft + verify rounds (``inference/speculative.py``). KV
+migration and host-tier spill come with later slices of the port and
+raise.
 """
 from __future__ import annotations
 
@@ -38,11 +41,23 @@ from .kv_cache import BlockKVCacheManager
 
 __all__ = ["FusedCausalLM", "GenerationEngine",
            "ContinuousBatchingEngine", "GenRequest",
-           "DEFAULT_DECODE_CHUNK"]
+           "DEFAULT_DECODE_CHUNK", "gumbel_noise"]
 
 #: decode chunk when the caller names none: one chunk covers a whole
 #: bench-length generation, so the host syncs once for it
 DEFAULT_DECODE_CHUNK = 128
+
+
+def gumbel_noise(shape, generator: torch.Generator, device=None):
+    """Standard Gumbel noise ``-log(-log(u))`` with ``u`` uniform in
+    ``[tiny, 1)`` drawn from ``generator`` (on its device unless
+    ``device`` is given): the reference's Gumbel noise, so
+    ``argmax(noise + logits)`` is its categorical draw (which adds
+    Gumbel noise of the logits' shape and takes the argmax)."""
+    device = generator.device if device is None else device
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
 
 
 def _resolve_decode_chunk(decode_chunk) -> int:
@@ -112,8 +127,9 @@ class FusedCausalLM(nn.Module):
 
 
 class GenerationEngine:
-    """Single-batch greedy generation over a FusedCausalLM: prefill the
-    prompts, then decode chunks of k steps with one host sync each."""
+    """Single-batch generation over a FusedCausalLM, greedy or sampled:
+    prefill the prompts, then decode chunks of k steps with one host sync
+    each."""
 
     def __init__(self, model: FusedCausalLM, page_size: int = 16,
                  max_length: int = 1024, num_pages: Optional[int] = None,
@@ -221,19 +237,57 @@ class GenerationEngine:
         return torch.where(picked >= V, torch.zeros_like(picked), picked)
 
     @staticmethod
-    def _pick_token(logits, key=None, sample_cfg=None):
-        if sample_cfg is not None:
-            raise _later_slice("sampled decoding", "sampling")
-        return GenerationEngine._argmax(logits)
+    def _filter_logits(logits, sample_cfg):
+        """The sampling filter of ``sample_cfg = (temperature, top_k,
+        top_p)``, in order: the logits over ``max(temperature, 1e-6)``;
+        top-k keeps the values at or above the k-th largest (ties kept);
+        top-p keeps, in descending order, the tokens whose preceding
+        probability mass is below ``top_p`` (the smallest kept logit is
+        the threshold); the rest are set to -1e30. All on the device."""
+        temperature, top_k, top_p = sample_cfg
+        # a tensor divisor: a division by a Python scalar may multiply by
+        # its reciprocal
+        logits = logits / torch.clamp(torch.tensor(
+            float(temperature), dtype=logits.dtype, device=logits.device),
+            min=1e-6)
+        neg = torch.tensor(-1e30, dtype=logits.dtype, device=logits.device)
+        V = logits.shape[-1]
+        if top_k and 0 < int(top_k) < V:
+            kth = torch.sort(logits, dim=-1).values[..., V - int(top_k)]
+            logits = torch.where(logits < kth[..., None], neg, logits)
+        sorted_l = torch.flip(torch.sort(logits, dim=-1).values, (-1,))
+        probs = torch.softmax(sorted_l, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < float(top_p)
+        inf = torch.tensor(float("inf"), dtype=logits.dtype,
+                           device=logits.device)
+        thresh = torch.where(keep, sorted_l, inf).amin(-1, keepdim=True)
+        return torch.where(logits >= thresh, logits, neg)
+
+    @staticmethod
+    def _pick_token(logits, noise=None, sample_cfg=None):
+        """Greedy argmax, or temperature/top-k/top-p sampling (the
+        reference's top_p_sampling serving op): ``_filter_logits``, then
+        the draw ``argmax(noise + logits)`` with ``noise`` Gumbel noise
+        of logits' shape (``gumbel_noise``), the reference's categorical
+        draw. No host read."""
+        if sample_cfg is None:
+            return GenerationEngine._argmax(logits)
+        logits = GenerationEngine._filter_logits(logits, sample_cfg)
+        return torch.argmax(noise + logits, dim=-1).to(torch.int32)
 
     def _decode_k_fn(self, weights, embed, head_t, lnf_s, lnf_b, tok,
                      seq_lens, cache_k, cache_v, tables, adapter_slots=None,
-                     adapter_banks=None, *, k):
-        """K greedy decode steps: the picked token feeds the next step on
-        the device, so nothing syncs with the host. Returns (tokens
-        [b, k] on the device, cache_k, cache_v); the pool is updated in
-        place. ``adapter_slots`` [b] / ``adapter_banks`` (an
-        ``AdapterBank``'s operands) run the adaptered decode step."""
+                     adapter_banks=None, *, k, sample_cfg=None,
+                     generator=None, noise=None):
+        """K decode steps: the picked token feeds the next step on the
+        device, so nothing syncs with the host. Returns (tokens [b, k] on
+        the device, cache_k, cache_v); the pool is updated in place.
+        ``adapter_slots`` [b] / ``adapter_banks`` (an ``AdapterBank``'s
+        operands) run the adaptered decode step. Greedy by default;
+        ``sample_cfg`` = (temperature, top_k, top_p) samples each step
+        with its own Gumbel noise, drawn from ``generator`` (or taken
+        from ``noise`` [k, b, vocab], a test's)."""
         st = self.model.stack
         adapters = None
         if adapter_banks is not None:
@@ -242,13 +296,18 @@ class GenerationEngine:
         lens = seq_lens
         ck, cv = cache_k, cache_v
         toks = []
-        for _ in range(k):
+        for i in range(k):
             x = embed[tok.long()].to(self._cdtype)
             h, cache = st.decode_raw(weights, x, PagedKV(ck, cv), tables,
                                      lens, self._cos, self._sin,
                                      a8w8=self._a8w8, adapters=adapters)
             ck, cv = cache.k, cache.v
-            tok = self._pick_token(self._logits(h, head_t, lnf_s, lnf_b))
+            logits = self._logits(h, head_t, lnf_s, lnf_b)
+            z = None
+            if sample_cfg is not None:
+                z = noise[i] if noise is not None else gumbel_noise(
+                    logits.shape, generator, logits.device)
+            tok = self._pick_token(logits, z, sample_cfg)
             toks.append(tok)
             lens = lens + 1
         return torch.stack(toks, dim=1), ck, cv
@@ -292,16 +351,18 @@ class GenerationEngine:
     def generate(self, input_ids, max_new_tokens: int = 32,
                  eos_token_id: Optional[int] = None, seq_lens=None,
                  do_sample: bool = False, temperature: float = 1.0,
-                 top_k: int = 0, top_p: float = 1.0):
-        """Greedy decode with per-sequence prompt lengths.
+                 top_k: int = 0, top_p: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        """Decode with per-sequence prompt lengths: greedy, or with
+        ``do_sample`` temperature/top-k/top-p sampling (``_pick_token``)
+        whose Gumbel noise comes from ``generator`` (default: the
+        device's ``default_generator``); greedy draws nothing.
 
         input_ids: [b, s] array (optionally with ``seq_lens`` marking
         real lengths) or a ragged list of 1-D prompts. Returns
         np.ndarray [b, max(s_i) + max_new_tokens]; row i holds its
         prompt then its generated tokens at columns
         lens[i]..lens[i]+max_new_tokens-1 (tail beyond that is pad/EOS)."""
-        if do_sample:
-            raise _later_slice("sampled decoding", "sampling")
         ids, lens = self._pad_prompts(input_ids, seq_lens)
         b, s = ids.shape
         if max_new_tokens <= 0:
@@ -340,6 +401,11 @@ class GenerationEngine:
             torch.as_tensor(ids, device=dev),
             torch.as_tensor(lens, device=dev), cache.k, cache.v, tables)
 
+        cfg = (float(temperature), int(top_k), float(top_p)) \
+            if do_sample else None
+        if do_sample and generator is None:
+            generator = default_generator(dev)
+
         width = s + max_new_tokens
         out = np.zeros((b, width), ids.dtype)
         out[:, :s] = ids
@@ -347,7 +413,10 @@ class GenerationEngine:
 
         # first generated token: prefill logits at each row's own last
         # real position
-        tok_np = self._pick_token(logits).cpu().numpy().astype(ids.dtype)
+        z = gumbel_noise(logits.shape, generator, logits.device) \
+            if do_sample else None
+        tok_np = self._pick_token(logits, z, cfg).cpu().numpy() \
+            .astype(ids.dtype)
         if eos_token_id is not None:
             finished |= tok_np == eos_token_id
         out[np.arange(b), lens] = tok_np
@@ -369,7 +438,7 @@ class GenerationEngine:
                 torch.as_tensor(out[np.arange(b), cur].astype(np.int32),
                                 device=dev),
                 torch.as_tensor(cur.astype(np.int32), device=dev), ck, cv,
-                tables, k=k)
+                tables, k=k, sample_cfg=cfg, generator=generator)
             toks_np = toks.cpu().numpy()
             for j in range(k):
                 col = toks_np[:, j].astype(ids.dtype)
@@ -419,6 +488,12 @@ class ContinuousBatchingEngine:
     admitted mid-stream (their prompt is prefilled into the shared
     cache), so decode shapes stay constant as traffic churns.
 
+    ``speculative=`` (``inference/speculative.py``) replaces the decode
+    chunk with one draft + verify round: ``True`` (``FLAGS_spec_drafter``),
+    ``"self"`` (self-drafting heads), a ``Drafter`` instance or a small
+    ``FusedCausalLM`` draft model; ``spec_k`` defaults to
+    ``FLAGS_spec_k``.
+
     Usage::
 
         eng = ContinuousBatchingEngine(model, max_batch=4)
@@ -434,9 +509,8 @@ class ContinuousBatchingEngine:
                  quant: Optional[str] = None, admit_window: int = 8,
                  starvation_bound: int = 16, mesh=None,
                  mp_degree: Optional[int] = None,
-                 ep_degree: Optional[int] = None, speculative=None):
-        if speculative:
-            raise _later_slice("speculative decoding", "speculation")
+                 ep_degree: Optional[int] = None, speculative=None,
+                 spec_k: Optional[int] = None):
         self.model = model
         self.max_batch = int(max_batch)
         self.max_length = int(max_length)
@@ -484,7 +558,14 @@ class ContinuousBatchingEngine:
         self._slots: list = [None] * self.max_batch   # GenRequest or None
         self._lens = np.zeros((self.max_batch,), np.int64)
         self._last_tok = np.zeros((self.max_batch,), np.int64)
+        # speculative decoding: when set, step() runs one draft + verify
+        # round in place of the decode chunk
         self._spec = None
+        if speculative:
+            from .speculative import build_speculative_decoder
+
+            self._spec = build_speculative_decoder(self, speculative,
+                                                   spec_k)
 
     # ---------------- public API ----------------
 
@@ -502,11 +583,13 @@ class ContinuousBatchingEngine:
 
     def step(self):
         """Admit waiting requests into free slots, then run ONE decode
-        chunk for the active batch. Returns requests finished this
-        step."""
+        chunk — or, with ``speculative=`` set, one draft + verify round —
+        for the active batch. Returns requests finished this step."""
         self._admit()
         if self.num_active == 0:
             return []
+        if self._spec is not None:
+            return self._spec_step()
         k = self.decode_chunk
         active = [i for i, r in enumerate(self._slots) if r is not None]
         fi = self._faults
@@ -592,6 +675,42 @@ class ContinuousBatchingEngine:
         self.finished.extend(done_now)
         return done_now
 
+    def _spec_step(self):
+        """One SPECULATIVE round in place of the decode chunk: the
+        drafter proposes k tokens per active slot, one verify pass
+        (``prefill_chunk_raw`` over the paged pool) scores every window,
+        and the accept prefix emits the accepted drafts plus the bonus
+        token (``inference/speculative.py``)."""
+        k = self._spec.k
+        active = [i for i, r in enumerate(self._slots) if r is not None]
+        fi = self._faults
+        if fi is not None and active:
+            # the chunk path's decode.step fault site, fired BEFORE the
+            # grows so pool squeezes hit the real recovery paths
+            fi.fire("decode.step")
+        # per-slot window, clamped so the verify never writes past what
+        # the request can still emit (which also bounds it to the page
+        # table: cached + remaining <= max_length by the submit check)
+        win = np.zeros((self.max_batch,), np.int64)
+        for i in active:
+            req = self._slots[i]
+            if req is None:
+                continue  # preempted by an earlier slot's grow
+            remaining = req.max_new_tokens - len(req.generated)
+            w = max(1, min(k + 1, remaining,
+                           self.max_length - (int(self._lens[i]) - 1)))
+            win[i] = w
+            need = min(self._mgr.pages_needed(
+                int(self._lens[i]) - 1 + w), self._pages_per_seq)
+            have = len(self._mgr._owned.get(("slot", i), ()))
+            if need > have and \
+                    not self._grow_decode_slot(i, need - have):
+                continue  # slot preempted (serving override)
+        active = [i for i in active if self._slots[i] is not None]
+        if not active:
+            return []
+        return self._spec.run_round(self, active, win)
+
     def run(self):
         """Drain: step until every submitted request finishes."""
         while self.waiting or self.num_active:
@@ -622,6 +741,10 @@ class ContinuousBatchingEngine:
         self._slots[i] = None
         self._lens[i] = 0
         self._last_tok[i] = 0
+        if self._spec is not None:
+            # slot reuse: the next occupant's drafter state re-drafts
+            # from its own recorded history
+            self._spec.reset_slot(i)
 
     def _postprocess_tokens(self, toks_np, active):
         """Hook over the decode chunk's fetched token matrix, called

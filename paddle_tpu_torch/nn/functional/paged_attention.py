@@ -989,10 +989,10 @@ def stream_paged(q, key_cache, value_cache, seq_lens, block_tables,
 
 
 def _paged_kernel(what, fn_name, q, key_cache, value_cache, seq_lens,
-                  block_tables, extra=(), split=False):
+                  block_tables, extra=()):
     """Launch B8 or B9 over ABSOLUTE tables; returns the output.
-    ``extra``: the arguments after ``num_pages``; ``split`` (B8): the
-    workspace and split of ``_decode_split`` instead."""
+    ``extra``: the arguments after ``num_pages`` (B9: its ``ppcb``), then
+    the workspace and split of ``_decode_split``."""
     dt = _check_backend_operands(what, q, key_cache, value_cache, seq_lens,
                                  block_tables, BACKEND_HEAD_DIMS)
     b, n_q, d = q.shape
@@ -1000,16 +1000,15 @@ def _paged_kernel(what, fn_name, q, key_cache, value_cache, seq_lens,
     if ps % 16:
         raise ValueError(f"{what}: page_size {ps} must be a multiple of 16 "
                          "(the kernel's 16-token slices)")
-    if split:
-        n_split, ws = _decode_split(q, b, n_kv, d,
-                                    block_tables.shape[1] * ps, mma=True)
-        extra = (_kernels.ptr(ws), n_split)
+    n_split, ws = _decode_split(q, b, n_kv, d, block_tables.shape[1] * ps,
+                                mma=True)
     out = torch.empty_like(q)
     fn = getattr(_kernels.lib("paged_backends"), fn_name)
     _kernels.check(fn(
         q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
         seq_lens.data_ptr(), block_tables.data_ptr(), out.data_ptr(), dt, b,
-        n_q, n_kv, d, ps, block_tables.shape[1], P, *extra, d ** -0.5,
+        n_q, n_kv, d, ps, block_tables.shape[1], P, *extra,
+        _kernels.ptr(ws), n_split, d ** -0.5,
         _kernels.stream_ptr(q.device)), what)
     return out
 
@@ -1024,18 +1023,22 @@ def fused_paged(q, key_cache, value_cache, seq_lens, block_tables):
         return _fused_paged_plain(q, key_cache, value_cache, seq_lens,
                                   block_tables)
     out = _paged_kernel("fused_paged", "ptt_paged_fused", q, key_cache,
-                        value_cache, seq_lens, block_tables, split=True)
+                        value_cache, seq_lens, block_tables)
     global fused_launches
     fused_launches += 1
     return out
 
 
 def pallas_paged(q, key_cache, value_cache, seq_lens, block_tables):
-    """Kernel B9, the stock paged attention schedule (compute blocks of
-    ``_pallas_ppcb`` pages, the renormalising update), reading the
-    page-major pool in place, over ABSOLUTE ``block_tables``; on a CPU
-    tensor the plain version ``_pallas_paged_plain``."""
-    if q.device.type != "cuda":
+    """Kernel B9, the stock paged attention kernel's function over
+    ABSOLUTE ``block_tables``, reading the page-major pool in place; on a
+    CPU tensor the plain version ``_pallas_paged_plain`` (the stock
+    schedule: compute blocks of ``_pallas_ppcb`` pages, the renormalising
+    update). On the card bf16 runs B8's tile walk under its own name
+    (``pallas_paged_mma``: a block of 4 warps a (row, kv head), or a split
+    of its tiles by ``decode_q_plan``, one launch with a workspace when it
+    splits); f32 keeps the compute blocks, one block a (row, kv head)."""
+    if not _on_card(q):
         return _pallas_paged_plain(q, key_cache, value_cache, seq_lens,
                                    block_tables)
     ppcb = _pallas_ppcb(block_tables.shape[1], key_cache.shape[2])

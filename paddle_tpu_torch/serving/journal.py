@@ -68,8 +68,8 @@ __all__ = ["FlightRecorder", "LIFECYCLE_EVENTS", "chrome_trace",
 #: extras, rendered as a span); the fleet-tier ``failover`` /
 #: ``migrate`` / ``handoff`` / ``spill`` / ``restore`` / ``drain``; and
 #: ``alert`` (a telemetry alert-rule transition, rid/slot = -1). The
-#: speculative, fleet and alert events come with later slices of the
-#: port; the exporters already render them.
+#: fleet and alert events come with later slices of the port; the
+#: exporters already render them.
 LIFECYCLE_EVENTS = (
     "submit", "queued", "admitted", "prefill_chunk", "first_token",
     "decode", "spec_verify", "preempt", "requeue", "stall",

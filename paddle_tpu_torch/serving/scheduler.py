@@ -52,11 +52,26 @@ one ragged LoRA delta launch per target projection
 between requests of one adapter (the JAX package shares them across
 adapters).
 
+Speculative decoding: constructed with ``speculative=`` (and optionally
+``spec_k=``), the engine's decode slot of the SLO-weighted interleave
+cycle runs DRAFT + VERIFY rounds instead of decode chunks
+(``inference/speculative.py``: one pass through the stack per accepted
+window, the paged-prefill kernel over the pool, greedy parity by
+construction). It composes with everything here: chunked prefill
+interleaves unchanged, preemption-by-recompute resets the drafter slot
+so a resumed request re-drafts, accepted tokens count as watchdog and
+deadline progress, and a failed round retries whole (the drafters'
+propose is idempotent). The phase is timed and charged as
+``spec_verify``; each round lands a ``spec_verify`` journal event per
+slot and a ``serve.accept_len`` observation. Adaptered requests do not
+compose with it (the verify pass has no delta path) and raise at
+submit.
+
 Left for later slices of the port (each raises ``NotImplementedError``
-naming its slice): speculative decoding, the fleet hooks (adoption of a
-failed-over request, which re-resolves its adapter) and the host-DRAM
-KV tier (``can_spill()`` is False, so prefix eviction releases pages
-outright).
+naming its slice): tensor-parallel serving (speculation included), the
+fleet hooks (adoption of a failed-over request, which re-resolves its
+adapter) and the host-DRAM KV tier (``can_spill()`` is False, so prefix
+eviction releases pages outright).
 """
 from __future__ import annotations
 
@@ -487,18 +502,21 @@ class ServingEngine(ContinuousBatchingEngine):
             gap = dt_ms / emitted
             for _ in range(emitted):
                 _stats.observe("serve.tpot_ms", gap)
+        phase = "spec_verify" if self._spec is not None \
+            else "decode_chunk"
         if u is not None:
             # the chunk's time splits over the slots it ADVANCED; a
             # wholly-stalled chunk splits over everyone who was active
-            u.charge_phase("decode_chunk", (ts_work - ts_admit) * 1e3,
+            u.charge_phase(phase, (ts_work - ts_admit) * 1e3,
                            advanced or [r for r, _ in before])
-        self._observe_step(ts0, ts_admit, ts_work, "decode_chunk")
+        self._observe_step(ts0, ts_admit, ts_work, phase)
         return done
 
     def _observe_step(self, ts0, ts_admit, ts_work, phase):
         """Per-step serving-time attribution: split the step's wall
         clock into admit (drain + deadline sweep + admission +
-        watchdog), the work phase (prefill_chunk / decode_chunk), and
+        watchdog), the work phase (prefill_chunk / decode_chunk, or
+        spec_verify when speculation drives decode), and
         host_overhead — the RESIDUAL between the work phase's end and
         step exit. admit + phase + host_overhead == total EXACTLY per
         step. All stamps come from the clock seam."""

@@ -1,4 +1,4 @@
-"""Probes of the decode kernels B1, B5, B6, B7, B8 and B16 on one card.
+"""Probes of the decode kernels B1, B5, B6, B7, B8, B9 and B16 on one card.
 
     python3 probe_decode_attn.py [--check] [--parent DIR] [--step]
                                  [--variants NAME,...] [--rounds N]
@@ -23,6 +23,11 @@ process each:
   - B8 (``fused_paged``, bf16) at the same inputs over absolute tables,
     rotating over the 4 layers: events ms and the device ms of the
     kernels named ``fused_`` (either tree's B8), SDPA beside it;
+  - B9 (``pallas_paged``, bf16) at the same inputs: events ms and the
+    device ms of the kernels named ``pallas_`` (either tree's B9);
+  - hashes of B8's and B6's outputs at the check's four (g, d), inputs
+    from generators of their own (trees with the same B8 or B6 print the
+    same);
   - B6 (int8-KV decode attention, bf16) at the int8-KV rung's inputs
     (``chip_smoke._decode_q_case``: b64, 16 kv heads of 128, page 16, 17
     pages a row), alternating over its 2 layers: events and device ms
@@ -220,7 +225,33 @@ vg = c["vp"][absolute[1].long()].permute(0, 2, 1, 3, 4).reshape(
 res["b8_sdpa_ms"] = cs.time_ms(
     lambda: F.scaled_dot_product_attention(qd, kg, vg, attn_mask=att),
     iters=40)
-del kg, vg, absolute
+del kg, vg
+nxt = cs.cycler(c["L"])
+
+def b9():
+    pa.pallas_paged(c["q"], c["kp"], c["vp"], c["lens"], absolute[nxt()])
+res["b9_ms"] = cs.time_ms(b9, iters=40)
+res["b9_device_ms"] = cs.device_ms(b9, ("pallas_",), iters=40)
+del absolute
+# B8's and B6's outputs, bf16, at the check's (g, d) on inputs of their
+# own generators: one hash each over all four
+for name in ("b8", "b6"):
+    hx, gx = hashlib.sha256(), torch.Generator(device="cuda")
+    gx.manual_seed(2)
+    for g, d in ((1, 128), (2, 64), (4, 256), (1, 96)):
+        if name == "b8":
+            cx = cs._decode_case(torch.bfloat16, gx, g=g, d=d)
+            outx = pa.fused_paged(cx["q"], cx["kp"], cx["vp"], cx["lens"],
+                                  cx["tables"] + cx["P"])
+        else:
+            cx = cs._decode_q_case(torch.bfloat16, gx, g=g, d=d)
+            outx = pa.paged_decode_attention_inplace_q(
+                *[cx[k] for k in ("q", "nk", "nv", "kq", "ks", "vq", "vs",
+                                  "lens", "tables")],
+                pool_base=0, pool_pages=cx["P"])[0]
+        hx.update(outx.view(torch.int16).cpu().numpy().tobytes())
+        del cx, outx
+    res[f"{name}_out_sha256_4d"] = hx.hexdigest()[:16]
 mem = pa.pool_membership(c["tables"], c["lens"], P, cs.PAGE)
 nxt = cs.cycler(c["L"])
 

@@ -189,8 +189,14 @@ def test_later_slices_raise(models):
     assert tm.stack.qkv_weight.dtype == torch.float32  # not quantized
     with pytest.raises(NotImplementedError):
         TCBE(tm, quant="int8", kv_dtype="int8", mp_degree=2)
-    with pytest.raises(NotImplementedError):
-        TGE(tm, page_size=4, max_length=40).generate(
-            _prompts(), max_new_tokens=2, do_sample=True)
-    with pytest.raises(NotImplementedError):
-        TCBE(tm, speculative=True)
+    # sampling and speculation are served now (tests/test_torch_sampling
+    # .py, tests/test_torch_speculative.py); tensor-parallel speculation
+    # waits for the TP serving slice
+    out = TGE(tm, page_size=4, max_length=40).generate(
+        _prompts(), max_new_tokens=2, do_sample=True,
+        generator=torch.Generator().manual_seed(0))
+    assert out.shape == (4, 14) and ((out >= 0) & (out < 64)).all()
+    with pytest.raises(ValueError, match="expected True, 'self'"):
+        TCBE(tm, speculative=object())
+    with pytest.raises(NotImplementedError, match="TP serving"):
+        TCBE(tm, mp_degree=2, speculative=True)

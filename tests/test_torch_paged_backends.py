@@ -14,6 +14,8 @@ scores, softmax and sums on both sides
 in another order: 1e-5 absolute on outputs of magnitude ~1 (hidden
 states of the decode step too). Integer maps are compared exactly.
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -622,6 +624,91 @@ def test_card_tensors_reach_the_fused_kernel(monkeypatch, dtype, d, lens,
     assert args[6:14] == (int(dtype == torch.bfloat16), b, n_kv * g, n_kv,
                           d, ps, pp, P)
     assert (args[14] is None) == (n_split == 1) and args[15] == n_split
+
+
+# ---------------------------------------------------------------------
+# B9 on the card: the same tile walk, held to the stock schedule's plain
+# version; the card route (library faked)
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("g,dtype,share", [
+    (1, torch.float32, None), (2, torch.bfloat16, (3, 4)),
+    (4, torch.bfloat16, None)])
+def test_b9_tile_rendering_matches_the_stock_schedule(g, dtype, share,
+                                                      n_split):
+    """B9's bf16 kernel folds by 16-token tile (B8's walk), its plain
+    version ``_pallas_paged_plain`` by compute block with the
+    renormalising update: on the same inputs the two agree within the
+    chip check's limits (f32 2e-5; bf16, inputs and output rounded,
+    2^-7 on rel1), and the empty row is exactly 0 in both."""
+    c, _ = _b8_case(g, dtype, share)
+    q, kp, vp, lens = (t.to(dtype) if t.is_floating_point() else t
+                       for t in _torch(c, "q", "kp", "vp", "lens"))
+    tables = torch.from_numpy(c["tables"] + 16)
+    got, _ = _b8_tiles(q, kp, vp, lens, tables, kp.shape[0], n_split)
+    want = tpa._pallas_paged_plain(q, kp, vp, lens, tables)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp_min(1.0)).max()
+    assert float(err) <= tol
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(want[0], torch.zeros_like(want[0]))
+
+
+class _PallasLib:
+    def __init__(self):
+        self.calls = []
+
+    def ptt_paged_pallas(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype,d,lens,n_split", [
+    (torch.bfloat16, 128, (17, 200, 5, 0) * 8, 1),   # the rung: 512 blocks
+    (torch.bfloat16, 64, (1000, 700), 8),            # long rows split
+    (torch.float32, 128, (1000, 700), 1),            # f32: compute blocks
+])
+def test_card_tensors_reach_the_pallas_kernel(monkeypatch, dtype, d, lens,
+                                              n_split):
+    """With the card faked (the ``_on_card`` seam), pallas_paged hands the
+    library the stock kernel's ``ppcb`` and then, as B8, decode_q_plan's
+    split for bf16 (f32: 1) with a workspace only when it splits, and
+    counts one launch; nothing reaches the plain version."""
+    from paddle_tpu_torch import _kernels
+
+    lib = _PallasLib()
+
+    def refuse(*a, **k):
+        raise AssertionError("a card tensor reached the plain version")
+    monkeypatch.setattr(tpa, "_on_card", lambda t: True)
+    monkeypatch.setattr(tpa, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(tpa, "_pallas_paged_plain", refuse)
+    monkeypatch.setattr(_kernels, "lib", lambda name: lib)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    b, n_kv, g, ps, pp = len(lens), 2 if len(lens) < 8 else 16, 4, 16, 64
+    P = b * pp + 1
+    pool = torch.zeros(P, n_kv, ps, d, dtype=dtype)
+    q = torch.zeros(b, n_kv * g, d, dtype=dtype)
+    tables = torch.arange(1, b * pp + 1, dtype=torch.int32).reshape(b, pp)
+    before = tpa.pallas_launches
+    out = tpa.pallas_paged(q, pool, pool.clone(),
+                           torch.tensor(lens, dtype=torch.int32), tables)
+    assert tpa.pallas_launches == before + 1 and out.shape == q.shape
+    (args,) = lib.calls
+    # dtype, b, n_q, n_kv, d, page_size, pages_per_seq, num_pages, ppcb,
+    # ws, n_split
+    assert args[6:15] == (int(dtype == torch.bfloat16), b, n_kv * g, n_kv,
+                          d, ps, pp, P, tpa._pallas_ppcb(pp, ps))
+    assert (args[15] is None) == (n_split == 1) and args[16] == n_split
+    # the arguments fit the entry's declared ctypes signature
+    sig = _kernels._SIGNATURES["paged_backends"]["ptt_paged_pallas"]
+    assert len(args) == len(sig)
+    for a, t in zip(args, sig):
+        ok = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: (int,),
+              ctypes.c_float: (float,)}[t]
+        assert isinstance(a, ok) and not isinstance(a, bool), (a, t)
 
 
 # ---------------------------------------------------------------------

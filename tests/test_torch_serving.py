@@ -335,8 +335,9 @@ def test_quantized_serving_tokens(quant_runs, mode):
 
 def test_later_slices_raise(models):
     _, tm = models
-    # multi-LoRA serving is served now (tests/test_torch_lora_serving.py);
-    # its tensor-parallel bank layouts, KV migration and speculation are
+    # multi-LoRA serving is served now (tests/test_torch_lora_serving.py)
+    # and so is speculation (tests/test_torch_speculative.py); the
+    # tensor-parallel bank layouts and speculation, and KV migration, are
     # not yet
     from paddle_tpu_torch.serving import AdapterBank
 
@@ -347,8 +348,10 @@ def test_later_slices_raise(models):
                   adapters=bank)
     with pytest.raises(NotImplementedError, match="fleet"):
         eng.export_slot(0)
-    with pytest.raises(NotImplementedError, match="speculation"):
+    with pytest.raises(ValueError, match="expected True, 'self'"):
         TEngine(tm, speculative=object())
+    with pytest.raises(NotImplementedError, match="TP serving"):
+        TEngine(tm, mp_degree=2, speculative="self")
 
 
 # ---------------------------------------------------------------------
