@@ -80,6 +80,19 @@ Phases, all run every time, each of which fails the run when it fails:
            steps with remat="full" (48 forward launches a step); B10 at
            head_dim 96 is checked and timed at the gpt-760m rung's shape
            too;
+  train loop the training loop's core on the same 1.3b rung, in f32
+           under AMP O1 at bf16 (AdamW under LinearWarmup and cosine
+           decay, weight decay off biases and norms, a global-norm clip
+           that binds, an L1Decay through one weight's ParamAttr,
+           TrainStep(amp_level="O1")): the O1 op census of one forward,
+           the kernel route against the plain attention route after the
+           clip (witness limits, a faulty control), the lr of 6 steps
+           against the schedule, the clip binding and, on a control
+           step, not, the resume (model and optimizer state to the host
+           and back, one step bitwise repeated), GradScaler in the eager
+           loop with an overflow control whose step must be skipped, an
+           fp16 step raising in B10; 5 timed steps beside the O2 rung's
+           tokens/s, 24 launches of each B10 kernel a step;
   varlen   packed varlen flash attention (B11-B13: the forward, dq and
            dk/dv kernels over the block map) checked against its plain
            versions (the JAX XLA tile walks) on seven packs: the
@@ -3753,6 +3766,499 @@ def slice_train(out_dir, steps: int = 5, warmup: int = 2) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ train loop
+
+#: the training loop's recipe on the 1.3b rung (GPT-3's: AdamW, warmup
+#: then cosine decay, a global-norm clip, weight decay 0.01 without
+#: decay on biases and norms): peak lr, warmup steps, cosine T_max
+LOOP_LR, LOOP_WARMUP, LOOP_T_MAX = 1e-4, 2, 6
+#: the L1Decay coefficient of the one weight that carries it
+LOOP_L1 = 1e-5
+#: the checked steps of the loop (the resumed step 4 runs twice)
+LOOP_STEPS = 6
+
+
+def _loop_no_decay(name: str) -> bool:
+    """``apply_decay_param_fun``: no decay on biases and norms."""
+    return not (name.endswith(".bias") or name.startswith("layernorm"))
+
+
+def _loop_schedule():
+    from paddle_tpu_torch.optimizer import lr
+
+    return lr.LinearWarmup(
+        lr.CosineAnnealingDecay(LOOP_LR, T_max=LOOP_T_MAX),
+        warmup_steps=LOOP_WARMUP, start_lr=LOOP_LR / 10, end_lr=LOOP_LR)
+
+
+def _loop_model():
+    """The 1.3b rung's GPT in f32, not decorated, from seed 0, with the
+    first block's FFN1 rebuilt around the same numbers under a
+    ``ParamAttr`` that carries an ``L1Decay``."""
+    from paddle_tpu_torch import bench, nn, regularizer
+    from paddle_tpu_torch.core.generator import seed
+
+    seed(0)
+    model = bench.build_model(D_MODEL, N_LAYERS, N_HEADS, TRAIN_SEQ,
+                              remat="none")
+    old = model.blocks[0].fc1
+    with torch.device("cuda"):
+        fc1 = nn.Linear(D_MODEL, DFF, weight_attr=nn.ParamAttr(
+            regularizer=regularizer.L1Decay(LOOP_L1)))
+    with torch.no_grad():
+        fc1.weight.copy_(old.weight)
+        fc1.bias.copy_(old.bias)
+    model.blocks[0].fc1 = fc1
+    return model
+
+
+def _loop_loss(logits, labels):
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(logits.reshape(-1, bench.VOCAB),
+                           labels.reshape(-1))
+
+
+def _loop_census(model, inputs, labels) -> dict:
+    """The O1 op census of one forward and the loss
+    (``amp.debugging.collect_operator_stats``), checked against the
+    model's structure: every linear's x, weight and bias (the head has
+    no bias) in bf16, q, k and v of each attention in bf16, each LN's x,
+    weight and bias in f32, the logits in f32."""
+    import io
+
+    from paddle_tpu_torch.amp import auto_cast, debugging
+
+    with torch.no_grad(), contextlib.redirect_stdout(io.StringIO()), \
+            debugging.collect_operator_stats(), auto_cast(level="O1"):
+        _loop_loss(model(*inputs), *labels)
+    counts = dict(debugging._op_stats["counts"])
+    linears = 4 * N_LAYERS + 1
+    expect = {"linear<bfloat16>": 3 * linears - 1,
+              "scaled_dot_product_attention<bfloat16>": 3 * N_LAYERS,
+              "layer_norm<float32>": 3 * (2 * N_LAYERS + 1),
+              "cross_entropy<float32>": 1, "cross_entropy<int64>": 1}
+    emit({"check": "train_loop_o1_census", "counts": counts,
+          "expected": expect, "linear_calls": linears,
+          "attention_calls": N_LAYERS, "layer_norm_calls": 2 * N_LAYERS + 1})
+    check(counts == expect, f"train_loop: O1 census {counts} is not "
+          f"{expect}")
+    return counts
+
+
+def _loop_grads(model, inputs, labels, clip_norm):
+    """Loss, the global norm before the clip, and every gradient after
+    the step's regularizers and clip (``TrainStep``'s own), from one O1
+    forward and backward."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    clip = ClipGradByGlobalNorm(clip_norm)
+    params = list(model.parameters())
+    step = TrainStep(model, _loop_loss, AdamW(
+        LOOP_LR, parameters=params, weight_decay=0.01,
+        apply_decay_param_fun=_loop_no_decay, grad_clip=clip),
+        amp_level="O1")
+    with auto_cast(level="O1"):
+        loss = _loop_loss(model(*inputs), *labels)
+    loss.backward()
+    with torch.no_grad():
+        grads = step._apply_regularizers(params, [p.grad for p in params])
+        norm = float(clip.global_norm(grads))
+        grads = step._clip_grads(grads)
+    for p in params:
+        p.grad = None
+    return float(loss.detach()), norm, grads
+
+
+def _loop_agreement(model, init, inputs, labels, gen) -> float:
+    """The kernel route against the plain attention route from one
+    initial state (``attention_route``), in the loss and in every
+    gradient after the clip, each limit twice the witness route's
+    deviation (the loss's at least 4 f32 ulps); the control route must
+    exceed both. Returns the clip norm of the loop: half the plain
+    route's global norm, so the clip binds."""
+    ref, rows, clip_norm = None, {}, None
+    for kind in ("plain", "kernel", "witness", "control"):
+        model.load_state_dict(init)
+        _reset_counters()
+        with attention_route(kind, gen):
+            if clip_norm is None:
+                _, norm0, _ = _loop_grads(model, inputs, labels, 1e30)
+                clip_norm = 0.5 * norm0
+                model.load_state_dict(init)
+                _reset_counters()
+            loss, norm, grads = _loop_grads(model, inputs, labels,
+                                            clip_norm)
+        n = N_LAYERS if kind == "kernel" else 0
+        _check_launches(f"train_loop_grads[{kind}]", _counters(),
+                        _train_expected(n, n))
+        row = {"loss": loss, "global_norm_before_clip": norm}
+        if ref is None:
+            ref = {"loss": loss, "grads": grads,
+                   "grads_sq": sum(float(g.float().square().sum())
+                                   for g in grads)}
+        else:
+            diff_sq, worst = 0.0, (0.0, None)
+            for (name, _), g, r in zip(model.named_parameters(), grads,
+                                       ref["grads"]):
+                dif = g.float() - r.float()
+                diff_sq += float(dif.square().sum())
+                rel = float(dif.abs().max()) / max(
+                    float(r.float().abs().max()), 1e-30)
+                if rel > worst[0]:
+                    worst = (rel, name)
+            row.update({
+                "loss_rel_err": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                "grad_rel_l2": (diff_sq / ref["grads_sq"]) ** 0.5,
+                "worst_param": worst[1], "worst_param_rel_max_err":
+                worst[0]})
+        rows[kind] = row
+        del grads
+    limits = {"loss_rel_err": max(2 * rows["witness"]["loss_rel_err"],
+                                  4 * 2.0 ** -23),
+              "grad_rel_l2": 2 * rows["witness"]["grad_rel_l2"]}
+    emit({"check": "train_loop_agreement", "clip_norm": clip_norm,
+          "limits": limits, "rule": "2 x the witness route's deviation "
+          "(the loss at least 4 f32 ulps); gradients after the clip",
+          **rows})
+    for m, lim in limits.items():
+        check(rows["kernel"][m] <= lim, f"train_loop: kernel route {m} "
+              f"{rows['kernel'][m]} > {lim}")
+        check(rows["control"][m] > lim, f"train_loop: the control "
+              f"route's {m} ({rows['control'][m]}) is within {lim}")
+    check(rows["plain"]["global_norm_before_clip"] > clip_norm,
+          "train_loop: the clip does not bind")
+    return clip_norm
+
+
+def _host_copy(sd):
+    """A checkpoint on the host: tensors copied off the card, the rest
+    (the scheduler's state, the step count) copied as JSON."""
+    return {k: v.detach().to("cpu", copy=True) if torch.is_tensor(v) else
+            json.loads(json.dumps(v)) for k, v in sd.items()}
+
+
+def _loop_steps(model, opt, sched, step, inputs, labels, clip_norm):
+    """6 steps of the recipe through ``TrainStep(amp_level="O1")``:
+    the lr each step used (read where the rule takes it) against the
+    scheduler's host values; the global norm after the clip equal to the
+    clip norm on every binding step, and on a control step with a huge
+    clip norm (step 5) the gradients bitwise unclipped; the resume:
+    model and optimizer state copied to the host after step 3, step 4
+    run, both restored into the same objects, step 4 run again, every
+    parameter and the loss bitwise equal."""
+    lrs, clips = [], []
+    hyper, clip_grads = opt._hyper, step._clip_grads
+
+    def logged_hyper():
+        h = hyper()
+        lrs.append(h["lr"])
+        return h
+
+    def logged_clip(grads):
+        out = clip_grads(grads)
+        clips.append({
+            "before": float(opt._grad_clip.global_norm(grads)),
+            "after": float(opt._grad_clip.global_norm(out)),
+            "bitwise_unclipped": all(torch.equal(a, b)
+                                     for a, b in zip(grads, out))})
+        return out
+
+    opt._hyper, step._clip_grads = logged_hyper, logged_clip
+    losses, resume = [], {}
+    try:
+        for i in range(1, LOOP_STEPS + 1):
+            if i == 4:
+                model_sd = _host_copy(model.state_dict())
+                opt_sd = _host_copy(opt.state_dict())
+                loss = float(step(inputs, labels))
+                sched.step()
+                after = [p.detach().clone() for p in model.parameters()]
+                model.load_state_dict(model_sd)
+                opt.set_state_dict(opt_sd)
+                del model_sd, opt_sd
+                check(sched.last_epoch == 3, "train_loop: the resumed "
+                      f"scheduler is at epoch {sched.last_epoch}, not 3")
+                resume["loss_first"] = loss
+            if i == 5:
+                opt._grad_clip.clip_norm = 1e30
+            losses.append(float(step(inputs, labels)))
+            opt._grad_clip.clip_norm = clip_norm
+            sched.step()
+            if i == 4:
+                resume["loss_again"] = losses[-1]
+                resume["params_bitwise_equal"] = all(
+                    torch.equal(p, a) for p, a in
+                    zip(model.parameters(), after))
+                del after
+    finally:
+        opt._hyper, step._clip_grads = hyper, clip_grads
+    ref = _loop_schedule()
+    want = []
+    for _ in range(LOOP_STEPS):
+        want.append(ref())
+        ref.step()
+    used = lrs[:3] + lrs[4:]            # step 4's first run, then again
+    emit({"check": "train_loop_steps", "losses": losses,
+          "lr_used": used, "lr_schedule": want, "clip_norm": clip_norm,
+          "clip_per_step": [clips[i] for i in (0, 1, 2, 4, 5, 6)],
+          "resume": resume})
+    check(used == want and lrs[3] == want[3],
+          f"train_loop: lrs used {lrs} are not the schedule's {want}")
+    check(want[0] < want[1] < want[2] > want[3] > want[5],
+          "train_loop: the schedule does not warm up then decay")
+    for i, c in zip((1, 2, 3, 4, 4, 5, 6), clips):
+        if i == 5:
+            check(c["bitwise_unclipped"], "train_loop: a clip norm of "
+                  "1e30 changed the gradients")
+        else:
+            check(c["before"] > clip_norm and abs(c["after"] - clip_norm)
+                  <= 1e-3 * clip_norm, f"train_loop: step {i}'s clip: "
+                  f"{c} against {clip_norm}")
+    check(resume["params_bitwise_equal"]
+          and resume["loss_first"] == resume["loss_again"],
+          f"train_loop: the resumed step 4 differs: {resume}")
+    check(all(np.isfinite(losses)), "train_loop: non-finite loss")
+    return losses
+
+
+def _loop_scaler(model, opt, sched, inputs, labels):
+    """The eager loop with dynamic loss scaling (3 steps), then the
+    overflow control: a scale of 2^128, past f32's largest value, makes
+    the scaled loss and every gradient overflow (a smaller scale can
+    overflow the loss and leave the gradients finite: the backward
+    starts from the scale, not from the scaled loss), so the step is
+    skipped (every parameter and moment bitwise unchanged), the scale
+    halves to 2^127 and both counters are 0."""
+    from paddle_tpu_torch.amp import GradScaler, auto_cast
+
+    scaler = GradScaler()
+
+    def one():
+        with auto_cast(level="O1"):
+            loss = _loop_loss(model(*inputs), *labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        found = scaler._found_inf
+        scaler.update()
+        opt.clear_grad()
+        return float(loss.detach()), found
+
+    rows = []
+    for _ in range(3):
+        loss, found = one()
+        sched.step()
+        rows.append({"loss": loss, "found_inf": found,
+                     "scale": scaler.get_init_loss_scaling(),
+                     "incr_count": scaler._incr_count,
+                     "decr_count": scaler._decr_count})
+    scaler.set_init_loss_scaling(2.0 ** 128)
+    params = list(model.parameters())
+    before = [p.detach().clone() for p in params]
+    moments = [{k: v.clone() for k, v in opt._accumulators[id(p)].items()}
+               for p in params]
+    steps = opt._global_step
+    loss, found = one()
+    unchanged = all(torch.equal(p, b) for p, b in zip(params, before)) \
+        and all(torch.equal(opt._accumulators[id(p)][k], v)
+                for p, m in zip(params, moments) for k, v in m.items())
+    control = {"loss": loss, "found_inf": found,
+               "scale": scaler.get_init_loss_scaling(),
+               "incr_count": scaler._incr_count,
+               "decr_count": scaler._decr_count,
+               "params_and_moments_bitwise_unchanged": unchanged,
+               "optimizer_stepped": opt._global_step != steps}
+    del before, moments
+    emit({"check": "train_loop_grad_scaler", "steps": rows,
+          "overflow_control": control})
+    check(all(not r["found_inf"] and np.isfinite(r["loss"]) for r in rows)
+          and [r["incr_count"] for r in rows] == [1, 2, 3]
+          and all(r["scale"] == 2.0 ** 15 and r["decr_count"] == 0
+                  for r in rows), f"train_loop: scaler steps {rows}")
+    check(found and unchanged and not control["optimizer_stepped"]
+          and control["scale"] == 2.0 ** 127
+          and control["incr_count"] == 0
+          and control["decr_count"] == 0,
+          f"train_loop: the overflow control {control}")
+
+
+def _loop_fp16_raises(model, opt, inputs, labels):
+    """An fp16 O1 step on the card: B10 takes f32 and bf16 only, so the
+    first attention raises in the kernel's operand check; nothing falls
+    back, no kernel launches and the optimizer does not step."""
+    from paddle_tpu_torch.jit import TrainStep
+
+    step = TrainStep(model, _loop_loss, opt, amp_level="O1",
+                     amp_dtype="float16")
+    steps = opt._global_step
+    _reset_counters()
+    err = None
+    try:
+        step(inputs, labels)
+    except TypeError as e:
+        err = str(e)
+    opt.clear_grad()
+    counts = _counters()
+    emit({"check": "train_loop_fp16_raises", "error": err,
+          "launches": {k: v for k, v in counts.items() if v}})
+    check(err is not None and "float16" in err,
+          "train_loop: an fp16 O1 step did not raise in B10")
+    _check_launches("train_loop_fp16", counts, _train_expected(0, 0))
+    check(opt._global_step == steps, "train_loop: the fp16 step stepped")
+
+
+def slice_train_loop(out_dir, steps: int = 5, warmup: int = 1) -> dict:
+    """The training loop's core on the gpt3-1.3b rung's model (d2048, 24
+    layers, 16 heads of 128, seq 1024, batch 4), in f32 and not
+    decorated, under AMP O1 at bf16 through the port's entry points:
+    ``AdamW(LinearWarmup(CosineAnnealingDecay))`` with weight decay 0.01
+    off biases and norms, ``ClipGradByGlobalNorm`` binding, an
+    ``L1Decay`` through one weight's ``ParamAttr``, and
+    ``TrainStep(amp_level="O1", amp_dtype="bfloat16")``. Checks: the O1
+    census, the kernel route against the plain attention route after
+    the clip, the schedule, the clip binding and not binding, the
+    resume, ``GradScaler`` in the eager loop with its overflow control,
+    and an fp16 step raising in B10. Then ``warmup`` and ``steps``
+    timed steps (tokens/s, MFU, device busy and idle share, peak memory,
+    one step split on the device clock), 24 launches of each B10 kernel
+    a step, beside the O2 rung's tokens/s of the train phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    model = _loop_model()
+    inputs, labels = bench.rung_batch(TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    _loop_census(model, inputs, labels)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    clip_norm = _loop_agreement(model, init, inputs, labels, gen)
+    model.load_state_dict(init)
+    del init
+    torch.cuda.empty_cache()
+    sched = _loop_schedule()
+    opt = AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                apply_decay_param_fun=_loop_no_decay,
+                grad_clip=ClipGradByGlobalNorm(clip_norm))
+    step = TrainStep(model, _loop_loss, opt, amp_level="O1",
+                     amp_dtype="bfloat16")
+    _reset_counters()
+    _loop_steps(model, opt, sched, step, inputs, labels, clip_norm)
+    n = (LOOP_STEPS + 1) * N_LAYERS
+    _check_launches("train_loop_steps", _counters(), _train_expected(n, n))
+    _reset_counters()
+    _loop_scaler(model, opt, sched, inputs, labels)
+    _check_launches("train_loop_grad_scaler", _counters(),
+                    _train_expected(4 * N_LAYERS, 4 * N_LAYERS))
+    _loop_fp16_raises(model, opt, inputs, labels)
+    torch.cuda.empty_cache()
+    # ---- the timed steps
+    n_params = sum(p.numel() for p in model.parameters())
+    for _ in range(warmup):
+        float(step(inputs, labels))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(inputs, labels)
+    final = float(loss)
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    _check_launches("train_loop", counts, _train_expected(
+        steps * N_LAYERS, steps * N_LAYERS))
+    peak = torch.cuda.max_memory_allocated()
+    prof_steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(prof_steps):
+            loss = step(inputs, labels)
+        float(loss)
+    by_group, kernels = {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / prof_steps / 1e3
+        kernels.append((ev.key, ms, ev.count / prof_steps))
+        lk = ev.key.lower()
+        g = ("B10" if "flash_" in ev.key else
+             "GEMMs (cuBLAS/CUTLASS)" if any(
+                 t in lk for t in ("gemm", "cutlass", "xmma", "nvjet"))
+             else "other PyTorch ops (casts, LN, GELU, CE, clip, AdamW)")
+        by_group[g] = by_group.get(g, 0.0) + ms
+    busy = sum(by_group.values())
+    kernels.sort(key=lambda r: -r[1])
+    # one more step, split on the device clock
+    opt.clear_grad()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    with auto_cast(level="O1"):
+        loss = _loop_loss(model(*inputs), *labels)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    params = [p for p in opt._parameter_list if p.grad is not None]
+    with torch.no_grad():
+        grads = step._clip_grads(step._apply_regularizers(
+            params, [p.grad for p in params]))
+        ev[3].record()
+        opt._apply_updates(list(zip(params, grads)))
+    ev[4].record()
+    opt.clear_grad()
+    del grads, loss
+    torch.cuda.synchronize()
+    split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(
+        ("forward_and_loss", "backward", "regularizers_and_clip",
+         "optimizer"))}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fpt = bench.flops_per_token(n_params, N_LAYERS, TRAIN_SEQ, D_MODEL)
+    tps = tokens * steps / wall
+    wall_ms = wall / steps * 1e3
+    o2 = next((json.loads(line) for line in reversed(_LINES)
+               if line.startswith('{"phase": "train"')), {})
+    result = {"phase": "train_loop", "rung": "gpt3-1.3b", "amp": "O1 bf16",
+              "n_params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "steps": steps, "warmup": warmup, "tokens_per_s": tps,
+              "mfu": tps * fpt / bench.H100_PEAK_BF16,
+              "flops_per_token": fpt, "wall_ms_per_step": wall_ms,
+              "device_busy_ms_per_step": busy,
+              "device_idle_share": 1 - busy / wall_ms,
+              "device_ms_per_step_by_group": by_group,
+              "ms_by_phase_one_step": split,
+              "max_memory_allocated_gb": peak / 1e9,
+              "first_call_s": step.first_call_seconds,
+              "launches_per_step": {k: v / steps for k, v in counts.items()
+                                    if v},
+              "loss_final": final,
+              "o2_rung_tokens_per_s": o2.get("tokens_per_s"),
+              "o2_rung_wall_ms_per_step": o2.get("wall_ms_per_step"),
+              "top_kernels": [{"name": k[:60], "ms_per_step": ms,
+                               "launches_per_step": c}
+                              for k, ms, c in kernels[:8]]}
+    emit(result)
+    check(np.isfinite(final), "train_loop: non-finite loss")
+    if out_dir:
+        with open(os.path.join(out_dir, "profile_train_loop.txt"),
+                  "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+    del model, step, opt, prof
+    torch.cuda.empty_cache()
+    emit({"phase": "train_loop_paths",
+          "wall_s": time.perf_counter() - t_phase})
+    return counts
+
+
 # ---------------------------------------------------------------- varlen
 
 #: the --attn-varlen rung (bench.py run_attn_varlen_bench): 16 heads of
@@ -5442,6 +5948,8 @@ def drive(args) -> None:
     torch.cuda.empty_cache()
     # the training rung
     by_path["train"] = slice_train(args.out)
+    # the training loop's core under AMP O1 on the same rung
+    by_path["train_loop"] = slice_train_loop(args.out)
     # packed varlen attention (B11-B13) and the gpt-760m rung (B10 at
     # head_dim 96)
     t0 = time.perf_counter()

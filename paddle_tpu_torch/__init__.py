@@ -8,17 +8,20 @@ the TPU. Ported so far: the serving path (``FusedCausalLM`` under
 ``GenerationEngine`` / ``ContinuousBatchingEngine`` / ``ServingEngine``,
 quantized, MoE and multi-LoRA), the GPT training step (``nn``,
 ``optimizer``, ``amp``, ``jit.TrainStep``, ``bench.build_model`` /
-``run_config``) and the no-drop MoE training step
-(``incubate.moe.MoELayer``, ``bench.run_moe_train_bench``). Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``, where every kernel runs its plain PyTorch
-version.
+``run_config``) with the training loop's core (AMP O1 ``auto_cast``,
+``GradScaler``, the LR schedulers, gradient clipping, ``regularizer``,
+optimizer checkpoints and the SGD and Adam families, ``Lars`` and
+``LBFGS``) and the no-drop MoE training step
+(``incubate.moe.MoELayer``, ``bench.run_moe_train_bench``). Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``,
+where every kernel runs its plain PyTorch version.
 """
 from __future__ import annotations
 
-from . import amp, jit, nn, optimizer
+from . import amp, jit, nn, optimizer, regularizer
 from .bench import build_model, run_config
 from .core.generator import seed
 from .jit import TrainStep
 
-__all__ = ["seed", "nn", "optimizer", "amp", "jit", "TrainStep",
-           "build_model", "run_config"]
+__all__ = ["seed", "nn", "optimizer", "amp", "jit", "regularizer",
+           "TrainStep", "build_model", "run_config"]

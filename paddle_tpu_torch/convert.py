@@ -15,6 +15,13 @@ by the same names.
 ``load_jax_adapter(adapter)`` makes a port ``LoRAAdapter`` of a JAX
 ``LoRAAdapter``'s numpy arrays (its B already scaled), so a port bank
 serves the same adapters as a JAX bank without regenerating them.
+
+``load_jax_optimizer_state(optimizer, state, jax_model, model)`` carries
+a JAX optimizer's ``state_dict()`` into a port optimizer. Its keys hold
+the JAX parameters' Paddle names (``"linear_7.weight_moment1"``), which
+come from a process-wide counter: a port model built in the same
+process has other indices. Each key is placed through the structured
+path both models share (``blocks.0.qkv.weight``).
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "load_jax_adapter"]
+__all__ = ["load_jax_params", "load_jax_adapter",
+           "load_jax_optimizer_state"]
 
 
 def _to_torch(arr) -> torch.Tensor:
@@ -72,3 +80,34 @@ def load_jax_adapter(adapter):
     return LoRAAdapter(adapter.name, adapter.rank,
                        {p: (np.asarray(a), np.asarray(b))
                         for p, (a, b) in adapter.weights.items()})
+
+
+def load_jax_optimizer_state(optimizer, state: Mapping, jax_model,
+                             model: torch.nn.Module) -> None:
+    """``optimizer.set_state_dict`` of a JAX optimizer's ``state`` (numpy
+    arrays and Python scalars, keyed ``"{paddle name}_{key}"``), each
+    key renamed from the JAX parameter's Paddle name to the Paddle name
+    (``param_name``) of the port parameter at the same structured path
+    of ``model``; ``"LR_Scheduler"`` and ``"global_step"`` are carried
+    as they are. Raises ``KeyError`` on a key that names no parameter of
+    ``jax_model``, or a path ``model`` lacks."""
+    own = dict(model.named_parameters())
+    renamed = {}
+    for path, jp in jax_model.named_parameters():
+        if path not in own:
+            raise KeyError(f"load_jax_optimizer_state: the port model has "
+                           f"no parameter {path!r}")
+        renamed[jp.name] = own[path].param_name
+    # longest name first: "linear_1.w" must not take "linear_1.w_2"'s keys
+    names = sorted(renamed, key=len, reverse=True)
+    out = {}
+    for key, value in state.items():
+        if key in ("LR_Scheduler", "global_step"):
+            out[key] = value
+            continue
+        jname = next((n for n in names if key.startswith(n + "_")), None)
+        if jname is None:
+            raise KeyError(f"load_jax_optimizer_state: {key!r} names no "
+                           "parameter of the JAX model")
+        out[renamed[jname] + key[len(jname):]] = value
+    optimizer.set_state_dict(out)

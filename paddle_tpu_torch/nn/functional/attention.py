@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from ... import _kernels
+from ...amp.auto_cast import _amp_cast
 from ...core.flags import flag
 from ...core.generator import default_generator
 from . import flash_varlen
@@ -439,7 +440,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None, generator=None):
     """Attention over ``[b, s, h, d]`` tensors (Paddle's signature);
-    ``generator`` draws the dropout mask (default: the device's)."""
+    ``generator`` draws the dropout mask (default: the device's). Its
+    operands pass the AMP hook under its own name first (``flash_attention``
+    goes through it, as in the JAX package)."""
+    query, key, value, attn_mask = _amp_cast(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     p = dropout_p if training else 0.0
     return _attention_raw(query, key, value, attn_mask,
                           causal=bool(is_causal), dropout_p=float(p),
@@ -513,7 +518,11 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     ``training``, ``return_softmax``, ``fixed_seed_offset`` and
     ``rng_name`` are accepted and ignored: no dropout is applied and no
     softmax is returned. ``cu_seqlens`` stay on the device: no host read
-    between them and the kernels' launches."""
+    between them and the kernels' launches. The operands pass the AMP
+    hook first (the op is in neither list: only O2 casts q, k and v)."""
+    query, key, value, cu_seqlens_q, cu_seqlens_k = _amp_cast(
+        "flash_attn_unpadded", query, key, value, cu_seqlens_q,
+        cu_seqlens_k)
     out = _unpadded_varlen_raw(query, key, value, cu_seqlens_q,
                                cu_seqlens_k, scale=float(scale),
                                causal=bool(causal))

@@ -1,10 +1,12 @@
 """Common functionals (counterpart of
 ``paddle_tpu/nn/functional/common.py``): ``linear``, ``embedding`` and
-``dropout``, the ones the training path calls."""
+``dropout``, the ones the training path calls. ``linear`` passes its
+operands through the AMP hook under the JAX package's op name."""
 from __future__ import annotations
 
 import torch
 
+from ...amp.auto_cast import _amp_cast
 from ...core.generator import default_generator
 
 __all__ = ["linear", "embedding", "dropout"]
@@ -13,6 +15,7 @@ __all__ = ["linear", "embedding", "dropout"]
 def linear(x, weight, bias=None, name=None):
     """``x @ weight (+ bias)``; ``weight`` is ``[in, out]`` (Paddle's
     layout)."""
+    x, weight, bias = _amp_cast("linear", x, weight, bias)
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias
 

@@ -7,10 +7,15 @@ m - x[label]`` with the sums in f32, and its backward ``(softmax -
 onehot) * g`` in f32, cast to the logits' dtype. bf16 logits are never
 copied to f32 whole: both passes walk row chunks of at most
 ``CE_CHUNK_ELEMENTS`` elements, so the f32 temporaries are a chunk's.
+``cross_entropy`` passes its operands through the AMP hook first: under
+``auto_cast`` (O1 or O2) the op is in the black list, so bf16 logits are
+cast to f32 whole before the chunks, as the JAX package casts them.
 """
 from __future__ import annotations
 
 import torch
+
+from ...amp.auto_cast import _amp_cast
 
 __all__ = ["cross_entropy", "CE_CHUNK_ELEMENTS"]
 
@@ -78,7 +83,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', "
                          f"not {reduction!r}")
-    logits = input
+    logits, label = _amp_cast("cross_entropy", input, label)
     ids = label.long()
     if ids.ndim == logits.ndim:
         ids = ids.squeeze(axis)

@@ -4,10 +4,12 @@
 A ``Layer`` is a ``torch.nn.Module`` with Paddle's parameter surface:
 ``create_parameter`` (a ``ParamAttr`` or ``False`` for none, a default
 initializer, the per-parameter learning-rate multiplier in
-``p.optimize_attr``), ``named_sublayers`` and structured parameter
-names (``"linear_0.weight"``, by class and construction
-order, as the JAX package names them for ``apply_decay_param_fun``;
-kept as ``p.param_name``, since a torch tensor's ``name`` is read-only).
+``p.optimize_attr``, the regularizer and ``need_clip`` the optimizer
+reads as ``p.regularizer`` and ``p.need_clip``), ``named_sublayers``
+and structured parameter names (``"linear_0.weight"``, by class and
+construction order, as the JAX package names them for
+``apply_decay_param_fun`` and optimizer checkpoints; kept as
+``p.param_name``, since a torch tensor's ``name`` is read-only).
 Parameters are created on the default device (``with
 torch.device(...)``), from that device's generator.
 """
@@ -71,10 +73,6 @@ class Layer(torch.nn.Module):
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
-        if attr.regularizer is not None:
-            raise NotImplementedError(
-                "per-parameter regularizers come with the optimizer "
-                "regularization slice of the port")
         init = attr.initializer or default_initializer or (
             I.Constant(0.0) if is_bias else I.XavierNormal())
         data = init(tuple(int(s) for s in shape), dtype or self._dtype,
@@ -82,6 +80,8 @@ class Layer(torch.nn.Module):
         p = torch.nn.Parameter(data, requires_grad=attr.trainable)
         p.param_name = attr.name
         p.optimize_attr = {"learning_rate": attr.learning_rate}
+        p.regularizer = attr.regularizer
+        p.need_clip = attr.need_clip
         return p
 
     def __setattr__(self, name, value):

@@ -271,12 +271,12 @@ def test_unported_options_name_their_slice():
         step.roofline(1.0)
     with pytest.raises(NotImplementedError, match="distributed"):
         TTrainStep(model, _port_loss_fn(False), opt, in_sharding=object())
-    with pytest.raises(NotImplementedError, match="AMP-O1"):
-        TTrainStep(model, _port_loss_fn(False), opt, amp_level="O1")
-    with pytest.raises(NotImplementedError, match="AMP-O1"):
-        TTrainStep(model, _port_loss_fn(False), opt, amp_dtype="float16")
     with pytest.raises(NotImplementedError, match="to_static"):
         TTrainStep(model, _port_loss_fn(False), opt, donate=False)
+    # amp_level and amp_dtype are ported (test_torch_amp_o1.py)
+    step = TTrainStep(model, _port_loss_fn(False), opt, amp_level="O1",
+                      amp_dtype="float16")
+    assert (step._amp_level, step._amp_dtype) == ("O1", "float16")
 
 
 def test_run_config_on_the_cpu_reports_the_rung_figures():
