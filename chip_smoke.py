@@ -65,10 +65,12 @@ Phases, all run every time, each of which fails the run when it fails:
            backward kernels; bf16 at head_dim 64-128 the wgmma kernels
            flash_*_wgmma on a dense walk) checked against its plain
            versions at the training rung's shapes, at lengths that are
-           multiples of 64 but not of 128 and at cross lengths (bf16
-           limits from a one-ulp witness, a faulty control per kernel)
-           and timed (events and profiler device time) beside
-           scaled_dot_product_attention and the aten flash backward;
+           multiples of 64 but not of 128 and at cross lengths, and in
+           fp16 at the rung's shape, d64, d96 and d256 (16-bit limits
+           from a one-ulp witness of the type, a faulty control per
+           kernel) and timed (events and profiler device time) beside
+           scaled_dot_product_attention and the aten flash backward, in
+           bf16 and fp16;
            then bench.py's gpt3-1.3b training rung (d2048, 24 layers,
            seq 1024, batch 4, the _FAST options) through the port's
            bench.make_train_step: the kernel route against the plain
@@ -90,9 +92,23 @@ Phases, all run every time, each of which fails the run when it fails:
            against the schedule, the clip binding and, on a control
            step, not, the resume (model and optimizer state to the host
            and back, one step bitwise repeated), GradScaler in the eager
-           loop with an overflow control whose step must be skipped, an
-           fp16 step raising in B10; 5 timed steps beside the O2 rung's
-           tokens/s, 24 launches of each B10 kernel a step;
+           loop with an overflow control whose step must be skipped,
+           train_loop_fp16: an fp16 O1 step with GradScaler through B10's
+           fp16 kernels (kernel route within twice the witness of the
+           plain route, 24 launches of each); 5 timed steps beside the O2
+           rung's tokens/s, 24 launches of each B10 kernel a step;
+  resnet18 the conv-net path: vision.models.resnet18 (1000 classes, full
+           width, seeded weights) at batch 256, 3x224x224: the eval
+           forward eager and under jit.to_static (a CUDA graph captured
+           once, replayed), 4 O1 bf16 training steps (CrossEntropyLoss,
+           Momentum 0.9, lr 0.1, L2Decay 1e-4) eager, eager again (the
+           witness) and under to_static (forward and backward captured
+           once): logits, losses, BN statistics and parameters held to
+           the eager route; two views of the batch in one loss (two
+           forwards of the program before one backward) held to eager;
+           a GraphBreakError on the card; images/s,
+           MFU, device busy and idle share, peak memory; no kernel of
+           the port on this path;
   varlen   packed varlen flash attention (B11-B13: the forward, dq and
            dk/dv kernels over the block map) checked against its plain
            versions (the JAX XLA tile walks) on seven packs: the
@@ -103,7 +119,10 @@ Phases, all run every time, each of which fails the run when it fails:
            faulty-map control per kernel; a second backward bitwise
            equal to the first), and timed beside the aten varlen flash
            forward and backward, also as one flash_attn_unpadded
-           forward + backward through autograd; then slice_attn_varlen:
+           forward + backward through autograd; the rung in fp16 too
+           (fp16's one-ulp witness plus 2^-11), timed beside aten's
+           flash kernels at fp16, and one fp16 flash_attn_unpadded
+           forward + backward (one launch each); then slice_attn_varlen:
            bench.run_attn_varlen_bench() (21 forward launches; tokens/s,
            peak memory O(T·d)) and one training-shaped flash_attn_unpadded
            call on the ragged pack (one launch of each kernel, held to
@@ -178,8 +197,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
-              torch.int8: 1979e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12, torch.int8: 1979e12}
 
 #: the serving path's shapes (bench.py run_decode_bench's flagship rung)
 VOCAB, D_MODEL, N_LAYERS, N_HEADS, HEAD_DIM = 51200, 2048, 24, 16, 128
@@ -353,8 +372,9 @@ def _ptxas_info(log: str) -> dict:
 def phase_build(out_dir):
     """Every library built from csrc/, one nvcc per source in parallel;
     then the redesigned kernels' machine code read back: each
-    instantiation of the bf16 kernels of B14, B15, B10 and B11-B13 (d64,
-    d96, d128) must hold HGMMA (wgmma), B2's and B7's bf16 kernels HMMA or
+    instantiation of the bf16 kernels of B14, B15, and of the bf16 and
+    fp16 kernels of B10 and B11-B13 (d64, d96, d128) must hold HGMMA
+    (wgmma), B2's and B7's bf16 kernels HMMA or
     HGMMA, B5's and B6's kernels IMMA (int8 mma.sync) and B1's, B8's, B9's
     and B16's bf16 kernels HMMA, with no register spill in ptxas's
     report."""
@@ -3184,11 +3204,11 @@ def _tile_rel_l2(got, ref) -> float:
     return float((num / den).sqrt().max())
 
 
-def _flash_errs(got, ref, bf16: bool) -> dict:
+def _flash_errs(got, ref, half: bool) -> dict:
     """Each output's error under its limit's metric: lse, and every
-    output of a float32 run, by the largest absolute error; a bf16
+    output of a float32 run, by the largest absolute error; a 16-bit
     run's out, dq, dk and dv by ``_tile_rel_l2``."""
-    return {n: (_tile_rel_l2 if bf16 and n != "lse" else max_err)(g, r)
+    return {n: (_tile_rel_l2 if half and n != "lse" else max_err)(g, r)
             for n, g, r in zip(FLASH_OUTPUTS, got, ref)}
 
 
@@ -3205,7 +3225,9 @@ def _over(errs: dict, tols: dict) -> list:
 #: width of public models such as Gemma's; bf16 and f32) and 200, padded
 #: to 256 (bf16); then the wgmma kernels' edges at d128: a length that is
 #: a multiple of 64 but not of 128 (the last tile half past it), causal
-#: and not, and cross lengths both ways
+#: and not, and cross lengths both ways; then fp16 (the f16 forms of the
+#: same kernels, no cast to bf16) at the rung's shape, head_dim 64 and 96
+#: at the MoE and gpt-760m training rungs' shapes, and head_dim 256
 FLASH_CASES = (
     (4, 1024, 16, 128, torch.bfloat16, True),
     (2, 2048, 16, 128, torch.bfloat16, True),
@@ -3225,7 +3247,14 @@ FLASH_CASES = (
     (2, 320, 4, 128, torch.bfloat16, False),
     (2, (384, 768), 4, 128, torch.bfloat16, True),
     (2, (768, 384), 4, 128, torch.bfloat16, True),
+    (4, 1024, 16, 128, torch.float16, True),
+    (4, 1024, 16, 64, torch.float16, True),
+    (8, 1024, 16, 96, torch.float16, True),
+    (2, 512, 8, 256, torch.float16, True),
 )
+#: one relative ulp of each 16-bit type, added to its one-ulp witness in
+#: the limits
+ULP16 = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 #: profiler names of B10's bf16 kernels at head_dim 64, 96 and 128 (d256
 #: keeps flash_fwd_bf16, flash_bwd_dq_bf16 and flash_bwd_dkv_bf16)
 B10_KERNELS = {"fwd": "flash_fwd_wgmma", "dq": "flash_bwd_dq_wgmma",
@@ -3235,14 +3264,15 @@ B10_KERNELS = {"fwd": "flash_fwd_wgmma", "dq": "flash_bwd_dq_wgmma",
 R760_D, R760_BATCH = 1536, 8
 
 
-def _flash_times(gen, b, s, h, d) -> dict:
-    """B10's three kernels timed at ``[b, s, h, d]`` (bf16, causal),
-    inputs rotating over 4 layers' worth, beside the plain versions,
-    scaled_dot_product_attention and the aten flash backward; one "time"
-    line each. Returns the rows of the kernels line."""
+def _flash_times(gen, b, s, h, d, dt=torch.bfloat16) -> dict:
+    """B10's three kernels timed at ``[b, s, h, d]`` (``dt``: bf16 or
+    fp16, causal), inputs rotating over 4 layers' worth, beside the plain
+    versions, scaled_dot_product_attention and the aten flash backward
+    (in ``dt`` too); one "time" line each (an fp16 line's name ends in
+    ``_fp16``). Returns the rows of the kernels line."""
     from paddle_tpu_torch.nn.functional import attention as at
 
-    dt = torch.bfloat16
+    tag = "_fp16" if dt == torch.float16 else ""
     scale = d ** -0.5
     sets = []
     for _ in range(4):
@@ -3341,8 +3371,8 @@ def _flash_times(gen, b, s, h, d) -> dict:
                       "library_ms": lib["fwd" if name == "fwd" else "bwd"],
                       "bound_ms": bms, "bound_by": by, "bytes": nbytes,
                       "flops": flops}
-        emit({"time": f"flash_attention_{name}", "shape": [b, s, h, d],
-              "causal": True, **rows[name],
+        emit({"time": f"flash_attention_{name}{tag}",
+              "shape": [b, s, h, d], "causal": True, **rows[name],
               "tflops": flops / times[name] / 1e9,
               "plain_note": None if name == "fwd" else
               "flash_attention_bwd_plain computes dq, dk and dv",
@@ -3350,7 +3380,7 @@ def _flash_times(gen, b, s, h, d) -> dict:
               if name == "fwd" else "aten._scaled_dot_product_flash_"
               "attention_backward computes dq, dk and dv"})
     nb, fl = (sum(bounds[n][i] for n in ("dq", "dkv")) for i in (0, 1))
-    emit({"time": "flash_attention_backward", "shape": [b, s, h, d],
+    emit({"time": f"flash_attention_backward{tag}", "shape": [b, s, h, d],
           "ms": whole_bwd, "note": "di reduction + dq + dk/dv launches",
           "di_ms": di_ms, "di_share": di_ms / whole_bwd,
           "plain_ms": plain["bwd"], "sdpa_fwd_ms": lib["fwd"],
@@ -3366,20 +3396,23 @@ def _flash_times(gen, b, s, h, d) -> dict:
 def kernel_flash_attention(gen) -> dict:
     """Kernel B10 (flash_attention_fwd and the dq and dk/dv backward
     kernels) against its plain versions on the same inputs, at
-    FLASH_CASES: out, lse, dq, dk, dv. Tolerances: float32 1e-5 (out,
-    lse) and 1e-4 (dq, dk, dv) absolute, f32 sums in another order; lse
-    is f32 in bf16 runs too, 1e-5 absolute. A bf16 out, dq, dk or dv is
-    held to its largest relative L2 error over any (b, h, 64-row tile)
+    FLASH_CASES: out, lse, dq, dk, dv, each in its case's dtype but lse
+    (f32). Tolerances: float32 1e-5 (out, lse) and 1e-4 (dq, dk, dv)
+    absolute, f32 sums in another order; lse is f32 in 16-bit runs too,
+    1e-5 absolute. A bf16 or fp16 out, dq, dk or dv is held to its
+    largest relative L2 error over any (b, h, 64-row tile)
     (``_tile_rel_l2``), limited by what one-ulp noise on the inputs
     moves the plain version on that metric (the witness: q, k, v and
-    dout with a random half nudged one ulp) plus one relative bf16 ulp
-    (2^-8). One control per kernel, in every case: the plain versions
+    dout with a random half nudged one ulp of their type) plus one
+    relative ulp of the type (``ULP16``: 2^-8, 2^-11). One control per
+    kernel, in every case: the plain versions
     skipping a late key tile for the rows past it (``_late_tile_drop``)
     must exceed the forward's out limit, the dq limit, and both the dk
     and dv limits. Then timed at the rung's shape, at the gpt-760m
     rung's (head_dim 96) and at the MoE training rung's (head_dim 64)
     beside the plain versions, torch's scaled_dot_product_attention and
-    the aten flash backward."""
+    the aten flash backward, and at the rung's shape in fp16 (rows named
+    ``*_fp16``)."""
     from paddle_tpu_torch.nn.functional import attention as at
 
     res = {}
@@ -3388,23 +3421,24 @@ def kernel_flash_attention(gen) -> dict:
         q, k, v, do = _flash_inputs(gen, b, sq, h, d, dtype,
                                     None if sk == sq else sk)
         scale = d ** -0.5
-        bf16 = dtype == torch.bfloat16
+        half = dtype in ULP16
         got = _flash_kernel_all(q, k, v, do, causal, scale)
         torch.cuda.synchronize()
         ref = _flash_plain_all(q, k, v, do, causal, scale)
-        errs = _flash_errs(got, ref, bf16)
+        errs = _flash_errs(got, ref, half)
         max_abs = {n: max_err(g, r)
                    for n, g, r in zip(FLASH_OUTPUTS, got, ref)}
+        dtypes = [t.dtype for t in got]
         line = {"check": "flash_attention", "shape": [b, s, h, d]
                 if sq == sk else [b, [sq, sk], h, d],
                 "dtype": str(dtype), "causal": causal,
-                "metric": "tile_rel_l2" if bf16 else "max_abs_err",
+                "metric": "tile_rel_l2" if half else "max_abs_err",
                 "err": errs, "max_abs_err": max_abs}
-        if bf16:
+        if half:
             wit = _flash_errs(_flash_plain_all(
                 *(_ulp_nudge(t, gen) for t in (q, k, v, do)), causal,
-                scale), ref, bf16)
-            tols = {n: wit[n] + 2.0 ** -8 for n in FLASH_OUTPUTS}
+                scale), ref, half)
+            tols = {n: wit[n] + ULP16[dtype] for n in FLASH_OUTPUTS}
             tols["lse"] = 1e-5
             line["witness_err"] = wit
         else:
@@ -3414,10 +3448,12 @@ def kernel_flash_attention(gen) -> dict:
         c_out, c_lse = at.flash_attention_fwd_plain(q, k, v, causal, scale,
                                                     drop=drop)
         ctrl = _flash_errs((c_out, c_lse, *at.flash_attention_bwd_plain(
-            q, k, v, *ref[:2], do, causal, scale, drop=drop)), ref, bf16)
+            q, k, v, *ref[:2], do, causal, scale, drop=drop)), ref, half)
         line.update({"tol": tols, "control_err": ctrl})
         emit(line)
         what = f"flash_attention {line['shape']} {dtype} causal={causal}"
+        check(dtypes == [dtype, torch.float32] + [dtype] * 3,
+              f"{what}: output dtypes {dtypes}")
         bad = _over(errs, tols)
         check(not bad, f"{what}: {bad} over the limits: {errs} > {tols}")
         bad = _over(ctrl, tols)
@@ -3425,23 +3461,26 @@ def kernel_flash_attention(gen) -> dict:
             check(all(n in bad for n in outs), f"{what}: the faulty-{kern} "
                   f"control ({ctrl}) is within the limits {tols}")
         if (b, s, h, d) == (TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM):
-            res = max_abs
+            res[dtype] = max_abs
         del q, k, v, do, got, ref, c_out, c_lse
     # timing at the rung's shape, at the gpt-760m rung's (head_dim 96)
     # and at the MoE training rung's (head_dim 64)
-    rows = _flash_times(gen, TRAIN_BATCH, TRAIN_SEQ, N_HEADS, HEAD_DIM)
+    rows = {torch.bfloat16: _flash_times(gen, TRAIN_BATCH, TRAIN_SEQ,
+                                         N_HEADS, HEAD_DIM)}
     _flash_times(gen, R760_BATCH, TRAIN_SEQ, N_HEADS, R760_D // N_HEADS)
     _flash_times(gen, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_HEADS,
                  MOE_D // MOE_HEADS)
     _flash_pad_times(gen, 80)
     _flash_pad_times(gen, 256)
     _flash_pad_times(gen, 200)
+    rows[torch.float16] = _flash_times(gen, TRAIN_BATCH, TRAIN_SEQ, N_HEADS,
+                                       HEAD_DIM, torch.float16)
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     names = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
              "dkv": "flash_attention_bwd_dkv"}
-    return {names[n]: {**rows[n],
-                       "max_abs_err": max(res[k] for k in outputs[n])}
-            for n in names}
+    return {names[n] + ("_fp16" if dt == torch.float16 else ""): {
+        **rows[dt][n], "max_abs_err": max(res[dt][k] for k in outputs[n])}
+        for dt in rows for n in names}
 
 
 def _flash_pad_times(gen, d: int) -> None:
@@ -4086,29 +4125,98 @@ def _loop_scaler(model, opt, sched, inputs, labels):
           f"train_loop: the overflow control {control}")
 
 
-def _loop_fp16_raises(model, opt, inputs, labels):
-    """An fp16 O1 step on the card: B10 takes f32 and bf16 only, so the
-    first attention raises in the kernel's operand check; nothing falls
-    back, no kernel launches and the optimizer does not step."""
-    from paddle_tpu_torch.jit import TrainStep
+def _loop_fp16_grads(model, inputs, labels, scale: float):
+    """Loss and every gradient, unscaled to f32, of one fp16 O1 forward
+    and a backward from the loss times ``scale`` (GradScaler's scaling)."""
+    from paddle_tpu_torch.amp import auto_cast
 
-    step = TrainStep(model, _loop_loss, opt, amp_level="O1",
-                     amp_dtype="float16")
+    with auto_cast(level="O1", dtype="float16"):
+        loss = _loop_loss(model(*inputs), *labels)
+    (loss * scale).backward()
+    grads = []
+    for p in model.parameters():
+        grads.append(p.grad.float() / scale)
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _loop_fp16(model, opt, inputs, labels, gen) -> dict:
+    """An fp16 O1 step on the card, through B10's fp16 kernels. First
+    the kernel route against the plain attention route (``attention_route``)
+    from the model's current state, in the loss and in every gradient
+    (scaled by 2^15, unscaled in f32), each limit twice the witness route's
+    deviation (the loss's at least 4 f32 ulps), the control route outside
+    both. Then one step of ``GradScaler`` and the loop's optimizer: a
+    finite loss, no overflow found, the optimizer stepped, the scale
+    unchanged, 24 launches of each B10 kernel. Returns that step's
+    launch counts."""
+    from paddle_tpu_torch.amp import GradScaler, auto_cast
+
+    scale = 2.0 ** 15
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    ref, rows = None, {}
+    for kind in ("plain", "kernel", "witness", "control"):
+        model.load_state_dict(init)
+        _reset_counters()
+        with attention_route(kind, gen):
+            loss, grads = _loop_fp16_grads(model, inputs, labels, scale)
+        n = N_LAYERS if kind == "kernel" else 0
+        _check_launches(f"train_loop_fp16_grads[{kind}]", _counters(),
+                        _train_expected(n, n))
+        row = {"loss": loss}
+        if ref is None:
+            ref = {"loss": loss, "grads": grads,
+                   "grads_sq": sum(float(g.square().sum()) for g in grads)}
+        else:
+            diff_sq = sum(float((g - r).square().sum())
+                          for g, r in zip(grads, ref["grads"]))
+            row.update({
+                "loss_rel_err": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                "grad_rel_l2": (diff_sq / ref["grads_sq"]) ** 0.5})
+        rows[kind] = row
+        del grads
+    del ref
+    limits = {"loss_rel_err": max(2 * rows["witness"]["loss_rel_err"],
+                                  4 * 2.0 ** -23),
+              "grad_rel_l2": 2 * rows["witness"]["grad_rel_l2"]}
+    model.load_state_dict(init)
+    del init
+    torch.cuda.empty_cache()
+    scaler = GradScaler(init_loss_scaling=scale)
     steps = opt._global_step
+    before = next(model.parameters()).detach().clone()
     _reset_counters()
-    err = None
-    try:
-        step(inputs, labels)
-    except TypeError as e:
-        err = str(e)
+    with auto_cast(level="O1", dtype="float16"):
+        loss = _loop_loss(model(*inputs), *labels)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    found = scaler._found_inf
+    scaler.update()
     opt.clear_grad()
+    torch.cuda.synchronize()
     counts = _counters()
-    emit({"check": "train_loop_fp16_raises", "error": err,
+    step = {"loss": float(loss.detach()), "found_inf": found,
+            "scale": scaler.get_init_loss_scaling(),
+            "optimizer_stepped": opt._global_step == steps + 1,
+            "params_moved": not torch.equal(before,
+                                            next(model.parameters()))}
+    emit({"check": "train_loop_fp16", "grad_scale": scale,
+          "limits": limits, "rule": "2 x the witness route's deviation "
+          "(the loss at least 4 f32 ulps); unscaled gradients",
+          **rows, "grad_scaler_step": step,
           "launches": {k: v for k, v in counts.items() if v}})
-    check(err is not None and "float16" in err,
-          "train_loop: an fp16 O1 step did not raise in B10")
-    _check_launches("train_loop_fp16", counts, _train_expected(0, 0))
-    check(opt._global_step == steps, "train_loop: the fp16 step stepped")
+    for m, lim in limits.items():
+        check(rows["kernel"][m] <= lim, f"train_loop_fp16: kernel route "
+              f"{m} {rows['kernel'][m]} > {lim}")
+        check(rows["control"][m] > lim, f"train_loop_fp16: the control "
+              f"route's {m} ({rows['control'][m]}) is within {lim}")
+    check(np.isfinite(step["loss"]) and not found
+          and step["optimizer_stepped"] and step["params_moved"]
+          and step["scale"] == scale, f"train_loop_fp16: the GradScaler "
+          f"step {step}")
+    _check_launches("train_loop_fp16", counts,
+                    _train_expected(N_LAYERS, N_LAYERS))
+    return counts
 
 
 def slice_train_loop(out_dir, steps: int = 5, warmup: int = 1) -> dict:
@@ -4122,7 +4230,8 @@ def slice_train_loop(out_dir, steps: int = 5, warmup: int = 1) -> dict:
     census, the kernel route against the plain attention route after
     the clip, the schedule, the clip binding and not binding, the
     resume, ``GradScaler`` in the eager loop with its overflow control,
-    and an fp16 step raising in B10. Then ``warmup`` and ``steps``
+    and an fp16 O1 step with GradScaler through B10's fp16 kernels
+    (``_loop_fp16``). Then ``warmup`` and ``steps``
     timed steps (tokens/s, MFU, device busy and idle share, peak memory,
     one step split on the device clock), 24 launches of each B10 kernel
     a step, beside the O2 rung's tokens/s of the train phase."""
@@ -4160,7 +4269,7 @@ def slice_train_loop(out_dir, steps: int = 5, warmup: int = 1) -> dict:
     _loop_scaler(model, opt, sched, inputs, labels)
     _check_launches("train_loop_grad_scaler", _counters(),
                     _train_expected(4 * N_LAYERS, 4 * N_LAYERS))
-    _loop_fp16_raises(model, opt, inputs, labels)
+    fp16_counts = _loop_fp16(model, opt, inputs, labels, gen)
     torch.cuda.empty_cache()
     # ---- the timed steps
     n_params = sum(p.numel() for p in model.parameters())
@@ -4256,6 +4365,346 @@ def slice_train_loop(out_dir, steps: int = 5, warmup: int = 1) -> dict:
     torch.cuda.empty_cache()
     emit({"phase": "train_loop_paths",
           "wall_s": time.perf_counter() - t_phase})
+    return counts, fp16_counts
+
+
+# ---------------------------------------------------------------- resnet18
+
+#: the conv-net path: ResNet-18 at ImageNet's shape, PaddleClas's
+#: optimizer settings (Momentum 0.9, lr 0.1, L2Decay 1e-4)
+RESNET_BATCH, RESNET_CLASSES, RESNET_STEPS = 256, 1000, 4
+
+
+def _resnet_flops(model, x) -> float:
+    """Operations of one forward of ``model`` on ``x``: 2 per
+    multiply-add of every convolution and linear layer (read off their
+    weights and output shapes by forward hooks)."""
+    from paddle_tpu_torch import nn
+
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        w = mod.weight
+        if isinstance(mod, nn.Conv2D):
+            total[0] += 2.0 * out.numel() * w[0].numel()
+        else:
+            total[0] += 2.0 * out.numel() * w.shape[0]
+    hooks = [m.register_forward_hook(hook) for m in model.sublayers()
+             if isinstance(m, (nn.Conv2D, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _resnet_train(model, opt, x, labels, steps):
+    """``steps`` O1 bf16 training steps (forward and loss under
+    ``auto_cast``, backward, ``opt.step``); their losses on the host."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.amp import auto_cast
+
+    ce = nn.CrossEntropyLoss()
+    losses = []
+    for _ in range(steps):
+        with auto_cast(level="O1"):
+            loss = ce(model(x), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    return [float(v) for v in losses]
+
+
+def _resnet_state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _rel_l2_sd(a, b, keys) -> float:
+    num = sum(float((a[k].float() - b[k].float()).square().sum())
+              for k in keys)
+    den = sum(float(b[k].float().square().sum()) for k in keys)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def slice_resnet18(out_dir) -> dict:
+    """The conv-net path through the port's entry points on the card:
+    ``vision.models.resnet18(num_classes=1000)`` at full width from a seed,
+    batch 256 at 3×224×224 (f32 convolutions with TF32 off, as the run
+    sets cuDNN). (a) The eval forward eager and under ``jit.to_static``
+    (the first call runs eagerly under the graph-break check, the second
+    captures a CUDA graph, later calls replay it): logits within 1e-4 of
+    the largest |logit|, one program, one capture, the BN statistics
+    untouched. (b) 4 O1 bf16 training steps with ``CrossEntropyLoss`` and
+    ``Momentum(0.9, lr 0.1, L2Decay(1e-4))`` from one initial state,
+    eager twice (the second run is the witness of the eager route's own
+    spread) and with the model under ``to_static`` (the forward and the
+    backward captured once, then replayed): every step's loss and, after
+    the steps, the BN running statistics and the parameters within
+    twice the witness (at least 1e-3 relative). (c) Two views of the
+    batch (the images and their mirror) in one O1 loss, so the training
+    program runs forward twice before one backward: the loss, every
+    gradient and the BN statistics within twice eager's own spread (at
+    least 1e-3 relative), no new capture, and a control (the second
+    view's gradients counted twice) beyond the gradients' limit. A
+    data-dependent branch
+    under ``to_static`` raises ``GraphBreakError`` on the card; dropout
+    under ``to_static`` draws a fresh mask on every replay (the port's
+    generator registered with the graph); no output leaves the card. Then timed: images/s eager and under ``to_static``
+    (eval and training), MFU (eval against 67 TFLOP/s f32, training
+    against 989 TFLOP/s bf16; 3x the forward's operations a training
+    image), device busy and idle share of two profiled training steps,
+    peak memory (the warm-up steps included: to_static's graph pool),
+    each for eager and to_static. No kernel of the port runs on this
+    path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import jit, nn
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.core.generator import seed
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.profiler import stats
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision.models import resnet18
+
+    t_phase = time.perf_counter()
+    seed(19)
+    model = resnet18(num_classes=RESNET_CLASSES)
+    check(all(p.is_cuda for p in model.parameters()) and all(
+        b.is_cuda for b in model.buffers()), "resnet18: not built on the card")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    x = torch.randn(RESNET_BATCH, 3, 224, 224, generator=gen, device="cuda")
+    labels = torch.randint(0, RESNET_CLASSES, (RESNET_BATCH,),
+                           generator=gen, device="cuda")
+    init = _resnet_state(model)
+    # ---- (a) eval
+    model.eval()
+    fwd_flops = _resnet_flops(model, x) / RESNET_BATCH
+    _reset_counters()
+    with torch.no_grad():
+        eager_out = model(x)
+        eager_ms = time_ms(lambda: model(x), iters=5, warmup=1)
+    captures0 = stats.counter("jit.capture").value
+    jit.to_static(model)
+    sf = model.forward
+    with torch.no_grad():
+        outs = [model(x) for _ in range(3)]
+        static_ms = time_ms(lambda: model(x), iters=5, warmup=1)
+    scale = float(eager_out.abs().max())
+    eval_err = max(max_err(o, eager_out) for o in outs)
+    eval_captures = stats.counter("jit.capture").value - captures0
+    bn_keys = [k for k in init if k.endswith(("_mean", "_variance"))]
+    sd = model.state_dict()
+    bn_untouched = all(torch.equal(sd[k], init[k]) for k in bn_keys)
+    eval_line = {
+        "check": "resnet18_eval", "batch": RESNET_BATCH,
+        "max_abs_err_static_vs_eager": eval_err, "logit_scale": scale,
+        "tol": 1e-4 * scale, "programs": len(sf.program_cache),
+        "captures": eval_captures, "bn_stats_untouched": bn_untouched,
+        "eager_ms": eager_ms, "static_ms": static_ms,
+        "eager_images_per_s": RESNET_BATCH / eager_ms * 1e3,
+        "static_images_per_s": RESNET_BATCH / static_ms * 1e3,
+        "forward_gflop_per_image": fwd_flops / 1e9,
+        "static_mfu_f32": fwd_flops * RESNET_BATCH / static_ms * 1e3
+        / PEAK_FLOPS[torch.float32]}
+    emit(eval_line)
+    check(all(o.is_cuda and o.shape == (RESNET_BATCH, RESNET_CLASSES)
+              and bool(torch.isfinite(o).all()) for o in outs),
+          "resnet18: eval outputs")
+    check(eval_err <= 1e-4 * scale, f"resnet18: to_static eval off eager "
+          f"by {eval_err} (limit {1e-4 * scale})")
+    check(len(sf.program_cache) == 1 and eval_captures == 1,
+          f"resnet18: eval programs {len(sf.program_cache)}, captures "
+          f"{eval_captures}")
+    check(bn_untouched, "resnet18: the eval forward moved BN statistics")
+    sf.rollback()
+    # ---- (b) training: eager, its witness, to_static
+    runs = {}
+    for kind in ("eager", "witness", "static"):
+        model.load_state_dict(init)
+        model.train()
+        if kind == "static":
+            jit.to_static(model)
+            captures0 = stats.counter("jit.capture").value
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters(),
+                       weight_decay=L2Decay(1e-4))
+        losses = _resnet_train(model, opt, x, labels, RESNET_STEPS)
+        runs[kind] = {"losses": losses, "state": _resnet_state(model)}
+        if kind == "static":
+            train_captures = stats.counter("jit.capture").value - captures0
+            train_programs = len(model.forward.program_cache)
+    param_keys = [k for k in init if k not in bn_keys]
+    rows = {}
+    for kind in ("witness", "static"):
+        r, e = runs[kind], runs["eager"]
+        rows[kind] = {
+            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                zip(r["losses"], e["losses"])),
+            "bn_stats_rel_l2": _rel_l2_sd(r["state"], e["state"], bn_keys),
+            "params_rel_l2": _rel_l2_sd(r["state"], e["state"],
+                                        param_keys)}
+    limits = {m: max(2 * rows["witness"][m], 1e-3) for m in rows["static"]}
+    emit({"check": "resnet18_train", "steps": RESNET_STEPS,
+          "losses": {k: v["losses"] for k, v in runs.items()},
+          "agreement_vs_eager": rows, "limits": limits,
+          "rule": "2 x the eager route's own run-to-run spread, at least "
+          "1e-3 relative", "programs": train_programs,
+          "captures": train_captures})
+    check(all(np.isfinite(runs["static"]["losses"])),
+          "resnet18: non-finite training loss")
+    for m, lim in limits.items():
+        check(rows["static"][m] <= lim, f"resnet18: to_static training "
+              f"{m} {rows['static'][m]} > {lim}")
+    check(train_programs == 1 and train_captures == 1,
+          f"resnet18: training programs {train_programs}, captures "
+          f"{train_captures}")
+    del runs
+    # ---- two views of the batch in one loss: the training program runs
+    # forward twice before one backward, so the first call's backward
+    # must replay its own forward (the pool holds the second's
+    # activations); against eager on the same state, eager twice (the
+    # witness), and a control: the second view's gradients counted twice
+    views = (x, x.flip(-1))
+    ce = nn.CrossEntropyLoss()
+    two = {}
+    captures0 = stats.counter("jit.capture").value
+    for kind in ("static", "eager", "witness", "control"):
+        if kind == "eager":
+            model.forward.rollback()
+        model.load_state_dict(init)
+        with auto_cast(level="O1"):
+            loss = 2 * ce(model(views[1]), labels) if kind == "control" \
+                else sum(ce(model(v), labels) for v in views)
+        loss.backward()
+        two[kind] = {"loss": float(loss.detach()), "state": {
+            **{k: v.detach().clone() for k, v in model.state_dict().items()
+               if k in bn_keys},
+            **{k: p.grad.detach().clone()
+               for k, p in model.named_parameters()}}}
+        for p in model.parameters():
+            p.grad = None
+    two_captures = stats.counter("jit.capture").value - captures0
+    grad_keys = [k for k, _ in model.named_parameters()]
+    two_rows = {kind: {
+        "loss_rel_err": abs(two[kind]["loss"] - two["eager"]["loss"])
+        / abs(two["eager"]["loss"]),
+        "grads_rel_l2": _rel_l2_sd(two[kind]["state"], two["eager"]["state"],
+                                   grad_keys),
+        "bn_stats_rel_l2": _rel_l2_sd(two[kind]["state"],
+                                      two["eager"]["state"], bn_keys)}
+        for kind in ("static", "witness", "control")}
+    two_limits = {m: max(2 * two_rows["witness"][m], 1e-3)
+                  for m in two_rows["static"]}
+    emit({"check": "resnet18_two_views", "agreement_vs_eager": two_rows,
+          "limits": two_limits, "captures": two_captures,
+          "rule": "2 x the eager route's own run-to-run spread, at least "
+          "1e-3 relative; the control's grads must exceed theirs"})
+    for m, lim in two_limits.items():
+        check(two_rows["static"][m] <= lim, f"resnet18: two views under "
+              f"to_static: {m} {two_rows['static'][m]} > {lim}")
+    check(two_rows["control"]["grads_rel_l2"] > two_limits["grads_rel_l2"],
+          f"resnet18: the two-views control is within the limits: "
+          f"{two_rows['control']}")
+    check(two_captures == 0, f"resnet18: the two views captured "
+          f"{two_captures} more programs")
+    del two
+    # ---- a graph break on the card
+    err = None
+    try:
+        jit.to_static(lambda t: t * 2 if t.sum() > 0 else t)(x[:1])
+    except jit.GraphBreakError as e:
+        err = str(e).splitlines()[0]
+    emit({"check": "resnet18_graph_break", "error": err})
+    check(err is not None, "resnet18: no GraphBreakError on the card")
+    # ---- dropout under replay: fresh masks from the port's generator
+    from paddle_tpu_torch.nn import functional as F
+
+    drop = jit.to_static(lambda t: F.dropout(t, p=0.5))
+    ones = torch.ones(1 << 16, device="cuda")
+    masks = [drop(ones) for _ in range(4)]
+    kept = [float((m != 0).float().mean()) for m in masks]
+    fresh = all(not torch.equal(masks[i], masks[i + 1]) for i in range(3))
+    emit({"check": "to_static_dropout", "kept_share": kept,
+          "fresh_masks_every_call": fresh,
+          "programs": len(drop.program_cache)})
+    check(fresh and all(0.48 < k < 0.52 for k in kept)
+          and len(drop.program_cache) == 1, "to_static: dropout under "
+          f"replay kept {kept}, fresh {fresh}")
+    del masks, ones
+    # ---- timed training steps, eager and to_static: 2 warm-up steps (to
+    # _static's check-run and capture among them, so its graphs' pool is
+    # in the peak), 5 timed, 2 profiled
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.parameters(), weight_decay=L2Decay(1e-4))
+    timed, prof_steps = {}, 2
+    for kind in ("eager", "static"):
+        if kind == "static":
+            # (the two-views check left the forward eager)
+            jit.to_static(model)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _resnet_train(model, opt, x, labels, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _resnet_train(model, opt, x, labels, 5)
+        wall = (time.perf_counter() - t0) / 5
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _resnet_train(model, opt, x, labels, prof_steps)
+            prof_wall = (time.perf_counter() - t0) / prof_steps * 1e3
+        busy, by_kind = 0.0, {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            ms = ev.self_device_time_total / prof_steps / 1e3
+            busy += ms
+            lk = ev.key.lower()
+            g = ("convolutions (cuDNN)" if any(t in lk for t in (
+                "conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
+                "sm90")) else "GEMMs" if "gemm" in lk else "BN"
+                 if "norm" in lk else
+                 "other PyTorch ops (casts, ReLU, pooling, optimizer)")
+            by_kind[g] = by_kind.get(g, 0.0) + ms
+        timed[kind] = {"wall_ms_per_step": wall * 1e3,
+                       "images_per_s": RESNET_BATCH / wall,
+                       "max_memory_allocated_gb": peak / 1e9,
+                       "max_memory_reserved_gb": reserved / 1e9,
+                       "profiled_wall_ms_per_step": prof_wall,
+                       "device_busy_ms_per_step": busy,
+                       "device_idle_share": 1 - busy / prof_wall,
+                       "device_ms_by_kind": by_kind}
+        if out_dir:
+            with open(os.path.join(out_dir, f"profile_resnet18_{kind}.txt"),
+                      "w") as f:
+                f.write(prof.key_averages().table(
+                    sort_by="self_device_time_total", row_limit=30))
+    counts = _counters()
+    _check_launches("resnet18", counts, dict.fromkeys(_SOURCES, 0))
+    train_flops = 3 * fwd_flops * RESNET_BATCH
+    result = {"phase": "resnet18", "batch": RESNET_BATCH,
+              "image": [3, 224, 224], "classes": RESNET_CLASSES,
+              "n_params": sum(p.numel() for p in model.parameters()),
+              "eval_images_per_s": {"eager": eval_line["eager_images_per_s"],
+                                    "static": eval_line[
+                                        "static_images_per_s"]},
+              "train": timed,
+              "train_mfu_bf16": {k: train_flops / v["wall_ms_per_step"] * 1e3
+                                 / PEAK_FLOPS[torch.bfloat16]
+                                 for k, v in timed.items()},
+              "captures_total": stats.counter("jit.capture").value,
+              "wall_s": time.perf_counter() - t_phase}
+    emit(result)
+    del model, opt, prof, x, eager_out, outs
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4282,7 +4731,7 @@ def _ragged_lens(total: int, seed: int) -> list:
 #: causal): the rung; a ragged pack; totals off the 64-row tile; cross
 #: lengths with an empty k segment; non-causal; f32 at d64; bf16 at d96;
 #: bf16 at d40, which the wrappers run zero-padded to 64; bf16 and f32 at
-#: d256
+#: d256; the rung in fp16
 VARLEN_CASES = (
     ("rung", VARLEN_LENS, None, 16, 128, torch.bfloat16, True),
     ("ragged", _ragged_lens(32768, 11), None, 16, 128, torch.bfloat16, True),
@@ -4296,6 +4745,7 @@ VARLEN_CASES = (
     ("bf16_d40", [1536, 512, 1000], None, 16, 40, torch.bfloat16, True),
     ("bf16_d256", [700, 300, 1000], None, 8, 256, torch.bfloat16, True),
     ("f32_d256", [300, 200], None, 2, 256, torch.float32, True),
+    ("rung_fp16", VARLEN_LENS, None, 16, 128, torch.float16, True),
 )
 VARLEN_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
 #: each kernel's faulty-kernel control and the outputs it must push out
@@ -4398,10 +4848,10 @@ def _packed_tile_rel_l2(got, ref) -> float:
     return _tile_rel_l2(tiles(got), tiles(ref))
 
 
-def _varlen_errs(got, ref, bf16: bool) -> dict:
+def _varlen_errs(got, ref, half: bool) -> dict:
     """lse (real rows) and every f32 output by the largest absolute
-    error; a bf16 out, dq, dk, dv by ``_packed_tile_rel_l2``."""
-    return {n: (_packed_tile_rel_l2 if bf16 and n != "lse" else max_err)(
+    error; a 16-bit out, dq, dk, dv by ``_packed_tile_rel_l2``."""
+    return {n: (_packed_tile_rel_l2 if half and n != "lse" else max_err)(
         g, r) for n, g, r in zip(VARLEN_OUTPUTS, got, ref)}
 
 
@@ -4421,20 +4871,25 @@ def _varlen_bounds(tq, tk, h, d, pairs, dtype) -> dict:
 def kernel_flash_varlen(gen) -> dict:
     """Kernels B11-B13 (packed varlen forward, dq, dk/dv) against their
     plain versions (the JAX XLA tile walks) on the same inputs, at
-    VARLEN_CASES: out, lse, dq, dk, dv. Limits as for B10: a bf16 out,
-    dq, dk or dv by its largest relative L2 error over any (64-row tile,
-    head), limited by the one-ulp witness on that metric plus 2^-8; lse
-    (real rows) 1e-5 absolute; float32 1e-5 (out) and 1e-4 (dq, dk, dv)
-    absolute. Rows that see no key must be exactly 0 with lse -1e30, and
+    VARLEN_CASES: out, lse, dq, dk, dv, each in its case's dtype but lse
+    (f32). Limits as for B10: a bf16 or fp16 out, dq, dk or dv by its
+    largest relative L2 error over any (64-row tile, head), limited by
+    the one-ulp witness on that metric plus one relative ulp of the type
+    (``ULP16``); lse (real rows) 1e-5 absolute; float32 1e-5 (out) and
+    1e-4 (dq, dk, dv) absolute. Rows that see no key must be exactly 0 with lse -1e30, and
     their dq rows 0; keys that no row sees get dk and dv exactly 0. A
     second call of the kernels must give bitwise the same outputs (one
     owner a tile, no atomics). One control per kernel, in every case:
     the plain walk over the map with the first tile of the late walks
     dropped (``_drop_first_tile``) must exceed the out, dq, and dk and dv
-    limits. Then timed at the rung beside the plain versions and the aten
-    varlen flash forward and backward (``_flash_attention_forward``/
-    ``_backward`` with cum_seq)."""
-    from paddle_tpu_torch.nn.functional import flash_varlen as fv
+    limits. Then timed at the rung, in bf16 and in fp16, beside the plain
+    versions and the aten varlen flash forward and backward
+    (``_flash_attention_forward``/``_backward`` with cum_seq). Returns
+    the rows of the kernels line (the fp16 ones named ``*_fp16``) and the
+    launch counts of one fp16 ``flash_attn_unpadded`` forward and
+    backward through autograd at the rung (counts set to 0 just
+    before)."""
+    from paddle_tpu_torch.nn.functional import attention as at
 
     res = {}
     for name, lq, lk, h, d, dtype, causal in VARLEN_CASES:
@@ -4442,27 +4897,28 @@ def kernel_flash_varlen(gen) -> dict:
         cq, ck = _cu(lq), _cu(lk)
         q, k, v, do = _varlen_inputs(gen, sum(lq), sum(lk), h, d, dtype)
         scale = d ** -0.5
-        bf16 = dtype == torch.bfloat16
+        half = dtype in ULP16
         got = _varlen_kernel_all(q, k, v, do, cq, ck, causal, scale)
         again = _varlen_kernel_all(q, k, v, do, cq, ck, causal, scale)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         ref = _varlen_plain_all(q, k, v, do, cq, ck, causal, scale)
-        errs = _varlen_errs(got, ref, bf16)
+        errs = _varlen_errs(got, ref, half)
         max_abs = {n: max_err(g, r)
                    for n, g, r in zip(VARLEN_OUTPUTS, got, ref)}
+        dtypes = [t.dtype for t in got]
         line = {"check": "flash_varlen", "case": name, "h": h, "d": d,
                 "tq": sum(lq), "tk": sum(lk), "segments": len(lq),
                 "dtype": str(dtype), "causal": causal,
-                "metric": "tile_rel_l2" if bf16 else "max_abs_err",
+                "metric": "tile_rel_l2" if half else "max_abs_err",
                 "err": errs, "max_abs_err": max_abs,
                 "second_call_bitwise": bitwise}
-        if bf16:
+        if half:
             wit = _varlen_errs(_varlen_plain_all(
                 *(_ulp_nudge(t, gen) for t in (q, k, v, do)), cq, ck,
-                causal, scale), ref, bf16)
-            tols = {n: wit[n] + 2.0 ** -8 for n in VARLEN_OUTPUTS}
+                causal, scale), ref, half)
+            tols = {n: wit[n] + ULP16[dtype] for n in VARLEN_OUTPUTS}
             tols["lse"] = 1e-5
             line["witness_err"] = wit
         else:
@@ -4471,7 +4927,7 @@ def kernel_flash_varlen(gen) -> dict:
         ctrl = {}
         for kern, outs in VARLEN_CONTROLS.items():
             bad = _varlen_errs(_varlen_plain_all(
-                q, k, v, do, cq, ck, causal, scale, fault=kern), ref, bf16)
+                q, k, v, do, cq, ck, causal, scale, fault=kern), ref, half)
             ctrl.update({n: bad[n] for n in outs})
         line.update({"tol": tols, "control_err": ctrl})
         what = f"flash_varlen {name}"
@@ -4490,19 +4946,40 @@ def kernel_flash_varlen(gen) -> dict:
             check(keys_ok, f"{what}: keys that no row sees do not get dk "
                   "and dv exactly 0")
         emit(line)
+        check(dtypes == [dtype, torch.float32] + [dtype] * 3,
+              f"{what}: output dtypes {dtypes}")
         check(bitwise, f"{what}: a second call is not bitwise equal")
         bad = _over(errs, tols)
         check(not bad, f"{what}: {bad} over the limits: {errs} > {tols}")
         for kern, outs in VARLEN_CONTROLS.items():
             check(all(ctrl[n] > tols[n] for n in outs), f"{what}: the "
                   f"faulty-{kern} control ({ctrl}) is within {tols}")
-        if name == "rung":
-            res = max_abs
+        if lq is VARLEN_LENS:
+            res[dtype] = max_abs
         del q, k, v, do, got, ref
     torch.cuda.empty_cache()
     for d in (40, 96, 256):
         _varlen_pad_times(gen, d)
-    return _varlen_times(gen, res)
+    rows = _varlen_times(gen, res[torch.bfloat16])
+    # one fp16 training-shaped call through the public entry point
+    dt, lens, h, d = torch.float16, VARLEN_LENS, 16, 128
+    cu, scale = _cu(lens), d ** -0.5
+    q, k, v, do = _varlen_inputs(gen, sum(lens), sum(lens), h, d, dt)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    _reset_counters()
+    out, _ = at.flash_attn_unpadded(*leaves, cu, cu, max(lens), max(lens),
+                                    scale, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = _counters()
+    _check_launches("varlen_fp16", counts, _varlen_expected(1, 1))
+    check(all(t.grad.dtype == dt for t in leaves) and out.dtype == dt,
+          "flash_attn_unpadded fp16: an output or gradient left fp16")
+    del q, k, v, do, leaves, out
+    torch.cuda.empty_cache()
+    rows.update({n + "_fp16": r for n, r in
+                 _varlen_times(gen, res[dt], dt).items()})
+    return rows, counts
 
 
 def _varlen_pad_times(gen, d: int) -> None:
@@ -4592,16 +5069,18 @@ def _aten_varlen_times(sets, cu, cmax: int, scale: float):
                 f"{type(exc).__name__}: {str(exc)[:300]}")
 
 
-def _varlen_times(gen, res: dict) -> dict:
+def _varlen_times(gen, res: dict, dt=torch.bfloat16) -> dict:
     """B11-B13 timed at the rung (CUDA events over 20 calls after 3
     warm-ups, inputs rotating over 4 sets) and by the profiler, beside the
     plain versions and the aten varlen flash forward and backward; then
     one ``flash_attn_unpadded`` forward + backward through autograd (one
-    block map for the three launches) beside aten's forward + backward."""
+    block map for the three launches) beside aten's forward + backward.
+    ``dt``: bf16 or fp16 (an fp16 line's name ends in ``_fp16``)."""
     from paddle_tpu_torch.nn.functional import attention as at
     from paddle_tpu_torch.nn.functional import flash_varlen as fv
 
-    lens, h, d, dt = VARLEN_LENS, 16, 128, torch.bfloat16
+    lens, h, d = VARLEN_LENS, 16, 128
+    tag = "_fp16" if dt == torch.float16 else ""
     T, scale = sum(lens), d ** -0.5
     cu = _cu(lens)
     sets = []
@@ -4653,7 +5132,7 @@ def _varlen_times(gen, res: dict) -> dict:
         note = why if lib[pass_] is None else (
             "aten._flash_attention_forward (cum_seq)" if name == "fwd" else
             "aten._flash_attention_backward (cum_seq) computes dq, dk, dv")
-        emit({"time": VARLEN_NAMES[name], "h": h, "d": d, "tq": T,
+        emit({"time": VARLEN_NAMES[name] + tag, "h": h, "d": d, "tq": T,
               "segments": len(lens), "causal": True, **rows[name],
               "tflops": flops / times[name] / 1e9,
               "plain_note": None if name == "fwd" else
@@ -4669,7 +5148,8 @@ def _varlen_times(gen, res: dict) -> dict:
         out.backward(do)
 
     both = None if lib["fwd"] is None else lib["fwd"] + lib["bwd"]
-    emit({"time": "flash_attn_unpadded_train", "h": h, "d": d, "tq": T,
+    emit({"time": "flash_attn_unpadded_train" + tag, "h": h, "d": d,
+          "tq": T,
           "segments": len(lens), "causal": True, "ms": time_ms(train),
           "kernels_device_ms": device_ms(
               train, (B11_KERNEL, B12_KERNEL, B13_KERNEL)),
@@ -5949,11 +6429,15 @@ def drive(args) -> None:
     # the training rung
     by_path["train"] = slice_train(args.out)
     # the training loop's core under AMP O1 on the same rung
-    by_path["train_loop"] = slice_train_loop(args.out)
+    by_path["train_loop"], by_path["train_loop_fp16"] = \
+        slice_train_loop(args.out)
+    # the conv-net path: ResNet-18 eager and under to_static
+    by_path["resnet18"] = slice_resnet18(args.out)
     # packed varlen attention (B11-B13) and the gpt-760m rung (B10 at
     # head_dim 96)
     t0 = time.perf_counter()
-    rows.update(kernel_flash_varlen(gen))
+    varlen_rows, by_path["varlen_fp16"] = kernel_flash_varlen(gen)
+    rows.update(varlen_rows)
     emit({"phase": "flash_varlen_kernels", "wall_s": time.perf_counter() - t0})
     by_path["attn_varlen"] = slice_attn_varlen(gen)
     by_path["train_760m"] = slice_train_760m()
@@ -5964,12 +6448,17 @@ def drive(args) -> None:
     by_path["train_moe"] = slice_train_moe(args.out, gen)
     kernels = []
     for name, row in rows.items():
-        src, replaces = _SOURCES[name]
+        # an fp16 row counts its kernel's launches on the fp16 paths, the
+        # others theirs on every other path
+        fp16 = name.endswith("_fp16")
+        base = name[:-len("_fp16")] if fp16 else name
+        src, replaces = _SOURCES[base]
+        paths = {p: c[base] for p, c in by_path.items()
+                 if p.endswith("_fp16") == fp16}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": sum(c[name] for c in by_path.values()),
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

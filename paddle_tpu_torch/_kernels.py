@@ -38,6 +38,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "lib", "check", "dtype_code", "weight_code", "ptr",
+           "FP16_CODE", "HALF_TYPES",
            "stream_ptr", "sm_count", "SOURCES", "BUILD_DIR"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -225,14 +226,26 @@ def check(code: int, what: str) -> None:
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the code of int8 weights (csrc/common.cuh kI8)
 INT8_CODE = 2
+#: the code of float16 operands (csrc/common.cuh kF16), which only the
+#: flash kernels B10-B13 take
+FP16_CODE = 3
+#: the 16-bit operand types of the flash kernels' tensor-core routes
+#: (B10-B13): both run the same kernels, templated on the type; neither is
+#: cast to the other
+HALF_TYPES = (torch.bfloat16, torch.float16)
 
 
-def dtype_code(t: torch.Tensor, what: str) -> int:
-    """Code of a float operand (float32 or bfloat16)."""
+def dtype_code(t: torch.Tensor, what: str, fp16: bool = False) -> int:
+    """Code of a float operand: float32 or bfloat16, and float16 where the
+    kernel takes it (``fp16``)."""
+    if fp16 and t.dtype == torch.float16:
+        return FP16_CODE
     code = _DTYPE_CODES.get(t.dtype)
     if code is None:
+        kinds = "float32, bfloat16 or float16" if fp16 else \
+            "float32 or bfloat16"
         raise TypeError(f"{what}: dtype {t.dtype} is not supported by the "
-                        "CUDA kernel (float32 or bfloat16)")
+                        f"CUDA kernel ({kinds})")
     return code
 
 

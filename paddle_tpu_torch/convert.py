@@ -2,7 +2,8 @@
 
 ``load_jax_params(model, params)`` takes the JAX model's
 ``state_dict()`` as numpy arrays (``{name: np.asarray(p._data)}``) and
-copies each into the port's parameter of the same name. The port's
+copies each into the port's parameter or persistable buffer of the same
+name. The port's
 ``nn.Module``s keep the JAX package's parameter names and shapes
 (``embed``, ``stack.qkv_weight``, ``lnf_scale``, ...), so the two
 packages then compute the same function from the same numbers. A stack
@@ -45,29 +46,42 @@ def _to_torch(arr) -> torch.Tensor:
 
 def load_jax_params(model: torch.nn.Module,
                     params: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    """Copy every array of ``params`` into ``model``'s parameter of the
-    same name, on the parameter's device, keeping the array's dtype.
-    Raises on a name the model lacks, a shape mismatch, or a model
-    parameter that ``params`` leaves unset."""
+    """Copy every array of ``params`` into ``model``'s parameter or
+    persistable buffer (BN's ``_mean`` and ``_variance``) of the same
+    name, on its device. Raises on a name the model lacks, a shape
+    mismatch, or a parameter or buffer that ``params`` leaves unset.
+
+    An array of the tensor's own dtype is copied into it in place, so
+    the tensor keeps its storage, which a ``jit.to_static`` program
+    captured as a CUDA graph reads. An array of another dtype (int8
+    weights of a quantized stack) rebinds the tensor to new storage of
+    the array's dtype; a ``to_static`` program that captured the old
+    storage sees it moved and captures itself again at its next call."""
     quantized = {n.rpartition(".")[0] for n in params
                  if n.endswith("_scale_woq")}
     for prefix, mod in model.named_modules():
         if prefix in quantized and hasattr(mod, "add_woq_scales"):
             mod.add_woq_scales()
     own = dict(model.named_parameters())
+    own.update((k, v) for k, v in model.state_dict(keep_vars=True).items()
+               if k not in own)
     missing = sorted(set(own) - set(params))
     unknown = sorted(set(params) - set(own))
     if missing or unknown:
         raise KeyError(f"load_jax_params: names differ — missing "
                        f"{missing}, unknown {unknown}")
-    for name, arr in params.items():
-        p = own[name]
-        t = _to_torch(arr)
-        if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"load_jax_params: {name} is "
-                             f"{tuple(t.shape)}, the model's "
-                             f"{tuple(p.shape)}")
-        p.data = t.to(p.device)
+    with torch.no_grad():
+        for name, arr in params.items():
+            p = own[name]
+            t = _to_torch(arr)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"load_jax_params: {name} is "
+                                 f"{tuple(t.shape)}, the model's "
+                                 f"{tuple(p.shape)}")
+            if t.dtype == p.dtype:
+                p.copy_(t)
+            else:
+                p.data = t.to(p.device)
     return model
 
 

@@ -202,12 +202,12 @@ __device__ __forceinline__ PV tile_weights(const float (&x)[2][2],
       mid[nt][e] = tiles::bf16_round(r1);
       lo[nt][e] = r1 - mid[nt][e];
     }
-  return PV{tiles::pack_bf16(hi[0][0], hi[0][1]),
-            tiles::pack_bf16(mid[0][0], mid[0][1]),
-            tiles::pack_bf16(hi[1][0], hi[1][1]),
-            tiles::pack_bf16(mid[1][0], mid[1][1]),
-            tiles::pack_bf16(lo[0][0], lo[0][1]),
-            tiles::pack_bf16(lo[1][0], lo[1][1])};
+  return PV{ptt::pack2<tiles::bf16>(hi[0][0], hi[0][1]),
+            ptt::pack2<tiles::bf16>(mid[0][0], mid[0][1]),
+            ptt::pack2<tiles::bf16>(hi[1][0], hi[1][1]),
+            ptt::pack2<tiles::bf16>(mid[1][0], mid[1][1]),
+            ptt::pack2<tiles::bf16>(lo[0][0], lo[0][1]),
+            ptt::pack2<tiles::bf16>(lo[1][0], lo[1][1])};
 }
 
 // bf16 pools (B1, B8): rows of head_dim 32 NG. The block's shared memory:

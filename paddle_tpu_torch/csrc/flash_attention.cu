@@ -34,7 +34,11 @@
 // from the diagonal down. No atomics: every result is the same from run
 // to run.
 //
-// bf16 at head_dim 64, 96 and 128 runs on Hopper's tensor cores through
+// bf16 and fp16 share every 16-bit kernel below, templated on the element
+// type T (the wgmma or mma.sync form, the tensor maps' type, the rounding
+// of P and dS into fragments and of the outputs); fp16 is not converted to
+// bf16 anywhere. At head_dim 64, 96 and 128 they run on Hopper's tensor
+// cores through
 // the mainloops of the packed varlen kernels (flash_wgmma.cuh, shared with
 // B11-B13): flash_fwd_wgmma, flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma
 // are 384-thread blocks, a producer warpgroup keeping TMA rings of
@@ -49,14 +53,14 @@
 // the forward stores out by TMA from shared memory. No block map is
 // built: host work a launch is the tensor-map encodes and the launch.
 //
-// At head_dim 256 bf16 runs mma.sync m16n8k16 with fp32 sums, 4 warps of
+// At head_dim 256 they run mma.sync m16n8k16 with fp32 sums, 4 warps of
 // 16 rows (or 16 keys in dk/dv), operand fragments by ldmatrix (plain for
 // an operand stored k-contiguous, .trans for one stored n-contiguous) from
 // tiles that a 2-stage cp.async ring brings into shared memory, rows
 // padded by 16 bytes so the 8 rows of an ldmatrix hit distinct banks. A
 // product's fp32 accumulator has the register layout of the next
 // product's A fragment, so P (and dS) go from one mma to the next in
-// registers, packed to bf16 as the TPU kernel casts p to v's type before
+// registers, packed to T as the TPU kernel casts p to v's type before
 // its dot. The softmax runs in base 2 (scores pre-scaled by scale * log2
 // e) with f32 statistics. A warp's 16 x 256 fp32 accumulator is 128
 // registers a thread: the forward and dq compute each 64-key tile in two
@@ -87,6 +91,7 @@ using namespace ptt::flash;
 using ptt::cp_async16;
 using ptt::cp_async_commit;
 using ptt::cp_async_wait;
+using ptt::store2;
 using ptt::tiles::load_rows;
 
 // the stock TPU kernel's DEFAULT_MASK_VALUE: finite, so exp underflows to
@@ -120,10 +125,10 @@ __device__ __forceinline__ int64_t dense_at(const FlashParams& p, int s_len,
   return ((static_cast<int64_t>(bi) * s_len + s) * p.h + hi) * D;
 }
 
-// ---------------------------------------------- bf16 at D 256: mma.sync
+// ------------------------------------------ 16-bit at D 256: mma.sync
 
-template <int R, int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const void* base,
+template <int R, int D, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const void* base,
                                           const Strides& st, int bi, int hi,
                                           int r0) {
   load_rows<R, D>(dst, base, st.b, st.s, st.h, bi, hi, r0);
@@ -138,38 +143,37 @@ __device__ __forceinline__ void load_stats(float* dst, const float* plane,
              R);
 }
 
-// rows g and g + 8 of a warp's 16 x DO accumulator, times `mul`, as bf16
+// rows g and g + 8 of a warp's 16 x DO accumulator, times `mul`, as T
 // columns col0.. of rows of a contiguous [b, s, h, D] array from row r0
-template <int D, int DO = D>
+template <typename T, int D, int DO = D>
 __device__ __forceinline__ void store_rows(const FlashParams& p, void* dst,
                                            int s_len, int bi, int hi, int r0,
                                            const float (&acc)[DO / 8][4],
                                            const float (&mul)[2],
                                            int col0 = 0) {
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  bf16* out = static_cast<bf16*>(dst);
+  T* out = static_cast<T*>(dst);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* row = out + dense_at<D>(p, s_len, bi, r0 + g + r * 8, hi) + col0;
+    T* row = out + dense_at<D>(p, s_len, bi, r0 + g + r * 8, hi) + col0;
 #pragma unroll
     for (int nt = 0; nt < DO / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nt][2 * r] * mul[r],
-                                acc[nt][2 * r + 1] * mul[r]);
+      store2<T>(row + nt * 8 + 2 * t, acc[nt][2 * r] * mul[r],
+                acc[nt][2 * r + 1] * mul[r]);
   }
 }
 
 // Forward: a block owns 64 query rows (warp w rows 16w..) and walks the
 // 64-key tiles up to the diagonal with an online softmax.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(const FlashParams p) {
+    flash_fwd_mma(const FlashParams p) {
   constexpr int kM = 64, kN = 64, kPitch = TileBf16<D>::kPitch;
   constexpr int kS = TileBf16<D>::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);  // [kM][kPitch]
-  bf16* sk = sq + kM * kPitch;               // [2][kN][kPitch]
-  bf16* sv = sk + 2 * kN * kPitch;           // [2][kN][kPitch]
+  T* sq = reinterpret_cast<T*>(smem);  // [kM][kPitch]
+  T* sk = sq + kM * kPitch;            // [2][kN][kPitch]
+  T* sv = sk + 2 * kN * kPitch;        // [2][kN][kPitch]
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kM;  // longest walks first
   const int hi = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -249,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
     l[r] = quad_sum(l[r]);
     inv[r] = 1.f / l[r];
   }
-  store_rows<D>(p, p.out, p.sq, bi, hi, q0 + warp * 16, o, inv);
+  store_rows<T, D>(p, p.out, p.sq, bi, hi, q0 + warp * 16, o, inv);
   if (t == 0) {
     float* lse = p.lse + (static_cast<int64_t>(bi) * p.h + hi) * p.sq;
 #pragma unroll
@@ -261,16 +265,16 @@ __global__ void __launch_bounds__(kThreads)
 // dq: a block owns 64 query rows and walks the 64-key tiles up to the
 // diagonal: S = Q K^T, P = exp(S - lse), dP = dO V^T, dS = P (dP - di),
 // dQ += dS K.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16(const FlashParams p) {
+    flash_bwd_dq_mma(const FlashParams p) {
   constexpr int kM = 64, kN = 64, kPitch = TileBf16<D>::kPitch;
   constexpr int kS = TileBf16<D>::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);  // [kM][kPitch]
-  bf16* sdo = sq + kM * kPitch;              // [kM][kPitch]
-  bf16* sk = sdo + kM * kPitch;              // [2][kN][kPitch]
-  bf16* sv = sk + 2 * kN * kPitch;           // [2][kN][kPitch]
+  T* sq = reinterpret_cast<T*>(smem);  // [kM][kPitch]
+  T* sdo = sq + kM * kPitch;           // [kM][kPitch]
+  T* sk = sdo + kM * kPitch;           // [2][kN][kPitch]
+  T* sv = sk + 2 * kN * kPitch;        // [2][kN][kPitch]
   float* slse = reinterpret_cast<float*>(sv + 2 * kN * kPitch);  // [kM]
   float* sdi = slse + kM;                                         // [kM]
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kM;
@@ -315,8 +319,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int sub = 0; sub < kN / kS; ++sub) {
       const int k0 = j * kN + sub * kS, row0 = q0 + warp * 16 + g;
       if (p.causal && k0 > q0 + warp * 16 + 15) continue;  // dS is 0
-      const bf16* kt = sk + (st * kN + sub * kS) * kPitch;
-      const bf16* vt = sv + (st * kN + sub * kS) * kPitch;
+      const T* kt = sk + (st * kN + sub * kS) * kPitch;
+      const T* vt = sv + (st * kN + sub * kS) * kPitch;
       float s[kS / 8][4], dp[kS / 8][4];
       zero(s);
       zero(dp);
@@ -338,23 +342,23 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait<0>();
   const float mul[2] = {p.scale, p.scale};
-  store_rows<D>(p, p.out, p.sq, bi, hi, q0 + warp * 16, dq, mul);
+  store_rows<T, D>(p, p.out, p.sq, bi, hi, q0 + warp * 16, dq, mul);
 }
 
 // dk/dv: a block owns 64 keys (warp w keys 16w..) and kC of their D
 // columns, and walks the 32-row q tiles from the diagonal on: S^T = K Q^T,
 // P^T = exp(S^T - lse), dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T -
 // di), dK += dS^T Q.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_bf16(const FlashParams p) {
+    flash_bwd_dkv_mma(const FlashParams p) {
   constexpr int kM = 32, kN = 64, kPitch = TileBf16<D>::kPitch;
   constexpr int kC = TileBf16<D>::kCols, kHalves = D / kC;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);  // [kN][kPitch]
-  bf16* sv = sk + kN * kPitch;               // [kN][kPitch]
-  bf16* sq = sv + kN * kPitch;               // [2][kM][kPitch]
-  bf16* sdo = sq + 2 * kM * kPitch;          // [2][kM][kPitch]
+  T* sk = reinterpret_cast<T*>(smem);  // [kN][kPitch]
+  T* sv = sk + kN * kPitch;            // [kN][kPitch]
+  T* sq = sv + kN * kPitch;            // [2][kM][kPitch]
+  T* sdo = sq + 2 * kM * kPitch;       // [2][kM][kPitch]
   float* slse = reinterpret_cast<float*>(sdo + 2 * kM * kPitch);  // [2][kM]
   float* sdi = slse + 2 * kM;                                      // [2][kM]
   // low key tiles have the longest walks
@@ -396,8 +400,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait<1>();
     __syncthreads();
 
-    const bf16* qt = sq + st * kM * kPitch;
-    const bf16* dot = sdo + st * kM * kPitch;
+    const T* qt = sq + st * kM * kPitch;
+    const T* dot = sdo + st * kM * kPitch;
     const float* lt = slse + st * kM;
     const float* dt = sdi + st * kM;
     float s[kM / 8][4];
@@ -427,11 +431,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f}, mul[2] = {p.scale, p.scale};
-  store_rows<D, kC>(p, p.dk, p.sk, bi, hi, k0 + warp * 16, dk, mul, col0);
-  store_rows<D, kC>(p, p.dv, p.sk, bi, hi, k0 + warp * 16, dv, one, col0);
+  store_rows<T, D, kC>(p, p.dk, p.sk, bi, hi, k0 + warp * 16, dk, mul,
+                       col0);
+  store_rows<T, D, kC>(p, p.dv, p.sk, bi, hi, k0 + warp * 16, dv, one,
+                       col0);
 }
 
-// ------------------------------------------- bf16 on Hopper: wgmma + TMA
+// ----------------------------------------- 16-bit on Hopper: wgmma + TMA
 
 // The dense walk of the Hopper kernels (flash_wgmma.cuh): what the varlen
 // kernels read from a block map, worked out from the block index and (b,
@@ -609,36 +615,36 @@ struct DenseWalk {
 
 // the forward (flash_wgmma.cuh fwd_wgmma): a block per (128-row q tile,
 // batch, head)
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap omap,
                     const __grid_constant__ FlashParams p) {
-  fwd_wgmma<D, DenseWalk<kFwd>>(&qmap, &kmap, &vmap, &omap, p);
+  fwd_wgmma<D, DenseWalk<kFwd>, T>(&qmap, &kmap, &vmap, &omap, p);
 }
 
 // dq (bwd_dq_wgmma): a block per (128-row q tile, batch, head)
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const __grid_constant__ CUtensorMap dmap,
                        const __grid_constant__ FlashParams p) {
-  bwd_dq_wgmma<D, DenseWalk<kDq>>(&qmap, &kmap, &vmap, &dmap, p);
+  bwd_dq_wgmma<D, DenseWalk<kDq>, T>(&qmap, &kmap, &vmap, &dmap, p);
 }
 
 // dk/dv (bwd_dkv_wgmma): a block per (128 keys, batch, head)
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
                         const __grid_constant__ CUtensorMap dmap,
                         const __grid_constant__ FlashParams p) {
-  bwd_dkv_wgmma<D, DenseWalk<kDkv>>(&qmap, &kmap, &vmap, &dmap, p);
+  bwd_dkv_wgmma<D, DenseWalk<kDkv>, T>(&qmap, &kmap, &vmap, &dmap, p);
 }
 
 // ---------------------------------------------------------------- f32
@@ -840,11 +846,11 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a rank-4 map over a [b, s, h, D] bf16 operand with batch, row and head
-// strides `st` (elements): boxes of 64 columns x 1 head x `rows` rows x 1
-// batch
-int make_map4(CUtensorMap* map, const void* base, int b, int s, int h, int d,
-              const Strides& st, int rows) {
+// a rank-4 map over a [b, s, h, D] bf16 (or, with `half`, fp16) operand
+// with batch, row and head strides `st` (elements): boxes of 64 columns x 1
+// head x `rows` rows x 1 batch
+int make_map4(CUtensorMap* map, bool half, const void* base, int b, int s,
+              int h, int d, const Strides& st, int rows) {
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(h),
       static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
@@ -852,7 +858,7 @@ int make_map4(CUtensorMap* map, const void* base, int b, int s, int h, int d,
                                  static_cast<cuuint64_t>(st.s) * 2,
                                  static_cast<cuuint64_t>(st.b) * 2};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  return hp::make_map_bf16(map, base, 4, dims, strides, box);
+  return hp::make_map_16(map, half, base, 4, dims, strides, box);
 }
 
 // the current card's streaming multiprocessors (read once a device)
@@ -867,25 +873,28 @@ int sm_count() {
   return counts[dev];
 }
 
-// bf16 at D <= 128 on Hopper, one grid axis (DenseWalk's order): the
+// 16-bit T at D <= 128 on Hopper, one grid axis (DenseWalk's order): the
 // forward and dq one block per `fold` fold units, fold = ceil(units /
 // SMs), so at most one block an SM; dk/dv one block a (tile, batch,
 // head); q, k and v through maps of their own strides, dO and out
 // contiguous; the forward reads 128-row boxes, the backward 64-row ones,
 // out is stored in 64-row boxes
-template <int D>
+template <int D, typename T>
 int launch_wgmma(int which, const FlashParams& params, cudaStream_t stream) {
   FlashParams p = params;
+  constexpr bool kHalf = ptt::kIsHalf<T>;
   const int rows = which == kFwd ? kFwdM : kBwdSub;
   const Strides ds = {static_cast<int64_t>(p.sq) * p.h * D,
                       static_cast<int64_t>(p.h) * D, D};
   CUtensorMap maps[4];
-  int err = make_map4(&maps[0], p.q, p.b, p.sq, p.h, D, p.qs, rows);
-  if (!err) err = make_map4(&maps[1], p.k, p.b, p.sk, p.h, D, p.ks, rows);
-  if (!err) err = make_map4(&maps[2], p.v, p.b, p.sk, p.h, D, p.vs, rows);
+  int err = make_map4(&maps[0], kHalf, p.q, p.b, p.sq, p.h, D, p.qs, rows);
+  if (!err)
+    err = make_map4(&maps[1], kHalf, p.k, p.b, p.sk, p.h, D, p.ks, rows);
+  if (!err)
+    err = make_map4(&maps[2], kHalf, p.v, p.b, p.sk, p.h, D, p.vs, rows);
   if (!err)  // dO, or the forward's out
-    err = make_map4(&maps[3], which == kFwd ? p.out : p.dout, p.b, p.sq,
-                    p.h, D, ds, kBwdSub);
+    err = make_map4(&maps[3], kHalf, which == kFwd ? p.out : p.dout, p.b,
+                    p.sq, p.h, D, ds, kBwdSub);
   if (err) return err;
   const int tiles = ((which == kDkv ? p.sk : p.sq) + kFwdM - 1) / kFwdM;
   const int units = (tiles + 1) / 2 * p.b * p.h, sms = sm_count();
@@ -898,15 +907,15 @@ int launch_wgmma(int which, const FlashParams& params, cudaStream_t stream) {
   if (which == kFwd) {
     constexpr int kBytes = FwdSmem<D, DenseWalk<kFwd>>::kBytes;
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_wgmma<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_fwd_wgmma<D><<<grid, kFwdThreads, kBytes, stream>>>(
+    flash_fwd_wgmma<D, T><<<grid, kFwdThreads, kBytes, stream>>>(
         maps[0], maps[1], maps[2], maps[3], p);
     return static_cast<int>(cudaGetLastError());
   }
-  const auto kernel =
-      which == kDq ? &flash_bwd_dq_wgmma<D> : &flash_bwd_dkv_wgmma<D>;
+  const auto kernel = which == kDq ? &flash_bwd_dq_wgmma<D, T>
+                                    : &flash_bwd_dkv_wgmma<D, T>;
   const int bytes = which == kDq ? DqSmem<D>::kBytes : DkvSmem<D>::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -916,38 +925,44 @@ int launch_wgmma(int which, const FlashParams& params, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int dispatch(int which, int dtype, const FlashParams& p,
-             cudaStream_t stream) {
-  if (dtype != ptt::kBF16) {  // f32: one block per (32-row tile, h, b)
-    const size_t smem = smem_bytes<D>(which, false);
-    if (which == kFwd)
-      return launch(flash_fwd_f32<D>, dim3(p.sq / kT, p.h, p.b), smem,
-                    stream, p);
-    if (which == kDq)
-      return launch(flash_bwd_dq_f32<D>, dim3(p.sq / kT, p.h, p.b), smem,
-                    stream, p);
-    return launch(flash_bwd_dkv_f32<D>, dim3(p.sk / kT, p.h, p.b), smem,
-                  stream, p);
-  }
-  // bf16: wgmma up to D 128; mma.sync over 64-row tiles at D 256, where a
-  // consumer's 64 x 256 fp32 output beside S and P would not fit
-  // setmaxnreg's 240 registers
+// 16-bit T: wgmma up to D 128; mma.sync over 64-row tiles at D 256, where
+// a consumer's 64 x 256 fp32 output beside S and P would not fit
+// setmaxnreg's 240 registers
+template <int D, typename T>
+int dispatch16(int which, const FlashParams& p, cudaStream_t stream) {
   if constexpr (D <= 128) {
-    return launch_wgmma<D>(which, p, stream);
+    return launch_wgmma<D, T>(which, p, stream);
   } else {
     const size_t smem = smem_bytes<D>(which, true);
     if (which == kFwd)
-      return launch(flash_fwd_bf16<D>, dim3(p.sq / 64, p.h, p.b), smem,
+      return launch(flash_fwd_mma<D, T>, dim3(p.sq / 64, p.h, p.b), smem,
                     stream, p);
     if (which == kDq)
-      return launch(flash_bwd_dq_bf16<D>, dim3(p.sq / 64, p.h, p.b), smem,
+      return launch(flash_bwd_dq_mma<D, T>, dim3(p.sq / 64, p.h, p.b), smem,
                     stream, p);
     // one block per (64 keys, kCols columns)
-    return launch(flash_bwd_dkv_bf16<D>,
+    return launch(flash_bwd_dkv_mma<D, T>,
                   dim3(p.sk / 64 * (D / TileBf16<D>::kCols), p.h, p.b), smem,
                   stream, p);
   }
+}
+
+template <int D>
+int dispatch(int which, int dtype, const FlashParams& p,
+             cudaStream_t stream) {
+  if (dtype == ptt::kBF16) return dispatch16<D, bf16>(which, p, stream);
+  if (dtype == ptt::kF16) return dispatch16<D, f16>(which, p, stream);
+  if (dtype != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
+  // f32: one block per (32-row tile, h, b)
+  const size_t smem = smem_bytes<D>(which, false);
+  if (which == kFwd)
+    return launch(flash_fwd_f32<D>, dim3(p.sq / kT, p.h, p.b), smem, stream,
+                  p);
+  if (which == kDq)
+    return launch(flash_bwd_dq_f32<D>, dim3(p.sq / kT, p.h, p.b), smem,
+                  stream, p);
+  return launch(flash_bwd_dkv_f32<D>, dim3(p.sk / kT, p.h, p.b), smem, stream,
+                p);
 }
 
 int run(int which, int dtype, int d, const FlashParams& p, void* stream) {

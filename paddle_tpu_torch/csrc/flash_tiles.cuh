@@ -1,8 +1,10 @@
 // Tile machinery of the flash-attention kernels (dense B10 in
 // flash_attention.cu, packed varlen B11-B13 in flash_varlen_packed.cu):
-// 128-thread blocks, bf16 tiles in shared memory brought in by cp.async
-// and read as tensor-core fragments by ldmatrix, mma.sync m16n8k16 with
-// fp32 sums, and the f32 tiles of the CUDA-core path.
+// 128-thread blocks, 16-bit tiles (bf16, or fp16 for B10-B13) in shared
+// memory brought in by cp.async and read as tensor-core fragments by
+// ldmatrix, mma.sync m16n8k16 with fp32 sums, and the f32 tiles of the
+// CUDA-core path. The 16-bit helpers take the element type T from their
+// tile pointers.
 #pragma once
 
 #include "common.cuh"
@@ -11,6 +13,9 @@ namespace ptt {
 namespace tiles {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+using ptt::kIsHalf;
+using ptt::pack2;
 
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -32,18 +37,18 @@ struct TileBf16 {
   static constexpr int kCols = D > 128 ? D / 2 : D;
 };
 
-// rows [r0, r0 + R) of head hi (and batch bi) of a bf16 operand with batch,
-// row and head strides sb, ss, sh (elements; the last axis contiguous) into
-// a shared tile [R][D + 8], 16 bytes a cp.async. Rows at or past `n` are
-// zero-filled and not read.
-template <int R, int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const void* base,
+// rows [r0, r0 + R) of head hi (and batch bi) of a 16-bit operand with
+// batch, row and head strides sb, ss, sh (elements; the last axis
+// contiguous) into a shared tile [R][D + 8], 16 bytes a cp.async. Rows at
+// or past `n` are zero-filled and not read.
+template <int R, int D, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const void* base,
                                           int64_t sb, int64_t ss, int64_t sh,
                                           int bi, int hi, int r0,
                                           int n = 0x7fffffff) {
   constexpr int kChunks = D / 8;
   constexpr int kPitch = TileBf16<D>::kPitch;
-  const bf16* src = static_cast<const bf16*>(base) + bi * sb + hi * sh;
+  const T* src = static_cast<const T*>(base) + bi * sb + hi * sh;
   for (int c = threadIdx.x; c < R * kChunks; c += kThreads) {
     const int r = c / kChunks, e = (c % kChunks) * 8;
     const bool in = r0 + r < n;
@@ -67,16 +72,11 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // acc[N/8][4] += A (16 rows x D, row-major in shared memory at `a`) times
 // B^T, B (N rows x D, row-major at `b`): S = Q K^T and its kin.
-template <int N, int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
-                                        const bf16* a, const bf16* b) {
+template <int N, int D, typename T>
+__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const T* a,
+                                        const T* b) {
   constexpr int kPitch = TileBf16<D>::kPitch;
   const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -90,26 +90,26 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
       ldmatrix_x4(b0, b1, b2, b3,
                   b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kPitch +
                       kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * np], a0, a1, a2, a3, b0, b1);
-      mma_bf16(acc[2 * np + 1], a0, a1, a2, a3, b2, b3);
+      mma16<T>(acc[2 * np], a0, a1, a2, a3, b0, b1);
+      mma16<T>(acc[2 * np + 1], a0, a1, a2, a3, b2, b3);
     }
   }
 }
 
 // acc[D/8][4] += X (16 x K, in registers as an fp32 accumulator x[K/8][4])
 // times B (K rows x D, row-major at `b`, rows kPitch elements apart): O +=
-// P V and its kin.
-template <int K, int D, int kPitch = TileBf16<D>::kPitch>
+// P V and its kin; X is rounded to T in pairs.
+template <int K, int D, int kPitch = TileBf16<D>::kPitch, typename T>
 __device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
                                        const float (&x)[K / 8][4],
-                                       const bf16* b) {
+                                       const T* b) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t a0 = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    const uint32_t a0 = pack2<T>(x[2 * kk][0], x[2 * kk][1]);
+    const uint32_t a1 = pack2<T>(x[2 * kk][2], x[2 * kk][3]);
+    const uint32_t a2 = pack2<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    const uint32_t a3 = pack2<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 #pragma unroll
     for (int np = 0; np < D / 16; ++np) {
       uint32_t b0, b1, b2, b3;
@@ -117,8 +117,8 @@ __device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
                         b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                 kPitch +
                             np * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * np], a0, a1, a2, a3, b0, b1);
-      mma_bf16(acc[2 * np + 1], a0, a1, a2, a3, b2, b3);
+      mma16<T>(acc[2 * np], a0, a1, a2, a3, b0, b1);
+      mma16<T>(acc[2 * np + 1], a0, a1, a2, a3, b2, b3);
     }
   }
 }

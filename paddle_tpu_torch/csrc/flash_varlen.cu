@@ -346,14 +346,14 @@ __device__ __forceinline__ void mma_pv2(float (&acc)[D / 8][4],
       h[i] = tl::bf16_round(v);
       r[i] = v - h[i];
     }
-    const uint32_t a0 = tl::pack_bf16(h[0], h[1]);
-    const uint32_t a1 = tl::pack_bf16(h[2], h[3]);
-    const uint32_t a2 = tl::pack_bf16(h[4], h[5]);
-    const uint32_t a3 = tl::pack_bf16(h[6], h[7]);
-    const uint32_t c0 = tl::pack_bf16(r[0], r[1]);
-    const uint32_t c1 = tl::pack_bf16(r[2], r[3]);
-    const uint32_t c2 = tl::pack_bf16(r[4], r[5]);
-    const uint32_t c3 = tl::pack_bf16(r[6], r[7]);
+    const uint32_t a0 = ptt::pack2<tl::bf16>(h[0], h[1]);
+    const uint32_t a1 = ptt::pack2<tl::bf16>(h[2], h[3]);
+    const uint32_t a2 = ptt::pack2<tl::bf16>(h[4], h[5]);
+    const uint32_t a3 = ptt::pack2<tl::bf16>(h[6], h[7]);
+    const uint32_t c0 = ptt::pack2<tl::bf16>(r[0], r[1]);
+    const uint32_t c1 = ptt::pack2<tl::bf16>(r[2], r[3]);
+    const uint32_t c2 = ptt::pack2<tl::bf16>(r[4], r[5]);
+    const uint32_t c3 = ptt::pack2<tl::bf16>(r[6], r[7]);
 #pragma unroll
     for (int np = 0; np < D / 16; ++np) {
       uint32_t b0, b1, b2, b3;

@@ -41,7 +41,10 @@
 // read them as TMA's zeros) and never stored; they lie in the phantom
 // segment, so no real query or key meets them.
 //
-// bf16 runs on the tensor cores. At head_dim 64, 96 and 128 all three
+// bf16 and fp16 run on the tensor cores, through the same kernels
+// templated on the element type T (the wgmma or mma.sync form, the tensor
+// maps' type, the rounding of P and dS and of the outputs; fp16 is never
+// converted to bf16). At head_dim 64, 96 and 128 all three
 // kernels are Hopper's (flash_wgmma.cuh: wgmma fed by TMA rings, a
 // producer warpgroup whose registers go to two consumer warpgroups by
 // setmaxnreg), shared with B10's dense kernels in flash_attention.cu; here
@@ -82,6 +85,7 @@ using namespace ptt::tiles;
 using namespace ptt::flash;
 using ptt::cp_async_commit;
 using ptt::cp_async_wait;
+using ptt::store2;
 
 struct VarlenParams {
   const void* q;
@@ -131,12 +135,12 @@ __device__ __forceinline__ bool visible(const VarlenParams& p, int sq,
   return sq == sk && (!p.causal || pq >= pk);
 }
 
-// ---------------------------------------------------------------- bf16
+// -------------------------------------------------------------- 16-bit
 
 // rows g and g + 8 below r0 of a warp's 16 x DO accumulator, times
-// `mul`, as bf16 columns col0.. of rows of a contiguous [n, h, D] array;
+// `mul`, as T columns col0.. of rows of a contiguous [n, h, D] array;
 // rows at or past n are not stored
-template <int D, int DO = D>
+template <typename T, int D, int DO = D>
 __device__ __forceinline__ void store_rows(const VarlenParams& p, void* dst,
                                            int n, int hi, int r0,
                                            const float (&acc)[DO / 8][4],
@@ -147,21 +151,20 @@ __device__ __forceinline__ void store_rows(const VarlenParams& p, void* dst,
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + r * 8;
     if (row >= n) continue;
-    bf16* out = static_cast<bf16*>(dst) + packed_at<D>(p, row, hi) + col0;
+    T* out = static_cast<T*>(dst) + packed_at<D>(p, row, hi) + col0;
 #pragma unroll
     for (int nt = 0; nt < DO / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(out + nt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nt][2 * r] * mul[r],
-                                acc[nt][2 * r + 1] * mul[r]);
+      store2<T>(out + nt * 8 + 2 * t, acc[nt][2 * r] * mul[r],
+                acc[nt][2 * r + 1] * mul[r]);
   }
 }
 
 // k tile j (64 keys of head hi) and its keys' segment and position into
 // stage `st` of the ring
-template <int D>
-__device__ __forceinline__ void load_ktile(const VarlenParams& p, bf16* sk,
-                                           bf16* sv, int* skm, int st,
-                                           int hi, int j) {
+template <int D, typename T>
+__device__ __forceinline__ void load_ktile(const VarlenParams& p, T* sk,
+                                           T* sv, int* skm, int st, int hi,
+                                           int j) {
   constexpr int kN = 64, kPitch = TileBf16<D>::kPitch;
   load_rows<kN, D>(sk + st * kN * kPitch, p.k, 0, p.kss, p.ksh, 0, hi,
                    j * kN, p.tk);
@@ -195,15 +198,15 @@ __device__ __forceinline__ uint32_t visible_bits(const VarlenParams& p,
 
 // Forward at D 256: a block owns 64 query rows of one head and walks its
 // k-tile interval with an online softmax over the visible keys.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-    varlen_fwd_bf16(const VarlenParams p) {
+    varlen_fwd_mma(const VarlenParams p) {
   constexpr int kM = 64, kN = 64, kPitch = TileBf16<D>::kPitch;
   constexpr int kS = TileBf16<D>::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);                 // [kM][kPitch]
-  bf16* sk = sq + kM * kPitch;                              // [2][kN][kPitch]
-  bf16* sv = sk + 2 * kN * kPitch;                          // [2][kN][kPitch]
+  T* sq = reinterpret_cast<T*>(smem);                       // [kM][kPitch]
+  T* sk = sq + kM * kPitch;                                 // [2][kN][kPitch]
+  T* sv = sk + 2 * kN * kPitch;                             // [2][kN][kPitch]
   int* skm = reinterpret_cast<int*>(sv + 2 * kN * kPitch);  // [2][2][kN]
   const int hi = blockIdx.x, i = p.order[blockIdx.y];
   const int q0 = i * kM, ks = p.start[i], kl = p.len[i];
@@ -288,7 +291,7 @@ __global__ void __launch_bounds__(kThreads)
     l[r] = quad_sum(l[r]);
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
   }
-  store_rows<D>(p, p.out, p.tq, hi, q0 + warp * 16, o, inv);
+  store_rows<T, D>(p, p.out, p.tq, hi, q0 + warp * 16, o, inv);
   if (t == 0) {
     float* lse = p.lse + static_cast<int64_t>(hi) * p.tq_pad;
 #pragma unroll
@@ -297,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------- bf16 on Hopper: wgmma + TMA
+// ----------------------------------------- 16-bit on Hopper: wgmma + TMA
 
 // The walk of the Hopper kernels (flash_wgmma.cuh) over the block map:
 // a block takes tile order[blockIdx.x] of head blockIdx.y (heads slowest:
@@ -405,53 +408,53 @@ struct VarlenWalk {
 };
 
 // B11 (flash_wgmma.cuh fwd_wgmma): a block per (128-row q tile, head)
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     varlen_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const VarlenParams p) {
-  fwd_wgmma<D, VarlenWalk<kFwd>>(&qmap, &kmap, &vmap, nullptr, p);
+  fwd_wgmma<D, VarlenWalk<kFwd>, T>(&qmap, &kmap, &vmap, nullptr, p);
 }
 
 // B12 (bwd_dq_wgmma): a block per (128-row q tile, head). Heads fastest
 // was slower, and so was a persistent walk (one block an SM taking the
 // tiles in a static round robin, q and dO double-buffered): the hardware's
 // block scheduler balances the walks' lengths better than the round robin.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     varlen_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
                         const __grid_constant__ CUtensorMap dmap,
                         const VarlenParams p) {
-  bwd_dq_wgmma<D, VarlenWalk<kDq>>(&qmap, &kmap, &vmap, &dmap, p);
+  bwd_dq_wgmma<D, VarlenWalk<kDq>, T>(&qmap, &kmap, &vmap, &dmap, p);
 }
 
 // B13 (bwd_dkv_wgmma): a block per (128 keys, head)
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     varlen_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
                          const __grid_constant__ CUtensorMap dmap,
                          const VarlenParams p) {
-  bwd_dkv_wgmma<D, VarlenWalk<kDkv>>(&qmap, &kmap, &vmap, &dmap, p);
+  bwd_dkv_wgmma<D, VarlenWalk<kDkv>, T>(&qmap, &kmap, &vmap, &dmap, p);
 }
 
 // dq at D 256: a block owns 64 query rows of one head and walks the
 // forward map's k-tile interval: S = Q K^T, P = exp(S - lse) on visible
 // pairs, dP = dO V^T, dS = P (dP - delta), dQ += dS K.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-    varlen_bwd_dq_bf16(const VarlenParams p) {
+    varlen_bwd_dq_mma(const VarlenParams p) {
   constexpr int kM = 64, kN = 64, kPitch = TileBf16<D>::kPitch;
   constexpr int kS = TileBf16<D>::kSub;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);                 // [kM][kPitch]
-  bf16* sdo = sq + kM * kPitch;                             // [kM][kPitch]
-  bf16* sk = sdo + kM * kPitch;                             // [2][kN][kPitch]
-  bf16* sv = sk + 2 * kN * kPitch;                          // [2][kN][kPitch]
+  T* sq = reinterpret_cast<T*>(smem);                       // [kM][kPitch]
+  T* sdo = sq + kM * kPitch;                                // [kM][kPitch]
+  T* sk = sdo + kM * kPitch;                                // [2][kN][kPitch]
+  T* sv = sk + 2 * kN * kPitch;                             // [2][kN][kPitch]
   int* skm = reinterpret_cast<int*>(sv + 2 * kN * kPitch);  // [2][2][kN]
   const int hi = blockIdx.x, i = p.order[blockIdx.y];
   const int q0 = i * kM, ks = p.start[i], kl = p.len[i];
@@ -489,8 +492,8 @@ __global__ void __launch_bounds__(kThreads)
     const bool in = interior(p, i, j);
 #pragma unroll 1
     for (int sub = 0; sub < kN / kS; ++sub) {
-      const bf16* kt = sk + (st * kN + sub * kS) * kPitch;
-      const bf16* vt = sv + (st * kN + sub * kS) * kPitch;
+      const T* kt = sk + (st * kN + sub * kS) * kPitch;
+      const T* vt = sv + (st * kN + sub * kS) * kPitch;
       float sc[kS / 8][4], dp[kS / 8][4];
       zero(sc);
       zero(dp);
@@ -516,23 +519,23 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait<0>();
   const float mul[2] = {p.scale, p.scale};
-  store_rows<D>(p, p.out, p.tq, hi, q0 + warp * 16, dq, mul);
+  store_rows<T, D>(p, p.out, p.tq, hi, q0 + warp * 16, dq, mul);
 }
 
 // dk/dv at D 256: a block owns 64 keys of one head (warp w keys 16w..)
 // and kC of their D columns, and walks the transposed map's interval of
 // 32-row q tiles: S^T = K Q^T, P^T on visible pairs, dV += P^T dO, dP^T
 // = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-    varlen_bwd_dkv_bf16(const VarlenParams p) {
+    varlen_bwd_dkv_mma(const VarlenParams p) {
   constexpr int kM = 32, kN = 64, kPitch = TileBf16<D>::kPitch;
   constexpr int kC = TileBf16<D>::kCols, kHalves = D / kC;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);  // [kN][kPitch]
-  bf16* sv = sk + kN * kPitch;               // [kN][kPitch]
-  bf16* sq = sv + kN * kPitch;               // [2][kM][kPitch]
-  bf16* sdo = sq + 2 * kM * kPitch;          // [2][kM][kPitch]
+  T* sk = reinterpret_cast<T*>(smem);  // [kN][kPitch]
+  T* sv = sk + kN * kPitch;            // [kN][kPitch]
+  T* sq = sv + kN * kPitch;            // [2][kM][kPitch]
+  T* sdo = sq + 2 * kM * kPitch;       // [2][kM][kPitch]
   // per stage: lse, delta (f32), segment, position (int32) of the q rows
   float* sst = reinterpret_cast<float*>(sdo + 2 * kM * kPitch);  // [2][4][kM]
   const int hi = blockIdx.x / kHalves, col0 = blockIdx.x % kHalves * kC;
@@ -580,8 +583,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait<1>();
     __syncthreads();
 
-    const bf16* qt = sq + st * kM * kPitch;
-    const bf16* dot = sdo + st * kM * kPitch;
+    const T* qt = sq + st * kM * kPitch;
+    const T* dot = sdo + st * kM * kPitch;
     const float* lt = sst + st * 4 * kM;
     const float* dt = lt + kM;
     const int* qseg = reinterpret_cast<const int*>(lt + 2 * kM);
@@ -617,8 +620,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f}, mul[2] = {p.scale, p.scale};
-  store_rows<D, kC>(p, p.dk, p.tk, hi, k0 + warp * 16, dk, mul, col0);
-  store_rows<D, kC>(p, p.dv, p.tk, hi, k0 + warp * 16, dv, one, col0);
+  store_rows<T, D, kC>(p, p.dk, p.tk, hi, k0 + warp * 16, dk, mul, col0);
+  store_rows<T, D, kC>(p, p.dv, p.tk, hi, k0 + warp * 16, dv, one, col0);
 }
 
 // ---------------------------------------------------------------- f32
@@ -862,52 +865,61 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a rank-3 map over a [t, h, D] bf16 operand with row and head strides ss,
-// sh (elements): boxes of 64 columns x 1 head x `rows` rows
-int make_rows_map(CUtensorMap* map, const void* base, int t, int h, int d,
-                  int64_t ss, int64_t sh, int rows = 128) {
+// a rank-3 map over a [t, h, D] bf16 (or, with `half`, fp16) operand with
+// row and head strides ss, sh (elements): boxes of 64 columns x 1 head x
+// `rows` rows
+int make_rows_map(CUtensorMap* map, bool half, const void* base, int t,
+                  int h, int d, int64_t ss, int64_t sh, int rows = 128) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(t)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(ss) * 2};
   const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(rows)};
-  return hp::make_map_bf16(map, base, 3, dims, strides, box);
+  return hp::make_map_16(map, half, base, 3, dims, strides, box);
 }
 
-template <int D>
+template <int D, typename T>
 int launch_fwd_wgmma(const VarlenParams& p, cudaStream_t stream) {
+  constexpr bool kHalf = ptt::kIsHalf<T>;
   CUtensorMap qmap, kmap, vmap;
-  int err = make_rows_map(&qmap, p.q, p.tq, p.h, D, p.qss, p.qsh);
-  if (!err) err = make_rows_map(&kmap, p.k, p.tk, p.h, D, p.kss, p.ksh);
-  if (!err) err = make_rows_map(&vmap, p.v, p.tk, p.h, D, p.vss, p.vsh);
+  int err = make_rows_map(&qmap, kHalf, p.q, p.tq, p.h, D, p.qss, p.qsh);
+  if (!err)
+    err = make_rows_map(&kmap, kHalf, p.k, p.tk, p.h, D, p.kss, p.ksh);
+  if (!err)
+    err = make_rows_map(&vmap, kHalf, p.v, p.tk, p.h, D, p.vss, p.vsh);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      varlen_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      varlen_fwd_wgmma<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       FwdSmem<D, VarlenWalk<kFwd>>::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  varlen_fwd_wgmma<D><<<dim3(p.tq_pad / kFwdM, p.h), kFwdThreads,
-                        FwdSmem<D, VarlenWalk<kFwd>>::kBytes, stream>>>(
+  varlen_fwd_wgmma<D, T><<<dim3(p.tq_pad / kFwdM, p.h), kFwdThreads,
+                           FwdSmem<D, VarlenWalk<kFwd>>::kBytes, stream>>>(
       qmap, kmap, vmap, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // B12 or B13 on Hopper: one block per (128-row tile, head), heads slowest;
 // q, k, v and dO through maps of 64-row boxes
-template <int D>
+template <int D, typename T>
 int launch_bwd_wgmma(int which, const VarlenParams& p, cudaStream_t stream) {
+  constexpr bool kHalf = ptt::kIsHalf<T>;
   CUtensorMap qmap, kmap, vmap, dmap;
   const int64_t dss = static_cast<int64_t>(p.h) * D;
-  int err = make_rows_map(&qmap, p.q, p.tq, p.h, D, p.qss, p.qsh, kBwdSub);
+  int err = make_rows_map(&qmap, kHalf, p.q, p.tq, p.h, D, p.qss, p.qsh,
+                          kBwdSub);
   if (!err)
-    err = make_rows_map(&kmap, p.k, p.tk, p.h, D, p.kss, p.ksh, kBwdSub);
+    err = make_rows_map(&kmap, kHalf, p.k, p.tk, p.h, D, p.kss, p.ksh,
+                        kBwdSub);
   if (!err)
-    err = make_rows_map(&vmap, p.v, p.tk, p.h, D, p.vss, p.vsh, kBwdSub);
+    err = make_rows_map(&vmap, kHalf, p.v, p.tk, p.h, D, p.vss, p.vsh,
+                        kBwdSub);
   if (!err)
-    err = make_rows_map(&dmap, p.dout, p.tq, p.h, D, dss, D, kBwdSub);
+    err = make_rows_map(&dmap, kHalf, p.dout, p.tq, p.h, D, dss, D,
+                        kBwdSub);
   if (err) return err;
-  const auto kernel =
-      which == kDq ? &varlen_bwd_dq_wgmma<D> : &varlen_bwd_dkv_wgmma<D>;
+  const auto kernel = which == kDq ? &varlen_bwd_dq_wgmma<D, T>
+                                    : &varlen_bwd_dkv_wgmma<D, T>;
   const int bytes = which == kDq ? DqSmem<D>::kBytes : DkvSmem<D>::kBytes;
   const int tiles = (which == kDq ? p.tq_pad : p.tk_pad) / kFwdM;
   const cudaError_t e = cudaFuncSetAttribute(
@@ -918,36 +930,42 @@ int launch_bwd_wgmma(int which, const VarlenParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int dispatch(int which, int dtype, const VarlenParams& p,
-             cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(which, dtype == ptt::kBF16);
-  if (dtype != ptt::kBF16) {  // f32: one block per (head, 32-row tile)
-    const dim3 grid(p.h, (which == kDkv ? p.tk_pad : p.tq_pad) / kT);
-    if (which == kFwd) return launch(varlen_fwd_f32<D>, grid, smem, stream, p);
-    if (which == kDq)
-      return launch(varlen_bwd_dq_f32<D>, grid, smem, stream, p);
-    return launch(varlen_bwd_dkv_f32<D>, grid, smem, stream, p);
-  }
-  // bf16: wgmma over the 128 x 128 map up to D 128; mma.sync over 64-row
-  // tiles at D 256, where a consumer's 64 x 256 fp32 output (128 registers
-  // a thread) beside S and P, or its dK beside dV, would not fit
-  // setmaxnreg's 240
+// 16-bit T: wgmma over the 128 x 128 map up to D 128; mma.sync over 64-row
+// tiles at D 256, where a consumer's 64 x 256 fp32 output (128 registers a
+// thread) beside S and P, or its dK beside dV, would not fit setmaxnreg's
+// 240
+template <int D, typename T>
+int dispatch16(int which, const VarlenParams& p, cudaStream_t stream) {
   if constexpr (D <= 128) {
-    return which == kFwd ? launch_fwd_wgmma<D>(p, stream)
-                         : launch_bwd_wgmma<D>(which, p, stream);
+    return which == kFwd ? launch_fwd_wgmma<D, T>(p, stream)
+                         : launch_bwd_wgmma<D, T>(which, p, stream);
   } else {
+    const size_t smem = smem_bytes<D>(which, true);
     if (which == kFwd)
-      return launch(varlen_fwd_bf16<D>, dim3(p.h, p.tq_pad / 64), smem,
+      return launch(varlen_fwd_mma<D, T>, dim3(p.h, p.tq_pad / 64), smem,
                     stream, p);
     if (which == kDq)
-      return launch(varlen_bwd_dq_bf16<D>, dim3(p.h, p.tq_pad / 64), smem,
+      return launch(varlen_bwd_dq_mma<D, T>, dim3(p.h, p.tq_pad / 64), smem,
                     stream, p);
     // one block per (head, kCols columns, 64 keys)
-    return launch(varlen_bwd_dkv_bf16<D>,
+    return launch(varlen_bwd_dkv_mma<D, T>,
                   dim3(p.h * (D / TileBf16<D>::kCols), p.tk_pad / 64), smem,
                   stream, p);
   }
+}
+
+template <int D>
+int dispatch(int which, int dtype, const VarlenParams& p,
+             cudaStream_t stream) {
+  if (dtype == ptt::kBF16) return dispatch16<D, bf16>(which, p, stream);
+  if (dtype == ptt::kF16) return dispatch16<D, f16>(which, p, stream);
+  if (dtype != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
+  // f32: one block per (head, 32-row tile)
+  const size_t smem = smem_bytes<D>(which, false);
+  const dim3 grid(p.h, (which == kDkv ? p.tk_pad : p.tq_pad) / kT);
+  if (which == kFwd) return launch(varlen_fwd_f32<D>, grid, smem, stream, p);
+  if (which == kDq) return launch(varlen_bwd_dq_f32<D>, grid, smem, stream, p);
+  return launch(varlen_bwd_dkv_f32<D>, grid, smem, stream, p);
 }
 
 int run(int which, int dtype, int d, const VarlenParams& p, void* stream) {

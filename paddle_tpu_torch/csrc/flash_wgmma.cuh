@@ -1,5 +1,8 @@
-// The Hopper mainloops of flash attention in bf16 at head_dim 64, 96 and
-// 128: forward, dq and dk/dv, each templated on a walk.
+// The Hopper mainloops of flash attention in bf16 or fp16 at head_dim 64,
+// 96 and 128: forward, dq and dk/dv, each templated on a walk and on the
+// operands' 16-bit type T (__nv_bfloat16 or __half: the wgmma form, the
+// rounding of P and dS into the A fragments and of the stored outputs;
+// the statistics and sums are fp32 in both).
 //
 // The kernels of flash_varlen_packed.cu (B11-B13: varlen_fwd_wgmma,
 // varlen_bwd_dq_wgmma, varlen_bwd_dkv_wgmma) and of flash_attention.cu
@@ -64,7 +67,8 @@ namespace hp = ptt::hopper;
 using ptt::tiles::bf16;
 using ptt::tiles::kLn2;
 using ptt::tiles::kLog2e;
-using ptt::tiles::pack_bf16;
+using ptt::pack2;
+using ptt::store2;
 using ptt::tiles::quad_max;
 using ptt::tiles::quad_sum;
 
@@ -127,8 +131,8 @@ __device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
 // metadata (the walk's) and whether the tile pair is interior. A
 // warpgroup's iteration s issues S(s) = Q K(s)^T (wgmma m64n128k16, q and
 // k K-major in shared memory) and then O += P(s-1) V(s-1) (wgmma
-// m64nDk16, P from registers: the previous S accumulator rounded to bf16
-// in pairs is the A fragment; v N-major), takes its softmax of S(s) while
+// m64nDk16, P from registers: the previous S accumulator rounded to T in
+// pairs is the A fragment; v N-major), takes its softmax of S(s) while
 // the P V product runs (masked scores are -inf on boundary tiles; base 2,
 // f32 statistics), then rescales O. A k stage is released once S is done,
 // a v stage once its P V product is, so each ring refills early (into the
@@ -138,7 +142,7 @@ __device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
 // registers, or (W::kTmaStore) rounds each warpgroup's 64 x D rows into
 // shared memory and stores them by TMA through `omap` (64-row boxes; rows
 // past the operand are not written) while the next tile starts.
-template <int D, class W>
+template <int D, class W, typename T>
 __device__ __forceinline__ void fwd_wgmma(const CUtensorMap* qmap,
                                           const CUtensorMap* kmap,
                                           const CUtensorMap* vmap,
@@ -253,9 +257,9 @@ __device__ __forceinline__ void fwd_wgmma(const CUtensorMap* qmap,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int off = kk / 4 * kFwdBox + (kk % 4) * 32;
-          hp::wgmma_m64n128k16<0>(sc, hp::desc_sw128(qa + off, 16, 1024),
-                                  hp::desc_sw128(kt + off, 16, 1024),
-                                  kk > 0);
+          hp::wgmma_m64n128k16<0, T>(sc, hp::desc_sw128(qa + off, 16, 1024),
+                                     hp::desc_sw128(kt + off, 16, 1024),
+                                     kk > 0);
         }
         hp::wgmma_commit();
       }
@@ -265,8 +269,9 @@ __device__ __forceinline__ void fwd_wgmma(const CUtensorMap* qmap,
         const unsigned char* vt = sv + sv1 * L::kTile;
 #pragma unroll
         for (int kk = 0; kk < kFwdN / 16; ++kk)
-          hp::wgmma_rs<D>(o, pa[kk],
-                          hp::desc_sw128(vt + kk * 2048, kFwdBox, 1024), 1);
+          hp::wgmma_rs<D, T>(o, pa[kk],
+                             hp::desc_sw128(vt + kk * 2048, kFwdBox, 1024),
+                             1);
         hp::wgmma_commit();
       }
 
@@ -317,7 +322,7 @@ __device__ __forceinline__ void fwd_wgmma(const CUtensorMap* qmap,
         for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 #pragma unroll
         for (int e = 0; e < 64; e += 2)
-          pa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
+          pa[e / 8][(e % 8) / 2] = pack2<T>(sc[e], sc[e + 1]);
       }
     }
     if (kl > 0) ++tc;
@@ -340,11 +345,10 @@ __device__ __forceinline__ void fwd_wgmma(const CUtensorMap* qmap,
         const int rr = warp * 16 + g + r * 8;
 #pragma unroll
         for (int jj = 0; jj < D / 8; ++jj)
-          *reinterpret_cast<__nv_bfloat162*>(
-              stg + jj / 8 * kFwdBox + rr * 128 +
-              ((jj % 8) ^ (rr % 8)) * 16 + 4 * t) =
-              __floats2bfloat162_rn(o[4 * jj + 2 * r] * inv[r],
-                                    o[4 * jj + 2 * r + 1] * inv[r]);
+          store2<T>(reinterpret_cast<T*>(stg + jj / 8 * kFwdBox + rr * 128 +
+                                         ((jj % 8) ^ (rr % 8)) * 16 + 4 * t),
+                    o[4 * jj + 2 * r] * inv[r],
+                    o[4 * jj + 2 * r + 1] * inv[r]);
       }
       hp::fence_proxy_async();
       hp::bar_sync(1 + c, 128);
@@ -359,12 +363,11 @@ __device__ __forceinline__ void fwd_wgmma(const CUtensorMap* qmap,
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + r * 8;
         if (row >= w.rows_out()) continue;
-        bf16* out = static_cast<bf16*>(p.out) + w.template out_at<D>(row);
+        T* out = static_cast<T*>(p.out) + w.template out_at<D>(row);
 #pragma unroll
         for (int jj = 0; jj < D / 8; ++jj)
-          *reinterpret_cast<__nv_bfloat162*>(out + jj * 8 + 2 * t) =
-              __floats2bfloat162_rn(o[4 * jj + 2 * r] * inv[r],
-                                    o[4 * jj + 2 * r + 1] * inv[r]);
+          store2<T>(out + jj * 8 + 2 * t, o[4 * jj + 2 * r] * inv[r],
+                    o[4 * jj + 2 * r + 1] * inv[r]);
       }
     }
     if (t == 0) {
@@ -458,15 +461,15 @@ __device__ __forceinline__ void tma_rows64(const W& w, unsigned char* dst,
 // acc[64 x 64] = A (64 rows, K-major over D, a [box][64 rows] operand) B^T
 // (B a 64-row sub-tile, K-major over D): S = Q K^T and its kin, D / 16
 // k-steps of m64n64k16
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void wgmma_abt64(float (&acc)[32],
                                             const unsigned char* a,
                                             const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int off = kk / 4 * kBwdBox + (kk % 4) * 32;
-    hp::wgmma_m64n64k16<0>(acc, hp::desc_sw128(a + off, 16, 1024),
-                           hp::desc_sw128(b + off, 16, 1024), kk > 0);
+    hp::wgmma_m64n64k16<0, T>(acc, hp::desc_sw128(a + off, 16, 1024),
+                              hp::desc_sw128(b + off, 16, 1024), kk > 0);
   }
 }
 
@@ -474,20 +477,20 @@ __device__ __forceinline__ void wgmma_abt64(float (&acc)[32],
 // sub-tile read N-major: rows are k, columns D): dQ += dS K, dV += P^T dO,
 // dK += dS^T Q. At D 96 the second box's columns 96.. are TMA's zeros and
 // the product runs at n96.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void wgmma_xb64(float (&acc)[D / 2],
                                            const uint32_t (&x)[4][4],
                                            const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    hp::wgmma_rs<D>(acc, x[kk], hp::desc_sw128(b + kk * 2048, kBwdBox, 1024),
-                    1);
+    hp::wgmma_rs<D, T>(acc, x[kk],
+                       hp::desc_sw128(b + kk * 2048, kBwdBox, 1024), 1);
 }
 
 // a consumer's 64 x D accumulator (rows r0 + 16w + g + 8h, columns 8j + 2t
-// + e), times `mul`, as bf16 rows of the walk's contiguous output; rows at
+// + e), times `mul`, as T rows of the walk's contiguous output; rows at
 // or past w.rows_out() are not stored
-template <int D, class W>
+template <int D, class W, typename T>
 __device__ __forceinline__ void store_acc(const W& w, void* dst, int r0,
                                           const float (&acc)[D / 2],
                                           float mul) {
@@ -497,12 +500,11 @@ __device__ __forceinline__ void store_acc(const W& w, void* dst, int r0,
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + warp * 16 + g + 8 * h;
     if (row >= w.rows_out()) continue;
-    bf16* out = static_cast<bf16*>(dst) + w.template out_at<D>(row);
+    T* out = static_cast<T*>(dst) + w.template out_at<D>(row);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul,
-                                acc[4 * j + 2 * h + 1] * mul);
+      store2<T>(out + j * 8 + 2 * t, acc[4 * j + 2 * h] * mul,
+                acc[4 * j + 2 * h + 1] * mul);
   }
 }
 
@@ -515,14 +517,14 @@ __device__ __forceinline__ void store_acc(const W& w, void* dst, int r0,
 // walk's) and the tile pair's interior flag. A warpgroup's iteration s
 // issues S(s) = Q K(s)^T and dP(s) = dO V(s)^T (wgmma m64n64k16, all
 // operands K-major in shared memory), then dQ += dS(s-1) K(s-1) (m64nDk16,
-// dS from registers as bf16 pairs, k N-major), and forms dS(s) = P (dP -
+// dS from registers as 16-bit pairs, k N-major), and forms dS(s) = P (dP -
 // delta), P = exp(S - lse) on visible pairs, while that product runs: on a
 // boundary tile the scores of pairs that are not visible go to -inf first,
 // an interior tile skips that pass (folded into the exponent loop of every
 // tile, it made a first design much slower). A v stage is released once dP
 // is done, a k stage once its dQ product is. Rows without lse and delta
 // take 0 for both: they are not stored.
-template <int D, class W>
+template <int D, class W, typename T>
 __device__ __forceinline__ void bwd_dq_wgmma(const CUtensorMap* qmap,
                                              const CUtensorMap* kmap,
                                              const CUtensorMap* vmap,
@@ -627,13 +629,13 @@ __device__ __forceinline__ void bwd_dq_wgmma(const CUtensorMap* qmap,
         hp::mbar_wait(&kfull[kst], (kc / kDqKStages) & 1);
         hp::mbar_wait(&vfull[vst], (kc / kDqVStages) & 1);
         hp::wgmma_fence();
-        wgmma_abt64<D>(sc, qa, sk + kst * L::kSub);
-        wgmma_abt64<D>(dp, da, sv + vst * L::kSub);
+        wgmma_abt64<D, T>(sc, qa, sk + kst * L::kSub);
+        wgmma_abt64<D, T>(dp, da, sv + vst * L::kSub);
         hp::wgmma_commit();
       }
       if (s > 0) {
         hp::wgmma_fence();
-        wgmma_xb64<D>(dq, dsa, sk + kst1 * L::kSub);
+        wgmma_xb64<D, T>(dq, dsa, sk + kst1 * L::kSub);
         hp::wgmma_commit();
       }
       if (s < n) {
@@ -665,12 +667,12 @@ __device__ __forceinline__ void bwd_dq_wgmma(const CUtensorMap* qmap,
       if (s < n) {
 #pragma unroll
         for (int e = 0; e < 32; e += 2)
-          dsa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
+          dsa[e / 8][(e % 8) / 2] = pack2<T>(sc[e], sc[e + 1]);
         ++kc;
       }
     }
     if (n > 0) ++tc;
-    store_acc<D>(w, p.out, q0 + c * 64, dq, p.scale);
+    store_acc<D, W, T>(w, p.out, q0 + c * 64, dq, p.scale);
   } while (W::kMultiTile && w.next());
 }
 
@@ -687,7 +689,7 @@ __device__ __forceinline__ void bwd_dq_wgmma(const CUtensorMap* qmap,
 // dS^T = P^T (dP^T - delta) while that product runs and issues dK += dS^T
 // Q. The next iteration's S^T and dP^T queue behind those products; a
 // stage is released once they are done. A tile with no step stores zeros.
-template <int D, class W>
+template <int D, class W, typename T>
 __device__ __forceinline__ void bwd_dkv_wgmma(const CUtensorMap* qmap,
                                               const CUtensorMap* kmap,
                                               const CUtensorMap* vmap,
@@ -773,8 +775,8 @@ __device__ __forceinline__ void bwd_dkv_wgmma(const CUtensorMap* qmap,
       hp::fence_operands(dp);
       hp::mbar_wait(&full[st], (rc / kDkvStages) & 1);
       hp::wgmma_fence();
-      wgmma_abt64<D>(sc, ka, qt);   // S^T
-      wgmma_abt64<D>(dp, va, dot);  // dP^T
+      wgmma_abt64<D, T>(sc, ka, qt);   // S^T
+      wgmma_abt64<D, T>(dp, va, dot);  // dP^T
       hp::wgmma_commit();
       hp::wgmma_wait<0>();  // also the products of iteration s - 1
       hp::fence_operands(sc);
@@ -794,7 +796,7 @@ __device__ __forceinline__ void bwd_dkv_wgmma(const CUtensorMap* qmap,
             w.first(s));
       // this thread's q columns of the stage: 8jj + 2t (+1)
       const float* sst = stage + 2 * t;
-      // P^T = exp(S^T - lse) (-inf: 0), rounded to bf16 fragments
+      // P^T = exp(S^T - lse) (-inf: 0), rounded to T fragments
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const float2 l2 = *reinterpret_cast<const float2*>(sst + 8 * jj);
@@ -807,9 +809,9 @@ __device__ __forceinline__ void bwd_dkv_wgmma(const CUtensorMap* qmap,
       }
 #pragma unroll
       for (int e = 0; e < 32; e += 2)
-        pa[e / 8][(e % 8) / 2] = pack_bf16(sc[e], sc[e + 1]);
+        pa[e / 8][(e % 8) / 2] = pack2<T>(sc[e], sc[e + 1]);
       hp::wgmma_fence();
-      wgmma_xb64<D>(dv, pa, dot);  // dV's product runs while dS^T is formed
+      wgmma_xb64<D, T>(dv, pa, dot);  // dV's product runs while dS^T is formed
       hp::wgmma_commit();
       // dS^T = P^T (dP^T - delta)
 #pragma unroll
@@ -819,12 +821,12 @@ __device__ __forceinline__ void bwd_dkv_wgmma(const CUtensorMap* qmap,
 #pragma unroll
         for (int cc = 0; cc < 4; cc += 2) {
           const int e = 4 * jj + cc;
-          dsa[e / 8][(e % 8) / 2] = pack_bf16(sc[e] * (dp[e] - d2.x),
-                                              sc[e + 1] * (dp[e + 1] - d2.y));
+          dsa[e / 8][(e % 8) / 2] = pack2<T>(sc[e] * (dp[e] - d2.x),
+                                             sc[e + 1] * (dp[e + 1] - d2.y));
         }
       }
       hp::wgmma_fence();
-      wgmma_xb64<D>(dk, dsa, qt);
+      wgmma_xb64<D, T>(dk, dsa, qt);
       hp::wgmma_commit();
     }
     hp::wgmma_wait<0>();
@@ -837,8 +839,8 @@ __device__ __forceinline__ void bwd_dkv_wgmma(const CUtensorMap* qmap,
       hp::mbar_arrive(&empty[(rc + kDkvStages - 1) % kDkvStages]);
       ++tc;
     }
-    store_acc<D>(w, p.dk, k0 + c * 64, dk, p.scale);
-    store_acc<D>(w, p.dv, k0 + c * 64, dv, 1.f);
+    store_acc<D, W, T>(w, p.dk, k0 + c * 64, dk, p.scale);
+    store_acc<D, W, T>(w, p.dv, k0 + c * 64, dv, 1.f);
   } while (W::kMultiTile && w.next());
 }
 

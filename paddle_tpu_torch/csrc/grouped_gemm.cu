@@ -530,16 +530,16 @@ int launch_wgmma(const GroupedParams& p, cudaStream_t stream) {
   const cuuint64_t K = p.K, N = p.N, T = p.T, E = p.E;
   const cuuint64_t xdims[2] = {K, T}, xstrides[1] = {K * 2};
   const cuuint32_t xbox[2] = {kWgBK, kBM};
-  int err = hp::make_map_bf16(&xmap, p.x, 2, xdims, xstrides, xbox);
+  int err = hp::make_map_16(&xmap, false, p.x, 2, xdims, xstrides, xbox);
   if (err) return err;
   if (kTrans) {
     const cuuint64_t dims[3] = {K, N, E}, strides[2] = {K * 2, N * K * 2};
     const cuuint32_t box[3] = {kWgBK, kWgBN, 1};
-    err = hp::make_map_bf16(&wmap, p.w, 3, dims, strides, box);
+    err = hp::make_map_16(&wmap, false, p.w, 3, dims, strides, box);
   } else {
     const cuuint64_t dims[3] = {N, K, E}, strides[2] = {N * 2, K * N * 2};
     const cuuint32_t box[3] = {64, kWgBK, 1};
-    err = hp::make_map_bf16(&wmap, p.w, 3, dims, strides, box);
+    err = hp::make_map_16(&wmap, false, p.w, 3, dims, strides, box);
   }
   if (err) return err;
   static int sms[64] = {};  // per device: SM count once the attribute is set
@@ -875,10 +875,10 @@ int launch_dw_wgmma(const DwParams& p, int E, cudaStream_t stream) {
   const cuuint64_t K = p.K, N = p.N, T = p.T;
   const cuuint32_t box[2] = {64, kDwRows};
   const cuuint64_t xdims[2] = {K, T}, xstrides[1] = {K * 2};
-  int err = hp::make_map_bf16(&xmap, p.x, 2, xdims, xstrides, box);
+  int err = hp::make_map_16(&xmap, false, p.x, 2, xdims, xstrides, box);
   if (err) return err;
   const cuuint64_t ddims[2] = {N, T}, dstrides[1] = {N * 2};
-  err = hp::make_map_bf16(&dmap, p.dz, 2, ddims, dstrides, box);
+  err = hp::make_map_16(&dmap, false, p.dz, 2, ddims, dstrides, box);
   if (err) return err;
   // dw [E, K, N] for the bf16 stores (dims N, K, E; boxes 64 x 64 x 1)
   CUtensorMap omap = dmap;  // unused by an f32 output
@@ -886,7 +886,7 @@ int launch_dw_wgmma(const DwParams& p, int E, cudaStream_t stream) {
     const cuuint64_t odims[3] = {N, K, static_cast<cuuint64_t>(E)};
     const cuuint64_t ostrides[2] = {N * 2, K * N * 2};
     const cuuint32_t obox[3] = {64, 64, 1};
-    err = hp::make_map_bf16(&omap, p.out, 3, odims, ostrides, obox);
+    err = hp::make_map_16(&omap, false, p.out, 3, odims, ostrides, obox);
     if (err) return err;
   }
   static int sms[64] = {};  // per device: SM count once the attribute is set

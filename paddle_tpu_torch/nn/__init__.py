@@ -1,14 +1,16 @@
 """Neural-network building blocks of the port: the Paddle-shaped
-``Layer`` base, the layers of the training path (``Linear``,
-``Embedding``, ``LayerNorm``), their initializers, gradient clipping
-(``clip``) and ``functional``."""
-from . import clip, functional, initializer
+``Layer`` base and its containers, the layers (activations, common,
+convolutions, losses, normalizations, pooling), their initializers,
+gradient clipping (``clip``) and ``functional``."""
+from . import clip, functional, initializer, layers
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_, clip_grad_value_)
-from .layer_base import Layer, LayerList, ParamAttr
-from .layers import Embedding, LayerNorm, Linear
+from .layer_base import (Layer, LayerDict, LayerList, ParamAttr,
+                         ParameterList, Sequential)
+from .layers import *  # noqa: F401,F403
 
-__all__ = ["functional", "initializer", "clip", "Layer", "LayerList",
-           "ParamAttr", "Linear", "Embedding", "LayerNorm",
-           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
-           "clip_grad_norm_", "clip_grad_value_"]
+__all__ = (["functional", "initializer", "clip", "layers", "Layer",
+            "LayerList", "LayerDict", "ParameterList", "Sequential",
+            "ParamAttr", "ClipGradByValue", "ClipGradByNorm",
+            "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_"]
+           + list(layers.__all__))

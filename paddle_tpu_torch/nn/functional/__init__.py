@@ -4,12 +4,21 @@ attention (``paged_attention``), the weight-streaming linears
 ragged grouped GEMM of the MoE FFN (``grouped_gemm``), the batched
 LoRA delta (``lora``) and dense flash attention (``attention``).
 Import those submodules; their names are also the names of their main
-functions. The training path's functionals are also here by name."""
-from .activation import gelu
+functions. The functionals of the JAX package's ``nn.functional``
+surface (``activation``, ``common``, ``conv``, ``pooling``, ``norm``,
+``loss``) are also here by name."""
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
 from .attention import flash_attention, scaled_dot_product_attention
-from .common import dropout, embedding, linear
-from .loss import cross_entropy
-from .norm import layer_norm
 
-__all__ = ["gelu", "flash_attention", "scaled_dot_product_attention",
-           "dropout", "embedding", "linear", "cross_entropy", "layer_norm"]
+from . import activation, common, conv, loss, norm, pooling
+
+__all__ = (
+    list(activation.__all__) + list(common.__all__) + list(conv.__all__)
+    + list(pooling.__all__) + list(norm.__all__) + list(loss.__all__)
+    + ["flash_attention", "scaled_dot_product_attention"]
+)

@@ -164,14 +164,14 @@ def flash_grid(kernel: str, dtype, head_dim: int, b: int, sq: int, sk: int,
     dk/dv): the forward and dq a block per ``ceil(units / sms)`` units, at
     most ``sms`` blocks; dk/dv a block a (tile, batch, head); the others
     ``(tiles, h, b)``: 64-row tiles at bf16 d256 (dk/dv with two column
-    halves a tile), 32-row tiles in f32."""
+    halves a tile), 32-row tiles in f32. fp16 takes bf16's grids."""
     rows = sk if kernel == "dkv" else sq
-    if dtype == torch.bfloat16 and head_dim <= 128:
+    if dtype in _kernels.HALF_TYPES and head_dim <= 128:
         units = _cdiv(_cdiv(rows, 128), 2) * b * h
         if kernel == "dkv":
             return _cdiv(rows, 128) * b * h, 1
         return _cdiv(units, _cdiv(units, sms)), 1
-    if dtype == torch.bfloat16:
+    if dtype in _kernels.HALF_TYPES:
         return rows // 64 * (2 if kernel == "dkv" else 1), h, b
     return rows // 32, h, b
 
@@ -224,7 +224,7 @@ def _check_operands(what, q, k, v, kernels=("fwd", "dq", "dkv")):
         raise NotImplementedError(
             f"{what}: head_dim {d}: the CUDA kernel is built for "
             f"{FLASH_HEAD_DIMS} (flash_attention_fwd/bwd pad to them)")
-    tile = 64 if q.dtype == torch.bfloat16 else 32
+    tile = 64 if q.dtype in _kernels.HALF_TYPES else 32
     if sq % tile or k.shape[1] % tile:
         raise ValueError(f"{what}: sequence lengths {sq}, {k.shape[1]} "
                          f"must be multiples of {tile}")
@@ -232,11 +232,12 @@ def _check_operands(what, q, k, v, kernels=("fwd", "dq", "dkv")):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{what}: q, k and v must share device and "
                              "dtype")
-    _kernels.dtype_code(q, what)
+    _kernels.dtype_code(q, what, fp16=True)
     for kernel in kernels:
         rows = k.shape[1] if kernel == "dkv" else sq
         units = _cdiv(_cdiv(rows, 128), 2) * b * h
-        if q.dtype == torch.bfloat16 and d <= 128 and units > 2 ** 31 - 1:
+        if q.dtype in _kernels.HALF_TYPES and d <= 128 \
+                and units > 2 ** 31 - 1:
             raise ValueError(f"{what}: the {kernel} kernel's {units} fold "
                              "units pass the int32 limit of 2147483647")
         grid = flash_grid(kernel, q.dtype, d, b, sq, k.shape[1], h)
@@ -272,7 +273,8 @@ def _flash_fwd_cuda(q, k, v, causal, scale):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _kernels.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), lse.data_ptr(),
-                      _kernels.dtype_code(q, what), b, sq, k.shape[1], h,
+                      _kernels.dtype_code(q, what, fp16=True), b, sq,
+                      k.shape[1], h,
                       d, *_strides(q, k, v), int(causal), float(scale),
                       _kernels.stream_ptr(q.device)), what)
     global fwd_launches
@@ -299,7 +301,7 @@ def _bwd_operands(what, q, k, v, dout, lse, di, causal, kernel):
             or di.dtype != torch.float32:
         raise TypeError(f"{what}: dout in q's dtype, lse and di in f32")
     q, k, v = _strided(q), _strided(k), _strided(v)
-    head = (_kernels.dtype_code(q, what), b, sq, k.shape[1], h, d,
+    head = (_kernels.dtype_code(q, what, fp16=True), b, sq, k.shape[1], h, d,
             *_strides(q, k, v), int(causal))
     return lib, q, k, v, *(_aligned(t) for t in (dout, lse, di)), head
 

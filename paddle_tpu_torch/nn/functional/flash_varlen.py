@@ -240,6 +240,8 @@ VARLEN_HEAD_DIMS = (64, 96, 128, 256)
 #: forward writes every row of the lse that B12/B13 read
 _CARD_TILES = {torch.bfloat16: {"fwd": (128, 128), "dq": (128, 128),
                                 "dkv": (128, 128)},
+               torch.float16: {"fwd": (128, 128), "dq": (128, 128),
+                               "dkv": (128, 128)},
                torch.float32: {"fwd": (32, 32), "dq": (32, 32),
                                "dkv": (32, 32)}}
 _WIDE_TILES = {"fwd": (64, 64), "dq": (64, 64), "dkv": (32, 64)}
@@ -600,7 +602,7 @@ def _card_pad(n: int) -> int:
 def card_tile(kernel: str, dtype, head_dim: int) -> tuple:
     """``(q rows, keys)`` of a kernel's walk on the card: ``kernel`` is
     ``"fwd"`` (B11), ``"dq"`` (B12) or ``"dkv"`` (B13)."""
-    if dtype == torch.bfloat16 and head_dim > 128:
+    if dtype in _kernels.HALF_TYPES and head_dim > 128:
         return _WIDE_TILES[kernel]
     return _CARD_TILES[dtype][kernel]
 
@@ -608,15 +610,16 @@ def card_tile(kernel: str, dtype, head_dim: int) -> tuple:
 def card_grid(kernel: str, dtype, head_dim: int, tq_pad: int, tk_pad: int,
               h: int) -> tuple:
     """``(x, y)`` of a kernel's launch grid, as the C dispatch sets it: the
-    wgmma kernels (bf16 at head_dim <= 128) one block per (tile, head),
-    heads slowest; the others (head, tile), the bf16 dk/dv kernel at 256
+    wgmma kernels (bf16 or fp16 at head_dim <= 128) one block per (tile,
+    head), heads slowest; the others (head, tile), the 16-bit dk/dv kernel
+    at 256
     with two column halves a head. Tiles are q tiles, or k tiles for
     ``"dkv"``, of ``card_tile``."""
     bq, bk = card_tile(kernel, dtype, head_dim)
     tiles = tk_pad // bk if kernel == "dkv" else tq_pad // bq
-    if dtype == torch.bfloat16 and head_dim <= 128:
+    if dtype in _kernels.HALF_TYPES and head_dim <= 128:
         return tiles, h
-    halves = 2 if dtype == torch.bfloat16 and kernel == "dkv" else 1
+    halves = 2 if dtype in _kernels.HALF_TYPES and kernel == "dkv" else 1
     return h * halves, tiles
 
 
@@ -638,7 +641,7 @@ def _check_packed(what, q, k, v):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{what}: q, k and v must share device and "
                              "dtype")
-    _kernels.dtype_code(q, what)
+    _kernels.dtype_code(q, what, fp16=True)
     for kernel in ("fwd", "dq", "dkv"):
         grid = card_grid(kernel, q.dtype, d, _card_pad(tq),
                          _card_pad(k.shape[0]), h)
@@ -718,7 +721,8 @@ def _card_maps(maps, cu_q, cu_k, q, k, causal: bool) -> CardMaps:
 
 def _shape_args(what, q, k, v, tqp, tkp, causal, scale):
     tq, h, d = q.shape
-    return (_kernels.dtype_code(q, what), tq, k.shape[0], tqp, tkp, h, d,
+    return (_kernels.dtype_code(q, what, fp16=True), tq, k.shape[0], tqp,
+            tkp, h, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), int(causal), float(scale),
             _kernels.stream_ptr(q.device))

@@ -1,5 +1,13 @@
 """Loss functionals (counterpart of ``paddle_tpu/nn/functional/loss.py``):
-``cross_entropy`` on index labels, the training path's loss.
+``cross_entropy`` and every other loss of the JAX file, each its
+formula in torch ops with Paddle's reductions (``'none'``, ``'mean'``,
+``'sum'``; ``kl_div`` also ``'batchmean'``). The losses on the O1
+black list (``cross_entropy``, ``nll_loss``, ``mse_loss``, ``l1_loss``,
+``kl_div``, ``binary_cross_entropy``, ``bce_with_logits``,
+``sigmoid_focal_loss``) pass their operands through the AMP hook under
+the JAX op name. ``ctc_loss`` and ``rnnt_loss`` raise: they come with
+the recurrent layers (ROADMAP A7); ``margin_cross_entropy`` with a
+``group`` raises too (tensor parallelism, A10).
 
 The JAX package's closed-form big-vocab path (``_fused_index_ce``) is
 ``FusedIndexCE``, an autograd function: per row ``log(sum exp(x - m)) +
@@ -13,11 +21,24 @@ cast to f32 whole before the chunks, as the JAX package casts them.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ...amp.auto_cast import _amp_cast
 
-__all__ = ["cross_entropy", "CE_CHUNK_ELEMENTS"]
+__all__ = [
+    "cross_entropy", "softmax_with_cross_entropy", "mse_loss", "l1_loss",
+    "nll_loss", "binary_cross_entropy", "binary_cross_entropy_with_logits",
+    "kl_div", "smooth_l1_loss", "margin_ranking_loss", "square_error_cost",
+    "log_loss", "sigmoid_focal_loss", "hinge_embedding_loss",
+    "cosine_embedding_loss", "triplet_margin_loss",
+    "triplet_margin_with_distance_loss", "multi_label_soft_margin_loss",
+    "soft_margin_loss", "poisson_nll_loss", "gaussian_nll_loss",
+    "ctc_loss", "margin_cross_entropy", "huber_loss", "rnnt_loss",
+    "CE_CHUNK_ELEMENTS",
+]
 
 #: elements of logits per f32 chunk (256 MB of f32 temporaries)
 CE_CHUNK_ELEMENTS = 1 << 26
@@ -66,24 +87,69 @@ class FusedIndexCE(torch.autograd.Function):
         return d, None, None
 
 
+def _reduce(v, reduction):
+    if reduction == "mean":
+        return v.mean()
+    if reduction == "sum":
+        return v.sum()
+    return v
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
-    """Softmax cross entropy on index labels (the JAX package's fast
-    path; f32 and bf16 logits alike).
+    """Softmax cross entropy. Plain index labels (no ``weight``, soft
+    labels, ``use_softmax=False`` or smoothing) take the JAX package's
+    fast path, ``FusedIndexCE``; the rest the general form: log-softmax
+    (or the log of ``input`` clipped at 1e-10 with ``use_softmax=False``),
+    soft labels (smoothed toward uniform), or picked index labels mixed
+    with the mean log-probability by ``label_smoothing`` and scaled by
+    ``weight[label]``.
 
     Label contract: entries equal to ``ignore_index`` give zero loss and
-    zero gradient and leave the ``'mean'`` denominator; any other
-    out-of-range entry is clamped into ``[0, num_classes)``."""
-    if weight is not None or soft_label or not use_softmax \
-            or label_smoothing != 0.0:
-        raise NotImplementedError(
-            "cross_entropy with weight, soft labels, use_softmax=False or "
-            "label smoothing comes with the losses slice of the port")
+    zero gradient and leave the ``'mean'`` denominator (with ``weight``
+    the denominator is the sum of the valid entries' weights); any other
+    out-of-range entry is clamped into ``[0, num_classes)`` on the fast
+    path."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', "
                          f"not {reduction!r}")
-    logits, label = _amp_cast("cross_entropy", input, label)
+    logits, label, weight = _amp_cast("cross_entropy", input, label, weight)
+    if use_softmax and not soft_label and label_smoothing == 0.0 \
+            and weight is None:
+        return _index_ce(logits, label, ignore_index, reduction, axis)
+    logp = torch.log_softmax(logits, axis) if use_softmax else \
+        torch.log(torch.clamp(logits, min=1e-10))
+    nclass = logits.shape[axis]
+    if soft_label:
+        soft = label
+        if label_smoothing > 0.0:
+            soft = soft * (1 - label_smoothing) + label_smoothing / nclass
+        return _reduce(-(soft * logp).sum(axis), reduction)
+    ids = label.long()
+    if ids.ndim == logp.ndim:
+        ids = ids.squeeze(axis)
+    valid = ids != ignore_index
+    safe = torch.where(valid, ids, torch.zeros_like(ids))
+    per = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    if label_smoothing > 0.0:
+        per = (1 - label_smoothing) * per - \
+            label_smoothing * logp.mean(axis)
+    zero = torch.zeros_like(per)
+    if weight is not None:
+        w = weight[safe]
+        per = torch.where(valid, per * w, zero)
+        if reduction == "mean":
+            return per.sum() / torch.clamp(
+                torch.where(valid, w, torch.zeros_like(w)).sum(), min=1e-12)
+        return _reduce(per, reduction)
+    per = torch.where(valid, per, zero)
+    if reduction == "mean":
+        return per.sum() / torch.clamp(valid.sum().to(per.dtype), min=1.0)
+    return _reduce(per, reduction)
+
+
+def _index_ce(logits, label, ignore_index, reduction, axis):
     ids = label.long()
     if ids.ndim == logits.ndim:
         ids = ids.squeeze(axis)
@@ -101,3 +167,257 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if reduction == "sum":
         return per.sum()
     return per.reshape(batch_shape)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """The per-sample loss with the class axis kept as size 1, and the
+    softmax with ``return_softmax``."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis).unsqueeze(axis)
+    if return_softmax:
+        from .activation import softmax
+
+        return loss, softmax(logits, axis=axis)
+    return loss
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    input, label = _amp_cast("mse_loss", input, label)
+    return _reduce((input - label).square(), reduction)
+
+
+def square_error_cost(input, label):
+    return (input - label).square()
+
+
+def l1_loss(input, label, reduction="mean", name=None):
+    input, label = _amp_cast("l1_loss", input, label)
+    return _reduce((input - label).abs(), reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
+             name=None):
+    """``-input[n, label[n]]`` over log-probabilities ``[N, C, ...]``, the
+    same label contract and weighting as ``cross_entropy``."""
+    logp, label, weight = _amp_cast("nll_loss", input, label, weight)
+    ids = label.long()
+    valid = ids != ignore_index
+    safe = torch.where(valid, ids, torch.zeros_like(ids))
+    per = -logp.gather(1, safe.unsqueeze(1)).squeeze(1)
+    zero = torch.zeros_like(per)
+    if weight is not None:
+        w = weight[safe]
+        per = torch.where(valid, per * w, zero)
+        if reduction == "mean":
+            return per.sum() / torch.clamp(
+                torch.where(valid, w, torch.zeros_like(w)).sum(), min=1e-12)
+        return _reduce(per, reduction)
+    per = torch.where(valid, per, zero)
+    if reduction == "mean":
+        return per.sum() / torch.clamp(valid.sum().to(per.dtype), min=1.0)
+    return _reduce(per, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean",
+                         name=None):
+    p, y, weight = _amp_cast("binary_cross_entropy", input, label, weight)
+    p = torch.clamp(p, 1e-12, 1.0 - 1e-12)
+    per = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
+    if weight is not None:
+        per = per * weight
+    return _reduce(per, reduction)
+
+
+def _log1p_exp_neg_abs(z):
+    """``log(1 + exp(-|z|))``, as the JAX package's
+    ``logaddexp(0, -|z|)``."""
+    return torch.logaddexp(torch.zeros_like(z), -z.abs())
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    """The stable form ``max(z, 0) - z y + log(1 + exp(-|z|))``, with
+    ``pos_weight`` folded in as the JAX package folds it."""
+    z, y, weight, pos_weight = _amp_cast("bce_with_logits", logit, label,
+                                         weight, pos_weight)
+    if pos_weight is not None:
+        log_weight = (pos_weight - 1) * y + 1
+        per = (1 - y) * z + log_weight * (
+            _log1p_exp_neg_abs(z) + torch.clamp(-z, min=0.0))
+    else:
+        per = torch.clamp(z, min=0) - z * y + _log1p_exp_neg_abs(z)
+    if weight is not None:
+        per = per * weight
+    return _reduce(per, reduction)
+
+
+def kl_div(input, label, reduction="mean", log_target=False, name=None):
+    logp, y = _amp_cast("kl_div", input, label)
+    if log_target:
+        per = torch.exp(y) * (y - logp)
+    else:
+        per = torch.where(y > 0, y * (torch.log(torch.clamp(y, min=1e-12))
+                                      - logp), torch.zeros_like(logp))
+    if reduction == "batchmean":
+        return per.sum() / logp.shape[0]
+    return _reduce(per, reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
+    diff = (input - label).abs()
+    per = torch.where(diff < delta, 0.5 * diff * diff / delta,
+                      diff - 0.5 * delta)
+    return _reduce(per, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
+                        name=None):
+    return _reduce(torch.clamp(-label * (input - other) + margin, min=0.0),
+                   reduction)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return -(label * torch.log(input + epsilon)
+             + (1 - label) * torch.log(1 - input + epsilon))
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    z, y, normalizer = _amp_cast("sigmoid_focal_loss", logit, label,
+                                 normalizer)
+    p = torch.sigmoid(z)
+    ce = torch.clamp(z, min=0) - z * y + _log1p_exp_neg_abs(z)
+    p_t = p * y + (1 - p) * (1 - y)
+    per = (alpha * y + (1 - alpha) * (1 - y)) * torch.pow(1 - p_t, gamma) \
+        * ce
+    if normalizer is not None:
+        per = per / normalizer
+    return _reduce(per, reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
+                         name=None):
+    per = torch.where(label == 1, input, torch.clamp(margin - input,
+                                                     min=0.0))
+    return _reduce(per, reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean", name=None):
+    cos = (input1 * input2).sum(-1) / torch.clamp(
+        torch.linalg.norm(input1, dim=-1) * torch.linalg.norm(input2, dim=-1),
+        min=1e-12)
+    per = torch.where(label == 1, 1 - cos, torch.clamp(cos - margin,
+                                                       min=0.0))
+    return _reduce(per, reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean",
+                        name=None):
+    def dist(u, v):
+        return torch.pow(torch.pow((u - v).abs() + epsilon, p).sum(-1),
+                         1.0 / p)
+
+    d_ap, d_an = dist(input, positive), dist(input, negative)
+    if swap:
+        d_an = torch.minimum(d_an, dist(positive, negative))
+    return _reduce(torch.clamp(d_ap - d_an + margin, min=0.0), reduction)
+
+
+def triplet_margin_with_distance_loss(input, positive, negative,
+                                      distance_function=None, margin=1.0,
+                                      swap=False, reduction="mean",
+                                      name=None):
+    if distance_function is None:
+        return triplet_margin_loss(input, positive, negative, margin=margin,
+                                   swap=swap, reduction=reduction)
+    d_ap = distance_function(input, positive)
+    d_an = distance_function(input, negative)
+    if swap:
+        d_an = torch.minimum(d_an, distance_function(positive, negative))
+    return _reduce(torch.clamp(d_ap - d_an + margin, min=0.0), reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,
+                                 reduction="mean", name=None):
+    per = -(label * F.logsigmoid(input)
+            + (1 - label) * F.logsigmoid(-input)).mean(-1)
+    if weight is not None:
+        per = per * weight
+    return _reduce(per, reduction)
+
+
+def soft_margin_loss(input, label, reduction="mean", name=None):
+    return _reduce(torch.log1p(torch.exp(-label * input)), reduction)
+
+
+def poisson_nll_loss(input, label, log_input=True, full=False,
+                     epsilon=1e-8, reduction="mean", name=None):
+    if log_input:
+        per = torch.exp(input) - label * input
+    else:
+        per = input - label * torch.log(input + epsilon)
+    if full:
+        stirling = label * torch.log(label + epsilon) - label + 0.5 * \
+            torch.log(2 * math.pi * (label + epsilon))
+        per = per + torch.where(label > 1, stirling,
+                                torch.zeros_like(stirling))
+    return _reduce(per, reduction)
+
+
+def gaussian_nll_loss(input, label, variance, full=False, epsilon=1e-6,
+                      reduction="mean", name=None):
+    var = torch.clamp(variance, min=epsilon)
+    per = 0.5 * (torch.log(var) + (label - input).square() / var)
+    if full:
+        per = per + 0.5 * math.log(2 * math.pi)
+    return _reduce(per, reduction)
+
+
+def huber_loss(input, label, delta=1.0, reduction="mean", name=None):
+    d = input - label
+    ad = d.abs()
+    per = torch.where(ad <= delta, 0.5 * d * d, delta * (ad - 0.5 * delta))
+    return _reduce(per, reduction)
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean", name=None):
+    """ArcFace-family margin softmax on one device: the target class's
+    ``cos(theta)`` becomes ``cos(m1 theta + m2) - m3`` (the cosine
+    clamped inside (-1, 1)), every logit times ``scale``. ``group``
+    (logits sharded over a model-parallel group) raises."""
+    if group is not None:
+        raise NotImplementedError(
+            "margin_cross_entropy over a model-parallel group comes with "
+            "the port's tensor-parallel slice (ROADMAP A10)")
+    ids = label.long().reshape(-1)
+    onehot = F.one_hot(ids, logits.shape[1]).to(logits.dtype)
+    eps = 1e-6
+    cos = torch.clamp(logits, -1.0 + eps, 1.0 - eps)
+    target = torch.cos(margin1 * torch.arccos(cos) + margin2) - margin3
+    adj = torch.where(onehot > 0, target, cos) * scale
+    loss = torch.logsumexp(adj, -1) - (adj * onehot).sum(-1)
+    if return_softmax:
+        return _reduce(loss, reduction), torch.softmax(adj, -1)
+    return _reduce(loss, reduction)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False, name=None):
+    raise NotImplementedError(
+        "ctc_loss comes with the port's recurrent layers (nn/layers/rnn.py, "
+        "ROADMAP A7)")
+
+
+def rnnt_loss(logits, labels, input_lengths, label_lengths, blank=0,
+              fastemit_lambda=0.0, reduction="mean", name=None):
+    raise NotImplementedError(
+        "rnnt_loss comes with the port's recurrent layers (nn/layers/rnn.py, "
+        "ROADMAP A7)")

@@ -1,5 +1,6 @@
 """Parameter initializers (counterpart of ``paddle_tpu/nn/initializer.py``):
-the defaults that ``Linear``, ``Embedding``, ``LayerNorm`` and the MoE
+the defaults that ``Linear``, ``Embedding``, ``LayerNorm``, the
+convolution layers (Kaiming-uniform weights, uniform biases) and the MoE
 gate and expert bank use.
 
 Each draws in f32 from the device's ``torch.Generator``
@@ -15,8 +16,9 @@ import torch
 
 from ..core.generator import default_generator
 
-__all__ = ["Initializer", "Constant", "Normal", "XavierNormal",
-           "XavierUniform", "to_dtype"]
+__all__ = ["Initializer", "Constant", "Normal", "Uniform", "XavierNormal",
+           "XavierUniform", "KaimingNormal", "KaimingUniform",
+           "calculate_gain", "to_dtype"]
 
 
 def to_dtype(dtype) -> torch.dtype:
@@ -70,6 +72,66 @@ class Normal(Initializer):
             .to(to_dtype(dtype))
 
 
+def _uniform_f32(shape, low, high, device):
+    u = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    return u.uniform_(low, high, generator=default_generator(device))
+
+
+class Uniform(Initializer):
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype="float32", device="cpu"):
+        return _uniform_f32(shape, self.low, self.high, device) \
+            .to(to_dtype(dtype))
+
+
+def calculate_gain(nonlinearity: str, param=None) -> float:
+    """The recommended gain of a nonlinearity (the JAX package's
+    table)."""
+    gains = {
+        "sigmoid": 1.0, "linear": 1.0, "conv1d": 1.0, "conv2d": 1.0,
+        "conv3d": 1.0, "conv1d_transpose": 1.0, "conv2d_transpose": 1.0,
+        "conv3d_transpose": 1.0, "tanh": 5.0 / 3.0,
+        "relu": math.sqrt(2.0),
+        "leaky_relu": math.sqrt(
+            2.0 / (1 + (param if param is not None else 0.01) ** 2)),
+        "selu": 3.0 / 4.0,
+    }
+    if nonlinearity not in gains:
+        raise ValueError(f"unsupported nonlinearity: {nonlinearity}")
+    return gains[nonlinearity]
+
+
+class _Kaiming(Initializer):
+    def __init__(self, fan_in=None, negative_slope: float = 0.0,
+                 nonlinearity: str = "relu"):
+        self.fan_in = fan_in
+        self.negative_slope = negative_slope
+        self.nonlinearity = nonlinearity
+
+    def _scale(self, shape, num: float) -> float:
+        """``gain * sqrt(num / fan_in)``."""
+        fi = self.fan_in if self.fan_in is not None else _fan_in_out(
+            tuple(int(s) for s in shape))[0]
+        return calculate_gain(self.nonlinearity, self.negative_slope) * \
+            math.sqrt(num / fi)
+
+
+class KaimingNormal(_Kaiming):
+    def __call__(self, shape, dtype="float32", device="cpu"):
+        return (_normal_f32(shape, device) * self._scale(shape, 1.0)) \
+            .to(to_dtype(dtype))
+
+
+class KaimingUniform(_Kaiming):
+    """Uniform in ``±gain * sqrt(3 / fan_in)``."""
+
+    def __call__(self, shape, dtype="float32", device="cpu"):
+        lim = self._scale(shape, 3.0)
+        return _uniform_f32(shape, -lim, lim, device).to(to_dtype(dtype))
+
+
 class _Xavier(Initializer):
     def __init__(self, fan_in=None, fan_out=None, gain: float = 1.0):
         self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
@@ -97,6 +159,4 @@ class XavierUniform(_Xavier):
 
     def __call__(self, shape, dtype="float32", device="cpu"):
         lim = self.limit(shape)
-        u = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-        u.uniform_(-lim, lim, generator=default_generator(device))
-        return u.to(to_dtype(dtype))
+        return _uniform_f32(shape, -lim, lim, device).to(to_dtype(dtype))

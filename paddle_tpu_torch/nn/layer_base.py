@@ -11,17 +11,26 @@ construction order, as the JAX package names them for
 ``apply_decay_param_fun`` and optimizer checkpoints; kept as
 ``p.param_name``, since a torch tensor's ``name`` is read-only).
 Parameters are created on the default device (``with
-torch.device(...)``), from that device's generator.
+torch.device(...)``), from that device's generator. Buffers take the JAX
+names (``register_buffer(name, t, persistable=)``); ``state_dict`` holds
+the parameters and the persistable buffers under the JAX package's keys
+(``"bn1._mean"``), and ``set_state_dict`` copies into them in place, so
+storage a captured CUDA graph reads stays where it is. ``train()`` and
+``eval()`` reach every sublayer. The containers are ``Sequential``,
+``LayerList``, ``ParameterList`` and ``LayerDict``.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict
 
+import numpy as np
 import torch
 
 from . import initializer as I
 
-__all__ = ["ParamAttr", "Layer", "LayerList"]
+__all__ = ["ParamAttr", "Layer", "Sequential", "LayerList",
+           "ParameterList", "LayerDict"]
 
 
 class ParamAttr:
@@ -102,6 +111,83 @@ class Layer(torch.nn.Module):
             yield from sub.named_sublayers(prefix=p, include_self=True) \
                 if isinstance(sub, Layer) else ((p, sub),)
 
+    def sublayers(self, include_self: bool = False):
+        return [m for _, m in self.named_sublayers(include_self=include_self)]
+
+    def add_sublayer(self, name: str, sublayer):
+        self.add_module(name, sublayer)
+        return sublayer
+
+    def add_parameter(self, name: str, parameter):
+        if parameter is not None and \
+                getattr(parameter, "param_name", None) is None:
+            parameter.param_name = f"{self._full_name}.{name}"
+        self.register_parameter(name, parameter)
+        return parameter
+
+    def register_buffer(self, name: str, tensor, persistable: bool = True):
+        """A buffer under ``name``; a persistable one is in
+        ``state_dict`` (Paddle's ``persistable``, torch's
+        ``persistent``)."""
+        super().register_buffer(name, tensor, persistent=persistable)
+        return tensor
+
+    def set_state_dict(self, state_dict, use_structured_name: bool = True):
+        """Copy ``state_dict``'s entries (tensors or arrays) into the
+        parameters and persistable buffers of the same keys, in place and
+        in their own dtype; raises on a shape mismatch. Returns
+        ``(missing, unexpected)`` keys."""
+        own = self.state_dict(keep_vars=True)
+        missing = [k for k in own if k not in state_dict]
+        unexpected = [k for k in state_dict if k not in own]
+        with torch.no_grad():
+            for k, v in state_dict.items():
+                if k not in own:
+                    continue
+                t = own[k]
+                src = v if torch.is_tensor(v) else torch.from_numpy(
+                    np.asarray(v))
+                if tuple(src.shape) != tuple(t.shape):
+                    raise ValueError(f"shape mismatch for {k}: "
+                                     f"{tuple(src.shape)} vs "
+                                     f"{tuple(t.shape)}")
+                t.copy_(src)
+        return missing, unexpected
+
+
+class Sequential(Layer):
+    """Sublayers called in order: ``Sequential(a, b)`` names them
+    ``"0"``, ``"1"``; ``(name, layer)`` pairs, or one list of them, name
+    them."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)) and \
+                len(layers[0]) and isinstance(layers[0][0], tuple):
+            layers = layers[0]
+        for i, layer in enumerate(layers):
+            if isinstance(layer, tuple):
+                self.add_sublayer(layer[0], layer[1])
+            else:
+                self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        layers = list(self._modules.values())
+        if isinstance(idx, slice):
+            return Sequential(*layers[idx])
+        return layers[idx]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def forward(self, x):
+        for layer in self._modules.values():
+            x = layer(x)
+        return x
+
 
 class LayerList(Layer):
     """An indexable list of sublayers named ``"0"``, ``"1"``, ..."""
@@ -117,6 +203,9 @@ class LayerList(Layer):
             return LayerList(layers[idx])
         return layers[idx]
 
+    def __setitem__(self, idx, layer):
+        self.add_module(str(idx % len(self)), layer)
+
     def __len__(self):
         return len(self._modules)
 
@@ -125,4 +214,90 @@ class LayerList(Layer):
 
     def append(self, layer):
         self.add_module(str(len(self)), layer)
+        return self
+
+    def insert(self, index, layer):
+        layers = list(self._modules.values())
+        layers.insert(index, layer)
+        self._modules.clear()
+        for i, sub in enumerate(layers):
+            self.add_module(str(i), sub)
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self
+
+
+class ParameterList(Layer):
+    """An indexable list of parameters named ``"0"``, ``"1"``, ..."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        for p in parameters or ():
+            self.append(p)
+
+    def __getitem__(self, idx):
+        return list(self._parameters.values())[idx]
+
+    def __setitem__(self, idx, p):
+        self.add_parameter(str(idx % len(self)), p)
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, p):
+        self.add_parameter(str(len(self)), p)
+        return self
+
+
+class LayerDict(Layer):
+    """Sublayers by name, in insertion order."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            self.update(sublayers)
+
+    def __getitem__(self, key):
+        return self._modules[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._modules[key]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules)
+
+    def __contains__(self, key):
+        return key in self._modules
+
+    def clear(self):
+        self._modules.clear()
+
+    def pop(self, key):
+        return self._modules.pop(key)
+
+    def keys(self):
+        return self._modules.keys()
+
+    def items(self):
+        return self._modules.items()
+
+    def values(self):
+        return self._modules.values()
+
+    def update(self, sublayers):
+        items = sublayers.items() if isinstance(
+            sublayers, (dict, OrderedDict, LayerDict)) else sublayers
+        for k, v in items:
+            self[k] = v
         return self

@@ -1,14 +1,23 @@
-"""``Linear`` and ``Embedding`` (counterpart of
-``paddle_tpu/nn/layers/common.py``)."""
+"""Common layers (counterpart of ``paddle_tpu/nn/layers/common.py``):
+``Linear``, ``Embedding``, the dropouts, ``Flatten``, ``Identity``, the
+paddings, the upsamplers, the pixel and channel shuffles,
+``CosineSimilarity``, ``Bilinear``, ``Unfold`` and ``Fold``."""
 from __future__ import annotations
 
 import torch
 
 from .. import initializer as I
+from .. import functional as F
 from ..functional.common import embedding, linear
 from ..layer_base import Layer
 
-__all__ = ["Linear", "Embedding"]
+__all__ = [
+    "Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
+    "AlphaDropout", "Flatten", "Identity", "Pad1D", "Pad2D", "Pad3D",
+    "ZeroPad2D", "Upsample", "UpsamplingNearest2D", "UpsamplingBilinear2D",
+    "PixelShuffle", "PixelUnshuffle", "ChannelShuffle", "CosineSimilarity",
+    "Bilinear", "Unfold", "Fold", "Linear_",
+]
 
 
 class Linear(Layer):
@@ -33,6 +42,9 @@ class Linear(Layer):
     def extra_repr(self):
         return (f"in_features={self._in_features}, "
                 f"out_features={self._out_features}")
+
+
+Linear_ = Linear
 
 
 class Embedding(Layer):
@@ -61,3 +73,204 @@ class Embedding(Layer):
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(Layer):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return x.flatten(self.start_axis, self.stop_axis)
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode, value, data_format):
+        super().__init__()
+        self._padding = padding
+        self._mode = mode
+        self._value = value
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self._padding, mode=self._mode, value=self._value,
+                     data_format=self._data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL",
+                 name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCHW",
+                 name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode, self.data_format = align_mode, data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0, data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, upscale_factor=self.factor,
+                               data_format=self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor, self.data_format = downscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, downscale_factor=self.factor,
+                                 data_format=self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, groups=self.groups,
+                                 data_format=self.data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            shape=[out_features, in1_features, in2_features], attr=weight_attr,
+            default_initializer=I.XavierNormal(
+                fan_in=in1_features + in2_features, fan_out=out_features))
+        self.bias = self.create_parameter(
+            shape=[out_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes, self.strides = kernel_sizes, strides
+        self.paddings, self.dilations = paddings, dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes, self.kernel_sizes = output_sizes, kernel_sizes
+        self.strides, self.paddings = strides, paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, self.kernel_sizes, self.strides,
+                      self.paddings, self.dilations)

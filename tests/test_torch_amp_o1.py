@@ -26,8 +26,8 @@
   run (fp16 products in another order).
 - The lists, ``custom_white_list``/``custom_black_list``, the
   tensor checker and ``check_numerics`` against the JAX package's.
-- An fp16 operand reaching B10 on the card raises ``TypeError`` in the
-  kernel's operand check (a mocked CUDA tensor): no cast around it.
+- An fp16 operand reaching B10 on the card goes to its launch with the
+  fp16 dtype code (a mocked CUDA tensor): no cast around it.
 """
 import os
 import sys
@@ -381,7 +381,7 @@ def test_check_numerics_and_tensor_checker_match_jax():
 
 
 # ---------------------------------------------------------------------
-# fp16 on the card: B10 takes f32 and bf16 only
+# fp16 on the card: B10 takes the fp16 operand, with the fp16 code
 # ---------------------------------------------------------------------
 
 class _OnCard(torch.Tensor):
@@ -392,25 +392,41 @@ class _OnCard(torch.Tensor):
         return torch.device("cuda")
 
 
-def test_fp16_o1_attention_on_the_card_raises_in_the_kernel_check(
+def test_fp16_o1_attention_on_the_card_reaches_b10_with_the_fp16_code(
         monkeypatch):
+    """Under O1 at fp16, a CUDA-reporting operand goes to B10's forward
+    launch as fp16 (dtype code 3, no cast to bf16 around the kernel), not
+    to a plain version; the launch is counted. The library, the stream
+    and the output allocation are stand-ins: there is no card here."""
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
-    def no_lib(name):
-        raise AssertionError("an fp16 operand reached the kernel launch")
+    launches = []
+
+    class _Lib:
+        def ptt_flash_fwd(self, *args):
+            launches.append(args)
+            return 0
+
     monkeypatch.setattr(tattn, "flash_attention_fwd_plain", plain)
     monkeypatch.setattr(tattn, "_dense_attention", plain)
-    monkeypatch.setattr(_kernels, "lib", no_lib)
+    monkeypatch.setattr(_kernels, "lib", lambda name: _Lib())
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda device: 0)
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, device=None, **k: empty(*a, **k))
     checked = []
     code = _kernels.dtype_code
 
-    def dtype_code(t, what):
-        checked.append(t.dtype)
-        return code(t, what)
+    def dtype_code(t, what, fp16=False):
+        checked.append((t.dtype, fp16))
+        return code(t, what, fp16)
     monkeypatch.setattr(_kernels, "dtype_code", dtype_code)
     q = torch.Tensor._make_subclass(_OnCard, torch.randn(1, 128, 2, 64))
+    before = tattn.fwd_launches
     with tamp.auto_cast(level="O1", dtype="float16"):
-        with pytest.raises(TypeError, match="float16"):
-            TF.scaled_dot_product_attention(q, q, q, is_causal=True)
-    assert checked == [torch.float16]
+        TF.scaled_dot_product_attention(q, q, q, is_causal=True)
+    assert len(launches) == 1
+    assert launches[0][5] == _kernels.FP16_CODE == 3
+    assert set(checked) == {(torch.float16, True)}
+    assert tattn.fwd_launches == before + 1

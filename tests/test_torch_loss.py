@@ -10,6 +10,8 @@ the largest value (both round ``logits - max`` and the gradient to
 bf16, in another order of f32 sums: one bf16 ulp). Rows at
 ``ignore_index`` have a gradient of exactly 0 on both sides.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,9 +102,19 @@ def test_labels_with_the_class_axis_and_all_ignored():
 
 
 def test_unported_options_name_their_slice():
+    """The options the losses slice lifted now compute (uniform logits:
+    the loss is log 4 whatever the labels); the losses still unported
+    raise naming their slices."""
     x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="losses slice"):
-        tloss.cross_entropy(x, torch.zeros(2, 4), soft_label=True)
-    with pytest.raises(NotImplementedError, match="losses slice"):
-        tloss.cross_entropy(x, torch.zeros(2, dtype=torch.long),
-                            label_smoothing=0.1)
+    soft = torch.full((2, 4), 0.25)
+    ids = torch.zeros(2, dtype=torch.long)
+    for loss in (tloss.cross_entropy(x, soft, soft_label=True),
+                 tloss.cross_entropy(x, ids, label_smoothing=0.1),
+                 tloss.cross_entropy(x, ids, weight=torch.ones(4))):
+        assert abs(float(loss) - math.log(4.0)) < 1e-6
+    with pytest.raises(NotImplementedError, match="A7"):
+        tloss.ctc_loss(x, x, x, x)
+    with pytest.raises(NotImplementedError, match="A7"):
+        tloss.rnnt_loss(x, x, x, x)
+    with pytest.raises(NotImplementedError, match="A10"):
+        tloss.margin_cross_entropy(x, ids, group=object())
