@@ -78,10 +78,14 @@ Phases, all run every time, each of which fails the run when it fails:
            state (logits, loss, every gradient, 3 steps' losses, each
            within twice a one-ulp witness, a faulty control outside),
            5 timed steps (tokens/s, MFU, device busy and idle share,
-           peak memory, 24 launches of each B10 kernel a step) and 2
-           steps with remat="full" (48 forward launches a step); B10 at
-           head_dim 96 is checked and timed at the gpt-760m rung's shape
-           too;
+           peak memory, 24 launches of each B10 kernel a step), 2
+           steps with remat="full" (48 forward launches a step) and 2
+           with remat="dots" (train_remat_dots: the linear products
+           kept, the rest recomputed; 48 / 24 / 24 launches a step,
+           losses within the trajectory limit, what a forward keeps
+           for the backward between full's and none's); B10 at
+           head_dim 96 is checked and timed at the gpt-760m rung's
+           shape too;
   train loop the training loop's core on the same 1.3b rung, in f32
            under AMP O1 at bf16 (AdamW under LinearWarmup and cosine
            decay, weight decay off biases and norms, a global-norm clip
@@ -174,6 +178,22 @@ Phases, all run every time, each of which fails the run when it fails:
            checked at head_dim 80 and B11-B13 at 40, both zero-padded
            by their wrappers, with the padding's cost timed (B11-B13
            are also timed at 96 and 256).
+  sequence the sequence layers: transformer_base, nn.Transformer at the
+           base model's width and depth (d512, 8 heads of 64, 6 + 6
+           layers, a tied 37,000-token embedding, batch 96 of 256 +
+           256 tokens) under O1 bf16 with Adam and NoamDecay: one eval
+           forward (12 B10 forward launches), the kernel route held to
+           the plain route within twice a witness (a control outside),
+           3 training steps (12 / 12 / 12 launches a step), tokens/s,
+           idle share, peak memory; B10 is also checked at its shape
+           (b96 h8 s256 d64, non-causal); lstm_ptb, the PTB "large"
+           LSTM (2 x 1500, vocab 10,000, 35 steps, batch 20, dropout
+           0.65, SGD lr 1, clip 10): cuDNN's recurrence held to a plain
+           cell loop (1e-4, a control), 3 steps, an eval forward, a
+           bidirectional GRU and a SimpleRNN forward beside it;
+           seq_losses: ctc_loss (T 300, batch 32, 29 classes) and
+           rnnt_loss (B 4, T 100, U 30, V 29) on the card against the
+           CPU, value and gradient, timed.
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -3118,6 +3138,17 @@ def slice_teacher_forced_lora(model) -> None:
 #: the training rung (bench.py's gpt3-1.3b: d2048, 24 layers, 16 heads of
 #: 128, seq 1024, batch 4, vocab 51200, the _FAST options)
 TRAIN_SEQ, TRAIN_BATCH = 1024, 4
+#: nn.Transformer at its defaults: the base model of "Attention Is All
+#: You Need" (Vaswani et al. 2017, Table 3: d_model 512, 8 heads of 64,
+#: 6 + 6 layers, dff 2048, ReLU, post-norm, dropout 0.1 on sublayer
+#: outputs and embedding sums, none on the attention weights or after
+#: the activation); a shared 37,000-token embedding tied to the output
+#: projection, sinusoidal positions; src and tgt 256 tokens, no padding,
+#: batch 96 (24,576 tokens a side, the paper's ~25,000); AMP O1 bf16,
+#: Adam (beta2 0.98, eps 1e-9) under NoamDecay (warmup 4000), label
+#: smoothing 0.1
+TB_VOCAB, TB_D, TB_HEADS, TB_LAYERS = 37000, 512, 8, 6
+TB_SEQ, TB_BATCH, TB_STEPS, TB_WARMUP = 256, 96, 3, 4000
 #: the key tile the flash kernels walk
 FLASH_TILE = 64
 
@@ -3247,6 +3278,7 @@ FLASH_CASES = (
     (2, 320, 4, 128, torch.bfloat16, False),
     (2, (384, 768), 4, 128, torch.bfloat16, True),
     (2, (768, 384), 4, 128, torch.bfloat16, True),
+    (TB_BATCH, TB_SEQ, TB_HEADS, TB_D // TB_HEADS, torch.bfloat16, False),
     (4, 1024, 16, 128, torch.float16, True),
     (4, 1024, 16, 64, torch.float16, True),
     (8, 1024, 16, 96, torch.float16, True),
@@ -3264,11 +3296,13 @@ B10_KERNELS = {"fwd": "flash_fwd_wgmma", "dq": "flash_bwd_dq_wgmma",
 R760_D, R760_BATCH = 1536, 8
 
 
-def _flash_times(gen, b, s, h, d, dt=torch.bfloat16) -> dict:
+def _flash_times(gen, b, s, h, d, dt=torch.bfloat16,
+                 causal=True) -> dict:
     """B10's three kernels timed at ``[b, s, h, d]`` (``dt``: bf16 or
-    fp16, causal), inputs rotating over 4 layers' worth, beside the plain
-    versions, scaled_dot_product_attention and the aten flash backward
-    (in ``dt`` too); one "time" line each (an fp16 line's name ends in
+    fp16; causal unless ``causal`` is false), inputs rotating over 4
+    layers' worth, beside the plain versions,
+    scaled_dot_product_attention and the aten flash backward (in ``dt``
+    too); one "time" line each (an fp16 line's name ends in
     ``_fp16``). Returns the rows of the kernels line."""
     from paddle_tpu_torch.nn.functional import attention as at
 
@@ -3277,33 +3311,33 @@ def _flash_times(gen, b, s, h, d, dt=torch.bfloat16) -> dict:
     sets = []
     for _ in range(4):
         q, k, v, do = _flash_inputs(gen, b, s, h, d, dt)
-        out, lse = at.flash_attention_fwd(q, k, v, True, scale)
+        out, lse = at.flash_attention_fwd(q, k, v, causal, scale)
         sets.append((q, k, v, do, out, lse, at.flash_delta(out, do)))
     nxt = cycler(len(sets))
 
     def fwd():
         q, k, v = sets[nxt()][:3]
-        at.flash_attention_fwd(q, k, v, True, scale)
+        at.flash_attention_fwd(q, k, v, causal, scale)
 
     def dq():
         q, k, v, do, _, lse, di = sets[nxt()]
-        at._flash_bwd_dq_cuda(q, k, v, do, lse, di, True, scale)
+        at._flash_bwd_dq_cuda(q, k, v, do, lse, di, causal, scale)
 
     def dkv():
         q, k, v, do, _, lse, di = sets[nxt()]
-        at._flash_bwd_dkv_cuda(q, k, v, do, lse, di, True, scale)
+        at._flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal, scale)
 
     def bwd():
         q, k, v, do, out, lse, _ = sets[nxt()]
-        at.flash_attention_bwd(q, k, v, out, lse, do, True, scale)
+        at.flash_attention_bwd(q, k, v, out, lse, do, causal, scale)
 
     def plain_fwd():
         q, k, v = sets[nxt()][:3]
-        at.flash_attention_fwd_plain(q, k, v, True, scale)
+        at.flash_attention_fwd_plain(q, k, v, causal, scale)
 
     def plain_bwd():
         q, k, v, do, out, lse, _ = sets[nxt()]
-        at.flash_attention_bwd_plain(q, k, v, out, lse, do, True, scale)
+        at.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, scale)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [tuple(t.detach().transpose(1, 2).requires_grad_(True)
@@ -3312,11 +3346,11 @@ def _flash_times(gen, b, s, h, d, dt=torch.bfloat16) -> dict:
 
     def lib_fwd():
         with torch.no_grad():
-            sdpa(*leaves[nxt()][:3], is_causal=True)
+            sdpa(*leaves[nxt()][:3], is_causal=causal)
 
     def lib_fwd_bwd():
         q, k, v, do = leaves[nxt()]
-        sdpa(q, k, v, is_causal=True).backward(do)
+        sdpa(q, k, v, is_causal=causal).backward(do)
 
     # the aten flash backward on its own forward's out and logsumexp: one
     # call that computes dq, dk and dv
@@ -3325,16 +3359,16 @@ def _flash_times(gen, b, s, h, d, dt=torch.bfloat16) -> dict:
     for q, k, v, do in leaves:
         q, k, v = q.detach(), k.detach(), v.detach()
         o, lse, cq, ck, mq, mk, seed, off, _ = \
-            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True,
+            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal,
                                                       False, scale=scale)
-        saved.append((do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed,
+        saved.append((do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, seed,
                       off))
 
     def lib_bwd(i=None):
         return aten._scaled_dot_product_flash_attention_backward(
             *saved[nxt() if i is None else i], scale=scale)
 
-    bounds = _flash_bounds(b, s, s, h, d, True, dt)
+    bounds = _flash_bounds(b, s, s, h, d, causal, dt)
     rows = {}
     times = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
     device = {}
@@ -3352,8 +3386,8 @@ def _flash_times(gen, b, s, h, d, dt=torch.bfloat16) -> dict:
     # against the plain version's, on the metric of the bf16 limits
     lib_grads = [g.transpose(1, 2) for g in lib_bwd(0)]
     q, k, v, do, out, lse, _ = sets[0]
-    plain_grads = at.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
-                                               scale)
+    plain_grads = at.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                               causal, scale)
     lib_err = {n: _tile_rel_l2(g, r) for n, g, r in
                zip(("dq", "dk", "dv"), lib_grads, plain_grads)}
     whole_bwd = time_ms(bwd)
@@ -3372,7 +3406,7 @@ def _flash_times(gen, b, s, h, d, dt=torch.bfloat16) -> dict:
                       "bound_ms": bms, "bound_by": by, "bytes": nbytes,
                       "flops": flops}
         emit({"time": f"flash_attention_{name}{tag}",
-              "shape": [b, s, h, d], "causal": True, **rows[name],
+              "shape": [b, s, h, d], "causal": causal, **rows[name],
               "tflops": flops / times[name] / 1e9,
               "plain_note": None if name == "fwd" else
               "flash_attention_bwd_plain computes dq, dk and dv",
@@ -3388,7 +3422,7 @@ def _flash_times(gen, b, s, h, d, dt=torch.bfloat16) -> dict:
           "library_tile_rel_l2": lib_err,
           "bound_ms_whole_backward_5_products": bound_ms(
               7 * b * s * h * d * 2 + 2 * b * h * s * 4,
-              10.0 * b * h * _flash_pairs(s, s, True) * d, dt)[0]})
+              10.0 * b * h * _flash_pairs(s, s, causal) * d, dt)[0]})
     del sets, leaves, saved, lib_grads, plain_grads
     return rows
 
@@ -3409,9 +3443,10 @@ def kernel_flash_attention(gen) -> dict:
     skipping a late key tile for the rows past it (``_late_tile_drop``)
     must exceed the forward's out limit, the dq limit, and both the dk
     and dv limits. Then timed at the rung's shape, at the gpt-760m
-    rung's (head_dim 96) and at the MoE training rung's (head_dim 64)
-    beside the plain versions, torch's scaled_dot_product_attention and
-    the aten flash backward, and at the rung's shape in fp16 (rows named
+    rung's (head_dim 96), at the MoE training rung's (head_dim 64) and
+    at the Transformer base model's (head_dim 64, non-causal) beside
+    the plain versions, torch's scaled_dot_product_attention and the
+    aten flash backward, and at the rung's shape in fp16 (rows named
     ``*_fp16``)."""
     from paddle_tpu_torch.nn.functional import attention as at
 
@@ -3470,6 +3505,9 @@ def kernel_flash_attention(gen) -> dict:
     _flash_times(gen, R760_BATCH, TRAIN_SEQ, N_HEADS, R760_D // N_HEADS)
     _flash_times(gen, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_HEADS,
                  MOE_D // MOE_HEADS)
+    # the Transformer base model's attention: non-causal, head_dim 64
+    _flash_times(gen, TB_BATCH, TB_SEQ, TB_HEADS, TB_D // TB_HEADS,
+                 causal=False)
     _flash_pad_times(gen, 80)
     _flash_pad_times(gen, 256)
     _flash_pad_times(gen, 200)
@@ -3617,7 +3655,10 @@ def slice_train(out_dir, steps: int = 5, warmup: int = 2) -> dict:
     12·L·s·d over bench.H100_PEAK_BF16), peak memory, and exactly 24
     launches of each B10 kernel a step.
     (c) 2 steps with remat="full": 48 forward launches a step, and the
-    losses of the kernel route in (a) within the trajectory limit."""
+    losses of the kernel route in (a) within the trajectory limit; each
+    step's ms, the peak memory from the model's build on, and what a
+    forward leaves allocated for the backward (``_saved_gb``, as in
+    (b))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3756,6 +3797,7 @@ def slice_train(out_dir, steps: int = 5, warmup: int = 2) -> dict:
     split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
              enumerate(("forward_and_loss", "backward", "optimizer"))}
     del loss
+    saved = _saved_gb(model, step, inputs, labels)
     wall_ms = wall / steps * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
     fpt = bench.flops_per_token(n_params, N_LAYERS, TRAIN_SEQ, D_MODEL)
@@ -3770,6 +3812,7 @@ def slice_train(out_dir, steps: int = 5, warmup: int = 2) -> dict:
               "device_ms_per_step_by_group": by_group,
               "ms_by_phase_one_step": split,
               "max_memory_allocated_gb": peak / 1e9,
+              "saved_for_backward_gb": saved,
               "first_call_s": step.first_call_seconds,
               "launches_per_step": {k: v / steps for k, v in counts.items()
                                     if v},
@@ -3783,12 +3826,18 @@ def slice_train(out_dir, steps: int = 5, warmup: int = 2) -> dict:
         with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=40))
-    del model, step, prof
+    del model, step, opt, prof
     torch.cuda.empty_cache()
     # ---- (c) recompute
+    torch.cuda.reset_peak_memory_stats()
     model, step, inputs, labels = _train_rung(remat="full")
     _reset_counters()
-    remat_losses = [float(step(inputs, labels)) for _ in range(2)]
+    remat_losses, remat_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        remat_losses.append(float(step(inputs, labels)))
+        remat_ms.append((time.perf_counter() - t0) * 1e3)
     _check_launches("train_remat_full", _counters(),
                     _train_expected(2 * 2 * N_LAYERS, 2 * N_LAYERS))
     ref = agree["kernel"]["losses"][:2]
@@ -3796,7 +3845,10 @@ def slice_train(out_dir, steps: int = 5, warmup: int = 2) -> dict:
     emit({"phase": "train_remat_full", "losses": remat_losses,
           "remat_none_losses": ref, "rel_err": rel,
           "step1_loss_bitwise_equal": remat_losses[0] == ref[0],
-          "fwd_launches_per_step": 2 * N_LAYERS})
+          "fwd_launches_per_step": 2 * N_LAYERS, "ms_per_step": remat_ms,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+          / 1e9, "saved_for_backward_gb": _saved_gb(model, step, inputs,
+                                                    labels)})
     check(rel <= limits["trajectory_rel_err"], "train: remat='full' moved "
           f"the losses by {rel} > {limits['trajectory_rel_err']}")
     del model, step
@@ -6270,6 +6322,617 @@ def slice_speculative(model) -> dict:
     return spec["counts"]
 
 
+# ---------------------------------------------------------------- sequence
+# layers (A7's third part): nn.Transformer, the recurrent layers, the
+# sequence losses, selective recompute
+
+#: the "large" PTB language model of Zaremba et al. 2014 ("Recurrent
+#: Neural Network Regularization"): 2 LSTM layers of 1500, vocab 10,000,
+#: 35 unrolled steps, batch 20, dropout 0.65 on non-recurrent
+#: connections, uniform init in [-0.04, 0.04], SGD lr 1, global-norm
+#: clip 10; f32
+PTB_VOCAB, PTB_HIDDEN, PTB_STEPS, PTB_BATCH = 10000, 1500, 35, 20
+PTB_DROPOUT, PTB_INIT, PTB_CLIP, PTB_TRAIN_STEPS = 0.65, 0.04, 10.0, 3
+#: the LSTM route against the plain cell-step loop, relative to the
+#: largest value (f32)
+PTB_TOL = 1e-4
+#: the sequence losses' shapes: CTC as DeepSpeech2 trains it (29
+#: characters, blank 0; 300 frames, batch 32, labels of 40-120), RNN-T
+#: at B 4, T 100, U 30, V 29
+CTC_T, CTC_B, CTC_C, CTC_LABELS = 300, 32, 29, (40, 120)
+RNNT_B, RNNT_T, RNNT_U, RNNT_V = 4, 100, 30, 29
+
+
+#: kernel-name groups of a profiled step, the first match wins
+STEP_GROUPS = (("B10", ("flash_",)),
+               ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "cutlass", "xmma",
+                                           "nvjet")),
+               ("cuDNN RNN", ("rnn", "lstm", "gru")),
+               ("softmax and CE", ("softmax", "logsoftmax", "nll")))
+
+
+def _profiled_step(fn) -> tuple:
+    """``(busy ms, ms by group, top kernels)`` of one call of ``fn``
+    under torch.profiler: every CUDA kernel's self time, summed by
+    ``STEP_GROUPS`` (the rest "other PyTorch ops"), and the 6 kernels
+    that take the most (name, ms, launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA),
+                 key=lambda ev: -ev.self_device_time_total)
+    top = [{"name": ev.key[:60], "ms": ev.self_device_time_total / 1e3,
+            "launches": ev.count} for ev in evs[:6]]
+    groups = {}
+    for ev in evs:
+        g = next((name for name, keys in STEP_GROUPS
+                  if any(k in ev.key.lower() for k in keys)),
+                 "other PyTorch ops")
+        groups[g] = groups.get(g, 0.0) + ev.self_device_time_total / 1e3
+    return sum(ev.self_device_time_total for ev in evs) / 1e3, groups, top
+
+
+def _saved_gb(model, step, inputs, labels) -> float:
+    """GB that one forward and its loss leave allocated for the backward
+    (the activations the recompute policy keeps, the logits); the
+    backward then runs and the gradients are dropped."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    loss = step.loss_fn(model(*inputs), *labels)
+    saved = torch.cuda.memory_allocated() - base
+    loss.backward()
+    step.optimizer.clear_grad()
+    return saved / 1e9
+
+
+def _sinusoid(seq: int, d: int):
+    pos = torch.arange(seq, dtype=torch.float32)[:, None]
+    ang = pos / torch.pow(10000.0, torch.arange(0, d, 2) / d)
+    return torch.stack([ang.sin(), ang.cos()], -1).reshape(seq, d)
+
+
+def _transformer_base():
+    """The base model on the card, f32 parameters from seed 0: embedding
+    N(0, d^-0.5), scaled by sqrt(d) and summed with the positions, the
+    logits the decoder's output times the embedding's transpose."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core.generator import seed
+    from paddle_tpu_torch.nn import functional as F
+
+    class BaseModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(
+                TB_VOCAB, TB_D, weight_attr=nn.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, TB_D ** -0.5)))
+            self.transformer = nn.Transformer(
+                TB_D, TB_HEADS, TB_LAYERS, TB_LAYERS, 4 * TB_D, 0.1,
+                attn_dropout=0.0, act_dropout=0.0)
+            self.drop = nn.Dropout(0.1)
+            self.register_buffer("pe", _sinusoid(TB_SEQ, TB_D).cuda(),
+                                 persistable=False)
+
+        def _embed(self, ids):
+            return self.drop(self.embed(ids) * TB_D ** 0.5
+                             + self.pe[:ids.shape[1]])
+
+        def forward(self, src, tgt, tgt_mask):
+            h = self.transformer(self._embed(src), self._embed(tgt),
+                                 tgt_mask=tgt_mask)
+            return F.linear(h, self.embed.weight.t())
+
+    seed(0)
+    with torch.device("cuda"):
+        return BaseModel()
+
+
+def _tb_loss(logits, labels):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(logits.reshape(-1, TB_VOCAB), labels.reshape(-1),
+                           label_smoothing=0.1)
+
+
+def _tb_grads(model, inputs, labels):
+    """Loss and every gradient of one O1 forward and backward."""
+    from paddle_tpu_torch.amp import auto_cast
+
+    with auto_cast(level="O1"):
+        loss = _tb_loss(model(*inputs), labels)
+    loss.backward()
+    grads = [p.grad.clone() for p in model.parameters()]
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _tb_agreement(model, inputs, labels, gen) -> None:
+    """The kernel route against the plain attention route from one
+    state and one dropout seed (``attention_route``), in the training
+    loss and every gradient: each limit twice the witness route's
+    deviation (the loss's at least 4 f32 ulps); the control route must
+    exceed both. B10 launches: 12 / 12 / 12 on the kernel route, none on
+    the others."""
+    from paddle_tpu_torch.core.generator import seed
+
+    ref, rows = None, {}
+    for kind in ("plain", "kernel", "witness", "control"):
+        _reset_counters()
+        seed(3)
+        with attention_route(kind, gen):
+            loss, grads = _tb_grads(model, inputs, labels)
+        n = 2 * TB_LAYERS if kind == "kernel" else 0
+        _check_launches(f"transformer_grads[{kind}]", _counters(),
+                        _train_expected(n, n))
+        row = {"loss": loss}
+        if ref is None:
+            ref = {"loss": loss, "grads": grads,
+                   "grads_sq": sum(float(g.square().sum()) for g in grads)}
+        else:
+            diff_sq = sum(float((g - r).square().sum())
+                          for g, r in zip(grads, ref["grads"]))
+            row.update({"loss_rel_err": abs(loss - ref["loss"])
+                        / abs(ref["loss"]),
+                        "grad_rel_l2": (diff_sq / ref["grads_sq"]) ** 0.5})
+        rows[kind] = row
+        del grads
+    limits = {"loss_rel_err": max(2 * rows["witness"]["loss_rel_err"],
+                                  4 * 2.0 ** -23),
+              "grad_rel_l2": 2 * rows["witness"]["grad_rel_l2"]}
+    emit({"check": "transformer_agreement", "limits": limits,
+          "rule": "2 x the witness route's deviation (the loss at least 4 "
+                  "f32 ulps)", **rows})
+    for m, lim in limits.items():
+        check(rows["kernel"][m] <= lim, f"transformer_base: kernel route "
+              f"{m} {rows['kernel'][m]} > {lim}")
+        check(rows["control"][m] > lim, f"transformer_base: the control "
+              f"route's {m} ({rows['control'][m]}) is within {lim}")
+
+
+def slice_transformer_base(gen) -> dict:
+    """``nn.Transformer`` at the base model's width and depth through the
+    port's entry points: one eval forward under O1 (12 B10 forward
+    launches: 6 encoder self-attentions and 6 cross-attentions at b96
+    h8 s256 d64, non-causal; the decoder's masked self-attention takes
+    the dense route), the kernel route held to the plain route
+    (``_tb_agreement``), then ``TB_STEPS`` training steps through
+    ``TrainStep(amp_level="O1")`` with Adam under NoamDecay (12 / 12 / 12
+    B10 launches a step), steps 2-3 timed on the host clock (tokens/s a
+    side), one more step profiled (device busy ms, idle share), peak
+    memory."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import Transformer
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = _transformer_base()
+    rng = np.random.RandomState(11)
+    src, tgt, labels = (torch.from_numpy(rng.randint(
+        0, TB_VOCAB, (TB_BATCH, TB_SEQ))).cuda() for _ in range(3))
+    mask = Transformer.generate_square_subsequent_mask(TB_SEQ).cuda()
+    inputs = [src, tgt, mask]
+    n_params = sum(p.numel() for p in model.parameters())
+    # ---- the eval forward
+    model.eval()
+    _reset_counters()
+    with torch.no_grad(), auto_cast(level="O1"):
+        logits = model(*inputs)
+    eval_counts = _counters()
+    _check_launches("transformer_eval", eval_counts,
+                    _train_expected(2 * TB_LAYERS, 0))
+    check(tuple(logits.shape) == (TB_BATCH, TB_SEQ, TB_VOCAB)
+          and bool(torch.isfinite(logits).all()),
+          f"transformer_base: eval logits {tuple(logits.shape)} not finite "
+          "or of the wrong shape")
+    del logits
+    # ---- agreement, from the initial state
+    model.train()
+    _tb_agreement(model, inputs, labels, gen)
+    # ---- the training steps
+    sched = NoamDecay(TB_D, TB_WARMUP)
+    opt = Adam(sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+               parameters=model.parameters())
+    step = TrainStep(model, _tb_loss, opt, amp_level="O1",
+                     amp_dtype="bfloat16")
+    _reset_counters()
+    losses, wall = [], 0.0
+    for i in range(TB_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(inputs, [labels])))
+        if i:
+            wall += time.perf_counter() - t0
+        sched.step()
+    step_counts = _counters()
+    n = 2 * TB_LAYERS * TB_STEPS
+    _check_launches("transformer_base", step_counts, _train_expected(n, n))
+    check(all(np.isfinite(losses)), f"transformer_base: losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms = wall / (TB_STEPS - 1) * 1e3
+    _reset_counters()
+    busy, groups, top = _profiled_step(
+        lambda: float(step(inputs, [labels])))
+    _check_launches("transformer_profiled_step", _counters(),
+                    _train_expected(2 * TB_LAYERS, 2 * TB_LAYERS))
+    tokens = TB_BATCH * TB_SEQ
+    emit({"phase": "transformer_base", "d_model": TB_D, "heads": TB_HEADS,
+          "layers": [TB_LAYERS, TB_LAYERS], "dff": 4 * TB_D,
+          "vocab": TB_VOCAB, "batch": TB_BATCH, "seq": TB_SEQ,
+          "n_params": n_params, "amp": "O1 bf16", "losses": losses,
+          "lr": sched.get_lr(), "wall_ms_per_step": wall_ms,
+          "tokens_per_s_per_side": tokens / wall_ms * 1e3,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1 - busy / wall_ms,
+          "device_ms_by_group": groups, "top_kernels": top,
+          "max_memory_allocated_gb": peak / 1e9,
+          "launches_eval": {k: v for k, v in eval_counts.items() if v},
+          "launches_per_step": {k: v / TB_STEPS
+                                for k, v in step_counts.items() if v},
+          "wall_s": time.perf_counter() - t_phase})
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return {k: eval_counts[k] + step_counts[k] for k in eval_counts}
+
+
+def _ptb_model():
+    """The PTB model on the card from seed 0: embedding, dropout, the
+    2-layer LSTM (dropout between its layers), dropout, the softmax
+    layer; every weight uniform in [-0.04, 0.04]."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core.generator import seed
+
+    def attr():
+        return nn.ParamAttr(initializer=nn.initializer.Uniform(-PTB_INIT,
+                                                               PTB_INIT))
+
+    class PTBModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(PTB_VOCAB, PTB_HIDDEN,
+                                      weight_attr=attr())
+            self.lstm = nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, num_layers=2,
+                                dropout=PTB_DROPOUT, weight_ih_attr=attr(),
+                                weight_hh_attr=attr(), bias_ih_attr=attr(),
+                                bias_hh_attr=attr())
+            self.drop = nn.Dropout(PTB_DROPOUT)
+            self.head = nn.Linear(PTB_HIDDEN, PTB_VOCAB, weight_attr=attr(),
+                                  bias_attr=attr())
+
+        def forward(self, ids, state):
+            out, state = self.lstm(self.drop(self.embed(ids)), state)
+            return self.head(self.drop(out)), state
+
+    seed(0)
+    with torch.device("cuda"):
+        return PTBModel()
+
+
+def _lstm_plain(lstm, x, state, swap_if=False):
+    """The stacked LSTM as a loop of cell steps (the port's
+    ``_lstm_step``, PyTorch ops) over batch-major ``x``; ``swap_if``
+    exchanges the input and forget gates (the control)."""
+    from paddle_tpu_torch.nn.layers import rnn
+
+    h0, c0 = state
+    y, hs, cs = x, [], []
+    for layer in range(lstm.num_layers):
+        w = [getattr(lstm, f"{n}_l{layer}") for n in
+             ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        if swap_if:
+            w = [torch.cat([t.chunk(4)[1], t.chunk(4)[0], *t.chunk(4)[2:]])
+                 for t in w]
+        h, c, outs = h0[layer], c0[layer], []
+        for t in range(y.shape[1]):
+            h, c = rnn._lstm_step(y[:, t], h, c, *w)
+            outs.append(h)
+        y = torch.stack(outs, 1)
+        hs.append(h)
+        cs.append(c)
+    return y, (torch.stack(hs), torch.stack(cs))
+
+
+def _rel_max(got, ref) -> float:
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                               1e-30)
+
+
+def _ptb_route_check(model, gen) -> dict:
+    """The LSTM layer (cuDNN's fused recurrence) against the plain cell
+    loop on one batch in eval: outputs, final states, and the gradients
+    of a random projection of the outputs with respect to the inputs and
+    every LSTM weight, each within ``PTB_TOL`` of the largest value;
+    the control (input and forget gates exchanged) must exceed it."""
+    lstm = model.lstm
+    lstm.eval()
+    x = torch.randn((PTB_BATCH, PTB_STEPS, PTB_HIDDEN), generator=gen,
+                    device="cuda")
+    st = tuple(torch.randn((2, PTB_BATCH, PTB_HIDDEN), generator=gen,
+                           device="cuda") * 0.5 for _ in range(2))
+    r = torch.randn((PTB_BATCH, PTB_STEPS, PTB_HIDDEN), generator=gen,
+                    device="cuda")
+    params = list(lstm.parameters())
+
+    def run(fn):
+        xi = x.clone().requires_grad_()
+        out, (h, c) = fn(xi)
+        grads = torch.autograd.grad((out * r).sum(), [xi] + params)
+        return [out.detach(), h.detach(), c.detach(), *grads]
+
+    names = ["out", "h", "c", "d_x"] + [n for n, _ in lstm.named_parameters()]
+    got = run(lambda xi: lstm(xi, st))
+    ref = run(lambda xi: _lstm_plain(lstm, xi, st))
+    ctrl = run(lambda xi: _lstm_plain(lstm, xi, st, swap_if=True))
+    errs = {n: _rel_max(g, f) for n, g, f in zip(names, got, ref)}
+    ctrl_errs = {n: _rel_max(g, f) for n, g, f in zip(names, ctrl, ref)}
+    emit({"check": "lstm_route", "tol": PTB_TOL, "metric": "max abs err "
+          "/ max |plain|", "err": errs, "control_err": ctrl_errs})
+    bad = [n for n, e in errs.items() if not e <= PTB_TOL]
+    check(not bad, f"lstm_ptb: the LSTM route is off the plain loop in "
+          f"{bad}: {errs}")
+    check(ctrl_errs["out"] > PTB_TOL, "lstm_ptb: the control (gates i and f "
+          f"exchanged) is within the limit: {ctrl_errs['out']}")
+    lstm.train()
+    return errs
+
+
+def slice_lstm_ptb(gen) -> dict:
+    """The PTB "large" LSTM language model through the port's entry
+    points (``nn.LSTM``, ``SGD(grad_clip=ClipGradByGlobalNorm)``): the
+    LSTM route held to the plain cell loop (``_ptb_route_check``), then
+    ``PTB_TRAIN_STEPS`` training steps carrying the state across batches
+    (truncated backprop), the loss summed over the 35 steps and averaged
+    over the batch, steps 2-3 timed (tokens/s), one more profiled
+    (device idle share), and one eval forward; a bidirectional ``GRU``
+    and a ``SimpleRNN`` of the same width run a forward beside it. No
+    kernel of the port runs on this path."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = _ptb_model()
+    route = _ptb_route_check(model, gen)
+    rng = np.random.RandomState(12)
+    batches = [torch.from_numpy(rng.randint(
+        0, PTB_VOCAB, (PTB_BATCH, PTB_STEPS + 1))).cuda()
+        for _ in range(PTB_TRAIN_STEPS + 2)]
+    opt = SGD(1.0, parameters=model.parameters(),
+              grad_clip=nn.ClipGradByGlobalNorm(PTB_CLIP))
+    zero = torch.zeros((2, PTB_BATCH, PTB_HIDDEN), device="cuda")
+    state = [(zero, zero)]
+
+    def train_step(batch):
+        logits, st = model(batch[:, :-1], state[0])
+        loss = F.cross_entropy(logits.reshape(-1, PTB_VOCAB),
+                               batch[:, 1:].reshape(-1),
+                               reduction="sum") / PTB_BATCH
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        state[0] = tuple(s.detach() for s in st)
+        return float(loss.detach())
+
+    _reset_counters()
+    losses, wall = [], 0.0
+    for i in range(PTB_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(batches[i]))
+        if i:
+            wall += time.perf_counter() - t0
+    wall_ms = wall / (PTB_TRAIN_STEPS - 1) * 1e3
+    busy, groups, top = _profiled_step(
+        lambda: train_step(batches[PTB_TRAIN_STEPS]))
+    model.eval()
+    with torch.no_grad():
+        logits, _ = model(batches[-1][:, :-1], (zero, zero))
+        eval_loss = float(F.cross_entropy(logits.reshape(-1, PTB_VOCAB),
+                                          batches[-1][:, 1:].reshape(-1)))
+    counts = _counters()
+    _check_launches("lstm_ptb", counts, dict.fromkeys(_SOURCES, 0))
+    check(all(np.isfinite(losses + [eval_loss])),
+          f"lstm_ptb: losses {losses}, eval {eval_loss}")
+    peak = torch.cuda.max_memory_allocated()
+    # a bidirectional GRU and a SimpleRNN of the same width, forward
+    x = torch.randn((PTB_BATCH, PTB_STEPS, PTB_HIDDEN), generator=gen,
+                    device="cuda")
+    ride = {}
+    with torch.device("cuda"):
+        layers = {"gru_bidirect": nn.GRU(PTB_HIDDEN, PTB_HIDDEN,
+                                         direction="bidirect"),
+                  "simple_rnn": nn.SimpleRNN(PTB_HIDDEN, PTB_HIDDEN)}
+    with torch.no_grad():
+        for name, layer in layers.items():
+            out, h = layer(x)
+            check(tuple(out.shape) == (PTB_BATCH, PTB_STEPS, PTB_HIDDEN * (
+                2 if "bidirect" in name else 1))
+                and bool(torch.isfinite(out).all()),
+                f"lstm_ptb: {name} output {tuple(out.shape)} not finite or "
+                "of the wrong shape")
+            ride[name] = {"ms": time_ms(lambda: layer(x), iters=10,
+                                        warmup=2)}
+        ride["lstm_2_layers_eval"] = {"ms": time_ms(
+            lambda: model.lstm(x, (zero, zero)), iters=10, warmup=2)}
+    tokens = PTB_BATCH * PTB_STEPS
+    emit({"phase": "lstm_ptb", "hidden": PTB_HIDDEN, "layers": 2,
+          "vocab": PTB_VOCAB, "unroll": PTB_STEPS, "batch": PTB_BATCH,
+          "dropout": PTB_DROPOUT, "losses": losses,
+          "perplexity_last_step": float(np.exp(losses[-1] / PTB_STEPS)),
+          "eval_loss_per_token": eval_loss, "wall_ms_per_step": wall_ms,
+          "tokens_per_s": tokens / wall_ms * 1e3,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1 - busy / wall_ms,
+          "device_ms_by_group": groups, "top_kernels": top,
+          "max_memory_allocated_gb": peak / 1e9,
+          "route_max_err": max(route.values()), "forwards": ride,
+          "wall_s": time.perf_counter() - t_phase})
+    del model, opt, layers
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _seq_loss_case(name, fn, arrays, control_arrays):
+    """``fn`` (value and the logits' gradient) on the card against the
+    same function on the CPU from the same arrays: value within 1e-5
+    relative, gradient within 1e-4 of its largest entry; a control with
+    other labels must exceed the value's limit. Returns the check's
+    line."""
+    def run(arrs, dev):
+        x = torch.from_numpy(arrs[0]).to(dev).requires_grad_()
+        rest = [torch.from_numpy(a).to(dev) for a in arrs[1:]]
+        loss = fn(x, *rest)
+        loss.backward()
+        return loss.detach().cpu(), x.grad.cpu()
+
+    card = run(arrays, "cuda")
+    t0 = time.perf_counter()
+    cpu = run(arrays, "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    ctrl = run(control_arrays, "cuda")
+    errs = {"value_rel_err": abs(float(card[0] - cpu[0])) / abs(float(cpu[0])),
+            "grad_rel_max_err": _rel_max(card[1], cpu[1])}
+    ctrl_err = abs(float(ctrl[0] - cpu[0])) / abs(float(cpu[0]))
+    tols = {"value_rel_err": 1e-5, "grad_rel_max_err": 1e-4}
+    x = torch.from_numpy(arrays[0]).cuda().requires_grad_()
+    rest = [torch.from_numpy(a).cuda() for a in arrays[1:]]
+
+    def fwd_bwd():
+        fn(x, *rest).backward()
+        x.grad = None
+
+    line = {"check": name, "loss": float(cpu[0]), "err": errs, "tol": tols,
+            "control_value_rel_err": ctrl_err,
+            "card_fwd_bwd_ms": time_ms(fwd_bwd, iters=5, warmup=1),
+            "cpu_fwd_bwd_ms": cpu_ms}
+    bad = [k for k, e in errs.items() if not e <= tols[k]]
+    check(not bad, f"{name}: the card is off the CPU in {bad}: {errs}")
+    check(ctrl_err > tols["value_rel_err"], f"{name}: the control (other "
+          f"labels) is within the limit: {ctrl_err}")
+    return line
+
+
+def slice_seq_losses() -> dict:
+    """``ctc_loss`` (T 300, batch 32, 29 classes, labels of 40-120,
+    reduction mean) and ``rnnt_loss`` (B 4, T 100, U 30, V 29) on the
+    card against the same functions on the CPU (``_seq_loss_case``),
+    timed beside ``torch.nn.functional.ctc_loss`` on the card. No kernel
+    of the port runs on this path."""
+    from paddle_tpu_torch.nn import functional as F
+
+    t_phase = time.perf_counter()
+    _reset_counters()
+    rng = np.random.RandomState(13)
+    lo, hi = CTC_LABELS
+    lab_len = rng.randint(lo, hi + 1, CTC_B)
+    lab_len[0] = hi
+    in_len = rng.randint(2 * hi + 1, CTC_T + 1, CTC_B)
+    in_len[0] = CTC_T
+    labels = rng.randint(1, CTC_C, (CTC_B, hi)).astype(np.int32)
+    logits = rng.randn(CTC_T, CTC_B, CTC_C).astype(np.float32)
+    ctc = [logits, labels, in_len, lab_len]
+    ctc_line = _seq_loss_case(
+        "ctc_loss", lambda x, lab, il, ll: F.ctc_loss(x, lab, il, ll),
+        ctc, [logits, (labels % (CTC_C - 1)) + 1, in_len, lab_len])
+    lp = torch.log_softmax(torch.from_numpy(logits).cuda(), -1)
+    tl = [torch.from_numpy(a).cuda().long() for a in (labels, in_len,
+                                                       lab_len)]
+    ctc_line["torch_ctc_loss_fwd_ms"] = time_ms(
+        lambda: torch.nn.functional.ctc_loss(lp, *tl), iters=5, warmup=1)
+    emit(ctc_line)
+    lab_len = rng.randint(10, RNNT_U + 1, RNNT_B)
+    lab_len[0] = RNNT_U
+    in_len = rng.randint(RNNT_T // 2, RNNT_T + 1, RNNT_B)
+    in_len[0] = RNNT_T
+    labels = rng.randint(1, RNNT_V, (RNNT_B, RNNT_U)).astype(np.int32)
+    logits = rng.randn(RNNT_B, RNNT_T, RNNT_U + 1, RNNT_V).astype(
+        np.float32)
+    emit(_seq_loss_case(
+        "rnnt_loss", lambda x, lab, il, ll: F.rnnt_loss(x, lab, il, ll),
+        [logits, labels, in_len, lab_len],
+        [logits, (labels % (RNNT_V - 1)) + 1, in_len, lab_len]))
+    counts = _counters()
+    _check_launches("seq_losses", counts, dict.fromkeys(_SOURCES, 0))
+    emit({"phase": "seq_losses", "wall_s": time.perf_counter() - t_phase})
+    return counts
+
+
+def slice_train_remat_dots() -> dict:
+    """bench.py's gpt3-1.3b rung with ``remat="dots"`` (each block under
+    ``recompute(policy=checkpoint_policies.
+    dots_with_no_batch_dims_saveable)``: the linear products kept, the
+    rest and B10's forward recomputed) for 2 steps from the train
+    phase's initial state: 48 B10 forward launches a step (forward and
+    recompute), 24 dq and 24 dk/dv; the losses within the train phase's
+    trajectory limit of the kernel route's (``remat="none"``); peak
+    memory, step ms, device busy ms of a third, profiled step, and what
+    a forward keeps for the backward (``_saved_gb``) beside ``none``
+    (the train phase) and ``full``
+    (train_remat_full); dots must lie between them in what it keeps
+    (the peak is the optimizer's, about the same for all three)."""
+    t_phase = time.perf_counter()
+    lines = [json.loads(line) for line in _LINES
+             if line.startswith("{")]
+    agree = next(x for x in reversed(lines)
+                 if x.get("check") == "train_agreement")
+    none = next(x for x in reversed(lines) if x.get("phase") == "train")
+    full = next(x for x in reversed(lines)
+                if x.get("phase") == "train_remat_full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step, inputs, labels = _train_rung(remat="dots")
+    _reset_counters()
+    losses, ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(inputs, labels)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _counters()
+    _check_launches("train_remat_dots", counts,
+                    _train_expected(2 * 2 * N_LAYERS, 2 * N_LAYERS))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    saved = {"none": none["saved_for_backward_gb"],
+             "dots": _saved_gb(model, step, inputs, labels),
+             "full": full["saved_for_backward_gb"]}
+    # one more step under the profiler: how much of the step the device
+    # is busy (the policy's dispatch mode runs on the host)
+    busy, groups, top = _profiled_step(lambda: float(step(inputs, labels)))
+    ref = agree["kernel"]["losses"][:2]
+    limit = agree["limits"]["trajectory_rel_err"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses, ref))
+    peaks = {"none": none["max_memory_allocated_gb"], "dots": peak,
+             "full": full["max_memory_allocated_gb"]}
+    emit({"phase": "train_remat_dots", "losses": losses,
+          "remat_none_losses": ref, "rel_err": rel, "limit": limit,
+          "step1_loss_bitwise_equal": losses[0] == ref[0],
+          "fwd_launches_per_step": 2 * N_LAYERS, "ms_per_step": ms,
+          "full_ms_per_step": full["ms_per_step"],
+          "none_wall_ms_per_step": none["wall_ms_per_step"],
+          "max_memory_allocated_gb": peaks, "saved_for_backward_gb": saved,
+          "device_busy_ms_profiled_step": busy,
+          "device_idle_share": 1 - busy / ms[-1],
+          "device_ms_by_group": groups, "top_kernels": top,
+          "none_device_busy_ms_per_step": none["device_busy_ms_per_step"],
+          "wall_s": time.perf_counter() - t_phase})
+    check(rel <= limit, f"train: remat='dots' moved the losses by {rel} > "
+          f"{limit}")
+    check(saved["full"] < saved["dots"] < saved["none"], "train: what "
+          f"remat='dots' keeps for the backward is not between full's and "
+          f"none's: {saved}")
+    del model, step
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------- main
 
 _SOURCES = {
@@ -6426,8 +7089,9 @@ def drive(args) -> None:
     emit({"phase": "moe_paths", "wall_s": time.perf_counter() - t0})
     del moe
     torch.cuda.empty_cache()
-    # the training rung
+    # the training rung, then its selective recompute
     by_path["train"] = slice_train(args.out)
+    by_path["train_remat_dots"] = slice_train_remat_dots()
     # the training loop's core under AMP O1 on the same rung
     by_path["train_loop"], by_path["train_loop_fp16"] = \
         slice_train_loop(args.out)
@@ -6446,6 +7110,11 @@ def drive(args) -> None:
     rows["grouped_dw"] = kernel_grouped_gemm_bwd(gen)
     emit({"phase": "moe_train_kernels", "wall_s": time.perf_counter() - t0})
     by_path["train_moe"] = slice_train_moe(args.out, gen)
+    # the sequence layers: the Transformer base model (B10 at d64,
+    # non-causal), the PTB LSTM, the sequence losses
+    by_path["transformer_base"] = slice_transformer_base(gen)
+    by_path["lstm_ptb"] = slice_lstm_ptb(gen)
+    by_path["seq_losses"] = slice_seq_losses()
     kernels = []
     for name, row in rows.items():
         # an fp16 row counts its kernel's launches on the fp16 paths, the

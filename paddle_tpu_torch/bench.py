@@ -38,6 +38,7 @@ from . import nn
 from .amp import decorate
 from .core.device import resolve_device
 from .core.generator import seed
+from .distributed.fleet.recompute import checkpoint_policies
 from .distributed.fleet.recompute import recompute as _recompute
 from .jit import TrainStep
 from .nn import functional as F
@@ -112,9 +113,10 @@ class Block(nn.Layer):
 
 class GPT(nn.Layer):
     def __init__(self, d_model, n_layers, n_heads, seq, recompute,
-                 num_experts=None, top_k=2, device=None):
+                 num_experts=None, top_k=2, device=None, remat_policy=None):
         super().__init__()
         self.recompute = recompute
+        self.remat_policy = remat_policy
         self.embed = nn.Embedding(VOCAB, d_model)
         self.pos = nn.Embedding(seq, d_model)
         self.blocks = nn.LayerList([Block(d_model, n_heads, num_experts,
@@ -126,7 +128,8 @@ class GPT(nn.Layer):
     def forward(self, ids, pos_ids):
         h = self.embed(ids) + self.pos(pos_ids)
         for blk in self.blocks:
-            h = _recompute(blk, h) if self.recompute else blk(h)
+            h = _recompute(blk, h, policy=self.remat_policy) \
+                if self.recompute else blk(h)
         return self.head(self.norm(h))
 
 
@@ -134,18 +137,19 @@ def build_model(d_model, n_layers, n_heads, seq, recompute=True,
                 remat="full", device=None):
     """The root bench's GPT in f32 on ``device`` (the card unless
     ``"cpu"``). ``remat``: ``"full"`` recomputes each block in the
-    backward (when ``recompute``), ``"none"`` keeps every activation;
-    ``"dots"`` (a JAX checkpoint policy) is not ported."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (the saveable-dots checkpoint policy) comes with "
-            "the selective-recompute slice of the port")
-    if remat not in ("full", "none"):
-        raise ValueError(f"remat must be 'full' or 'none', not {remat!r}")
+    backward (when ``recompute``), ``"dots"`` keeps each block's linear
+    products and recomputes the rest
+    (``checkpoint_policies.dots_with_no_batch_dims_saveable``),
+    ``"none"`` keeps every activation."""
+    if remat not in ("full", "dots", "none"):
+        raise ValueError(
+            f"remat must be 'full', 'dots' or 'none', not {remat!r}")
+    policy = checkpoint_policies.dots_with_no_batch_dims_saveable \
+        if remat == "dots" else None
     dev = resolve_device(device)
     with torch.device(dev):
         return GPT(d_model, n_layers, n_heads, seq,
-                   recompute and remat != "none")
+                   recompute and remat != "none", remat_policy=policy)
 
 
 def flops_per_token(n_params: int, n_layers: int, seq: int,

@@ -1,3 +1,3 @@
-from .recompute import recompute
+from .recompute import checkpoint_policies, recompute
 
-__all__ = ["recompute"]
+__all__ = ["recompute", "checkpoint_policies"]

@@ -405,9 +405,14 @@ class FlashAttentionFunction(torch.autograd.Function):
 def _dense_attention(q, k, v, bias, causal: bool, scale: float):
     """Counterpart of the XLA path (``_xla_attention``): f32 logits,
     bias, the finite mask, softmax, probabilities cast to the input's
-    dtype, then the value product in that dtype."""
-    logits = _logits(q, k, None if bias is None else bias.float(), causal,
-                     scale)
+    dtype, then the value product in that dtype. A bias of fewer than
+    4 dims broadcasts against ``[b, h, sq, sk]`` from the right, as the
+    XLA path's ``dot_product_attention`` takes it (a ``[sq, sk]`` mask
+    for every batch row and head, ``[h, sq, sk]`` per head)."""
+    if bias is not None:
+        bias = bias.float()
+        bias = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
+    logits = _logits(q, k, bias, causal, scale)
     probs = torch.softmax(logits, dim=-1).to(k.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -419,7 +424,11 @@ def _attention_raw(q, k, v, bias=None, *, causal=False, scale=None,
     if bias is not None and bias.dtype == torch.bool:
         bias = torch.where(bias, 0.0, torch.finfo(q.dtype).min).to(q.dtype)
     if dropout_p > 0.0:
-        # dropout on the attention weights: the explicit softmax path
+        # dropout on the attention weights: the explicit softmax path; a
+        # [sq, sk] mask serves every row and head (the JAX package's
+        # path fails to broadcast it: ROADMAP C6)
+        if bias is not None and bias.ndim == 2:
+            bias = bias[None, None]
         logits = _logits(q, k, bias, causal, scale, dtype=q.dtype,
                          offset=k.shape[1] - q.shape[1], mask_value=None)
         w = torch.softmax(logits, dim=-1)

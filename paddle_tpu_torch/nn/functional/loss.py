@@ -5,9 +5,15 @@ formula in torch ops with Paddle's reductions (``'none'``, ``'mean'``,
 black list (``cross_entropy``, ``nll_loss``, ``mse_loss``, ``l1_loss``,
 ``kl_div``, ``binary_cross_entropy``, ``bce_with_logits``,
 ``sigmoid_focal_loss``) pass their operands through the AMP hook under
-the JAX op name. ``ctc_loss`` and ``rnnt_loss`` raise: they come with
-the recurrent layers (ROADMAP A7); ``margin_cross_entropy`` with a
-``group`` raises too (tensor parallelism, A10).
+the JAX op name. ``margin_cross_entropy`` with a ``group`` raises
+(tensor parallelism, A10).
+
+``ctc_loss`` is the log-domain alpha recursion over time and
+``rnnt_loss`` the forward recursion over the (t, u) lattice, both in
+PyTorch ops vectorised over the batch: CTC a step per frame, RNN-T a
+step per anti-diagonal of the lattice (T + U steps, every cell of a
+diagonal at once; each cell's sum is the JAX package's, in the same
+order). Autograd differentiates both.
 
 The JAX package's closed-form big-vocab path (``_fused_index_ce``) is
 ``FusedIndexCE``, an autograd function: per row ``log(sum exp(x - m)) +
@@ -409,15 +415,115 @@ def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
     return _reduce(loss, reduction)
 
 
+#: the log-domain "minus infinity" of the CTC and RNN-T recursions (the
+#: JAX package's: finite, so that sums of it stay finite)
+_NEG_INF = -1e30
+
+
 def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
              reduction="mean", norm_by_times=False, name=None):
-    raise NotImplementedError(
-        "ctc_loss comes with the port's recurrent layers (nn/layers/rnn.py, "
-        "ROADMAP A7)")
+    """CTC loss. ``log_probs``: ``[max_time, batch, num_classes]`` raw
+    logits (log-softmaxed here, as warpctc takes them); ``labels``:
+    ``[batch, max_label_len]`` padded ids; ``input_lengths``,
+    ``label_lengths``: ``[batch]``. Frames past a row's input length
+    leave its alpha as it is; a zero-length label has the all-blank
+    path alone. ``norm_by_times`` divides each loss by its input length
+    before the reduction."""
+    T, B, _ = log_probs.shape
+    lp = torch.log_softmax(log_probs, dim=-1)
+    dev = lp.device
+    L = labels.shape[1]
+    S = 2 * L + 1
+    neg_inf = torch.tensor(_NEG_INF, dtype=lp.dtype, device=dev)
+    # the extended label sequence: blank, l1, blank, l2, ..., blank
+    ext = torch.full((B, S), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels.long()
+    lab_len = label_lengths.long().to(dev)
+    in_len = input_lengths.long().to(dev)
+    s_len = 2 * lab_len + 1
+    # a skip from s - 2 to s: ext[s] is no blank and differs from ext[s-2]
+    skip_ok = torch.cat([torch.zeros((B, 2), dtype=torch.bool, device=dev),
+                         (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])],
+                        dim=1)
+    probs_ext = torch.gather(lp.transpose(0, 1), 2,
+                             ext[:, None, :].expand(B, T, S))  # [B, T, S]
+    pad1 = neg_inf.expand(B, 1)
+    pad2 = neg_inf.expand(B, 2)
+    alpha = torch.cat([probs_ext[:, 0, :1],
+                       torch.where(lab_len > 0, probs_ext[:, 0, 1],
+                                   neg_inf)[:, None],
+                       neg_inf.expand(B, S - 2)], dim=1)
+    for t in range(1, T):
+        shift1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
+        shift2 = torch.where(skip_ok, torch.cat([pad2, alpha[:, :-2]], 1),
+                             neg_inf)
+        new = torch.logaddexp(torch.logaddexp(alpha, shift1), shift2) \
+            + probs_ext[:, t, :]
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+    a_last = alpha.gather(1, (s_len - 1).clamp(0, S - 1)[:, None])[:, 0]
+    a_prev = alpha.gather(1, (s_len - 2).clamp(0, S - 1)[:, None])[:, 0]
+    # a zero-length label has one terminal state: count alpha[:, 0] once
+    a_prev = torch.where(s_len >= 2, a_prev, neg_inf)
+    loss = -torch.logaddexp(a_last, a_prev)
+    if norm_by_times:
+        loss = loss / in_len.to(loss.dtype).clamp(min=1.0)
+    return _reduce(loss, reduction)
 
 
 def rnnt_loss(logits, labels, input_lengths, label_lengths, blank=0,
               fastemit_lambda=0.0, reduction="mean", name=None):
-    raise NotImplementedError(
-        "rnnt_loss comes with the port's recurrent layers (nn/layers/rnn.py, "
-        "ROADMAP A7)")
+    """RNN-Transducer loss. ``logits``: ``[B, T, U + 1, V]`` joint
+    outputs (log-softmaxed here); ``labels``: ``[B, U]`` padded ids.
+    ``alpha[t, u] = logaddexp(alpha[t-1, u] + blank[t-1, u], alpha[t,
+    u-1] + emit[t, u-1])``, walked by anti-diagonals ``t + u = d``;
+    cells past a row's label length hold minus infinity, and the loss
+    reads ``alpha[T_b - 1, U_b] + blank[T_b - 1, U_b]``.
+    ``fastemit_lambda != 0`` raises, as in the JAX package."""
+    if fastemit_lambda:
+        raise NotImplementedError(
+            "rnnt_loss: fastemit_lambda != 0 (FastEmit regularization) "
+            "is not implemented; pass 0.0")
+    B, T, U1, _ = logits.shape
+    U = U1 - 1
+    lp = torch.log_softmax(logits, dim=-1)
+    dev = lp.device
+    neg_inf = torch.tensor(_NEG_INF, dtype=lp.dtype, device=dev)
+    blank_lp = lp[..., blank]                                   # [B, T, U1]
+    emit_lp = torch.gather(lp[:, :, :U, :], 3, labels.long().to(dev)[
+        :, None, :, None].expand(B, T, U, 1))[..., 0]           # [B, T, U]
+    in_len = input_lengths.long().to(dev)
+    lab_len = label_lengths.long().to(dev)
+    u = torch.arange(U1, device=dev)
+    in_label = u[None, :] <= lab_len[:, None]                  # [B, U1]
+    # skewed operands: on diagonal d, cell u is (t, u) = (d - u, u); it
+    # takes blank[t - 1, u] from (t - 1, u) and emit[t, u - 1] from
+    # (t, u - 1), both on diagonal d - 1
+    D = T + U
+    t_of = torch.arange(D, device=dev)[:, None] - u[None, :]    # [D, U1]
+    on_grid = (t_of >= 0) & (t_of < T)
+    from_above = on_grid & (t_of >= 1)
+    from_left = on_grid & (u[None, :] >= 1)
+    blank_skew = torch.gather(blank_lp, 1, (t_of - 1).clamp(0, T - 1)[
+        None].expand(B, D, U1))                                  # [B, D, U1]
+    emit_cols = torch.cat([emit_lp[:, :, :1], emit_lp], dim=2)  # u-1 at u
+    emit_skew = torch.gather(emit_cols, 1, t_of.clamp(0, T - 1)[
+        None].expand(B, D, U1))
+    diag = torch.where((u == 0)[None, :], torch.zeros((), dtype=lp.dtype,
+                                                      device=dev), neg_inf)
+    diag = diag.expand(B, U1)
+    diags = [diag]
+    pad = neg_inf.expand(B, 1)
+    for d in range(1, D):
+        above = torch.where(from_above[d], diag + blank_skew[:, d], neg_inf)
+        left = torch.where(from_left[d], torch.cat([pad, diag[:, :-1]], 1)
+                           + emit_skew[:, d], neg_inf)
+        diag = torch.where(in_label & on_grid[d],
+                           torch.logaddexp(above, left), neg_inf)
+        diags.append(diag)
+    alpha = torch.stack(diags, dim=1)                           # [B, D, U1]
+    u_fin = lab_len.clamp(0, U)
+    t_fin = (in_len - 1).clamp(0, T - 1)
+    rows = torch.arange(B, device=dev)
+    loss = -(alpha[rows, t_fin + u_fin, u_fin]
+             + blank_lp[rows, t_fin, u_fin])
+    return _reduce(loss, reduction)

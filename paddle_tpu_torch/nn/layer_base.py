@@ -17,10 +17,12 @@ the parameters and the persistable buffers under the JAX package's keys
 (``"bn1._mean"``), and ``set_state_dict`` copies into them in place, so
 storage a captured CUDA graph reads stays where it is. ``train()`` and
 ``eval()`` reach every sublayer. The containers are ``Sequential``,
-``LayerList``, ``ParameterList`` and ``LayerDict``.
+``LayerList``, ``ParameterList`` and ``LayerDict``. ``clone_layer``
+deep-copies a layer under fresh names.
 """
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
 from typing import Dict
 
@@ -30,7 +32,7 @@ import torch
 from . import initializer as I
 
 __all__ = ["ParamAttr", "Layer", "Sequential", "LayerList",
-           "ParameterList", "LayerDict"]
+           "ParameterList", "LayerDict", "clone_layer"]
 
 
 class ParamAttr:
@@ -64,15 +66,22 @@ class ParamAttr:
 
 _layer_instance_counters: Dict[str, int] = {}
 
+#: what ``create_parameter`` sets on a parameter beside its name
+_PARAM_ATTRS = ("optimize_attr", "regularizer", "need_clip")
+
+
+def _next_full_name(tag: str) -> str:
+    idx = _layer_instance_counters.get(tag, 0)
+    _layer_instance_counters[tag] = idx + 1
+    return f"{tag}_{idx}"
+
 
 class Layer(torch.nn.Module):
     def __init__(self, name_scope: str = None, dtype: str = "float32"):
         super().__init__()
         self._dtype = dtype
-        tag = (name_scope or type(self).__name__).lower()
-        idx = _layer_instance_counters.get(tag, 0)
-        _layer_instance_counters[tag] = idx + 1
-        self._full_name = f"{tag}_{idx}"
+        self._name_tag = (name_scope or type(self).__name__).lower()
+        self._full_name = _next_full_name(self._name_tag)
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None):
@@ -153,6 +162,34 @@ class Layer(torch.nn.Module):
                                      f"{tuple(t.shape)}")
                 t.copy_(src)
         return missing, unexpected
+
+
+def clone_layer(layer: Layer) -> Layer:
+    """A deep copy of ``layer`` (parameters, buffers, modes) whose
+    layers take fresh structured names, as constructing them again
+    would give, and whose parameters keep their ``ParamAttr`` settings
+    under names of their new layers. A torch deep copy alone keeps no
+    attribute of a parameter, and optimizer state is keyed by
+    ``param_name``: the copies of one layer in a stack
+    (``TransformerEncoder``'s) must not share names."""
+    new = copy.deepcopy(layer)
+    pairs = zip(new.named_sublayers(include_self=True),
+                layer.named_sublayers(include_self=True))
+    for (_, sub), (_, src) in pairs:
+        if not isinstance(sub, Layer):
+            continue
+        sub._full_name = _next_full_name(src._name_tag)
+        for name, p in sub._parameters.items():
+            if p is None:
+                continue
+            old = src._parameters[name]
+            for attr in _PARAM_ATTRS:
+                if hasattr(old, attr):
+                    value = getattr(old, attr)
+                    setattr(p, attr, dict(value) if isinstance(value, dict)
+                            else value)
+            p.param_name = f"{sub._full_name}.{name}"
+    return new
 
 
 class Sequential(Layer):

@@ -36,7 +36,8 @@ torch.set_num_threads(1)
 def test_every_layer_and_functional_name_is_ported():
     import importlib
 
-    for mod in ("activation", "common", "conv", "loss", "norm", "pooling"):
+    for mod in ("activation", "common", "conv", "loss", "norm", "pooling",
+                "rnn", "transformer"):
         names = importlib.import_module(f"paddle_tpu.nn.layers.{mod}") \
             .__all__
         assert [n for n in names if not hasattr(tnn, n)] == [], mod

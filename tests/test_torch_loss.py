@@ -103,8 +103,10 @@ def test_labels_with_the_class_axis_and_all_ignored():
 
 def test_unported_options_name_their_slice():
     """The options the losses slice lifted now compute (uniform logits:
-    the loss is log 4 whatever the labels); the losses still unported
-    raise naming their slices."""
+    the loss is log 4 whatever the labels), as do ``ctc_loss`` and
+    ``rnnt_loss`` (ported with the sequence layers, checked against JAX
+    in ``test_torch_seq_losses.py``); the losses still unported raise
+    naming their slices."""
     x = torch.zeros(2, 4)
     soft = torch.full((2, 4), 0.25)
     ids = torch.zeros(2, dtype=torch.long)
@@ -112,9 +114,13 @@ def test_unported_options_name_their_slice():
                  tloss.cross_entropy(x, ids, label_smoothing=0.1),
                  tloss.cross_entropy(x, ids, weight=torch.ones(4))):
         assert abs(float(loss) - math.log(4.0)) < 1e-6
-    with pytest.raises(NotImplementedError, match="A7"):
-        tloss.ctc_loss(x, x, x, x)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tloss.rnnt_loss(x, x, x, x)
+    # uniform logits over 4 classes, 2 frames, one blank-free label of
+    # length 1: two alignments (label then blank, blank then label)
+    ones = torch.ones(1, dtype=torch.long)
+    ctc = tloss.ctc_loss(torch.zeros(2, 1, 4), ones[:, None], 2 * ones, ones)
+    assert abs(float(ctc) - (2 * math.log(4.0) - math.log(3.0))) < 1e-6
+    rnnt = tloss.rnnt_loss(torch.zeros(1, 1, 2, 4), ones[:, None], ones,
+                           ones)
+    assert abs(float(rnnt) - 2 * math.log(4.0)) < 1e-6
     with pytest.raises(NotImplementedError, match="A10"):
         tloss.margin_cross_entropy(x, ids, group=object())

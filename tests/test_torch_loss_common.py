@@ -11,7 +11,8 @@ package's, on the same numpy inputs from a seed, in f32.
   ``margin_cross_entropy`` with its softmax): 1e-5 absolute and
   relative (f32 reductions in another order); the gradient of the
   general ``cross_entropy`` path within 1e-6. ``ctc_loss`` and
-  ``rnnt_loss`` raise naming A7, ``margin_cross_entropy(group=)`` A10.
+  ``rnnt_loss`` compute (``test_torch_seq_losses.py`` holds them to
+  JAX), ``margin_cross_entropy(group=)`` raises naming A10.
 - ``pad`` in every mode and form, ``interpolate`` (nearest, area,
   bilinear, bicubic and trilinear as ``jax.image.resize`` gives them,
   antialiased when shrinking, and corner-aligned linear), the shuffles,
@@ -147,10 +148,12 @@ def test_every_other_loss():
 
 def test_unported_losses_name_their_slice():
     x = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="A7"):
-        TF.ctc_loss(x, x, x, x)
-    with pytest.raises(NotImplementedError, match="A7"):
-        TF.rnnt_loss(x, x, x, x)
+    # the sequence losses are ported: finite on uniform logits
+    lens = torch.ones(2, dtype=torch.long)
+    assert torch.isfinite(TF.ctc_loss(torch.zeros(3, 2, 3), lens[:, None],
+                                      3 * lens, lens))
+    assert torch.isfinite(TF.rnnt_loss(torch.zeros(2, 2, 2, 3),
+                                       lens[:, None], lens, lens))
     with pytest.raises(NotImplementedError, match="A10"):
         TF.margin_cross_entropy(x, torch.zeros(2, dtype=torch.long),
                                 group=object())

@@ -24,6 +24,14 @@ plain versions on the CPU) where the JAX package, off the TPU, takes
   by ~7e-3 of itself).
 - ``remat="full"`` (recompute through ``torch.utils.checkpoint``)
   against ``"none"``: the same loss and gradients, bit for bit.
+- ``remat="dots"`` (``recompute(policy=checkpoint_policies.
+  dots_with_no_batch_dims_saveable)``) against ``"none"``: the same
+  loss and gradients, bit for bit; the policy keeps the outputs of the
+  4 linear products of each block (``aten.mm``) and nothing else, the
+  backward runs no product again that ``"none"`` does not (the batched
+  attention products are recomputed, the kept ones are not), where
+  ``"full"`` also runs linear products again; and the loss
+  and gradients against the JAX ``build_model(remat="dots")``'s.
 """
 import os
 import sys
@@ -231,6 +239,89 @@ def test_remat_full_equals_none_bitwise():
         assert torch.equal(g, runs[1][1][name]), name
 
 
+def _count_products(fn):
+    """``fn()`` under a dispatch mode that counts ``mm``/``addmm``
+    (2-D products) and ``bmm`` calls."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"2d": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default):
+                self.n["2d"] += 1
+            elif func == torch.ops.aten.bmm.default:
+                self.n["bmm"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+def test_remat_dots_keeps_only_the_linear_products():
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from paddle_tpu_torch.distributed.fleet.recompute import \
+        checkpoint_policies
+
+    ids, pos, labels = _batch()
+    jmodel = _jax_model()
+    runs, kept = {}, []
+
+    def recording(ctx, op, *args, **kwargs):
+        decision = checkpoint_policies.dots_with_no_batch_dims_saveable(
+            ctx, op, *args, **kwargs)
+        kept.append((op, decision))
+        return decision
+
+    for remat in ("none", "dots", "full"):
+        model = _port_model(jmodel, remat=remat)
+        if remat == "dots":
+            model.remat_policy = recording
+        logits = model(torch.from_numpy(ids), torch.from_numpy(pos))
+        loss = _port_loss_fn(False)(logits, torch.from_numpy(labels))
+        runs[remat] = {"loss": loss.detach(),
+                       "products": _count_products(loss.backward),
+                       "grads": {n: p.grad
+                                 for n, p in model.named_parameters()}}
+    for name, g in runs["none"]["grads"].items():
+        assert torch.equal(g, runs["dots"]["grads"][name]), name
+    assert torch.equal(runs["none"]["loss"], runs["dots"]["loss"])
+    saved = [op for op, d in kept if d == CheckpointPolicy.MUST_SAVE]
+    assert set(saved) == {torch.ops.aten.mm.default} and len(saved) == 4 * L
+    assert torch.ops.aten.bmm.default in {op for op, _ in kept}
+    none, dots, full = (runs[r]["products"] for r in ("none", "dots",
+                                                      "full"))
+    # full recompute runs the linears again (up to the last one whose
+    # output the backward needs: fc2's is not, so torch stops before it)
+    assert dots["2d"] == none["2d"] < full["2d"]
+    assert dots["bmm"] == full["bmm"] > none["bmm"]
+
+
+def test_remat_dots_matches_jax():
+    ids, pos, labels = _batch()
+    jmodel = _jax_model(remat="dots")
+    tmodel = _port_model(jmodel, remat="dots")
+    jloss = _jax_loss_fn(False)(
+        jmodel(paddle.to_tensor(ids), paddle.to_tensor(pos)),
+        paddle.to_tensor(labels))
+    jloss.backward()
+    tloss = _port_loss_fn(False)(
+        tmodel(torch.from_numpy(ids), torch.from_numpy(pos)),
+        torch.from_numpy(labels))
+    tloss.backward()
+    assert abs(float(tloss.detach()) - float(jloss.numpy())) <= \
+        1e-5 * abs(float(jloss.numpy()))
+    jgrads = dict(jmodel.named_parameters())
+    for name, p in tmodel.named_parameters():
+        _close(p.grad.numpy(), np.asarray(jgrads[name].grad._data), 1e-4,
+               f"grad {name}")
+
+
 def test_load_jax_params_names_a_missing_or_extra_param():
     jmodel = _jax_model()
     params = {n: np.asarray(p._data)
@@ -262,8 +353,9 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
 
 
 def test_unported_options_name_their_slice():
-    with pytest.raises(NotImplementedError, match="selective-recompute"):
-        tbench.build_model(D, 1, H, S, remat="dots", device="cpu")
+    # remat="dots" is ported (test_remat_dots_*); an unknown value raises
+    with pytest.raises(ValueError, match="'full', 'dots' or 'none'"):
+        tbench.build_model(D, 1, H, S, remat="some", device="cpu")
     model = tbench.build_model(D, 1, H, S, remat="none", device="cpu")
     opt = TAdamW(1e-3, parameters=model.parameters())
     step = TTrainStep(model, _port_loss_fn(False), opt)
