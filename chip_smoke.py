@@ -194,6 +194,21 @@ Phases, all run every time, each of which fails the run when it fails:
            seq_losses: ctc_loss (T 300, batch 32, 29 classes) and
            rnnt_loss (B 4, T 100, U 30, V 29) on the card against the
            CPU, value and gradient, timed.
+  tensor api every op of the port's registry (the 274 functions of Paddle's
+           tensor API) run on the card and on the CPU from the same
+           inputs (tests/torch_op_table.py): outputs on the card, ints
+           and bools equal, floats within 10 x the CPU tests' tolerance;
+           the random ops by shape, dtype, device, support and moments;
+           then bert_base, BERT-base pretraining (bench.py --bert: d768,
+           12 layers, 12 heads, vocab 30,522, batch 32 of 512, AMP O2
+           bf16, AdamW with bf16 moments, no attention mask) through
+           bench.run_bert_bench: 2 warm-up and 8 timed steps (tokens/s,
+           MFU, device busy and idle share, peak memory, 36 B10 launches
+           a step, every loss finite), the O2 route held to the f32 route
+           on the card (limits from B10's plain versions, a faulty
+           control outside), and B10 timed at BERT's shape (b32 h12 s512
+           d64, non-causal) beside its plain version, SDPA and the aten
+           flash backward.
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -3256,9 +3271,11 @@ def _over(errs: dict, tols: dict) -> list:
 #: width of public models such as Gemma's; bf16 and f32) and 200, padded
 #: to 256 (bf16); then the wgmma kernels' edges at d128: a length that is
 #: a multiple of 64 but not of 128 (the last tile half past it), causal
-#: and not, and cross lengths both ways; then fp16 (the f16 forms of the
-#: same kernels, no cast to bf16) at the rung's shape, head_dim 64 and 96
-#: at the MoE and gpt-760m training rungs' shapes, and head_dim 256
+#: and not, and cross lengths both ways; the Transformer base model's and
+#: BERT-base's attention (head_dim 64, non-causal); then fp16 (the f16
+#: forms of the same kernels, no cast to bf16) at the rung's shape,
+#: head_dim 64 and 96 at the MoE and gpt-760m training rungs' shapes, and
+#: head_dim 256
 FLASH_CASES = (
     (4, 1024, 16, 128, torch.bfloat16, True),
     (2, 2048, 16, 128, torch.bfloat16, True),
@@ -3279,6 +3296,7 @@ FLASH_CASES = (
     (2, (384, 768), 4, 128, torch.bfloat16, True),
     (2, (768, 384), 4, 128, torch.bfloat16, True),
     (TB_BATCH, TB_SEQ, TB_HEADS, TB_D // TB_HEADS, torch.bfloat16, False),
+    (32, 512, 12, 64, torch.bfloat16, False),
     (4, 1024, 16, 128, torch.float16, True),
     (4, 1024, 16, 64, torch.float16, True),
     (8, 1024, 16, 96, torch.float16, True),
@@ -6865,6 +6883,207 @@ def slice_seq_losses() -> dict:
     return counts
 
 
+#: BERT-base pretraining (bench.py --bert, BASELINE configs[2]): d768,
+#: 12 layers of 12 heads of 64, dff 3072, vocab 30,522, batch 32 of 512
+#: tokens, AMP O2 bf16, AdamW with bf16 moments, no attention mask
+BERT_D, BERT_LAYERS, BERT_HEADS, BERT_BATCH, BERT_SEQ = 768, 12, 12, 32, 512
+BERT_WARMUP, BERT_STEPS = 2, 8
+
+
+def check_tensor_api() -> dict:
+    """Every op of the port's registry on the card against the same op on
+    the CPU, from ``tests/torch_op_table.py`` (the cases the CPU tests
+    hold to the JAX package): each case's inputs on each device, every
+    output of the card run on the card, integer and boolean outputs
+    equal, floating outputs within 10 x the case's CPU-test tolerance
+    (1e-4; linear algebra 1e-3) of the CPU output's largest magnitude.
+    Each random op: the card's shape and dtype equal to the CPU's, on the
+    card, and a draw of ``RANDOM_N`` within its support and moments. No
+    kernel of the port runs here; the ops are torch's."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.core.place import device_guard
+    from torch_op_table import (CASES, RANDOM_CASES, RANDOM_N,
+                                check_moments, compare, flat, to_numpy)
+
+    t0 = time.perf_counter()
+    _reset_counters()
+
+    def run(case, place):
+        with device_guard(place):
+            outs = flat(case.fn(tp, *[tp.to_tensor(a)
+                                      for a in case.arrays]))
+        off = [i for i, o in enumerate(outs) if torch.is_tensor(o)
+               and o.device.type != ("cuda" if place != "cpu" else "cpu")]
+        outs = [to_numpy(o) for o in outs]
+        return (case.post(outs) if case.post else outs), off
+
+    failed, ops = [], set()
+    for case in CASES:
+        ops.add(case.op)
+        try:
+            want, _ = run(case, "cpu")
+            got, off = run(case, "gpu:0")
+            assert not off, f"outputs {off} not on the card"
+            assert len(got) == len(want), "output count"
+            for k, (g, w) in enumerate(zip(got, want)):
+                compare(g, w, 10 * (case.tol or 1e-5), f"output {k}")
+        except Exception as e:  # noqa: BLE001 (every failure is listed)
+            failed.append(f"{case.name}: {str(e)[:160]}")
+    for name, (call, support, mean, std) in RANDOM_CASES.items():
+        ops.add(name)
+        try:
+            with device_guard("cpu"):
+                small_cpu = call(tp, 6)
+            with device_guard("gpu:0"):
+                small = call(tp, 6)
+                big = call(tp, RANDOM_N)
+            assert small.device.type == big.device.type == "cuda", \
+                "not on the card"
+            assert small.shape == small_cpu.shape \
+                and small.dtype == small_cpu.dtype, "shape or dtype"
+            check_moments(big, support, mean, std)
+        except Exception as e:  # noqa: BLE001
+            failed.append(f"{name}: {str(e)[:160]}")
+    registry = set(tp._op_registry.all_ops())
+    missing = sorted(registry - ops)
+    counts = _counters()
+    emit({"check": "tensor_api", "ops_checked": len(ops & registry),
+          "registry_ops": len(registry), "cases": len(CASES),
+          "random_ops": len(RANDOM_CASES), "unchecked": missing,
+          "failed": failed, "tolerance": "10 x each case's CPU-test "
+          "tolerance of the CPU output's largest magnitude; ints, bools "
+          "exact", "wall_s": time.perf_counter() - t0})
+    check(not missing, f"tensor_api: ops with no case: {missing}")
+    check(not failed, f"tensor_api: {len(failed)} cases failed: {failed}")
+    _check_launches("tensor_api", counts, dict.fromkeys(_SOURCES, 0))
+    return counts
+
+
+def _bert_grads(model, inputs, labels):
+    """The pretraining loss and every gradient (f32) of one forward and
+    backward of ``model`` in eval mode (no dropout)."""
+    from paddle_tpu_torch.text.models import BertPretrainingCriterion
+
+    model.eval()
+    loss = BertPretrainingCriterion()(*model(*inputs), *labels)
+    loss.backward()
+    grads = [p.grad.float() for p in model.parameters()]
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _bert_agreement(inputs, labels, gen) -> None:
+    """One O2 step's loss and gradients (bf16 parameters, B10's bf16
+    kernels) against the f32 route on the card (the same model from the
+    same seed in f32, B10's f32 kernels), in eval mode: the limit of each
+    is twice the O2 route's deviation with B10's plain versions in
+    place of the kernels (the witness; the loss at least 2^-8); the O2
+    route with the faulty control forward must exceed the gradient
+    limit. Launches: 12 / 12 / 12 on the f32 and kernel routes, none on
+    the others."""
+    from paddle_tpu_torch import bench
+
+    _reset_counters()
+    ref_model, _ = bench.make_bert_train_step(BERT_SEQ, "cuda", amp=None)
+    ref_loss, ref = _bert_grads(ref_model, inputs, labels)
+    _check_launches("bert_grads[f32]", _counters(),
+                    _train_expected(BERT_LAYERS, BERT_LAYERS))
+    del ref_model
+    ref_sq = sum(float(g.square().sum()) for g in ref)
+    model, _ = bench.make_bert_train_step(BERT_SEQ, "cuda")
+    rows = {"f32": {"loss": ref_loss}}
+    for kind in ("kernel", "plain", "control"):
+        _reset_counters()
+        with attention_route(kind, gen):
+            loss, grads = _bert_grads(model, inputs, labels)
+        n = BERT_LAYERS if kind == "kernel" else 0
+        _check_launches(f"bert_grads[{kind}]", _counters(),
+                        _train_expected(n, n))
+        diff_sq = sum(float((g - r).square().sum())
+                      for g, r in zip(grads, ref))
+        rows[kind] = {"loss": loss,
+                      "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                      "grad_rel_l2": (diff_sq / ref_sq) ** 0.5}
+        del grads
+    del model, ref
+    torch.cuda.empty_cache()
+    limits = {"loss_rel_err": max(2 * rows["plain"]["loss_rel_err"],
+                                  2.0 ** -8),
+              "grad_rel_l2": 2 * rows["plain"]["grad_rel_l2"]}
+    emit({"check": "bert_agreement", "limits": limits,
+          "rule": "O2 against the f32 route on the card: 2 x the O2 "
+                  "route's deviation with B10's plain versions (the loss "
+                  "at least 2^-8); the control must exceed the gradient "
+                  "limit", **rows})
+    for m, lim in limits.items():
+        check(rows["kernel"][m] <= lim, f"bert_base: kernel route {m} "
+              f"{rows['kernel'][m]} > {lim}")
+    check(rows["control"]["grad_rel_l2"] > limits["grad_rel_l2"],
+          f"bert_base: the control route's grad_rel_l2 "
+          f"({rows['control']['grad_rel_l2']}) is within "
+          f"{limits['grad_rel_l2']}")
+
+
+def slice_bert_base(gen) -> dict:
+    """BERT-base pretraining through the port's entry points at full
+    width (``bench.run_bert_bench``: ``text.models.BertForPretraining``
+    of ``bert_base``, AMP O2 bf16, AdamW with bf16 moments, batch 32 of
+    512, no attention mask): ``BERT_WARMUP`` steps and ``BERT_STEPS``
+    timed ones (tokens/s, MFU, wall ms a step), exactly 36 B10 launches a
+    step (12 forward, 12 dq, 12 dk/dv), every loss finite, peak memory;
+    one more step of the same recipe profiled (device busy ms, idle
+    share); the O2 route held to the f32 route (``_bert_agreement``); and
+    B10 timed at BERT's shape (b32 h12 s512 d64, non-causal, bf16) beside
+    its plain version, SDPA and the aten flash backward (its check
+    against the plain version is a FLASH_CASES case)."""
+    from paddle_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    tps, mfu, stats = bench.run_bert_bench(BERT_BATCH, BERT_SEQ, BERT_STEPS,
+                                           "cuda", warmup=BERT_WARMUP)
+    counts = _counters()
+    steps = BERT_WARMUP + BERT_STEPS
+    _check_launches("bert_base", counts,
+                    _train_expected(BERT_LAYERS * steps, BERT_LAYERS * steps))
+    check(all(np.isfinite(stats["losses"])),
+          f"bert_base: losses {stats['losses']}")
+    peak = torch.cuda.max_memory_allocated()
+    model, step = bench.make_bert_train_step(BERT_SEQ, "cuda")
+    inputs, labels = bench.bert_batch(BERT_BATCH, BERT_SEQ, "cuda")
+    float(step(inputs, labels))
+    _reset_counters()
+    busy, groups, top = _profiled_step(lambda: float(step(inputs, labels)))
+    _check_launches("bert_profiled_step", _counters(),
+                    _train_expected(BERT_LAYERS, BERT_LAYERS))
+    del model, step
+    torch.cuda.empty_cache()
+    emit({"phase": "bert_base", "d_model": BERT_D, "layers": BERT_LAYERS,
+          "heads": BERT_HEADS, "dff": 4 * BERT_D, "vocab": bench.BERT_VOCAB,
+          "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "n_params": stats["n_params"], "amp": "O2 bf16",
+          "losses": stats["losses"], "tokens_per_s": tps, "mfu": mfu,
+          "mfu_flops_per_token": bench.flops_per_token(
+              stats["n_params"], BERT_LAYERS, BERT_SEQ, BERT_D),
+          "wall_ms_per_step": stats["step_ms"],
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1 - busy / stats["step_ms"],
+          "device_ms_by_group": groups, "top_kernels": top,
+          "max_memory_allocated_gb": peak / 1e9,
+          "b10_launches_per_step": {k: v / steps for k, v in counts.items()
+                                    if v},
+          "first_call_s": stats["first_call_s"]})
+    _bert_agreement(inputs, labels, gen)
+    _flash_times(gen, BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_D // BERT_HEADS,
+                 causal=False)
+    emit({"phase": "bert_base_checks", "wall_s": time.perf_counter()
+          - t_phase})
+    return counts
+
+
 def slice_train_remat_dots() -> dict:
     """bench.py's gpt3-1.3b rung with ``remat="dots"`` (each block under
     ``recompute(policy=checkpoint_policies.
@@ -7115,6 +7334,10 @@ def drive(args) -> None:
     by_path["transformer_base"] = slice_transformer_base(gen)
     by_path["lstm_ptb"] = slice_lstm_ptb(gen)
     by_path["seq_losses"] = slice_seq_losses()
+    # the tensor API on the card against the CPU, then BERT-base
+    # pretraining through it (B10 at b32 h12 s512 d64, non-causal)
+    by_path["tensor_api"] = check_tensor_api()
+    by_path["bert_base"] = slice_bert_base(gen)
     kernels = []
     for name, row in rows.items():
         # an fp16 row counts its kernel's launches on the fp16 paths, the

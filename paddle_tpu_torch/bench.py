@@ -22,8 +22,14 @@ grouped GEMM forward (B14) and backward (B14's backward mode, B15) and
 flash attention (B10); MFU charges the activated FLOPs (the dense
 parameters plus ``top_k / E`` of the expert banks).
 
-``python -m paddle_tpu_torch.bench --attn-varlen|--moe-train [--device
-cpu]`` prints a rung's JSON line.
+``make_bert_train_step`` / ``run_bert_bench`` are the root bench's
+``--bert`` rung: BERT-base pretraining (``text.models``, d768, 12
+layers, 12 heads, dff 3072, vocab 30,522) at batch 32 of 512 tokens, no
+attention mask and no attention dropout, so each layer's attention takes
+the flash route (B10), in AMP O2 bf16 with AdamW (bf16 moments).
+
+``python -m paddle_tpu_torch.bench --attn-varlen|--moe-train|--bert
+[--device cpu]`` prints a rung's JSON line.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from . import nn
 from .amp import decorate
 from .core.device import resolve_device
 from .core.generator import seed
+from .core.place import device_guard
 from .distributed.fleet.recompute import checkpoint_policies
 from .distributed.fleet.recompute import recompute as _recompute
 from .jit import TrainStep
@@ -49,7 +56,8 @@ __all__ = ["VOCAB", "_FAST", "LADDER", "S2048", "H100_PEAK_BF16",
            "build_model", "make_train_step", "rung_batch", "run_config",
            "flops_per_token", "run_attn_varlen_bench", "build_moe_model",
            "make_moe_train_step", "moe_nodrop_pin", "run_moe_train_bench",
-           "moe_param_counts", "moe_flops_per_token", "main"]
+           "moe_param_counts", "moe_flops_per_token", "BERT_VOCAB",
+           "make_bert_train_step", "bert_batch", "run_bert_bench", "main"]
 
 #: the root bench's recipe for the 1.3B rung on one chip: bf16 moments,
 #: master-free stochastic-rounding updates, no recompute, bf16 logits
@@ -366,9 +374,78 @@ def moe_flops_per_token(n_active: int, n_layers: int, seq: int,
     return 6 * n_active + 12 * n_layers * seq * d_model
 
 
+#: bert-base's vocabulary (bert-base-uncased)
+BERT_VOCAB = 30522
+
+
+def make_bert_train_step(seq=512, device=None, amp="O2"):
+    """``(model, TrainStep)`` of the BERT rung on ``device``, from seed
+    0: ``BertForPretraining(bert_base(max_position_embeddings=seq,
+    attention_probs_dropout_prob=0.0))``, its criterion, AdamW (lr 1e-4,
+    decay 0.01, bf16 moments), and with ``amp="O2"`` the model decorated
+    to bf16 (f32 master weights); ``amp=None`` keeps it all in f32. The
+    model's forward makes its position ids on the current place: call
+    the step inside ``device_guard(device)``."""
+    from .text.models import (BertForPretraining, BertPretrainingCriterion,
+                              bert_base)
+
+    dev = resolve_device(device)
+    seed(0)
+    with torch.device(dev), device_guard(dev):
+        model = BertForPretraining(bert_base(
+            max_position_embeddings=seq, attention_probs_dropout_prob=0.0))
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                moment_dtype="bfloat16")
+    if amp == "O2":
+        model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+    return model, TrainStep(model, BertPretrainingCriterion(), opt)
+
+
+def bert_batch(batch, seq, device):
+    """``([ids, token_types], [mlm_labels, nsp_labels])`` of the root
+    bench's BERT rung, from ``numpy.random.RandomState(0)``: 15% of the
+    positions labelled for the masked LM (-100 elsewhere)."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, BERT_VOCAB, (batch, seq))
+    types = rng.randint(0, 2, (batch, seq))
+    mlm = np.where(rng.rand(batch, seq) < 0.15,
+                   rng.randint(0, BERT_VOCAB, (batch, seq)), -100)
+    nsp = rng.randint(0, 2, (batch,))
+    return ([torch.from_numpy(a).to(device) for a in (ids, types)],
+            [torch.from_numpy(a).to(device) for a in (mlm, nsp)])
+
+
+def run_bert_bench(batch=32, seq=512, steps=8, device=None, warmup=2):
+    """The BERT rung (``make_bert_train_step``): ``warmup`` steps (the
+    kernels' build included), then ``steps`` steps timed on the host
+    clock, ended by reading the loss. Returns ``(tokens_per_s, mfu,
+    stats)``: MFU charges ``6 * N + 12 * L * s * d`` FLOPs a token against
+    ``H100_PEAK_BF16`` (None on the CPU); ``stats`` holds ``step_ms``,
+    ``n_params``, ``first_call_s`` and the losses."""
+    dev = resolve_device(device)
+    model, step = make_bert_train_step(seq, dev)
+    inputs, labels = bert_batch(batch, seq, dev)
+    with device_guard(dev):
+        losses = [float(step(inputs, labels)) for _ in range(warmup)]
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(inputs, labels)
+        losses.append(float(loss))
+        dt = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"bert rung: non-finite loss {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    tps = steps * batch * seq / dt
+    mfu = tps * flops_per_token(n_params, 12, seq, 768) / H100_PEAK_BF16 \
+        if dev.type == "cuda" else None
+    return tps, mfu, {"step_ms": dt / steps * 1e3, "n_params": n_params,
+                      "first_call_s": step.first_call_seconds,
+                      "losses": losses}
+
+
 def main(argv=None) -> None:
-    """The port's bench kinds (so far ``--attn-varlen`` and
-    ``--moe-train``), one JSON line each; ``--device cpu`` runs the
+    """The port's bench kinds (so far ``--attn-varlen``, ``--moe-train``
+    and ``--bert``), one JSON line each; ``--device cpu`` runs the
     CPU-sized geometry."""
     ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.bench")
     kind = ap.add_mutually_exclusive_group(required=True)
@@ -376,11 +453,23 @@ def main(argv=None) -> None:
                       help="the packed varlen flash-attention rung")
     kind.add_argument("--moe-train", action="store_true",
                       help="the no-drop MoE training rung")
+    kind.add_argument("--bert", action="store_true",
+                      help="the BERT-base pretraining rung")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the CPU geometry (default: the card)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if args.bert:
+        # the card: the root rung (b32, s512); the CPU: a smoke geometry
+        geo = dict(batch=32, seq=512) if dev.type == "cuda" else \
+            dict(batch=2, seq=128, steps=1, warmup=1)
+        tps, mfu, stats = run_bert_bench(**geo, device=dev)
+        print(json.dumps({"bert_tokens_per_sec": tps, "bert_mfu": mfu,
+                          "bert_step_ms": stats["step_ms"],
+                          "bert_params": stats["n_params"],
+                          "device": name}))
+        return
     if args.moe_train:
         # the card: the root rung's ~1B-parameter 8-expert model; the
         # CPU: the root bench's smoke geometry

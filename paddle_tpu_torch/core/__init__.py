@@ -1,2 +1,3 @@
-"""Core runtime pieces of the port: device resolution, seeded
-generators and the flags registry."""
+"""Core runtime pieces of the port: dtypes, places and device
+resolution, the tensor (``to_tensor``), seeded generators and the flags
+registry."""

@@ -2,25 +2,30 @@
 
 Every entry point (``FusedCausalLM``, the engines through their model,
 ``BlockKVCacheManager``, ``bench.build_model`` and ``bench.run_config``,
-and ``TrainStep`` through its model) runs on the CUDA card unless the
-caller asks for the CPU with ``device="cpu"``. Without a card and without that
-request it raises: nothing falls back to the CPU quietly.
+``TrainStep`` through its model, ``to_tensor`` and the tensor-creating
+ops) runs on the current place: the one ``set_device`` set
+(``core/place.py``), else the CUDA card. Without a card, and without
+``set_device("cpu")`` or ``device="cpu"``, it raises: nothing falls
+back to the CPU quietly.
 """
 from __future__ import annotations
 
 import torch
 
+from . import place as _place
+
 __all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → ``cuda`` (raises when no card is visible); anything
-    else is taken as the caller's explicit choice."""
+    """``None`` → the current place: the one ``set_device`` set, else
+    ``cuda`` (raises when no card is visible); a ``Place``, a string or
+    a ``torch.device`` is taken as the caller's explicit choice."""
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "paddle_tpu_torch runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "path on the CPU")
-        return torch.device("cuda")
+        if _place._current_place is None:
+            _place.current_place()          # raises without a card
+            return torch.device("cuda")
+        return _place._current_place.torch_device()
+    if isinstance(device, _place.Place):
+        return device.torch_device()
     return torch.device(device)

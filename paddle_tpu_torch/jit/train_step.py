@@ -16,6 +16,12 @@ the optimizer's at the call (an LR scheduler is stepped by the caller).
 The call returns the 0-d loss on the device without waiting for it (no
 host sync); reading it (``float(loss)``) is what waits.
 
+``donate=True`` (the default) updates the parameters in place, as the
+JAX step donates their buffers. With ``donate=False`` the step writes
+each updated parameter into new storage and leaves the old storage as
+it was, so a tensor the caller kept (``p.detach()``) keeps its values;
+the new parameters equal those of an in-place step.
+
 While a step runs its forward, loss and backward, ``in_train_step()``
 is true: what the JAX package skips under the step's trace (the MoE
 layer's data-dependent telemetry, a host read) is skipped there too.
@@ -59,11 +65,7 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep(in_sharding=...) comes with the distributed "
                 "training slice of the port")
-        if not donate:
-            raise NotImplementedError(
-                "TrainStep(donate=False) (a step that keeps the old "
-                "parameters) comes with the to_static slice of the port; "
-                "the eager step updates in place")
+        self._donate = bool(donate)
         self._amp_level = amp_level if amp_level in ("O1", "O2") else None
         self._amp_dtype = amp_dtype
         self.model = model
@@ -130,6 +132,9 @@ class TrainStep:
             grads = self._apply_regularizers(params,
                                              [p.grad for p in params])
             grads = self._clip_grads(grads)
+            if not self._donate:
+                for p in params:
+                    p.data = p.data.clone()
             opt._apply_updates(list(zip(params, grads)))
         opt._global_step += 1
         opt.clear_grad()

@@ -46,6 +46,7 @@ from . import flash_varlen
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "set_flash_block_sizes",
+           "flash_block_sizes", "FLASH_FWD_TILES",
            "last_attention_backend", "FlashAttentionFunction",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
@@ -540,8 +541,35 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     return out, None
 
 
+#: B10's built forward tiles, (q rows, keys) a block: the wgmma kernels
+#: (bf16 and fp16 at head_dim <= 128), the mma kernels (16-bit at head_dim
+#: 256) and the f32 kernels
+FLASH_FWD_TILES = {(128, 128): "wgmma", (64, 64): "mma", (32, 32): "f32"}
+
+#: the (block_q, block_k) override ``set_flash_block_sizes`` recorded
+_FA_BLOCKS = None
+
+
 def set_flash_block_sizes(block_q=None, block_k=None):
-    """A TPU VMEM tile knob; the CUDA kernels' tiles are fixed."""
-    raise NotImplementedError(
-        "set_flash_block_sizes tunes the TPU kernel's VMEM tiles; the "
-        "port's tile tuning comes with the kernel-tuning slice")
+    """Record a ``(block_q, block_k)`` tile override with the JAX
+    function's arguments and checks: ``block_k`` defaults to
+    ``block_q``, a ``block_k`` without a ``block_q`` raises
+    ``ValueError``, and ``None`` resets it. B10's Hopper tiles are fixed
+    at build time (``FLASH_FWD_TILES``): the override is recorded, and
+    ``flash_block_sizes`` says which built forward tile, if any, it
+    names; the kernels launch their built tile either way."""
+    global _FA_BLOCKS
+    if block_q is None and block_k is not None:
+        raise ValueError(
+            "set_flash_block_sizes: block_q is required when block_k "
+            "is given (block_q=None resets to defaults)")
+    _FA_BLOCKS = None if block_q is None else (int(block_q),
+                                               int(block_k or block_q))
+
+
+def flash_block_sizes():
+    """``(override, tile)``: the recorded ``(block_q, block_k)`` (None
+    when reset) and the name of the built forward tile of that shape
+    (``"wgmma"``, ``"mma"`` or ``"f32"``), None when no built tile
+    fits it."""
+    return _FA_BLOCKS, FLASH_FWD_TILES.get(_FA_BLOCKS)

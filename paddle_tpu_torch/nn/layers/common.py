@@ -49,15 +49,14 @@ Linear_ = Linear
 
 class Embedding(Layer):
     """A ``[num_embeddings, embedding_dim]`` table, standard normal; the
-    ``padding_idx`` row starts at zero and its lookups come out zero."""
+    ``padding_idx`` row starts at zero and its lookups come out zero.
+    ``sparse=True`` is accepted and trains with the dense gradient, as
+    the JAX layer does."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None):
         super().__init__()
-        if sparse:
-            raise NotImplementedError(
-                "sparse embedding gradients come with the sparse slice "
-                "of the port")
+        self._sparse = sparse
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
         self._padding_idx = padding_idx

@@ -363,8 +363,6 @@ def test_unported_options_name_their_slice():
         step.roofline(1.0)
     with pytest.raises(NotImplementedError, match="distributed"):
         TTrainStep(model, _port_loss_fn(False), opt, in_sharding=object())
-    with pytest.raises(NotImplementedError, match="to_static"):
-        TTrainStep(model, _port_loss_fn(False), opt, donate=False)
     # amp_level and amp_dtype are ported (test_torch_amp_o1.py)
     step = TTrainStep(model, _port_loss_fn(False), opt, amp_level="O1",
                       amp_dtype="float16")
