@@ -209,6 +209,20 @@ Phases, all run every time, each of which fails the run when it fails:
            control outside), and B10 timed at BERT's shape (b32 h12 s512
            d64, non-causal) beside its plain version, SDPA and the aten
            flash backward.
+  deploy   every kernel's torch.library op (namespace ptt) through
+           torch.library.opcheck on the card (check: custom_ops); then
+           bert_infer, BERT-base inference through the deployment path:
+           bench.run_bert_infer_bench saves the bf16 BertModel (d768, 12
+           layers, 12 heads) with jit.save (torch.export) at batch 32 of
+           384 tokens, loads it by inference.create_predictor and times
+           run() (ended by copy_to_cpu): export seconds, artifact MB,
+           wall ms, sequences/s and tokens/s, device busy and idle share,
+           peak memory, the eager no_grad forward beside it; no launch
+           while saving, 12 B10 forward launches a run and no dq or
+           dk/dv; the predictor's outputs bitwise the eager model's and,
+           against the f32 route, within twice the plain-attention
+           route's distance (a control outside); and B10 checked and
+           timed at that shape (b32 h12 s384 d64, non-causal).
 It prints JSON lines; before the last comes one {"kernels": [...]} line,
 and the last is {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero and prints no result. ``--out DIR`` also writes the
@@ -3271,8 +3285,9 @@ def _over(errs: dict, tols: dict) -> list:
 #: width of public models such as Gemma's; bf16 and f32) and 200, padded
 #: to 256 (bf16); then the wgmma kernels' edges at d128: a length that is
 #: a multiple of 64 but not of 128 (the last tile half past it), causal
-#: and not, and cross lengths both ways; the Transformer base model's and
-#: BERT-base's attention (head_dim 64, non-causal); then fp16 (the f16
+#: and not, and cross lengths both ways; the Transformer base model's,
+#: BERT-base's and BERT-base inference's (s384) attention (head_dim 64,
+#: non-causal); then fp16 (the f16
 #: forms of the same kernels, no cast to bf16) at the rung's shape,
 #: head_dim 64 and 96 at the MoE and gpt-760m training rungs' shapes, and
 #: head_dim 256
@@ -3297,6 +3312,7 @@ FLASH_CASES = (
     (2, (768, 384), 4, 128, torch.bfloat16, True),
     (TB_BATCH, TB_SEQ, TB_HEADS, TB_D // TB_HEADS, torch.bfloat16, False),
     (32, 512, 12, 64, torch.bfloat16, False),
+    (32, 384, 12, 64, torch.bfloat16, False),
     (4, 1024, 16, 128, torch.float16, True),
     (4, 1024, 16, 64, torch.float16, True),
     (8, 1024, 16, 96, torch.float16, True),
@@ -7084,6 +7100,189 @@ def slice_bert_base(gen) -> dict:
     return counts
 
 
+#: the BERT inference rung's runs: 2 warm-up and 10 timed, at bench's
+#: BERT_INFER_BATCH of BERT_INFER_SEQ tokens (32 of 384, the BERT paper's
+#: SQuAD length)
+BERT_INFER_WARMUP, BERT_INFER_RUNS = 2, 10
+
+
+def check_custom_ops() -> dict:
+    """Every kernel's ``torch.library`` op (``_kernels.registered_ops``)
+    through ``torch.library.opcheck`` on the card: the cases of
+    ``paddle_tpu_torch._op_cases`` (small shapes, grouped by kernel
+    family) with every tensor moved to the card: the schema (declared
+    in-place writes), the fake implementation against the kernel's
+    outputs (shapes, dtypes, strides), the autograd registration of the
+    ops with a gradient, and an AOT trace with dynamic shapes that runs
+    the kernels. Launches here are checks, not a path: counts reset
+    after."""
+    from paddle_tpu_torch import _kernels
+    from paddle_tpu_torch._op_cases import CASES
+
+    t0 = time.perf_counter()
+
+    def card(a):
+        if not torch.is_tensor(a):
+            return a
+        return a.detach().to("cuda").requires_grad_(a.requires_grad)
+    failed, seen = [], set()
+    for family, make in CASES.items():
+        for op, args in make(torch.Generator().manual_seed(1)):
+            seen.add(op)
+            try:
+                torch.library.opcheck(op, tuple(card(a) for a in args))
+            except Exception as e:  # noqa: BLE001 (every failure listed)
+                failed.append(f"{family} {op}: {str(e)[:300]}")
+    torch.cuda.synchronize()
+    ops = set(_kernels.registered_ops())
+    emit({"check": "custom_ops", "ops": sorted(str(o) for o in ops),
+          "checked": len(seen & ops), "failed": failed,
+          "tests": ["test_schema", "test_autograd_registration",
+                    "test_faketensor", "test_aot_dispatch_dynamic"],
+          "wall_s": time.perf_counter() - t0})
+    check(seen == ops, f"custom_ops: ops without a case: {ops - seen}")
+    check(not failed, f"custom_ops: {len(failed)} failed: {failed}")
+    _reset_counters()
+    return {"ops": len(ops)}
+
+
+def _bert_infer_outputs(model, ids, types) -> list:
+    """The eager ``no_grad`` forward of ``model`` on the card: seq and
+    pooled as f32 on the host."""
+    from paddle_tpu_torch.core.place import device_guard
+
+    with torch.no_grad(), device_guard("cuda"):
+        outs = model(*(torch.from_numpy(a).cuda() for a in (ids, types)))
+    return [o.float().cpu() for o in outs]
+
+
+def _bert_infer_agreement(st, gen) -> dict:
+    """The predictor's bf16 outputs against the eager bf16 model's on the
+    card (expected bitwise: the same kernels in the same order) and
+    against the f32 route (the same model from the same seed in f32, B10's
+    f32 kernels): relative L2 of seq and pooled, each within twice the
+    bf16 eager route's with B10's plain versions in place of the kernels
+    (the rule of ``_bert_agreement``); the faulty control route must
+    exceed it. Launches: 12 B10 forwards on the f32 and eager routes
+    (checked), none on the plain and control routes."""
+    from paddle_tpu_torch import bench
+
+    ids, types = st["inputs"]
+    got = [torch.from_numpy(a) for a in st["outputs"]]
+    eager = _bert_infer_outputs(st["model"], ids, types)
+    bitwise = all(torch.equal(g, e) for g, e in zip(got, eager))
+    _reset_counters()
+    ref_model = bench.build_bert_infer_model("cuda", torch.float32)
+    ref = _bert_infer_outputs(ref_model, ids, types)
+    del ref_model
+    torch.cuda.empty_cache()
+    _check_launches("bert_infer[f32]", _counters(),
+                    _train_expected(BERT_LAYERS, 0))
+    rows = {"predictor": [_rel_l2(g, r) for g, r in zip(got, ref)]}
+    for kind in ("plain", "control"):
+        _reset_counters()
+        with attention_route(kind, gen):
+            outs = _bert_infer_outputs(st["model"], ids, types)
+        _check_launches(f"bert_infer[{kind}]", _counters(),
+                        _train_expected(0, 0))
+        rows[kind] = [_rel_l2(o, r) for o, r in zip(outs, ref)]
+    limits = [2 * e for e in rows["plain"]]
+    line = {"check": "bert_infer_agreement", "outputs": ["seq", "pooled"],
+            "metric": "rel_l2 against the f32 route", **rows,
+            "limits": limits, "bitwise_equal_to_eager": bitwise,
+            "max_abs_diff_to_eager": [max_err(g, e) for g, e in
+                                      zip(got, eager)],
+            "rule": "2 x the bf16 eager route's deviation with B10's "
+                    "plain versions; the control must exceed it"}
+    emit(line)
+    check(bitwise, f"bert_infer: the predictor's outputs differ from the "
+          f"eager model's ({line['max_abs_diff_to_eager']})")
+    for name, e, lim, c in zip(("seq", "pooled"), rows["predictor"],
+                               limits, rows["control"]):
+        check(e <= lim, f"bert_infer: {name} {e} from the f32 route > {lim}")
+        check(c > lim, f"bert_infer: the control's {name} ({c}) is within "
+              f"{lim}")
+    return line
+
+
+def slice_bert_infer(gen) -> dict:
+    """BERT-base inference through the deployment path at full width
+    (``bench.run_bert_infer_bench``: ``text.models.BertModel`` of
+    ``bert_base`` in bf16, eval mode, saved by ``jit.save`` with
+    ``InputSpec([32, 384], "int64")`` for ``input_ids`` and
+    ``token_type_ids``, loaded by ``inference.Config`` ->
+    ``create_predictor`` on the card): the export's seconds and the
+    artifact's MB, no kernel launch while saving, 2 warm-up and 10 timed
+    ``run()`` (each ended by ``copy_to_cpu`` of both outputs; wall ms,
+    sequences/s, tokens/s), exactly 12 B10 forward launches a ``run()``
+    and no dq or dk/dv, the eager ``no_grad`` forward's wall beside them,
+    peak memory; one more ``run()`` profiled (device busy ms, idle
+    share); the agreement checks (``_bert_infer_agreement``); and B10
+    timed at this shape (b32 h12 s384 d64, non-causal, bf16) beside its
+    plain version and SDPA (its check is a FLASH_CASES case)."""
+    from paddle_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    batch, seq = bench.BERT_INFER_BATCH, bench.BERT_INFER_SEQ
+    st = bench.run_bert_infer_bench(
+        batch, seq, runs=BERT_INFER_RUNS, warmup=BERT_INFER_WARMUP,
+        device="cuda", counters=_counters)
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    calls = 2 * (BERT_INFER_WARMUP + BERT_INFER_RUNS)  # predictor + eager
+    _check_launches("bert_infer", counts,
+                    _train_expected(BERT_LAYERS * calls, 0))
+    check(not st["save_launches"], f"bert_infer: jit.save launched "
+          f"{st['save_launches']}")
+    check(st["run_launches"] == {"flash_attention_fwd":
+                                 BERT_LAYERS * BERT_INFER_RUNS},
+          f"bert_infer: {BERT_INFER_RUNS} runs launched "
+          f"{st['run_launches']}, expected {BERT_LAYERS} B10 forwards a run")
+    pred = st["predictor"]
+
+    def run():
+        pred.run()
+        for n in pred.get_output_names():
+            pred.get_output_handle(n).copy_to_cpu()
+    _reset_counters()
+    busy, groups, top = _profiled_step(run)
+    _check_launches("bert_infer_profiled_run", _counters(),
+                    _train_expected(BERT_LAYERS, 0))
+    run_ms = float(np.median(st["run_ms"]))
+    eager_ms = float(np.median(st["eager_ms"]))
+    check(all(np.isfinite(o).all() for o in st["outputs"]),
+          "bert_infer: non-finite outputs")
+    shapes = [list(o.shape) for o in st["outputs"]]
+    check(shapes == [[batch, seq, BERT_D], [batch, BERT_D]],
+          f"bert_infer: output shapes {shapes}")
+    emit({"phase": "bert_infer", "d_model": BERT_D, "layers": BERT_LAYERS,
+          "heads": BERT_HEADS, "dff": 4 * BERT_D, "vocab": bench.BERT_VOCAB,
+          "batch": batch, "seq": seq,
+          "dtype": "bfloat16", "export_s": st["export_s"],
+          "artifact_mb": st["artifact_mb"], "run_ms": run_ms,
+          "run_ms_runs": st["run_ms"], "eager_no_grad_ms": eager_ms,
+          "eager_no_grad_ms_runs": st["eager_ms"],
+          "seqs_per_s": st["seqs_per_s"], "tokens_per_s": st["tokens_per_s"],
+          "device_busy_ms_per_run": busy,
+          "device_idle_share": 1 - busy / run_ms,
+          "device_ms_by_group": groups, "top_kernels": top,
+          "max_memory_allocated_gb": peak / 1e9,
+          "save_launches": st["save_launches"],
+          "b10_launches_per_run": {k: v / BERT_INFER_RUNS
+                                   for k, v in st["run_launches"].items()}})
+    _bert_infer_agreement(st, gen)
+    del st, pred
+    torch.cuda.empty_cache()
+    _flash_times(gen, batch, seq, BERT_HEADS, BERT_D // BERT_HEADS,
+                 causal=False)
+    emit({"phase": "bert_infer_checks", "wall_s": time.perf_counter()
+          - t_phase})
+    return counts
+
+
 def slice_train_remat_dots() -> dict:
     """bench.py's gpt3-1.3b rung with ``remat="dots"`` (each block under
     ``recompute(policy=checkpoint_policies.
@@ -7338,6 +7537,10 @@ def drive(args) -> None:
     # pretraining through it (B10 at b32 h12 s512 d64, non-causal)
     by_path["tensor_api"] = check_tensor_api()
     by_path["bert_base"] = slice_bert_base(gen)
+    # deployment: the kernels' ops checked on the card, then BERT-base
+    # inference through jit.save -> create_predictor (B10's forward op)
+    check_custom_ops()
+    by_path["bert_infer"] = slice_bert_infer(gen)
     kernels = []
     for name, row in rows.items():
         # an fp16 row counts its kernel's launches on the fp16 paths, the

@@ -22,6 +22,19 @@ runtime's driver entry point (``cudaGetDriverEntryPointByVersion``, or
 ``libcuda``, so the flags below carry no ``-lcuda``. A driver without the
 entry point makes such a launch return ``cudaErrorNotSupported`` (801).
 ``wgmma`` needs the ``sm_90a`` target.
+
+Every kernel is also a ``torch.library`` op in the ``ptt`` namespace
+(``define_op``): one implementation for CPU and CUDA tensors (the
+wrapper's launch on a CUDA tensor, the kernel's plain version on a CPU
+tensor) and a fake implementation that gives the outputs' shapes and
+dtypes from the inputs' alone. ``torch.export``, fake tensors and
+dispatch modes then see each kernel as one operation, which a saved
+program (``jit.save``) calls by name; the launch, its host-side
+planning and every ``data_ptr()`` stay inside the implementation, which
+the fake one never reaches. The wrappers call their ops through
+``call``, which runs the implementation itself where the dispatcher
+would do nothing else (plain eager code), as the host-bound decode step
+cannot spare the dispatch.
 """
 from __future__ import annotations
 
@@ -39,7 +52,8 @@ import torch
 
 __all__ = ["build", "lib", "check", "dtype_code", "weight_code", "ptr",
            "FP16_CODE", "HALF_TYPES",
-           "stream_ptr", "sm_count", "SOURCES", "BUILD_DIR"]
+           "stream_ptr", "sm_count", "SOURCES", "BUILD_DIR", "OPS_NAMESPACE",
+           "define_op", "register_autograd", "registered_ops", "call"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -267,3 +281,70 @@ def sm_count(device: torch.device) -> int:
     """The card's streaming multiprocessors, which the wrappers size their
     grids by (read once a device: the query takes microseconds)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------------
+# The kernels as torch.library ops
+# ---------------------------------------------------------------------
+
+#: the namespace of the kernels' ops: ``torch.ops.ptt.<name>``
+OPS_NAMESPACE = "ptt"
+_LIBRARY = torch.library.Library(OPS_NAMESPACE, "DEF")
+_OPS: list = []
+#: op -> its implementation, for ``call``; ops with a gradient are not here
+_IMPLS: dict = {}
+
+
+def define_op(name: str, schema: str, impl, fake):
+    """Define ``ptt::name`` with ``schema`` (``"(Tensor q, ...) ->
+    Tensor"``; ``Tensor(a!)`` marks an operand written in place) and
+    return its default overload. ``impl`` serves CPU and CUDA tensors
+    alike: the wrappers choose between launch and plain version by the
+    operands' device, as before they were ops. ``fake`` takes the same
+    arguments and returns empty outputs of the right shapes and dtypes
+    (``torch.export`` and ``opcheck`` trace with it)."""
+    _LIBRARY.define(name + schema)
+    for key in ("CPU", "CUDA"):
+        _LIBRARY.impl(name, impl, key)
+    qualified = f"{OPS_NAMESPACE}::{name}"
+    torch.library.register_fake(qualified, fake, lib=_LIBRARY)
+    op = getattr(getattr(torch.ops, OPS_NAMESPACE), name).default
+    _OPS.append(op)
+    _IMPLS[op] = impl
+    return op
+
+
+def register_autograd(op, backward, setup_context) -> None:
+    """The gradient of ``op`` (``torch.library.register_autograd``);
+    ``call`` then always dispatches it."""
+    torch.library.register_autograd(op, backward,
+                                    setup_context=setup_context,
+                                    lib=_LIBRARY)
+    _IMPLS.pop(op, None)
+
+
+def call(op, *args):
+    """``op(*args)``, as the wrappers call their ops. Where the dispatcher
+    would only route to the op's implementation (not under
+    ``torch.compile``, the first operand a plain ``torch.Tensor``, no
+    dispatch or function mode active, so no export, fake tensor or
+    functionalization, no functorch transform, and no gradient to
+    record: an op with ``register_autograd`` always dispatches), it runs
+    the implementation directly. The dispatch would cost the host
+    microseconds a call, more the more operands the schema has, and the
+    bf16 decode step makes 50 such calls between launches it cannot hide
+    them behind."""
+    impl = _IMPLS.get(op)
+    if (impl is not None and not torch.compiler.is_compiling()
+            and type(args[0]) is torch.Tensor
+            and not torch._C._len_torch_dispatch_stack()
+            and not torch._C._is_torch_function_mode_enabled()
+            and not torch._C._are_functorch_transforms_active()):
+        return impl(*args)
+    return op(*args)
+
+
+def registered_ops() -> list:
+    """Every op ``define_op`` registered so far, in order (importing
+    ``paddle_tpu_torch.nn.functional`` registers them all)."""
+    return list(_OPS)

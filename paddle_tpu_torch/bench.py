@@ -28,8 +28,14 @@ layers, 12 heads, dff 3072, vocab 30,522) at batch 32 of 512 tokens, no
 attention mask and no attention dropout, so each layer's attention takes
 the flash route (B10), in AMP O2 bf16 with AdamW (bf16 moments).
 
-``python -m paddle_tpu_torch.bench --attn-varlen|--moe-train|--bert
-[--device cpu]`` prints a rung's JSON line.
+``build_bert_infer_model`` / ``run_bert_infer_bench`` are BERT-base
+inference through the deployment path: the bf16 ``BertModel`` saved by
+``jit.save`` at batch 32 of 384 tokens (B10's route), loaded by
+``inference.create_predictor`` and timed by ``run()``.
+
+``python -m paddle_tpu_torch.bench
+--attn-varlen|--moe-train|--bert|--bert-infer [--device cpu]`` prints a
+rung's JSON line.
 """
 from __future__ import annotations
 
@@ -57,7 +63,9 @@ __all__ = ["VOCAB", "_FAST", "LADDER", "S2048", "H100_PEAK_BF16",
            "flops_per_token", "run_attn_varlen_bench", "build_moe_model",
            "make_moe_train_step", "moe_nodrop_pin", "run_moe_train_bench",
            "moe_param_counts", "moe_flops_per_token", "BERT_VOCAB",
-           "make_bert_train_step", "bert_batch", "run_bert_bench", "main"]
+           "make_bert_train_step", "bert_batch", "run_bert_bench",
+           "BERT_INFER_BATCH", "BERT_INFER_SEQ", "build_bert_infer_model",
+           "bert_infer_batch", "run_bert_infer_bench", "main"]
 
 #: the root bench's recipe for the 1.3B rung on one chip: bf16 moments,
 #: master-free stochastic-rounding updates, no recompute, bf16 logits
@@ -443,10 +451,125 @@ def run_bert_bench(batch=32, seq=512, steps=8, device=None, warmup=2):
                       "losses": losses}
 
 
+#: the BERT inference rung's batch and length: 32 sequences of 384
+#: tokens, the BERT paper's SQuAD length (3 x 128: B10's route)
+BERT_INFER_BATCH, BERT_INFER_SEQ = 32, 384
+
+
+def build_bert_infer_model(device=None, dtype=torch.bfloat16, **geometry):
+    """The BERT inference rung's model, from seed 0: ``text.models``'s
+    ``BertModel`` at bert-base's geometry (``bert_base``; ``geometry``
+    overrides it, e.g. for a CPU-sized run) in ``dtype``, in eval mode,
+    on ``device``."""
+    from .text.models import BertModel, bert_base
+
+    dev = resolve_device(device)
+    seed(0)
+    with torch.device(dev), device_guard(dev):
+        model = BertModel(**geometry) if geometry else bert_base()
+    return model.to(dtype).eval()
+
+
+def bert_infer_batch(batch, seq, vocab=BERT_VOCAB):
+    """``(input_ids, token_type_ids)`` int64 numpy arrays of the rung,
+    from ``numpy.random.RandomState(1)``."""
+    rng = np.random.RandomState(1)
+    return (rng.randint(0, vocab, (batch, seq)).astype(np.int64),
+            rng.randint(0, 2, (batch, seq)).astype(np.int64))
+
+
+def run_bert_infer_bench(batch=BERT_INFER_BATCH, seq=BERT_INFER_SEQ, runs=10,
+                         warmup=2, device=None, model=None, counters=None):
+    """BERT inference through the deployment path: ``model`` (default
+    ``build_bert_infer_model(device)``) saved by ``jit.save`` with
+    ``InputSpec([batch, seq], "int64")`` for ``input_ids`` and
+    ``token_type_ids`` into a temporary directory, loaded by
+    ``inference.Config`` -> ``create_predictor`` (the card, or the CPU
+    after ``disable_gpu()`` when ``device`` is the CPU), then
+    ``warmup`` runs and ``runs`` timed ones, each ended by
+    ``copy_to_cpu`` of both outputs, and as many eager ``no_grad``
+    forwards of the model ended alike (``inference.to_host``).
+    ``counters`` (a function returning the kernels' launch counts) is
+    read around the save and the timed runs. Returns a dict:
+    ``export_s``, ``artifact_mb``, ``run_ms`` (per run), ``eager_ms``,
+    ``seqs_per_s``, ``tokens_per_s`` (by the median run), ``outputs`` (the last
+    run's, numpy), ``predictor``, ``model``, the input arrays, and with
+    ``counters`` the launch deltas ``save_launches`` and ``run_launches`` (all
+    timed runs)."""
+    import os
+    import tempfile
+
+    from . import jit
+    from .inference import Config, create_predictor, to_host
+    from .static import InputSpec
+
+    dev = resolve_device(device)
+    if model is None:
+        model = build_bert_infer_model(dev)
+    model.eval()
+    ids, types = bert_infer_batch(batch, seq,
+                                  model.embeddings.word_embeddings
+                                  .weight.shape[0])
+
+    def delta(before):
+        after = counters()
+        return {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert")
+        before = counters() if counters else None
+        t0 = time.perf_counter()
+        jit.save(model, path, input_spec=[
+            InputSpec([batch, seq], "int64", "input_ids"),
+            InputSpec([batch, seq], "int64", "token_type_ids")])
+        export_s = time.perf_counter() - t0
+        stats = {"save_launches": delta(before)} if counters else {}
+        artifact_mb = sum(os.path.getsize(path + ext)
+                          for ext in (".pdmodel", ".pdiparams")) / 1e6
+        config = Config(path)
+        if dev.type != "cuda":
+            config.disable_gpu()
+        predictor = create_predictor(config)
+    for name, arr in zip(predictor.get_input_names(), (ids, types)):
+        predictor.get_input_handle(name).copy_from_cpu(arr)
+
+    def run():
+        predictor.run()
+        return [predictor.get_output_handle(n).copy_to_cpu()
+                for n in predictor.get_output_names()]
+
+    for _ in range(warmup):
+        run()
+    before = counters() if counters else None
+    run_ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        outputs = run()
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    if counters:
+        stats["run_launches"] = delta(before)
+    tid, ttype = (torch.from_numpy(a).to(dev) for a in (ids, types))
+    eager_ms = []
+    with torch.no_grad(), device_guard(dev):
+        for i in range(warmup + runs):
+            t0 = time.perf_counter()
+            [to_host(o) for o in model(tid, ttype)]
+            if i >= warmup:
+                eager_ms.append((time.perf_counter() - t0) * 1e3)
+    median = float(np.median(run_ms)) / 1e3
+    stats.update({"export_s": export_s, "artifact_mb": artifact_mb,
+                  "run_ms": run_ms, "eager_ms": eager_ms,
+                  "seqs_per_s": batch / median,
+                  "tokens_per_s": batch * seq / median,
+                  "outputs": outputs, "predictor": predictor, "model": model,
+                  "inputs": (ids, types)})
+    return stats
+
+
 def main(argv=None) -> None:
-    """The port's bench kinds (so far ``--attn-varlen``, ``--moe-train``
-    and ``--bert``), one JSON line each; ``--device cpu`` runs the
-    CPU-sized geometry."""
+    """The port's bench kinds (so far ``--attn-varlen``, ``--moe-train``,
+    ``--bert`` and ``--bert-infer``), one JSON line each; ``--device
+    cpu`` runs the CPU-sized geometry."""
     ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.bench")
     kind = ap.add_mutually_exclusive_group(required=True)
     kind.add_argument("--attn-varlen", action="store_true",
@@ -455,11 +578,32 @@ def main(argv=None) -> None:
                       help="the no-drop MoE training rung")
     kind.add_argument("--bert", action="store_true",
                       help="the BERT-base pretraining rung")
+    kind.add_argument("--bert-infer", action="store_true",
+                      help="BERT-base inference: jit.save -> predictor")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the CPU geometry (default: the card)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if args.bert_infer:
+        # the card: bert-base at b32 s384; the CPU: a smoke geometry
+        if dev.type == "cuda":
+            stats = run_bert_infer_bench(device=dev)
+        else:
+            stats = run_bert_infer_bench(
+                batch=2, seq=128, runs=1, warmup=1, device=dev,
+                model=build_bert_infer_model(
+                    dev, torch.float32, vocab_size=128, hidden_size=64,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    intermediate_size=128))
+        print(json.dumps({
+            "bert_infer_tokens_per_sec": stats["tokens_per_s"],
+            "bert_infer_run_ms": float(np.median(stats["run_ms"])),
+            "bert_infer_eager_ms": float(np.median(stats["eager_ms"])),
+            "bert_infer_export_s": stats["export_s"],
+            "bert_infer_artifact_mb": stats["artifact_mb"],
+            "device": name}))
+        return
     if args.bert:
         # the card: the root rung (b32, s512); the CPU: a smoke geometry
         geo = dict(batch=32, seq=512) if dev.type == "cuda" else \

@@ -340,7 +340,10 @@ class _Program:
 
 class StaticFunction:
     """A function (or a layer's ``forward``) run through one captured
-    program per input signature."""
+    program per input signature; eager while ``jit.enable_to_static``
+    has it off (``_globally_enabled``)."""
+
+    _globally_enabled = True
 
     def __init__(self, function: Callable, layer=None, input_spec=None,
                  build_strategy=None, backend=None, full_graph=True):
@@ -381,7 +384,7 @@ class StaticFunction:
                 torch.is_grad_enabled())
 
     def __call__(self, *args, **kwargs):
-        if not self._enabled:
+        if not (self._enabled and StaticFunction._globally_enabled):
             return self._orig_fn(*args, **kwargs)
         arg_tensors: List[torch.Tensor] = []
         args_tmpl = _flatten_tensors(list(args), arg_tensors)

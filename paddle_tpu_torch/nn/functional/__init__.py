@@ -16,6 +16,9 @@ from .loss import *  # noqa: F401,F403
 from .attention import flash_attention, scaled_dot_product_attention
 
 from . import activation, common, conv, loss, norm, pooling
+# the kernels' modules, which register their ``torch.library`` ops
+from . import (attention, flash_varlen, grouped_gemm, lora,  # noqa: F401
+               paged_attention, stream_linear)
 
 __all__ = (
     list(activation.__all__) + list(common.__all__) + list(conv.__all__)

@@ -11,20 +11,22 @@ route exactly where ``_use_flash`` admits (no mask, ``head_dim % 8 ==
 the counterpart of the XLA path's ``dot_product_attention``: f32 logits,
 probabilities in the input's dtype, plain torch products.
 
-The flash route is ``FlashAttentionFunction``, an autograd function
-over kernel B10 (``csrc/flash_attention.cu``): the forward kernel
-writes ``out`` and the f32 ``lse`` ``[b, h, s]``, which the backward's
-two kernels (dq; dk and dv) read back with ``di = sum(out * dout)``, a
-PyTorch reduction. In bf16 at head_dim 64, 96 and 128 the three are the
-Hopper kernels ``flash_fwd_wgmma``, ``flash_bwd_dq_wgmma`` and
-``flash_bwd_dkv_wgmma``: B11-B13's mainloops (``csrc/flash_wgmma.cuh``)
-on a dense walk that needs no block map (``dense_walk``, ``flash_grid``),
-reading q, k and v in place as strided views. On a CUDA tensor it
-launches the kernels, or raises
-(a build or launch failure, a head_dim past 256; a head_dim the
-kernels lack below it runs zero-padded to the next built width, exactly);
-on a CPU tensor it runs the plain versions ``flash_attention_fwd_plain`` and
-``flash_attention_bwd_plain`` (explicit softmax in f32).
+The flash route is the op ``ptt::flash_fwd`` over kernel B10
+(``csrc/flash_attention.cu``): the forward kernel writes ``out`` and the f32
+``lse`` ``[b, h, s]``, which the backward's two kernels (the ops
+``ptt::flash_bwd_dq`` and ``ptt::flash_bwd_dkv``) read back with ``di = sum(out
+* dout)``, a PyTorch reduction; the gradient is registered on the forward op
+(``torch.library.register_autograd``), so a program exported with
+``torch.export`` calls the kernel op by name. In bf16 at head_dim 64, 96 and
+128 the three are the Hopper kernels ``flash_fwd_wgmma``,
+``flash_bwd_dq_wgmma`` and ``flash_bwd_dkv_wgmma``: B11-B13's mainloops
+(``csrc/flash_wgmma.cuh``) on a dense walk that needs no block map
+(``dense_walk``, ``flash_grid``), reading q, k and v in place as strided views.
+On a CUDA tensor it launches the kernels, or raises (a build or launch failure,
+a head_dim past 256; a head_dim the kernels lack below it runs zero-padded to
+the next built width, exactly); on a CPU tensor it runs the plain versions
+``flash_attention_fwd_plain`` and ``flash_attention_bwd_plain`` (explicit
+softmax in f32).
 
 ``flash_attn_unpadded`` is packed varlen attention over ``cu_seqlens``
 segments: ``FLAGS_attn_varlen_backend`` ``auto``/``pallas`` take the
@@ -47,10 +49,10 @@ from . import flash_varlen
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "set_flash_block_sizes",
            "flash_block_sizes", "FLASH_FWD_TILES",
-           "last_attention_backend", "FlashAttentionFunction",
+           "last_attention_backend", "flash_attention_core",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "FLASH_HEAD_DIMS"]
+           "flash_bwd_dq_plain", "flash_bwd_dkv_plain", "FLASH_HEAD_DIMS"]
 
 #: head dims the CUDA kernels are built for; another multiple of 8 below
 #: 256 runs zero-padded to the next of them, a wider head raises on the
@@ -126,22 +128,49 @@ def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float, *,
     return out.to(q.dtype), lse
 
 
+def _probs(q, k, lse, causal: bool, scale: float, drop):
+    """``P = exp(s - lse)`` in f32, ``[b, h, sq, sk]``."""
+    s = _logits(q, k, None, causal, scale, drop=drop)
+    return torch.exp(s - lse[..., None])
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, di, causal: bool, scale: float,
+                       *, drop=None):
+    """Plain version of B10's dq kernel: ``dS = P (dO V^T - di)``, ``dQ =
+    scale dS K`` in f32 from the f32 ``lse`` and ``di``, in q's dtype.
+    ``drop`` as in the forward: those pairs' ``P`` and ``dS`` are 0."""
+    p = _probs(q, k, lse, causal, scale, drop)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    ds = p * (dp - di[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, di, causal: bool,
+                        scale: float, *, drop=None):
+    """Plain version of B10's dk/dv kernel: ``dV = P^T dO``, ``dK = scale
+    dS^T Q`` in f32 (``dS`` as in ``flash_bwd_dq_plain``), in q's
+    dtype."""
+    p = _probs(q, k, lse, causal, scale, drop)
+    do = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = p * (dp - di[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool,
                               scale: float, *, drop=None):
     """``(dq, dk, dv)`` in q's dtype, in closed form from the f32 ``lse``
     as the kernels compute them: ``P = exp(s - lse)``, ``dV = P^T dO``,
     ``dS = P (dO V^T - di)``, ``dQ = scale dS K``, ``dK = scale dS^T Q``.
     ``drop`` as in the forward: those pairs' ``P`` and ``dS`` are 0."""
-    s = _logits(q, k, None, causal, scale, drop=drop)
-    p = torch.exp(s - lse[..., None])
-    do = dout.float()
-    di = flash_delta(out, do)                                 # [b, h, sq]
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
-    ds = p * (dp - di[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    di = flash_delta(out, dout.float())                       # [b, h, sq]
+    dq = flash_bwd_dq_plain(q, k, v, dout, lse, di, causal, scale,
+                            drop=drop)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, dout, lse, di, causal, scale,
+                                     drop=drop))
 
 
 # ---------------------------------------------------------------------
@@ -369,34 +398,96 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float):
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool,
                         scale: float):
-    """``(dq, dk, dv)``: kernel B10's two backward kernels on a CUDA
-    tensor (zero-padded as the forward), the plain version on a CPU
+    """``(dq, dk, dv)``: ``di`` by a PyTorch reduction, then the ops of
+    B10's two backward kernels, ``ptt::flash_bwd_dq`` and
+    ``ptt::flash_bwd_dkv``: the kernels on a CUDA tensor (each zero-pads
+    to a built head width, as the forward), the plain versions on a CPU
     tensor."""
+    dout = dout.to(q.dtype).contiguous()
+    lse, di = lse.contiguous(), flash_delta(out, dout)
+    dq = _kernels.call(_dq_op, q, k, v, dout, lse, di, causal, scale)
+    dk, dv = _kernels.call(_dkv_op, q, k, v, dout, lse, di, causal,
+                           scale)
+    return dq, dk, dv
+
+
+# the ops: each implementation looks its route up by name at the call,
+# so a caller that swaps ``flash_attention_fwd``/``_bwd`` (the chip
+# check's plain and control routes) swaps what the op runs; outputs are
+# contiguous, as the fake implementations give them (the plain versions'
+# products are not), but for the gradients of a padded head width on the
+# card, slices of the kernels' padded outputs (``grad_like``)
+
+def _fwd_impl(q, k, v, causal, scale):
+    out, lse = flash_attention_fwd(q, k, v, causal, scale)
+    return out.contiguous(), lse.contiguous()
+
+
+def _fwd_fake(q, k, v, causal, scale):
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _dq_impl(q, k, v, dout, lse, di, causal, scale):
     if q.device.type == "cuda":
-        return flash_varlen.padded_bwd(_flash_bwd_cuda, FLASH_HEAD_DIMS,
-                                       "flash_attention", q, k, v, out, lse,
-                                       dout, causal, scale)
-    return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale)
+        return flash_varlen.padded_grads(_flash_bwd_dq_cuda, FLASH_HEAD_DIMS,
+                                         "flash_attention", q, k, v, dout,
+                                         lse, di, causal, scale)
+    return flash_bwd_dq_plain(q, k, v, dout, lse, di, causal,
+                              scale).contiguous()
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """The flash route's autograd function (the JAX package's
-    ``_flash_core`` custom VJP): saves ``out`` and ``lse``, and its
-    backward runs the dq and dk/dv kernels."""
+def _dkv_impl(q, k, v, dout, lse, di, causal, scale):
+    if q.device.type == "cuda":
+        return flash_varlen.padded_grads(
+            _flash_bwd_dkv_cuda, FLASH_HEAD_DIMS, "flash_attention", q, k, v,
+            dout, lse, di, causal, scale)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, dout, lse, di, causal, scale)
+    return dk.contiguous(), dv.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+def _grad_fake(t):
+    return flash_varlen.grad_like(t, FLASH_HEAD_DIMS, "flash_attention")
+
+
+_OPERANDS = "Tensor q, Tensor k, Tensor v"
+_SHAPE = "bool causal, float scale"
+_fwd_op = _kernels.define_op(
+    "flash_fwd", f"({_OPERANDS}, {_SHAPE}) -> (Tensor, Tensor)", _fwd_impl,
+    _fwd_fake)
+_dq_op = _kernels.define_op(
+    "flash_bwd_dq",
+    f"({_OPERANDS}, Tensor dout, Tensor lse, Tensor di, {_SHAPE}) -> Tensor",
+    _dq_impl, lambda q, *rest: _grad_fake(q))
+_dkv_op = _kernels.define_op(
+    "flash_bwd_dkv",
+    f"({_OPERANDS}, Tensor dout, Tensor lse, Tensor di, {_SHAPE}) -> "
+    "(Tensor, Tensor)", _dkv_impl,
+    lambda q, k, v, *rest: (_grad_fake(k), _grad_fake(v)))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _fwd_backward(ctx, dout, _dlse):
+    """The JAX package's ``_flash_core`` VJP: dq, dk and dv from the
+    saved ``out`` and ``lse`` (``lse`` takes no gradient)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    return (*flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                 ctx.scale), None, None)
+
+
+_kernels.register_autograd(_fwd_op, _fwd_backward, _fwd_setup)
+
+
+def flash_attention_core(q, k, v, causal: bool, scale: float):
+    """The flash route: ``out`` of ``ptt::flash_fwd``, differentiable in
+    q, k and v."""
+    return _kernels.call(_fwd_op, q, k, v, bool(causal), float(scale))[0]
 
 
 # ---------------------------------------------------------------------
@@ -442,8 +533,7 @@ def _attention_raw(q, k, v, bias=None, *, causal=False, scale=None,
         return torch.einsum("bhqk,bkhd->bqhd", w, v)
     if _use_flash(head_dim, q.shape[1], k.shape[1], bias is not None):
         _LAST_BACKEND[0] = "flash"
-        return FlashAttentionFunction.apply(q, k, v, bool(causal),
-                                            float(scale))
+        return flash_attention_core(q, k, v, causal, scale)
     _LAST_BACKEND[0] = "dense"
     return _dense_attention(q, k, v, bias, causal, scale)
 

@@ -10,12 +10,13 @@ same segment and, under ``causal``, ι's in-segment position is at least
 (q tile i visits k tiles ``kstart[i] .. +klen[i]``; k tile j is visited by
 q tiles ``qstart2[j] .. +qlen2[j]``) and the per-tile segment aggregates,
 with torch ops on ``cu_seqlens``' device and no host read; every field
-equals the JAX map's. ``PackedFlashFunction`` (the JAX ``_packed_core``
-custom VJP) runs, on a CUDA tensor, kernel B11 (forward: ``out`` and an
-f32 ``lse``) and, in its backward, ``delta = sum(dout * out)`` as a
-PyTorch reduction, then B12 (dq over the forward map) and B13 (dk, dv
-over the transposed map), all in ``csrc/flash_varlen_packed.cu``; the
-three walk one map (``CardMaps``), built once a training call; on a
+equals the JAX map's. The op ``ptt::flash_varlen_fwd`` with its
+registered gradient (the JAX ``_packed_core`` custom VJP) runs, on a
+CUDA tensor, kernel B11 (forward: ``out`` and an f32 ``lse``) and, in
+its backward, ``delta = sum(dout * out)`` as a PyTorch reduction, then
+the ops of B12 (dq over the forward map) and B13 (dk, dv over the
+transposed map), all in ``csrc/flash_varlen_packed.cu``; the three walk
+one map (``CardMaps``), built once a training call; on a
 CPU tensor it runs the plain versions ``_packed_fwd_plain`` and
 ``_packed_bwd_plain``, the tile walks of the JAX ``_packed_fwd_xla`` and
 ``_packed_bwd_xla`` in f32 and O(T·d) memory (no ``[T, T]`` tensor). A
@@ -37,15 +38,15 @@ through the block table, with the JAX package's layouts:
   block_tables [batch, pages_per_seq] int32            ABSOLUTE page ids
   start        [batch] int32                           chunk offsets
 
-``paged_prefill_attention`` launches ``csrc/flash_varlen.cu`` on a CUDA
-tensor and runs its plain version ``_paged_prefill_plain`` on a CPU
-tensor. A bf16 pool at a head_dim of ``PREFILL_MMA_HEAD_DIMS`` takes the
-tensor-core kernel, whose grid ``prefill_grid`` sizes from the shapes and
-the card's SM count: q tiles of 64 query vectors, each tile's key range
-cut into ``n_split`` slices merged in the kernel. An int8 pool (each side
-``(int8 rows, f32 scale plane)``) has no kernel, as in the JAX package,
-where it is XLA's dense gather: the plain version dequantizes it, on the
-card too.
+``paged_prefill_attention`` (the op ``ptt::paged_prefill``) launches
+``csrc/flash_varlen.cu`` on a CUDA tensor and runs its plain version
+``_paged_prefill_plain`` on a CPU tensor. A bf16 pool at a head_dim of
+``PREFILL_MMA_HEAD_DIMS`` takes the tensor-core kernel, whose grid
+``prefill_grid`` sizes from the shapes and the card's SM count: q tiles of 64
+query vectors, each tile's key range cut into ``n_split`` slices merged in the
+kernel. An int8 pool (each side ``(int8 rows, f32 scale plane)``) has no
+kernel, as in the JAX package, where it is XLA's dense gather: the plain
+version dequantizes it, on the card too.
 """
 from __future__ import annotations
 
@@ -58,8 +59,9 @@ from ... import _kernels
 __all__ = ["paged_prefill_attention", "prefill_grid", "varlen_block_map",
            "BlockMap", "CardMap", "CardMaps", "card_tile", "card_grid",
            "PREFILL_MMA_HEAD_DIMS",
-           "flash_varlen_packed", "PackedFlashFunction", "packed_fwd",
-           "packed_bwd", "packed_fwd_plain", "packed_bwd_plain",
+           "flash_varlen_packed", "packed_fwd", "packed_bwd",
+           "packed_fwd_plain", "packed_bwd_plain", "packed_dq_plain",
+           "packed_dkv_plain",
            "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "VARLEN_HEAD_DIMS"]
 
 
@@ -157,16 +159,33 @@ def paged_prefill_attention(q, key_cache, value_cache, block_tables, start,
     in-chunk triangle. A table id outside the pool names no page (not
     read). Scores, softmax and accumulation are fp32. ``start`` stays on
     the device: nothing here syncs with the host. Returns ``[b, c,
-    n_q_heads, d]`` in q's dtype.
+    n_q_heads, d]`` in q's dtype: the op ``ptt::paged_prefill``, whose
+    implementation (``_prefill_impl``) launches the kernel on a CUDA
+    tensor and runs the plain version on a CPU tensor. An int8 pool (a
+    ``(rows, plane)`` pair a side) takes the plain version on the CPU and
+    raises on the card.
     """
+    if isinstance(key_cache, tuple) or isinstance(value_cache, tuple):
+        if _on_card(q):
+            raise TypeError("paged_prefill_attention: the kernel reads a "
+                            "bf16/f32 pool; an int8 pool takes the dense "
+                            "gather (_paged_prefill_plain)")
+        return _paged_prefill_plain(q, key_cache, value_cache, block_tables,
+                                    start, n_kv=n_kv, scale=scale)
+    return _kernels.call(_prefill_op, q, key_cache, value_cache,
+                         block_tables, start, int(n_kv),
+                         None if scale is None else float(scale))
+
+
+def _prefill_impl(q, key_cache, value_cache, block_tables, start, n_kv,
+                  scale):
+    """``ptt::paged_prefill`` on CPU and CUDA tensors (the output
+    contiguous, as the fake gives it)."""
     what = "paged_prefill_attention"
     if not _on_card(q):
         return _paged_prefill_plain(q, key_cache, value_cache, block_tables,
-                                    start, n_kv=n_kv, scale=scale)
-    if isinstance(key_cache, tuple) or isinstance(value_cache, tuple):
-        raise TypeError(f"{what}: the kernel reads a bf16/f32 pool; an "
-                        "int8 pool takes the dense gather "
-                        "(_paged_prefill_plain)")
+                                    start, n_kv=n_kv, scale=scale) \
+            .contiguous()
     b, c, n_q, d = q.shape
     P, n_kv_pool, ps, d_pool = key_cache.shape
     pp = block_tables.shape[1]
@@ -218,6 +237,13 @@ def paged_prefill_attention(q, key_cache, value_cache, block_tables, start,
     global launches
     launches += 1
     return out
+
+
+_prefill_op = _kernels.define_op(
+    "paged_prefill",
+    "(Tensor q, Tensor key_cache, Tensor value_cache, Tensor block_tables, "
+    "Tensor start, int n_kv, float? scale) -> Tensor", _prefill_impl,
+    lambda q, *rest: q.new_empty(q.shape))
 
 
 # ---------------------------------------------------------------------
@@ -421,26 +447,33 @@ def _packed_fwd_plain(qt, kt, vt, bm: BlockMap, scale: float, causal: bool,
     return out, lse
 
 
-def _packed_bwd_plain(qt, kt, vt, dot_, lse, delta, bm: BlockMap,
-                      scale: float, causal: bool, block_q: int,
-                      block_k: int):
-    """The JAX ``_packed_bwd_xla``: dq over the forward map, dk and dv
-    over the transposed map, f32, from ``lse`` and ``delta`` ``[h,
-    tq_pad]``. Returns ``(dq [h, tq_pad, d], dk, dv [h, tk_pad, d])``."""
+def _bwd_tiles(qt, kt, vt, dot_, lse, delta, bm: BlockMap, scale: float,
+               block_q: int, block_k: int):
+    """The backward walks' f32 tiles: q (scaled), dout, k, v, lse and
+    delta by tile, and the per-token (segment, position) of both axes."""
     h, tq, d = qt.shape
     tk = kt.shape[1]
     bq, bk = block_q, block_k
     nq, nk = tq // bq, tk // bk
-    qf4 = (qt.float() * scale).reshape(h, nq, bq, d)
-    do4 = dot_.float().reshape(h, nq, bq, d)
-    k4 = kt.float().reshape(h, nk, bk, d)
-    v4 = vt.float().reshape(h, nk, bk, d)
-    lse4 = lse.clamp(min=_NEG_SAFE).reshape(h, nq, bq)
-    dl4 = delta.reshape(h, nq, bq)
-    sq4, pq4 = bm.qmeta[0].reshape(nq, bq), bm.qmeta[1].reshape(nq, bq)
-    sk4, pk4 = bm.kmeta[0].reshape(nk, bk), bm.kmeta[1].reshape(nk, bk)
+    return ((qt.float() * scale).reshape(h, nq, bq, d),
+            dot_.float().reshape(h, nq, bq, d),
+            kt.float().reshape(h, nk, bk, d),
+            vt.float().reshape(h, nk, bk, d),
+            lse.clamp(min=_NEG_SAFE).reshape(h, nq, bq),
+            delta.reshape(h, nq, bq),
+            bm.qmeta[0].reshape(nq, bq), bm.qmeta[1].reshape(nq, bq),
+            bm.kmeta[0].reshape(nk, bk), bm.kmeta[1].reshape(nk, bk))
 
-    dq = qt.new_zeros((h, nq, bq, d), dtype=torch.float32)
+
+def _packed_dq_walk(qt, kt, vt, dot_, lse, delta, bm: BlockMap,
+                    scale: float, causal: bool, block_q: int, block_k: int):
+    """The JAX ``_packed_bwd_xla``'s dq: over the forward map, f32, from
+    ``lse`` and ``delta`` ``[h, tq_pad]``; ``[h, tq_pad, d]``."""
+    h, tq, d = qt.shape
+    nq, nk = tq // block_q, kt.shape[1] // block_k
+    qf4, do4, k4, v4, lse4, dl4, sq4, pq4, sk4, pk4 = _bwd_tiles(
+        qt, kt, vt, dot_, lse, delta, bm, scale, block_q, block_k)
+    dq = qt.new_zeros((h, nq, block_q, d), dtype=torch.float32)
     for s in range(int(bm.klen.max()) if nq else 0):
         j = (bm.kstart + s).clamp(0, nk - 1).long()
         msk = _tile_mask(sq4, pq4, sk4[j], pk4[j], s < bm.klen, causal)[None]
@@ -451,9 +484,20 @@ def _packed_bwd_plain(qt, kt, vt, dot_, lse, delta, bm: BlockMap,
         dp = torch.einsum("hnqd,hnkd->hnqk", do4, v4[:, j])
         ds = p * (dp - dl4[..., None])
         dq = dq + torch.einsum("hnqk,hnkd->hnqd", ds, ktile)
-    dq = (dq * scale).reshape(h, tq, d)
+    return (dq * scale).reshape(h, tq, d)
 
-    dk = qt.new_zeros((h, nk, bk, d), dtype=torch.float32)
+
+def _packed_dkv_walk(qt, kt, vt, dot_, lse, delta, bm: BlockMap,
+                     scale: float, causal: bool, block_q: int,
+                     block_k: int):
+    """The JAX ``_packed_bwd_xla``'s dk and dv: over the transposed map,
+    f32; ``[h, tk_pad, d]`` each."""
+    h, tq, d = qt.shape
+    tk = kt.shape[1]
+    nq, nk = tq // block_q, tk // block_k
+    qf4, do4, k4, v4, lse4, dl4, sq4, pq4, sk4, pk4 = _bwd_tiles(
+        qt, kt, vt, dot_, lse, delta, bm, scale, block_q, block_k)
+    dk = qt.new_zeros((h, nk, block_k, d), dtype=torch.float32)
     dv = torch.zeros_like(dk)
     for s in range(int(bm.qlen2.max()) if nk else 0):
         t = (bm.qstart2 + s).clamp(0, nq - 1).long()
@@ -467,7 +511,18 @@ def _packed_bwd_plain(qt, kt, vt, dot_, lse, delta, bm: BlockMap,
         dp = torch.einsum("hnqd,hnkd->hnqk", dtile, v4)
         ds = p * (dp - dl4[:, t][..., None])
         dk = dk + torch.einsum("hnqk,hnqd->hnkd", ds, qtile)
-    return dq, dk.reshape(h, tk, d), dv.reshape(h, tk, d)
+    return dk.reshape(h, tk, d), dv.reshape(h, tk, d)
+
+
+def _packed_bwd_plain(qt, kt, vt, dot_, lse, delta, bm: BlockMap,
+                      scale: float, causal: bool, block_q: int,
+                      block_k: int):
+    """The JAX ``_packed_bwd_xla``: dq over the forward map, dk and dv
+    over the transposed map, f32, from ``lse`` and ``delta`` ``[h,
+    tq_pad]``. Returns ``(dq [h, tq_pad, d], dk, dv [h, tk_pad, d])``."""
+    args = (qt, kt, vt, dot_, lse, delta, bm, scale, causal, block_q,
+            block_k)
+    return (_packed_dq_walk(*args), *_packed_dkv_walk(*args))
 
 
 def _pad_rows(x, target: int, value=0.0):
@@ -511,6 +566,45 @@ def packed_fwd_plain(q, k, v, cu_q, cu_k, *, scale: float, causal: bool,
     return out[:, :q.shape[0]].transpose(0, 1).to(q.dtype), lse
 
 
+def _bwd_prepare(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
+                 block_q: int, block_k: int):
+    """The plain backward walks' operands: ``_packed_prepare``'s, and
+    dout, ``lse`` and ``delta`` (``[h, >= tq]``, from either forward:
+    their pad rows are not read for any real row) padded to its tiles."""
+    tq = q.shape[0]
+    qt, kt, vt, bm = _packed_prepare(q, k, v, cu_q, cu_k, causal, block_q,
+                                     block_k)
+    tqp = qt.shape[1]
+    return (qt, kt, vt, _pad_rows(dout.transpose(0, 1), tqp),
+            _pad_rows(lse[:, :tq], tqp, _NEG), _pad_rows(delta[:, :tq], tqp),
+            bm)
+
+
+def packed_dq_plain(q, k, v, dout, lse, delta, cu_q, cu_k, *, scale: float,
+                    causal: bool, block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K):
+    """Plain version of B12: dq ``[tq, h, d]`` in q's dtype by the tile
+    walk over the forward map."""
+    walk = _bwd_prepare(q, k, v, dout, lse, delta, cu_q, cu_k, causal,
+                        block_q, block_k)
+    dq = _packed_dq_walk(*walk, scale, causal, block_q, block_k)
+    return dq[:, :q.shape[0]].transpose(0, 1).to(q.dtype)
+
+
+def packed_dkv_plain(q, k, v, dout, lse, delta, cu_q, cu_k, *,
+                     scale: float, causal: bool,
+                     block_q: int = DEFAULT_BLOCK_Q,
+                     block_k: int = DEFAULT_BLOCK_K):
+    """Plain version of B13: dk and dv ``[tk, h, d]`` in k's and v's
+    dtypes by the tile walk over the transposed map."""
+    walk = _bwd_prepare(q, k, v, dout, lse, delta, cu_q, cu_k, causal,
+                        block_q, block_k)
+    dk, dv = _packed_dkv_walk(*walk, scale, causal, block_q, block_k)
+    tk = k.shape[0]
+    return (dk[:, :tk].transpose(0, 1).to(k.dtype),
+            dv[:, :tk].transpose(0, 1).to(v.dtype))
+
+
 def packed_bwd_plain(q, k, v, out, lse, dout, cu_q, cu_k, *, scale: float,
                      causal: bool, block_q: int = DEFAULT_BLOCK_Q,
                      block_k: int = DEFAULT_BLOCK_K):
@@ -518,13 +612,10 @@ def packed_bwd_plain(q, k, v, out, lse, dout, cu_q, cu_k, *, scale: float,
     ``lse`` ``[h, >= tq]`` from either forward (its pad rows are not
     read for any real row)."""
     tq, tk = q.shape[0], k.shape[0]
-    qt, kt, vt, bm = _packed_prepare(q, k, v, cu_q, cu_k, causal, block_q,
-                                     block_k)
-    tqp = qt.shape[1]
-    dot_ = _pad_rows(dout.transpose(0, 1), tqp)
-    lse = _pad_rows(lse[:, :tq], tqp, _NEG)
-    dq, dk, dv = _packed_bwd_plain(qt, kt, vt, dot_, lse,
-                                   packed_delta(out, dout, tqp), bm, scale,
+    qt, kt, vt, dot_, lse, delta, bm = _bwd_prepare(
+        q, k, v, dout, lse, packed_delta(out, dout, tq), cu_q, cu_k, causal,
+        block_q, block_k)
+    dq, dk, dv = _packed_bwd_plain(qt, kt, vt, dot_, lse, delta, bm, scale,
                                    causal, block_q, block_k)
     return (dq[:, :tq].transpose(0, 1).to(q.dtype),
             dk[:, :tk].transpose(0, 1).to(k.dtype),
@@ -582,17 +673,34 @@ def padded_fwd(fwd, built, what: str, q, k, v, *rest):
     return out[..., :d], lse
 
 
-def padded_bwd(bwd, built, what: str, q, k, v, out, lse, dout, *rest):
-    """``bwd(q, k, v, out, lse, dout, *rest) -> (dq, dk, dv)`` at the
-    built head width as ``padded_fwd``: q, k, v, out and dout
-    zero-padded, dq, dk and dv sliced back (their padded columns are
-    0)."""
+def padded_grads(kernel, built, what: str, q, k, v, dout, *rest):
+    """``kernel(q, k, v, dout, *rest)`` (a backward kernel: dq, or dk and
+    dv) at the built head width as ``padded_fwd``: q, k, v and dout
+    zero-padded, the gradients sliced back (their padded columns are
+    0). ``out``-derived inputs in ``rest`` (lse, delta) need no padding:
+    zero columns add nothing to them."""
     d = q.shape[-1]
     w = kernel_head_dim(d, built, what)
     if w == d:
-        return bwd(q, k, v, out, lse, dout, *rest)
-    q, k, v, out, dout = (pad_head(t, w) for t in (q, k, v, out, dout))
-    return tuple(t[..., :d] for t in bwd(q, k, v, out, lse, dout, *rest))
+        return kernel(q, k, v, dout, *rest)
+    got = kernel(*(pad_head(t, w) for t in (q, k, v, dout)), *rest)
+    return got[..., :d] if isinstance(got, torch.Tensor) \
+        else tuple(t[..., :d] for t in got)
+
+
+def grad_like(t, built, what: str):
+    """An empty gradient of ``t`` as a backward op returns it: on a CUDA
+    tensor whose head width has no kernel, a slice of one at the built
+    width (what ``padded_grads`` gives back), else contiguous."""
+    d = t.shape[-1]
+    if t.device.type == "cuda":
+        w = kernel_head_dim(d, built, what)
+        if w != d:
+            stride = [1]
+            for n in reversed((*t.shape[1:-1], w)):
+                stride.insert(0, stride[0] * n)
+            return t.new_empty_strided(t.shape, stride)
+    return t.new_empty(t.shape)
 
 
 def _card_pad(n: int) -> int:
@@ -699,9 +807,9 @@ class CardMap:
 
 class CardMaps:
     """The card maps of one packing, each built at its first use at a tile
-    and kept. A forward and its backward share one (``PackedFlashFunction``
-    keeps it), so where the three kernels walk one tile (bf16 up to
-    head_dim 128, f32) a training call builds its block map once."""
+    and kept. A forward and its backward share one (the forward op hands
+    it to the backward's), so where the three kernels walk one tile (bf16
+    up to head_dim 128, f32) a training call builds its block map once."""
 
     def __init__(self, cu_q, cu_k, tq: int, tk: int, causal: bool):
         self._args = (cu_q, cu_k, tq, tk)
@@ -860,40 +968,113 @@ def packed_bwd(q, k, v, out, lse, dout, cu_q, cu_k, *, scale: float,
                causal: bool, block_q: int = DEFAULT_BLOCK_Q,
                block_k: int = DEFAULT_BLOCK_K, backend: str = "auto",
                maps=None):
-    """``(dq, dk, dv)``: ``delta`` by a PyTorch reduction, then B12 and
-    B13 on a CUDA tensor (zero-padded as the forward; over the maps of
-    ``maps`` when given); the plain version on a CPU tensor."""
-    if _route("flash_varlen_packed", backend, q) == "kernel":
-        return padded_bwd(_varlen_bwd_cuda, VARLEN_HEAD_DIMS,
-                          "flash_varlen_packed", q, k, v, out, lse, dout,
-                          cu_q, cu_k, causal, scale, maps)
-    return packed_bwd_plain(q, k, v, out, lse, dout, cu_q, cu_k, scale=scale,
-                            causal=causal, block_q=block_q, block_k=block_k)
+    """``(dq, dk, dv)``: ``delta`` by a PyTorch reduction, then the ops of
+    B12 and B13 (``ptt::flash_varlen_bwd_dq``, ``ptt::flash_varlen_bwd_dkv``):
+    the kernels on a CUDA tensor (zero-padded as the forward; over the
+    maps of ``maps`` when given, else one built here for both), the
+    plain walks on a CPU tensor."""
+    _route("flash_varlen_packed", backend, q)
+    dout = dout.to(q.dtype).contiguous()
+    # a view of its own carries the maps to both ops (``_maps_of``)
+    lse = lse.contiguous().view_as(lse)
+    delta = packed_delta(out, dout, lse.shape[1])
+    if _on_card(q):
+        lse.card_maps = _card_maps(maps, cu_q, cu_k, q, k, causal)
+    args = (q, k, v, dout, lse, delta, cu_q, cu_k, causal, scale, block_q,
+            block_k)
+    return (_kernels.call(_dq_op, *args), *_kernels.call(_dkv_op, *args))
 
 
-class PackedFlashFunction(torch.autograd.Function):
-    """The JAX ``_packed_core`` custom VJP: the forward keeps ``out``, the
-    f32 ``lse`` and, on the card, its block map (``CardMaps``); the
-    backward runs dq and dk/dv over that map."""
+# the ops of B11-B13: on a CUDA tensor the kernels at a built head width
+# over the forward's ``CardMaps`` (which the forward hangs on its ``lse``
+# as ``card_maps``, ``_maps_of``), on a CPU tensor the plain walks at
+# ``block_q`` x ``block_k``; outputs contiguous, as the fakes give them,
+# but for the gradients of a padded head width on the card (``grad_like``)
 
-    @staticmethod
-    def forward(ctx, q, k, v, cu_q, cu_k, causal: bool, scale: float,
-                block_q: int, block_k: int, backend: str):
-        maps = CardMaps(cu_q, cu_k, q.shape[0], k.shape[0], causal)
-        out, lse = packed_fwd(q, k, v, cu_q, cu_k, scale=scale,
-                              causal=causal, block_q=block_q,
-                              block_k=block_k, backend=backend, maps=maps)
-        ctx.save_for_backward(q, k, v, cu_q, cu_k, out, lse)
-        ctx.args = dict(scale=scale, causal=causal, block_q=block_q,
-                        block_k=block_k, backend=backend, maps=maps)
-        return out
+def _maps_of(lse, cu_q, cu_k, q, k, causal):
+    return _card_maps(getattr(lse, "card_maps", None), cu_q, cu_k, q, k,
+                      causal)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, cu_q, cu_k, out, lse = ctx.saved_tensors
-        dq, dk, dv = packed_bwd(q, k, v, out, lse, dout, cu_q, cu_k,
-                                **ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None, None
+
+def _fwd_impl(q, k, v, cu_q, cu_k, causal, scale, block_q, block_k):
+    maps = CardMaps(cu_q, cu_k, q.shape[0], k.shape[0], causal)
+    out, lse = packed_fwd(q, k, v, cu_q, cu_k, scale=scale, causal=causal,
+                          block_q=block_q, block_k=block_k, maps=maps)
+    out, lse = out.contiguous(), lse.contiguous()
+    if _on_card(q):
+        lse.card_maps = maps
+    return out, lse
+
+
+def _fwd_fake(q, k, v, cu_q, cu_k, causal, scale, block_q, block_k):
+    tq, h, _ = q.shape
+    pad = _CARD_PAD if q.device.type == "cuda" else block_q
+    return q.new_empty(q.shape), q.new_empty((h, _cdiv(tq, pad) * pad),
+                                             dtype=torch.float32)
+
+
+def _dq_impl(q, k, v, dout, lse, delta, cu_q, cu_k, causal, scale, block_q,
+             block_k):
+    if _on_card(q):
+        maps = _maps_of(lse, cu_q, cu_k, q, k, causal)
+        return padded_grads(_varlen_bwd_dq_cuda, VARLEN_HEAD_DIMS,
+                            "flash_varlen_packed", q, k, v, dout, lse, delta,
+                            cu_q, cu_k, causal, scale, maps)
+    return packed_dq_plain(q, k, v, dout, lse, delta, cu_q, cu_k,
+                           scale=scale, causal=causal, block_q=block_q,
+                           block_k=block_k).contiguous()
+
+
+def _dkv_impl(q, k, v, dout, lse, delta, cu_q, cu_k, causal, scale,
+              block_q, block_k):
+    if _on_card(q):
+        maps = _maps_of(lse, cu_q, cu_k, q, k, causal)
+        return padded_grads(_varlen_bwd_dkv_cuda, VARLEN_HEAD_DIMS,
+                            "flash_varlen_packed", q, k, v, dout, lse, delta,
+                            cu_q, cu_k, causal, scale, maps)
+    dk, dv = packed_dkv_plain(q, k, v, dout, lse, delta, cu_q, cu_k,
+                              scale=scale, causal=causal, block_q=block_q,
+                              block_k=block_k)
+    return dk.contiguous(), dv.contiguous()
+
+
+_OPERANDS = "Tensor q, Tensor k, Tensor v"
+_PACKING = ("Tensor cu_q, Tensor cu_k, bool causal, float scale, "
+            "int block_q, int block_k")
+_fwd_op = _kernels.define_op(
+    "flash_varlen_fwd", f"({_OPERANDS}, {_PACKING}) -> (Tensor, Tensor)",
+    _fwd_impl, _fwd_fake)
+_dq_op = _kernels.define_op(
+    "flash_varlen_bwd_dq",
+    f"({_OPERANDS}, Tensor dout, Tensor lse, Tensor delta, {_PACKING}) -> "
+    "Tensor", _dq_impl,
+    lambda q, *rest: grad_like(q, VARLEN_HEAD_DIMS, "flash_varlen_packed"))
+_dkv_op = _kernels.define_op(
+    "flash_varlen_bwd_dkv",
+    f"({_OPERANDS}, Tensor dout, Tensor lse, Tensor delta, {_PACKING}) -> "
+    "(Tensor, Tensor)", _dkv_impl,
+    lambda q, k, v, *rest: tuple(grad_like(t, VARLEN_HEAD_DIMS,
+                                           "flash_varlen_packed")
+                                 for t in (k, v)))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, cu_q, cu_k, causal, scale, block_q, block_k = inputs
+    ctx.save_for_backward(q, k, v, cu_q, cu_k, *output)
+    ctx.args = dict(scale=scale, causal=causal, block_q=block_q,
+                    block_k=block_k,
+                    maps=getattr(output[1], "card_maps", None))
+
+
+def _fwd_backward(ctx, dout, _dlse):
+    """The JAX ``_packed_core`` VJP: dq, dk and dv over the forward's
+    block map (``lse`` takes no gradient)."""
+    q, k, v, cu_q, cu_k, out, lse = ctx.saved_tensors
+    return (*packed_bwd(q, k, v, out, lse, dout, cu_q, cu_k, **ctx.args),
+            *(None,) * 6)
+
+
+_kernels.register_autograd(_fwd_op, _fwd_backward, _fwd_setup)
 
 
 def flash_varlen_packed(q, k, v, cu_seqlens_q, cu_seqlens_k, *, scale=None,
@@ -903,17 +1084,19 @@ def flash_varlen_packed(q, k, v, cu_seqlens_q, cu_seqlens_k, *, scale=None,
 
     q/k/v: ``[total, heads, head_dim]``; ``cu_seqlens_*``: int ``[nseg+1]``
     offsets (moved to q's device; never read on the host). Returns
-    ``[total_q, heads, head_dim]`` in q's dtype, differentiable through
-    ``PackedFlashFunction`` (gradients in the inputs' dtypes).
+    ``[total_q, heads, head_dim]`` in q's dtype: ``out`` of the op
+    ``ptt::flash_varlen_fwd``, differentiable through its registered
+    gradient (gradients in the inputs' dtypes).
     """
     bq = int(block_q or DEFAULT_BLOCK_Q)
     bk = int(block_k or DEFAULT_BLOCK_K)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    _route("flash_varlen_packed", backend, q)
     cu = []
     for c in (cu_seqlens_q, cu_seqlens_k):
         c = torch.as_tensor(c)
         if c.device != q.device:
             c = c.to(q.device)
         cu.append(c if c.dtype == torch.int32 else c.to(torch.int32))
-    return PackedFlashFunction.apply(q, k, v, cu[0], cu[1], bool(causal),
-                                     scale, bq, bk, backend)
+    return _kernels.call(_fwd_op, q, k, v, cu[0], cu[1], bool(causal), scale,
+                         bq, bk)[0]

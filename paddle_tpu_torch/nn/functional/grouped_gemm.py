@@ -18,19 +18,21 @@ token matrix sorted by expert id: expert ``e`` owns rows
   On a CUDA tensor it launches kernel B14 of ``csrc/grouped_gemm.cu``
   at the card's row tile ``DEFAULT_BLOCK_ROWS``; on a CPU tensor it
   runs the plain version ``grouped_gemm_plain`` (a per-expert loop of
-  segment products in fp32). It is differentiable in x, w and bias
-  (``GroupedGemmFunction``, the JAX package's custom VJP step by step):
-  with an activation, one more B14 call recomputes ``z = x @ w[e] + b``
-  in f32 and ``dz = act'(z) * g`` in f32 (tanh-GELU or ReLU); ``dx`` is
-  B14 in its backward mode, which reads the bank ``[E, K, N]`` as
-  ``w[e]^T`` in place (no transposed copy); ``dw`` is kernel B15;
-  ``db`` is the segment sum of ``dz`` over the live
-  rows, torch ops on the device with nothing read back.
-- the weight gradient ``dw[e] = x[seg_e]^T @ dz[seg_e]`` ``[E, K, N]``:
-  kernel B15 on a CUDA tensor (in bf16 a persistent walk of 128 x 256
-  tiles of ``[K, N]``, heaviest expert first, which the kernel works out
-  from ``offsets`` itself; ``dw_tile_order`` renders it in PyTorch and
-  ``kernel_dw_tile_order`` reads it back), ``grouped_dw_plain`` (a per-expert loop in f32; rows past
+  segment products in fp32): the op ``ptt::grouped_gemm``. It is
+  differentiable in x, w and bias (a gradient registered on the op, the
+  JAX package's custom VJP step by step): with an activation, one more
+  B14 call recomputes ``z = x @ w[e] + b`` in f32 and ``dz = act'(z) *
+  g`` in f32 (tanh-GELU or ReLU); ``dx`` is B14 in its backward mode
+  (``ptt::grouped_gemm_dx``), which reads the bank ``[E, K, N]`` as
+  ``w[e]^T`` in place (no transposed copy); ``dw`` is kernel B15; ``db``
+  is the segment sum of ``dz`` over the live rows, torch ops on the
+  device with nothing read back.
+- the weight gradient ``dw[e] = x[seg_e]^T @ dz[seg_e]`` ``[E, K, N]``
+  (``ptt::grouped_dw``): kernel B15 on a CUDA tensor (in bf16 a
+  persistent walk of 128 x 256 tiles of ``[K, N]``, heaviest expert
+  first, which the kernel works out from ``offsets`` itself;
+  ``dw_tile_order`` renders it in PyTorch and ``kernel_dw_tile_order``
+  reads it back), ``grouped_dw_plain`` (a per-expert loop in f32; rows past
   ``offsets[E]`` add nothing, an expert with no rows gets exact zeros)
   on a CPU tensor.
 - ``moe_route`` (fp32 softmax router, top-k with the lower index first
@@ -67,7 +69,7 @@ from ... import _kernels
 
 __all__ = ["grouped_work_map", "grouped_gemm", "grouped_gemm_plain",
            "card_shape_error",
-           "GroupedGemmFunction", "grouped_dw_plain", "dw_tile_order",
+           "grouped_dw_plain", "dw_tile_order",
            "moe_route", "moe_ffn_nodrop", "moe_ffn_ep",
            "DEFAULT_BLOCK_ROWS"]
 
@@ -411,39 +413,79 @@ def _segment_sum(dz, offsets, E: int):
         .index_add_(0, row_e, torch.where(live, dz, 0.0))
 
 
-class GroupedGemmFunction(torch.autograd.Function):
-    """``grouped_gemm``'s autograd function (the JAX package's
-    ``_grouped_core`` custom VJP). Saves x, w and bias; the backward
-    recomputes the pre-activation, then dx (B14, backward mode), dw
-    (B15) and db (segment sum), each only where an input needs it."""
+# the ops of B14 (forward and backward mode) and B15: each takes its
+# route (``resolve_backend``: the kernel on a CUDA tensor, the plain
+# version on a CPU tensor) and the route function (``_gemm``, ``_dx``,
+# ``_dw``) by name at the call
 
-    @staticmethod
-    def forward(ctx, x, w, bias, offsets, activation, out_dtype, route):
-        ctx.save_for_backward(x, w, bias, offsets)
-        ctx.activation, ctx.route = activation, route
-        return _gemm(x, w, offsets, bias, activation, out_dtype, route)
+def _gemm_impl(x, w, offsets, bias, activation, out_dtype):
+    return _gemm(x, w, offsets, bias, activation, out_dtype,
+                 resolve_backend("grouped_gemm", "auto", x.device))
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w, bias, offsets = ctx.saved_tensors
-        route = ctx.route
-        E = w.shape[0]
-        dz = g.float()
-        if ctx.activation:
-            z = _gemm(x, w, offsets, bias, None, torch.float32, route)
-            dz = _act_grad(z, dz, ctx.activation)
-            del z
-        # the kernels take the f32 dz rounded to x's dtype (the TPU's
-        # DEFAULT precision); the plain versions the f32 dz itself
-        dz_op = dz.to(x.dtype).contiguous() if route == "kernel" else dz
-        need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx = _dx(dz_op, w, offsets, x.dtype, route) if need_x else None
-        dw = _dw(x, dz_op, offsets, E, w.dtype, route) if need_w else None
-        db = None
-        if need_b:
-            db = _segment_sum(dz, offsets, E).to(bias.dtype) \
-                .reshape(bias.shape)
-        return dx, dw, db, None, None, None, None
+
+def _dx_impl(dz, w, offsets, out_dtype):
+    return _dx(dz, w, offsets, out_dtype,
+               resolve_backend("grouped_gemm", "auto", w.device))
+
+
+def _dw_impl(x, dz, offsets, E, out_dtype):
+    return _dw(x, dz, offsets, E, out_dtype,
+               resolve_backend("grouped_dw", "auto", x.device))
+
+
+_gemm_op = _kernels.define_op(
+    "grouped_gemm",
+    "(Tensor x, Tensor w, Tensor offsets, Tensor? bias, str? activation, "
+    "ScalarType out_dtype) -> Tensor", _gemm_impl,
+    lambda x, w, offsets, bias, activation, out_dtype:
+    x.new_empty((x.shape[0], w.shape[2]), dtype=out_dtype))
+_dx_op = _kernels.define_op(
+    "grouped_gemm_dx",
+    "(Tensor dz, Tensor w, Tensor offsets, ScalarType out_dtype) -> Tensor",
+    _dx_impl, lambda dz, w, offsets, out_dtype:
+    dz.new_empty((dz.shape[0], w.shape[1]), dtype=out_dtype))
+_dw_op = _kernels.define_op(
+    "grouped_dw",
+    "(Tensor x, Tensor dz, Tensor offsets, int E, ScalarType out_dtype) -> "
+    "Tensor", _dw_impl, lambda x, dz, offsets, E, out_dtype:
+    x.new_empty((E, x.shape[1], dz.shape[1]), dtype=out_dtype))
+
+
+def _gemm_setup(ctx, inputs, output):
+    x, w, offsets, bias, activation, _ = inputs
+    ctx.save_for_backward(x, w, bias, offsets)
+    ctx.activation = activation
+
+
+def _gemm_backward(ctx, g):
+    """The JAX package's ``_grouped_core`` VJP step by step: the
+    pre-activation recomputed (B14), ``dz = act'(z) * g`` in f32, then dx
+    (B14's backward mode), dw (B15) and db (segment sum), each only where
+    an input needs it. The kernels take the f32 dz rounded to x's dtype
+    (the TPU's DEFAULT precision); the plain versions the f32 dz
+    itself."""
+    x, w, bias, offsets = ctx.saved_tensors
+    E = w.shape[0]
+    dz = g.float()
+    if ctx.activation:
+        z = _kernels.call(_gemm_op, x, w, offsets, bias, None,
+                          torch.float32)
+        dz = _act_grad(z, dz, ctx.activation)
+        del z
+    route = resolve_backend("grouped_gemm", "auto", x.device)
+    dz_op = dz.to(x.dtype).contiguous() if route == "kernel" else dz
+    need_x, need_w, _, need_b = ctx.needs_input_grad[:4]
+    dx = _kernels.call(_dx_op, dz_op, w, offsets, x.dtype) if need_x \
+        else None
+    dw = _kernels.call(_dw_op, x, dz_op, offsets, E, w.dtype) if need_w \
+        else None
+    db = None
+    if need_b:
+        db = _segment_sum(dz, offsets, E).to(bias.dtype).reshape(bias.shape)
+    return dx, dw, None, db, None, None
+
+
+_kernels.register_autograd(_gemm_op, _gemm_backward, _gemm_setup)
 
 
 def grouped_gemm(x, w, offsets, *, bias=None, activation=None,
@@ -455,16 +497,17 @@ def grouped_gemm(x, w, offsets, *, bias=None, activation=None,
     (``offsets[E] <= T``; rows past it come out 0); ``bias`` ``[E, N]``
     (or ``[E, 1, N]``). The product accumulates in fp32; bias and the
     activation apply to the fp32 sum; the result is cast to
-    ``out_dtype`` (default x's dtype). Differentiable in x, w and bias
-    (``GroupedGemmFunction``). ``backend``: see the module docstring."""
+    ``out_dtype`` (default x's dtype). The op ``ptt::grouped_gemm``,
+    differentiable in x, w and bias through its registered gradient.
+    ``backend``: see the module docstring."""
     E, _, N = w.shape
     if offsets.shape[0] != E + 1:
         raise ValueError(
             f"grouped_gemm: offsets has {offsets.shape[0]} entries for "
             f"{E} experts (need E+1)")
-    route = resolve_backend("grouped_gemm", backend, x.device)
-    return GroupedGemmFunction.apply(x, w, bias, offsets, activation,
-                                     out_dtype or x.dtype, route)
+    resolve_backend("grouped_gemm", backend, x.device)
+    return _kernels.call(_gemm_op, x, w, offsets, bias, activation,
+                         out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------

@@ -155,8 +155,23 @@ def lora_delta(x, a, b, offsets, *, out_dtype=None, backend="auto"):
     load); ``offsets`` int32 ``[S+1]`` on x's device. Rows past
     ``offsets[S]`` (base-model tokens, padding) get an exact 0 delta.
     Returns ``[T, N]`` in ``out_dtype`` (default fp32, for adding onto a
-    base projection's fp32 result)."""
+    base projection's fp32 result): the op ``ptt::lora_delta``."""
     _check_bank("lora_delta", x, a, b, offsets)
-    if resolve_backend("lora_delta", backend, x.device) == "plain":
+    resolve_backend("lora_delta", backend, x.device)
+    return _kernels.call(_lora_op, x, a, b, offsets, out_dtype)
+
+
+def _lora_impl(x, a, b, offsets, out_dtype):
+    """``ptt::lora_delta``: the launch on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    if resolve_backend("lora_delta", "auto", x.device) == "plain":
         return lora_delta_plain(x, a, b, offsets, out_dtype=out_dtype)
     return _lora_delta_cuda(x, a, b, offsets, out_dtype)
+
+
+_lora_op = _kernels.define_op(
+    "lora_delta",
+    "(Tensor x, Tensor a, Tensor b, Tensor offsets, ScalarType? out_dtype) "
+    "-> Tensor", _lora_impl, lambda x, a, b, offsets, out_dtype:
+    x.new_empty((x.shape[0], b.shape[-1]),
+                dtype=out_dtype or torch.float32))

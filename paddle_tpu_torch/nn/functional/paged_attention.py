@@ -356,15 +356,25 @@ def paged_decode_attention_inplace(q, new_k, new_v, key_cache,
     On the card bf16 at a head_dim that is a multiple of 32 runs the
     tensor-core kernel with ``decode_q_plan``'s split (one launch, a
     workspace when it splits); f32 and other head dims the CUDA-core
-    kernel.
+    kernel. The attention is the op ``ptt::paged_decode``, which declares
+    both pools written in place.
     """
+    out = _kernels.call(_decode_op, q, new_k, new_v, key_cache, value_cache,
+                        seq_lens, block_tables, pool_base, pool_pages)
+    return out, key_cache, value_cache
+
+
+def _decode_impl(q, new_k, new_v, key_cache, value_cache, seq_lens,
+                 block_tables, pool_base, pool_pages):
+    """``ptt::paged_decode``: the launch on a CUDA tensor, the plain
+    version on a CPU tensor; both write the pools in place."""
     what = "paged_decode_attention_inplace"
     P = key_cache.shape[0]
     base, region = _layer_region(what, P, pool_base, pool_pages)
     if not _on_card(q):
-        out = _paged_decode_plain(q, new_k, new_v, key_cache, value_cache,
-                                  seq_lens, block_tables, base, region)
-        return out, key_cache, value_cache
+        return _paged_decode_plain(q, new_k, new_v, key_cache, value_cache,
+                                   seq_lens, block_tables, base,
+                                   region).contiguous()
     b, n_q, d = q.shape
     _, n_kv, ps, d_pool = key_cache.shape
     pp = block_tables.shape[1]
@@ -411,7 +421,15 @@ def paged_decode_attention_inplace(q, new_k, new_v, key_cache,
         _kernels.stream_ptr(q.device)), what)
     global launches
     launches += 1
-    return out, key_cache, value_cache
+    return out
+
+
+_decode_op = _kernels.define_op(
+    "paged_decode",
+    "(Tensor q, Tensor new_k, Tensor new_v, Tensor(a!) key_cache, "
+    "Tensor(b!) value_cache, Tensor seq_lens, Tensor block_tables, "
+    "int? pool_base, int? pool_pages) -> Tensor", _decode_impl,
+    lambda q, *rest: q.new_empty(q.shape))
 
 
 def _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane, vq_pool,
@@ -507,16 +525,26 @@ def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
     block table, so a page shared by two rows is read by both. On the
     card a bf16 q runs the tensor-core kernel with ``decode_q_plan``'s
     split (one launch, a workspace when it splits), f32 the CUDA-core
-    kernel.
+    kernel. The attention is the op ``ptt::paged_decode_q``, which
+    declares the pools and planes written in place.
     """
+    out = _kernels.call(_decode_q_op, q, new_k, new_v, kq_pool, ks_plane,
+                        vq_pool, vs_plane, seq_lens, block_tables, pool_base,
+                        pool_pages)
+    return out, kq_pool, ks_plane, vq_pool, vs_plane
+
+
+def _decode_q_impl(q, new_k, new_v, kq_pool, ks_plane, vq_pool, vs_plane,
+                   seq_lens, block_tables, pool_base, pool_pages):
+    """``ptt::paged_decode_q``: the launch on a CUDA tensor, the plain
+    version on a CPU tensor; both write the pools and planes in place."""
     what = "paged_decode_attention_inplace_q"
     P = kq_pool.shape[0]
     base, region = _layer_region(what, P, pool_base, pool_pages)
     if not _on_card(q):
-        out = _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane,
-                                    vq_pool, vs_plane, seq_lens,
-                                    block_tables, base, region)
-        return out, kq_pool, ks_plane, vq_pool, vs_plane
+        return _paged_decode_q_plain(q, new_k, new_v, kq_pool, ks_plane,
+                                     vq_pool, vs_plane, seq_lens,
+                                     block_tables, base, region).contiguous()
     b, n_q, d = q.shape
     _, n_kv, ps, d_pool = kq_pool.shape
     pp = block_tables.shape[1]
@@ -568,7 +596,16 @@ def paged_decode_attention_inplace_q(q, new_k, new_v, kq_pool, ks_plane,
         _kernels.stream_ptr(q.device)), what)
     global q_launches
     q_launches += 1
-    return out, kq_pool, ks_plane, vq_pool, vs_plane
+    return out
+
+
+_decode_q_op = _kernels.define_op(
+    "paged_decode_q",
+    "(Tensor q, Tensor new_k, Tensor new_v, Tensor(a!) kq_pool, "
+    "Tensor(b!) ks_plane, Tensor(c!) vq_pool, Tensor(d!) vs_plane, "
+    "Tensor seq_lens, Tensor block_tables, int? pool_base, "
+    "int? pool_pages) -> Tensor", _decode_q_impl,
+    lambda q, *rest: q.new_empty(q.shape))
 
 
 # ---------------------------------------------------------------------
@@ -951,7 +988,16 @@ def stream_paged(q, key_cache, value_cache, seq_lens, block_tables,
     tensor, head_dim 128 or 256, two launches: the partials (bf16:
     ``stream_walk``'s runs of chunks, a state per block and row; f32: one
     per 64-token chunk and kv head), then their merge; on a CPU tensor
-    the plain version ``_stream_paged_plain``."""
+    the plain version ``_stream_paged_plain``: the op
+    ``ptt::paged_stream``."""
+    return _kernels.call(_stream_op, q, key_cache, value_cache, seq_lens,
+                         block_tables, pool_base, pool_pages, membership)
+
+
+def _stream_impl(q, key_cache, value_cache, seq_lens, block_tables,
+                 pool_base, pool_pages, membership):
+    """``ptt::paged_stream``: two launches on a CUDA tensor, the plain
+    version on a CPU tensor."""
     what = "stream_paged"
     ps = key_cache.shape[2]
     base, region = _layer_region(what, key_cache.shape[0], pool_base,
@@ -960,7 +1006,8 @@ def stream_paged(q, key_cache, value_cache, seq_lens, block_tables,
         membership = pool_membership(block_tables, seq_lens, region, ps)
     if not _on_card(q):
         return _stream_paged_plain(q, key_cache, value_cache, seq_lens,
-                                   block_tables, base, region, membership)
+                                   block_tables, base, region,
+                                   membership).contiguous()
     dt = _check_backend_operands(what, q, key_cache, value_cache, seq_lens,
                                  membership, (128, 256), region)
     b, n_q, d = q.shape
@@ -986,6 +1033,14 @@ def stream_paged(q, key_cache, value_cache, seq_lens, block_tables,
     global stream_launches
     stream_launches += 2
     return out
+
+
+_TABLES = "Tensor q, Tensor key_cache, Tensor value_cache, Tensor seq_lens, "
+_stream_op = _kernels.define_op(
+    "paged_stream",
+    f"({_TABLES}Tensor block_tables, int? pool_base, int? pool_pages, "
+    "Tensor? membership) -> Tensor", _stream_impl,
+    lambda q, *rest: q.new_empty(q.shape))
 
 
 def _paged_kernel(what, fn_name, q, key_cache, value_cache, seq_lens,
@@ -1015,13 +1070,19 @@ def _paged_kernel(what, fn_name, q, key_cache, value_cache, seq_lens,
 
 def fused_paged(q, key_cache, value_cache, seq_lens, block_tables):
     """Kernel B8, decode attention over ABSOLUTE ``block_tables`` with no
-    current token; on a CPU tensor the plain version ``_fused_paged_plain``.
-    On the card bf16 runs B1's tile walk (a block of 4 warps a (row, kv
-    head), or a split of its tiles by ``decode_q_plan``, one launch with
-    a workspace when it splits); f32 one block a row."""
+    current token (the op ``ptt::paged_fused``); on a CPU tensor the plain
+    version ``_fused_paged_plain``. On the card bf16 runs B1's tile walk
+    (a block of 4 warps a (row, kv head), or a split of its tiles by
+    ``decode_q_plan``, one launch with a workspace when it splits); f32
+    one block a row."""
+    return _kernels.call(_fused_op, q, key_cache, value_cache, seq_lens,
+                         block_tables)
+
+
+def _fused_impl(q, key_cache, value_cache, seq_lens, block_tables):
     if not _on_card(q):
         return _fused_paged_plain(q, key_cache, value_cache, seq_lens,
-                                  block_tables)
+                                  block_tables).contiguous()
     out = _paged_kernel("fused_paged", "ptt_paged_fused", q, key_cache,
                         value_cache, seq_lens, block_tables)
     global fused_launches
@@ -1031,22 +1092,35 @@ def fused_paged(q, key_cache, value_cache, seq_lens, block_tables):
 
 def pallas_paged(q, key_cache, value_cache, seq_lens, block_tables):
     """Kernel B9, the stock paged attention kernel's function over
-    ABSOLUTE ``block_tables``, reading the page-major pool in place; on a
-    CPU tensor the plain version ``_pallas_paged_plain`` (the stock
-    schedule: compute blocks of ``_pallas_ppcb`` pages, the renormalising
-    update). On the card bf16 runs B8's tile walk under its own name
-    (``pallas_paged_mma``: a block of 4 warps a (row, kv head), or a split
-    of its tiles by ``decode_q_plan``, one launch with a workspace when it
-    splits); f32 keeps the compute blocks, one block a (row, kv head)."""
+    ABSOLUTE ``block_tables``, reading the page-major pool in place (the
+    op ``ptt::paged_pallas``); on a CPU tensor the plain version
+    ``_pallas_paged_plain`` (the stock schedule: compute blocks of
+    ``_pallas_ppcb`` pages, the renormalising update). On the card bf16
+    runs B8's tile walk under its own name (``pallas_paged_mma``: a block
+    of 4 warps a (row, kv head), or a split of its tiles by
+    ``decode_q_plan``, one launch with a workspace when it splits); f32
+    keeps the compute blocks, one block a (row, kv head)."""
+    return _kernels.call(_pallas_op, q, key_cache, value_cache, seq_lens,
+                         block_tables)
+
+
+def _pallas_impl(q, key_cache, value_cache, seq_lens, block_tables):
     if not _on_card(q):
         return _pallas_paged_plain(q, key_cache, value_cache, seq_lens,
-                                   block_tables)
+                                   block_tables).contiguous()
     ppcb = _pallas_ppcb(block_tables.shape[1], key_cache.shape[2])
     out = _paged_kernel("pallas_paged", "ptt_paged_pallas", q, key_cache,
                         value_cache, seq_lens, block_tables, (ppcb,))
     global pallas_launches
     pallas_launches += 1
     return out
+
+
+_fused_op, _pallas_op = (_kernels.define_op(
+    name, f"({_TABLES}Tensor block_tables) -> Tensor", impl,
+    lambda q, *rest: q.new_empty(q.shape))
+    for name, impl in (("paged_fused", _fused_impl),
+                       ("paged_pallas", _pallas_impl)))
 
 
 def paged_attention(q, key_cache, value_cache, seq_lens, block_tables,

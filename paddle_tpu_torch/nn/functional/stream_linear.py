@@ -21,19 +21,19 @@ from device memory: the weight stream is the bound.
   loop); int8 stacks with ``so/s1/s2`` (and ``next_qkv["s"]``) run the
   int8-weight GEMM.
 
-On a CUDA tensor each wrapper launches the kernels of
-``csrc/stream_linear.cu`` (and ``csrc/stream_linear_a8w8.cu``); on a
-CPU tensor it runs the plain version beside it
-(``_stream_linear_plain``, ``_stream_linear_a8w8_plain``,
-``_tail_fallback``). With bf16 x the GEMM runs on the tensor cores and
-splits K over blocks by ``stream_plan`` (a function of the shapes and
-the SM count): the fp32 partials go to a workspace, and the last block
-of each column tile merges them in split order, taking its ticket from
-a counter buffer; both are kept per device and stream
-(``_split_buffers``: the counters are zeroed once, and each merge sets
-its counter back to 0). The A8W8 GEMM splits alike by ``a8w8_plan``,
-its int32 partials in the same workspace. ``_split_k_plain`` and
-``_a8w8_split_plain`` render the two splits in PyTorch.
+Each wrapper calls its op, ``ptt::stream_gemm``, ``ptt::stream_layer_tail``
+(the tail's six launches, one op) or ``ptt::stream_linear_a8w8``: on a CUDA
+tensor the op launches the kernels of ``csrc/stream_linear.cu`` (and
+``csrc/stream_linear_a8w8.cu``), on a CPU tensor it runs the plain version
+(``_stream_linear_plain``, ``_tail_fallback``, ``_stream_linear_a8w8_plain``).
+With bf16 x the GEMM runs on the tensor cores and splits K over blocks by
+``stream_plan`` (a function of the shapes and the SM count): the fp32 partials
+go to a workspace, and the last block of each column tile merges them in split
+order, taking its ticket from a counter buffer; both are kept per device and
+stream (``_split_buffers``: the counters are zeroed once, and each merge sets
+its counter back to 0). The A8W8 GEMM splits alike by ``a8w8_plan``, its int32
+partials in the same workspace. ``_split_k_plain`` and ``_a8w8_split_plain``
+render the two splits in PyTorch.
 
 Precision of the tail: the kernel path keeps ``h2`` (the hidden state
 after the O-projection residual) in fp32 through LN2, and applies int8
@@ -383,52 +383,6 @@ def _stream_linear_a8w8(x_q, x_scale, w, scale, bias=None, activation=None,
     return out
 
 
-def stream_linear(x, w, layer=None, bias=None, scale=None,
-                  activation=None, out_dtype=None, act_quant=False,
-                  reduce_axis=None):
-    """x [M, K] @ w[(L,) K, N] (+ bias) with streamed weights.
-
-    layer: index when w/bias/scale are layer-stacked. scale: int8
-    weight-only per-output-channel dequant scales [(L,) N]. activation:
-    None | 'gelu' | 'relu', fused on the fp32 accumulator. act_quant:
-    A8W8 — quantize x per token (absmax int8 + f32 scale) and run the
-    GEMM int8 x int8 with int32 accumulation; needs int8 ``w`` with its
-    ``scale``. Returns [M, N] in out_dtype (default: x.dtype).
-    ``reduce_axis`` (tensor parallelism) belongs to a later slice of
-    the port and raises.
-    """
-    if reduce_axis is not None:
-        raise NotImplementedError(
-            "stream_linear: reduce_axis= comes with the tensor-parallel "
-            "serving slice of the port")
-    out_dtype = out_dtype or x.dtype
-    stacked = w.dim() == 3
-    if stacked and x.device.type == "cuda" and layer is None:
-        raise ValueError("stream_linear: a stacked w needs layer=")
-    l = (0 if layer is None else int(layer)) if stacked else None
-
-    def at(a):
-        return a[l] if (stacked and a is not None) else a
-    if act_quant:
-        if w.dtype != torch.int8 or scale is None:
-            raise ValueError(
-                "stream_linear(act_quant=True) needs int8 weights with "
-                "per-output-channel scales (quantize_weight_only_int8)")
-        x_q, x_s = dynamic_act_quant(x)
-        if x.device.type != "cuda":
-            return _stream_linear_a8w8_plain(x_q, x_s, w, scale, l, bias,
-                                             activation, out_dtype)
-        return _stream_linear_a8w8(x_q, x_s, at(w), at(scale), at(bias),
-                                   activation, out_dtype)
-    if x.device.type != "cuda":
-        return _stream_linear_plain(x, w, l, bias, activation, out_dtype,
-                                    scale=scale)
-    return _gemm("stream_linear_w8" if w.dtype == torch.int8
-                 else "stream_linear", x, at(w), bias=at(bias),
-                 activation=activation, out_dtype=out_dtype,
-                 scale=at(scale))
-
-
 def _mm_like(x, w, scale):
     """The matmul of FusedMultiTransformer._mm: a plain product in the
     compute dtype; int8 weights dequantize on the OUTPUT by their
@@ -465,6 +419,137 @@ def _tail_fallback(att, h, wo, w1, w2, layer, so, s1, s2, bo, b1, b2,
     return h_out.to(out_dtype), qkv.to(out_dtype)
 
 
+# the ops of B2 (the GEMM), B3 (the layer tail: four GEMMs and two row
+# LayerNorms, one op as it is one TPU kernel) and B5: the launches on a
+# CUDA tensor, the plain versions above on a CPU tensor
+
+def _on_card(t) -> bool:
+    return t.device.type == "cuda"
+
+
+def _gemm_impl(x, w, bias, activation, out_dtype, scale):
+    if _on_card(x):
+        return _gemm("stream_linear_w8" if w.dtype == torch.int8
+                     else "stream_linear", x, w, bias=bias,
+                     activation=activation, out_dtype=out_dtype, scale=scale)
+    return _stream_linear_plain(x, w, None, bias, activation, out_dtype,
+                                scale=scale)
+
+
+def _tail_impl(att, h, wo, w1, w2, bo, b1, b2, ln2_scale, ln2_bias, eps,
+               activation, so, s1, s2, next_w, next_b, next_ln_s, next_ln_b,
+               next_s, out_dtype):
+    """B3: ``[h_out]``, or ``[h_out, qkv]`` with ``next_w``: the tail's
+    launches (``_gemm``, ``_layer_norm``; ``h2`` stays in fp32 through
+    LN2) on a CUDA tensor, ``_tail_fallback`` on a CPU tensor."""
+    if not _on_card(att):
+        qg = None if next_w is None else {
+            "w": next_w, "b": next_b, "ln_s": next_ln_s, "ln_b": next_ln_b,
+            "s": next_s}
+        outs = _tail_fallback(att, h, wo, w1, w2, None, so, s1, s2, bo, b1,
+                              b2, ln2_scale, ln2_bias, eps, activation, qg,
+                              out_dtype, False)
+        return [outs] if qg is None else list(outs)
+    what = "stream_layer_tail_w8" if so is not None else "stream_layer_tail"
+    cdtype = att.dtype
+    # 1. O-proj (* so) + bo + h -> h2, kept in fp32 through LN2
+    h2 = _gemm(what, att, wo, bias=bo, residual=h, out_dtype=torch.float32,
+               scale=so)
+    # 2. LN2
+    hn = _layer_norm(what, h2, ln2_scale, ln2_bias, eps, cdtype)
+    # 3. FFN1 (* s1) + b1 + activation
+    ff = _gemm(what, hn, w1, bias=b1, activation=activation,
+               out_dtype=cdtype, scale=s1)
+    # 4. FFN2 (* s2) + b2 + h2
+    h_out = _gemm(what, ff, w2, bias=b2, residual=h2, out_dtype=out_dtype,
+                  scale=s2)
+    if next_w is None:
+        return [h_out]
+    # 5. the next layer's LN1' + QKV' (* s') + bq'
+    hn1 = _layer_norm(what, h_out, next_ln_s, next_ln_b, eps, cdtype)
+    return [h_out, _gemm(what, hn1, next_w, bias=next_b,
+                         out_dtype=out_dtype, scale=next_s)]
+
+
+def _tail_fake(att, h, wo, w1, w2, bo, b1, b2, ln2_scale, ln2_bias, eps,
+               activation, so, s1, s2, next_w, next_b, next_ln_s, next_ln_b,
+               next_s, out_dtype):
+    outs = [att.new_empty((att.shape[0], w2.shape[-1]), dtype=out_dtype)]
+    if next_w is not None:
+        outs.append(att.new_empty((att.shape[0], next_w.shape[-1]),
+                                  dtype=out_dtype))
+    return outs
+
+
+def _a8w8_impl(x_q, x_scale, w, scale, bias, activation, out_dtype):
+    if _on_card(x_q):
+        return _stream_linear_a8w8(x_q, x_scale, w, scale, bias, activation,
+                                   out_dtype)
+    return _stream_linear_a8w8_plain(x_q, x_scale, w, scale, None, bias,
+                                     activation, out_dtype)
+
+
+_gemm_op = _kernels.define_op(
+    "stream_gemm",
+    "(Tensor x, Tensor w, Tensor? bias, str? activation, "
+    "ScalarType? out_dtype, Tensor? scale) -> Tensor",
+    _gemm_impl,
+    lambda x, w, bias, activation, out_dtype, scale:
+    x.new_empty((x.shape[0], w.shape[-1]), dtype=out_dtype or x.dtype))
+_tail_op = _kernels.define_op(
+    "stream_layer_tail",
+    "(Tensor att, Tensor h, Tensor wo, Tensor w1, Tensor w2, Tensor? bo, "
+    "Tensor? b1, Tensor? b2, Tensor ln2_scale, Tensor ln2_bias, float eps, "
+    "str? activation, Tensor? so, Tensor? s1, Tensor? s2, Tensor? next_w, "
+    "Tensor? next_b, Tensor? next_ln_s, Tensor? next_ln_b, Tensor? next_s, "
+    "ScalarType out_dtype) -> Tensor[]",
+    _tail_impl, _tail_fake)
+_a8w8_op = _kernels.define_op(
+    "stream_linear_a8w8",
+    "(Tensor x_q, Tensor x_scale, Tensor w, Tensor scale, Tensor? bias, "
+    "str? activation, ScalarType out_dtype) -> Tensor", _a8w8_impl,
+    lambda x_q, x_scale, w, scale, bias, activation, out_dtype:
+    x_q.new_empty((x_q.shape[0], w.shape[-1]), dtype=out_dtype))
+
+
+def stream_linear(x, w, layer=None, bias=None, scale=None,
+                  activation=None, out_dtype=None, act_quant=False,
+                  reduce_axis=None):
+    """x [M, K] @ w[(L,) K, N] (+ bias) with streamed weights.
+
+    layer: index when w/bias/scale are layer-stacked. scale: int8
+    weight-only per-output-channel dequant scales [(L,) N]. activation:
+    None | 'gelu' | 'relu', fused on the fp32 accumulator. act_quant:
+    A8W8 — quantize x per token (absmax int8 + f32 scale) and run the
+    GEMM int8 x int8 with int32 accumulation; needs int8 ``w`` with its
+    ``scale``. Returns [M, N] in out_dtype (default: x.dtype).
+    ``reduce_axis`` (tensor parallelism) belongs to a later slice of
+    the port and raises.
+    """
+    if reduce_axis is not None:
+        raise NotImplementedError(
+            "stream_linear: reduce_axis= comes with the tensor-parallel "
+            "serving slice of the port")
+    out_dtype = out_dtype or x.dtype
+    stacked = w.dim() == 3
+    if stacked and x.device.type == "cuda" and layer is None:
+        raise ValueError("stream_linear: a stacked w needs layer=")
+    l = (0 if layer is None else int(layer)) if stacked else None
+
+    def at(a):
+        return a[l] if (stacked and a is not None) else a
+    if act_quant:
+        if w.dtype != torch.int8 or scale is None:
+            raise ValueError(
+                "stream_linear(act_quant=True) needs int8 weights with "
+                "per-output-channel scales (quantize_weight_only_int8)")
+        x_q, x_s = dynamic_act_quant(x)
+        return _kernels.call(_a8w8_op, x_q, x_s, at(w), at(scale), at(bias),
+                             activation, out_dtype)
+    return _kernels.call(_gemm_op, x, at(w), at(bias), activation, out_dtype,
+                         at(scale))
+
+
 def stream_layer_tail(att, h, wo, w1, w2, layer=None, *, bo, b1, b2,
                       ln2_scale, ln2_bias, epsilon, activation=None,
                       so=None, s1=None, s2=None, next_qkv=None,
@@ -497,40 +582,19 @@ def stream_layer_tail(att, h, wo, w1, w2, layer=None, *, bo, b1, b2,
         raise ValueError("stream_layer_tail: wo/w1/w2 (and next_qkv.w) "
                          "must all be stacked [L, K, N] or all 2-D")
     l = (0 if layer is None else int(layer)) if stacked else None
-    if h.device.type != "cuda":
-        qg = None
-        if next_qkv is not None:
-            qg = dict(next_qkv)
-            if stacked:
-                qg["layer"] = int(qg.get("layer") or 0)
-        return _tail_fallback(att, h, wo, w1, w2, l, so, s1, s2, bo, b1,
-                              b2, ln2_scale, ln2_bias, epsilon, activation,
-                              qg, out_dtype, stacked)
 
     def at(a, idx):
         return a[idx] if (stacked and a is not None) else a
 
-    what = "stream_layer_tail_w8" if so is not None else "stream_layer_tail"
-    cdtype = att.dtype
-    # 1. O-proj (* so) + bo + h -> h2, kept in fp32 through LN2
-    h2 = _gemm(what, att, at(wo, l), bias=at(bo, l), residual=h,
-               out_dtype=torch.float32, scale=at(so, l))
-    # 2. LN2
-    hn = _layer_norm(what, h2, at(ln2_scale, l), at(ln2_bias, l),
-                     epsilon, cdtype)
-    # 3. FFN1 (* s1) + b1 + activation
-    ff = _gemm(what, hn, at(w1, l), bias=at(b1, l), activation=activation,
-               out_dtype=cdtype, scale=at(s1, l))
-    # 4. FFN2 (* s2) + b2 + h2
-    h_out = _gemm(what, ff, at(w2, l), bias=at(b2, l), residual=h2,
-                  out_dtype=out_dtype, scale=at(s2, l))
-    if next_qkv is None:
-        return h_out
-    # 5. the next layer's LN1' + QKV' (* s') + bq'
-    lq = (int(next_qkv.get("layer") or 0)) if stacked else None
-    hn1 = _layer_norm(what, h_out, at(next_qkv["ln_s"], lq),
-                      at(next_qkv["ln_b"], lq), epsilon, cdtype)
-    qkv = _gemm(what, hn1, at(next_qkv["w"], lq),
-                bias=at(next_qkv["b"], lq), out_dtype=out_dtype,
-                scale=at(next_qkv.get("s"), lq))
-    return h_out, qkv
+    nq = {}
+    if next_qkv is not None:
+        lq = (int(next_qkv.get("layer") or 0)) if stacked else None
+        nq = {k: at(next_qkv.get(k), lq) for k in ("w", "b", "ln_s", "ln_b",
+                                                   "s")}
+    outs = _kernels.call(
+        _tail_op, att, h, at(wo, l), at(w1, l), at(w2, l), at(bo, l),
+        at(b1, l), at(b2, l), at(ln2_scale, l), at(ln2_bias, l),
+        float(epsilon), activation, at(so, l), at(s1, l), at(s2, l),
+        nq.get("w"), nq.get("b"), nq.get("ln_s"), nq.get("ln_b"),
+        nq.get("s"), out_dtype)
+    return outs[0] if next_qkv is None else tuple(outs)

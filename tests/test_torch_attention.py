@@ -4,7 +4,7 @@ The JAX side runs as its own tests run it on the CPU: ``_use_pallas`` is
 false there, so ``_attention_raw`` takes ``_xla_attention``
 (``jax.nn.dot_product_attention``); gradients come from ``jax.vjp``.
 The port's flash route on the CPU runs kernel B10's plain versions
-through ``FlashAttentionFunction``. The same seeded numpy inputs go to
+through the op ``ptt::flash_fwd``. The same seeded numpy inputs go to
 both. Tolerances, against the largest value of the reference: float32
 1e-5 (f32 sums in another order); bf16 1e-2 (the XLA path casts the
 probabilities to bf16 before the value product and its backward runs in
@@ -359,7 +359,8 @@ def test_zero_pad_route_equals_the_plain_version(causal, head_dim):
     """The card's route for head_dim 80 (pad to 96) or 136 (pad to 256):
     the plain flash versions at the built width with the true scale,
     sliced, equal the plain versions at the true width: forward, lse and
-    backward, f32, within 1e-6."""
+    the backward (each of its two kernels padded on its own, as the ops
+    pad them), f32, within 1e-6."""
     shape = (2, 128, 2, head_dim)
     q, k, v, do = (torch.from_numpy(a) for a in
                    _inputs(shape, shape, seed=8))
@@ -370,8 +371,11 @@ def test_zero_pad_route_equals_the_plain_version(causal, head_dim):
     out_r, lse_r = tattn.flash_attention_fwd_plain(q, k, v, causal, scale)
     torch.testing.assert_close(out, out_r, rtol=0, atol=1e-6)
     torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-6)
-    got = tfv.padded_bwd(tattn.flash_attention_bwd_plain, *args, q, k, v,
-                         out, lse, do, causal, scale)
+    di = tattn.flash_delta(out, do)
+    got = (tfv.padded_grads(tattn.flash_bwd_dq_plain, *args, q, k, v, do,
+                            lse, di, causal, scale),
+           *tfv.padded_grads(tattn.flash_bwd_dkv_plain, *args, q, k, v, do,
+                             lse, di, causal, scale))
     want = tattn.flash_attention_bwd_plain(q, k, v, out_r, lse_r, do,
                                            causal, scale)
     for g, w in zip(got, want):

@@ -132,11 +132,11 @@ def _uniform_inputs(b, sq, sk, h, d, seed):
 @pytest.mark.parametrize("sq,sk,causal", [
     (256, 256, True), (256, 256, False), (256, 128, False)])
 def test_flash_route_matches_jax_varlen_on_uniform_packing(sq, sk, causal):
-    """The port's flash route (CPU: the plain versions through
-    ``FlashAttentionFunction``) against the JAX ``flash_attn_unpadded``
-    over the packed batch with ``cu_seqlens = arange(b + 1) * s``: out,
-    dq, dk and dv in f32. Few shapes, as each compiles the JAX walk anew
-    (seconds apiece); cross lengths under causal are held to the JAX
+    """The port's flash route (CPU: the plain versions through the op
+    ``ptt::flash_fwd`` and its registered gradient) against the JAX
+    ``flash_attn_unpadded`` over the packed batch with ``cu_seqlens = arange(b
+    + 1) * s``: out, dq, dk and dv in f32. Few shapes, as each compiles the JAX
+    walk anew (seconds apiece); cross lengths under causal are held to the JAX
     dense path in ``test_torch_attention.py``."""
     b, h, d, scale = 2, 2, 16, 0.25
     q, k, v, do = _uniform_inputs(b, sq, sk, h, d, seed=sq + sk)
@@ -149,7 +149,7 @@ def test_flash_route_matches_jax_varlen_on_uniform_packing(sq, sk, causal):
         do.reshape(-1, h, d))))]
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k,
                                                                       v))
-    got = tattn.FlashAttentionFunction.apply(tq, tk, tv, causal, scale)
+    got = tattn.flash_attention_core(tq, tk, tv, causal, scale)
     got.backward(torch.from_numpy(do))
     for name, g, w in zip(("out", "dq", "dk", "dv"),
                           (got, tq.grad, tk.grad, tv.grad), want):

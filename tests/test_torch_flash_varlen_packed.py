@@ -404,7 +404,8 @@ def test_zero_pad_route_equals_the_plain_version(causal, head_dim):
     """The card's route for head_dim 40 (pad to 64) or 136 (pad to 256):
     the plain walks at the built width with the true scale, sliced,
     equal the plain walks at the true width on the ragged pack: out, lse,
-    dq, dk, dv, f32, within 1e-6."""
+    dq, dk, dv (each backward kernel padded on its own, as the ops pad
+    them), f32, within 1e-6."""
     cq, ck = (torch.from_numpy(c) for c in _pack("ragged"))
     q, k, v, do = (torch.from_numpy(a) for a in
                    _inputs(int(cq[-1]), int(ck[-1]), 2, head_dim, seed=4))
@@ -414,17 +415,24 @@ def test_zero_pad_route_equals_the_plain_version(causal, head_dim):
         return tfv.packed_fwd_plain(q, k, v, cq, ck, scale=scale,
                                     causal=causal)
 
-    def bwd(q, k, v, out, lse, do, cq, ck, causal, scale):
-        return tfv.packed_bwd_plain(q, k, v, out, lse, do, cq, ck,
-                                    scale=scale, causal=causal)
+    def grads(plain):
+        def kernel(q, k, v, do, lse, delta, cq, ck, causal, scale):
+            return plain(q, k, v, do, lse, delta, cq, ck, scale=scale,
+                         causal=causal)
+        return kernel
     args = (tfv.VARLEN_HEAD_DIMS, "flash_varlen_packed")
     out, lse = tfv.padded_fwd(fwd, *args, q, k, v, cq, ck, causal, scale)
     out_r, lse_r = fwd(q, k, v, cq, ck, causal, scale)
     torch.testing.assert_close(out, out_r, rtol=0, atol=1e-6)
     torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-6)
-    got = tfv.padded_bwd(bwd, *args, q, k, v, out, lse, do, cq, ck, causal,
-                         scale)
-    want = bwd(q, k, v, out_r, lse_r, do, cq, ck, causal, scale)
+    delta = tfv.packed_delta(out, do, lse.shape[1])
+    rest = (lse, delta, cq, ck, causal, scale)
+    got = (tfv.padded_grads(grads(tfv.packed_dq_plain), *args, q, k, v, do,
+                            *rest),
+           *tfv.padded_grads(grads(tfv.packed_dkv_plain), *args, q, k, v,
+                             do, *rest))
+    want = tfv.packed_bwd_plain(q, k, v, out_r, lse_r, do, cq, ck,
+                                scale=scale, causal=causal)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6)

@@ -277,14 +277,14 @@ def test_backward_kernel_route_reads_nothing_back(monkeypatch):
     log = []
     _fake_kernels(monkeypatch, log)
     rng = np.random.RandomState(4)
-    x = torch.from_numpy(rng.randn(24, 32).astype(np.float32)) \
-        .to(torch.bfloat16).requires_grad_()
-    w = torch.from_numpy(rng.randn(3, 32, 64).astype(np.float32)) \
-        .to(torch.bfloat16).requires_grad_()
+    x = _card(torch.from_numpy(rng.randn(24, 32).astype(np.float32))
+              .to(torch.bfloat16), grad=True)
+    w = _card(torch.from_numpy(rng.randn(3, 32, 64).astype(np.float32))
+              .to(torch.bfloat16), grad=True)
     b = torch.zeros(3, 1, 64, requires_grad=True)
-    off = torch.tensor([0, 10, 10, 20], dtype=torch.int32)
-    y = tgg.GroupedGemmFunction.apply(x, w, b, off, "gelu", torch.bfloat16,
-                                      "kernel")
+    off = _card(torch.tensor([0, 10, 10, 20], dtype=torch.int32))
+    y = tgg.grouped_gemm(x, w, off, bias=b, activation="gelu",
+                         out_dtype=torch.bfloat16)
 
     def refuse(*a, **k):
         raise AssertionError("a host read on the device path")
